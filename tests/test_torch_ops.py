@@ -1,0 +1,209 @@
+"""pdanet_tpu_torch ops against the JAX package, on the CPU.
+
+Each op of the port that holds a CUDA kernel is checked here through its
+plain PyTorch version (the CPU path of its dispatch) against the JAX
+function on the same numpy inputs: FPS, the multi-radius ball query
+(also against the Pallas kernel in interpret mode), the rotated self-IoU,
+the greedy NMS walk, and the box decode.  Index outputs must be equal;
+IoU holds the Pallas IoU test's tolerance (rtol 2e-4, atol 2e-5), the box
+decode atol 1e-5.  The kernels themselves are held against the same plain
+versions on the card by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pdanet_tpu.ops import ball_query as jbq
+from pdanet_tpu.ops import nms as jnms
+from pdanet_tpu.ops import rotated_iou as jiou
+from pdanet_tpu.ops import sampling as jsampling
+from pdanet_tpu.ops.grouping import gather_points as j_gather
+from pdanet_tpu.ops.grouping import group_points as j_group
+from pdanet_tpu_torch.ops import cuda_lib
+from pdanet_tpu_torch.ops.ball_query import ball_query, ball_query_multi
+from pdanet_tpu_torch.ops.grouping import gather_points, group_points
+from pdanet_tpu_torch.ops.nms import (
+    greedy_nms_mask_batched,
+    greedy_nms_mask_batched_cuda,
+)
+from pdanet_tpu_torch.ops.rotated_iou import (
+    boxes_iou_bev,
+    boxes_iou_bev_batched_self,
+    boxes_iou_bev_batched_self_cuda,
+)
+from pdanet_tpu_torch.ops.sampling import (
+    farthest_point_sample,
+    farthest_point_sample_cuda,
+)
+
+
+def _cloud(seed, B, N, spread=(6.0, 6.0, 3.0)):
+    rs = np.random.RandomState(seed)
+    return (rs.rand(B, N, 3) * np.asarray(spread)).astype(np.float32)
+
+
+def _boxes(B, K, seed, spread=12.0):
+    rs = np.random.RandomState(seed)
+    b = np.zeros((B, K, 7), np.float32)
+    b[..., 0:2] = rs.uniform(-spread, spread, (B, K, 2))
+    b[..., 2] = rs.uniform(-1.5, 0.5, (B, K))
+    b[..., 3:5] = rs.uniform(0.5, 4.5, (B, K, 2))
+    b[..., 5] = rs.uniform(1.0, 2.0, (B, K))
+    b[..., 6] = rs.uniform(-np.pi, np.pi, (B, K))
+    return b
+
+
+@pytest.mark.parametrize("B,N,npoint,dups", [
+    (2, 300, 64, False),
+    (1, 1100, 200, False),
+    (1, 96, 64, True),   # duplicated points: lowest-index ties decide
+])
+def test_fps_matches_xla(B, N, npoint, dups):
+    xyz = _cloud(N, B, N)
+    if dups:
+        xyz[:, 48:] = xyz[:, :48]
+    want = np.asarray(jsampling._farthest_point_sample_xla(jnp.asarray(xyz), npoint))
+    got = farthest_point_sample(torch.from_numpy(xyz), npoint)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("B,N,M,radii,ks,spread", [
+    (2, 512, 128, (0.5, 1.5), (8, 16), 2.0),
+    (1, 700, 100, (0.8,), (16,), 2.0),
+    (2, 600, 64, (0.2, 0.8), (16, 32), 1.0),  # SA0-like radii and K
+    (1, 400, 50, (0.05,), (4,), 40.0),       # mostly empty balls: index 0
+])
+def test_ball_query_matches_jax(B, N, M, radii, ks, spread):
+    rs = np.random.RandomState(B * N + M)
+    xyz = (rs.randn(B, N, 3) * spread).astype(np.float32)
+    centres = np.concatenate(
+        [xyz[:, : M // 2], (rs.randn(B, M - M // 2, 3) * spread).astype(np.float32)],
+        axis=1)
+    want = jbq.ball_query_multi(radii, ks, jnp.asarray(xyz), jnp.asarray(centres))
+    got = ball_query_multi(radii, ks, torch.from_numpy(xyz), torch.from_numpy(centres))
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    single = ball_query(radii[0], ks[0], torch.from_numpy(xyz), torch.from_numpy(centres))
+    np.testing.assert_array_equal(single.numpy(), np.asarray(want[0]))
+
+
+def test_ball_query_matches_pallas_interpret():
+    from pdanet_tpu.ops.pallas.ball_query import ball_query_multi_pallas
+
+    rng = np.random.RandomState(1024)
+    xyz = rng.randn(2, 512, 3).astype(np.float32) * 2.0
+    centres = xyz[:, :128]
+    want = ball_query_multi_pallas((0.5, 1.5), (8, 16), jnp.asarray(xyz),
+                                   jnp.asarray(centres), interpret=True)
+    got = ball_query_multi((0.5, 1.5), (8, 16), torch.from_numpy(xyz),
+                           torch.from_numpy(centres))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_ball_query_ignores_cloud_order():
+    """Permuting the support permutes the hits but keeps their set when
+    every ball holds fewer than K points."""
+    xyz = _cloud(5, 1, 300)
+    perm = np.random.RandomState(6).permutation(300)
+    centres = torch.from_numpy(xyz[:, :20])
+    a = ball_query(0.4, 64, torch.from_numpy(xyz), centres)[0].numpy()
+    b = ball_query(0.4, 64, torch.from_numpy(xyz[:, perm]), centres)[0].numpy()
+    for ra, rb in zip(a, b):
+        assert set(ra.tolist()) == set(perm[rb].tolist())
+
+
+@pytest.mark.parametrize("B,K,seed,spread", [
+    (2, 64, 0, 12.0),
+    (1, 96, 3, 3.0),  # tight cluster: most pairs overlap
+])
+def test_iou_self_matches_jax(B, K, seed, spread):
+    boxes = _boxes(B, K, seed, spread)
+    want = np.asarray(jiou.boxes_iou_bev_batched_self(jnp.asarray(boxes)))
+    got = boxes_iou_bev_batched_self(torch.from_numpy(boxes)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    for b in range(B):
+        np.testing.assert_allclose(np.diagonal(got[b]), 1.0, rtol=1e-5)
+    assert got.max() <= 1.0 + 1e-6
+
+
+def test_iou_pairs_match_jax():
+    a, b = _boxes(1, 40, 11, 5.0)[0], _boxes(1, 30, 12, 5.0)[0]
+    want = np.asarray(jiou.boxes_iou_bev(jnp.asarray(a), jnp.asarray(b)))
+    got = boxes_iou_bev(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("seed,thresh", [(7, 0.01), (8, 0.3)])
+def test_nms_keep_matches_xla(seed, thresh):
+    B, K = 2, 96
+    boxes = _boxes(B, K, seed, spread=5.0)
+    iou = np.array(jiou.boxes_iou_bev_batched_self(jnp.asarray(boxes)))
+    valid = np.random.RandomState(seed).rand(B, K) > 0.2
+    want = np.stack([
+        np.asarray(jnms._greedy_nms_mask_xla(jnp.asarray(iou[b]),
+                                             jnp.asarray(valid[b]), thresh))
+        for b in range(B)])
+    got = greedy_nms_mask_batched(torch.from_numpy(iou), torch.from_numpy(valid), thresh)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_box_decode_matches_jax():
+    from pdanet_tpu.utils.box_coder_utils import PointResidual_BinOri_Coder as JCoder
+    from pdanet_tpu_torch.utils.box_coder_utils import PointResidual_BinOri_Coder
+
+    kw = dict(angle_bin_num=12, use_mean_size=True,
+              mean_size=[[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]])
+    rs = np.random.RandomState(3)
+    enc = rs.randn(2, 50, 30).astype(np.float32)
+    pts = rs.randn(2, 50, 3).astype(np.float32) * 10
+    cls = rs.randint(1, 4, (2, 50))
+    want = np.asarray(JCoder(**kw).decode(jnp.asarray(enc), jnp.asarray(pts),
+                                          jnp.asarray(cls)))
+    got = PointResidual_BinOri_Coder(**kw).decode(
+        torch.from_numpy(enc), torch.from_numpy(pts), torch.from_numpy(cls))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_gather_and_group_match_jax():
+    rs = np.random.RandomState(9)
+    feats = rs.randn(2, 40, 5).astype(np.float32)
+    idx = rs.randint(0, 40, (2, 12, 4)).astype(np.int32)
+    np.testing.assert_array_equal(
+        group_points(torch.from_numpy(feats), torch.from_numpy(idx)).numpy(),
+        np.asarray(j_group(jnp.asarray(feats), jnp.asarray(idx))))
+    np.testing.assert_array_equal(
+        gather_points(torch.from_numpy(feats), torch.from_numpy(idx[..., 0])).numpy(),
+        np.asarray(j_gather(jnp.asarray(feats), jnp.asarray(idx[..., 0]))))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_lib, "BUILD_ROOT", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_lib.build()
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """CPU dispatch never touches the kernel library or its counters, and a
+    kernel wrapper refuses a CPU tensor instead of falling back."""
+    cuda_lib.launches.clear()
+    xyz = torch.from_numpy(_cloud(1, 1, 64))
+    farthest_point_sample(xyz, 8)
+    boxes = torch.from_numpy(_boxes(1, 8, 2))
+    iou = boxes_iou_bev_batched_self(boxes)
+    greedy_nms_mask_batched(iou, torch.ones(1, 8, dtype=torch.bool), 0.1)
+    assert sum(cuda_lib.launches.values()) == 0
+    with pytest.raises(ValueError):
+        farthest_point_sample_cuda(xyz, 8)
+    with pytest.raises(ValueError):
+        boxes_iou_bev_batched_self_cuda(boxes)
+    with pytest.raises(ValueError):
+        greedy_nms_mask_batched_cuda(iou, torch.ones(1, 8, dtype=torch.bool), 0.1)
