@@ -1,4 +1,4 @@
-"""IA-SSD / PDA-SSD backbone (channels-last, inference).
+"""IA-SSD / PDA-SSD backbone (channels-last).
 
 Counterpart of ``pdanet_tpu/models/backbones_3d/iassd_backbone.py``: the
 SA stack with D-FPS and ctr-aware sampling, the PDA (ellipsoid) module with
@@ -10,6 +10,14 @@ shortcut.  Module and attribute names follow the flax names
 Beyond the JAX package's output dict, the backbone returns each layer's
 sampling indices (``sampled_idx``) and ball-query indices
 (``ball_query_idx``), so a run can be checked index by index.
+
+Training: ``Module.training`` is the JAX package's ``train`` flag.  The
+gradient flows everywhere the JAX backbone lets it, through the vote
+centres into SA5's relative coordinates included; only the index ops
+(sampling and ball query) take detached inputs.  Every max-pool over the
+K neighbours is ``Tensor.max(dim).values``, whose gradient goes to the
+first maximal slot, as ``pdanet_tpu/ops/maxpool.max_first`` does: the
+ball query's padding makes exact ties common.
 """
 
 import torch
@@ -19,7 +27,8 @@ from ...ops.ball_query import ball_query_multi
 from ...ops.grouping import gather_points, group_points
 from ...ops.sampling import farthest_point_sample
 from ...utils.easydict import EasyDict
-from ..blocks import Dense, DensityNet, MLPStack, TransformerEncoderLayerPreNorm
+from ..blocks import (Dense, DensityNet, MLPStack, TrainEvalDtype,
+                      TransformerEncoderLayerPreNorm)
 
 _LATER = "ROADMAP queue 1 item 4"
 
@@ -31,7 +40,7 @@ def sample_indices(sample_type, npoint, xyz, features, cls_features):
     if N <= npoint:  # no-downsample passthrough
         return torch.arange(N, dtype=torch.int32, device=xyz.device).expand(B, N)
     if ("cls" in sample_type) or ("ctr" in sample_type):
-        score = torch.sigmoid(cls_features.max(dim=-1).values)  # (B, N)
+        score = torch.sigmoid(cls_features.detach().max(dim=-1).values)  # (B, N)
         # stable descending sort: ties keep the lower index first, as
         # jax.lax.top_k does
         idx = torch.sort(score, dim=-1, descending=True, stable=True).indices
@@ -266,11 +275,14 @@ class VoteLayer(nn.Module):
 
 
 def compute_dtype_of(model_cfg):
-    """bfloat16 at eval when the yaml asks for it (``COMPUTE_DTYPE``, or
-    ``TRAIN_COMPUTE_DTYPE``, which the JAX package also applies at eval)."""
+    """The blocks' dtype policy, read as the JAX backbone reads it
+    (``iassd_backbone.py:455-467``): ``TRAIN_COMPUTE_DTYPE: bfloat16``
+    gives bfloat16 in training and at eval; ``COMPUTE_DTYPE: bfloat16``
+    alone gives bfloat16 at eval and float32 training; neither, float32."""
     bf16 = ("bfloat16", "bf16")
-    if str(model_cfg.get("COMPUTE_DTYPE", "")) in bf16 \
-            or str(model_cfg.get("TRAIN_COMPUTE_DTYPE", "")) in bf16:
+    if str(model_cfg.get("TRAIN_COMPUTE_DTYPE", "")) in bf16:
+        return TrainEvalDtype(torch.bfloat16)
+    if str(model_cfg.get("COMPUTE_DTYPE", "")) in bf16:
         return torch.bfloat16
     return None
 

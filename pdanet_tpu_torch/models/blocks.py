@@ -1,24 +1,57 @@
-"""Shared neural blocks (channels-last, inference).
+"""Shared neural blocks (channels-last), for training and inference.
 
-Counterparts of ``pdanet_tpu/models/blocks.py``.  Attribute names follow
-the flax module and parameter names (``layer0.dense``, ``bn``,
-``self_attn.query`` ...), so a JAX variable tree maps onto the state_dict
-mechanically (``utils/jax_weights.py``).
+Counterparts of ``pdanet_tpu/models/blocks.py`` and
+``pdanet_tpu/models/norm.py``.  Attribute names follow the flax module and
+parameter names (``layer0.dense``, ``bn``, ``self_attn.query`` ...), so a
+JAX variable tree maps onto the state_dict mechanically
+(``utils/jax_weights.py``).  ``Module.training`` is the JAX package's
+``train`` flag: BatchNorm normalizes with batch statistics and updates its
+running statistics in training mode.
 
-Compute dtype: a block given ``dtype`` (bfloat16 at eval under the
-yaml's ``COMPUTE_DTYPE``) runs its Linear layers in that dtype with the
-float32 parameters cast; BatchNorm and LayerNorm compute in float32 and
-return that dtype, as the flax modules do at eval.  ``dtype=None`` is
-float32 throughout.
+Compute dtype (``blocks.py:29-71`` of the JAX package): a block's
+``dtype`` is None (the inputs' and parameters' promoted type throughout),
+a plain dtype (bfloat16 at eval only, the yaml's ``COMPUTE_DTYPE``; training
+then runs float32), or :class:`TrainEvalDtype` (the yaml's
+``TRAIN_COMPUTE_DTYPE``: bfloat16 at eval and in training).  Linear layers
+run in the compute dtype with the float32 parameters cast.  BatchNorm and
+LayerNorm compute in float32; at eval they return the compute dtype, and
+under bfloat16 training they return float32, as flax promotes there.
 """
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import neighbor_attention_flat
+
+BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
+
+
+@dataclass(frozen=True)
+class TrainEvalDtype:
+    """Apply ``dtype`` in training too (bfloat16 train compute); params,
+    optimizer state and normalization statistics stay float32."""
+
+    dtype: torch.dtype
+
+
+def infer_dtype(dtype, training):
+    """The compute dtype of a Linear layer (``blocks._infer_dtype``): a
+    plain dtype applies at eval only, ``TrainEvalDtype`` always."""
+    if isinstance(dtype, TrainEvalDtype):
+        return dtype.dtype
+    return None if training else dtype
+
+
+def norm_dtype(dtype, training):
+    """The output dtype of a norm layer (``blocks._norm_dtype``): None
+    (promoted, float32) under bfloat16 training, else as Linear layers."""
+    if training and isinstance(dtype, TrainEvalDtype):
+        return None
+    return infer_dtype(dtype, training)
 
 
 class Dense(nn.Linear):
@@ -29,35 +62,63 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        dt = (infer_dtype(self.compute_dtype, self.training)
+              or torch.promote_types(x.dtype, self.weight.dtype))
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the trailing channel axis, eps 1e-5:
-    ``(x - mean) * rsqrt(var + eps) * weight + bias``."""
+    """BatchNorm over the trailing channel axis, eps 1e-5, with the JAX
+    package's torch running-statistics semantics (``models/norm.py``).
 
-    def __init__(self, channels, eps=1e-5):
+    In training mode the statistics come over every leading axis (for a
+    (B, M, K, C) input: B, M and K).  The variance is two-pass and biased
+    for normalizing, ``mean((x - mean)^2)``; ``running_var`` takes the
+    unbiased ``var * n / (n - 1)``, n the number of reduced elements.  The
+    running statistics move by ``0.9 * old + 0.1 * new`` (flax momentum
+    0.9), in place and outside autograd.  At eval the running statistics
+    normalize.  Both compute in float32 (float64 for float64 input):
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
+    """
+
+    def __init__(self, channels, eps=1e-5, dtype=None):
         super().__init__()
         self.eps = eps
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        ct = torch.promote_types(x.dtype, self.weight.dtype)
+        xc = x.to(ct)
         if self.training:
-            raise NotImplementedError(
-                "pdanet_tpu_torch runs inference only; training is ROADMAP "
-                "queue 1 item 6")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
+            dims = tuple(range(x.dim() - 1))
+            mean = xc.mean(dim=dims)
+            centred = xc - mean
+            var = (centred * centred).mean(dim=dims)
+            n = xc.numel() // xc.shape[-1]
+            with torch.no_grad():
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1 - BN_MOMENTUM) * unbiased)
+        else:
+            centred = xc - self.running_mean
+            var = self.running_var
+        y = centred * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(norm_dtype(self.compute_dtype, self.training) or ct)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the trailing axis, eps 1e-5, computed in float32 and
-    returned in ``dtype`` (or the input dtype)."""
+    """LayerNorm over the trailing axis, eps 1e-5, computed in float32
+    (float64 for float64 input) by ``F.layer_norm``, whose variance does
+    not cancel as ``E[x^2] - E[x]^2`` does (the JAX package asks flax for
+    the two-pass form for that reason), and returned in the norm dtype of
+    ``dtype`` (or the promoted type)."""
 
     def __init__(self, channels, eps=1e-5, dtype=None):
         super().__init__()
@@ -67,9 +128,10 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias,
+        ct = torch.promote_types(x.dtype, self.weight.dtype)
+        y = F.layer_norm(x.to(ct), self.weight.shape, self.weight, self.bias,
                          self.eps)
-        return y.to(self.compute_dtype or x.dtype)
+        return y.to(norm_dtype(self.compute_dtype, self.training) or ct)
 
 
 class DenseBNReLU(nn.Module):
@@ -78,7 +140,7 @@ class DenseBNReLU(nn.Module):
     def __init__(self, in_features, features, use_bias=False, dtype=None):
         super().__init__()
         self.dense = Dense(in_features, features, bias=use_bias, dtype=dtype)
-        self.bn = BatchNorm(features)
+        self.bn = BatchNorm(features, dtype=dtype)
 
     def forward(self, x):
         return torch.relu(self.bn(self.dense(x)))
@@ -139,7 +201,8 @@ class NeighborMHA(nn.Module):
     def forward(self, x):
         B, M, K, D = x.shape
         H = self.num_heads
-        x2 = x.reshape(-1, D).to(self.compute_dtype or x.dtype)
+        dt = infer_dtype(self.compute_dtype, self.training) or x.dtype
+        x2 = x.reshape(-1, D).to(dt)
         q, k, v = (getattr(self, n)(x2) for n in ("query", "key", "value"))
         core = neighbor_attention_flat(q, k, v, K, H, D // H)
         return self.out(core).reshape(B, M, K, D)

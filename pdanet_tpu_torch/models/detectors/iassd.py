@@ -1,7 +1,9 @@
-"""IASSD detector: backbone + point head + post-processing (inference).
+"""IASSD detector: backbone + point head, training loss and
+post-processing.
 
 Counterpart of ``pdanet_tpu/models/detectors/iassd.py``: the forward
-(:25-70) and ``post_processing`` (:106-172) on its single-NMS path.
+(:25-70), the loss (``loss``, ``loss_batch``, ``compute_loss``, :72-103)
+and ``post_processing`` (:106-172) on its single-NMS path.
 """
 
 import torch
@@ -50,6 +52,26 @@ class IASSD(nn.Module):
 
     def forward_batch(self, batch):
         return self(batch["points"])
+
+    def loss(self, forward_out, gt_boxes):
+        """Training loss: target assignment and the loss stack.
+        Returns ``(loss, tb_dict)``."""
+        return compute_loss(forward_out, gt_boxes, self.cfg, self.box_coder,
+                            self.num_class)
+
+    def loss_batch(self, forward_out, batch):
+        return self.loss(forward_out, batch["gt_boxes"])
+
+
+def compute_loss(forward_out, gt_boxes, model_cfg, box_coder, num_class):
+    """Target assignment (``gt_boxes`` (B, M, 8), zero-padded) and the
+    head's loss stack on the forward dict: ``(loss, tb_dict)``."""
+    head_cfg = model_cfg.POINT_HEAD
+    targets = iassd_head.assign_targets(forward_out, gt_boxes,
+                                        head_cfg.TARGET_CONFIG, box_coder)
+    ret = dict(forward_out)
+    ret.update(targets)
+    return iassd_head.get_loss(ret, head_cfg, box_coder, num_class)
 
 
 def post_processing(batch_cls_preds, batch_box_preds, post_cfg):

@@ -27,8 +27,10 @@ def ball_query(radius, nsample, xyz, new_xyz):
 def ball_query_multi(radii, nsamples, xyz, new_xyz):
     """One shared distance field for all radii.
 
-    Returns a tuple of (B, M, nsample_i) int32 index tensors.
+    Returns a tuple of (B, M, nsample_i) int32 index tensors.  The indices
+    carry no gradient, so the wrapper takes ``xyz`` and ``new_xyz`` detached.
     """
+    xyz, new_xyz = xyz.detach(), new_xyz.detach()
     if xyz.device.type == "cpu":
         return ball_query_multi_plain(radii, nsamples, xyz, new_xyz)
     return ball_query_multi_cuda(radii, nsamples, xyz, new_xyz)

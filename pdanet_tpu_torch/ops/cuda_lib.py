@@ -1,6 +1,6 @@
 """Build, load and count the hand-written Hopper kernels in ``csrc/``.
 
-The five ``csrc/*.cu`` files compile with ``nvcc`` into one shared library
+The ``csrc/*.cu`` files compile with ``nvcc`` into one shared library
 with a plain C interface, loaded with ``ctypes``; no PyTorch header is
 included, so the build takes seconds.  It runs at first use into
 ``pdanet_tpu_torch/_build/<hash of the sources and flags>/`` and is reused
@@ -9,7 +9,7 @@ while the sources stay the same.
 The build uses ``--fmad=false``: FPS, the ball query and the rotated IoU
 must not contract products into FMAs (a contracted distance or cross
 product flips ties and exact-zero predicates, and with them indices).  The
-attention kernel asks for its FMAs explicitly with ``__fmaf_rn``.
+attention kernels ask for their FMAs explicitly with ``__fmaf_rn``.
 
 ``launches`` counts kernel launches per kernel name.  Each wrapper adds
 one where it launches its kernel and nowhere else, so a caller can clear
@@ -30,8 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
-    "fps.cu", "ball_query.cu", "neighbor_attention.cu", "rotated_iou.cu",
-    "nms.cu",
+    "fps.cu", "ball_query.cu", "neighbor_attention.cu",
+    "neighbor_attention_bwd.cu", "rotated_iou.cu", "nms.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,9 +61,9 @@ def _nvcc():
 
 def _digest():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -97,6 +97,8 @@ def _bind(lib):
         "pdanet_fps": [vp, i32, i32, i32, vp, vp, vp],
         "pdanet_ball_query": [vp, vp, i32, i32, i32, i32, vp, vp, vp, vp],
         "pdanet_neighbor_attention": [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp],
+        "pdanet_neighbor_attention_bwd": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                          i32, i32, vp],
         "pdanet_iou_bev_self": [vp, i32, i32, vp, vp],
         "pdanet_nms_walk": [vp, vp, i32, i32, f32, vp, vp],
     }

@@ -12,7 +12,9 @@ from . import cuda_lib
 
 
 def farthest_point_sample(xyz, npoint):
-    """(B, N, 3) float32 -> (B, npoint) int32 indices."""
+    """(B, N, 3) float32 -> (B, npoint) int32 indices.  The indices carry
+    no gradient, so the wrapper takes ``xyz`` detached."""
+    xyz = xyz.detach()
     if xyz.device.type == "cpu":
         return farthest_point_sample_plain(xyz, npoint)
     return farthest_point_sample_cuda(xyz, npoint)

@@ -22,6 +22,13 @@ BatchNorm ``mean`` / ``var``       ``running_mean`` / ``running_var``
 
 Every flax leaf must land on a port tensor and every port parameter and
 persistent buffer must be filled; anything left over on either side raises.
+The arrays keep their float dtype (a float64 tree fills a model made
+``.double()`` without rounding through float32).
+
+``load_jax_optimizer_state(optimizer, model, mu, nu, count)`` carries the
+Adam moments of an optax state, given as numpy trees shaped like
+``params``, and its update count into the port's ``AdamOneCycle``, by the
+same key mapping and reshapes, so a JAX run can resume in the port.
 """
 
 import numpy as np
@@ -36,7 +43,7 @@ def _leaves(tree, prefix=()):
         if hasattr(value, "items"):
             yield from _leaves(value, path)
         else:
-            yield path, np.asarray(value, dtype=np.float32)
+            yield path, np.asarray(value)
 
 
 def _convert_param(path, arr):
@@ -54,6 +61,11 @@ def _convert_param(path, arr):
     elif arr.ndim != 2:
         raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
     return mods, "weight", arr.T
+
+
+def _port_param(path, arr):
+    mods, name, arr = _convert_param(path, arr)
+    return ".".join(list(mods) + [name]), arr
 
 
 def load_jax_variables(model, variables):
@@ -84,3 +96,30 @@ def load_jax_variables(model, variables):
         raise KeyError(f"port tensors not filled by the flax tree: {missing}")
     model.load_state_dict(filled, strict=True)
     return model
+
+
+def load_jax_optimizer_state(optimizer, model, mu, nu, count):
+    """Fill ``optimizer``'s per-parameter moments from optax Adam's ``mu``
+    and ``nu`` (numpy trees shaped like the flax params) and set its
+    update count to ``count``.  Every parameter of ``model`` must get both
+    moments; a leaf with no port parameter raises."""
+    params = dict(model.named_parameters())
+    moments = {}
+    for which, tree in (("mu", mu), ("nu", nu)):
+        for path, arr in _leaves(tree):
+            key, arr = _port_param(path, arr)
+            if key not in params:
+                raise KeyError(f"optax leaf {'/'.join(path)} has no port parameter {key}")
+            p = params[key]
+            if tuple(p.shape) != arr.shape:
+                raise ValueError(f"{key}: port shape {tuple(p.shape)} != optax {arr.shape}")
+            moments.setdefault(key, {})[which] = torch.tensor(
+                arr, dtype=p.dtype, device=p.device)
+    missing = sorted(k for k in params if len(moments.get(k, ())) != 2)
+    if missing:
+        raise KeyError(f"port parameters without both Adam moments: {missing}")
+    for key, state in moments.items():
+        optimizer.state[params[key]] = state
+    for group in optimizer.param_groups:
+        group["count"] = int(count)
+    return optimizer

@@ -205,6 +205,8 @@ def test_port_imports_no_jax():
         "from pdanet_tpu_torch.models import build_network\n"
         "from pdanet_tpu_torch import serving\n"
         "from pdanet_tpu_torch.utils import jax_weights\n"
+        "import pdanet_tpu_torch.train\n"
+        "from pdanet_tpu_torch.models.dense_heads import iassd_head\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"
