@@ -10,32 +10,46 @@ Phases, each of which raises on failure:
 
 1. Preconditions: a CUDA device, its name and power limit from nvidia-smi,
    TF32 off for the float32 comparisons.
-2. Build the hand-written kernels (``pdanet_tpu_torch/csrc``) with nvcc.
+2. Build the hand-written kernels (``pdanet_tpu_torch/csrc``), one nvcc
+   per source, all started together; print each kernel's registers,
+   shared memory and spills (``-Xptxas -v``) and the resident warps per SM
+   of the bfloat16 attention kernels at the main-path shapes.
 3. Each kernel against its plain PyTorch version on the card, at the
    KITTI main-path shapes, B = 1 and 2, on LiDAR-like x-sorted clouds:
-   FPS, ball query and NMS equal; attention within 2e-5 (float32) and
-   5e-2 (bfloat16); IoU within rtol 2e-4 / atol 2e-5 with a diagonal of 1.
-   Times are medians of 20 runs under CUDA events.
+   FPS, ball query and NMS equal; attention within 2e-5 (float32, SIMT
+   kernel) and 5e-2 (bfloat16, tensor-core kernel), at the main-path
+   shapes and off the path (K 64 / hd 128, K 8 / hd 32, K 40 / hd 80,
+   K 1 / hd 16); IoU within rtol 2e-4 / atol 2e-5 with a diagonal of 1.
+   ``torch.nn.functional.scaled_dot_product_attention`` (SDPA), the one
+   PyTorch call that computes the attention, is held to the same
+   tolerances and timed beside the kernel as its yardstick, in turns.
+   Times are medians of 20 runs (50 for a kernel timed beside SDPA) under
+   CUDA events with the same inputs each run (L2-warm); the headline
+   attention shape is also timed with the L2 flushed before each run.
 4. Serve: PDA-SSD at the full width of tools/cfgs/kitti_models/PDA-SSD.yaml
    (bfloat16 compute as shipped, seeded random weights) answers three
    one-frame requests and one two-frame request through
-   ``serving.make_predict_fn``; every kernel must have launched.
+   ``serving.make_predict_fn``; every kernel of the path must have
+   launched, the attention on the bfloat16 tensor-core kernel.
 5. One frame in float32 on the card (kernels) against the same weights on
    the CPU (plain versions, the labelled reference): equal sampling and
    ball-query indices, centre features within 1e-3, logits within 2e-3,
    equal detection counts.
-6. The attention backward kernel against its plain version on the card,
+6. The attention backward kernels against the plain backward on the card,
    at the B = 4 training shapes of SA1 (hd 64) and SA2 (hd 128), K 16 and
-   32, float32 and bfloat16, and off the path at K 64 / hd 128 and K 8 /
-   hd 32: max abs error <= 2e-5 in float32, <= 5e-2 of the largest
-   |gradient| in bfloat16 (and <= 1e-12 in float64 at SA1 K 32).  The
-   autograd Function on the card against the plain backward in float32,
-   and ``torch.autograd.gradcheck`` of it on the card in float64.
+   32, float32 (SIMT) and bfloat16 (tensor cores), with SDPA's autograd
+   backward timed beside them, and off the path at K 64 / hd 128, K 8 /
+   hd 32, K 40 / hd 80 and K 1 / hd 16: max abs error <= 2e-5 in float32,
+   <= 5e-2 of the largest |gradient| in bfloat16 (and <= 1e-12 in float64
+   at SA1 K 32).  The autograd Function on the card against the plain
+   backward in float32 and in bfloat16, each through its kernel, and
+   ``torch.autograd.gradcheck`` of it on the card in float64.
 7. Train: PDA-SSD at full width, bfloat16 train compute as shipped, takes
    5 steps of the yaml's adam_onecycle on 4 LiDAR-like frames with gt
    boxes of the three classes on their clusters, through
    ``train.make_train_step``; finite loss and gradients at every step;
-   FPS, ball query and both attention kernels launched.  Then one step at
+   FPS, ball query and both bfloat16 attention kernels launched; then 3
+   float32 steps, through the SIMT attention kernels.  Then one step at
    B = 1 on the card against the CPU (plain versions) from the same
    weights.  In float32: equal D-FPS and ball-query indices (ctr-aware
    picks equal up to swaps of scores within 1e-5), loss within 1e-4
@@ -48,8 +62,13 @@ Phases, each of which raises on failure:
    within 1e-5.  And the max-pool gradient goes to
    the first of tied slots on the card.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}``: per kernel its
+launches in the main-path runs (phase 4's requests and phase 7's bfloat16
+and float32 train steps, each run counted from 0), its largest error,
+and at its headline shape its time, its plain version's time, its bound
+(the larger of bytes over 3.35 TB/s and operations over the peak rate of
+their type, from this run's inputs) and SDPA's time where SDPA computes
+the same function.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -72,12 +91,35 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                    "pdanet_tpu/ops/pallas/ball_query.py:306"),
     "neighbor_attention": ("pdanet_tpu_torch/csrc/neighbor_attention.cu",
                            "pdanet_tpu/ops/pallas/attention.py:201"),
+    "neighbor_attention_bf16": ("pdanet_tpu_torch/csrc/neighbor_attention_mma.cu",
+                                "pdanet_tpu/ops/pallas/attention.py:201"),
     "neighbor_attention_bwd": ("pdanet_tpu_torch/csrc/neighbor_attention_bwd.cu",
                                "pdanet_tpu/ops/pallas/attention.py:256"),
+    "neighbor_attention_bwd_bf16": ("pdanet_tpu_torch/csrc/neighbor_attention_bwd_mma.cu",
+                                    "pdanet_tpu/ops/pallas/attention.py:256"),
     "rotated_iou": ("pdanet_tpu_torch/csrc/rotated_iou.cu",
                     "pdanet_tpu/ops/pallas/rotated_iou.py:244"),
     "nms": ("pdanet_tpu_torch/csrc/nms.cu", "pdanet_tpu/ops/pallas/nms.py:70"),
 }
+# the kernels each main-path run must launch
+SERVE_KERNELS = ("fps", "ball_query", "neighbor_attention_bf16", "rotated_iou", "nms")
+TRAIN_KERNELS = {"bf16": ("fps", "ball_query", "neighbor_attention_bf16",
+                          "neighbor_attention_bwd_bf16"),
+                 "f32": ("fps", "ball_query", "neighbor_attention", "neighbor_attention_bwd")}
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
+# larger of its bytes over the memory rate and its operations over the
+# peak rate of their type
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # bfloat16 on the tensor cores
+# float32 operations of one pair of boxes whose circumscribed circles meet,
+# counted from overlap() in csrc/rotated_iou.cu: 16 edge pairs of 117, 8
+# containment tests of 14, 24 atan2 of ~22, the sort's 23 compares at the
+# least and the fan's 23 steps of 6 (2733, rounded down)
+IOU_PAIR_OPS = 2700
+ATTN_SHAPES = (("SA1", 1024, 64), ("SA2", 512, 128))  # label, centres per frame, hd; H 4
+ATTN_OFF_PATH = ((64, 128), (8, 32), (40, 80), (1, 16))  # (K, hd)
 
 
 def require(cond, msg):
@@ -155,15 +197,25 @@ def random_boxes(seed, B, K, spread=12.0):
     return b
 
 
-def cuda_ms(fn, reps=20, warmup=2):
-    """Median milliseconds of ``fn`` under CUDA events."""
+_flush = None
+
+
+def cuda_ms(fn, reps=20, warmup=2, cold=False):
+    """Median milliseconds of ``fn`` under CUDA events; with ``cold`` the
+    L2 cache is flushed (a 128 MB buffer written) before each run,
+    outside the events."""
     import torch
 
+    global _flush
+    if cold and _flush is None:
+        _flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if cold:
+            _flush.zero_()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -174,23 +226,214 @@ def cuda_ms(fn, reps=20, warmup=2):
     return statistics.median(times)
 
 
+def in_turns(kern_fn, lib_fn, cold=False):
+    """Kernel and library call timed in turns (kernel, library, library,
+    kernel), medians of 50 after 5 warm-up runs; each is the mean of its
+    two medians."""
+    def ms(fn):
+        return cuda_ms(fn, reps=50, warmup=5, cold=cold)
+
+    k1, l1 = ms(kern_fn), ms(lib_fn)
+    l2, k2 = ms(lib_fn), ms(kern_fn)
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
+def bound(n_bytes, n_ops, ops_per_s):
+    """(milliseconds, "bytes" or "operations"): the least time the card
+    could take, the larger of the two."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound(R, K, H, hd, dtype, bwd=False):
+    """Forward: read q, k, v, write o; 4 K flops per element of one
+    tensor (S and P v, 2 K^2 hd each per centre and head).  Backward: read
+    q, k, v, dO, write dq, dk, dv; five such products."""
+    import torch
+
+    elems = R * H * hd
+    n_tensors, n_products = (7, 5) if bwd else (4, 2)
+    rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound(n_tensors * elems * torch.finfo(dtype).bits // 8,
+                 2 * n_products * K * elems, rate)
+
+
+def sdpa_heads(t, K, H, hd):  # (R, H*hd) -> the (C, H, K, hd) view SDPA takes
+    return t.view(t.shape[0] // K, K, H, hd).transpose(1, 2)
+
+
+def sdpa_forward(q, k, v, K, H, hd):
+    """The library call timed beside the forward kernel: SDPA on the (C,
+    H, K, hd) views of the flat tensors, default scale 1/sqrt(hd), no mask.
+    Returns the call and a function giving its result in the flat layout."""
+    import torch
+    import torch.nn.functional as F
+
+    views = [sdpa_heads(t, K, H, hd) for t in (q, k, v)]
+
+    def call():
+        with torch.inference_mode():
+            return F.scaled_dot_product_attention(*views)
+
+    return call, lambda: call().transpose(1, 2).reshape(q.shape)
+
+
+def sdpa_backward(q, k, v, do, K, H, hd):
+    """The library call timed beside the backward kernel: autograd's
+    backward of SDPA, on a graph built once.  Returns the call, which
+    gives (dq, dk, dv) in the flat layout."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*(sdpa_heads(t, K, H, hd) for t in leaves))
+    do4 = sdpa_heads(do, K, H, hd)
+    return lambda: torch.autograd.grad(o, leaves, do4, retain_graph=True)
+
+
+# the device functions of csrc/, as the profiler names them
+PORT_KERNELS = ("fps_kernel", "ball_query_kernel", "attn_kernel", "attn_bwd_kernel",
+                "attn_fwd_mma", "attn_bwd_mma", "iou_self_kernel", "nms_kernel")
+
+
+def short_name(name):
+    """A profiler kernel name without its arguments and namespaces, and
+    with only the first of long template arguments."""
+    base = name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+    head, _, tmpl = base.strip().partition("<")
+    head = head.split("::")[-1]
+    tmpl = tmpl.rstrip(">")
+    if len(tmpl) > 12:
+        tmpl = tmpl.split(",")[0].split("::")[-1]
+    return (f"{head}<{tmpl}>" if tmpl else head)[:60]
+
+
+def device_split(fn, top=5):
+    """The second of two runs of ``fn`` under torch.profiler (the first
+    warms the tracer up, which can drop the first kernel of a cold start):
+    its device activity (kernels and memsets) as (count, busy milliseconds
+    -- the union of their intervals --, the ``top`` names by summed
+    milliseconds, and the port's own kernels with their milliseconds and
+    launches); None when the profiler cannot trace the card."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    events = []
+    try:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: events.extend(p.events())) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+    except RuntimeError:
+        return None
+    spans = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return None
+    by_name, own, busy, end = collections.Counter(), {}, 0.0, float("-inf")
+    for e in sorted(spans, key=lambda e: e.time_range.start):
+        ms = e.time_range.elapsed_us() / 1e3
+        name = short_name(e.name)
+        by_name[name] += ms
+        if name.split("<")[0] in PORT_KERNELS:
+            t, n = own.get(name, (0.0, 0))
+            own[name] = (t + ms, n + 1)
+        start = max(e.time_range.start, end)
+        end = max(end, e.time_range.end)
+        busy += max(0.0, end - start) / 1e3
+    return len(spans), busy, by_name.most_common(top), own
+
+
+def kernel_names(fn):
+    """The device kernels one run of ``fn`` launches, by summed time."""
+    split = device_split(fn)
+    return "; ".join(name for name, _ in split[2]) if split else "(no profiler trace)"
+
+
+def print_split(what, split):
+    if split is None:
+        print(f"{what}: the profiler saw no device activity")
+        return
+    n, busy, top, own = split
+    print(f"{what}: {n} device kernels and memsets, busy {busy:.3f} ms; largest: "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top) + "; the port's kernels: "
+          + ", ".join(f"{name} {ms:.3f} ms ({k})" for name, (ms, k) in sorted(own.items())))
+
+
+def grad_err(got, want, dtype):
+    """Backward error as the checks state it: max abs in float32 and
+    float64, max abs over the largest |gradient| of each tensor in
+    bfloat16."""
+    import torch
+
+    errs = []
+    for g, w in zip(got, want):
+        diff = (g.double() - w.double()).abs().max().item()
+        top = w.double().abs().max().item()
+        # a gradient that is exactly 0 (dq and dk at K 1) is held absolutely
+        errs.append(diff / top if dtype == torch.bfloat16 and top > 0 else diff)
+    return max(errs)
+
+
+def ball_query_scan(radii, ks, sup, ctr):
+    """Support points a first-K scan must visit, summed over centres: up to
+    the K-th hit of the radius that fills last, or all N where a ball does
+    not fill."""
+    import torch
+
+    N = sup.shape[1]
+    d2 = ((ctr[:, :, None, :] - sup[:, None, :, :]) ** 2).sum(-1)  # (B, M, N)
+    need = torch.zeros(d2.shape[:2], dtype=torch.int64, device=d2.device)
+    for radius, K in zip(radii, ks):
+        hits = (d2 < radius * radius).cumsum(-1)
+        kth = torch.argmax((hits >= K).to(torch.uint8), dim=-1) + 1
+        need = torch.maximum(need, torch.where(hits[..., -1] >= K, kth, N))
+    return int(need.sum())
+
+
+def iou_pairs_needed(boxes):
+    """Unordered pairs of distinct boxes whose circumscribed circles meet:
+    the only pairs whose IoU needs the polygon clip."""
+    import torch
+
+    r = 0.5 * torch.hypot(boxes[..., 3], boxes[..., 4])
+    d = torch.cdist(boxes[..., :2], boxes[..., :2])
+    meet = d <= r[..., :, None] + r[..., None, :]
+    return int(torch.triu(meet, diagonal=1).sum())
+
+
 def check_kernels(dev):
     """Phase 3: each kernel against its plain version at main-path shapes.
-    Returns per kernel the largest error and the B = 1 headline times."""
+    Returns per kernel the largest error and, at its headline shape, the
+    times and the bound."""
     import torch
 
     from pdanet_tpu_torch.ops import attention, ball_query, nms, rotated_iou, sampling
 
-    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None} for k in KERNELS}
+    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
+                 "bound_by": None, "library_ms": None} for k in KERNELS}
 
-    def record(name, err, kern_fn, plain_fn, headline, what):
-        kern_ms, plain_ms = cuda_ms(kern_fn), cuda_ms(plain_fn)
+    def record(name, err, kern_fn, plain_fn, headline, what, bnd, lib_fn=None):
+        if lib_fn is None:
+            kern_ms, lib_ms = cuda_ms(kern_fn), None
+        else:
+            kern_ms, lib_ms = in_turns(kern_fn, lib_fn)
+        plain_ms = cuda_ms(plain_fn)
         st = stats[name]
         st["max_abs_err"] = max(st["max_abs_err"], float(err))
         if headline:
-            st["ms"], st["plain_ms"] = kern_ms, plain_ms
-        print(f"{name:18s} {what}: max_abs_err {err:.3g}; kernel {kern_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+            st.update(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
+                      bound_by=bnd[1])
+        line = (f"{name:27s} {what}: max_abs_err {err:.3g}; kernel {kern_ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms")
+        if lib_ms is not None:
+            line += f", SDPA {lib_ms:.4f} ms"
+        print(line + f"; bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at "
+              f"{100 * bnd[0] / kern_ms:.1f} % of it")
 
     def idx_err(a, b):
         return (a.long() - b.long()).abs().max().item()
@@ -201,10 +444,13 @@ def check_kernels(dev):
         k_idx = sampling.farthest_point_sample_cuda(xyz, 4096)
         p_idx = sampling.farthest_point_sample_plain(xyz, 4096)
         require(torch.equal(k_idx, p_idx), f"FPS B={B} indices differ from the plain version")
+        # per step and point: 3 sub, 3 mul, 2 add, the min and the argmax compare
         record("fps", idx_err(k_idx, p_idx),
                lambda: sampling.farthest_point_sample_cuda(xyz, 4096),
                lambda: sampling.farthest_point_sample_plain(xyz, 4096),
-               B == 1, f"B={B} 16384->4096 equal")
+               B == 1, f"B={B} 16384->4096 equal",
+               bound(xyz.numel() * 4 + k_idx.numel() * 4, B * 4096 * N_POINTS * 10,
+                     F32_OPS_PER_S))
 
         sa0_ctr = torch.gather(xyz, 1, k_idx.long()[..., None].expand(B, 4096, 3)).contiguous()
         sa1_ctr = sa0_ctr[:, :1024].contiguous()
@@ -216,14 +462,20 @@ def check_kernels(dev):
             want = ball_query.ball_query_multi_plain(radii, ks, sup, ctr)
             for g, w in zip(got, want):
                 require(torch.equal(g, w), f"ball query {label} B={B} differs from the plain version")
+            # per scanned point: the distance (3 sub, 3 mul, 2 add) and a
+            # compare per radius
+            scanned = ball_query_scan(radii, ks, sup, ctr)
             record("ball_query", max(idx_err(g, w) for g, w in zip(got, want)),
                    lambda: ball_query.ball_query_multi_cuda(radii, ks, sup, ctr),
                    lambda: ball_query.ball_query_multi_plain(radii, ks, sup, ctr),
                    B == 1 and label == "SA0",
-                   f"{label} B={B} N={sup.shape[1]} M={ctr.shape[1]} equal")
+                   f"{label} B={B} N={sup.shape[1]} M={ctr.shape[1]} equal, "
+                   f"{scanned / ctr.shape[1] / B:.0f} points scanned per centre",
+                   bound((sup.numel() + ctr.numel() + sum(w.numel() for w in want)) * 4,
+                         scanned * (8 + len(radii)), F32_OPS_PER_S))
 
         rs = np.random.RandomState(B)
-        for label, M, hd in (("SA1", 1024, 64), ("SA2", 512, 128)):
+        for label, M, hd in ATTN_SHAPES:
             for K in (16, 32):
                 R, D = B * M * K, 4 * hd
                 qkv32 = [torch.from_numpy(rs.randn(R, D).astype(np.float32)).to(dev)
@@ -232,14 +484,29 @@ def check_kernels(dev):
                     q, k, v = (t.to(dt) for t in qkv32)
                     got = attention.neighbor_attention_flat_cuda(q, k, v, K, 4, hd)
                     want = attention.neighbor_attention_flat_plain(q, k, v, K, 4, hd)
+                    lib_call, lib_flat = sdpa_forward(q, k, v, K, 4, hd)
                     err = (got.float() - want.float()).abs().max().item()
+                    lib_err = (lib_flat().float() - want.float()).abs().max().item()
                     require(got.dtype == dt and err <= tol,
                             f"attention {label} K={K} {dt} err {err} > {tol}")
-                    record("neighbor_attention", err,
+                    require(lib_err <= tol,
+                            f"SDPA {label} K={K} {dt} differs from the plain version: "
+                            f"{lib_err} > {tol}")
+                    name = "neighbor_attention_bf16" if dt == torch.bfloat16 else \
+                        "neighbor_attention"
+                    headline = B == 1 and label == "SA1" and K == 32
+                    what = f"{label} B={B} K={K} hd={hd} {str(dt)[6:]} (SDPA err {lib_err:.3g})"
+                    record(name, err,
                            lambda: attention.neighbor_attention_flat_cuda(q, k, v, K, 4, hd),
                            lambda: attention.neighbor_attention_flat_plain(q, k, v, K, 4, hd),
-                           B == 1 and label == "SA1" and K == 32 and dt == torch.bfloat16,
-                           f"{label} B={B} K={K} hd={hd} {str(dt)[6:]}")
+                           headline, what, attention_bound(R, K, 4, hd, dt), lib_call)
+                    if headline:
+                        kern_cold, lib_cold = in_turns(
+                            lambda: attention.neighbor_attention_flat_cuda(q, k, v, K, 4, hd),
+                            lib_call, cold=True)
+                        print(f"{name:27s} {label} B={B} K={K} {str(dt)[6:]} with the L2 "
+                              f"flushed before each run: kernel {kern_cold:.4f} ms, SDPA "
+                              f"{lib_cold:.4f} ms; SDPA ran {kernel_names(lib_call)}")
 
         boxes = torch.from_numpy(random_boxes(B, B, 256)).to(dev)
         iou = rotated_iou.boxes_iou_bev_batched_self_cuda(boxes)
@@ -250,24 +517,31 @@ def check_kernels(dev):
         diag = torch.diagonal(iou, dim1=1, dim2=2)
         require(torch.allclose(diag, torch.ones_like(diag), rtol=1e-5, atol=0),
                 f"IoU B={B}: the diagonal is not 1")
+        pairs = iou_pairs_needed(boxes)
         record("rotated_iou", err,
                lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
                lambda: rotated_iou.boxes_iou_bev_batched_self_plain(boxes),
-               B == 1, f"B={B} K=256")
+               B == 1, f"B={B} K=256, {pairs} pairs whose circles meet",
+               bound((boxes.numel() + iou.numel()) * 4, pairs * IOU_PAIR_OPS, F32_OPS_PER_S))
 
         valid = torch.from_numpy(np.random.RandomState(B).rand(B, 256) > 0.1).to(dev)
         k_keep = nms.greedy_nms_mask_batched_cuda(iou, valid, 0.01)
         p_keep = nms.greedy_nms_mask_batched_plain(iou, valid, 0.01)
         require(torch.equal(k_keep, p_keep), f"NMS B={B} keep mask differs from the plain version")
+        # the walk reads the row right of the diagonal of each kept box and
+        # compares each entry once
+        row_reads = int((255 - torch.nonzero(k_keep)[:, 1]).sum())
         record("nms", idx_err(k_keep, p_keep),
                lambda: nms.greedy_nms_mask_batched_cuda(iou, valid, 0.01),
                lambda: nms.greedy_nms_mask_batched_plain(iou, valid, 0.01),
-               B == 1, f"B={B} K=256 equal, {int(k_keep.sum())} kept")
+               B == 1, f"B={B} K=256 equal, {int(k_keep.sum())} kept",
+               bound(row_reads * 4 + valid.numel() + k_keep.numel(), row_reads, F32_OPS_PER_S))
 
     # shapes off the KITTI path that the kernels take as well: FPS with
     # the min-distance in global scratch (N > 32768) and with N not a
     # multiple of the block, three radii up to K 64 (ONCE SA5), attention
-    # at K 64 (opt-in shared memory) and K 8
+    # at K 64 (opt-in shared memory), K 8 and, in bfloat16, K and hd that
+    # pad to other tiles
     cloud = torch.from_numpy(lidar_like_cloud(7, 1, 40000)[..., :3].copy()).to(dev)
     for N, npoint in ((40000, 1024), (5000, 1000)):
         xyz = cloud[:, :N].contiguous()
@@ -280,16 +554,21 @@ def check_kernels(dev):
                     ball_query.ball_query_multi_plain(radii, ks, cloud, ctr)):
         require(torch.equal(g, w), f"ball query K={w.shape[-1]} differs from the plain version")
     rs = np.random.RandomState(3)
-    for K, hd in ((64, 128), (8, 32)):
-        q, k, v = (torch.from_numpy(rs.randn(64 * K, 4 * hd).astype(np.float32)).to(dev)
-                   for _ in range(3))
-        err = (attention.neighbor_attention_flat_cuda(q, k, v, K, 4, hd)
-               - attention.neighbor_attention_flat_plain(q, k, v, K, 4, hd)).abs().max().item()
-        require(err <= 2e-5, f"attention K={K} hd={hd} err {err} > 2e-5")
-        stats["neighbor_attention"]["max_abs_err"] = max(
-            stats["neighbor_attention"]["max_abs_err"], err)
+    errs = []
+    for K, hd in ATTN_OFF_PATH:
+        qkv32 = [torch.from_numpy(rs.randn(64 * K, 4 * hd).astype(np.float32)).to(dev)
+                 for _ in range(3)]
+        for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-2)):
+            q, k, v = (t.to(dt) for t in qkv32)
+            err = (attention.neighbor_attention_flat_cuda(q, k, v, K, 4, hd).float()
+                   - attention.neighbor_attention_flat_plain(q, k, v, K, 4, hd).float()
+                   ).abs().max().item()
+            require(err <= tol, f"attention K={K} hd={hd} {dt} err {err} > {tol}")
+            name = "neighbor_attention_bf16" if dt == torch.bfloat16 else "neighbor_attention"
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            errs.append(f"K={K}/hd={hd} {str(dt)[6:]} {err:.3g}")
     print("off-path shapes: FPS N=40000 and 5000 equal, ball query 3 radii K<=64 equal, "
-          "attention K=64/hd=128 and K=8/hd=32 within 2e-5")
+          "attention max abs err " + ", ".join(errs))
     return stats
 
 
@@ -337,10 +616,10 @@ def serve(cfg, dev):
         require(bool(((counts >= 0) & (counts <= 500)).all()), f"request {i}: counts {counts}")
         print(f"request {i}: B={B} latency {ms:.2f} ms, detections {counts.tolist()}")
     print(f"kernel launches in the served requests: {launches}")
-    for name in KERNELS:
-        if name != "neighbor_attention_bwd":  # training only (phase 7)
-            require(launches.get(name, 0) > 0,
-                    f"kernel {name} never launched on the main path")
+    print_split("a b1 request under torch.profiler",
+                device_split(lambda: predict({"points": requests[0]})))
+    for name in SERVE_KERNELS:
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched on the main path")
     return launches, weights
 
 
@@ -399,68 +678,80 @@ def compare_f32(cfg, weights, dev):
 
 
 def check_attention_bwd(dev, stats):
-    """Phase 6: the attention backward kernel against the plain backward
-    at the B = 4 training shapes and off the path; the autograd Function
-    on the card against the plain backward."""
+    """Phase 6: the attention backward kernels against the plain backward
+    at the B = 4 training shapes and off the path, with SDPA's backward
+    timed beside them; the autograd Function on the card against the plain
+    backward."""
     import torch
 
     from pdanet_tpu_torch.ops import attention, cuda_lib
 
-    st = stats["neighbor_attention_bwd"]
     gen = torch.Generator(device=dev).manual_seed(6)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 5e-2, torch.float64: 1e-12}
     cases = [(f"{label} B=4", 4 * M, K, hd, dt, True)
-             for label, M, hd in (("SA1", 1024, 64), ("SA2", 512, 128))
+             for label, M, hd in ATTN_SHAPES
              for K in (16, 32) for dt in (torch.float32, torch.bfloat16)]
     cases += [("off-path", 64, K, hd, dt, False)
-              for K, hd in ((64, 128), (8, 32)) for dt in (torch.float32, torch.bfloat16)]
+              for K, hd in ATTN_OFF_PATH for dt in (torch.float32, torch.bfloat16)]
     cases += [("SA1 B=4", 4 * 1024, 32, 64, torch.float64, False)]
     for label, centres, K, hd, dt, timed in cases:
         R, D = centres * K, 4 * hd
+        name = "neighbor_attention_bwd_bf16" if dt == torch.bfloat16 else "neighbor_attention_bwd"
+        st = stats[name]
         q, k, v, do = (torch.randn(R, D, generator=gen, device=dev).to(dt) for _ in range(4))
         got = attention.neighbor_attention_flat_bwd_cuda(q, k, v, do, K, 4, hd)
         want = attention.neighbor_attention_flat_bwd_plain(q, k, v, do, K, 4, hd)
         torch.cuda.synchronize()
-        abs_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-        if dt == torch.float32:
-            err, tol, what = abs_err, 2e-5, "max abs err"
-        elif dt == torch.float64:
-            err, tol, what = abs_err, 1e-12, "max abs err"
-        else:
-            err = max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
-                      for g, w in zip(got, want))
-            tol, what = 5e-2, "max err / max |grad|"
+        abs_err = max((g.double() - w.double()).abs().max().item() for g, w in zip(got, want))
+        err, tol = grad_err(got, want, dt), tols[dt]
+        what = "max err / max |grad|" if dt == torch.bfloat16 else "max abs err"
         require(all(g.dtype == dt for g in got) and err <= tol,
                 f"attention backward {label} K={K} hd={hd} {dt}: {what} {err} > {tol}")
         st["max_abs_err"] = max(st["max_abs_err"], abs_err)
-        line = (f"{'neighbor_attention_bwd':18s} {label} K={K} hd={hd} {str(dt)[6:]}: "
-                f"{what} {err:.3g}")
+        line = f"{name:27s} {label} K={K} hd={hd} {str(dt)[6:]}: {what} {err:.3g}"
         if timed:
-            kern_ms = cuda_ms(lambda: attention.neighbor_attention_flat_bwd_cuda(
-                q, k, v, do, K, 4, hd))
+            lib_call = sdpa_backward(q, k, v, do, K, 4, hd)
+            lib_err = grad_err(lib_call(), want, dt)
+            require(lib_err <= tol, f"SDPA backward {label} K={K} hd={hd} {dt} differs from "
+                    f"the plain backward: {lib_err} > {tol}")
+            kern_ms, lib_ms = in_turns(
+                lambda: attention.neighbor_attention_flat_bwd_cuda(q, k, v, do, K, 4, hd),
+                lib_call)
             plain_ms = cuda_ms(lambda: attention.neighbor_attention_flat_bwd_plain(
                 q, k, v, do, K, 4, hd))
-            line += f"; kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms"
-            if label.startswith("SA1") and K == 32 and dt == torch.bfloat16:
-                st["ms"], st["plain_ms"] = kern_ms, plain_ms
+            bnd = attention_bound(R, K, 4, hd, dt, bwd=True)
+            line += (f" (SDPA {lib_err:.3g}); kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"SDPA {lib_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at "
+                     f"{100 * bnd[0] / kern_ms:.1f} % of it")
+            if label.startswith("SA1") and K == 32:
+                st.update(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
+                          bound_by=bnd[1])
+                line += f"; SDPA backward ran {kernel_names(lib_call)}"
+            del lib_call
         print(line)
         del q, k, v, do, got, want
 
-    # the autograd Function on the card, float32: its backward is the kernel
+    # the autograd Function on the card: its backward is the kernel of the
+    # input's dtype
     K, hd = 32, 64
-    q, k, v, do = (torch.randn(64 * K, 4 * hd, generator=gen, device=dev) for _ in range(4))
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    before = cuda_lib.launches["neighbor_attention_bwd"]
-    attention.neighbor_attention_flat(*leaves, K, 4, hd).backward(do)
-    torch.cuda.synchronize()
-    require(cuda_lib.launches["neighbor_attention_bwd"] == before + 1,
-            "the autograd Function did not launch the backward kernel")
-    want = attention.neighbor_attention_flat_bwd_plain(q, k, v, do, K, 4, hd)
-    err = max((t.grad - w).abs().max().item() for t, w in zip(leaves, want))
-    require(err <= 2e-5, f"autograd Function on the card: grad err {err} > 2e-5")
-    print(f"autograd Function on the card (float32, K={K}, hd={hd}): grads within "
-          f"{err:.3g} of the plain backward")
+    for dt, name in ((torch.float32, "neighbor_attention_bwd"),
+                     (torch.bfloat16, "neighbor_attention_bwd_bf16")):
+        q, k, v, do = (torch.randn(64 * K, 4 * hd, generator=gen, device=dev).to(dt)
+                       for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = cuda_lib.launches[name]
+        attention.neighbor_attention_flat(*leaves, K, 4, hd).backward(do)
+        torch.cuda.synchronize()
+        require(cuda_lib.launches[name] == before + 1,
+                f"the autograd Function did not launch {name}")
+        want = attention.neighbor_attention_flat_bwd_plain(q, k, v, do, K, 4, hd)
+        err = grad_err([t.grad for t in leaves], want, dt)
+        require(err <= tols[dt], f"autograd Function on the card, {dt}: grad err {err} > "
+                f"{tols[dt]}")
+        print(f"autograd Function on the card ({str(dt)[6:]}, K={K}, hd={hd}): grads within "
+              f"{err:.3g} of the plain backward, through {name}")
 
-    # gradcheck of the Function on the card, float64 (both kernels take it)
+    # gradcheck of the Function on the card, float64 (the SIMT kernels)
     K, H, hd = 8, 2, 16
     leaves = [torch.randn(3 * K, H * hd, generator=gen, device=dev, dtype=torch.float64)
               .requires_grad_() for _ in range(3)]
@@ -496,9 +787,8 @@ def _grads_finite(model):
 
 
 def train(cfg, weights, dev):
-    """Phase 7: 5 full-width train steps at B = 4 in bfloat16 compute
-    (and, for the record, 3 in float32).  Returns the launch counts of the
-    bfloat16 steps."""
+    """Phase 7: 5 full-width train steps at B = 4 in bfloat16 compute and
+    3 in float32.  Returns the launch counts of each, counted from 0."""
     import torch
 
     from pdanet_tpu_torch.ops import cuda_lib
@@ -511,7 +801,7 @@ def train(cfg, weights, dev):
     f32_cfg = copy.deepcopy(cfg.MODEL)
     f32_cfg.BACKBONE_3D.pop("COMPUTE_DTYPE", None)
     f32_cfg.BACKBONE_3D.pop("TRAIN_COMPUTE_DTYPE", None)
-    launches = None
+    launches = {}
     for name, mcfg, n_steps in (("bf16", cfg.MODEL, 5), ("f32", f32_cfg, 3)):
         model, train_step = _train_model(cfg, mcfg, weights, dev)
         torch.cuda.synchronize()
@@ -528,17 +818,18 @@ def train(cfg, weights, dev):
             require(_grads_finite(model), f"{name} step {i}: gradients not finite")
         counts = dict(cuda_lib.launches)
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        print_split(f"a {name} train step under torch.profiler",
+                    device_split(lambda: train_step(batch)))
         print(f"train {name} B={B}: losses {[round(x, 4) for x in losses]}; ms/step "
               f"{[round(t, 2) for t in times]}, median after warm-up "
               f"{statistics.median(times[1:]):.2f} ms; peak memory {peak:.2f} GiB")
         print(f"train {name} B={B}: tb of the last step "
               f"{ {k: round(float(v), 4) for k, v in tb.items()} }")
         print(f"kernel launches in the {name} train steps: {counts}")
-        if name == "bf16":
-            launches = counts
+        for kname in TRAIN_KERNELS[name]:
+            require(counts.get(kname, 0) > 0, f"kernel {kname} never launched in {name} training")
+        launches[name] = counts
         del model, train_step
-    for kname in ("fps", "ball_query", "neighbor_attention", "neighbor_attention_bwd"):
-        require(launches.get(kname, 0) > 0, f"kernel {kname} never launched in training")
     return launches
 
 
@@ -712,6 +1003,38 @@ def compare_train(cfg, weights, dev):
           f"slots, every gradient on the first")
 
 
+def ptxas_report(log):
+    """(kernel, registers, shared-memory bytes, spill bytes) per kernel of
+    an ``nvcc -Xptxas -v`` log, names shortened from their mangled form
+    (the tensor-core attention kernels as name<KP,HD>)."""
+    import re
+
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN(\w+)'", line)
+        if m:
+            rest, parts = m.group(1), []
+            while rest[:1].isdigit():  # length-prefixed names: namespace, kernel
+                n = re.match(r"\d+", rest).group()
+                parts.append(rest[len(n):len(n) + int(n)])
+                rest = rest[len(n) + int(n):]
+            name = parts[-1] if parts else m.group(1)
+            t = re.match(r"I((?:Li\d+E)+)E", rest)  # integer template arguments
+            if t:
+                name += "<" + ",".join(re.findall(r"Li(\d+)E", t.group(1))) + ">"
+            elif rest.startswith("I"):
+                name += "<" + {"f": "float", "d": "double"}.get(rest[1:2], rest[1:2]) + ">"
+            rows.append([name, 0, 0, 0])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and rows:
+            rows[-1][3] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and rows:
+            rows[-1][1] = int(m.group(1))
+            rows[-1][2] = int(m.group(2) or 0)
+    return rows
+
+
 def main():
     import torch
 
@@ -732,11 +1055,25 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    cuda_lib.lib()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    for line in cuda_lib.build_log.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print("  ptxas:", line.split(":", 1)[-1].strip())
+    lib = cuda_lib.lib()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s, {len(cuda_lib.SOURCES)} sources "
+          f"in parallel")
+    mma = []
+    for name, regs, smem, spill in ptxas_report(cuda_lib.build_log):
+        if "_mma<" in name:
+            mma.append((name, regs, spill))
+            if not any(f"<{kp},{hd}>" in name for kp in (16, 32) for hd in (64, 128)):
+                continue
+        print(f"  ptxas: {name}: {regs} registers, {smem} bytes static shared memory, "
+              f"{spill} bytes spilled")
+    if mma:
+        print(f"  ptxas: {len(mma)} tensor-core attention instantiations (K 16-64 x hd 16-128): "
+              f"at most {max(r for _, r, _ in mma)} registers, "
+              f"{sum(s for _, _, s in mma)} bytes spilled in all")
+    for K, hd in ((16, 64), (32, 64), (16, 128), (32, 128), (64, 128)):
+        print(f"  bfloat16 attention K={K} hd={hd}: one-warp CTAs resident per SM, forward "
+              f"{lib.pdanet_neighbor_attention_bf16_occupancy(K, hd)}, backward "
+              f"{lib.pdanet_neighbor_attention_bwd_bf16_occupancy(K, hd)}")
 
     # ---- 3.-7.
     stats = check_kernels(dev)
@@ -748,10 +1085,14 @@ def main():
     compare_train(cfg, weights, dev)
 
     # launches: each kernel's count over the serving run (phase 4) and the
-    # bfloat16 train steps (phase 7), each counted from 0
+    # bfloat16 and float32 train steps (phase 7), each counted from 0
+    launches = {name: served.get(name, 0) + trained["bf16"].get(name, 0)
+                + trained["f32"].get(name, 0) for name in KERNELS}
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} never launched on the main path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": served.get(name, 0) + trained.get(name, 0), **stats[name]}
+         "launches": launches[name], **stats[name]}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,23 +3,27 @@
 // Replaces the TPU kernel pdanet_tpu/ops/pallas/attention.py:
 //   neighbor_attention_flat (:201) -> _attn_kernel (:58)
 //
+// This SIMT kernel takes float32 and float64; bfloat16 runs on the tensor
+// cores in neighbor_attention_mma.cu.  float32 stays here because tensor
+// cores in float32 mean TF32, and the float32 serving frame is held index
+// for index against the CPU; float64 is for the exact train-step check.
+//
 // Semantics: q2, k2, v2 and o are the flat (R, H*hd) layout of the PDA
 // transformer, R = centres * K, the K rows of one centre contiguous.  Per
 // centre and head: o = softmax(q k^T / sqrt(hd)) v over the centre's K
 // tokens, no mask.  q is scaled before the product (as the TPU kernel
-// does); scores, softmax and the P.V sums are float32 for float32 and
-// bfloat16 inputs alike (float64 for float64 inputs, which exact checks
-// use), and o is written in the input type.
+// does); scores, softmax and the P.V sums are in the input type.
 //
 // What bounds it on the H100: it moves 4 * R * H * hd elements and does
-// 4 * K * hd flops per element pair, about K/2 flops per byte in f32 --
-// memory bound at the shipped K = 16/32.  The TPU kernel's 128-row
-// block-diagonal masking (wasting 128/K of its MXU work) has no purpose here.
+// 4 * K * hd flops per element pair, about K/4 flops per byte in f32 --
+// memory bound at the shipped K = 16/32: 4 * 32768 * 256 * 4 bytes =
+// 134 MB at SA1 b1 K 32 in float32, 0.040 ms at 3.35 TB/s.  The TPU
+// kernel's 128-row block-diagonal masking (wasting 128/K of its MXU work)
+// has no purpose here.
 // Design: one block per (centre, head) stages the K x hd tiles of q, k and
 // v in shared memory in the sum type (rows padded to hd + 1 to spread banks),
 // computes the K x K scores, takes the row softmax one warp per row, and
 // writes o.  Any K <= 64 and hd <= 128 run; there is no shape gate.
-// Tensor cores (wgmma) and multi-centre blocks are later work.
 
 #include "attention_common.cuh"
 
@@ -116,13 +120,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int R, 
 }  // namespace
 
 // q, k, v, o: (R, H*hd) contiguous, R a multiple of K; dtype is a DType
-// code (attention_common.cuh): float32, bfloat16 or float64 elements.
+// code (attention_common.cuh): float32 or float64 elements.
 extern "C" int pdanet_neighbor_attention(const void* q, const void* k, const void* v, void* o,
                                          int R, int K, int H, int hd, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case kFloat32: return (int)launch<float>(q, k, v, o, R, K, H, hd, s);
-    case kBFloat16: return (int)launch<__nv_bfloat16>(q, k, v, o, R, K, H, hd, s);
     case kFloat64: return (int)launch<double>(q, k, v, o, R, K, H, hd, s);
     default: return (int)cudaErrorInvalidValue;
   }

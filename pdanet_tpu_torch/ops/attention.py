@@ -5,11 +5,20 @@ Counterpart of ``pdanet_tpu/ops/pallas/attention.py:201-319``
 (``neighbor_attention_flat`` and ``neighbor_attention_flat_trainable``):
 rows are flattened (centre, K) tokens, the K rows of one centre
 contiguous; per centre and head, ``softmax(q k^T / sqrt(hd)) v`` over its K
-tokens, with no mask.  A CUDA tensor runs the kernels in
-``csrc/neighbor_attention.cu`` (forward) and
-``csrc/neighbor_attention_bwd.cu`` (backward), in float32 or bfloat16
-(float64 too, for exact checks); a CPU tensor runs
-:func:`neighbor_attention_flat_plain` and
+tokens, with no mask.  A CUDA tensor runs a hand-written kernel chosen by
+its dtype:
+
+- bfloat16 (what the PDA-SSD yaml ships for serving and training): the
+  tensor-core kernels ``csrc/neighbor_attention_mma.cu`` (forward) and
+  ``csrc/neighbor_attention_bwd_mma.cu`` (backward), which round to
+  bfloat16 where the TPU kernel does;
+- float32 and float64: the SIMT kernels ``csrc/neighbor_attention.cu`` and
+  ``csrc/neighbor_attention_bwd.cu``, with every sum in the input type.
+  float32 on the tensor cores would mean TF32, and the float32 frame and
+  the float64 train step are held index for index and to rounding against
+  the CPU.
+
+A CPU tensor runs :func:`neighbor_attention_flat_plain` and
 :func:`neighbor_attention_flat_bwd_plain`.  Under autograd the call goes
 through :class:`NeighborAttention`, whose backward recomputes the softmax.
 """
@@ -20,8 +29,9 @@ import torch
 
 from . import cuda_lib
 
-# element type codes of the kernels' C interface (csrc/attention_common.cuh)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+# element type codes of the SIMT kernels' C interface (csrc/attention_common.cuh)
+_SIMT_CODES = {torch.float32: 0, torch.float64: 2}
+_DTYPES = (torch.bfloat16, *_SIMT_CODES)
 _SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to
 
 
@@ -101,8 +111,19 @@ def neighbor_attention_flat_bwd_plain(q2, k2, v2, do2, K, H, hd):
     return tuple(_flat(t, q2.dtype) for t in (dq, dk, dv))
 
 
+def _shape_rule(name, K, hd, dtype):
+    """The shapes each kernel takes: K <= 64 and hd <= 128; the bfloat16
+    tensor-core kernels also need hd a multiple of 16 (mma tiles)."""
+    if not (1 <= K <= 64 and 1 <= hd <= 128):
+        raise ValueError(f"{name}: the kernel takes K <= 64 and hd <= 128, "
+                         f"got K={K}, hd={hd}")
+    if dtype == torch.bfloat16 and hd % 16:
+        raise ValueError(f"{name}: the bfloat16 kernel takes hd a multiple of 16, "
+                         f"got hd={hd}")
+
+
 def _check_shapes(name, K, H, hd, *tensors, tiles):
-    """Validate the tensors of a kernel; ``tiles(elem_bytes)`` is the
+    """Validate the tensors of a kernel; ``tiles(elem_bytes)`` is the SIMT
     kernel's shared memory in bytes."""
     q2 = tensors[0]
     if q2.dim() != 2 or q2.shape[1] != H * hd or q2.shape[0] % K \
@@ -110,12 +131,14 @@ def _check_shapes(name, K, H, hd, *tensors, tiles):
         raise ValueError(
             f"{name}: tensors must be (R, H*hd) with R % K == 0; "
             f"got {tuple(q2.shape)}, K={K}, H={H}, hd={hd}")
-    if not (1 <= K <= 64 and 1 <= hd <= 128):
-        raise ValueError(f"{name}: the kernel takes K <= 64 and hd <= 128, "
-                         f"got K={K}, hd={hd}")
-    cuda_lib.require_cuda(name, *tensors, dtypes=tuple(_DTYPE_CODES))
+    _shape_rule(name, K, hd, q2.dtype)
+    cuda_lib.require_cuda(name, *tensors, dtypes=_DTYPES)
     if any(t.dtype != q2.dtype for t in tensors):
         raise TypeError(f"{name}: all tensors must share a dtype")
+    if q2.dtype == torch.bfloat16:
+        if any(t.data_ptr() % 16 for t in tensors):
+            raise ValueError(f"{name}: the bfloat16 kernel needs 16-byte aligned tensors")
+        return
     smem = tiles(8 if q2.dtype == torch.float64 else 4)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: K={K}, hd={hd} in {q2.dtype} needs {smem} bytes of "
@@ -123,7 +146,12 @@ def _check_shapes(name, K, H, hd, *tensors, tiles):
 
 
 def neighbor_attention_flat_cuda(q2, k2, v2, K, H, hd):
-    """The forward kernel: one block per (centre, head)."""
+    """The forward kernel.  bfloat16: ``neighbor_attention_mma.cu``, one
+    warp per (centre, head) at a time on ``mma.sync`` (launches counted as
+    ``neighbor_attention_bf16``).  float32 / float64: the SIMT kernel of
+    ``neighbor_attention.cu``, one block per (centre, head), every sum in
+    the input type (counted as ``neighbor_attention``): TF32 tensor cores
+    would break the float32 frame's index-for-index match with the CPU."""
     _check_shapes("neighbor_attention_flat", K, H, hd, q2, k2, v2,
                   tiles=lambda b: (3 * K * (hd + 1) + K * (K + 1)) * b)
     R = q2.shape[0]
@@ -131,18 +159,25 @@ def neighbor_attention_flat_cuda(q2, k2, v2, K, H, hd):
     if R == 0:
         return out
     lib = cuda_lib.lib()
-    code = lib.pdanet_neighbor_attention(
-        cuda_lib.ptr(q2), cuda_lib.ptr(k2), cuda_lib.ptr(v2), cuda_lib.ptr(out),
-        R, K, H, hd, _DTYPE_CODES[q2.dtype], cuda_lib.stream_handle(q2.device),
-    )
-    cuda_lib.check(code, "neighbor_attention")
-    cuda_lib.launches["neighbor_attention"] += 1
+    ptrs = [cuda_lib.ptr(t) for t in (q2, k2, v2, out)]
+    stream = cuda_lib.stream_handle(q2.device)
+    if q2.dtype == torch.bfloat16:
+        name = "neighbor_attention_bf16"
+        code = lib.pdanet_neighbor_attention_bf16(*ptrs, R, K, H, hd, stream)
+    else:
+        name = "neighbor_attention"
+        code = lib.pdanet_neighbor_attention(*ptrs, R, K, H, hd, _SIMT_CODES[q2.dtype], stream)
+    cuda_lib.check(code, name)
+    cuda_lib.launches[name] += 1
     return out
 
 
 def neighbor_attention_flat_bwd_cuda(q2, k2, v2, do2, K, H, hd):
-    """The backward kernel: one block per (centre, head), softmax
-    recomputed, no atomics."""
+    """The backward kernel: softmax recomputed, each (centre, head) owning
+    its rows of dq, dk and dv (no atomics).  bfloat16:
+    ``neighbor_attention_bwd_mma.cu`` on ``mma.sync`` (counted as
+    ``neighbor_attention_bwd_bf16``); float32 / float64: the SIMT kernel of
+    ``neighbor_attention_bwd.cu`` (counted as ``neighbor_attention_bwd``)."""
     _check_shapes("neighbor_attention_flat_bwd", K, H, hd, q2, k2, v2, do2,
                   tiles=lambda b: (4 * K * (hd + 1) + 2 * K * (K + 1)) * b)
     R = q2.shape[0]
@@ -150,11 +185,15 @@ def neighbor_attention_flat_bwd_cuda(q2, k2, v2, do2, K, H, hd):
     if R == 0:
         return dq, dk, dv
     lib = cuda_lib.lib()
-    code = lib.pdanet_neighbor_attention_bwd(
-        cuda_lib.ptr(q2), cuda_lib.ptr(k2), cuda_lib.ptr(v2), cuda_lib.ptr(do2),
-        cuda_lib.ptr(dq), cuda_lib.ptr(dk), cuda_lib.ptr(dv),
-        R, K, H, hd, _DTYPE_CODES[q2.dtype], cuda_lib.stream_handle(q2.device),
-    )
-    cuda_lib.check(code, "neighbor_attention_bwd")
-    cuda_lib.launches["neighbor_attention_bwd"] += 1
+    ptrs = [cuda_lib.ptr(t) for t in (q2, k2, v2, do2, dq, dk, dv)]
+    stream = cuda_lib.stream_handle(q2.device)
+    if q2.dtype == torch.bfloat16:
+        name = "neighbor_attention_bwd_bf16"
+        code = lib.pdanet_neighbor_attention_bwd_bf16(*ptrs, R, K, H, hd, stream)
+    else:
+        name = "neighbor_attention_bwd"
+        code = lib.pdanet_neighbor_attention_bwd(*ptrs, R, K, H, hd, _SIMT_CODES[q2.dtype],
+                                                 stream)
+    cuda_lib.check(code, name)
+    cuda_lib.launches[name] += 1
     return dq, dk, dv

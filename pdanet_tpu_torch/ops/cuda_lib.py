@@ -1,15 +1,19 @@
 """Build, load and count the hand-written Hopper kernels in ``csrc/``.
 
-The ``csrc/*.cu`` files compile with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``; no PyTorch header is
-included, so the build takes seconds.  It runs at first use into
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all
+started together, and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes``; no PyTorch header is included,
+so the build takes seconds.  It runs at first use into
 ``pdanet_tpu_torch/_build/<hash of the sources and flags>/`` and is reused
-while the sources stay the same.
+while the sources stay the same.  ``build_log`` keeps each file's
+``-Xptxas -v`` report (registers, shared memory, spills per kernel).
 
 The build uses ``--fmad=false``: FPS, the ball query and the rotated IoU
 must not contract products into FMAs (a contracted distance or cross
 product flips ties and exact-zero predicates, and with them indices).  The
-attention kernels ask for their FMAs explicitly with ``__fmaf_rn``.
+float32/float64 attention kernels ask for their FMAs explicitly with
+``__fmaf_rn``; the bfloat16 attention kernels do their products on the
+tensor cores (``mma.sync``), which the flag does not touch.
 
 ``launches`` counts kernel launches per kernel name.  Each wrapper adds
 one where it launches its kernel and nowhere else, so a caller can clear
@@ -31,11 +35,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
     "fps.cu", "ball_query.cu", "neighbor_attention.cu",
-    "neighbor_attention_bwd.cu", "rotated_iou.cu", "nms.cu",
+    "neighbor_attention_bwd.cu", "neighbor_attention_mma.cu",
+    "neighbor_attention_bwd_mma.cu", "rotated_iou.cu", "nms.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 launches = collections.Counter()
@@ -78,16 +83,38 @@ def build():
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n{build_log}"
-        )
-    os.replace(tmp, out)
+    tag = os.getpid()
+    nvcc = _nvcc()
+    jobs = []
+    for src in SOURCES:
+        obj = out.parent / f"{Path(src).stem}.{tag}.o"
+        log = obj.with_suffix(".log")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+        jobs.append((cmd, proc, obj, log))
+    logs, failed = [], []
+    for cmd, proc, obj, log in jobs:
+        proc.wait()
+        logs.append(log.read_text())
+        log.unlink()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}")
+    build_log = "".join(logs)
+    objs = [str(obj) for _, _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed) + "\n" + build_log)
+        tmp = out.with_name(f"{out.name}.{tag}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {res.returncode}): {' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     return out
 
 
@@ -99,6 +126,11 @@ def _bind(lib):
         "pdanet_neighbor_attention": [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp],
         "pdanet_neighbor_attention_bwd": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                           i32, i32, vp],
+        "pdanet_neighbor_attention_bf16": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
+        "pdanet_neighbor_attention_bwd_bf16": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                               i32, vp],
+        "pdanet_neighbor_attention_bf16_occupancy": [i32, i32],
+        "pdanet_neighbor_attention_bwd_bf16_occupancy": [i32, i32],
         "pdanet_iou_bev_self": [vp, i32, i32, vp, vp],
         "pdanet_nms_walk": [vp, vp, i32, i32, f32, vp, vp],
     }

@@ -8,7 +8,12 @@ tolerance) and 5e-2 in bfloat16.  Its plain backward is held against
 1e-5 in float32, 5e-2 of the largest |gradient| in bfloat16 (the Pallas
 backward rounds P and dS to bfloat16 between its products, the plain one
 does not).  ``torch.autograd.gradcheck`` holds the autograd Function's CPU
-path against finite differences in float64.  The PDA transformer layer
+path against finite differences in float64.  ``scaled_dot_product_attention``
+on the (centres, H, K, hd) view of the flat tensors -- the library call the
+chip check times beside the kernels -- is held against the plain forward and
+backward in float32 (atol 1e-5), so that the yardstick computes the
+kernels' function.  The bfloat16 kernels' shape rule is checked without a
+card.  The PDA transformer layer
 that holds the kernel is held against the flax layer with the same
 weights, carried across by the weight bridge: its output at eval, and its
 parameter gradients in training mode against ``jax.grad`` of the flax
@@ -31,8 +36,11 @@ from pdanet_tpu.ops.pallas.attention import (
 from pdanet_tpu_torch.models.blocks import TransformerEncoderLayerPreNorm
 from pdanet_tpu_torch.ops.attention import (
     NeighborAttention,
+    _check_shapes,
+    _shape_rule,
     neighbor_attention_flat,
     neighbor_attention_flat_bwd_plain,
+    neighbor_attention_flat_plain,
 )
 from pdanet_tpu_torch.utils.jax_weights import load_jax_variables
 
@@ -180,3 +188,55 @@ def test_cpu_autograd_takes_the_plain_versions():
     with pytest.raises(ValueError):
         neighbor_attention_flat_bwd_cuda(q.detach(), k.detach(), v.detach(),
                                          q.detach(), K, H, hd)
+
+
+def _sdpa_heads(t, K, H, hd):  # (R, H*hd) -> (centres, H, K, hd), a view
+    return t.view(t.shape[0] // K, K, H, hd).transpose(1, 2)
+
+
+SDPA_SHAPES = [(K, hd) for K in (16, 32) for hd in (64, 128)]  # SA1 / SA2 geometry
+
+
+@pytest.mark.parametrize("K,hd", SDPA_SHAPES)
+def test_sdpa_matches_plain_forward(K, hd):
+    H = 4
+    q, k, v = (torch.from_numpy(a) for a in _qkv(K + hd, 6 * K, H * hd))
+    got = torch.nn.functional.scaled_dot_product_attention(
+        *(_sdpa_heads(t, K, H, hd) for t in (q, k, v)))
+    want = neighbor_attention_flat_plain(q, k, v, K, H, hd)
+    err = (got.transpose(1, 2).reshape(q.shape) - want).abs().max().item()
+    assert err <= 1e-5, f"SDPA against the plain forward: max abs err {err:.3g}"
+
+
+@pytest.mark.parametrize("K,hd", SDPA_SHAPES)
+def test_sdpa_grads_match_plain_backward(K, hd):
+    H = 4
+    rs = np.random.RandomState(K * hd)
+    q, k, v, do = (torch.from_numpy(rs.randn(6 * K, H * hd).astype(np.float32))
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *(_sdpa_heads(t, K, H, hd) for t in leaves))
+    got = torch.autograd.grad(out, leaves, _sdpa_heads(do, K, H, hd))
+    want = neighbor_attention_flat_bwd_plain(q, k, v, do, K, H, hd)
+    for name, g, w in zip("qkv", got, want):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-5, f"SDPA d{name} against the plain backward: max abs err {err:.3g}"
+
+
+@pytest.mark.parametrize("K,hd", [(65, 64), (32, 24)])
+def test_bf16_kernel_shape_rule_refuses(K, hd):
+    """K above 64 or hd not a multiple of 16 raise ValueError before any
+    device check, so a CUDA tensor of such a shape never reaches a kernel."""
+    with pytest.raises(ValueError, match="K <= 64|multiple of 16"):
+        _shape_rule("neighbor_attention_flat", K, hd, torch.bfloat16)
+    q = torch.zeros(2 * K, 4 * hd, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K <= 64|multiple of 16"):
+        _check_shapes("neighbor_attention_flat", K, 4, hd, q, q, q, tiles=lambda b: 0)
+
+
+@pytest.mark.parametrize("K,hd", [(K, hd) for K in (8, 16, 32, 64) for hd in (32, 64, 128)])
+def test_bf16_kernel_shape_rule_takes(K, hd):
+    _shape_rule("neighbor_attention_flat", K, hd, torch.bfloat16)
+    # float32 (the SIMT kernel) takes any hd up to 128
+    _shape_rule("neighbor_attention_flat", K, hd - 8, torch.float32)
