@@ -6,6 +6,10 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
+or with ``--parent DIR`` to time another checkout's FPS and ball query
+beside this tree's (phase 3), or with ``--sweep`` to time them in the
+launch shapes their defaults were chosen from (phases 1-2, then ``sweep``).
+
 Phases, each of which raises on failure:
 
 1. Preconditions: a CUDA device, its name and power limit from nvidia-smi,
@@ -26,6 +30,18 @@ Phases, each of which raises on failure:
    Times are medians of 20 runs (50 for a kernel timed beside SDPA) under
    CUDA events with the same inputs each run (L2-warm); the headline
    attention shape is also timed with the L2 flushed before each run.
+   FPS and the ball query are also held equal beyond their headline
+   shapes (``check_fps_ball_query``): FPS at B = 4, on ONCE's 60000 points
+   (timed), at every N of FPS_SIZES (each instantiation of its kernel),
+   on a shuffled cloud and on duplicated points that tie across CTA
+   slices, with its time per serial step; the ball query at the SA0, SA1,
+   SA2 and SA5 shapes at B = 1 and 4, ONCE SA5's three radii, a shuffled
+   support, shuffled centres and points within 3 float32 ulps of each
+   radius, with the share of tiles its skip proved out of reach, its
+   bytes and operations bounds apart and its device time under the
+   profiler.  ``--parent DIR`` (another checkout, e.g. a ``git archive``
+   of the parent commit) times that tree's FPS and ball query in turns
+   beside this tree's at each of those main-path shapes.
 4. Serve: PDA-SSD at the full width of tools/cfgs/kitti_models/PDA-SSD.yaml
    (bfloat16 compute as shipped, seeded random weights) answers three
    one-frame requests and one two-frame request through
@@ -226,12 +242,12 @@ def cuda_ms(fn, reps=20, warmup=2, cold=False):
     return statistics.median(times)
 
 
-def in_turns(kern_fn, lib_fn, cold=False):
+def in_turns(kern_fn, lib_fn, cold=False, reps=50):
     """Kernel and library call timed in turns (kernel, library, library,
-    kernel), medians of 50 after 5 warm-up runs; each is the mean of its
-    two medians."""
+    kernel), medians of ``reps`` after 5 warm-up runs; each is the mean of
+    its two medians."""
     def ms(fn):
-        return cuda_ms(fn, reps=50, warmup=5, cold=cold)
+        return cuda_ms(fn, reps=reps, warmup=5, cold=cold)
 
     k1, l1 = ms(kern_fn), ms(lib_fn)
     l2, k2 = ms(lib_fn), ms(kern_fn)
@@ -379,20 +395,37 @@ def grad_err(got, want, dtype):
     return max(errs)
 
 
-def ball_query_scan(radii, ks, sup, ctr):
-    """Support points a first-K scan must visit, summed over centres: up to
-    the K-th hit of the radius that fills last, or all N where a ball does
-    not fill."""
+def ball_query_work(radii, ks, sup, ctr):
+    """What the ball query must scan on these inputs, summed over centres,
+    as (points a first-K scan visits: up to the K-th hit of the radius
+    that fills last, or all N where a ball does not fill; those of them in
+    128-point tiles whose bounding box the exact box test leaves within
+    reach of the centre).  Every hit lies in such a tile, so the second
+    count is the work of a first-K scan that skips what is provably out of
+    reach."""
     import torch
 
-    N = sup.shape[1]
+    B, N, _ = sup.shape
     d2 = ((ctr[:, :, None, :] - sup[:, None, :, :]) ** 2).sum(-1)  # (B, M, N)
     need = torch.zeros(d2.shape[:2], dtype=torch.int64, device=d2.device)
     for radius, K in zip(radii, ks):
         hits = (d2 < radius * radius).cumsum(-1)
         kth = torch.argmax((hits >= K).to(torch.uint8), dim=-1) + 1
         need = torch.maximum(need, torch.where(hits[..., -1] >= K, kth, N))
-    return int(need.sum())
+    del d2
+    n_tiles = -(-N // 128)
+    pad = n_tiles * 128 - N
+    lo = torch.nn.functional.pad(sup, (0, 0, 0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(sup, (0, 0, 0, pad), value=float("-inf"))
+    lo = lo.view(B, n_tiles, 128, 3).amin(2)[:, None]  # (B, 1, tiles, 3)
+    hi = hi.view(B, n_tiles, 128, 3).amax(2)[:, None]
+    c = ctr[:, :, None, :]
+    g = torch.where(lo > c, lo - c, torch.where(c > hi, c - hi, torch.zeros_like(c)))
+    lb = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
+    reach = ~(lb >= float(np.float32(max(radii) ** 2)))  # (B, M, tiles)
+    start = torch.arange(n_tiles, device=sup.device) * 128
+    in_tile = (need[..., None] - start).clamp(0, 128)  # of each tile, before the scan ends
+    return int(need.sum()), int((in_tile * reach).sum())
 
 
 def iou_pairs_needed(boxes):
@@ -406,10 +439,11 @@ def iou_pairs_needed(boxes):
     return int(torch.triu(meet, diagonal=1).sum())
 
 
-def check_kernels(dev):
+def check_kernels(dev, parent=None):
     """Phase 3: each kernel against its plain version at main-path shapes.
     Returns per kernel the largest error and, at its headline shape, the
-    times and the bound."""
+    times and the bound.  ``parent``: the FPS and ball-query wrappers of
+    another tree, timed in turns beside this tree's."""
     import torch
 
     from pdanet_tpu_torch.ops import attention, ball_query, nms, rotated_iou, sampling
@@ -434,6 +468,7 @@ def check_kernels(dev):
             line += f", SDPA {lib_ms:.4f} ms"
         print(line + f"; bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at "
               f"{100 * bnd[0] / kern_ms:.1f} % of it")
+        return kern_ms
 
     def idx_err(a, b):
         return (a.long() - b.long()).abs().max().item()
@@ -445,12 +480,15 @@ def check_kernels(dev):
         p_idx = sampling.farthest_point_sample_plain(xyz, 4096)
         require(torch.equal(k_idx, p_idx), f"FPS B={B} indices differ from the plain version")
         # per step and point: 3 sub, 3 mul, 2 add, the min and the argmax compare
-        record("fps", idx_err(k_idx, p_idx),
-               lambda: sampling.farthest_point_sample_cuda(xyz, 4096),
-               lambda: sampling.farthest_point_sample_plain(xyz, 4096),
-               B == 1, f"B={B} 16384->4096 equal",
-               bound(xyz.numel() * 4 + k_idx.numel() * 4, B * 4096 * N_POINTS * 10,
-                     F32_OPS_PER_S))
+        ms = record("fps", idx_err(k_idx, p_idx),
+                    lambda: sampling.farthest_point_sample_cuda(xyz, 4096),
+                    lambda: sampling.farthest_point_sample_plain(xyz, 4096),
+                    B == 1, f"B={B} 16384->4096 equal",
+                    bound(xyz.numel() * 4 + k_idx.numel() * 4, B * 4096 * N_POINTS * 10,
+                          F32_OPS_PER_S))
+        print(f"{'fps':27s} B={B} 16384->4096: {1e3 * ms / 4095:.4f} us per serial step, "
+              f"launch shape (cluster, threads, points per thread, chunk skip) "
+              f"{sampling.fps_config(N_POINTS)}")
 
         sa0_ctr = torch.gather(xyz, 1, k_idx.long()[..., None].expand(B, 4096, 3)).contiguous()
         sa1_ctr = sa0_ctr[:, :1024].contiguous()
@@ -462,17 +500,19 @@ def check_kernels(dev):
             want = ball_query.ball_query_multi_plain(radii, ks, sup, ctr)
             for g, w in zip(got, want):
                 require(torch.equal(g, w), f"ball query {label} B={B} differs from the plain version")
-            # per scanned point: the distance (3 sub, 3 mul, 2 add) and a
-            # compare per radius
-            scanned = ball_query_scan(radii, ks, sup, ctr)
+            # per point of a tile in reach, before the first-K scan ends:
+            # the distance (3 sub, 3 mul, 2 add) and a compare per radius
+            scan, in_reach = ball_query_work(radii, ks, sup, ctr)
             record("ball_query", max(idx_err(g, w) for g, w in zip(got, want)),
                    lambda: ball_query.ball_query_multi_cuda(radii, ks, sup, ctr),
                    lambda: ball_query.ball_query_multi_plain(radii, ks, sup, ctr),
                    B == 1 and label == "SA0",
-                   f"{label} B={B} N={sup.shape[1]} M={ctr.shape[1]} equal, "
-                   f"{scanned / ctr.shape[1] / B:.0f} points scanned per centre",
+                   f"{label} B={B} N={sup.shape[1]} M={ctr.shape[1]} equal, per centre "
+                   f"{scan / ctr.shape[1] / B:.0f} points in a first-K scan, "
+                   f"{in_reach / ctr.shape[1] / B:.0f} of them in tiles within reach",
                    bound((sup.numel() + ctr.numel() + sum(w.numel() for w in want)) * 4,
-                         scanned * (8 + len(radii)), F32_OPS_PER_S))
+                         in_reach * (8 + len(radii)), F32_OPS_PER_S))
+            print_ball_query_work(f"{label} B={B}", radii, ks, sup, ctr, (scan, in_reach))
 
         rs = np.random.RandomState(B)
         for label, M, hd in ATTN_SHAPES:
@@ -537,22 +577,11 @@ def check_kernels(dev):
                B == 1, f"B={B} K=256 equal, {int(k_keep.sum())} kept",
                bound(row_reads * 4 + valid.numel() + k_keep.numel(), row_reads, F32_OPS_PER_S))
 
-    # shapes off the KITTI path that the kernels take as well: FPS with
-    # the min-distance in global scratch (N > 32768) and with N not a
-    # multiple of the block, three radii up to K 64 (ONCE SA5), attention
-    # at K 64 (opt-in shared memory), K 8 and, in bfloat16, K and hd that
-    # pad to other tiles
-    cloud = torch.from_numpy(lidar_like_cloud(7, 1, 40000)[..., :3].copy()).to(dev)
-    for N, npoint in ((40000, 1024), (5000, 1000)):
-        xyz = cloud[:, :N].contiguous()
-        require(torch.equal(sampling.farthest_point_sample_cuda(xyz, npoint),
-                            sampling.farthest_point_sample_plain(xyz, npoint)),
-                f"FPS N={N} differs from the plain version")
-    ctr = cloud[:, ::40].contiguous()
-    radii, ks = (4.8, 8.4, 12.8), (16, 32, 64)
-    for g, w in zip(ball_query.ball_query_multi_cuda(radii, ks, cloud, ctr),
-                    ball_query.ball_query_multi_plain(radii, ks, cloud, ctr)):
-        require(torch.equal(g, w), f"ball query K={w.shape[-1]} differs from the plain version")
+    check_fps_ball_query(dev, parent)
+
+    # shapes off the KITTI path that the attention kernels take as well: K
+    # 64 (opt-in shared memory), K 8 and, in bfloat16, K and hd that pad to
+    # other tiles
     rs = np.random.RandomState(3)
     errs = []
     for K, hd in ATTN_OFF_PATH:
@@ -567,9 +596,327 @@ def check_kernels(dev):
             name = "neighbor_attention_bf16" if dt == torch.bfloat16 else "neighbor_attention"
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
             errs.append(f"K={K}/hd={hd} {str(dt)[6:]} {err:.3g}")
-    print("off-path shapes: FPS N=40000 and 5000 equal, ball query 3 radii K<=64 equal, "
-          "attention max abs err " + ", ".join(errs))
+    print("off-path shapes: attention max abs err " + ", ".join(errs))
     return stats
+
+
+def kernel_device_ms(fn, name, reps=20):
+    """Median device time of the kernels named ``name`` over ``reps`` runs
+    of ``fn`` under torch.profiler (the kernel alone, without the host's
+    launch gap that a CUDA-event time of a short call includes); None
+    when the profiler cannot trace the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without the kernels
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            return None
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if times:
+            return statistics.median(times)
+    return None
+
+
+def fmt_ms(ms):
+    return "not traced" if ms is None else f"{ms:.4f} ms"
+
+
+def print_ball_query_work(what, radii, ks, sup, ctr, work=None):
+    """The ball query's tile skip on these inputs: the share of (centre,
+    128-point tile) tests that proved the tile out of reach, the points the
+    kernel scanned beside those of ``ball_query_work`` (``work``, counted
+    here if not given), the bytes and operations bounds apart, and the
+    kernel's device time under the profiler."""
+    import torch
+
+    from pdanet_tpu_torch.ops import ball_query
+
+    st = torch.zeros(3, dtype=torch.int64, device=sup.device)
+    outs = ball_query.ball_query_multi_cuda(radii, ks, sup, ctr, stats=st)
+    tests, reach, tiles = st.tolist()
+    centres = ctr.shape[0] * ctr.shape[1]
+    scan, in_reach = ball_query_work(radii, ks, sup, ctr) if work is None else work
+    n_bytes = (sup.numel() + ctr.numel() + sum(o.numel() for o in outs)) * 4
+    n_ops = in_reach * (8 + len(radii))
+    dev_ms = kernel_device_ms(lambda: ball_query.ball_query_multi_cuda(radii, ks, sup, ctr),
+                              "ball_query_kernel")
+    print(f"{'ball_query':27s} {what}: {100 * (tests - reach) / max(tests, 1):.1f} % of "
+          f"{tests} (centre, tile) tests skipped; per centre the kernel scanned at most "
+          f"{128 * tiles / centres:.0f} points, a first-K scan visits {scan / centres:.0f}, "
+          f"{in_reach / centres:.0f} of them in tiles within reach; bytes bound "
+          f"{1e3 * n_bytes / HBM_BYTES_PER_S:.5f} ms, operations bound "
+          f"{1e3 * n_ops / F32_OPS_PER_S:.5f} ms; device time {fmt_ms(dev_ms)}")
+
+
+def shuffled(x, seed):
+    """``x`` (B, N, ...) with its points in a seeded random order."""
+    import torch
+
+    perm = torch.from_numpy(np.random.RandomState(seed).permutation(x.shape[1]))
+    return x[:, perm.to(x.device)].contiguous()
+
+
+def boundary_cloud(radii, seed=11):
+    """Support points at float32 distances around each radius: 16 centres
+    (0, 32 k, 0) and the points (+-d, 32 k, 0), so that d2 is fl(d * d)
+    with or without FMA contraction, for every float32 d within 3 ulps of
+    float32(r) and of float32(sqrt(float32(r * r))); with 64 seeded points
+    around each centre, all in a seeded order.  Returns numpy (1, N, 3),
+    (1, 16, 3).  The CPU tests (tests/test_torch_ops.py) take it from
+    here."""
+    rs = np.random.RandomState(seed)
+    ctr = np.zeros((16, 3), np.float32)
+    ctr[:, 1] = 32 * np.arange(16)
+    ds = set()
+    for r in radii:
+        for base in (np.float32(r), np.float32(np.sqrt(np.float32(r * r)))):
+            d = base
+            for _ in range(3):
+                d = np.nextafter(d, np.float32(0))
+            for _ in range(7):
+                ds.add(float(d))
+                d = np.nextafter(d, np.float32(np.inf))
+    ds = np.asarray(sorted(ds), np.float32)
+    rmax = max(radii)
+    pts = []
+    for c in ctr:
+        for sign in (1, -1):
+            p = np.repeat(c[None], len(ds), 0)
+            p[:, 0] = sign * ds
+            pts.append(p)
+        pts.append(c + rs.uniform(-rmax, rmax, (64, 3)).astype(np.float32))
+    sup = np.concatenate(pts).astype(np.float32)
+    return sup[rs.permutation(len(sup))][None], ctr[None]
+
+
+# FPS clouds that reach every instantiation of csrc/fps.cu the launch
+# shape of N picks, (N, npoint): 128 threads a CTA with 1, 2, 4, 8 and 16
+# points a thread (one CTA up to 2048 points, N = 100 below its width),
+# 16 at 4 CTAs (5000), 32 at 16 CTAs (40000, and ONCE's 60000 timed
+# apart); 256 threads with 32 points a thread (100000) and in global
+# memory (200000)
+FPS_SIZES = ((100, 64), (200, 150), (500, 400), (1000, 1000), (2000, 512), (5000, 1000),
+             (40000, 1024), (100000, 256), (200000, 64))
+
+
+def ball_query_shapes(xyz, idx):
+    """The ball query's main-path calls on frames ``xyz`` (B, 16384, 3)
+    with their D-FPS picks ``idx`` (B, 4096), as (label, support, centres,
+    radii, K): SA0 (the raw x-sorted cloud), SA1 and SA2 (FPS-ordered
+    supports), SA5 (vote centres around SA3's points)."""
+    import torch
+
+    B, dev = xyz.shape[0], xyz.device
+    sa0 = torch.gather(xyz, 1, idx.long()[..., None].expand(*idx.shape, 3)).contiguous()
+    rs = np.random.RandomState(30 + B)
+    sa2 = sa0[:, torch.from_numpy(rs.permutation(1024)[:512]).to(dev)].contiguous()
+    sa3 = sa2[:, :256].contiguous()
+    votes = sa3 + torch.from_numpy(rs.randn(B, 256, 3).astype(np.float32) * 0.3).to(dev)
+    return (("SA0", xyz, sa0, (0.2, 0.8), (16, 32)),
+            ("SA1", sa0, sa0[:, :1024].contiguous(), (0.8, 1.6), (16, 32)),
+            ("SA2", sa0[:, :1024].contiguous(), sa2, (1.6, 4.8), (16, 32)),
+            ("SA5", sa3, votes, (4.8, 6.4), (16, 32)))
+
+
+def check_fps_ball_query(dev, parent=None):
+    """Phase 3, FPS and the ball query beyond their headline shapes, each
+    held equal to its plain version: FPS at B = 1, 2, 4 (16384 -> 4096),
+    on ONCE's 60000 -> 16384 (timed), at every N of FPS_SIZES (every
+    instantiation the launch shape picks, N = 100 below one CTA's width),
+    on a shuffled cloud and on clouds whose duplicated points tie across
+    CTA slices; the ball query at the SA0, SA1, SA2 and SA5 shapes at B = 1
+    and 4, ONCE SA5's three radii, a shuffled support, shuffled centres
+    and points within 3 float32 ulps of each radius.  With ``parent``
+    (another tree's ``sampling`` and ``ball_query`` modules), each
+    main-path shape is timed in turns against it."""
+    import torch
+
+    from pdanet_tpu_torch.ops import ball_query, sampling
+
+    def fps_equal(what, xyz, npoint):
+        got = sampling.farthest_point_sample_cuda(xyz, npoint)
+        require(torch.equal(got, sampling.farthest_point_sample_plain(xyz, npoint)),
+                f"FPS {what} differs from the plain version")
+        return got
+
+    def bq_equal(what, radii, ks, sup, ctr):
+        got = ball_query.ball_query_multi_cuda(radii, ks, sup, ctr)
+        want = ball_query.ball_query_multi_plain(radii, ks, sup, ctr)
+        for g, w in zip(got, want):
+            require(torch.equal(g, w),
+                    f"ball query {what} K={w.shape[-1]} differs from the plain version")
+
+    def vs_parent(what, new_fn, old_fn, reps=50, device_name=None):
+        new_ms, old_ms = in_turns(new_fn, old_fn, reps=reps)
+        line = (f"parent against this tree, {what}: CUDA events parent {old_ms:.4f} ms, "
+                f"this tree {new_ms:.4f} ms ({old_ms / new_ms:.2f}x)")
+        if device_name:  # device time alone, in turns
+            a1, b1 = (kernel_device_ms(f, device_name) for f in (old_fn, new_fn))
+            b2, a2 = (kernel_device_ms(f, device_name) for f in (new_fn, old_fn))
+            if None not in (a1, a2, b1, b2):
+                old_dev, new_dev = (a1 + a2) / 2, (b1 + b2) / 2
+                line += (f"; device parent {old_dev:.4f} ms, this tree {new_dev:.4f} ms "
+                         f"({old_dev / new_dev:.2f}x)")
+        print(line)
+
+    def fps_fn(mod, xyz, npoint):
+        return lambda: mod.farthest_point_sample_cuda(xyz, npoint)
+
+    frames = {B: torch.from_numpy(lidar_like_cloud(B, B, N_POINTS)[..., :3].copy()).to(dev)
+              for B in (1, 2, 4)}
+    # FPS on the main path: b1 and b2 serving, B = 4 training
+    for B, xyz in frames.items():
+        fps_equal(f"B={B} 16384->4096", xyz, 4096)
+        ms = cuda_ms(fps_fn(sampling, xyz, 4096))
+        print(f"{'fps':27s} B={B} 16384->4096 equal: {ms:.4f} ms, {1e3 * ms / 4095:.4f} us per "
+              f"step, launch shape (cluster, threads, points per thread, chunk skip) "
+              f"{sampling.fps_config(N_POINTS)}")
+        if parent:
+            vs_parent(f"FPS B={B} 16384->4096", fps_fn(sampling, xyz, 4096),
+                      fps_fn(parent.sampling, xyz, 4096))
+
+    # off the KITTI path: ONCE's 60000 points, then every instantiation
+    once = torch.from_numpy(lidar_like_cloud(7, 1, 60000)[..., :3].copy()).to(dev)
+    once_idx = fps_equal("N=60000->16384", once, 16384)
+    ms = cuda_ms(fps_fn(sampling, once, 16384), reps=5)
+    print(f"{'fps':27s} ONCE N=60000->16384 equal: {ms:.4f} ms, {1e3 * ms / 16383:.4f} us per "
+          f"step, launch shape {sampling.fps_config(60000)}")
+    if parent:
+        vs_parent("FPS ONCE N=60000->16384", fps_fn(sampling, once, 16384),
+                  fps_fn(parent.sampling, once, 16384), reps=5)
+    big = torch.from_numpy(
+        np.random.RandomState(8).rand(1, 200000, 3).astype(np.float32) * 80).to(dev)
+    for N, npoint in FPS_SIZES:
+        fps_equal(f"N={N}->{npoint}", (once if N <= 60000 else big)[:, :N].contiguous(), npoint)
+    # cloud order and ties
+    xyz = frames[1]
+    fps_equal("shuffled cloud", shuffled(xyz, 21), 4096)
+    dup, half = xyz.clone(), xyz.shape[1] // 2
+    dup[:, half:2 * half] = shuffled(xyz[:, :half], 22)
+    fps_equal("every point twice, the copies in other CTAs' slices", dup, 4096)
+    fps_equal("1024 points repeated 16 times", xyz[:, :1024].repeat(1, 16, 1).contiguous(), 4096)
+    print(f"{'fps':27s} equal at (N, launch shape) "
+          + ", ".join(f"({n}, {sampling.fps_config(n)})" for n, _ in FPS_SIZES)
+          + ", on a shuffled cloud and on two clouds of duplicates")
+
+    # the ball query on the main path
+    for B in (1, 4):
+        xyz = frames[B]
+        idx = sampling.farthest_point_sample_cuda(xyz, 4096)
+        for label, sup, ctr, radii, ks in ball_query_shapes(xyz, idx):
+            what = f"{label} B={B} N={sup.shape[1]} M={ctr.shape[1]}"
+            bq_equal(what, radii, ks, sup, ctr)
+            print_ball_query_work(what + " equal", radii, ks, sup, ctr)
+            if parent:
+                vs_parent(f"ball query {what}",
+                          lambda: ball_query.ball_query_multi_cuda(radii, ks, sup, ctr),
+                          lambda: parent.ball_query.ball_query_multi_cuda(radii, ks, sup, ctr),
+                          device_name="ball_query_kernel")
+            if B == 1 and label == "SA0":
+                bq_equal("SA0 shuffled support", radii, ks, shuffled(sup, 23), ctr)
+                bq_equal("SA0 shuffled centres", radii, ks, sup, shuffled(ctr, 24))
+                print_ball_query_work("SA0 B=1 shuffled support", radii, ks, shuffled(sup, 23),
+                                      ctr)
+    # ONCE SA5: three radii up to K 64 around vote centres of SA3's 1024 points
+    sa3 = torch.gather(once, 1, once_idx[:, :1024].long()[..., None].expand(1, 1024, 3))
+    votes = sa3 + torch.from_numpy(
+        np.random.RandomState(25).randn(1, 1024, 3).astype(np.float32) * 0.3).to(dev)
+    radii, ks = (4.8, 8.4, 12.8), (16, 32, 64)
+    bq_equal("ONCE SA5", radii, ks, sa3.contiguous(), votes.contiguous())
+    print_ball_query_work("ONCE SA5 N=1024 M=1024 three radii equal", radii, ks,
+                          sa3.contiguous(), votes.contiguous())
+    bq_equal("three radii over the raw ONCE cloud", radii, ks, once, once[:, ::40].contiguous())
+    # points within 3 float32 ulps of each radius
+    for radii, ks in (((0.2, 0.8), (16, 32)), ((1.6, 4.8), (16, 32)),
+                      ((4.8, 8.4, 12.8), (16, 32, 64))):
+        sup, ctr = (torch.from_numpy(a).to(dev) for a in boundary_cloud(radii))
+        bq_equal(f"radii {radii} at the boundary", radii, ks, sup, ctr)
+    print(f"{'ball_query':27s} equal on a shuffled support, shuffled centres, ONCE's three "
+          f"radii and points within 3 ulps of each radius")
+
+
+FPS_SWEEP = ((4, 128), (4, 256), (8, 128), (8, 256), (16, 128), (16, 256))  # (cluster, threads)
+
+
+def sweep(dev):
+    """The launch-shape sweep behind the defaults of ``csrc/fps.cu``
+    ``config`` and ``csrc/ball_query.cu`` ``pick_cpw`` (``--sweep``, not
+    part of the check): FPS in every (cluster, threads) shape of FPS_SWEEP
+    with the chunk skip on and off, at b1 and B = 4 16384 -> 4096 and on
+    ONCE's 60000 -> 16384, under CUDA events; the ball query at 1 and 2
+    centres per warp at the SA0, SA1, SA2 and SA5 shapes, b1 and B = 4,
+    device time under the profiler.  Each forced shape is a build of its
+    one source with ``-D`` defines, all started together, run through the
+    port's wrappers; each result is held equal to the plain version."""
+    import concurrent.futures
+    import contextlib
+
+    import torch
+
+    from pdanet_tpu_torch.ops import ball_query, cuda_lib, sampling
+
+    fps_defs = {(C, T, S): (f"PDANET_FPS_CLUSTER={C}", f"PDANET_FPS_THREADS={T}",
+                            f"PDANET_FPS_SKIP={S}") for C, T in FPS_SWEEP for S in (1, 0)}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(fps_defs) + 2) as pool:
+        fps_jobs = {k: pool.submit(cuda_lib.build, ("fps.cu",), d) for k, d in fps_defs.items()}
+        bq_jobs = {c: pool.submit(cuda_lib.build, ("ball_query.cu",), (f"PDANET_BQ_CPW={c}",))
+                   for c in (1, 2)}
+        fps_libs = {k: cuda_lib.load(job.result()) for k, job in fps_jobs.items()}
+        bq_libs = {c: cuda_lib.load(job.result()) for c, job in bq_jobs.items()}
+    print(f"sweep: {len(fps_libs) + len(bq_libs)} builds in {time.perf_counter() - t0:.1f} s")
+
+    @contextlib.contextmanager
+    def using(lib):  # the wrappers call this build's kernel
+        saved = cuda_lib._lib
+        cuda_lib._lib = lib
+        try:
+            yield
+        finally:
+            cuda_lib._lib = saved
+
+    frames = {B: torch.from_numpy(lidar_like_cloud(B, B, N_POINTS)[..., :3].copy()).to(dev)
+              for B in (1, 4)}
+    once = torch.from_numpy(lidar_like_cloud(7, 1, 60000)[..., :3].copy()).to(dev)
+    for what, xyz, npoint, reps in (("b1 16384->4096", frames[1], 4096, 20),
+                                    ("B=4 16384->4096", frames[4], 4096, 10),
+                                    ("ONCE 60000->16384", once, 16384, 5)):
+        want = sampling.farthest_point_sample_plain(xyz, npoint)
+        rows = []
+        for (C, T, S), lib in fps_libs.items():
+            with using(lib):
+                def fn():
+                    return sampling.farthest_point_sample_cuda(xyz, npoint)
+                require(torch.equal(fn(), want), f"FPS {what} cluster {C} threads {T} skip {S} "
+                        f"differs from the plain version")
+                ms = cuda_ms(fn, reps=reps)
+                shape = sampling.fps_config(xyz.shape[1])
+            rows.append(f"C={C} T={T} P={shape[2]} skip {'on' if S else 'off'} {ms:.4f} ms "
+                        f"({1e3 * ms / (npoint - 1):.4f} us/step)")
+        print(f"sweep fps {what}, all equal (default {sampling.fps_config(xyz.shape[1])}): "
+              + "; ".join(rows))
+    for B, xyz in frames.items():
+        idx = sampling.farthest_point_sample_cuda(xyz, 4096)
+        for label, sup, ctr, radii, ks in ball_query_shapes(xyz, idx):
+            want = ball_query.ball_query_multi_plain(radii, ks, sup, ctr)
+            rows = []
+            for cpw, lib in bq_libs.items():
+                with using(lib):
+                    def fn():
+                        return ball_query.ball_query_multi_cuda(radii, ks, sup, ctr)
+                    require(all(torch.equal(g, w) for g, w in zip(fn(), want)),
+                            f"ball query {label} B={B} cpw {cpw} differs from the plain version")
+                    rows.append(f"cpw {cpw} {fmt_ms(kernel_device_ms(fn, 'ball_query_kernel'))}")
+            print(f"sweep ball_query {label} B={B} N={sup.shape[1]} M={ctr.shape[1]}, all equal, "
+                  f"device time: " + ", ".join(rows))
 
 
 def load_config():
@@ -1035,9 +1382,37 @@ def ptxas_report(log):
     return rows
 
 
+def load_parent(root):
+    """Another tree's ``pdanet_tpu_torch`` FPS and ball-query wrappers,
+    imported under another package name so that both trees run in this
+    process; its kernels build into that tree's own ``_build``."""
+    import importlib
+    import importlib.util
+    import types
+
+    name = "parent_pdanet_tpu_torch"
+    pkg = Path(root).resolve() / "pdanet_tpu_torch"
+    spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    importlib.import_module(f"{name}.ops.cuda_lib").lib()
+    return types.SimpleNamespace(sampling=importlib.import_module(f"{name}.ops.sampling"),
+                                 ball_query=importlib.import_module(f"{name}.ops.ball_query"))
+
+
 def main():
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="root of another checkout of the repository whose FPS "
+                    "and ball-query kernels phase 3 times in turns beside this tree's")
+    ap.add_argument("--sweep", action="store_true", help="time FPS and the ball query in the "
+                    "launch shapes their defaults were chosen from, instead of phases 3-7")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port is checked on a GPU only")
     sys.path.insert(0, str(ROOT))
@@ -1075,8 +1450,17 @@ def main():
               f"{lib.pdanet_neighbor_attention_bf16_occupancy(K, hd)}, backward "
               f"{lib.pdanet_neighbor_attention_bwd_bf16_occupancy(K, hd)}")
 
+    if args.sweep:
+        sweep(dev)
+        return
+
     # ---- 3.-7.
-    stats = check_kernels(dev)
+    parent = None
+    if args.parent:
+        t0 = time.perf_counter()
+        parent = load_parent(args.parent)
+        print(f"parent tree {args.parent}: kernel build {time.perf_counter() - t0:.1f} s")
+    stats = check_kernels(dev, parent)
     cfg = load_config()
     served, weights = serve(cfg, dev)
     compare_f32(cfg, weights, dev)

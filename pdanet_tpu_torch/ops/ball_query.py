@@ -74,8 +74,11 @@ def ball_query_multi_plain(radii, nsamples, xyz, new_xyz):
     return tuple(outs)
 
 
-def ball_query_multi_cuda(radii, nsamples, xyz, new_xyz):
-    """The kernel: one warp per centre (``csrc/ball_query.cu``)."""
+def ball_query_multi_cuda(radii, nsamples, xyz, new_xyz, stats=None):
+    """The kernel: one CTA per block of centres, the support staged
+    through shared memory, tiles out of reach skipped (``csrc/ball_query.cu``).
+    ``stats``, a (3,) int64 CUDA tensor, receives the (tile tests, tiles
+    within reach, tiles scanned) counts of the call added to it."""
     if len(radii) != len(nsamples) or not 1 <= len(radii) <= 4:
         raise ValueError("ball_query_multi: 1 to 4 radii, one K each")
     if xyz.dim() != 3 or xyz.shape[2] != 3 or new_xyz.dim() != 3 \
@@ -96,7 +99,9 @@ def ball_query_multi_cuda(radii, nsamples, xyz, new_xyz):
     code = lib.pdanet_ball_query(
         cuda_lib.ptr(xyz), cuda_lib.ptr(new_xyz), B, N, M, n,
         ctypes.cast(r2, ctypes.c_void_p), ctypes.cast(ks, ctypes.c_void_p),
-        ctypes.cast(ptrs, ctypes.c_void_p), cuda_lib.stream_handle(xyz.device),
+        ctypes.cast(ptrs, ctypes.c_void_p),
+        cuda_lib.ptr(stats) if stats is not None else None,
+        cuda_lib.stream_handle(xyz.device),
     )
     cuda_lib.check(code, "ball_query")
     cuda_lib.launches["ball_query"] += 1

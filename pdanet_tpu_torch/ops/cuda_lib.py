@@ -64,32 +64,36 @@ def _nvcc():
     )
 
 
-def _digest():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources, defines):
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *sources, *defines)).encode())
     for path in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build():
-    """Compile the kernels if no build of the current sources exists.
+def build(sources=SOURCES, defines=()):
+    """Compile ``sources`` (each ``-D`` of ``defines`` added) into one
+    library if no build of the current sources exists.
 
     Returns the path of the shared library.  Raises with the compiler's
-    output if ``nvcc`` fails.
+    output if ``nvcc`` fails.  The port loads the build of every source
+    with no defines; other builds are for measuring (``chip_smoke.py
+    --sweep``).
     """
     global build_log
-    out = BUILD_ROOT / _digest() / "libpdanet_kernels.so"
+    out = BUILD_ROOT / _digest(sources, defines) / "libpdanet_kernels.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
     nvcc = _nvcc()
     jobs = []
-    for src in SOURCES:
+    for src in sources:
         obj = out.parent / f"{Path(src).stem}.{tag}.o"
         log = obj.with_suffix(".log")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-c", "-o", str(obj),
+               str(CSRC / src)]
         with open(log, "w") as fh:
             proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
         jobs.append((cmd, proc, obj, log))
@@ -122,7 +126,8 @@ def _bind(lib):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "pdanet_fps": [vp, i32, i32, i32, vp, vp, vp],
-        "pdanet_ball_query": [vp, vp, i32, i32, i32, i32, vp, vp, vp, vp],
+        "pdanet_fps_config": [i32, vp],
+        "pdanet_ball_query": [vp, vp, i32, i32, i32, i32, vp, vp, vp, vp, vp],
         "pdanet_neighbor_attention": [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp],
         "pdanet_neighbor_attention_bwd": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                           i32, i32, vp],
@@ -135,10 +140,17 @@ def _bind(lib):
         "pdanet_nms_walk": [vp, vp, i32, i32, f32, vp, vp],
     }
     for name, args in sigs.items():
+        if not hasattr(lib, name):  # a build of some of the sources
+            continue
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+def load(path):
+    """The library at ``path`` (a ``build``), loaded and bound."""
+    return _bind(ctypes.CDLL(str(path)))
 
 
 def lib():
@@ -146,7 +158,7 @@ def lib():
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
+            _lib = load(build())
         return _lib
 
 

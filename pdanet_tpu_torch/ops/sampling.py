@@ -6,6 +6,8 @@ argmax with the lowest index on ties.  A CUDA tensor runs the kernel in
 ``csrc/fps.cu``; a CPU tensor runs :func:`farthest_point_sample_plain`.
 """
 
+import ctypes
+
 import torch
 
 from . import cuda_lib
@@ -40,21 +42,34 @@ def farthest_point_sample_plain(xyz, npoint):
     return idxs.to(torch.int32)
 
 
+def fps_config(N):
+    """The kernel's launch shape for N points: (cluster size, threads per
+    CTA, points per thread in registers -- 0 when the points and the
+    running distance live in global memory --, 1 if the chunk skip is on),
+    as ``csrc/fps.cu`` ``config`` picks it."""
+    cfg = (ctypes.c_int * 4)()
+    cuda_lib.lib().pdanet_fps_config(int(N), ctypes.cast(cfg, ctypes.c_void_p))
+    return tuple(cfg)
+
+
 def farthest_point_sample_cuda(xyz, npoint):
-    """The kernel: one CTA per frame (``csrc/fps.cu``)."""
+    """The kernel: one thread-block cluster per frame (``csrc/fps.cu``), in
+    the launch shape :func:`fps_config` gives.  A refused launch (no room
+    for the cluster) raises with its CUDA error."""
     if xyz.dim() != 3 or xyz.shape[2] != 3:
         raise ValueError(f"farthest_point_sample: xyz must be (B, N, 3), got {tuple(xyz.shape)}")
     cuda_lib.require_cuda("farthest_point_sample", xyz)
     B, N, _ = xyz.shape
-    soa = xyz.permute(0, 2, 1).contiguous()  # (B, 3, N) planes
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B == 0 or npoint == 0:
         return out
-    # min-distances live in registers up to 32768 points, else in scratch
+    if N == 0:
+        raise ValueError("farthest_point_sample: empty cloud")
+    soa = xyz.permute(0, 2, 1).contiguous()  # (B, 3, N) planes
+    # the running distance lives in registers unless the cloud is too large
     temp = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
-            if N > 32768 else None)
-    lib = cuda_lib.lib()
-    code = lib.pdanet_fps(
+            if fps_config(N)[2] == 0 else None)
+    code = cuda_lib.lib().pdanet_fps(
         cuda_lib.ptr(soa), B, N, npoint,
         cuda_lib.ptr(temp) if temp is not None else None,
         cuda_lib.ptr(out), cuda_lib.stream_handle(xyz.device),

@@ -16,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import ball_query_work, boundary_cloud
 from pdanet_tpu.ops import ball_query as jbq
 from pdanet_tpu.ops import nms as jnms
 from pdanet_tpu.ops import rotated_iou as jiou
@@ -23,7 +24,7 @@ from pdanet_tpu.ops import sampling as jsampling
 from pdanet_tpu.ops.grouping import gather_points as j_gather
 from pdanet_tpu.ops.grouping import group_points as j_group
 from pdanet_tpu_torch.ops import cuda_lib
-from pdanet_tpu_torch.ops.ball_query import ball_query, ball_query_multi
+from pdanet_tpu_torch.ops.ball_query import ball_query, ball_query_multi, ball_query_multi_cuda
 from pdanet_tpu_torch.ops.grouping import gather_points, group_points
 from pdanet_tpu_torch.ops.nms import (
     greedy_nms_mask_batched,
@@ -69,6 +70,108 @@ def test_fps_matches_xla(B, N, npoint, dups):
     got = farthest_point_sample(torch.from_numpy(xyz), npoint)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("B,N,npoint,layout", [
+    (1, 777, 100, "plain"),   # N not a multiple of 128
+    (2, 1000, 257, "plain"),
+    (1, 300, 300, "plain"),   # npoint = N
+    (2, 130, 130, "spread"),  # npoint = N with every point twice
+    (1, 640, 200, "spread"),  # duplicates over the whole index range
+    (1, 512, 512, "spread"),
+])
+def test_fps_edge_cases_match_xla(B, N, npoint, layout):
+    xyz = _cloud(N + 1, B, N)
+    if layout == "spread":
+        half = N // 2
+        xyz[:, half:2 * half] = xyz[:, :half]
+        xyz = np.ascontiguousarray(xyz[:, np.random.RandomState(N).permutation(N)])
+    want = np.asarray(jsampling._farthest_point_sample_xla(jnp.asarray(xyz), npoint))
+    got = farthest_point_sample(torch.from_numpy(xyz), npoint)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _lidar_like(seed, N, x_range=(0.0, 12.0), y_range=(-6.0, 6.0)):
+    """An x-sorted LiDAR-like frame (1, N, 3) on a small area: a ground
+    plane denser near the sensor, car-sized clusters and sparse returns in
+    the air, as the pipeline's sort_points step leaves SA0's support."""
+    rs = np.random.RandomState(seed)
+    n_ground, n_obj = int(N * 0.7), int(N * 0.2)
+    n_air = N - n_ground - n_obj
+    r = x_range[1] * np.sqrt(rs.rand(n_ground)) ** 1.4
+    th = rs.uniform(-0.8, 0.8, n_ground)
+    ground = np.stack([np.clip(r * np.cos(th), *x_range), np.clip(r * np.sin(th), *y_range),
+                       rs.normal(-1.7, 0.05, n_ground)], -1)
+    centers = np.stack([rs.uniform(2, 10, 4), rs.uniform(-4, 4, 4),
+                        rs.uniform(-1.2, -0.4, 4)], -1)
+    obj = centers[rs.randint(0, 4, n_obj)] + rs.randn(n_obj, 3) * np.array([1.0, 0.45, 0.35])
+    air = np.stack([rs.uniform(*x_range, n_air), rs.uniform(*y_range, n_air),
+                    rs.uniform(-1.0, 2.5, n_air)], -1)
+    pts = np.concatenate([ground, obj, air]).astype(np.float32)
+    return np.ascontiguousarray(pts[np.argsort(pts[:, 0], kind="stable")][None])
+
+
+def _assert_ball_query_matches_jax(radii, ks, xyz, centres):
+    want = jbq.ball_query_multi(radii, ks, jnp.asarray(xyz), jnp.asarray(centres))
+    got = ball_query_multi(radii, ks, torch.from_numpy(xyz), torch.from_numpy(centres))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    return got
+
+
+@pytest.mark.parametrize("N,M", [(2048, 512), (3000, 700)])
+def test_ball_query_sa0_lidar_like_matches_jax(N, M):
+    """SA0: D-FPS centres over an x-sorted LiDAR-like cloud, radii 0.2 /
+    0.8 m, K 16 / 32."""
+    xyz = _lidar_like(N, N)
+    picks = farthest_point_sample(torch.from_numpy(xyz), M).numpy().astype(np.int64)
+    centres = np.ascontiguousarray(np.take_along_axis(xyz, picks[..., None], 1))
+    got = _assert_ball_query_matches_jax((0.2, 0.8), (16, 32), xyz, centres)
+    filled = (got[1] != got[1][..., :1]).any(-1)
+    assert 0 < int(filled.sum()) < M  # some balls hold several points, some one
+
+
+@pytest.mark.parametrize("radii,ks", [
+    ((0.2, 0.8), (16, 32)),
+    ((1.6, 4.8), (16, 32)),
+    ((4.8, 8.4, 12.8), (16, 32, 64)),
+])
+def test_ball_query_radius_boundary_matches_jax(radii, ks):
+    """Points at float32(r), at d2 == float32(r * r) where a float32 d gives
+    it, and up to 3 ulps either side: the test is d2 < r2, strict."""
+    xyz, centres = boundary_cloud(radii)
+    _assert_ball_query_matches_jax(radii, ks, xyz, centres)
+
+
+@pytest.mark.parametrize("N,M,radii", [(2048, 256, (0.2, 0.8)), (1000, 100, (1.6, 4.8))])
+def test_ball_query_work_counts_every_tile_with_a_hit(N, M, radii):
+    """The work behind the ball query's bound in chip_smoke.py: with K = N
+    no ball fills, so a first-K scan visits all N points per centre, and
+    the tiles the box test keeps hold every hit; on an x-sorted cloud they
+    are fewer than all."""
+    xyz = torch.from_numpy(_lidar_like(N + 7, N))
+    centres = xyz[:, torch.from_numpy(np.random.RandomState(M).permutation(N)[:M])]
+    scan, in_reach = ball_query_work(radii, (N, N), xyz, centres)
+    d2 = ((centres[:, :, None, :] - xyz[:, None, :, :]) ** 2).sum(-1)
+    hit = d2 < float(np.float32(max(radii) ** 2))
+    n_tiles = -(-N // 128)
+    pad = torch.nn.functional.pad(hit, (0, n_tiles * 128 - N)).view(1, M, n_tiles, 128)
+    sizes = torch.full((n_tiles,), 128)
+    sizes[-1] = N - 128 * (n_tiles - 1)
+    with_hit = int((pad.any(-1) * sizes).sum())
+    assert scan == M * N
+    assert with_hit <= in_reach < scan
+
+
+@pytest.mark.parametrize("radii,ks,spread", [
+    ((4.8, 8.4, 12.8), (16, 32, 64), 8.0),  # ONCE SA5
+    ((0.5, 1.0, 2.0), (64, 8, 32), 1.5),
+])
+def test_ball_query_three_radii_matches_jax(radii, ks, spread):
+    rs = np.random.RandomState(len(ks) + int(spread))
+    xyz = (rs.randn(2, 500, 3) * spread).astype(np.float32)
+    centres = np.ascontiguousarray(xyz[:, ::5] + rs.randn(2, 100, 3).astype(np.float32))
+    _assert_ball_query_matches_jax(radii, ks, xyz, centres)
 
 
 @pytest.mark.parametrize("B,N,M,radii,ks,spread", [
@@ -207,3 +310,13 @@ def test_cpu_tensors_take_the_plain_versions():
         boxes_iou_bev_batched_self_cuda(boxes)
     with pytest.raises(ValueError):
         greedy_nms_mask_batched_cuda(iou, torch.ones(1, 8, dtype=torch.bool), 0.1)
+
+
+def test_ball_query_kernel_refuses_cpu_tensors():
+    """The ball-query kernel wrapper raises on a CPU tensor instead of
+    falling back to the plain version."""
+    xyz = torch.from_numpy(_cloud(3, 1, 64))
+    cuda_lib.launches.clear()
+    with pytest.raises(ValueError):
+        ball_query_multi_cuda((0.5,), (8,), xyz, xyz[:, :8].contiguous())
+    assert sum(cuda_lib.launches.values()) == 0
