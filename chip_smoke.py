@@ -6,9 +6,11 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-or with ``--parent DIR`` to time another checkout's FPS and ball query
-beside this tree's (phase 3), or with ``--sweep`` to time them in the
-launch shapes their defaults were chosen from (phases 1-2, then ``sweep``).
+or with ``--parent DIR`` to time another checkout's FPS, ball query and
+float32 attention (forward and backward) beside this tree's (phases 3 and
+6), or with ``--sweep`` to time FPS, the ball query and the float32
+attention in the launch shapes their defaults were chosen from (phases
+1-2, then ``sweep``).
 
 Phases, each of which raises on failure:
 
@@ -16,8 +18,9 @@ Phases, each of which raises on failure:
    TF32 off for the float32 comparisons.
 2. Build the hand-written kernels (``pdanet_tpu_torch/csrc``), one nvcc
    per source, all started together; print each kernel's registers,
-   shared memory and spills (``-Xptxas -v``) and the resident warps per SM
-   of the bfloat16 attention kernels at the main-path shapes.
+   shared memory and spills (``-Xptxas -v``; the 12 instantiations of the
+   float32 / float64 attention kernels must not spill) and the resident
+   warps per SM of the bfloat16 attention kernels at the main-path shapes.
 3. Each kernel against its plain PyTorch version on the card, at the
    KITTI main-path shapes, B = 1 and 2, on LiDAR-like x-sorted clouds:
    FPS, ball query and NMS equal; attention within 2e-5 (float32, SIMT
@@ -40,8 +43,9 @@ Phases, each of which raises on failure:
    radius, with the share of tiles its skip proved out of reach, its
    bytes and operations bounds apart and its device time under the
    profiler.  ``--parent DIR`` (another checkout, e.g. a ``git archive``
-   of the parent commit) times that tree's FPS and ball query in turns
-   beside this tree's at each of those main-path shapes.
+   of the parent commit) times that tree's FPS, ball query and float32
+   attention forward in turns beside this tree's at each of those
+   main-path shapes, under CUDA events and the profiler.
 4. Serve: PDA-SSD at the full width of tools/cfgs/kitti_models/PDA-SSD.yaml
    (bfloat16 compute as shipped, seeded random weights) answers three
    one-frame requests and one two-frame request through
@@ -50,7 +54,9 @@ Phases, each of which raises on failure:
 5. One frame in float32 on the card (kernels) against the same weights on
    the CPU (plain versions, the labelled reference): equal sampling and
    ball-query indices, centre features within 1e-3, logits within 2e-3,
-   equal detection counts.
+   equal detection counts.  Then a report, not a gate: phase 4's bfloat16
+   closure on the same frame against the float32 card detections, paired
+   by mutual nearest box centre with the same label.
 6. The attention backward kernels against the plain backward on the card,
    at the B = 4 training shapes of SA1 (hd 64) and SA2 (hd 128), K 16 and
    32, float32 (SIMT) and bfloat16 (tensor cores), with SDPA's autograd
@@ -59,7 +65,9 @@ Phases, each of which raises on failure:
    <= 5e-2 of the largest |gradient| in bfloat16 (and <= 1e-12 in float64
    at SA1 K 32).  The autograd Function on the card against the plain
    backward in float32 and in bfloat16, each through its kernel, and
-   ``torch.autograd.gradcheck`` of it on the card in float64.
+   ``torch.autograd.gradcheck`` of it on the card in float64.  With
+   ``--parent``, that tree's float32 backward timed in turns beside this
+   tree's at the B = 4 shapes.
 7. Train: PDA-SSD at full width, bfloat16 train compute as shipped, takes
    5 steps of the yaml's adam_onecycle on 4 LiDAR-like frames with gt
    boxes of the three classes on their clusters, through
@@ -442,8 +450,9 @@ def iou_pairs_needed(boxes):
 def check_kernels(dev, parent=None):
     """Phase 3: each kernel against its plain version at main-path shapes.
     Returns per kernel the largest error and, at its headline shape, the
-    times and the bound.  ``parent``: the FPS and ball-query wrappers of
-    another tree, timed in turns beside this tree's."""
+    times and the bound.  ``parent``: the FPS, ball-query and attention
+    wrappers of another tree, timed in turns beside this tree's (the
+    attention in float32, at every main-path shape)."""
     import torch
 
     from pdanet_tpu_torch.ops import attention, ball_query, nms, rotated_iou, sampling
@@ -540,6 +549,11 @@ def check_kernels(dev, parent=None):
                            lambda: attention.neighbor_attention_flat_cuda(q, k, v, K, 4, hd),
                            lambda: attention.neighbor_attention_flat_plain(q, k, v, K, 4, hd),
                            headline, what, attention_bound(R, K, 4, hd, dt), lib_call)
+                    if parent and dt == torch.float32:
+                        vs_parent(f"float32 attention {label} B={B} K={K} hd={hd}",
+                                  lambda: attention.neighbor_attention_flat_cuda(q, k, v, K, 4, hd),
+                                  lambda: parent.attention.neighbor_attention_flat_cuda(
+                                      q, k, v, K, 4, hd), device_name="attn_kernel")
                     if headline:
                         kern_cold, lib_cold = in_turns(
                             lambda: attention.neighbor_attention_flat_cuda(q, k, v, K, 4, hd),
@@ -627,6 +641,25 @@ def kernel_device_ms(fn, name, reps=20):
 
 def fmt_ms(ms):
     return "not traced" if ms is None else f"{ms:.4f} ms"
+
+
+def vs_parent(what, new_fn, old_fn, reps=50, device_name=None):
+    """Another tree's kernel (``old_fn``) and this tree's timed in turns
+    under CUDA events and, with ``device_name``, their device time alone
+    under the profiler, also in turns.  Returns (parent, this tree) CUDA-
+    event milliseconds."""
+    new_ms, old_ms = in_turns(new_fn, old_fn, reps=reps)
+    line = (f"parent against this tree, {what}: CUDA events parent {old_ms:.4f} ms, "
+            f"this tree {new_ms:.4f} ms ({old_ms / new_ms:.2f}x)")
+    if device_name:  # device time alone, in turns
+        a1, b1 = (kernel_device_ms(f, device_name) for f in (old_fn, new_fn))
+        b2, a2 = (kernel_device_ms(f, device_name) for f in (new_fn, old_fn))
+        if None not in (a1, a2, b1, b2):
+            old_dev, new_dev = (a1 + a2) / 2, (b1 + b2) / 2
+            line += (f"; device parent {old_dev:.4f} ms, this tree {new_dev:.4f} ms "
+                     f"({old_dev / new_dev:.2f}x)")
+    print(line)
+    return old_ms, new_ms
 
 
 def print_ball_query_work(what, radii, ks, sup, ctr, work=None):
@@ -754,19 +787,6 @@ def check_fps_ball_query(dev, parent=None):
             require(torch.equal(g, w),
                     f"ball query {what} K={w.shape[-1]} differs from the plain version")
 
-    def vs_parent(what, new_fn, old_fn, reps=50, device_name=None):
-        new_ms, old_ms = in_turns(new_fn, old_fn, reps=reps)
-        line = (f"parent against this tree, {what}: CUDA events parent {old_ms:.4f} ms, "
-                f"this tree {new_ms:.4f} ms ({old_ms / new_ms:.2f}x)")
-        if device_name:  # device time alone, in turns
-            a1, b1 = (kernel_device_ms(f, device_name) for f in (old_fn, new_fn))
-            b2, a2 = (kernel_device_ms(f, device_name) for f in (new_fn, old_fn))
-            if None not in (a1, a2, b1, b2):
-                old_dev, new_dev = (a1 + a2) / 2, (b1 + b2) / 2
-                line += (f"; device parent {old_dev:.4f} ms, this tree {new_dev:.4f} ms "
-                         f"({old_dev / new_dev:.2f}x)")
-        print(line)
-
     def fps_fn(mod, xyz, npoint):
         return lambda: mod.farthest_point_sample_cuda(xyz, npoint)
 
@@ -844,12 +864,16 @@ def check_fps_ball_query(dev, parent=None):
 
 
 FPS_SWEEP = ((4, 128), (4, 256), (8, 128), (8, 256), (16, 128), (16, 256))  # (cluster, threads)
+ATTN_WARPS = (2, 4, 8)  # warps a CTA of the float32 / float64 attention kernels
 
 
 def sweep(dev):
     """The launch-shape sweep behind the defaults of ``csrc/fps.cu``
-    ``config`` and ``csrc/ball_query.cu`` ``pick_cpw`` (``--sweep``, not
-    part of the check): FPS in every (cluster, threads) shape of FPS_SWEEP
+    ``config``, ``csrc/ball_query.cu`` ``pick_cpw`` and the attention
+    kernels' warps a CTA (``--sweep``, not part of the check): the float32
+    attention forward (B = 1, 2) and backward (B = 4) at the main-path
+    shapes with 2, 4 and 8 warps a CTA (``-DPDANET_ATTN_WARPS``), device
+    time under the profiler; FPS in every (cluster, threads) shape of FPS_SWEEP
     with the chunk skip on and off, at b1 and B = 4 16384 -> 4096 and on
     ONCE's 60000 -> 16384, under CUDA events; the ball query at 1 and 2
     centres per warp at the SA0, SA1, SA2 and SA5 shapes, b1 and B = 4,
@@ -866,13 +890,18 @@ def sweep(dev):
     fps_defs = {(C, T, S): (f"PDANET_FPS_CLUSTER={C}", f"PDANET_FPS_THREADS={T}",
                             f"PDANET_FPS_SKIP={S}") for C, T in FPS_SWEEP for S in (1, 0)}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(fps_defs) + 2) as pool:
+    attn_srcs = ("neighbor_attention.cu", "neighbor_attention_bwd.cu")
+    with concurrent.futures.ThreadPoolExecutor(len(fps_defs) + 5) as pool:
         fps_jobs = {k: pool.submit(cuda_lib.build, ("fps.cu",), d) for k, d in fps_defs.items()}
         bq_jobs = {c: pool.submit(cuda_lib.build, ("ball_query.cu",), (f"PDANET_BQ_CPW={c}",))
                    for c in (1, 2)}
+        attn_jobs = {n: pool.submit(cuda_lib.build, attn_srcs, (f"PDANET_ATTN_WARPS={n}",))
+                     for n in ATTN_WARPS}
         fps_libs = {k: cuda_lib.load(job.result()) for k, job in fps_jobs.items()}
         bq_libs = {c: cuda_lib.load(job.result()) for c, job in bq_jobs.items()}
-    print(f"sweep: {len(fps_libs) + len(bq_libs)} builds in {time.perf_counter() - t0:.1f} s")
+        attn_libs = {n: cuda_lib.load(job.result()) for n, job in attn_jobs.items()}
+    print(f"sweep: {len(fps_libs) + len(bq_libs) + len(attn_libs)} builds in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     @contextlib.contextmanager
     def using(lib):  # the wrappers call this build's kernel
@@ -918,6 +947,32 @@ def sweep(dev):
             print(f"sweep ball_query {label} B={B} N={sup.shape[1]} M={ctr.shape[1]}, all equal, "
                   f"device time: " + ", ".join(rows))
 
+    # the float32 attention kernels at 2, 4 and 8 warps a CTA
+    from pdanet_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for label, M, hd in ATTN_SHAPES:
+        for K in (16, 32):
+            for bwd, B in ((False, 1), (False, 2), (True, 4)):
+                ts = [torch.randn(B * M * K, 4 * hd, generator=gen, device=dev) for _ in range(4)]
+                if bwd:
+                    def fn():
+                        return attention.neighbor_attention_flat_bwd_cuda(*ts, K, 4, hd)
+                    want = attention.neighbor_attention_flat_bwd_plain(*ts, K, 4, hd)
+                else:
+                    def fn():
+                        return (attention.neighbor_attention_flat_cuda(*ts[:3], K, 4, hd),)
+                    want = (attention.neighbor_attention_flat_plain(*ts[:3], K, 4, hd),)
+                rows = []
+                for n, lib in attn_libs.items():
+                    with using(lib):
+                        err = max((g - w).abs().max().item() for g, w in zip(fn(), want))
+                        require(err <= 2e-5, f"attention {label} K={K} {n} warps: err {err}")
+                        rows.append(f"{n} warps {fmt_ms(kernel_device_ms(fn, 'attn_'))}")
+                print(f"sweep float32 attention {'backward' if bwd else 'forward'} {label} B={B} "
+                      f"K={K} hd={hd}, within 2e-5, device time: " + ", ".join(rows))
+
+
 
 def load_config():
     from pdanet_tpu_torch.config import cfg_from_yaml_file
@@ -927,8 +982,8 @@ def load_config():
 
 def serve(cfg, dev):
     """Phase 4: serve three one-frame requests and one two-frame request
-    through the serving closure.  Returns the launch counts of that run
-    and a copy of the model's seeded weights."""
+    through the serving closure.  Returns the launch counts of that run,
+    a copy of the model's seeded weights and the closure."""
     import torch
 
     from pdanet_tpu_torch.models import build_network
@@ -967,12 +1022,39 @@ def serve(cfg, dev):
                 device_split(lambda: predict({"points": requests[0]})))
     for name in SERVE_KERNELS:
         require(launches.get(name, 0) > 0, f"kernel {name} never launched on the main path")
-    return launches, weights
+    return launches, weights, predict
 
 
-def compare_f32(cfg, weights, dev):
+def match_detections(a, b):
+    """Detections of one frame from two runs (``pred_*`` dicts at B = 1)
+    paired by mutual nearest box centre among boxes of the same label.
+    Returns (pairs, count in a, count in b, largest centre distance and
+    largest score difference over the pairs)."""
+    import torch
+
+    def dets(r):
+        n = int(r["pred_counts"][0])
+        return (r["pred_boxes"][0, :n, :3].double().cpu(), r["pred_labels"][0, :n].cpu(),
+                r["pred_scores"][0, :n].double().cpu())
+
+    (ca, la, sa), (cb, lb, sb) = dets(a), dets(b)
+    if not len(ca) or not len(cb):
+        return 0, len(ca), len(cb), 0.0, 0.0
+    d = torch.cdist(ca, cb)
+    d[la[:, None] != lb[None, :]] = float("inf")
+    near_b, near_a = d.argmin(1), d.argmin(0)
+    pairs = [(i, int(j)) for i, j in enumerate(near_b)
+             if torch.isfinite(d[i, j]) and int(near_a[j]) == i]
+    gap_c = max((d[i, j].item() for i, j in pairs), default=0.0)
+    gap_s = max(((sa[i] - sb[j]).abs().item() for i, j in pairs), default=0.0)
+    return len(pairs), len(ca), len(cb), gap_c, gap_s
+
+
+def compare_f32(cfg, weights, dev, predict_bf16):
     """Phase 5: one frame in float32 on the card (kernels) against the
-    same weights on the CPU (plain versions, the reference)."""
+    same weights on the CPU (plain versions, the reference); and a report
+    (no gate) of the shipped bfloat16 serving closure's detections on the
+    same frame against the float32 card run's."""
     import torch
 
     from pdanet_tpu_torch.models import build_network
@@ -1023,12 +1105,23 @@ def compare_f32(cfg, weights, dev):
     require(torch.equal(g_post["pred_counts"].cpu(), c_post["pred_counts"]),
             "detection counts differ card vs CPU")
 
+    # the shipped dtype: phase 4's bfloat16 closure on the same frame and
+    # weights.  A report, not a gate: with seeded random weights no bar is
+    # justified yet.
+    bf = predict_bf16({"points": torch.from_numpy(frame).to(dev)})
+    pairs, n_bf, n_f32, gap_c, gap_s = match_detections(bf, g_post)
+    print(f"bfloat16 frame against the float32 frame on the card (report, no gate): "
+          f"{n_bf} and {n_f32} detections, {pairs} paired by mutual nearest centre with the "
+          f"same label ({100 * pairs / max(n_bf, n_f32, 1):.1f} % of the larger set); largest "
+          f"centre distance {gap_c:.4g} m, largest score difference {gap_s:.4g}")
 
-def check_attention_bwd(dev, stats):
+
+def check_attention_bwd(dev, stats, parent=None):
     """Phase 6: the attention backward kernels against the plain backward
     at the B = 4 training shapes and off the path, with SDPA's backward
     timed beside them; the autograd Function on the card against the plain
-    backward."""
+    backward.  ``parent``: another tree's wrappers, whose float32 backward
+    is timed in turns beside this tree's at the B = 4 shapes."""
     import torch
 
     from pdanet_tpu_torch.ops import attention, cuda_lib
@@ -1070,6 +1163,11 @@ def check_attention_bwd(dev, stats):
             line += (f" (SDPA {lib_err:.3g}); kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"SDPA {lib_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at "
                      f"{100 * bnd[0] / kern_ms:.1f} % of it")
+            if parent and dt == torch.float32:
+                vs_parent(f"float32 attention backward {label} K={K} hd={hd}",
+                          lambda: attention.neighbor_attention_flat_bwd_cuda(q, k, v, do, K, 4, hd),
+                          lambda: parent.attention.neighbor_attention_flat_bwd_cuda(
+                              q, k, v, do, K, 4, hd), device_name="attn_bwd_kernel")
             if label.startswith("SA1") and K == 32:
                 st.update(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
                           bound_by=bnd[1])
@@ -1366,11 +1464,13 @@ def ptxas_report(log):
                 parts.append(rest[len(n):len(n) + int(n)])
                 rest = rest[len(n) + int(n):]
             name = parts[-1] if parts else m.group(1)
-            t = re.match(r"I((?:Li\d+E)+)E", rest)  # integer template arguments
+            t = re.match(r"I((?:[fd]|Li\d+E)+)E", rest)  # float, double, integers
             if t:
-                name += "<" + ",".join(re.findall(r"Li(\d+)E", t.group(1))) + ">"
+                args = re.findall(r"Li(\d+)E|([fd])", t.group(1))
+                name += "<" + ",".join(n or {"f": "float", "d": "double"}[c]
+                                       for n, c in args) + ">"
             elif rest.startswith("I"):
-                name += "<" + {"f": "float", "d": "double"}.get(rest[1:2], rest[1:2]) + ">"
+                name += "<" + rest[1:2] + ">"
             rows.append([name, 0, 0, 0])
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and rows:
@@ -1383,7 +1483,7 @@ def ptxas_report(log):
 
 
 def load_parent(root):
-    """Another tree's ``pdanet_tpu_torch`` FPS and ball-query wrappers,
+    """Another tree's ``pdanet_tpu_torch`` FPS, ball-query and attention wrappers,
     imported under another package name so that both trees run in this
     process; its kernels build into that tree's own ``_build``."""
     import importlib
@@ -1399,7 +1499,8 @@ def load_parent(root):
     spec.loader.exec_module(module)
     importlib.import_module(f"{name}.ops.cuda_lib").lib()
     return types.SimpleNamespace(sampling=importlib.import_module(f"{name}.ops.sampling"),
-                                 ball_query=importlib.import_module(f"{name}.ops.ball_query"))
+                                 ball_query=importlib.import_module(f"{name}.ops.ball_query"),
+                                 attention=importlib.import_module(f"{name}.ops.attention"))
 
 
 def main():
@@ -1408,8 +1509,9 @@ def main():
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="root of another checkout of the repository whose FPS "
-                    "and ball-query kernels phase 3 times in turns beside this tree's")
+    ap.add_argument("--parent", help="root of another checkout of the repository whose FPS, "
+                    "ball-query and float32 attention kernels phases 3 and 6 time in turns "
+                    "beside this tree's")
     ap.add_argument("--sweep", action="store_true", help="time FPS and the ball query in the "
                     "launch shapes their defaults were chosen from, instead of phases 3-7")
     args = ap.parse_args()
@@ -1433,8 +1535,10 @@ def main():
     lib = cuda_lib.lib()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s, {len(cuda_lib.SOURCES)} sources "
           f"in parallel")
-    mma = []
+    mma, simt = [], []
     for name, regs, smem, spill in ptxas_report(cuda_lib.build_log):
+        if name.split("<")[0] in ("attn_kernel", "attn_bwd_kernel"):
+            simt.append((name, spill))
         if "_mma<" in name:
             mma.append((name, regs, spill))
             if not any(f"<{kp},{hd}>" in name for kp in (16, 32) for hd in (64, 128)):
@@ -1445,6 +1549,8 @@ def main():
         print(f"  ptxas: {len(mma)} tensor-core attention instantiations (K 16-64 x hd 16-128): "
               f"at most {max(r for _, r, _ in mma)} registers, "
               f"{sum(s for _, _, s in mma)} bytes spilled in all")
+    require(len(simt) == 12 and not any(sp for _, sp in simt),
+            f"the float32 / float64 attention instantiations spill or are missing: {simt}")
     for K, hd in ((16, 64), (32, 64), (16, 128), (32, 128), (64, 128)):
         print(f"  bfloat16 attention K={K} hd={hd}: one-warp CTAs resident per SM, forward "
               f"{lib.pdanet_neighbor_attention_bf16_occupancy(K, hd)}, backward "
@@ -1462,9 +1568,9 @@ def main():
         print(f"parent tree {args.parent}: kernel build {time.perf_counter() - t0:.1f} s")
     stats = check_kernels(dev, parent)
     cfg = load_config()
-    served, weights = serve(cfg, dev)
-    compare_f32(cfg, weights, dev)
-    check_attention_bwd(dev, stats)
+    served, weights, predict = serve(cfg, dev)
+    compare_f32(cfg, weights, dev, predict)
+    check_attention_bwd(dev, stats, parent)
     trained = train(cfg, weights, dev)
     compare_train(cfg, weights, dev)
 

@@ -13,25 +13,41 @@
 // forward is o = softmax(s q k^T) v per centre and head, s = 1/sqrt(hd).
 // The softmax is recomputed (nothing is kept from the forward), then
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - rowsum(dP * P)),
-//   dQ = s dS K,  dK = s dS^T Q.
-// All sums are in the input type.
+//   dQ = s dS K,  dK = s dS^T Q  (as dS^T (s Q)).
+// All sums are in the input type, each FMA chain in d, j or i order.
 //
-// What bounds it on the H100: it reads 4 and writes 3 (R, H*hd) tensors
-// and does 5 * K * hd multiply-adds per (row, head) -- about K/3 flops per
-// byte in float32, so at the shipped K = 16/32 it sits near the memory /
-// shared-memory bound, not the FMA rate: 7 * 131072 * 256 * 4 bytes =
-// 940 MB at SA1 B=4 K 32 in float32, 0.280 ms at 3.35 TB/s.  The TPU
-// kernel's 128-row block-diagonal masking and 128-lane head panels exist
-// for the MXU and have no purpose here.
-// Design: one block per (centre, head), as in the forward.  It stages q
-// (scaled by s), k, v and dO as K x hd tiles of the sum type in shared memory
-// (rows padded to hd + 1 so that a column walk hits distinct banks), and
-// P and dP / dS as K x K tiles (rows padded to K + 1).  Each block owns
-// its rows of dq, dk and dv, so there are no atomics and the result is
-// deterministic.  At K 64 / hd 128 the float32 tiles take 165 KB, above
-// the 48 KB default, so the launch opts in to the larger dynamic shared
-// memory (float64 tiles take twice that and fit up to K 32 / hd 128).
-// Any K <= 64 and hd <= 128 run.
+// What bounds it on the H100: bytes.  It reads 4 and writes 3 (R, H*hd)
+// tensors and does 5 K multiply-adds per element of one tensor: 7 *
+// 131072 * 256 * 4 bytes = 940 MB at SA1 B=4 K 32 in float32, 0.280 ms at
+// 3.35 TB/s, against 0.16 ms of float32 FMAs.  The TPU kernel's 128-row
+// block-diagonal masking and 128-lane head panels exist for the MXU and
+// have no purpose here.
+//
+// Design, as in the forward (neighbor_attention.cu): a CTA of kWarps = 4
+// warps per group of units (two at K <= 16, one per half-warp), q, k, v
+// and dO tiles brought by cp.async, the operand that differs per lane in
+// registers and the one a warp shares as broadcast 16-byte loads.
+// - The CTA scales the q tiles by s in place.
+// - Row phase: lane i owns row i (and i + 32 at K > 32), warp w the
+//   columns j = w, w + 4, ...  In one walk over d the lane forms S[i][j]
+//   and dP[i][j] from register chunks of (s q)[i] and dO[i] against
+//   broadcast k[j] and v[j].  Softmax and the row dot rowsum(dP * P) take
+//   the four warps' partials through a small shared array.  P and dS go
+//   to two K x (K + 1) tiles.
+// - dQ[i] = s sum_j dS[i][j] k[j], warp w taking the 16-byte column
+//   chunks w, w + 4, ...: dS[i][j] at lane-distinct addresses, k broadcast;
+//   staged in the v tile (free after dP) and written with coalesced stores.
+// - Column phase: lane j owns column j, warp w the same column chunks:
+//   dV[j] = sum_i P[i][j] dO[i] and dK[j] = sum_i dS[i][j] (s q)[i], P and
+//   dS at lane-distinct addresses, dO[i] and (s q)[i] broadcast; dK into the
+//   k tile, dV into the v tile, then written with coalesced stores.
+// Each unit owns its rows of dq, dk and dv: no atomics, deterministic.
+// Shared memory per unit: 4 K LD + 2 K (K + 1) elements (43 KB at K 32 /
+// hd 64 in float32, 165 KB at K 64 / hd 128; the row partials live in
+// the dS tile until dS is formed); float64 takes every shape whose tiles
+// fit in 227 KB (all of K <= 32 with hd <= 128).  Any K <= 64 and hd <= 128 run in float32.
+
+#include <cmath>
 
 #include "attention_common.cuh"
 
@@ -39,120 +55,301 @@ namespace {
 
 using namespace pdanet_attn;
 
-constexpr int kThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
-                T* __restrict__ dv, int K, int H, int hd, double scale_d) {
-  using C = typename Acc<T>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  C* sm = reinterpret_cast<C*>(smem_raw);
-  const C scale = static_cast<C>(scale_d);
-  const int ld = hd + 1;
-  const int lp = K + 1;
-  C* qs = sm;             // s * q, K x ld
-  C* ks = qs + K * ld;    // k
-  C* vs = ks + K * ld;    // v
-  C* dos = vs + K * ld;   // dO
-  C* ps = dos + K * ld;   // P, K x lp
-  C* dps = ps + K * lp;   // dP, then dS
-  const int c = blockIdx.x / H;
-  const int h = blockIdx.x - c * H;
-  const int D = H * hd;
-  const size_t row0 = (size_t)c * K;
-  const int col0 = h * hd;
-  const int tid = threadIdx.x;
-
-  for (int e = tid; e < K * hd; e += kThreads) {
-    const int r = e / hd;
-    const int d = e - r * hd;
-    const size_t gi = (row0 + r) * D + col0 + d;
-    qs[r * ld + d] = mul_rn(load_c(q[gi]), scale);
-    ks[r * ld + d] = load_c(k[gi]);
-    vs[r * ld + d] = load_c(v[gi]);
-    dos[r * ld + d] = load_c(dout[gi]);
+// One unit's tiles: q (scaled in place), k, v, dO (K x ld), then P and dS
+// (K x (K + 1), each rounded up to W).  Until dS is formed, its tile holds
+// the kWarps x K row partials (max, sum, dot), so it takes at least 4 K.
+template <typename C>
+struct Tiles {
+  C *q, *k, *v, *dout, *p, *ds;
+  static __host__ __device__ __forceinline__ int square(int K) {
+    return (K * (K + 1) + Vec<C>::W - 1) / Vec<C>::W * Vec<C>::W;
   }
-  __syncthreads();
-
-  // scores S = (s q) k^T and dP = dO v^T, one (i, j) pair per step
-  for (int e = tid; e < K * K; e += kThreads) {
-    const int i = e / K;
-    const int j = e - i * K;
-    C s = 0, dp = 0;
-    for (int d = 0; d < hd; ++d) {
-      s = fma_rn(qs[i * ld + d], ks[j * ld + d], s);
-      dp = fma_rn(dos[i * ld + d], vs[j * ld + d], dp);
-    }
-    ps[i * lp + j] = s;
-    dps[i * lp + j] = dp;
+  static __host__ __device__ __forceinline__ int ds_elems(int K) {
+    return square(K) > kWarps * K ? square(K) : kWarps * K;
   }
-  __syncthreads();
-
-  // per row, one warp: P = softmax(S), then dS = P * (dP - sum_j dP P)
-  const int lane = tid & 31;
-  for (int i = tid >> 5; i < K; i += kThreads / 32) {
-    C* prow = ps + i * lp;
-    C* drow = dps + i * lp;
-    C m = static_cast<C>(-CUDART_INF);
-    for (int j = lane; j < K; j += 32) m = max_c(m, prow[j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = max_c(m, __shfl_xor_sync(0xffffffffu, m, off));
-    C sum = 0;
-    for (int j = lane; j < K; j += 32) {
-      const C ex = exp_c(prow[j] - m);
-      prow[j] = ex;
-      sum += ex;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    C dot = 0;
-    for (int j = lane; j < K; j += 32) {
-      const C p = div_rn(prow[j], sum);
-      prow[j] = p;
-      dot = fma_rn(drow[j], p, dot);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    for (int j = lane; j < K; j += 32) drow[j] = mul_rn(prow[j], sub_rn(drow[j], dot));
+  static __host__ __device__ __forceinline__ size_t elems(int K, int ld) {
+    return (size_t)4 * K * ld + square(K) + ds_elems(K);
   }
-  __syncthreads();
+  __device__ __forceinline__ Tiles(C* base, int K, int ld) {
+    const int tile = K * ld;
+    q = base;
+    k = q + tile;
+    v = k + tile;
+    dout = v + tile;
+    p = dout + tile;
+    ds = p + square(K);
+  }
+};
 
-  // dV[j] = sum_i P[i][j] dO[i];  dQ[i] = s sum_j dS[i][j] k[j];
-  // dK[j] = sum_i dS[i][j] (s q)[i]
-  for (int e = tid; e < K * hd; e += kThreads) {
-    const int r = e / hd;
-    const int d = e - r * hd;
-    C acc_v = 0, acc_q = 0, acc_k = 0;
-    for (int t = 0; t < K; ++t) {
-      acc_v = fma_rn(ps[t * lp + r], dos[t * ld + d], acc_v);
-      acc_q = fma_rn(dps[r * lp + t], ks[t * ld + d], acc_q);
-      acc_k = fma_rn(dps[t * lp + r], qs[t * ld + d], acc_k);
+template <typename C, int KMAX>
+__host__ __device__ __forceinline__ size_t cta_elems(int K, int ld) {
+  return Split<KMAX>::UPC * Tiles<C>::elems(K, ld);
+}
+
+// sc[t] = (s q)[i] . k[j] and dp[t] = dO[i] . v[j] for this warp's columns
+// j = w + kWarps t < K, in one walk over d.
+template <typename C, int JPT>
+__device__ __forceinline__ void scores_dp_row(C (&sc)[JPT], C (&dp)[JPT], const Tiles<C>& t,
+                                              int i, int w, int K, int hdp, int ld) {
+  constexpr int W = Vec<C>::W, DC = Vec<C>::DC;
+#pragma unroll
+  for (int n = 0; n < JPT; ++n) sc[n] = dp[n] = 0;
+  for (int d0 = 0; d0 < hdp; d0 += DC) {
+    C qr[DC], dr[DC];
+#pragma unroll
+    for (int c = 0; c < DC; c += W)
+      if (d0 + c < hdp) {
+        ld16(qr + c, t.q + i * ld + d0 + c);
+        ld16(dr + c, t.dout + i * ld + d0 + c);
+      }
+#pragma unroll
+    for (int n = 0; n < JPT; ++n) {
+      const int j = w + kWarps * n;
+      if (j < K) {
+#pragma unroll
+        for (int c = 0; c < DC; c += W)
+          if (d0 + c < hdp) {
+            C kv[W], vv[W];
+            ld16(kv, t.k + j * ld + d0 + c);
+            ld16(vv, t.v + j * ld + d0 + c);
+#pragma unroll
+            for (int e = 0; e < W; ++e) {
+              sc[n] = fma_rn(qr[c + e], kv[e], sc[n]);
+              dp[n] = fma_rn(dr[c + e], vv[e], dp[n]);
+            }
+          }
+      }
     }
-    const size_t gi = (row0 + r) * D + col0 + d;
-    store_c(dv + gi, acc_v);
-    store_c(dq + gi, mul_rn(acc_q, scale));
-    store_c(dk + gi, acc_k);
   }
 }
 
-template <typename T>
+// Column phase for column j: dV[j] into row j of the v tile and dK[j] into
+// row j of the k tile, this warp's column chunks.
+template <typename C>
+__device__ __forceinline__ void col_dk_dv(const Tiles<C>& t, int j, int w, int K, int hdp,
+                                          int ld) {
+  constexpr int W = Vec<C>::W, G = Vec<C>::DC / W;
+  const int nch = hdp / W;
+  for (int t0 = 0; w + kWarps * t0 < nch; t0 += G) {
+    C av[G][W], ak[G][W];
+#pragma unroll
+    for (int n = 0; n < G; ++n)
+#pragma unroll
+      for (int e = 0; e < W; ++e) av[n][e] = ak[n][e] = 0;
+    for (int i = 0; i < K; ++i) {
+      const C pij = t.p[i * (K + 1) + j];
+      const C dsij = t.ds[i * (K + 1) + j];
+#pragma unroll
+      for (int n = 0; n < G; ++n) {
+        const int ch = w + kWarps * (t0 + n);
+        if (ch < nch) {
+          C ov[W], qv[W];
+          ld16(ov, t.dout + i * ld + ch * W);
+          ld16(qv, t.q + i * ld + ch * W);
+#pragma unroll
+          for (int e = 0; e < W; ++e) {
+            av[n][e] = fma_rn(pij, ov[e], av[n][e]);
+            ak[n][e] = fma_rn(dsij, qv[e], ak[n][e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < G; ++n) {
+      const int ch = w + kWarps * (t0 + n);
+      if (ch < nch) {
+        st16(t.v + j * ld + ch * W, av[n]);
+        st16(t.k + j * ld + ch * W, ak[n]);
+      }
+    }
+  }
+}
+
+template <typename C, int KMAX>
+__global__ void __launch_bounds__(32 * kWarps)
+attn_bwd_kernel(const C* __restrict__ q, const C* __restrict__ k, const C* __restrict__ v,
+                const C* __restrict__ dout, C* __restrict__ dq, C* __restrict__ dk,
+                C* __restrict__ dv, int K, int H, int hd, int ld, int units, int vec, C scale) {
+  using S = Split<KMAX>;
+  constexpr int W = Vec<C>::W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* sm = reinterpret_cast<C*>(smem_raw);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const size_t ue = Tiles<C>::elems(K, ld);
+  const int hdp = (hd + W - 1) / W * W;
+  const int g = blockIdx.x;
+#pragma unroll
+  for (int uu = 0; uu < S::UPC; ++uu) {
+    const int unit = g * S::UPC + uu;
+    if (unit < units) {
+      const Tiles<C> t(sm + uu * ue, K, ld);
+      load_tile(t.q, q, unit, K, H, hd, ld, vec, tid);
+      load_tile(t.k, k, unit, K, H, hd, ld, vec, tid);
+      load_tile(t.v, v, unit, K, H, hd, ld, vec, tid);
+      load_tile(t.dout, dout, unit, K, H, hd, ld, vec, tid);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int uu = 0; uu < S::UPC; ++uu) {  // q -> s q, pad columns stay 0
+    C* qt = sm + uu * ue;
+    for (int idx = tid; idx < K * hdp; idx += 32 * kWarps) {
+      const int r = idx / hdp;
+      const int d = idx - r * hdp;
+      qt[r * ld + d] = mul_rn(qt[r * ld + d], scale);
+    }
+  }
+  __syncthreads();
+
+  const int u = S::UPC == 2 ? lane >> 4 : 0;     // this lane's unit in the group
+  const int r0 = S::UPC == 2 ? lane & 15 : lane;  // and its first row / column
+  const bool mine = g * S::UPC + u < units;
+  const Tiles<C> t(sm + u * ue, K, ld);
+  const int lp = K + 1;
+  C* red = t.ds;  // kWarps x K partials of this unit's rows: max, sum, dot
+
+  C sc[S::RPL][S::JPT], dp[S::RPL][S::JPT], m[S::RPL];
+#pragma unroll
+  for (int rr = 0; rr < S::RPL; ++rr) {
+    const int i = r0 + 32 * rr;
+    if (mine && i < K) {
+      scores_dp_row<C, S::JPT>(sc[rr], dp[rr], t, i, w, K, hdp, ld);
+      C mx = static_cast<C>(-CUDART_INF);
+#pragma unroll
+      for (int n = 0; n < S::JPT; ++n)
+        if (w + kWarps * n < K) mx = max_c(mx, sc[rr][n]);
+      red[w * K + i] = mx;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int rr = 0; rr < S::RPL; ++rr) {
+    const int i = r0 + 32 * rr;
+    if (mine && i < K) {
+      m[rr] = red[i];
+#pragma unroll
+      for (int ww = 1; ww < kWarps; ++ww) m[rr] = max_c(m[rr], red[ww * K + i]);
+    }
+  }
+  __syncthreads();  // every max read: the partials' space takes the sums
+#pragma unroll
+  for (int rr = 0; rr < S::RPL; ++rr) {
+    const int i = r0 + 32 * rr;
+    if (mine && i < K) {
+      C sum = 0;
+#pragma unroll
+      for (int n = 0; n < S::JPT; ++n)
+        if (w + kWarps * n < K) {
+          sc[rr][n] = exp_c(sub_rn(sc[rr][n], m[rr]));
+          sum = add_rn(sum, sc[rr][n]);
+        }
+      red[w * K + i] = sum;
+    }
+  }
+  __syncthreads();
+  C dot[S::RPL];
+#pragma unroll
+  for (int rr = 0; rr < S::RPL; ++rr) {
+    const int i = r0 + 32 * rr;
+    if (mine && i < K) {
+      C sum = red[i];
+#pragma unroll
+      for (int ww = 1; ww < kWarps; ++ww) sum = add_rn(sum, red[ww * K + i]);
+      dot[rr] = 0;
+#pragma unroll
+      for (int n = 0; n < S::JPT; ++n) {
+        const int j = w + kWarps * n;
+        if (j < K) {
+          sc[rr][n] = div_rn(sc[rr][n], sum);  // P
+          t.p[i * lp + j] = sc[rr][n];
+          dot[rr] = fma_rn(dp[rr][n], sc[rr][n], dot[rr]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every sum read: the partials' space takes the dots
+#pragma unroll
+  for (int rr = 0; rr < S::RPL; ++rr) {
+    const int i = r0 + 32 * rr;
+    if (mine && i < K) red[w * K + i] = dot[rr];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int rr = 0; rr < S::RPL; ++rr) {
+    const int i = r0 + 32 * rr;
+    if (mine && i < K) {
+      dot[rr] = red[i];
+#pragma unroll
+      for (int ww = 1; ww < kWarps; ++ww) dot[rr] = add_rn(dot[rr], red[ww * K + i]);
+    }
+  }
+  __syncthreads();  // every dot read: the dS tile is free
+#pragma unroll
+  for (int rr = 0; rr < S::RPL; ++rr) {
+    const int i = r0 + 32 * rr;
+    if (mine && i < K) {
+#pragma unroll
+      for (int n = 0; n < S::JPT; ++n) {
+        const int j = w + kWarps * n;
+        if (j < K) t.ds[i * lp + j] = mul_rn(sc[rr][n], sub_rn(dp[rr][n], dot[rr]));
+      }
+    }
+  }
+  __syncthreads();  // P and dS complete; v free
+
+#pragma unroll
+  for (int rr = 0; rr < S::RPL; ++rr) {  // dQ into the v tile
+    const int i = r0 + 32 * rr;
+    if (mine && i < K) row_times_tile(t.v, t.ds, t.k, i, w, K, hdp, ld, true, scale);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int uu = 0; uu < S::UPC; ++uu)
+    if (g * S::UPC + uu < units)
+      store_tile(dq, Tiles<C>(sm + uu * ue, K, ld).v, g * S::UPC + uu, K, H, hd, ld, vec, tid);
+  __syncthreads();  // k and v free
+
+#pragma unroll
+  for (int rr = 0; rr < S::RPL; ++rr) {
+    const int j = r0 + 32 * rr;
+    if (mine && j < K) col_dk_dv<C>(t, j, w, K, hdp, ld);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int uu = 0; uu < S::UPC; ++uu)
+    if (g * S::UPC + uu < units) {
+      const Tiles<C> tu(sm + uu * ue, K, ld);
+      store_tile(dk, tu.k, g * S::UPC + uu, K, H, hd, ld, vec, tid);
+      store_tile(dv, tu.v, g * S::UPC + uu, K, H, hd, ld, vec, tid);
+    }
+}
+
+template <typename C, int KMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, void* dq,
                    void* dk, void* dv, int R, int K, int H, int hd, cudaStream_t stream) {
-  using C = typename Acc<T>::type;
-  const size_t smem = ((size_t)4 * K * (hd + 1) + (size_t)2 * K * (K + 1)) * sizeof(C);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attn_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int blocks = (R / K) * H;
-  if (blocks == 0) return cudaSuccess;
-  attn_bwd_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (T*)dq, (T*)dk, (T*)dv, K, H, hd,
-      1.0 / sqrt((double)hd));
+  constexpr int UPC = Split<KMAX>::UPC;
+  const int units = (R / K) * H;
+  if (units == 0) return cudaSuccess;
+  Plan p;
+  cudaError_t e = make_plan(attn_bwd_kernel<C, KMAX>, hd, Vec<C>::W, sizeof(C),
+                            [&](int ld) { return cta_elems<C, KMAX>(K, ld); }, &p);
+  if (e != cudaSuccess) return e;
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  attn_bwd_kernel<C, KMAX><<<(units + UPC - 1) / UPC, 32 * kWarps, p.smem, stream>>>(
+      (const C*)q, (const C*)k, (const C*)v, (const C*)dout, (C*)dq, (C*)dk, (C*)dv, K, H, hd,
+      p.ld, units, vec_ok(hd, Vec<C>::W, ptrs, 7), (C)(1.0 / sqrt((double)hd)));
   return cudaGetLastError();
+}
+
+template <typename C>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                     void* dk, void* dv, int R, int K, int H, int hd, cudaStream_t s) {
+  if (K < 1 || K > 64 || hd < 1 || hd > 128) return cudaErrorInvalidValue;
+  if (K <= 16) return launch<C, 16>(q, k, v, dout, dq, dk, dv, R, K, H, hd, s);
+  if (K <= 32) return launch<C, 32>(q, k, v, dout, dq, dk, dv, R, K, H, hd, s);
+  return launch<C, 64>(q, k, v, dout, dq, dk, dv, R, K, H, hd, s);
 }
 
 }  // namespace
@@ -165,8 +362,8 @@ extern "C" int pdanet_neighbor_attention_bwd(const void* q, const void* k, const
                                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case kFloat32: return (int)launch<float>(q, k, v, dout, dq, dk, dv, R, K, H, hd, s);
-    case kFloat64: return (int)launch<double>(q, k, v, dout, dq, dk, dv, R, K, H, hd, s);
+    case kFloat32: return (int)dispatch<float>(q, k, v, dout, dq, dk, dv, R, K, H, hd, s);
+    case kFloat64: return (int)dispatch<double>(q, k, v, dout, dq, dk, dv, R, K, H, hd, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,7 +13,11 @@ its dtype:
   ``csrc/neighbor_attention_bwd_mma.cu`` (backward), which round to
   bfloat16 where the TPU kernel does;
 - float32 and float64: the SIMT kernels ``csrc/neighbor_attention.cu`` and
-  ``csrc/neighbor_attention_bwd.cu``, with every sum in the input type.
+  ``csrc/neighbor_attention_bwd.cu``, with every sum in the input type and
+  explicit FMAs: four warps per (centre, head) (per two at K <= 16),
+  each lane's rows in registers against broadcast 16-byte shared-memory
+  loads of the rows all lanes of a warp share, tiles copied by
+  ``cp.async``.
   float32 on the tensor cores would mean TF32, and the float32 frame and
   the float64 train step are held index for index and to rounding against
   the CPU.
@@ -122,9 +126,24 @@ def _shape_rule(name, K, hd, dtype):
                          f"got hd={hd}")
 
 
+def _simt_smem(K, hd, elem_bytes, bwd):
+    """A SIMT kernel's shared memory, in bytes, at the least row stride
+    (``cta_elems`` and ``make_plan`` in ``csrc/``): per unit the K x HDP
+    tiles of q, k, v (and dO), HDP = hd rounded up to 16 bytes, the K x
+    (K + 1) P tile and the 4 x K row partials (the backward keeps those in
+    its K x (K + 1) dS tile), squares rounded up to 16 bytes; two units a
+    CTA at K <= 16."""
+    w = 16 // elem_bytes
+    hdp = -(-hd // w) * w
+    square = -(-K * (K + 1) // w) * w
+    per_cta = 2 if K <= 16 else 1
+    unit = (4 * K * hdp + square + max(square, 4 * K)) if bwd else (3 * K * hdp + square + 4 * K)
+    return per_cta * unit * elem_bytes
+
+
 def _check_shapes(name, K, H, hd, *tensors, tiles):
     """Validate the tensors of a kernel; ``tiles(elem_bytes)`` is the SIMT
-    kernel's shared memory in bytes."""
+    kernel's least shared memory in bytes."""
     q2 = tensors[0]
     if q2.dim() != 2 or q2.shape[1] != H * hd or q2.shape[0] % K \
             or any(t.shape != q2.shape for t in tensors):
@@ -149,11 +168,14 @@ def neighbor_attention_flat_cuda(q2, k2, v2, K, H, hd):
     """The forward kernel.  bfloat16: ``neighbor_attention_mma.cu``, one
     warp per (centre, head) at a time on ``mma.sync`` (launches counted as
     ``neighbor_attention_bf16``).  float32 / float64: the SIMT kernel of
-    ``neighbor_attention.cu``, one block per (centre, head), every sum in
-    the input type (counted as ``neighbor_attention``): TF32 tensor cores
-    would break the float32 frame's index-for-index match with the CPU."""
+    ``neighbor_attention.cu``, a CTA of four warps per (centre, head),
+    lane i holding query row i's scores in registers against broadcast
+    loads of k and v,
+    every sum in the input type (counted as ``neighbor_attention``): TF32
+    tensor cores would break the float32 frame's index-for-index match
+    with the CPU."""
     _check_shapes("neighbor_attention_flat", K, H, hd, q2, k2, v2,
-                  tiles=lambda b: (3 * K * (hd + 1) + K * (K + 1)) * b)
+                  tiles=lambda b: _simt_smem(K, hd, b, False))
     R = q2.shape[0]
     out = torch.empty_like(q2)
     if R == 0:
@@ -177,9 +199,12 @@ def neighbor_attention_flat_bwd_cuda(q2, k2, v2, do2, K, H, hd):
     its rows of dq, dk and dv (no atomics).  bfloat16:
     ``neighbor_attention_bwd_mma.cu`` on ``mma.sync`` (counted as
     ``neighbor_attention_bwd_bf16``); float32 / float64: the SIMT kernel of
-    ``neighbor_attention_bwd.cu`` (counted as ``neighbor_attention_bwd``)."""
+    ``neighbor_attention_bwd.cu``, a CTA of four warps per (centre, head),
+    a row phase (lane i: S, dP, P and dS of row i in registers, then dQ)
+    and a column phase (lane j: dK and dV of row j), counted as
+    ``neighbor_attention_bwd``."""
     _check_shapes("neighbor_attention_flat_bwd", K, H, hd, q2, k2, v2, do2,
-                  tiles=lambda b: (4 * K * (hd + 1) + 2 * K * (K + 1)) * b)
+                  tiles=lambda b: _simt_smem(K, hd, b, True))
     R = q2.shape[0]
     dq, dk, dv = (torch.empty_like(q2) for _ in range(3))
     if R == 0:

@@ -6,7 +6,8 @@ plain C interface, loaded with ``ctypes``; no PyTorch header is included,
 so the build takes seconds.  It runs at first use into
 ``pdanet_tpu_torch/_build/<hash of the sources and flags>/`` and is reused
 while the sources stay the same.  ``build_log`` keeps each file's
-``-Xptxas -v`` report (registers, shared memory, spills per kernel).
+``-Xptxas -v`` report (registers, shared memory, spills per kernel) of
+the last build used, also kept beside the library as ``build.log``.
 
 The build uses ``--fmad=false``: FPS, the ball query and the rotated IoU
 must not contract products into FMAs (a contracted distance or cross
@@ -47,7 +48,7 @@ launches = collections.Counter()
 
 _lib = None
 _lock = threading.Lock()
-build_log = ""  # the compiler's output of the last build in this process
+build_log = ""  # the compiler's output of the last build used in this process
 
 
 def _nvcc():
@@ -83,7 +84,9 @@ def build(sources=SOURCES, defines=()):
     """
     global build_log
     out = BUILD_ROOT / _digest(sources, defines) / "libpdanet_kernels.so"
+    log_file = out.with_name("build.log")
     if out.exists():
+        build_log = log_file.read_text() if log_file.exists() else ""
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
@@ -115,6 +118,7 @@ def build(sources=SOURCES, defines=()):
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed (exit {res.returncode}): {' '.join(cmd)}\n"
                                f"{res.stdout}{res.stderr}")
+        log_file.write_text(build_log)
         os.replace(tmp, out)
     finally:
         for obj in objs:

@@ -45,6 +45,17 @@ from pdanet_tpu_torch.ops.attention import (
 from pdanet_tpu_torch.utils.jax_weights import load_jax_variables
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module's tests run: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    per core in each of them oversubscribes the cores many times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _qkv(seed, R, D):
     rs = np.random.RandomState(seed)
     return [rs.randn(R, D).astype(np.float32) for _ in range(3)]

@@ -41,6 +41,17 @@ from pdanet_tpu_torch.ops.sampling import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module's tests run: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    per core in each of them oversubscribes the cores many times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _cloud(seed, B, N, spread=(6.0, 6.0, 3.0)):
     rs = np.random.RandomState(seed)
     return (rs.rand(B, N, 3) * np.asarray(spread)).astype(np.float32)

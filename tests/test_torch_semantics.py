@@ -12,9 +12,21 @@
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module's tests run: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    per core in each of them oversubscribes the cores many times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 pytestmark = pytest.mark.smoke
 
