@@ -95,21 +95,42 @@ Phases, each of which raises on failure:
    1e-3 of its scale (floored at 1e-6 of the largest leaf's), statistics
    within 1e-5.  And the max-pool gradient goes to
    the first of tied slots on the card.
+8. ONCE (tools/cfgs/once_models/PDA-SSD.yaml) at full width, seeded
+   random weights, through the port's data pipeline: a synthetic ONCE
+   root (6 train and 2 val frames of 70000 roof-LiDAR-like points, 20-40
+   boxes of the five classes) in a temporary directory,
+   ``create_once_infos`` and the gt database, the loader with the yaml's
+   augmentor and processors (60000 points sampled); 5 bfloat16 and 2
+   float32 train steps at B = 2 (ver2 vote loss) with step times, device
+   busy time and peak memory; ``eval_one_epoch`` on the val split at B = 1
+   (every key of the ONCE result dict, finite); a b1 request's latency and
+   device split; the SA0 ball query at 60000 support points and 16384
+   centres equal to its plain version, with its device time and tile
+   skip; one float32 frame on the card against the CPU (D-FPS and ball
+   query equal, ctr-aware picks as in phase 7, centre features 1e-3,
+   logits 2e-3, equal detection counts) and one float64 train step with
+   every index fed (loss within 1e-9 relative, gradients within 1e-3 of
+   each leaf's scale, statistics within 1e-5).  Every kernel must launch
+   on the ONCE path.
 
-The line before the last is ``{"kernels": [...]}``: per kernel its
-launches in the main-path runs (phase 4's requests and phase 7's bfloat16
-and float32 train steps, each run counted from 0), its largest error,
+Each phase prints its wall time.  The line before the last is
+``{"kernels": [...]}``: per kernel its launches in the main-path runs
+(phase 4's requests, phase 7's bfloat16 and float32 train steps and
+phase 8's ONCE train steps and ``eval_one_epoch``, each run counted from
+0), its largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
 their type, from this run's inputs) and SDPA's time where SDPA computes
 the same function.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1174,9 +1195,10 @@ def serve(cfg, dev):
     from pdanet_tpu_torch.ops import cuda_lib
     from pdanet_tpu_torch.serving import example_device_batch, make_predict_fn
 
-    model = init_random_weights(build_network(cfg.MODEL, len(cfg.CLASS_NAMES)), seed=0)
+    model = init_random_weights(
+        build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev), seed=0)
     weights = copy.deepcopy(model.state_dict())
-    predict = make_predict_fn(model.to(dev), cfg.MODEL)
+    predict = make_predict_fn(model, cfg.MODEL)
     for B in (1, 2):  # warm-up: allocator and library set-up per batch size
         predict(example_device_batch(cfg, B, dev))
     requests = [torch.from_numpy(lidar_like_cloud(100 + i, 1, N_POINTS)).to(dev)
@@ -1249,9 +1271,9 @@ def compare_f32(cfg, weights, dev, predict_bf16):
     runs = {}
     frame = lidar_like_cloud(300, 1, N_POINTS)
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        model = build_network(mcfg, len(cfg.CLASS_NAMES))
+        model = build_network(mcfg, len(cfg.CLASS_NAMES), device=device)
         model.load_state_dict(weights)
-        model.to(device).eval()
+        model.eval()
         t0 = time.perf_counter()
         with torch.inference_mode():
             out = model(torch.from_numpy(frame).to(device))
@@ -1392,17 +1414,18 @@ def check_attention_bwd(dev, stats, parent=None):
           f"hd={hd}): passed")
 
 
-def _train_model(cfg, mcfg, weights, dev):
+def _train_model(cfg, mcfg, weights, dev, train_frames=3712):
+    """The model on ``dev`` with ``weights`` and its train step, on the
+    yaml's schedule over ``train_frames`` frames an epoch (KITTI's train
+    split by default)."""
     from pdanet_tpu_torch.models import build_network
     from pdanet_tpu_torch.train import build_optimizer_and_schedule, make_train_step
 
-    model = build_network(mcfg, len(cfg.CLASS_NAMES))
+    model = build_network(mcfg, len(cfg.CLASS_NAMES), device=dev)
     model.load_state_dict(weights)
-    model.to(dev)
     ocfg = cfg.OPTIMIZATION
-    # KITTI train split: 3712 frames at BATCH_SIZE_PER_GPU 4 per iteration
     optimizer, schedule = build_optimizer_and_schedule(
-        model, ocfg, total_iters_each_epoch=3712 // ocfg.BATCH_SIZE_PER_GPU,
+        model, ocfg, total_iters_each_epoch=train_frames // ocfg.BATCH_SIZE_PER_GPU,
         total_epochs=ocfg.NUM_EPOCHS)
     return model, make_train_step(model, optimizer, schedule)
 
@@ -1481,15 +1504,85 @@ def _deciles(errs):
     return [f"{vals[int(q * (len(vals) - 1))]:.2g}" for q in np.linspace(0, 1, 11)]
 
 
+@contextlib.contextmanager
+def fed(sampling=None, ball_query=None):
+    """Replace the backbone's sampling and ball query for one run."""
+    from pdanet_tpu_torch.models.backbones_3d import iassd_backbone
+
+    own = iassd_backbone.run_sampling, iassd_backbone.ball_query_multi
+    if sampling is not None:
+        iassd_backbone.run_sampling = sampling
+    if ball_query is not None:
+        iassd_backbone.ball_query_multi = ball_query
+    try:
+        yield
+    finally:
+        iassd_backbone.run_sampling, iassd_backbone.ball_query_multi = own
+
+
+def card_ctr_picks(queue, checks):
+    """A sampling function for a CPU run that replays a card run's picks
+    (``queue``, in call order): the CPU's own D-FPS picks, and the card's
+    ctr-aware picks.  It appends to ``checks`` per layer (kind, indices
+    where the CPU's own picks differ from the card's, largest difference
+    of the CPU scores of the two picks position by position)."""
+    import torch
+
+    from pdanet_tpu_torch.models.backbones_3d import iassd_backbone
+
+    own_sampling = iassd_backbone.run_sampling
+
+    def pick(types, ranges, npoints, xyz, features, cls_features):
+        own, card = own_sampling(types, ranges, npoints, xyz, features, cls_features), queue.pop(0)
+        if not any("ctr" in t or "cls" in t for t in types):
+            checks.append(("D-FPS", int((own != card).sum()), 0.0))
+            return own
+        score = torch.sigmoid(cls_features.detach().max(dim=-1).values)
+        gap = (score.gather(1, card.long()) - score.gather(1, own.long())).abs().max().item()
+        checks.append(("ctr-aware", int((own != card).sum()), gap))
+        return card
+
+    return pick
+
+
+def feed_all(picks, recorded):
+    """``fed`` arguments that replay sampling picks and a recorded run's
+    ball-query indices, in call order, on the device of each call."""
+    samp = list(picks)
+    ball = [b for b in recorded["out"]["ball_query_idx"] if b is not None]
+    return dict(sampling=lambda *a: samp.pop(0).to(a[3].device),
+                ball_query=lambda r, n, xyz, c: tuple(t.to(xyz.device) for t in ball.pop(0)))
+
+
+def _recorded_step(cfg, mcfg, weights, device, dtype, pts, gt, train_frames=3712):
+    """One train step from ``weights`` on ``device`` in ``dtype``: its loss,
+    forward dict, gradients and BatchNorm statistics (on the CPU, float64)."""
+    import torch
+
+    model, train_step = _train_model(cfg, mcfg, weights, device, train_frames)
+    model.to(dtype)
+    captured = {}
+    hook = model.register_forward_hook(lambda m, i, o: captured.update(o))
+    t0 = time.perf_counter()
+    loss, _ = train_step({"points": torch.as_tensor(pts).to(device, dtype),
+                          "gt_boxes": torch.as_tensor(gt).to(device, dtype)})
+    loss = loss.item()
+    hook.remove()
+    print(f"{str(dtype)[6:]} train step B={pts.shape[0]} on the {device.type}: "
+          f"{time.perf_counter() - t0:.2f} s, loss {loss!r}")
+    return dict(
+        loss=loss, out=captured, fps_identity=model.backbone_3d.fps_identity,
+        grads={n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
+        stats={n: b.detach().double().cpu() for n, b in model.named_buffers()
+               if n.endswith(("running_mean", "running_var"))})
+
+
 def compare_train(cfg, weights, dev):
     """Phase 7, second part: one train step at B = 1 on the card (kernels)
     against the CPU (plain versions), in float32 and in float64; and the
     max-pool tie routing on the card."""
-    import contextlib
-
     import torch
 
-    from pdanet_tpu_torch.models.backbones_3d import iassd_backbone
     from pdanet_tpu_torch.ops.grouping import group_points
 
     mcfg = copy.deepcopy(cfg.MODEL)
@@ -1500,36 +1593,8 @@ def compare_train(cfg, weights, dev):
     sa_cfg = mcfg.BACKBONE_3D.SA_CONFIG
     pts, gt = lidar_like_batch(500, 1, N_POINTS, mean_size)
 
-    @contextlib.contextmanager
-    def fed(sampling=None, ball_query=None):
-        """Replace the backbone's sampling and ball query for one run."""
-        own = iassd_backbone.run_sampling, iassd_backbone.ball_query_multi
-        if sampling is not None:
-            iassd_backbone.run_sampling = sampling
-        if ball_query is not None:
-            iassd_backbone.ball_query_multi = ball_query
-        try:
-            yield
-        finally:
-            iassd_backbone.run_sampling, iassd_backbone.ball_query_multi = own
-
     def run(device, dtype):
-        model, train_step = _train_model(cfg, mcfg, weights, device)
-        model.to(dtype)
-        captured = {}
-        hook = model.register_forward_hook(lambda m, i, o: captured.update(o))
-        t0 = time.perf_counter()
-        loss, _ = train_step({"points": torch.from_numpy(pts).to(device, dtype),
-                              "gt_boxes": torch.from_numpy(gt).to(device, dtype)})
-        loss = loss.item()
-        hook.remove()
-        print(f"{str(dtype)[6:]} train step B=1 on the {device.type}: "
-              f"{time.perf_counter() - t0:.2f} s, loss {loss!r}")
-        return dict(
-            loss=loss, out=captured, fps_identity=model.backbone_3d.fps_identity,
-            grads={n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
-            stats={n: b.detach().double().cpu() for n, b in model.named_buffers()
-                   if n.endswith(("running_mean", "running_var"))})
+        return _recorded_step(cfg, mcfg, weights, device, dtype, pts, gt)
 
     cpu = torch.device("cpu")
     card32 = run(dev, torch.float32)
@@ -1545,19 +1610,7 @@ def compare_train(cfg, weights, dev):
     # of the two picks must agree within 1e-5.  D-FPS picks are the CPU's
     # own and must be equal.
     queue, checks = list(card_picks), []
-
-    def card_ctr_picks(types, ranges, npoints, xyz, features, cls_features):
-        own, card = own_sampling(types, ranges, npoints, xyz, features, cls_features), queue.pop(0)
-        if not any("ctr" in t or "cls" in t for t in types):
-            checks.append(("D-FPS", int((own != card).sum()), 0.0))
-            return own
-        score = torch.sigmoid(cls_features.detach().max(dim=-1).values)
-        gap = (score.gather(1, card.long()) - score.gather(1, own.long())).abs().max().item()
-        checks.append(("ctr-aware", int((own != card).sum()), gap))
-        return card
-
-    own_sampling = iassd_backbone.run_sampling
-    with fed(sampling=card_ctr_picks):
+    with fed(sampling=card_ctr_picks(queue, checks)):
         cpu32 = run(cpu, torch.float32)
     require(not queue, "the CPU run did not sample every layer")
     for what, n_diff, gap in checks:
@@ -1583,15 +1636,9 @@ def compare_train(cfg, weights, dev):
     # at the 1e-3 level on either device (a max-pool or ReLU decision on a
     # near tie routes a gradient elsewhere; tests/test_train_trajectory_
     # twin.py:47-59); in float64 the two must agree to rounding.
-    def feed_all():
-        samp = list(card_picks)
-        ball = [b for b in card32["out"]["ball_query_idx"] if b is not None]
-        return dict(sampling=lambda *a: samp.pop(0).to(a[3].device),
-                    ball_query=lambda r, n, xyz, c: tuple(t.to(xyz.device) for t in ball.pop(0)))
-
-    with fed(**feed_all()):
+    with fed(**feed_all(card_picks, card32)):
         card64 = run(dev, torch.float64)
-    with fed(**feed_all()):
+    with fed(**feed_all(card_picks, card32)):
         cpu64 = run(cpu, torch.float64)
     rel64 = abs(card64["loss"] - cpu64["loss"]) / abs(cpu64["loss"])
     errs64 = _leaf_errors(card64["grads"], cpu64["grads"], 1e-6)
@@ -1629,6 +1676,369 @@ def compare_train(cfg, weights, dev):
             "max-pool gradient on the card does not go to the first tied slot")
     print(f"max-pool tie routing on the card: {ties} (centre, channel) pairs with tied "
           f"slots, every gradient on the first")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the ONCE configuration end to end
+# ---------------------------------------------------------------------------
+
+ONCE_YAML = ROOT / "tools" / "cfgs" / "once_models" / "PDA-SSD.yaml"
+ONCE_FRAME_POINTS = 70000  # raw returns a frame; the yaml samples 60000
+ONCE_CAMS = ("cam01", "cam03", "cam05", "cam06", "cam07", "cam08", "cam09")
+ONCE_SPLITS = (("train", "000001", 6), ("val", "000002", 2))  # split, sequence, frames
+
+
+def once_like_frame(rs, class_names, mean_sizes, n_points=ONCE_FRAME_POINTS, extent=75.2):
+    """One roof-LiDAR-like frame over ONCE's range: 20-40 boxes of the five
+    classes at the yaml's mean sizes (10 % jitter), apart in BEV, on the
+    ground at z -1.8 m, each holding returns (more the nearer it is); a
+    ground disc with the 1/r density of a spinning sensor; sparse returns
+    in the air.  Returns (points (n, 4) float32 with intensity 0-255,
+    boxes (m, 7), names (m,))."""
+    boxes, names = [], []
+    while len(boxes) < rs.randint(20, 41):
+        cls = rs.randint(len(class_names))
+        dims = np.asarray(mean_sizes[cls]) * rs.uniform(0.9, 1.1, 3)
+        r, th = rs.uniform(4.0, 68.0), rs.uniform(-np.pi, np.pi)
+        box = np.array([r * np.cos(th), r * np.sin(th), -1.8 + dims[2] / 2, *dims,
+                        rs.uniform(-np.pi, np.pi)])
+        radius = 0.5 * np.hypot(dims[0], dims[1])
+        if all(np.hypot(*(box[:2] - b[:2])) > radius + 0.5 * np.hypot(b[3], b[4]) + 0.3
+               for b in boxes):
+            boxes.append(box)
+            names.append(class_names[cls])
+    boxes = np.stack(boxes)
+    n_obj, n_air = int(n_points * 0.2), int(n_points * 0.05)
+    n_ground = n_points - n_obj - n_air
+    share = 1.0 / np.hypot(boxes[:, 0], boxes[:, 1])
+    per_box = np.maximum(20, (n_obj * share / share.sum()).astype(int))
+    obj = []
+    for b, n in zip(boxes, per_box):
+        local = (rs.rand(n, 3) - 0.5) * b[3:6] * 0.95
+        c, s = np.cos(b[6]), np.sin(b[6])
+        obj.append(np.stack([local[:, 0] * c - local[:, 1] * s + b[0],
+                             local[:, 0] * s + local[:, 1] * c + b[1],
+                             local[:, 2] + b[2]], -1))
+    r = 2.0 + (extent - 2.0) * rs.rand(n_ground) ** 1.6
+    th = rs.uniform(-np.pi, np.pi, n_ground)
+    ground = np.stack([r * np.cos(th), r * np.sin(th), rs.normal(-1.8, 0.05, n_ground)], -1)
+    air = np.stack([rs.uniform(-extent, extent, n_air), rs.uniform(-extent, extent, n_air),
+                    rs.uniform(-1.5, 3.0, n_air)], -1)
+    xyz = np.concatenate([ground, air] + obj)
+    xyz[:, :2] = np.clip(xyz[:, :2], -extent, extent)
+    pts = np.concatenate([xyz, rs.uniform(0, 255, (len(xyz), 1))], -1).astype(np.float32)
+    return pts[rs.permutation(len(pts))], boxes, np.array(names)
+
+
+def write_once_root(root, class_names, mean_sizes, seed=0):
+    """A synthetic ONCE root in the layout of ``tests/once_fixture.py``
+    (``data/<seq>/<seq>.json``, ``data/<seq>/lidar_roof/<frame>.bin``,
+    ``ImageSets/<split>.txt``): one sequence of train frames and one of
+    val frames (the test split lists the val sequence), ``once_like_frame``
+    clouds.  Returns the number of frames and boxes per split."""
+    import json
+
+    rs = np.random.RandomState(seed)
+    cam_to_velo = np.eye(4)
+    cam_to_velo[:3, :3] = [[0, 0, 1], [-1, 0, 0], [0, -1, 0]]
+    calib = {c: {"cam_to_velo": cam_to_velo.tolist(),
+                 "cam_intrinsic": [[1000, 0, 960], [0, 1000, 540], [0, 0, 1]],
+                 "distortion": [0] * 5} for c in ONCE_CAMS}
+    (root / "ImageSets").mkdir(parents=True)
+    counts = {}
+    for split, seq, n_frames in ONCE_SPLITS:
+        seq_dir = root / "data" / seq
+        (seq_dir / "lidar_roof").mkdir(parents=True)
+        frames = []
+        for f in range(n_frames):
+            fid = str(1616100000000 + 1000 * int(seq) + f)
+            pts, boxes, names = once_like_frame(rs, class_names, mean_sizes)
+            pts.tofile(seq_dir / "lidar_roof" / f"{fid}.bin")
+            frames.append({"frame_id": fid, "pose": [0, 0, 0, 1, 0, 0, 0], "annos": {
+                "names": names.tolist(), "boxes_3d": boxes.tolist(),
+                "boxes_2d": {c: [[-1, -1, -1, -1]] * len(boxes) for c in ONCE_CAMS}}})
+        with open(seq_dir / f"{seq}.json", "w") as fh:
+            json.dump({"meta_info": {"weather": "sunny", "period": "morning"},
+                       "calib": calib, "frames": frames}, fh)
+        (root / "ImageSets" / f"{split}.txt").write_text(seq + "\n")
+        counts[split] = (n_frames, sum(len(fr["annos"]["names"]) for fr in frames))
+    (root / "ImageSets" / "test.txt").write_text(ONCE_SPLITS[1][1] + "\n")
+    return counts
+
+
+def once_expected_keys(thresh_list):
+    """The keys of the JAX package's ONCE ``eval_one_epoch`` result: recall
+    per threshold, then AP per superclass and distance bin."""
+    keys = [f"recall/{k}_{t}" for t in thresh_list for k in ("roi", "rcnn")]
+    return keys + [f"AP_{c}/{d}" for c in ("Vehicle", "Pedestrian", "Cyclist", "mean")
+                   for d in ("overall", "0-30m", "30-50m", "50m-inf")]
+
+
+def once_phase(dev, work_dir):
+    """Phase 8: the ONCE configuration (tools/cfgs/once_models/PDA-SSD.yaml)
+    end to end at full width.  Returns the kernel launches of its main-path
+    runs (the train steps and ``eval_one_epoch``, each counted from 0)."""
+    import collections
+    import logging
+
+    import torch
+
+    from pdanet_tpu_torch.config import cfg_from_yaml_file
+    from pdanet_tpu_torch.datasets import build_dataloader
+    from pdanet_tpu_torch.datasets.once.once_dataset import create_once_infos
+    from pdanet_tpu_torch.eval import eval_one_epoch
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.models.detectors.iassd import generate_recall_record
+    from pdanet_tpu_torch.ops import ball_query, cuda_lib, sampling
+    from pdanet_tpu_torch.serving import make_predict_fn
+    from pdanet_tpu_torch.train import select_device_batch
+
+    cfg = cfg_from_yaml_file(str(ONCE_YAML))
+    root = Path(work_dir) / "once"
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    names = list(cfg.CLASS_NAMES)
+    mean_sizes = cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER_CONFIG.mean_size
+    n_sample = cfg.DATA_CONFIG.DATA_PROCESSOR[1].NUM_POINTS
+
+    # ---- data: the root, infos, gt database and loaders
+    t0 = time.perf_counter()
+    counts = write_once_root(root, names, mean_sizes)
+    create_once_infos(cfg.DATA_CONFIG, names, root, root, workers=4)
+    print(f"ONCE data: synthetic root {counts} (frames, boxes) of {ONCE_FRAME_POINTS} points, "
+          f"infos and gt database in {time.perf_counter() - t0:.1f} s")
+    np.random.seed(0)
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    train_set, train_loader, _ = build_dataloader(cfg.DATA_CONFIG, names, B, root_path=root,
+                                                  workers=4, seed=0, training=True)
+    batches, data_ms, epoch = [], [], 0
+    while len(batches) < 5:
+        train_loader.set_epoch(epoch)
+        it, epoch = iter(train_loader), epoch + 1
+        while len(batches) < 5:
+            t1 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            data_ms.append((time.perf_counter() - t1) * 1e3)
+            batches.append(batch)
+    for batch in batches:
+        require(batch["points"].shape == (B, n_sample["train"], 4), "ONCE train batch points")
+        require(batch["gt_boxes"].shape == (B, cfg.DATA_CONFIG.MAX_GT_BOXES, 8),
+                "ONCE train batch gt")
+    n_gt = [int((b["gt_boxes"][..., 7] > 0).sum()) for b in batches]
+    print(f"ONCE loader (gt sampling, flip, rotation, scaling; mask, sample "
+          f"{n_sample['train']}, shuffle, sort): {len(batches)} batches of {B}, gt boxes per "
+          f"batch {n_gt}, host ms per batch {[round(t) for t in data_ms]}")
+
+    # ---- train: 5 bfloat16 steps (as shipped) at B = 2, then 2 float32 steps
+    t0 = time.perf_counter()
+    model = init_random_weights(build_network(cfg.MODEL, len(names), device=dev), seed=0)
+    weights = copy.deepcopy(model.state_dict())
+    del model
+    f32_cfg = copy.deepcopy(cfg.MODEL)
+    f32_cfg.BACKBONE_3D.pop("COMPUTE_DTYPE", None)
+    f32_cfg.BACKBONE_3D.pop("TRAIN_COMPUTE_DTYPE", None)
+    dev_batches = [select_device_batch(b, dev) for b in batches]
+    launches, bf16_model = collections.Counter(), None
+    for name, mcfg, n_steps in (("bf16", cfg.MODEL, 5), ("f32", f32_cfg, 2)):
+        model, train_step = _train_model(cfg, mcfg, weights, dev, len(train_set))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_lib.launches.clear()
+        times, losses = [], []
+        for i in range(n_steps):
+            t1 = time.perf_counter()
+            loss, tb = train_step(dev_batches[i])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            losses.append(loss.item())
+            require(np.isfinite(losses[-1]), f"ONCE {name} step {i}: loss {losses[-1]}")
+            require(_grads_finite(model), f"ONCE {name} step {i}: gradients not finite")
+        counts = dict(cuda_lib.launches)
+        launches.update(counts)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        print_split(f"a ONCE {name} train step B={B} under torch.profiler",
+                    device_split(lambda: train_step(dev_batches[0])))
+        print(f"ONCE train {name} B={B}: losses {[round(x, 4) for x in losses]}; ms/step "
+              f"{[round(t, 2) for t in times]}, median after warm-up "
+              f"{statistics.median(times[1:]):.2f} ms; peak memory {peak:.2f} GiB; vote loss "
+              f"(ver2) of the last step {float(tb['vote_loss']):.4f}")
+        print(f"kernel launches in the ONCE {name} train steps: {counts}")
+        for kname in TRAIN_KERNELS[name]:
+            require(counts.get(kname, 0) > 0, f"kernel {kname} never launched in ONCE {name} "
+                    f"training")
+        if name == "bf16":
+            bf16_model = model
+        del train_step
+    print(f"ONCE training: {time.perf_counter() - t0:.1f} s")
+
+    # ---- eval_one_epoch on the val split at B = 1, bfloat16 compute as shipped
+    t0 = time.perf_counter()
+    np.random.seed(1)
+    val_set, val_loader, _ = build_dataloader(cfg.DATA_CONFIG, names, 1, root_path=root,
+                                              workers=0, training=False)
+    logger = logging.getLogger("chip_smoke.once")
+    logger.setLevel(logging.INFO)
+    if not logger.handlers:
+        logger.addHandler(logging.StreamHandler(sys.stdout))
+    cuda_lib.launches.clear()
+    result = eval_one_epoch(cfg, bf16_model, val_loader, 0, logger,
+                            result_dir=Path(work_dir) / "once_eval", infer_time=True,
+                            device=dev)
+    counts = dict(cuda_lib.launches)
+    launches.update(counts)
+    print(f"kernel launches in ONCE eval_one_epoch: {counts}")
+    for kname in SERVE_KERNELS:
+        require(counts.get(kname, 0) > 0, f"kernel {kname} never launched in ONCE eval")
+    keys = once_expected_keys(cfg.MODEL.POST_PROCESSING.RECALL_THRESH_LIST)
+    require(list(result) == keys, f"ONCE result keys {list(result)} != {keys}")
+    require(all(np.isfinite(float(v)) for v in result.values()), "ONCE result not finite")
+    print("ONCE eval_one_epoch result (random weights): "
+          + json.dumps({k: float(v) for k, v in result.items()}))
+    print(f"ONCE eval_one_epoch over {len(val_set)} val frames: {time.perf_counter() - t0:.1f} s")
+
+    # one ONCE b1 request: latency and device split
+    predict = make_predict_fn(bf16_model, cfg.MODEL)
+    np.random.seed(2)
+    frame = next(iter(val_loader))
+    request = {"points": torch.as_tensor(frame["points"]).to(dev)}
+    lat = []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        res = predict(request)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+    print(f"ONCE b1 request ({request['points'].shape[1]} points): latency ms "
+          f"{[round(t, 2) for t in lat]} (first is warm-up), detections "
+          f"{res['pred_counts'].tolist()}")
+    print_split("a ONCE b1 request under torch.profiler", device_split(lambda: predict(request)))
+    # eval_one_epoch's per-frame extra: the recall record on the device
+    gt = torch.as_tensor(frame["gt_boxes"]).to(dev)
+    valid = torch.arange(res["pred_boxes"].shape[1], device=dev)[None] < res["pred_counts"][:, None]
+    rec_ms = []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            generate_recall_record(res["pred_boxes"], valid, gt,
+                                   cfg.MODEL.POST_PROCESSING.RECALL_THRESH_LIST)
+        torch.cuda.synchronize()
+        rec_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"ONCE recall record of one frame ({res['pred_boxes'].shape[1]} boxes x "
+          f"{gt.shape[1]} gt rows, plain boxes_iou3d): ms {[round(t, 2) for t in rec_ms]}")
+    del bf16_model, predict
+
+    # ---- the SA0 ball query at ONCE scale against its plain version
+    sa_cfg = cfg.MODEL.BACKBONE_3D.SA_CONFIG
+    M = sa_cfg.NPOINT_LIST[0][0]
+    sup = request["points"][..., :3].contiguous()
+    ctr = torch.gather(sup, 1, sampling.farthest_point_sample_cuda(sup, M).long()
+                       [..., None].expand(1, M, 3)).contiguous()
+    radii, ks = tuple(sa_cfg.RADIUS_LIST[0]), tuple(sa_cfg.NSAMPLE_LIST[0])
+    got = ball_query.ball_query_multi_cuda(radii, ks, sup, ctr)
+    want = ball_query.ball_query_multi_plain(radii, ks, sup, ctr)
+    for g, w in zip(got, want):
+        require(torch.equal(g, w), f"ONCE SA0 ball query K={w.shape[-1]} differs from the "
+                f"plain version")
+    ms = cuda_ms(lambda: ball_query.ball_query_multi_cuda(radii, ks, sup, ctr))
+    plain_ms = cuda_ms(lambda: ball_query.ball_query_multi_plain(radii, ks, sup, ctr), reps=3,
+                       warmup=1)
+    print(f"{'ball_query':27s} ONCE SA0 N={sup.shape[1]} M={M} radii {radii} K {ks} equal: "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms) under CUDA events")
+    print_ball_query_work(f"ONCE SA0 B=1 N={sup.shape[1]} M={M}", radii, ks, sup, ctr)
+    del got, want
+
+    # ---- one float32 ONCE frame, card against CPU
+    compare_once_f32(cfg, f32_cfg, weights, dev, frame["points"])
+    # ---- one float64 ONCE train step (ver2), card against CPU, every index fed
+    first = batches[0]
+    compare_once_f64(cfg, f32_cfg, weights, dev, first["points"][:1], first["gt_boxes"][:1],
+                     len(train_set))
+    return launches
+
+
+def compare_once_f32(cfg, mcfg, weights, dev, frame):
+    """One ONCE frame in float32 on the card (kernels) and on the CPU
+    (plain versions): D-FPS and ball-query indices equal; the ctr-aware
+    picks the card's where the CPU's own differ only by scores within
+    1e-5 (``card_ctr_picks``); centre features within 1e-3, logits within
+    2e-3, detection counts equal."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.detectors import get_post_processor
+
+    def run(device, sampling=None):
+        model = build_network(mcfg, len(cfg.CLASS_NAMES), device=device)
+        model.load_state_dict(weights)
+        model.eval()
+        t0 = time.perf_counter()
+        with fed(sampling=sampling), torch.inference_mode():
+            out = model(torch.as_tensor(frame).to(device))
+            post = get_post_processor(mcfg.NAME)(out, mcfg)
+        print(f"ONCE float32 forward + NMS B=1 N={frame.shape[1]} on the {device.type}: "
+              f"{time.perf_counter() - t0:.2f} s")
+        return out, post, model.backbone_3d.fps_identity
+
+    g_out, g_post, fps_identity = run(dev)
+    queue = [i.cpu() for k, i in enumerate(g_out["sampled_idx"])
+             if i is not None and not fps_identity[k]]
+    checks = []
+    c_out, c_post, _ = run(torch.device("cpu"), card_ctr_picks(queue, checks))
+    require(not queue, "the ONCE CPU run did not sample every layer")
+    for what, n_diff, gap in checks:
+        print(f"ONCE {what} sampling, CPU's own against the card's: {n_diff} indices differ, "
+              f"largest CPU-score difference of the picks {gap:.3g}")
+        require((what == "D-FPS" and n_diff == 0) or (what == "ctr-aware" and gap <= 1e-5),
+                f"ONCE {what} sampling differs card vs CPU beyond near ties")
+    sa_cfg = mcfg.BACKBONE_3D.SA_CONFIG
+    for k in range(len(sa_cfg.NSAMPLE_LIST)):
+        for r, (gb, cb) in enumerate(zip(g_out["ball_query_idx"][k] or (),
+                                         c_out["ball_query_idx"][k] or ())):
+            require(torch.equal(gb.cpu(), cb), f"ONCE SA{k} radius {r} ball query differs")
+    err_f = (g_out["centers_features"].cpu() - c_out["centers_features"]).abs().max().item()
+    err_c = (g_out["batch_cls_preds"].cpu() - c_out["batch_cls_preds"]).abs().max().item()
+    err_b = (g_out["center_box_preds"].cpu() - c_out["center_box_preds"]).abs().max().item()
+    pairs, n_g, n_c, gap_c, gap_s = match_detections(g_post, c_post)
+    print(f"ONCE float32 card vs CPU: indices equal; centers_features {err_f:.3g}, cls logits "
+          f"{err_c:.3g}, box logits {err_b:.3g}; detections {n_g} vs {n_c}, {pairs} paired by "
+          f"mutual nearest centre (largest centre distance {gap_c:.3g} m, score {gap_s:.3g})")
+    require(err_f <= 1e-3, f"ONCE centers_features err {err_f} > 1e-3")
+    require(err_c <= 2e-3 and err_b <= 2e-3, f"ONCE logit errors {err_c}, {err_b} > 2e-3")
+    require(n_g == n_c, "ONCE detection counts differ card vs CPU")
+
+
+def compare_once_f64(cfg, mcfg, weights, dev, pts, gt, train_frames):
+    """One ONCE train step (ver2 vote loss) at B = 1 in float64 on the card
+    and on the CPU, every sampling and ball-query index fed from a float32
+    card step: loss within 1e-9 relative, every gradient leaf within 1e-3 of
+    its scale (floored at 1e-6 of the largest leaf's), BatchNorm statistics
+    within 1e-5.  The card's ``index_add_`` sums in atomic order, so the
+    two agree to rounding, not bit for bit."""
+    import torch
+
+    card32 = _recorded_step(cfg, mcfg, weights, dev, torch.float32, pts, gt, train_frames)
+    picks = [i.cpu() for k, i in enumerate(card32["out"]["sampled_idx"])
+             if i is not None and not card32["fps_identity"][k]]
+    runs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        with fed(**feed_all(picks, card32)):
+            runs[name] = _recorded_step(cfg, mcfg, weights, device, torch.float64, pts, gt,
+                                        train_frames)
+    card64, cpu64 = runs["card"], runs["cpu"]
+    rel = abs(card64["loss"] - cpu64["loss"]) / abs(cpu64["loss"])
+    errs = _leaf_errors(card64["grads"], cpu64["grads"], 1e-6)
+    err_stats = max((card64["stats"][n] - cs).abs().max().item() / max(cs.abs().max().item(), 1.0)
+                    for n, cs in cpu64["stats"].items())
+    top = max(w.abs().max().item() for w in cpu64["grads"].values())
+    worst = cpu64["grads"][errs[0][1]].abs().max().item()
+    print(f"ONCE float64 train step card vs CPU (indices fed): loss rel {rel:.3g}; over "
+          f"{len(errs)} gradient leaves largest {errs[0][0]:.3g} ({errs[0][1]}, whose largest "
+          f"|gradient| is {worst / top:.3g} of the largest leaf's), deciles {_deciles(errs)}; "
+          f"BN statistics largest {err_stats:.3g}")
+    require(rel <= 1e-9, f"ONCE float64 train loss card vs CPU: rel {rel} > 1e-9")
+    require(errs[0][0] <= 1e-3, f"ONCE float64 gradient {errs[0][1]}: {errs[0][0]} > 1e-3")
+    require(err_stats <= 1e-5, f"ONCE float64 BN statistics: err {err_stats} > 1e-5")
 
 
 def ptxas_report(log):
@@ -1756,20 +2166,30 @@ def main():
         t0 = time.perf_counter()
         parent = load_parent(args.parent)
         print(f"parent tree {args.parent}: kernel build {time.perf_counter() - t0:.1f} s")
-    stats = check_kernels(dev, parent)
-    cfg = load_config()
-    served, weights, predict = serve(cfg, dev)
-    compare_f32(cfg, weights, dev, predict)
-    check_attention_bwd(dev, stats, parent)
-    trained = train(cfg, weights, dev)
-    compare_train(cfg, weights, dev)
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        return out
 
-    # launches: each kernel's count over the serving run (phase 4) and the
-    # bfloat16 and float32 train steps (phase 7), each counted from 0
+    stats = timed("3 (kernels)", check_kernels, dev, parent)
+    cfg = load_config()
+    served, weights, predict = timed("4 (serve)", serve, cfg, dev)
+    timed("5 (float32 frame)", compare_f32, cfg, weights, dev, predict)
+    timed("6 (attention backward)", check_attention_bwd, dev, stats, parent)
+    trained = timed("7 (train)", train, cfg, weights, dev)
+    timed("7 (train, card against CPU)", compare_train, cfg, weights, dev)
+    with tempfile.TemporaryDirectory(prefix="pdanet_once_") as work:
+        once = timed("8 (ONCE)", once_phase, dev, work)
+
+    # launches: each kernel's count over the KITTI serving run (phase 4),
+    # the bfloat16 and float32 train steps (phase 7) and the ONCE train
+    # steps and eval_one_epoch (phase 8), each counted from 0
     launches = {name: served.get(name, 0) + trained["bf16"].get(name, 0)
-                + trained["f32"].get(name, 0) for name in KERNELS}
+                + trained["f32"].get(name, 0) + once.get(name, 0) for name in KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the main path")
+        require(once.get(name, 0) > 0, f"kernel {name} never launched on the ONCE path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]}

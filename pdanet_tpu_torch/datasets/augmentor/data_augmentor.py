@@ -1,0 +1,116 @@
+"""Augmentation queue, copied from
+``pdanet_tpu/datasets/augmentor/data_augmentor.py`` on the PDA-SSD path
+(``pcdet/datasets/augmentor/data_augmentor.py``): gt_sampling and the world
+flip / rotation / scaling with their ENABLE_PROB gates.  The local,
+frustum, pyramid, translation and image augmentors of the zoo's other
+configs raise."""
+
+from functools import partial
+
+import numpy as np
+
+from ...utils import common_utils
+from . import augmentor_utils, database_sampler
+
+AUGMENTORS = ("gt_sampling", "random_world_flip", "random_world_rotation",
+              "random_world_scaling")
+
+
+class DataAugmentor:
+    def __init__(self, root_path, augmentor_configs, class_names, logger=None):
+        self.root_path = root_path
+        self.class_names = class_names
+        self.logger = logger
+        self.data_augmentor_queue = []
+        aug_config_list = (
+            augmentor_configs
+            if isinstance(augmentor_configs, list)
+            else augmentor_configs.AUG_CONFIG_LIST
+        )
+        for cur_cfg in aug_config_list:
+            if not isinstance(augmentor_configs, list):
+                if cur_cfg.NAME in augmentor_configs.DISABLE_AUG_LIST:
+                    continue
+            if cur_cfg.NAME not in AUGMENTORS:
+                raise NotImplementedError(
+                    f"augmentor {cur_cfg.NAME} is ROADMAP queue 1 item 9")
+            cur_augmentor = getattr(self, cur_cfg.NAME)(config=cur_cfg)
+            self.data_augmentor_queue.append(cur_augmentor)
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d.pop("logger", None)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+
+    def gt_sampling(self, config=None):
+        return database_sampler.DataBaseSampler(
+            root_path=self.root_path,
+            sampler_cfg=config,
+            class_names=self.class_names,
+            logger=self.logger,
+        )
+
+    def random_world_flip(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_world_flip, config=config)
+        enable_prob = config.get("ENABLE_PROB", 0.5)
+        gt_boxes, points = data_dict["gt_boxes"], data_dict["points"]
+        for cur_axis in config["ALONG_AXIS_LIST"]:
+            assert cur_axis in ["x", "y"]
+            gt_boxes, points = getattr(
+                augmentor_utils, "random_flip_along_%s" % cur_axis
+            )(gt_boxes, points, enable_prob=enable_prob)
+        data_dict["gt_boxes"] = gt_boxes
+        data_dict["points"] = points
+        return data_dict
+
+    def random_world_rotation(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_world_rotation, config=config)
+        enable_prob = config.get("ENABLE_PROB", 1.0)
+        rot_range = config["WORLD_ROT_ANGLE"]
+        if not isinstance(rot_range, list):
+            rot_range = [-rot_range, rot_range]
+        gt_boxes, points = augmentor_utils.global_rotation(
+            data_dict["gt_boxes"], data_dict["points"], rot_range=rot_range,
+            enable_prob=enable_prob,
+        )
+        data_dict["gt_boxes"] = gt_boxes
+        data_dict["points"] = points
+        return data_dict
+
+    def random_world_scaling(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_world_scaling, config=config)
+        enable_prob = config.get("ENABLE_PROB", 1.0)
+        gt_boxes, points = augmentor_utils.global_scaling(
+            data_dict["gt_boxes"], data_dict["points"],
+            config["WORLD_SCALE_RANGE"], enable_prob=enable_prob,
+        )
+        data_dict["gt_boxes"] = gt_boxes
+        data_dict["points"] = points
+        return data_dict
+
+    def forward(self, data_dict):
+        for cur_augmentor in self.data_augmentor_queue:
+            data_dict = cur_augmentor(data_dict=data_dict)
+        data_dict["gt_boxes"][:, 6] = common_utils.limit_period(
+            data_dict["gt_boxes"][:, 6], offset=0.5, period=2 * np.pi
+        )
+        if "calib" in data_dict:
+            data_dict.pop("calib")
+        if "road_plane" in data_dict:
+            data_dict.pop("road_plane")
+        if "gt_boxes_mask" in data_dict:
+            gt_boxes_mask = data_dict["gt_boxes_mask"]
+            data_dict["gt_boxes"] = data_dict["gt_boxes"][gt_boxes_mask]
+            data_dict["gt_names"] = data_dict["gt_names"][gt_boxes_mask]
+            if "gt_boxes2d" in data_dict:
+                data_dict["gt_boxes2d"] = data_dict["gt_boxes2d"][
+                    gt_boxes_mask
+                ]
+            data_dict.pop("gt_boxes_mask")
+        return data_dict

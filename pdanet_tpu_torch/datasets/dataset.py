@@ -1,0 +1,161 @@
+"""Dataset template, copied from ``pdanet_tpu/datasets/dataset.py``
+(``pcdet/datasets/dataset.py``).
+
+``prepare_data`` (reference :102-158) composes PointFeatureEncoder ->
+DataAugmentor (train) -> DataProcessor and re-rolls empty-gt frames.
+
+``collate_batch`` (reference :160-229) collates frames to dense
+``(B, N, C)`` points (the fixed ``sample_points`` budget gives equal N) and
+zero-pads gt boxes to ``(B, MAX_GT_BOXES, 8)``, the static cap of the
+dataset config, as the JAX package does.  The ragged points, voxel and
+camera keys of the zoo's other families are not produced by the port's
+processors.
+"""
+
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+
+from ..utils import common_utils
+from .augmentor.data_augmentor import DataAugmentor
+from .processor.data_processor import DataProcessor
+from .processor.point_feature_encoder import PointFeatureEncoder
+
+
+class DatasetTemplate:
+    def __init__(self, dataset_cfg=None, class_names=None, training=True,
+                 root_path=None, logger=None):
+        self.dataset_cfg = dataset_cfg
+        self.training = training
+        self.class_names = class_names
+        self.logger = logger
+        self.root_path = (
+            Path(root_path) if root_path is not None
+            else Path(dataset_cfg.DATA_PATH)
+        )
+        if self.dataset_cfg is None or class_names is None:
+            return
+
+        self.point_cloud_range = np.array(
+            self.dataset_cfg.POINT_CLOUD_RANGE, dtype=np.float32
+        )
+        self.point_feature_encoder = PointFeatureEncoder(
+            self.dataset_cfg.POINT_FEATURE_ENCODING,
+            point_cloud_range=self.point_cloud_range,
+        )
+        self.data_augmentor = (
+            DataAugmentor(
+                self.root_path,
+                self.dataset_cfg.DATA_AUGMENTOR,
+                self.class_names,
+                logger=self.logger,
+            )
+            if self.training
+            else None
+        )
+        self.data_processor = DataProcessor(
+            self.dataset_cfg.DATA_PROCESSOR,
+            point_cloud_range=self.point_cloud_range,
+            training=self.training,
+            num_point_features=self.point_feature_encoder.num_point_features,
+        )
+        self.total_epochs = 0
+        self._merge_all_iters_to_one_epoch = False
+
+    @property
+    def mode(self):
+        return "train" if self.training else "test"
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def __getitem__(self, index):
+        raise NotImplementedError
+
+    def prepare_data(self, data_dict):
+        """reference dataset.py:102-158."""
+        if self.training:
+            assert "gt_boxes" in data_dict, "gt_boxes should be provided for training"
+            gt_boxes_mask = np.array(
+                [n in self.class_names for n in data_dict["gt_names"]], dtype=np.bool_
+            )
+            data_dict = self.data_augmentor.forward(
+                data_dict={**data_dict, "gt_boxes_mask": gt_boxes_mask}
+            )
+
+        if data_dict.get("gt_boxes", None) is not None:
+            selected = common_utils.keep_arrays_by_name(
+                data_dict["gt_names"], self.class_names
+            )
+            data_dict["gt_boxes"] = data_dict["gt_boxes"][selected]
+            data_dict["gt_names"] = data_dict["gt_names"][selected]
+            gt_classes = np.array(
+                [self.class_names.index(n) + 1 for n in data_dict["gt_names"]],
+                dtype=np.int32,
+            )
+            gt_boxes = np.concatenate(
+                (
+                    data_dict["gt_boxes"],
+                    gt_classes.reshape(-1, 1).astype(np.float32),
+                ),
+                axis=1,
+            )
+            data_dict["gt_boxes"] = gt_boxes
+
+        if data_dict.get("points", None) is not None:
+            data_dict = self.point_feature_encoder.forward(data_dict)
+
+        data_dict = self.data_processor.forward(data_dict=data_dict)
+
+        if self.training and len(data_dict["gt_boxes"]) == 0:
+            # re-roll empty-gt frames (reference :152-154)
+            new_index = np.random.randint(self.__len__())
+            return self.__getitem__(new_index)
+
+        data_dict.pop("gt_names", None)
+        return data_dict
+
+    def collate_batch(self, batch_list):
+        """Dense collate with the config's static gt cap."""
+        cap = None
+        if self.dataset_cfg is not None:
+            cap = self.dataset_cfg.get("MAX_GT_BOXES", None)
+        return self.collate_batch_static(batch_list, max_gt_cap=cap)
+
+    @staticmethod
+    def collate_batch_static(batch_list, max_gt_cap=None):
+        """Dense collate: (B, N, C) points + (B, M, 8) padded gt.
+
+        ``max_gt_cap`` pins the gt axis to a per-config constant, so every
+        batch of an epoch has one shape.  Frames with more than
+        ``max_gt_cap`` boxes keep the first ``max_gt_cap``."""
+        data_dict = defaultdict(list)
+        for cur_sample in batch_list:
+            for key, val in cur_sample.items():
+                data_dict[key].append(val)
+        batch_size = len(batch_list)
+        ret = {}
+        for key, val in data_dict.items():
+            if key == "points":
+                # the point models take a fixed budget per frame (the
+                # sample_points processor): frames of other sizes raise
+                ret[key] = np.stack(val, axis=0).astype(np.float32)
+            elif key == "gt_boxes":
+                max_gt = max([len(x) for x in val]) if val else 0
+                max_gt = max(max_gt, 1)
+                if max_gt_cap is not None:
+                    max_gt = int(max_gt_cap)
+                batch_gt = np.zeros(
+                    (batch_size, max_gt, val[0].shape[-1]), dtype=np.float32
+                )
+                for k in range(batch_size):
+                    m = min(len(val[k]), max_gt)
+                    batch_gt[k, :m, :] = val[k][:m]
+                ret[key] = batch_gt
+            elif key in ["frame_id", "metadata"]:
+                ret[key] = val
+            else:
+                ret[key] = np.stack(val, axis=0)
+        ret["batch_size"] = batch_size
+        return ret

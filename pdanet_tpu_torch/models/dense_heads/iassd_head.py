@@ -195,6 +195,67 @@ def contextual_vote_loss(forward_ret, num_class, weight):
     return (losses * present).sum() / torch.clamp(present.sum(), min=1.0) * weight
 
 
+def _instance_segments(forward_ret, num_boxes):
+    """Per-point instance bins for the ver1/ver2 vote losses: point n of
+    frame b goes to bin ``b * num_boxes + box``; background points go to
+    the overflow bin ``B * num_boxes``, which no loss term reads.  Returns
+    the flat bins (B*N,), the foreground weights (B*N,), the per-bin point
+    counts (B*num_boxes + 1,), the flat votes (B*N, 3) and the per-point
+    smooth-L1 to the gt centre, summed over xyz (B*N,)."""
+    box_idx = forward_ret["center_origin_box_idxs_of_pts"]  # (B, N)
+    gt_ctr = forward_ret["gt_box_of_center_origin"][..., 0:3]
+    pred = forward_ret["centers_origin"] + forward_ret["ctr_offsets"]
+    B = box_idx.shape[0]
+    valid = box_idx >= 0
+    seg = (torch.arange(B, device=box_idx.device)[:, None] * num_boxes
+           + box_idx.clamp(min=0)).reshape(-1)
+    seg = torch.where(valid.reshape(-1), seg, B * num_boxes)
+    num_seg = B * num_boxes + 1
+    # float32 at least, as the JAX package's weights: counts stay exact
+    ones = valid.reshape(-1).to(torch.promote_types(pred.dtype, torch.float32))
+    counts = _segment_sum(ones, seg, num_seg)
+    l1 = loss_utils.smooth_l1(pred - gt_ctr, beta=1.0).sum(dim=-1).reshape(-1)
+    return seg, ones, counts, pred.reshape(-1, 3), l1
+
+
+def _segment_sum(values, seg, num_seg):
+    out = values.new_zeros((num_seg,) + values.shape[1:])
+    return out.index_add(0, seg, values)
+
+
+def _mean_over_instances(per_ins, counts):
+    """Mean of the per-instance terms over the instances with points."""
+    has_pts = (counts[:-1] > 0).to(per_ins.dtype)
+    return (per_ins * has_pts).sum() / torch.clamp(has_pts.sum(), min=1.0)
+
+
+def contextual_vote_loss_ver1(forward_ret, num_boxes, weight):
+    """LOSS_VOTE_TYPE 'ver1' (IASSD_head.py:551-576): the per-instance
+    mean smooth L1 of the votes, averaged over the instances with points.
+    ``num_boxes`` is the gt axis of the collated batch."""
+    seg, ones, counts, _, l1 = _instance_segments(forward_ret, num_boxes)
+    ins_loss = _segment_sum(l1 * ones, seg, counts.shape[0])
+    per_ins = ins_loss[:-1] / torch.clamp(counts[:-1], min=1.0)
+    return _mean_over_instances(per_ins, counts) * weight
+
+
+def contextual_vote_loss_ver2(forward_ret, num_boxes, weight):
+    """LOSS_VOTE_TYPE 'ver2' (IASSD_head.py:583-625): ver1 plus half the
+    per-instance mean smooth L1 of each vote to its instance's mean vote.
+    The gradient flows through the instance means too, as in the JAX
+    package, which stops no gradient there."""
+    seg, ones, counts, pred, l1 = _instance_segments(forward_ret, num_boxes)
+    num_seg = counts.shape[0]
+    ins_loss = _segment_sum(l1 * ones, seg, num_seg)
+    sums = _segment_sum(pred * ones[:, None], seg, num_seg)
+    means = sums / torch.clamp(counts, min=1.0)[:, None]
+    spread = loss_utils.smooth_l1(pred - means[seg], beta=1.0).sum(dim=-1)
+    ins_mean_loss = _segment_sum(spread * ones, seg, num_seg)
+    per_ins = (ins_loss[:-1] + 0.5 * ins_mean_loss[:-1]) / torch.clamp(
+        counts[:-1], min=1.0)
+    return _mean_over_instances(per_ins, counts) * weight
+
+
 def generate_center_ness_mask(forward_ret):
     """Box-geometry centerness ``(min / max)^(1/3)`` of the positive
     centres (IASSD_head.py:795-818), on detached centres (:799, :336): a
@@ -367,20 +428,23 @@ def cd_loss_metric(forward_ret, loss_cfg):
     return sum(cds) / len(cds)
 
 
-def get_loss(forward_ret, model_cfg, box_coder, num_class):
-    """Total head loss and its tb scalars (IASSD_head.py:470-521)."""
+def get_loss(forward_ret, model_cfg, box_coder, num_class, num_boxes):
+    """Total head loss and its tb scalars (IASSD_head.py:470-521).
+    ``num_boxes`` is the gt axis M of the (B, M, 8) gt boxes."""
     loss_cfg = model_cfg.LOSS_CONFIG
     target_cfg = model_cfg.TARGET_CONFIG
     tb = {}
 
     vote_type = loss_cfg.get("LOSS_VOTE_TYPE", "none")
     assign = target_cfg.get("ASSIGN_METHOD", None)
+    vote_w = loss_cfg.LOSS_WEIGHTS["vote_weight"]
     if assign is not None and assign.get("ASSIGN_TYPE") == "centers_origin":
-        if vote_type in ("ver1", "ver2"):
-            raise NotImplementedError(
-                f"LOSS_VOTE_TYPE {vote_type} is ROADMAP queue 1 item 7 (ONCE)")
-        vote_loss = contextual_vote_loss(forward_ret, num_class,
-                                         loss_cfg.LOSS_WEIGHTS["vote_weight"])
+        if vote_type == "ver2":
+            vote_loss = contextual_vote_loss_ver2(forward_ret, num_boxes, vote_w)
+        elif vote_type == "ver1":
+            vote_loss = contextual_vote_loss_ver1(forward_ret, num_boxes, vote_w)
+        else:
+            vote_loss = contextual_vote_loss(forward_ret, num_class, vote_w)
     else:
         # centre-assign variant (IASSD_head.py:628-634)
         pred = forward_ret["centers_origin"] + forward_ret["ctr_offsets"]

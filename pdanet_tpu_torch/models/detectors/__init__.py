@@ -4,6 +4,8 @@ Only IASSD (PDA-SSD) is ported; the other detectors of the zoo are ROADMAP
 queue 1 item 9.
 """
 
+import torch
+
 from .iassd import IASSD, post_processing
 
 __all__ = {"IASSD": IASSD}
@@ -17,8 +19,10 @@ def get_post_processor(name):
         out["batch_cls_preds"], out["batch_box_preds"], mcfg.POST_PROCESSING)
 
 
-def build_network(model_cfg, num_class, input_channels=4):
-    """Build the detector named by ``model_cfg.NAME``."""
+def build_network(model_cfg, num_class, input_channels=4, device=None):
+    """Build the detector named by ``model_cfg.NAME`` on ``device``: the
+    current CUDA device unless the caller names one (``device="cpu"``)."""
     if model_cfg.NAME not in __all__:
         raise NotImplementedError(f"{model_cfg.NAME} is ROADMAP queue 1 item 9")
-    return __all__[model_cfg.NAME](model_cfg, num_class, input_channels)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    return __all__[model_cfg.NAME](model_cfg, num_class, input_channels).to(device)

@@ -2,15 +2,16 @@
 post-processing.
 
 Counterpart of ``pdanet_tpu/models/detectors/iassd.py``: the forward
-(:25-70), the loss (``loss``, ``loss_batch``, ``compute_loss``, :72-103)
-and ``post_processing`` (:106-172) on its single-NMS path.
+(:25-70), the loss (``loss``, ``loss_batch``, ``compute_loss``, :72-103),
+``post_processing`` (:106-172) on its single-NMS path and the recall
+record of the eval loop (``generate_recall_record``, :175-206).
 """
 
 import torch
 from torch import nn
 
 from ...ops.nms import greedy_nms_mask_batched
-from ...ops.rotated_iou import boxes_iou_bev_batched_self
+from ...ops.rotated_iou import boxes_iou3d, boxes_iou_bev_batched_self
 from ...utils.box_coder_utils import build_box_coder
 from ...utils.easydict import EasyDict
 from ..backbones_3d.iassd_backbone import IASSDBackbone
@@ -71,7 +72,7 @@ def compute_loss(forward_out, gt_boxes, model_cfg, box_coder, num_class):
                                         head_cfg.TARGET_CONFIG, box_coder)
     ret = dict(forward_out)
     ret.update(targets)
-    return iassd_head.get_loss(ret, head_cfg, box_coder, num_class)
+    return iassd_head.get_loss(ret, head_cfg, box_coder, num_class, gt_boxes.shape[1])
 
 
 def post_processing(batch_cls_preds, batch_box_preds, post_cfg):
@@ -119,3 +120,21 @@ def post_processing(batch_cls_preds, batch_box_preds, post_cfg):
         "pred_labels": torch.where(hit, torch.gather(labels, 1, safe), 0).to(torch.int32),
         "pred_counts": counts,
     }
+
+
+def generate_recall_record(pred_boxes, pred_valid, gt_boxes, thresh_list):
+    """Recall against the gt at 3-D IoU thresholds
+    (detector3d_template.py:287-329), per frame.
+
+    pred_boxes (..., P, 7), pred_valid (..., P) bool, gt_boxes (..., M, 8)
+    zero-padded -> ``{"gt": count, "rcnn_<t>": recalled count}``, int64
+    tensors of the leading shape.  A single-stage detector has no
+    first-stage rois, so no ``roi_<t>`` counts."""
+    gt_valid = (gt_boxes[..., 0:7] != 0).any(dim=-1)
+    iou = boxes_iou3d(pred_boxes, gt_boxes[..., 0:7])  # (..., P, M)
+    iou = torch.where(pred_valid.unsqueeze(-1) & gt_valid.unsqueeze(-2), iou, 0.0)
+    best_per_gt = iou.max(dim=-2).values
+    out = {"gt": gt_valid.sum(dim=-1)}
+    for t in thresh_list:
+        out[f"rcnn_{t}"] = (best_per_gt > t).sum(dim=-1)
+    return out

@@ -171,6 +171,24 @@ def boxes_iou_bev(boxes_a, boxes_b):
     return overlap / torch.clamp(sa + sb - overlap, min=EPS)
 
 
+def boxes_iou3d(boxes_a, boxes_b):
+    """(..., N, 7) x (..., M, 7) -> (..., N, M) 3-D IoU: the float32 rotated
+    BEV overlap times the height overlap (``iou3d_nms_utils.boxes_iou3d_gpu``,
+    iou3d_nms_utils.py:48-81; ``pdanet_tpu/ops/rotated_iou.py:349-366``).
+    Plain PyTorch on any device: the JAX package has no kernel for it."""
+    a_hmax = (boxes_a[..., 2] + boxes_a[..., 5] / 2).unsqueeze(-1)
+    a_hmin = (boxes_a[..., 2] - boxes_a[..., 5] / 2).unsqueeze(-1)
+    b_hmax = (boxes_b[..., 2] + boxes_b[..., 5] / 2).unsqueeze(-2)
+    b_hmin = (boxes_b[..., 2] - boxes_b[..., 5] / 2).unsqueeze(-2)
+    overlaps_bev = _pair_overlap(boxes_a.float(), boxes_b.float())
+    overlaps_h = torch.clamp(
+        torch.minimum(a_hmax, b_hmax) - torch.maximum(a_hmin, b_hmin), min=0)
+    overlaps_3d = overlaps_bev * overlaps_h
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]).unsqueeze(-1)
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]).unsqueeze(-2)
+    return overlaps_3d / torch.clamp(vol_a + vol_b - overlaps_3d, min=1e-6)
+
+
 def boxes_iou_bev_batched_self(boxes):
     """(B, K, 7) -> (B, K, K) self-IoU, the NMS suppression matrix."""
     if boxes.device.type == "cpu":

@@ -117,7 +117,7 @@ def _make_run(compute_dtype=None):
         samp.append(s)
         ball.append(b)
 
-    model = build_network(cfg, NUM_CLASS).eval()
+    model = build_network(cfg, NUM_CLASS, device="cpu").eval()
     load_jax_variables(model, variables)
     return dict(cfg=cfg, points=points, variables=variables, out=out,
                 post=jax.device_get(post), samp=samp, ball=ball, model=model)
@@ -166,11 +166,11 @@ def test_weight_bridge_consumes_every_leaf(slice_run):
     extra = jax.tree_util.tree_map(lambda a: a, variables)
     extra["params"]["point_head"]["stray"] = {"kernel": np.zeros((2, 2), np.float32)}
     with pytest.raises(KeyError):
-        load_jax_variables(build_network(slice_run["cfg"], NUM_CLASS), extra)
+        load_jax_variables(build_network(slice_run["cfg"], NUM_CLASS, device="cpu"), extra)
     short = jax.tree_util.tree_map(lambda a: a, variables)
     del short["batch_stats"]["point_head"]
     with pytest.raises(KeyError):
-        load_jax_variables(build_network(slice_run["cfg"], NUM_CLASS), short)
+        load_jax_variables(build_network(slice_run["cfg"], NUM_CLASS, device="cpu"), short)
 
 
 def _run_port_fed(run, monkeypatch):
@@ -252,6 +252,10 @@ def test_port_imports_no_jax():
         "from pdanet_tpu_torch.utils import jax_weights\n"
         "import pdanet_tpu_torch.train\n"
         "from pdanet_tpu_torch.models.dense_heads import iassd_head\n"
+        "import pdanet_tpu_torch.datasets\n"
+        "import pdanet_tpu_torch.datasets.once.once_dataset\n"
+        "import pdanet_tpu_torch.datasets.once.once_eval.evaluation\n"
+        "import pdanet_tpu_torch.eval.eval_utils\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"

@@ -226,7 +226,7 @@ def _fed_indices(monkeypatch, model, steps):
 
 
 def _port_f64(cfg, variables):
-    model = build_network(cfg, NUM_CLASS).double()
+    model = build_network(cfg, NUM_CLASS, device="cpu").double()
     load_jax_variables(model, variables)
     return model
 
@@ -327,7 +327,7 @@ def test_assign_targets_and_loss_terms_match_jax(jax_run):
     assert targets["center_pos_mask"].any() and targets["center_origin_pos_mask"].any()
     ret = dict(t_out)
     ret.update(targets)
-    loss, tb = iassd_head.get_loss(ret, head_cfg, coder, NUM_CLASS)
+    loss, tb = iassd_head.get_loss(ret, head_cfg, coder, NUM_CLASS, gt.shape[1])
     assert set(tb) == set(j_tb)
     errs = {k: abs(float(tb[k]) - float(w)) / max(abs(float(w)), 1e-6)
             for k, w in j_tb.items()}
@@ -436,7 +436,7 @@ def test_bf16_train_compute_tracks_f32(monkeypatch):
     gt[:, 0] = [2.0, 1.0, 0.0, 3.9, 1.6, 1.56, 0.3, 1.0]
     gt[:, 1] = [-3.0, 2.0, 0.2, 0.8, 0.6, 1.73, -0.5, 2.0]
     batch = _batch_t(rs.randn(8, 128, 4) * 5, gt, torch.float32)
-    weights = init_random_weights(build_network(cfg, NUM_CLASS), seed=4).state_dict()
+    weights = init_random_weights(build_network(cfg, NUM_CLASS, device="cpu"), seed=4).state_dict()
     recorded = {"run_sampling": [], "ball_query_multi": []}
 
     def recording(name):
@@ -457,7 +457,7 @@ def test_bf16_train_compute_tracks_f32(monkeypatch):
                 c.BACKBONE_3D.TRAIN_COMPUTE_DTYPE = "bf16"
                 monkeypatch.setattr(iassd_backbone, op,
                                     lambda *a, _q=recorded[op]: _q.pop(0))
-        model = build_network(c, NUM_CLASS)
+        model = build_network(c, NUM_CLASS, device="cpu")
         model.load_state_dict(weights)
         # the schedule of tests/test_train.py::train_setup (10 x 4 updates)
         optimizer, schedule = build_optimizer_and_schedule(model, _optim_cfg(), 10, 4)
@@ -471,7 +471,7 @@ def test_bf16_train_compute_tracks_f32(monkeypatch):
 
 def test_checkpoint_round_trip_and_corruption(tmp_path):
     cfg = EasyDict(tiny_model_cfg(NUM_CLASS))
-    model = build_network(cfg, NUM_CLASS)
+    model = build_network(cfg, NUM_CLASS, device="cpu")
     optimizer, schedule = build_optimizer_and_schedule(model, _optim_cfg(), 2, 4)
     make_train_step(model, optimizer, schedule)(_batch_t(*_batch(5), torch.float32))
     path = str(tmp_path / "checkpoint_epoch_1.pth")
@@ -479,7 +479,7 @@ def test_checkpoint_round_trip_and_corruption(tmp_path):
     assert sorted(p.name for p in tmp_path.iterdir()) == ["checkpoint_epoch_1.pth"]
     ckpt = load_checkpoint(path)
     assert set(ckpt) == {"epoch", "it", "model_state", "optimizer_state", "version"}
-    fresh = build_network(cfg, NUM_CLASS)
+    fresh = build_network(cfg, NUM_CLASS, device="cpu")
     fresh_opt, _ = build_optimizer_and_schedule(fresh, _optim_cfg(), 2, 4)
     assert restore_from_checkpoint(ckpt, fresh, fresh_opt) == (1, 1)
     for key, val in model.state_dict().items():
@@ -501,7 +501,7 @@ def test_checkpoint_round_trip_and_corruption(tmp_path):
 
 def test_train_one_epoch_steps_once_per_batch():
     cfg = EasyDict(tiny_model_cfg(NUM_CLASS))
-    model = build_network(cfg, NUM_CLASS)
+    model = build_network(cfg, NUM_CLASS, device="cpu")
     optimizer, schedule = build_optimizer_and_schedule(model, _optim_cfg(), 2, 4)
     loader = [dict(zip(("points", "gt_boxes"), _batch(seed)), frame_id=seed)
               for seed in (31, 32)]
