@@ -112,12 +112,34 @@ Phases, each of which raises on failure:
    every index fed (loss within 1e-9 relative, gradients within 1e-3 of
    each leaf's scale, statistics within 1e-5).  Every kernel must launch
    on the ONCE path.
+9. KITTI through the CLIs: the shipped tools/cfgs/kitti_models/PDA-SSD.yaml
+   at full width (16384 sampled points, bfloat16 as shipped), run as a
+   user runs it from tools/ (``cfgs`` linked into a temporary working
+   directory), on a synthetic KITTI root the script writes there (32
+   train and 4 val frames of 120000 LiDAR-like 360-degree points, 10-20
+   Car / Pedestrian / Cyclist boxes a frame with returns on them, the
+   calib, road-plane and label files of ``tests/kitti_fixture.py``'s form,
+   1242 x 375 PNGs written with zlib and struct); ``create_kitti_infos``
+   and the gt database; the loader alone over one epoch (host ms per
+   batch); ``python -m pdanet_tpu_torch.tools.train`` in process for one
+   epoch at B = 4 with the evaluation of its checkpoint (losses finite,
+   ms per iteration and the wait for the loader from its metrics);
+   ``python -m pdanet_tpu_torch.tools.test`` on the checkpoint at B = 1
+   with ``--infer_time`` (``result.pkl`` holds every val frame with the
+   KITTI keys; the official evaluation's result dict, finite, and its
+   seconds); the fps, ball-query, bfloat16 attention and attention-
+   backward, IoU and NMS kernels must launch on this path.  Then the same
+   B = 4 bfloat16 steps on the loader's batches with the loader idle, the
+   device split of one, and one val
+   frame in float32 through the test CLI on the card and on the CPU:
+   equal detection counts, every detection paired by mutual nearest
+   centre within 1e-3 m.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
-(phase 4's requests, phase 7's bfloat16 and float32 train steps and
-phase 8's ONCE train steps and ``eval_one_epoch``, each run counted from
-0), its largest error,
+(phase 4's requests, phase 7's bfloat16 and float32 train steps, phase
+8's ONCE train steps and ``eval_one_epoch`` and phase 9's train and test
+CLIs, each run counted from 0), its largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
 their type, from this run's inputs) and SDPA's time where SDPA computes
@@ -2041,6 +2063,348 @@ def compare_once_f64(cfg, mcfg, weights, dev, pts, gt, train_frames):
     require(err_stats <= 1e-5, f"ONCE float64 BN statistics: err {err_stats} > 1e-5")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: KITTI through the CLIs
+# ---------------------------------------------------------------------------
+
+CFGS = ROOT / "tools" / "cfgs"  # the shipped yamls, linked into phase 9's working directory
+KITTI_CFG_REL = "cfgs/kitti_models/PDA-SSD.yaml"  # as a user runs it from tools/
+KITTI_FRAME_POINTS = 120000  # returns of a 360-degree sweep; the FOV keeps about a fifth
+KITTI_SPLITS = (("train", 32), ("val", 4))  # 32 train frames: 8 steps at B = 4
+KITTI_IMAGE = (1242, 375)  # width, height
+KITTI_TRAIN_KERNELS = ("fps", "ball_query", "neighbor_attention_bf16",
+                       "neighbor_attention_bwd_bf16", "rotated_iou", "nms")
+# the calib and plane files of tests/kitti_fixture.py (the devkit's sample, rounded)
+KITTI_CALIB = """P0: 707.0493 0 604.0814 0 0 707.0493 180.5066 0 0 0 1 0
+P1: 707.0493 0 604.0814 -379.7842 0 707.0493 180.5066 0 0 0 1 0
+P2: 707.0493 0 604.0814 45.75831 0 707.0493 180.5066 -0.3454157 0 0 1 0.004981016
+P3: 707.0493 0 604.0814 -334.1081 0 707.0493 180.5066 2.33966 0 0 1 0.003201153
+R0_rect: 0.9999128 0.01009263 -0.008511932 -0.01012729 0.9999406 -0.004037671 0.008470675 0.004123522 0.9999556
+Tr_velo_to_cam: 0.006927964 -0.9999722 -0.002757829 -0.02457729 -0.001162982 0.002749836 -0.9999955 -0.06127237 0.9999753 0.006931141 0.001143899 -0.3321029
+Tr_imu_to_velo: 0.9999976 0.0007553071 -0.002035826 -0.8086759 -0.0007854027 0.9998898 -0.01482298 0.3195559 0.002024406 0.01482454 0.9998881 -0.7997231
+"""
+KITTI_PLANE = """# Plane
+Width 4
+Height 1
+-1.855735e-02 -9.998253e-01 -1.616003e-03 1.640574e+00
+"""
+KITTI_DONTCARE = "DontCare -1 -1 -10 500.00 170.00 590.00 190.00 -1 -1 -1 -1000 -1000 -1000 -10"
+
+
+def png_bytes(width, height):
+    """A black 8-bit RGB PNG, written with zlib and struct: the signature,
+    then the IHDR, IDAT and IEND chunks, each with its CRC-32."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    rows = (b"\x00" + bytes(3 * width)) * height  # filter byte 0, then the row
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows, 1)) + chunk(b"IEND", b""))
+
+
+def kitti_like_frame(rs, class_names, mean_sizes, n_points=KITTI_FRAME_POINTS, extent=80.0):
+    """One 360-degree LiDAR-like frame with the sensor 1.73 m above the
+    ground: 10-20 boxes of the three classes at the yaml's mean sizes (10 %
+    jitter), apart in BEV, on the ground inside the camera's field of view
+    (within 35 degrees of the x axis, 5-55 m out), each holding returns
+    (more the nearer it is); a ground disc with the falling density of a
+    spinning sensor; sparse returns in the air.  Returns (points (n, 4)
+    float32 with intensity in [0, 1), boxes (m, 7) in the lidar frame,
+    names (m,))."""
+    boxes, names = [], []
+    n_boxes = rs.randint(10, 21)
+    while len(boxes) < n_boxes:
+        cls = rs.choice(len(class_names), p=(0.6, 0.2, 0.2))
+        dims = np.asarray(mean_sizes[cls]) * rs.uniform(0.9, 1.1, 3)
+        r, th = rs.uniform(5.0, 55.0), rs.uniform(-0.61, 0.61)
+        box = np.array([r * np.cos(th), r * np.sin(th), -1.73 + dims[2] / 2, *dims,
+                        rs.uniform(-np.pi, np.pi)])
+        radius = 0.5 * np.hypot(dims[0], dims[1])
+        if all(np.hypot(*(box[:2] - b[:2])) > radius + 0.5 * np.hypot(b[3], b[4]) + 0.3
+               for b in boxes):
+            boxes.append(box)
+            names.append(class_names[cls])
+    boxes = np.stack(boxes)
+    obj = []
+    for b in boxes:
+        n = int(np.clip(8000.0 / np.hypot(b[0], b[1]), 40, 600))
+        local = (rs.rand(n, 3) - 0.5) * b[3:6] * 0.95
+        c, s = np.cos(b[6]), np.sin(b[6])
+        obj.append(np.stack([local[:, 0] * c - local[:, 1] * s + b[0],
+                             local[:, 0] * s + local[:, 1] * c + b[1],
+                             local[:, 2] + b[2]], -1))
+    obj = np.concatenate(obj)
+    n_air = n_points // 10
+    n_ground = n_points - len(obj) - n_air
+    r = 2.0 + (extent - 2.0) * rs.rand(n_ground) ** 1.6
+    th = rs.uniform(-np.pi, np.pi, n_ground)
+    ground = np.stack([r * np.cos(th), r * np.sin(th), rs.normal(-1.73, 0.03, n_ground)], -1)
+    air = np.stack([rs.uniform(-extent, extent, n_air), rs.uniform(-extent, extent, n_air),
+                    rs.uniform(-1.5, 2.5, n_air)], -1)
+    xyz = np.concatenate([ground, air, obj])
+    pts = np.concatenate([xyz, rs.rand(len(xyz), 1)], -1).astype(np.float32)
+    return pts[rs.permutation(len(pts))], boxes, np.array(names)
+
+
+def write_kitti_root(root, class_names, mean_sizes, seed=0, n_points=KITTI_FRAME_POINTS,
+                     splits=KITTI_SPLITS):
+    """A synthetic KITTI root in the layout of ``tests/kitti_fixture.py``
+    (``training/{velodyne,calib,label_2,image_2,planes}``, ``ImageSets``):
+    ``kitti_like_frame`` clouds, the fixture's calibration and road plane,
+    labels written from the boxes through the camera conversions (the 2-D
+    box projected and clipped to the image, which sets the difficulty), a
+    DontCare row last, and 1242 x 375 PNGs.  The test split is empty.
+    Returns per split (frames, boxes, fewest points of a frame inside the
+    camera's field of view)."""
+    from pdanet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
+    from pdanet_tpu_torch.utils import box_utils, calibration_kitti
+
+    rs = np.random.RandomState(seed)
+    training = root / "training"
+    for sub in ("velodyne", "calib", "label_2", "image_2", "planes"):
+        (training / sub).mkdir(parents=True)
+    (root / "ImageSets").mkdir(parents=True)
+    (training / "calib" / "tmp.txt").write_text(KITTI_CALIB)
+    calib = calibration_kitti.Calibration(str(training / "calib" / "tmp.txt"))
+    (training / "calib" / "tmp.txt").unlink()
+    shape = np.array([KITTI_IMAGE[1], KITTI_IMAGE[0]])
+    png = png_bytes(*KITTI_IMAGE)
+    counts, frame = {}, 0
+    for split, n_frames in splits:
+        ids, n_boxes, fov_min = [], 0, None
+        for _ in range(n_frames):
+            idx = f"{frame:06d}"
+            frame += 1
+            pts, boxes, names = kitti_like_frame(rs, class_names, mean_sizes, n_points)
+            pts.tofile(training / "velodyne" / f"{idx}.bin")
+            cam = box_utils.boxes3d_lidar_to_kitti_camera(boxes.astype(np.float32), calib)
+            img = box_utils.boxes3d_kitti_camera_to_imageboxes(cam, calib, image_shape=shape)
+            alpha = -np.arctan2(-boxes[:, 1], boxes[:, 0]) + cam[:, 6]
+            lines = [f"{n} 0.00 0 {a:.2f} {b[0]:.2f} {b[1]:.2f} {b[2]:.2f} {b[3]:.2f} "
+                     f"{c[4]:.2f} {c[5]:.2f} {c[3]:.2f} {c[0]:.2f} {c[1]:.2f} {c[2]:.2f} "
+                     f"{c[6]:.2f}" for n, a, b, c in zip(names, alpha, img, cam)]
+            (training / "label_2" / f"{idx}.txt").write_text(
+                "\n".join(lines + [KITTI_DONTCARE]) + "\n")
+            (training / "calib" / f"{idx}.txt").write_text(KITTI_CALIB)
+            (training / "planes" / f"{idx}.txt").write_text(KITTI_PLANE)
+            (training / "image_2" / f"{idx}.png").write_bytes(png)
+            n_fov = int(KittiDataset.get_fov_flag(calib.lidar_to_rect(pts[:, :3]), shape,
+                                                  calib).sum())
+            fov_min = n_fov if fov_min is None else min(fov_min, n_fov)
+            ids.append(idx)
+            n_boxes += len(boxes)
+        (root / "ImageSets" / f"{split}.txt").write_text("\n".join(ids) + "\n")
+        counts[split] = (n_frames, n_boxes, fov_min)
+    (root / "ImageSets" / "test.txt").write_text("")
+    return counts
+
+
+def annos_as_pred(anno, class_names):
+    """A KITTI prediction anno of one frame as a B = 1 ``pred_*`` dict, for
+    ``match_detections``."""
+    import torch
+
+    labels = [class_names.index(n) + 1 for n in anno["name"]]
+    return {"pred_boxes": torch.as_tensor(anno["boxes_lidar"])[None],
+            "pred_scores": torch.as_tensor(anno["score"])[None],
+            "pred_labels": torch.as_tensor(labels, dtype=torch.long)[None],
+            "pred_counts": torch.tensor([len(labels)])}
+
+
+def kitti_phase(dev, work_dir):
+    """Phase 9: the shipped KITTI yaml at full width through the port's
+    train and test CLIs on a synthetic KITTI root.  Returns the kernel
+    launches of its main path (the train CLI, with its post-train
+    evaluation, and the test CLI, counted from 0)."""
+    import pickle
+    import re
+
+    import torch
+
+    from pdanet_tpu_torch.config import cfg_from_yaml_file
+    from pdanet_tpu_torch.datasets import build_dataloader
+    from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+    from pdanet_tpu_torch.ops import cuda_lib
+    from pdanet_tpu_torch.tools import test as test_cli
+    from pdanet_tpu_torch.tools import train as train_cli
+    from pdanet_tpu_torch.train import load_checkpoint, select_device_batch
+
+    work = Path(work_dir)
+    (work / "cfgs").symlink_to(CFGS, target_is_directory=True)
+    cfg = cfg_from_yaml_file(str(work / KITTI_CFG_REL))
+    root = work / "kitti"
+    names = list(cfg.CLASS_NAMES)
+    mean_sizes = cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER_CONFIG.mean_size
+    n_sample = cfg.DATA_CONFIG.DATA_PROCESSOR[1].NUM_POINTS
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+
+    # ---- data: the root, infos and gt database
+    t0 = time.perf_counter()
+    counts = write_kitti_root(root, names, mean_sizes)
+    t1 = time.perf_counter()
+    create_kitti_infos(cfg.DATA_CONFIG, names, root, root, workers=4)
+    print(f"KITTI data: synthetic root {counts} (frames, boxes, fewest points in the camera's "
+          f"field of view) of {KITTI_FRAME_POINTS} points a frame, written in {t1 - t0:.1f} s; "
+          f"infos and gt database in {time.perf_counter() - t1:.1f} s")
+    require(all(fov > n_sample["train"] for _, _, fov in counts.values()),
+            f"a frame holds fewer than {n_sample['train']} points in the field of view")
+    # the loader alone over one epoch (4 threads, the yaml's augmentor and processors)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    np.random.seed(0)
+    train_set, train_loader, _ = build_dataloader(cfg.DATA_CONFIG, names, B, workers=4,
+                                                  training=True)
+    batches, data_ms = [], []
+    it = iter(train_loader)
+    while True:
+        t1 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        data_ms.append((time.perf_counter() - t1) * 1e3)
+        batches.append(batch)
+    require(len(batches) == KITTI_SPLITS[0][1] // B, f"{len(batches)} train batches")
+    for batch in batches:
+        require(batch["points"].shape == (B, n_sample["train"], 4), "KITTI train batch points")
+        require(batch["gt_boxes"].shape == (B, cfg.DATA_CONFIG.MAX_GT_BOXES, 8),
+                "KITTI train batch gt")
+    n_gt = [int((b["gt_boxes"][..., 7] > 0).sum()) for b in batches]
+    print(f"KITTI loader alone (FOV crop; gt sampling on the road plane, flip, rotation, "
+          f"scaling; mask, sample {n_sample['train']}, shuffle, sort): {len(batches)} batches "
+          f"of {B}, gt boxes per batch {n_gt}, host ms per batch "
+          f"{[round(t, 1) for t in data_ms]} (the first waits for the whole window of 4 "
+          f"threads)")
+
+    set_data = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+    with contextlib.chdir(work):
+        # ---- the train CLI: one epoch at B = 4, bfloat16 as shipped, then the
+        # evaluation of the last checkpoint.  The main path's launches start here.
+        cuda_lib.launches.clear()
+        t0 = time.perf_counter()
+        out = train_cli.main(["--cfg_file", KITTI_CFG_REL, "--epochs", "1", "--batch_size",
+                              str(B), "--num_epochs_to_eval", "1", *set_data])
+        train_s = time.perf_counter() - t0
+        train_counts = dict(cuda_lib.launches)
+        ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+        # ---- the test CLI on the checkpoint, one frame a batch, --infer_time
+        cuda_lib.launches.clear()
+        t0 = time.perf_counter()
+        result = test_cli.main(["--cfg_file", KITTI_CFG_REL, "--ckpt", str(ckpt),
+                                "--batch_size", "1", "--infer_time", *set_data])
+        test_s = time.perf_counter() - t0
+        test_counts = dict(cuda_lib.launches)
+        launches = {k: train_counts.get(k, 0) + test_counts.get(k, 0)
+                    for k in set(train_counts) | set(test_counts)}
+        print(f"KITTI train CLI (1 epoch, {len(train_set)} frames at B={B}, then the "
+              f"evaluation of the last checkpoint): {train_s:.1f} s; kernel launches "
+              f"{train_counts}")
+        print(f"KITTI test CLI (--infer_time, B=1): {test_s:.1f} s; kernel launches "
+              f"{test_counts}")
+        for kname in KITTI_TRAIN_KERNELS:
+            require(launches.get(kname, 0) > 0, f"kernel {kname} never launched on the "
+                    f"KITTI CLI path")
+
+        # what the CLIs wrote
+        metrics = [json.loads(line) for line in
+                   (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()]
+        series = {}
+        for m in metrics:
+            series.setdefault(m["tag"], []).append(m["value"])
+        losses, step_ms = series["train/loss"], [1e3 * t for t in series["meta_data/batch_time"]]
+        wait_ms = [1e3 * t for t in series["meta_data/data_time"]]
+        require(len(losses) == len(batches) and all(np.isfinite(losses)),
+                f"KITTI train CLI losses {losses}")
+        print(f"KITTI train CLI bf16 B={B}: losses {[round(x, 4) for x in losses]}; ms per "
+              f"iteration (the step beside the loader's threads, and the wait for the "
+              f"loader) {[round(t, 2) for t in step_ms]}, median after the first "
+              f"{statistics.median(step_ms[1:]):.2f} ms, of which waiting for the loader "
+              f"{[round(t, 2) for t in wait_ms]} ms")
+        ck = load_checkpoint(ckpt)
+        require(ck["epoch"] == 1 and ck["it"] == len(batches), "KITTI checkpoint epoch / it")
+        val_ids = (root / "ImageSets" / "val.txt").read_text().split()
+        for res_dir in (out / "eval" / "eval_with_train" / "epoch_1" / "val",
+                        out / "eval" / "epoch_1" / "val" / "default"):
+            with open(res_dir / "result.pkl", "rb") as f:
+                annos = pickle.load(f)
+            require([a["frame_id"] for a in annos] == val_ids, f"{res_dir}: frames")
+            for a in annos:
+                require({"name", "score", "boxes_lidar", "bbox", "location", "frame_id"}
+                        <= set(a), f"{res_dir}: KITTI keys {sorted(a)}")
+                require(np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all(),
+                        f"{res_dir}: detections not finite")
+        print(f"KITTI detections per val frame (test CLI): {[len(a['score']) for a in annos]}")
+        require("Car_3d/moderate_R40" in result and "recall/rcnn_0.7" in result,
+                f"the official KITTI evaluation's result dict: {sorted(result)[:6]}")
+        require(all(np.isfinite(float(v)) for v in result.values()), "KITTI result not finite")
+        print(f"KITTI official evaluation (random weights after {len(batches)} steps): "
+              + json.dumps({k: round(float(v), 4) for k, v in result.items()
+                            if k.startswith(("recall/", "Car_3d", "Pedestrian_3d",
+                                             "Cyclist_3d"))}))
+        log = "".join(p.read_text() for p in (out / "eval" / "epoch_1" / "val" / "default")
+                      .glob("log_eval_*.txt"))
+        infer = re.findall(r"Average infer time: ([0-9.]+) ms", log)
+        require(len(infer) == 1, "the test CLI's --infer_time meter")
+        val_set = build_dataloader(cfg.DATA_CONFIG, names, 1, workers=0, training=False)[0]
+        t0 = time.perf_counter()
+        val_set.evaluation(annos, names)
+        eval_s = time.perf_counter() - t0
+        print(f"KITTI eval per frame (test CLI --infer_time: forward, recall, read-back): "
+              f"{infer[0]} ms; the official evaluation of {len(annos)} frames "
+              f"({sum(len(a['score']) for a in annos)} detections): {eval_s:.2f} s")
+
+        # the same steps with the loader idle: the loader's batches on the card,
+        # one step each from the checkpoint; then the device split of one
+        model, train_step = _train_model(cfg, cfg.MODEL, ck["model_state"], dev, len(train_set))
+        dev_batches = [select_device_batch(b, dev) for b in batches]
+        torch.cuda.synchronize()
+        idle_ms = []
+        for dev_batch in dev_batches:
+            t1 = time.perf_counter()
+            loss, _ = train_step(dev_batch)
+            require(np.isfinite(loss.item()), "KITTI step with the loader idle: loss")
+            idle_ms.append((time.perf_counter() - t1) * 1e3)
+        print(f"KITTI bf16 B={B} steps on the same batches with the loader idle: ms "
+              f"{[round(t, 2) for t in idle_ms]}, median {statistics.median(idle_ms):.2f} ms")
+        print_split(f"a KITTI bf16 train step B={B} on a loader batch under torch.profiler",
+                    device_split(lambda: train_step(dev_batches[0])))
+        del model, train_step, dev_batches
+
+        # ---- one val frame in float32, the checkpoint through the test CLI on the
+        # card and on the CPU
+        with open(root / "kitti_infos_val.pkl", "rb") as f:
+            first = pickle.load(f)[:1]
+        with open(root / "kitti_infos_val1.pkl", "wb") as f:
+            pickle.dump(first, f)
+        f32 = set_data + ["DATA_CONFIG.INFO_PATH.test", "['kitti_infos_val1.pkl']",
+                          "MODEL.BACKBONE_3D.COMPUTE_DTYPE", "None",
+                          "MODEL.BACKBONE_3D.TRAIN_COMPUTE_DTYPE", "None"]
+        runs = {}
+        for tag, device in (("card", "cuda"), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            test_cli.main(["--cfg_file", KITTI_CFG_REL, "--ckpt", str(ckpt), "--batch_size",
+                           "1", "--workers", "0", "--device", device, "--eval_tag",
+                           f"f32_{tag}", *f32])
+            with open(out / "eval" / "epoch_1" / "val" / f"f32_{tag}" / "result.pkl",
+                      "rb") as f:
+                runs[tag] = pickle.load(f)
+            print(f"KITTI float32 frame through the test CLI on the {tag}: "
+                  f"{time.perf_counter() - t0:.1f} s")
+        (g,), (c,) = runs["card"], runs["cpu"]
+        pairs, n_g, n_c, gap_c, gap_s = match_detections(annos_as_pred(g, names),
+                                                         annos_as_pred(c, names))
+        print(f"KITTI float32 frame {g['frame_id']}, card vs CPU through the test CLI: "
+              f"detections {n_g} vs {n_c}, {pairs} paired by mutual nearest centre (largest "
+              f"centre distance {gap_c:.3g} m, score {gap_s:.3g})")
+        require(n_g > 0, "no KITTI float32 detection to compare")
+        require(n_g == n_c == pairs, "KITTI float32 detections differ card vs CPU")
+        require(gap_c <= 1e-3, f"KITTI float32 boxes card vs CPU {gap_c} m apart > 1e-3")
+    return launches
+
+
 def ptxas_report(log):
     """(kernel, registers, shared-memory bytes, spill bytes) per kernel of
     an ``nvcc -Xptxas -v`` log, names shortened from their mangled form
@@ -2181,12 +2545,16 @@ def main():
     timed("7 (train, card against CPU)", compare_train, cfg, weights, dev)
     with tempfile.TemporaryDirectory(prefix="pdanet_once_") as work:
         once = timed("8 (ONCE)", once_phase, dev, work)
+    with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as work:
+        kitti = timed("9 (KITTI through the CLIs)", kitti_phase, dev, work)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
-    # the bfloat16 and float32 train steps (phase 7) and the ONCE train
-    # steps and eval_one_epoch (phase 8), each counted from 0
+    # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
+    # and eval_one_epoch (phase 8) and the KITTI train and test CLIs
+    # (phase 9), each counted from 0
     launches = {name: served.get(name, 0) + trained["bf16"].get(name, 0)
-                + trained["f32"].get(name, 0) + once.get(name, 0) for name in KERNELS}
+                + trained["f32"].get(name, 0) + once.get(name, 0) + kitti.get(name, 0)
+                for name in KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the main path")
         require(once.get(name, 0) > 0, f"kernel {name} never launched on the ONCE path")

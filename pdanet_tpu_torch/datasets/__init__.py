@@ -4,24 +4,23 @@
 The torch DataLoader is replaced by a thin numpy batcher, as in the JAX
 package: the pipeline is pure numpy, batches are dense fixed-shape arrays,
 and the train and eval loops move them to the device in one copy each.
-Only the ONCE dataset is ported; the KITTI dataset is the next slice
-(ROADMAP queue 1 item 8).
+The KITTI and ONCE datasets are ported.
 """
 
 import numpy as np
 
 from .dataset import DatasetTemplate
+from .kitti.kitti_dataset import KittiDataset
 from .once.once_dataset import ONCEDataset
 
 __all__ = {
     "DatasetTemplate": DatasetTemplate,
+    "KittiDataset": KittiDataset,
     "ONCEDataset": ONCEDataset,
 }
 
 
 def get_dataset_class(name):
-    if name == "KittiDataset":
-        raise NotImplementedError("KittiDataset is ROADMAP queue 1 item 8")
     if name in __all__:
         return __all__[name]
     raise KeyError(f"unknown dataset {name}")

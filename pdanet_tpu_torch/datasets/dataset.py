@@ -7,7 +7,8 @@ DataAugmentor (train) -> DataProcessor and re-rolls empty-gt frames.
 ``collate_batch`` (reference :160-229) collates frames to dense
 ``(B, N, C)`` points (the fixed ``sample_points`` budget gives equal N) and
 zero-pads gt boxes to ``(B, MAX_GT_BOXES, 8)``, the static cap of the
-dataset config, as the JAX package does.  The ragged points, voxel and
+dataset config, as the JAX package does; KITTI's per-frame ``calib`` and
+``image_shape`` stay lists.  The ragged points, voxel and
 camera keys of the zoo's other families are not produced by the port's
 processors.
 """
@@ -153,7 +154,7 @@ class DatasetTemplate:
                     m = min(len(val[k]), max_gt)
                     batch_gt[k, :m, :] = val[k][:m]
                 ret[key] = batch_gt
-            elif key in ["frame_id", "metadata"]:
+            elif key in ["frame_id", "metadata", "calib", "image_shape"]:
                 ret[key] = val
             else:
                 ret[key] = np.stack(val, axis=0)

@@ -1,3 +1,3 @@
-"""KITTI: only the numpy rotated IoU of the official evaluation, which the
-ONCE evaluation shares, is ported; the KITTI dataset is ROADMAP queue 1
-item 8."""
+"""KITTI: the dataset (infos, gt database, ``__getitem__`` with the FOV crop
+and the road plane, prediction dicts) and the official evaluation in
+numpy, whose rotated IoU the ONCE evaluation shares."""

@@ -4,20 +4,27 @@ Counterpart of ``pdanet_tpu/train/train_utils.py`` without its data
 mesh: ``make_train_step`` (:66-106) is one iteration -- forward in
 training mode, loss, backward, the optimizer's clip and update, and the
 BatchNorm running statistics, which the forward updates in place;
-``train_one_epoch`` is the loop of ``train_model`` (:250-322) over one
-epoch, on one device.  Checkpoints keep the reference's schema
+``train_one_epoch`` runs it over one epoch of the loader, on one device,
+and ``train_model`` (:250-322) is the epoch loop with its checkpoints,
+every ``ckpt_save_interval`` epochs, the oldest removed beyond
+``max_ckpt_save_num``.  Checkpoints keep the reference's schema
 ``{epoch, it, model_state, optimizer_state, version}``, written to a
 temporary file and published with ``os.replace``, with a CRC-32 over the
-payload checked on load (:161-213).
+payload checked on load (:161-213); ``load_newest_checkpoint`` falls back
+past a corrupt newest file (:216).
 """
 
+import glob
 import io
 import os
 import pickle
 import time
+import zipfile
 import zlib
 
 import torch
+
+from ..utils.jax_weights import load_jax_checkpoint, load_jax_variables
 
 CKPT_FORMAT_VERSION = 2
 
@@ -36,8 +43,8 @@ def make_train_step(model, optimizer, schedule):
     """``train_step(batch) -> (loss, tb)``: one training iteration on a
     device batch ``{"points": (B, N, 3 + C), "gt_boxes": (B, M, 8)}``.
 
-    Update *t* takes the learning rate ``schedule.lr(t)`` and Adam's b1
-    ``schedule.mom(t)``, t the optimizer's update count.  The returned
+    Update *t* takes the learning rate ``schedule.lr(t)`` and, for Adam,
+    b1 ``schedule.mom(t)``, t the optimizer's update count.  The returned
     loss and tb scalars are detached tensors on the device; nothing waits
     for the device.
     """
@@ -47,7 +54,8 @@ def make_train_step(model, optimizer, schedule):
         t = optimizer.count
         for group in optimizer.param_groups:
             group["lr"] = schedule.lr(t)
-            group["b1"] = schedule.mom(t)
+            if "b1" in group:
+                group["b1"] = schedule.mom(t)
         optimizer.zero_grad(set_to_none=True)
         out = model.forward_batch(batch)
         loss, tb = model.loss_batch(out, batch)
@@ -59,19 +67,61 @@ def make_train_step(model, optimizer, schedule):
 
 
 def train_one_epoch(train_step, loader, device, accumulated_iter=0, logger=None,
-                    log_every=50):
+                    log_every=50, tb_log=None, step_hook=None):
     """Run ``train_step`` over every batch of ``loader``.  Returns the
     global iteration count after the epoch.  The loss is read back to the
-    host only on logging iterations."""
+    host on logging iterations, and on every iteration when ``tb_log`` (a
+    ``utils.metrics.MetricsLogger``) records the loss and tb scalars, the
+    host seconds the loop waited for the batch (``meta_data/data_time``)
+    and the iteration's seconds, the wait included
+    (``meta_data/batch_time``).  ``step_hook`` is called after every
+    iteration."""
     end = time.time()
     for batch in loader:
         data_time = time.time() - end
-        loss, _ = train_step(select_device_batch(batch, device))
+        loss, tb = train_step(select_device_batch(batch, device))
         accumulated_iter += 1
-        if logger is not None and accumulated_iter % log_every == 0:
+        log_iter = accumulated_iter % log_every == 0
+        if tb_log is not None:
+            tb_log.add_scalar("train/loss", float(loss), accumulated_iter)
+            for k, v in tb.items():
+                tb_log.add_scalar(f"train/{k}", float(v), accumulated_iter)
+            tb_log.add_scalar("meta_data/data_time", data_time, accumulated_iter)
+            tb_log.add_scalar("meta_data/batch_time", time.time() - end, accumulated_iter)
+        if logger is not None and log_iter:
             logger.info("iter %d loss %.4f data %.3fs iter %.3fs"
                         % (accumulated_iter, float(loss), data_time, time.time() - end))
+        if step_hook is not None:
+            step_hook()
         end = time.time()
+    return accumulated_iter
+
+
+def train_model(model, optimizer, schedule, train_loader, start_epoch, total_epochs,
+                ckpt_save_dir, device, accumulated_iter=0, ckpt_save_interval=1,
+                max_ckpt_save_num=8, logger=None, tb_log=None, step_hook=None):
+    """The epoch loop (``pdanet_tpu/train/train_utils.py:250-322``): epochs
+    ``start_epoch`` to ``total_epochs``, the loader reseeded each epoch, a
+    checkpoint ``checkpoint_epoch_<n>.pth`` in ``ckpt_save_dir`` every
+    ``ckpt_save_interval`` epochs, the oldest by modification time removed
+    so that at most ``max_ckpt_save_num`` remain.  Returns the global
+    iteration count."""
+    train_step = make_train_step(model, optimizer, schedule)
+    for cur_epoch in range(start_epoch, total_epochs):
+        train_loader.set_epoch(cur_epoch)
+        accumulated_iter = train_one_epoch(train_step, train_loader, device, accumulated_iter,
+                                           logger=logger, tb_log=tb_log, step_hook=step_hook)
+        trained_epoch = cur_epoch + 1
+        if trained_epoch % ckpt_save_interval == 0:
+            ckpt_list = sorted(glob.glob(str(ckpt_save_dir / "checkpoint_epoch_*.pth")),
+                               key=os.path.getmtime)
+            for old in ckpt_list[:max(len(ckpt_list) - max_ckpt_save_num + 1, 0)]:
+                os.remove(old)
+            ckpt_name = ckpt_save_dir / ("checkpoint_epoch_%d.pth" % trained_epoch)
+            save_checkpoint(checkpoint_state(model, optimizer, trained_epoch, accumulated_iter),
+                            ckpt_name)
+            if logger is not None:
+                logger.info("checkpoint saved: %s" % ckpt_name)
     return accumulated_iter
 
 
@@ -119,6 +169,31 @@ def load_checkpoint(filename, map_location="cpu"):
     if zlib.crc32(payload) != crc:
         raise CheckpointError(f"checksum mismatch in {filename}")
     return torch.load(io.BytesIO(payload), map_location=map_location, weights_only=True)
+
+
+def load_newest_checkpoint(ckpt_files, logger=None):
+    """Load the newest readable checkpoint of ``ckpt_files`` (oldest to
+    newest).  A corrupt newest file (cut mid-write, truncated, bit-rot)
+    logs a warning and the one before it is tried.  Returns
+    ``(ckpt, path)``, or ``(None, None)``."""
+    for path in reversed(list(ckpt_files)):
+        try:
+            return load_checkpoint(path), path
+        except CheckpointError as e:
+            if logger is not None:
+                logger.warning("skipping corrupt checkpoint %s (%s); falling back", path, e)
+    return None, None
+
+
+def load_model_state(model, path):
+    """Fill ``model``'s parameters and statistics from the checkpoint file
+    ``path``: one of the port's (``torch.save`` writes a zip archive) or
+    one of the JAX package's (a pickle, read without jax)."""
+    if zipfile.is_zipfile(path):
+        model.load_state_dict(load_checkpoint(path)["model_state"])
+    else:
+        load_jax_variables(model, load_jax_checkpoint(path))
+    return model
 
 
 def restore_from_checkpoint(ckpt, model, optimizer=None):

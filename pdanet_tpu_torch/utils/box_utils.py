@@ -2,11 +2,20 @@
 database: the numpy paths of ``pdanet_tpu/utils/box_utils.py``
 (``pcdet/utils/box_utils.py``).  The JAX package's g++ host library is not
 ported (ROADMAP queue 1); ``tests/test_native.py`` holds it to these numpy
-paths.  The KITTI camera conversions come with the KITTI dataset."""
+paths.  The KITTI camera conversions (:92-268 there) serve the KITTI
+dataset and its prediction dicts."""
 
 import numpy as np
 
-from .common_utils import rotate_points_along_z_np
+from .common_utils import limit_period, rotate_points_along_z_np
+
+
+def in_hull(p, hull):
+    from scipy.spatial import Delaunay
+
+    if not isinstance(hull, Delaunay):
+        hull = Delaunay(hull)
+    return hull.find_simplex(p) >= 0
 
 
 def boxes_to_corners_3d(boxes3d):
@@ -73,3 +82,105 @@ def points_in_boxes_cpu(points, boxes):
         & (np.abs(local_y) < boxes[:, None, 4] / 2.0 + 1e-5)
     )
     return mask.astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# camera <-> lidar conversions (box_utils.py:92-179)
+# --------------------------------------------------------------------------
+
+
+def boxes3d_kitti_camera_to_lidar(boxes3d_camera, calib):
+    """(N, 7) [x, y, z, l, h, w, r] camera -> (N, 7) [x, y, z, dx, dy, dz,
+    heading] lidar (box_utils.py:115-132)."""
+    xyz_camera = boxes3d_camera[:, 0:3]
+    l, h, w = boxes3d_camera[:, 3:4], boxes3d_camera[:, 4:5], boxes3d_camera[:, 5:6]
+    r = boxes3d_camera[:, 6:7]
+    xyz_lidar = calib.rect_to_lidar(xyz_camera)
+    xyz_lidar[:, 2] += h[:, 0] / 2
+    return np.concatenate([xyz_lidar, l, w, h, -(r + np.pi / 2)], axis=-1)
+
+
+def boxes3d_lidar_to_kitti_camera(boxes3d_lidar, calib):
+    """box_utils.py:135-149."""
+    boxes3d_lidar = boxes3d_lidar.copy()
+    xyz_lidar = boxes3d_lidar[:, 0:3].copy()
+    l, w, h = boxes3d_lidar[:, 3:4], boxes3d_lidar[:, 4:5], boxes3d_lidar[:, 5:6]
+    r = boxes3d_lidar[:, 6:7]
+    xyz_lidar[:, 2] -= h[:, 0] / 2
+    xyz_cam = calib.lidar_to_rect(xyz_lidar)
+    r = -r - np.pi / 2
+    return np.concatenate([xyz_cam, l, h, w, r], axis=-1)
+
+
+def boxes3d_kitti_camera_to_imageboxes(boxes3d, calib, image_shape=None):
+    """(N, 7) camera boxes -> (N, 4) image 2D boxes (box_utils.py:152-179)."""
+    corners3d = boxes3d_to_corners3d_kitti_camera(boxes3d)
+    pts_img, _ = calib.rect_to_img(corners3d.reshape(-1, 3))
+    corners_in_image = pts_img.reshape(-1, 8, 2)
+    min_uv = np.min(corners_in_image, axis=1)
+    max_uv = np.max(corners_in_image, axis=1)
+    boxes2d = np.concatenate([min_uv, max_uv], axis=1)
+    if image_shape is not None:
+        boxes2d[:, 0] = np.clip(boxes2d[:, 0], a_min=0, a_max=image_shape[1] - 1)
+        boxes2d[:, 1] = np.clip(boxes2d[:, 1], a_min=0, a_max=image_shape[0] - 1)
+        boxes2d[:, 2] = np.clip(boxes2d[:, 2], a_min=0, a_max=image_shape[1] - 1)
+        boxes2d[:, 3] = np.clip(boxes2d[:, 3], a_min=0, a_max=image_shape[0] - 1)
+    return boxes2d
+
+
+def boxes3d_to_corners3d_kitti_camera(boxes3d, bottom_center=True):
+    """(N, 7) [x, y, z, l, h, w, r] camera-frame corners
+    (box_utils.py:182-212)."""
+    boxes_num = boxes3d.shape[0]
+    l, h, w = boxes3d[:, 3], boxes3d[:, 4], boxes3d[:, 5]
+    x_corners = np.array(
+        [l / 2.0, l / 2.0, -l / 2.0, -l / 2.0, l / 2.0, l / 2.0, -l / 2.0, -l / 2.0]
+    ).T
+    z_corners = np.array(
+        [w / 2.0, -w / 2.0, -w / 2.0, w / 2.0, w / 2.0, -w / 2.0, -w / 2.0, w / 2.0]
+    ).T
+    if bottom_center:
+        y_corners = np.zeros((boxes_num, 8), dtype=np.float32)
+        y_corners[:, 4:8] = -h.reshape(boxes_num, 1).repeat(4, axis=1)
+    else:
+        y_corners = np.array(
+            [h / 2.0, h / 2.0, h / 2.0, h / 2.0, -h / 2.0, -h / 2.0, -h / 2.0, -h / 2.0]
+        ).T
+
+    ry = boxes3d[:, 6]
+    zeros, ones = np.zeros(ry.size), np.ones(ry.size)
+    rot_list = np.array(
+        [
+            [np.cos(ry), zeros, -np.sin(ry)],
+            [zeros, ones, zeros],
+            [np.sin(ry), zeros, np.cos(ry)],
+        ]
+    )  # (3, 3, N)
+    R_list = np.transpose(rot_list, (2, 0, 1))
+    temp_corners = np.concatenate(
+        (
+            x_corners.reshape(-1, 8, 1),
+            y_corners.reshape(-1, 8, 1),
+            z_corners.reshape(-1, 8, 1),
+        ),
+        axis=2,
+    )
+    rotated = np.matmul(temp_corners, R_list)
+    x_loc, y_loc, z_loc = boxes3d[:, 0], boxes3d[:, 1], boxes3d[:, 2]
+    x = x_loc.reshape(-1, 1) + rotated[:, :, 0]
+    y = y_loc.reshape(-1, 1) + rotated[:, :, 1]
+    z = z_loc.reshape(-1, 1) + rotated[:, :, 2]
+    return np.concatenate(
+        (x.reshape(-1, 8, 1), y.reshape(-1, 8, 1), z.reshape(-1, 8, 1)), axis=2
+    ).astype(np.float32)
+
+
+def boxes3d_lidar_to_aligned_bev_boxes(boxes3d):
+    """(N, 7+) -> (N, 4) axis-aligned xmin,ymin,xmax,ymax (box_utils.py:255-268)."""
+    rot_angle = np.abs(limit_period(boxes3d[:, 6], offset=0.5, period=np.pi))
+    choose_dims = np.where(
+        rot_angle[:, None] < np.pi / 4, boxes3d[:, [3, 4]], boxes3d[:, [4, 3]]
+    )
+    return np.concatenate(
+        [boxes3d[:, 0:2] - choose_dims / 2, boxes3d[:, 0:2] + choose_dims / 2], axis=-1
+    )

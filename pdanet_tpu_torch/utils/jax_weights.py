@@ -25,16 +25,87 @@ persistent buffer must be filled; anything left over on either side raises.
 The arrays keep their float dtype (a float64 tree fills a model made
 ``.double()`` without rounding through float32).
 
+``load_jax_checkpoint(path)`` reads a checkpoint file the JAX package
+wrote (``pdanet_tpu/train/train_utils.py:147-214``) without jax and returns
+its ``{"params", "batch_stats"}`` for ``load_jax_variables``.
+
 ``load_jax_optimizer_state(optimizer, model, mu, nu, count)`` carries the
 Adam moments of an optax state, given as numpy trees shaped like
 ``params``, and its update count into the port's ``AdamOneCycle``, by the
 same key mapping and reshapes, so a JAX run can resume in the port.
 """
 
+import io
+import pickle
+import zlib
+
 import numpy as np
 import torch
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+JAX_CKPT_MARKER = "__pdanet_ckpt_format__"
+# what a checkpoint's model state is made of: containers and numpy arrays
+_SAFE_GLOBALS = {
+    ("builtins", name) for name in ("dict", "list", "tuple", "set", "frozenset", "int",
+                                    "float", "complex", "str", "bytes", "bytearray", "bool")
+} | {("collections", "OrderedDict")} | {
+    (mod, name) for mod in ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+                            "numpy.core.numeric", "numpy._core.numeric")
+    for name in ("ndarray", "dtype", "_reconstruct", "scalar", "_frombuffer")
+}
+
+
+class _Inert:
+    """Stands in for a class the unpickler will not import (optax's state
+    classes, which the optimizer state pickles): takes any constructor
+    arguments and state and does nothing with them."""
+
+    def __new__(cls, *args, **kwargs):
+        return object.__new__(cls)
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    """Imports builtins containers and numpy arrays only; every other class
+    becomes :class:`_Inert`, so unpickling runs no code of the file's
+    choosing."""
+
+    def find_class(self, module, name):
+        if (module, name) in _SAFE_GLOBALS:
+            return super().find_class(module, name)
+        return type(name, (_Inert,), {"__module__": "pdanet_tpu_torch.inert." + module})
+
+
+def _unpickle(data, path):
+    try:
+        return _CheckpointUnpickler(io.BytesIO(data)).load()
+    except (pickle.UnpicklingError, EOFError, ValueError, TypeError, AttributeError) as e:
+        raise ValueError(f"{path} is not a checkpoint of the JAX package: {e}") from e
+
+
+def load_jax_checkpoint(path):
+    """``{"params", "batch_stats"}`` (nested dicts of numpy arrays) of the
+    JAX package's checkpoint file ``path``: its format-2 wrapper
+    (``__pdanet_ckpt_format__``, a CRC-32, the pickled payload) or a
+    format-1 bare pickled dict.  Raises ``ValueError`` if the file is not
+    such a checkpoint or its checksum does not match."""
+    with open(path, "rb") as f:
+        obj = _unpickle(f.read(), path)
+    if isinstance(obj, dict) and JAX_CKPT_MARKER in obj:
+        payload = obj.get("payload")
+        if not isinstance(payload, bytes) or zlib.crc32(payload) != obj.get("crc32"):
+            raise ValueError(f"checksum mismatch in {path}")
+        obj = _unpickle(payload, path)
+    state = obj.get("model_state") if isinstance(obj, dict) else None
+    if not isinstance(state, dict) or not isinstance(state.get("params"), dict):
+        raise ValueError(f"{path} holds no model state of the JAX package")
+    return {"params": state["params"], "batch_stats": state.get("batch_stats", {})}
+
 
 
 def _leaves(tree, prefix=()):

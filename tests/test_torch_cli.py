@@ -1,0 +1,293 @@
+"""The port's train and test CLIs (``pdanet_tpu_torch.tools.train`` /
+``.test``) on the synthetic mini-KITTI of ``tests/kitti_fixture.py``, in
+process, on the CPU (``--device cpu``).
+
+The config is the shipped ``tools/cfgs/kitti_models/PDA-SSD.yaml`` with its
+full data pipeline (FOV crop, gt sampling on the road plane, world flip /
+rotation / scaling, the four point processors) at a 512-point budget and
+the tiny model of ``tests/model_cfg.py``.
+
+* The train CLI trains one epoch and writes its checkpoint and metrics;
+  a second run resumes from it; a corrupt newest checkpoint is skipped
+  for the one before it; old checkpoints rotate out beyond
+  ``--max_ckpt_save_num``; the post-train evaluation writes its results.
+* The test CLI writes ``result.pkl`` with every val frame; ``--eval_all``
+  evaluates the one checkpoint and stops.
+* A JAX-package checkpoint of the same config, saved by
+  ``pdanet_tpu.train.save_checkpoint``, is evaluated by the port's test
+  CLI and by JAX's ``eval_one_epoch`` on the same frames: equal detection
+  counts, boxes within 2e-3 and scores within 1e-3 (the margins printed).
+"""
+
+import copy
+import json
+import logging
+import pickle
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import jax
+import jax.numpy as jnp
+
+from kitti_fixture import build_mini_kitti
+from model_cfg import tiny_model_cfg
+from pdanet_tpu import native as j_native
+from pdanet_tpu.datasets import build_dataloader as j_build_dataloader
+from pdanet_tpu.eval.eval_utils import eval_one_epoch as j_eval_one_epoch
+from pdanet_tpu.models.detectors import build_network as j_build
+from pdanet_tpu.train import build_optimizer_and_schedule as j_build_optimizer
+from pdanet_tpu.train import create_train_state as j_create_train_state
+from pdanet_tpu.train import save_checkpoint as j_save_checkpoint
+from pdanet_tpu.train.train_utils import checkpoint_state as j_checkpoint_state
+from pdanet_tpu.utils.easydict import EasyDict as JEasyDict
+from pdanet_tpu_torch.config import cfg_from_yaml_file
+from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+from pdanet_tpu_torch.tools import test as test_cli
+from pdanet_tpu_torch.tools import train as train_cli
+
+REPO = Path(__file__).resolve().parent.parent
+KITTI_YAML = REPO / "tools" / "cfgs" / "kitti_models" / "PDA-SSD.yaml"
+CLASSES = ["Car", "Pedestrian", "Cyclist"]
+N_POINTS = 512
+CFG_REL = "cfgs/tiny/PDA-SSD-tiny.yaml"  # relative to the run's working directory
+KITTI_KEYS = {"name", "score", "boxes_lidar", "bbox", "location", "frame_id"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module's tests run: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    per core in each of them oversubscribes the cores many times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+def _plain(d):
+    if isinstance(d, dict):
+        return {k: _plain(v) for k, v in d.items()}
+    if isinstance(d, list):
+        return [_plain(v) for v in d]
+    return d
+
+
+@pytest.fixture(scope="module")
+def kitti_env(tmp_path_factory):
+    """The mini-KITTI root with the port's infos and gt database, and the
+    config text (the shipped yaml, 512 points, the tiny model)."""
+    root = tmp_path_factory.mktemp("cli_kitti")
+    build_mini_kitti(root, num_frames=4)
+    cfg = cfg_from_yaml_file(str(KITTI_YAML))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == "sample_points":
+            proc.NUM_POINTS = {"train": N_POINTS, "test": N_POINTS}
+    cfg.MODEL = tiny_model_cfg(len(CLASSES))
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 2
+    create_kitti_infos(cfg.DATA_CONFIG, CLASSES, root, root, workers=1)
+    return root, yaml.safe_dump(_plain(cfg))
+
+
+@pytest.fixture
+def workdir(kitti_env, tmp_path, monkeypatch):
+    """A working directory holding the config under ``CFG_REL``."""
+    (tmp_path / CFG_REL).parent.mkdir(parents=True)
+    (tmp_path / CFG_REL).write_text(kitti_env[1])
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+def _train(*extra):
+    return train_cli.main(["--cfg_file", CFG_REL, "--device", "cpu", "--workers", "0",
+                           "--batch_size", "2", *extra])
+
+
+def _log(out_dir, kind):
+    return "\n".join(p.read_text() for p in sorted(Path(out_dir).glob(f"log_{kind}_*.txt")))
+
+
+def test_clis_default_to_cuda():
+    for cli in (train_cli, test_cli):
+        args, _ = cli.parse_config(["--cfg_file", str(KITTI_YAML)])
+        assert args.device == "cuda"
+
+
+def test_launcher_other_than_none_raises(workdir):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        _train("--launcher", "pytorch")
+
+
+def test_set_overrides_the_yaml():
+    _, cfg = train_cli.parse_config(["--cfg_file", str(KITTI_YAML), "--set",
+                                     "OPTIMIZATION.LR", "0.5", "DATA_CONFIG.DATA_PATH", "/d",
+                                     "MODEL.BACKBONE_3D.COMPUTE_DTYPE", "None"])
+    assert cfg.OPTIMIZATION.LR == 0.5 and cfg.DATA_CONFIG.DATA_PATH == "/d"
+    assert cfg.MODEL.BACKBONE_3D.COMPUTE_DTYPE is None
+    with pytest.raises(KeyError):
+        train_cli.parse_config(["--cfg_file", str(KITTI_YAML), "--set", "MODEL.NO_SUCH", "1"])
+
+
+def test_train_cli_one_epoch_then_resume(workdir):
+    out = _train("--epochs", "1", "--num_epochs_to_eval", "0")
+    ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+    assert ckpt.exists()
+    lines = (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()
+    tags = [json.loads(line)["tag"] for line in lines]
+    # four frames at two a batch: two steps, each recorded
+    assert tags.count("train/loss") == tags.count("meta_data/batch_time") == 2
+    assert "meta_data/data_time" in tags
+
+    out = _train("--epochs", "2", "--num_epochs_to_eval", "0")
+    assert "auto-resumed from" in _log(out, "train")
+    assert (out / "ckpt" / "checkpoint_epoch_2.pth").exists()
+
+    # a corrupt newest checkpoint: resume from the one before it
+    newest = out / "ckpt" / "checkpoint_epoch_2.pth"
+    newest.write_bytes(newest.read_bytes()[:1000])
+    for log in out.glob("log_train_*.txt"):
+        log.unlink()
+    out = _train("--epochs", "3", "--num_epochs_to_eval", "0", "--max_ckpt_save_num", "2")
+    log = _log(out, "train")
+    assert "skipping corrupt checkpoint" in log
+    assert "auto-resumed from" in log and "checkpoint_epoch_1.pth at epoch 1" in log
+    names = sorted(p.name for p in (out / "ckpt").glob("checkpoint_epoch_*.pth"))
+    assert names == ["checkpoint_epoch_2.pth", "checkpoint_epoch_3.pth"]
+    from pdanet_tpu_torch.train import load_checkpoint
+
+    ck = load_checkpoint(out / "ckpt" / "checkpoint_epoch_3.pth")
+    assert ck["epoch"] == 3 and ck["it"] == 6
+
+
+def test_train_cli_evaluates_after_training(workdir):
+    out = _train("--epochs", "1", "--num_epochs_to_eval", "1")
+    result = out / "eval" / "eval_with_train" / "epoch_1" / "val" / "result.pkl"
+    with open(result, "rb") as f:
+        annos = pickle.load(f)
+    assert len(annos) == 4
+    assert "Car AP@0.70, 0.70, 0.70" in _log(out, "train")
+
+
+def test_train_cli_profile(workdir):
+    """``--profile`` traces train steps 3-5 (here 3-4 of 4) with torch.profiler."""
+    out = _train("--epochs", "2", "--num_epochs_to_eval", "0", "--profile")
+    traces = list((out / "profile").glob("*.pt.trace.json"))
+    assert len(traces) == 1 and json.loads(traces[0].read_text())["traceEvents"]
+
+
+def test_test_cli_single_ckpt_and_eval_all(workdir, monkeypatch):
+    out = _train("--epochs", "1", "--num_epochs_to_eval", "0")
+    ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+    result = test_cli.main(["--cfg_file", CFG_REL, "--ckpt", str(ckpt), "--device", "cpu",
+                            "--workers", "0", "--batch_size", "1", "--infer_time"])
+    assert "recall/rcnn_0.3" in result and "Car_3d/moderate_R40" in result
+    res_dir = out / "eval" / "epoch_1" / "val" / "default"
+    with open(res_dir / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    assert [a["frame_id"] for a in annos] == ["000000", "000001", "000002", "000003"]
+    for a in annos:
+        assert set(a) >= KITTI_KEYS
+    assert re.search(r"Average infer time: [0-9.]+ ms", _log(res_dir, "eval"))
+
+    sleeps = []
+    monkeypatch.setattr(test_cli.time, "sleep", sleeps.append)
+    assert test_cli.main(["--cfg_file", CFG_REL, "--eval_all", "--device", "cpu",
+                          "--workers", "0", "--max_waiting_mins", "0"]) is None
+    watch = out / "eval" / "eval_all_default" / "default"
+    assert (watch / "eval_list_val.txt").read_text().split() == ["1"]
+    assert (out / "eval" / "eval_all_default" / "epoch_1" / "val" / "result.pkl").exists()
+    assert sleeps == [test_cli.POLL_SECONDS]
+
+
+@pytest.fixture(scope="module")
+def jax_checkpoint(kitti_env, tmp_path_factory):
+    """The tiny model in the JAX package, flax's initial weights with the
+    BatchNorm statistics and biases moved off 0 / 1, saved as a JAX
+    checkpoint (optimizer state included)."""
+    cfg = JEasyDict(yaml.safe_load(kitti_env[1]))
+    jmodel = j_build(cfg.MODEL, num_class=len(CLASSES))
+    variables = jax.jit(lambda p: jmodel.init(jax.random.PRNGKey(0), p, train=False))(
+        jnp.zeros((1, N_POINTS, 4), jnp.float32))
+    rs = np.random.RandomState(3)
+
+    def perturb(path, a):
+        leaf = path[-1].key
+        if leaf == "var":
+            return rs.uniform(0.5, 2.0, a.shape).astype(np.float32)
+        if leaf in ("mean", "bias"):
+            return rs.uniform(-0.2, 0.2, a.shape).astype(np.float32)
+        return np.asarray(a)
+
+    variables = jax.tree_util.tree_map_with_path(perturb, jax.device_get(variables))
+    tx, _ = j_build_optimizer(cfg.OPTIMIZATION, 2, 1)
+    state = j_create_train_state(jmodel, variables, tx)
+    path = tmp_path_factory.mktemp("jax_ckpt") / "checkpoint_epoch_7"
+    path = j_save_checkpoint(j_checkpoint_state(state, 7, 14), filename=str(path))
+    return cfg, jmodel, variables, Path(path)
+
+
+def test_load_jax_checkpoint(jax_checkpoint, tmp_path):
+    """The JAX checkpoint read without jax (optax's state classes turn into
+    inert stubs): the variables array for array; a flipped payload byte or
+    a file that is no checkpoint raises."""
+    from pdanet_tpu_torch.utils.jax_weights import load_jax_checkpoint
+
+    _, _, variables, path = jax_checkpoint
+    got = load_jax_checkpoint(path)
+    want = jax.tree_util.tree_leaves_with_path(variables)
+    assert len(jax.tree_util.tree_leaves(got)) == len(want) > 0
+    for (p, w), g in zip(want, jax.tree_util.tree_leaves(got)):
+        np.testing.assert_array_equal(g, w, err_msg=str(p))
+    data = bytearray(path.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    (tmp_path / "flipped.pkl").write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="checksum|not a checkpoint"):
+        load_jax_checkpoint(tmp_path / "flipped.pkl")
+    (tmp_path / "text.pkl").write_text("not a pickle")
+    with pytest.raises(ValueError, match="not a checkpoint"):
+        load_jax_checkpoint(tmp_path / "text.pkl")
+
+
+def test_jax_checkpoint_through_the_test_cli_like_jax(kitti_env, jax_checkpoint, workdir):
+    """The slice's parity: the JAX package's checkpoint through the port's
+    test CLI against JAX's ``eval_one_epoch`` on the same frames."""
+    root = kitti_env[0]
+    cfg, jmodel, variables, path = jax_checkpoint
+    got_result = test_cli.main(["--cfg_file", CFG_REL, "--ckpt", str(path), "--device", "cpu",
+                                "--workers", "0", "--batch_size", "1"])
+    with open(workdir / "output" / "tiny" / "PDA-SSD-tiny" / "default" / "eval" / "epoch_7"
+              / "val" / "default" / "result.pkl", "rb") as f:
+        got = pickle.load(f)
+
+    with pytest.MonkeyPatch.context() as mp:  # the port's numpy host paths
+        mp.setattr(j_native, "_LIB", None)
+        np.random.seed(1024)  # as the test CLI seeds the test split's sampling
+        _, j_loader, _ = j_build_dataloader(cfg.DATA_CONFIG, CLASSES, 1, root_path=root,
+                                            workers=0, training=False)
+        want_result = j_eval_one_epoch(copy.deepcopy(cfg), jmodel, variables, j_loader, 7,
+                                       logging.getLogger("test_torch_cli"),
+                                       result_dir=workdir / "jax")
+    with open(workdir / "jax" / "result.pkl", "rb") as f:
+        want = pickle.load(f)
+
+    assert len(got) == len(want) == 4
+    box_margin = score_margin = 0.0
+    n_boxes = 0
+    for a, w in zip(got, want):
+        assert a["frame_id"] == w["frame_id"]
+        assert len(a["score"]) == len(w["score"]) > 0, a["frame_id"]
+        np.testing.assert_array_equal(a["name"], w["name"])
+        box_margin = max(box_margin, np.abs(a["boxes_lidar"] - w["boxes_lidar"]).max())
+        score_margin = max(score_margin, np.abs(a["score"] - w["score"]).max())
+        n_boxes += len(a["score"])
+    print(f"{n_boxes} detections over 4 frames: largest |port - JAX| box coordinate "
+          f"{box_margin:.3g}, score {score_margin:.3g}")
+    assert box_margin <= 2e-3 and score_margin <= 1e-3
+    assert list(got_result) == list(want_result)
+    for k, w in want_result.items():
+        assert got_result[k] == pytest.approx(w, abs=1e-6), k

@@ -50,6 +50,7 @@ from pdanet_tpu_torch.config import cfg_from_yaml_file
 from pdanet_tpu_torch.datasets import SimpleLoader, build_dataloader, get_dataset_class
 from pdanet_tpu_torch.datasets.augmentor import augmentor_utils as aug
 from pdanet_tpu_torch.datasets.augmentor.data_augmentor import DataAugmentor
+from pdanet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
 from pdanet_tpu_torch.datasets.kitti.kitti_object_eval_python import rotate_iou
 from pdanet_tpu_torch.datasets.once.once_dataset import ONCEDataset, create_once_infos
 from pdanet_tpu_torch.datasets.once.once_eval.evaluation import get_evaluation_results
@@ -265,9 +266,10 @@ def test_unported_processors_raise(name):
 
 
 def test_unported_dataset_and_augmentor_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        get_dataset_class("KittiDataset")
+    assert get_dataset_class("KittiDataset") is KittiDataset
     assert get_dataset_class("ONCEDataset") is ONCEDataset
+    with pytest.raises(KeyError):
+        get_dataset_class("NuScenesDataset")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         DataAugmentor(tmp_path, EasyDict({"DISABLE_AUG_LIST": [], "AUG_CONFIG_LIST": [
             {"NAME": "random_local_rotation", "LOCAL_ROT_ANGLE": 0.1}]}), CLASSES)

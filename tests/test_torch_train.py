@@ -13,7 +13,9 @@ both packages:
 * the port's BatchNorm in training mode against ``models/norm.BatchNorm``:
   output and running statistics after one step within 1e-5;
 * one optimizer update on identical gradients against the optax chain of
-  ``adam_onecycle``, within 1e-6, with the clip off and on;
+  ``adam_onecycle``, within 1e-6, with the clip off and on; ``adam`` and
+  ``sgd`` in float64 over six updates across two decay steps and the
+  learning-rate floor, parameters within 1e-12 and learning rates equal;
 * the slice as a whole: three train steps in float64 with the JAX run's
   sampling and ball-query indices fed in.  The loss agrees at every step
   within 1e-6 relative; parameters and BatchNorm statistics after the
@@ -421,6 +423,53 @@ def test_optimizer_update_matches_optax(grad_scale):
         for k, p in module.items():
             err = np.abs(p.detach().numpy() - np.asarray(j_params[k])).max()
             assert err <= 1e-6, f"update {t}, {k}: err {err:.3g}"
+
+
+@pytest.mark.parametrize("grad_scale", [0.3, 40.0])  # global norm below / above 10
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_decay_step_optimizers_match_optax_float64(name, grad_scale):
+    """``adam`` and ``sgd`` against the optax chains of
+    ``pdanet_tpu/train/optimization.py:99-128`` in float64: two updates an
+    epoch, the learning rate decayed at epochs 1 and 2 (updates 2 and 4)
+    and floored by ``LR_CLIP`` from update 4 on."""
+    cfg = EasyDict(dict(OPTIMIZER=name, LR=0.01, WEIGHT_DECAY=0.01, MOMENTUM=0.9,
+                        DECAY_STEP_LIST=[1, 2], LR_DECAY=0.1, LR_CLIP=5e-4,
+                        GRAD_NORM_CLIP=10))
+    rs = np.random.RandomState(11)
+    shapes = {"w": (5, 4), "b": (4,), "scale": (3,)}
+    params = {k: rs.randn(*s) for k, s in shapes.items()}
+    grads = [{k: rs.randn(*s) * grad_scale for k, s in shapes.items()} for _ in range(6)]
+    module = torch.nn.ParameterDict(
+        {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params.items()})
+    optimizer, schedule = build_optimizer_and_schedule(module, cfg, 2, 3)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        tx, lr_fn = j_build_optimizer(cfg, 2, 3)
+        j_params = jax.tree_util.tree_map(jnp.asarray, params)
+        j_state = tx.init(j_params)
+        lrs = []
+        for t, g in enumerate(grads):
+            updates, j_state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), j_state,
+                                         j_params)
+            j_params = optax.apply_updates(j_params, updates)
+            assert schedule.lr(t) == float(lr_fn(t)), t
+            lrs.append(schedule.lr(t))
+            for group in optimizer.param_groups:
+                group["lr"] = schedule.lr(t)
+                if "b1" in group:
+                    group["b1"] = schedule.mom(t)
+            for k, p in module.items():
+                p.grad = torch.from_numpy(g[k])
+            optimizer.step()
+            for k, p in module.items():
+                want = np.asarray(j_params[k])
+                assert want.dtype == np.float64
+                err = np.abs(p.detach().numpy() - want).max()
+                assert err <= 1e-12, f"update {t}, {k}: err {err:.3g}"
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert lrs == pytest.approx([0.01, 0.01, 1e-3, 1e-3, 5e-4, 5e-4])
+    assert optimizer.count == 6
 
 
 def test_bf16_train_compute_tracks_f32(monkeypatch):
