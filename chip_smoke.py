@@ -7,8 +7,8 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 or with ``--parent DIR`` to time another checkout's FPS, ball query,
-float32 attention (forward and backward), rotated self-IoU and NMS walk
-beside this tree's (phases 3 and 6), or with ``--sweep`` to time FPS, the ball query and the float32
+float32 attention (forward and backward), rotated self-IoU, NMS walk and
+eager b1 request beside this tree's (phases 3, 4 and 6), or with ``--sweep`` to time FPS, the ball query and the float32
 attention in the launch shapes their defaults were chosen from (phases
 1-2, then ``sweep``).
 
@@ -60,7 +60,13 @@ Phases, each of which raises on failure:
    (bfloat16 compute as shipped, seeded random weights) answers three
    one-frame requests and one two-frame request through
    ``serving.make_predict_fn``; every kernel of the path must have
-   launched, the attention on the bfloat16 tensor-core kernel.
+   launched, the attention on the bfloat16 tensor-core kernel.  With
+   ``--parent``, that tree's closure on the same weights answers the first
+   request (its detections printed beside this tree's), and the two
+   closures' latency and host enqueue time are timed in turns
+   (``request_ms``, four turns each), and the host time of one call of
+   each serving wrapper of both trees (``vs_parent_dispatch``, in
+   inference and in grad mode).
 5. One frame in float32 on the card (kernels) against the same weights on
    the CPU (plain versions, the labelled reference): equal sampling and
    ball-query indices, centre features within 1e-3, logits within 2e-3,
@@ -73,7 +79,7 @@ Phases, each of which raises on failure:
    backward timed beside them, and off the path at K 64 / hd 128, K 8 /
    hd 32, K 40 / hd 80 and K 1 / hd 16: max abs error <= 2e-5 in float32,
    <= 5e-2 of the largest |gradient| in bfloat16 (and <= 1e-12 in float64
-   at SA1 K 32).  The autograd Function on the card against the plain
+   at SA1 K 32).  The attention op's gradient on the card against the plain
    backward in float32 and in bfloat16, each through its kernel, and
    ``torch.autograd.gradcheck`` of it on the card in float64.  With
    ``--parent``, that tree's float32 backward timed in turns beside this
@@ -135,11 +141,30 @@ Phases, each of which raises on failure:
    equal detection counts, every detection paired by mutual nearest
    centre within 1e-3 m.
 
+10. Export and serve: the shipped KITTI yaml at b1 and b2 and the ONCE
+   yaml at b1 (full width, bfloat16 as shipped, seeded random weights)
+   traced by ``serving.export_serving`` (``torch.export``, every kernel a
+   ``torch.library`` op) and saved with their sidecars (export seconds and
+   MB printed); each program reloaded in a fresh ``python3`` that imports
+   torch and the port's ops and serving modules only, answering 3
+   LiDAR-like requests: detection counts and labels equal to the eager
+   closure's, boxes and scores within 1e-5, and FPS, the ball query, the
+   bfloat16 attention, the IoU and the NMS launched inside the program.
+   Beside that process, ``python -m pdanet_tpu_torch.tools.serve`` over 5
+   velodyne files (4 of 120000 points, one of 9000 that wraps) on the
+   KITTI b1 program: one JSON line a file, equal to the closure's on the
+   same preprocessed cloud.  Then each program's request latency and host
+   enqueue time beside the eager closure's (the graph that was saved, run
+   in this process; medians of 20 after warm-up, host clock ending in a
+   synchronise, two turns) with the device busy time and the operators
+   each dispatches a request, a report.
+
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
 (phase 4's requests, phase 7's bfloat16 and float32 train steps, phase
-8's ONCE train steps and ``eval_one_epoch`` and phase 9's train and test
-CLIs, each run counted from 0), its largest error,
+8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
+CLIs and phase 10's exported programs, each run counted from 0), its
+largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
 their type, from this run's inputs) and SDPA's time where SDPA computes
@@ -154,6 +179,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1206,10 +1232,13 @@ def load_config():
     return cfg_from_yaml_file(str(YAML))
 
 
-def serve(cfg, dev):
+def serve(cfg, dev, parent=None):
     """Phase 4: serve three one-frame requests and one two-frame request
-    through the serving closure.  Returns the launch counts of that run,
-    a copy of the model's seeded weights and the closure."""
+    through the serving closure.  With ``parent``, that tree's closure on
+    the same weights answers the first request too, timed in turns beside
+    this tree's, and each serving wrapper's host time a call is timed
+    beside that tree's.  Returns the launch counts of that run, a copy of the
+    model's seeded weights and the closure."""
     import torch
 
     from pdanet_tpu_torch.models import build_network
@@ -1249,7 +1278,105 @@ def serve(cfg, dev):
                 device_split(lambda: predict({"points": requests[0]})))
     for name in SERVE_KERNELS:
         require(launches.get(name, 0) > 0, f"kernel {name} never launched on the main path")
+    if parent:
+        vs_parent_request(parent, cfg, weights, predict, {"points": requests[0]}, dev)
+        vs_parent_dispatch(parent, dev)
     return launches, weights, predict
+
+
+def host_us(fn, reps=200, warmup=20):
+    """Median host time of one call ``fn()`` in microseconds, the device
+    still running (a synchronise every 20 calls keeps the queue short)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        if i % 20 == 19:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def vs_parent_dispatch(parent, dev):
+    """The host time of one call of each serving wrapper, this tree's (a
+    ``torch.library`` op) beside another tree's (``parent``), in turns a,
+    b, b, a, at small shapes whose kernels take less than the call: in
+    inference mode (serving) and in grad mode with the attention's inputs
+    requiring their gradient (training).  Prints the difference summed over
+    the 11 calls of a b1 request."""
+    import torch
+
+    from pdanet_tpu_torch.ops import attention, ball_query, nms, rotated_iou, sampling
+
+    rs = np.random.RandomState(5)
+    xyz = torch.tensor(rs.uniform(0, 4, (1, 256, 3)), dtype=torch.float32, device=dev)
+    ctr = xyz[:, :64].contiguous()
+    qkv = [torch.tensor(rs.randn(64 * 16, 64), dtype=torch.bfloat16, device=dev)
+           for _ in range(3)]
+    boxes = torch.from_numpy(random_boxes(5, 1, 64)).to(dev)
+    iou = rotated_iou.boxes_iou_bev_batched_self(boxes)
+    valid = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    calls = {  # name: (calls in a b1 request, the call of a tree's ops)
+        "fps": (1, lambda ops: ops.sampling.farthest_point_sample(xyz, 64)),
+        "ball_query": (4, lambda ops: ops.ball_query.ball_query_multi(
+            [0.2, 0.4], [16, 32], xyz, ctr)),
+        "attention": (4, lambda ops: ops.attention.neighbor_attention_flat(*qkv, 16, 1, 64)),
+        "rotated_iou": (1, lambda ops: ops.rotated_iou.boxes_iou_bev_batched_self(boxes)),
+        "nms": (1, lambda ops: ops.nms.greedy_nms_mask_batched(iou, valid, 0.1)),
+    }
+    trees = {"parent": parent, "this tree": types.SimpleNamespace(
+        sampling=sampling, ball_query=ball_query, attention=attention,
+        rotated_iou=rotated_iou, nms=nms)}
+    for mode in ("inference", "grad"):
+        extra = 0.0
+        for name, (n, call) in calls.items():
+            us = {}
+            for tree in [*trees, *reversed(trees)]:
+                with contextlib.ExitStack() as stack:
+                    if mode == "inference":
+                        stack.enter_context(torch.inference_mode())
+                    elif name == "attention":
+                        for t in qkv:
+                            t.requires_grad_(True)
+                        stack.callback(lambda: [t.requires_grad_(False) for t in qkv])
+                    us.setdefault(tree, []).append(
+                        host_us(lambda ops=trees[tree]: call(ops)))
+            extra += n * (statistics.mean(us["this tree"]) - statistics.mean(us["parent"]))
+            print(f"host time of one {name} call, {mode} mode: parent "
+                  f"{' / '.join(f'{t:.1f}' for t in us['parent'])} us, this tree "
+                  f"{' / '.join(f'{t:.1f}' for t in us['this tree'])} us (two turns)")
+        print(f"{mode} mode: this tree's ops cost a b1 request's 11 calls {extra:+.1f} us of "
+              f"host time against the parent's")
+
+
+def vs_parent_request(parent, cfg, weights, predict, batch, dev):
+    """The eager b1 request of another tree (``parent``) on the same
+    weights, beside this tree's: its detections, and the latency and host
+    enqueue time of both (``request_ms``), in eight turns a, b, b, a, ..."""
+    import torch
+
+    model = parent.models.build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev)
+    model.load_state_dict(weights)
+    fns = {"parent": parent.serving.make_predict_fn(model, cfg.MODEL), "this tree": predict}
+    got, want = fns["parent"](batch), predict(batch)
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    print(f"the parent tree's b1 request on the same weights: detections "
+          f"{got['pred_counts'].tolist()}, {'bit for bit' if same else 'not equal to'} "
+          f"this tree's")
+    ms = {}
+    for name in [*fns, *reversed(fns)] * 2:
+        ms.setdefault(name, []).append(request_ms(fns[name], batch))
+    for name, turns in ms.items():
+        print(f"b1 request, {name}: median latency "
+              f"{' / '.join(f'{lat:.2f}' for lat, _ in turns)} ms, host enqueue "
+              f"{' / '.join(f'{enq:.2f}' for _, enq in turns)} ms over 20 after warm-up "
+              f"(four turns)")
 
 
 def match_detections(a, b):
@@ -1346,8 +1473,8 @@ def compare_f32(cfg, weights, dev, predict_bf16):
 def check_attention_bwd(dev, stats, parent=None):
     """Phase 6: the attention backward kernels against the plain backward
     at the B = 4 training shapes and off the path, with SDPA's backward
-    timed beside them; the autograd Function on the card against the plain
-    backward.  ``parent``: another tree's wrappers, whose float32 backward
+    timed beside them; the attention op's gradient on the card against the
+    plain backward.  ``parent``: another tree's wrappers, whose float32 backward
     is timed in turns beside this tree's at the B = 4 shapes."""
     import torch
 
@@ -1403,8 +1530,8 @@ def check_attention_bwd(dev, stats, parent=None):
         print(line)
         del q, k, v, do, got, want
 
-    # the autograd Function on the card: its backward is the kernel of the
-    # input's dtype
+    # the attention op's gradient on the card: its backward is the kernel of
+    # the input's dtype
     K, hd = 32, 64
     for dt, name in ((torch.float32, "neighbor_attention_bwd"),
                      (torch.bfloat16, "neighbor_attention_bwd_bf16")):
@@ -1415,24 +1542,24 @@ def check_attention_bwd(dev, stats, parent=None):
         attention.neighbor_attention_flat(*leaves, K, 4, hd).backward(do)
         torch.cuda.synchronize()
         require(cuda_lib.launches[name] == before + 1,
-                f"the autograd Function did not launch {name}")
+                f"the attention op's gradient did not launch {name}")
         want = attention.neighbor_attention_flat_bwd_plain(q, k, v, do, K, 4, hd)
         err = grad_err([t.grad for t in leaves], want, dt)
-        require(err <= tols[dt], f"autograd Function on the card, {dt}: grad err {err} > "
-                f"{tols[dt]}")
-        print(f"autograd Function on the card ({str(dt)[6:]}, K={K}, hd={hd}): grads within "
-              f"{err:.3g} of the plain backward, through {name}")
+        require(err <= tols[dt], f"attention op's gradient on the card, {dt}: grad err "
+                f"{err} > {tols[dt]}")
+        print(f"attention op's gradient on the card ({str(dt)[6:]}, K={K}, hd={hd}): grads "
+              f"within {err:.3g} of the plain backward, through {name}")
 
-    # gradcheck of the Function on the card, float64 (the SIMT kernels)
+    # gradcheck of the op on the card, float64 (the SIMT kernels)
     K, H, hd = 8, 2, 16
     leaves = [torch.randn(3 * K, H * hd, generator=gen, device=dev, dtype=torch.float64)
               .requires_grad_() for _ in range(3)]
     before = cuda_lib.launches["neighbor_attention_bwd"]
     torch.autograd.gradcheck(
-        lambda a, b, c: attention.NeighborAttention.apply(a, b, c, K, H, hd), leaves)
+        lambda a, b, c: attention.attention_op(a, b, c, K, H, hd), leaves)
     require(cuda_lib.launches["neighbor_attention_bwd"] > before,
             "gradcheck did not go through the backward kernel")
-    print(f"torch.autograd.gradcheck of the Function on the card (float64, K={K}, "
+    print(f"torch.autograd.gradcheck of the attention op on the card (float64, K={K}, "
           f"hd={hd}): passed")
 
 
@@ -2405,6 +2532,231 @@ def kitti_phase(dev, work_dir):
     return launches
 
 
+EXPORTS = ((YAML, (1, 2)), (ONCE_YAML, (1,)))  # the yamls exported, and their batch sizes
+EXPORT_FRAMES = 3  # LiDAR-like requests each program answers in the fresh process
+SERVE_POINTS = (KITTI_FRAME_POINTS,) * 4 + (9000,)  # velodyne files the serve CLI reads
+# the fresh process that reloads each saved program: it imports torch and the
+# port's ops and serving modules only; argv[1] is a JSON list of (program,
+# frame files, output file)
+RELOAD = """
+import json, sys
+import torch
+from pdanet_tpu_torch.ops import cuda_lib
+from pdanet_tpu_torch.serving import load_serving
+report = {}
+for program, frames, out in json.loads(sys.argv[1]):
+    predict, _ = load_serving(program)
+    device = json.load(open(program + ".json"))["device"]
+    cuda_lib.launches.clear()
+    res = [{k: v.cpu() for k, v in predict({"points": torch.load(f).to(device)}).items()}
+           for f in frames]
+    report[program] = dict(cuda_lib.launches)
+    torch.save(res, out)
+report["modules"] = sorted(m for m in sys.modules if m.startswith("pdanet_tpu_torch"))
+print(json.dumps(report))
+"""
+
+
+def request_ms(fn, batch, reps=20, warmup=3):
+    """Medians of ``fn(batch)`` over ``reps`` requests after ``warmup``, in
+    milliseconds: the latency (host clock ending in
+    ``torch.cuda.synchronize()``) and the host's enqueue time (until ``fn``
+    returns, the device still running)."""
+    import torch
+
+    for _ in range(warmup):
+        fn(batch)
+    torch.cuda.synchronize()
+    latency, enqueue = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        latency.append((time.perf_counter() - t0) * 1e3)
+        enqueue.append((t1 - t0) * 1e3)
+    return statistics.median(latency), statistics.median(enqueue)
+
+
+def dispatched_ops(fn, batch):
+    """The operators one call ``fn(batch)`` dispatches (aten and the
+    port's ops): host work a request pays whatever the device does."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn(batch)
+    return count.n
+
+
+def export_phase(dev, work_dir):
+    """Phase 10: the shipped KITTI yaml at b1 and b2 and the ONCE yaml at b1
+    (full width, bfloat16 as shipped, seeded weights) exported by
+    ``serving.export_serving`` and saved; each program reloaded in a fresh
+    process that imports torch and the port's ops and serving modules only,
+    answering 3 LiDAR-like requests there: equal detection counts and
+    labels, boxes and scores within 1e-5 of the eager closure's, and every
+    serving kernel launched inside the program.  Beside it, ``python -m
+    pdanet_tpu_torch.tools.serve`` over 5 velodyne files on the KITTI b1
+    program: one JSON line each, equal to the closure's on the same
+    preprocessed cloud.  Then, with both processes done, each program's
+    request latency beside the eager closure's with their device busy
+    time (a report).  Returns the kernel launches of the programs' runs in
+    the fresh process."""
+    import collections
+
+    import torch
+
+    from pdanet_tpu_torch import serving
+    from pdanet_tpu_torch.config import cfg_from_yaml_file
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.tools.serve import frame_detections, load_cloud
+
+    work = Path(work_dir)
+    runs = []
+    for yaml_path, sizes in EXPORTS:
+        cfg = cfg_from_yaml_file(str(yaml_path))
+        model = init_random_weights(
+            build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev), seed=0)
+        closure = serving.make_predict_fn(model, cfg.MODEL)
+        pc = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+        for B in sizes:
+            label = f"{yaml_path.parent.name.split('_')[0].upper()} b{B}"
+            batch = serving.example_device_batch(cfg, B, dev)
+            t0 = time.perf_counter()
+            exported = serving.export_serving(model, cfg.MODEL, batch)
+            path = work / f"{yaml_path.parent.name}_b{B}.pt2"
+            nbytes = serving.save_serving(exported, path, serving.serving_meta(
+                cfg, yaml_path.relative_to(ROOT), batch, exported))
+            export_s = time.perf_counter() - t0
+            frames = []
+            for i in range(EXPORT_FRAMES):
+                frames.append(work / f"{path.stem}_request{i}.pt")
+                torch.save(torch.from_numpy(lidar_like_cloud(
+                    1000 + i, B, batch["points"].shape[1], (pc[0], pc[3]), (pc[1], pc[4]))),
+                    frames[-1])
+            runs.append(dict(label=label, cfg=cfg, closure=closure, path=path,
+                             frames=frames, out=work / f"{path.stem}_out.pt",
+                             exported=exported))
+            print(f"export {label} ({yaml_path.relative_to(ROOT)}, "
+                  f"{tuple(batch['points'].shape)}): {export_s:.1f} s, program "
+                  f"{nbytes / 1e6:.2f} MB, {len(exported.graph.nodes)} graph nodes")
+
+    # the velodyne files of the serve CLI
+    k1 = runs[0]
+    cfg = k1["cfg"]
+    bins = work / "velodyne"
+    bins.mkdir()
+    rs = np.random.RandomState(7)
+    mean_sizes = cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER_CONFIG.mean_size
+    for i, n in enumerate(SERVE_POINTS):
+        pts, _, _ = kitti_like_frame(rs, list(cfg.CLASS_NAMES), mean_sizes)
+        pts[:n].tofile(bins / f"{i:06d}.bin")  # the frame is shuffled: a random subset
+    detections = work / "detections.jsonl"
+    thresh = cfg.MODEL.POST_PROCESSING.SCORE_THRESH
+
+    # the fresh process and the serve CLI, side by side (both mostly load)
+    t0 = time.perf_counter()
+    spec = [(str(r["path"]), [str(f) for f in r["frames"]], str(r["out"])) for r in runs]
+    commands = {"reload": [sys.executable, "-c", RELOAD, json.dumps(spec)],
+                "serve": [sys.executable, "-m", "pdanet_tpu_torch.tools.serve", "--artifact",
+                          str(k1["path"]), "--inputs", f"{bins}/*.bin", "--out",
+                          str(detections), "--score_thresh", str(thresh)]}
+    procs = {}
+    for name, cmd in commands.items():
+        with open(work / f"{name}.out", "w") as out, open(work / f"{name}.err", "w") as err:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err)
+    for name, proc in procs.items():
+        try:
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        require(proc.returncode == 0, f"{name} process failed:\n"
+                f"{(work / f'{name}.err').read_text()[-6000:]}")
+    print(f"fresh process and serve CLI: {time.perf_counter() - t0:.1f} s")
+
+    report = json.loads((work / "reload.out").read_text().splitlines()[-1])
+    modules = report.pop("modules")
+    require(not any(m.split(".")[1] in ("models", "datasets", "train", "eval", "tools")
+                    for m in modules if "." in m),
+            f"the fresh process imported model code: {modules}")
+    print(f"the fresh process imported only {modules}")
+    launches = collections.Counter()
+    for r in runs:
+        got = torch.load(r["out"])
+        gap_b = gap_s = 0.0
+        counts = []
+        for f, g in zip(r["frames"], got):
+            want = {k: v.cpu() for k, v in r["closure"]({"points": torch.load(f).to(dev)}).items()}
+            require(torch.equal(g["pred_counts"], want["pred_counts"])
+                    and torch.equal(g["pred_labels"], want["pred_labels"]),
+                    f"{r['label']}: the program's counts or labels differ from the closure's")
+            gap_b = max(gap_b, (g["pred_boxes"] - want["pred_boxes"]).abs().max().item())
+            gap_s = max(gap_s, (g["pred_scores"] - want["pred_scores"]).abs().max().item())
+            counts += want["pred_counts"].tolist()
+        require(gap_b <= 1e-5 and gap_s <= 1e-5,
+                f"{r['label']}: the program's boxes / scores {gap_b} / {gap_s} from the "
+                f"closure's > 1e-5")
+        ran = report[str(r["path"])]
+        for name in SERVE_KERNELS:
+            require(ran.get(name, 0) > 0, f"{r['label']}: kernel {name} never launched inside "
+                    f"the exported program")
+        launches.update(ran)
+        print(f"{r['label']} program in the fresh process, {EXPORT_FRAMES} requests: "
+              f"detections {counts} equal to the closure's, boxes within {gap_b:.3g}, scores "
+              f"within {gap_s:.3g}; launches {ran}")
+
+    lines = [json.loads(line) for line in detections.read_text().splitlines()]
+    files = sorted(bins.glob("*.bin"))
+    require([d.pop("frame") for d in lines] == [f.name for f in files],
+            "the serve CLI wrote another line than one per file")
+    meta = json.loads(Path(f"{k1['path']}.json").read_text())
+    _, n_points, num_feats = meta["inputs"]["points"]["shape"]
+    n_dets = 0
+    for f, line in zip(files, lines):
+        pts = load_cloud(str(f), n_points, num_feats, meta["preprocess"]["sort_points"])
+        want, = frame_detections(
+            k1["closure"]({"points": torch.from_numpy(pts[None]).to(dev)}), thresh)
+        require(line == want, f"the serve CLI's detections of {f.name} differ from the "
+                f"closure's")
+        n_dets += len(line["scores"])
+    print(f"serve CLI over {len(files)} velodyne files ({SERVE_POINTS} points; the last "
+          f"wrapped to {n_points}): {n_dets} detections equal to the closure's; "
+          f"{(work / 'serve.err').read_text().strip().splitlines()[-1]}")
+
+    # latency: the program (the graph that was saved, run as load_serving
+    # runs it) and the eager closure, in turns, in this process
+    for r in runs:
+        batch = {"points": torch.load(r["frames"][0]).to(dev)}
+        module = r["exported"].module()
+
+        def program(batch):
+            with torch.inference_mode():
+                return module(batch)
+
+        fns = {"exported": program, "eager": r["closure"]}
+        ms = {}
+        for name in [*fns, *reversed(fns)]:  # turns: a, b, b, a
+            ms.setdefault(name, []).append(request_ms(fns[name], batch))
+        for name, fn in fns.items():
+            split = device_split(lambda: fn(batch))
+            busy = f"{split[1]:.3f} ms in {split[0]} kernels" if split else "not traced"
+            (l1, e1), (l2, e2) = ms[name]
+            print(f"{r['label']} request, {name}: median latency {l1:.2f} / {l2:.2f} ms, host "
+                  f"enqueue {e1:.2f} / {e2:.2f} ms over 20 after warm-up (two turns), device "
+                  f"busy {busy}, {dispatched_ops(fn, batch)} operators dispatched")
+    return dict(launches)
+
+
 def ptxas_report(log):
     """(kernel, registers, shared-memory bytes, spill bytes) per kernel of
     an ``nvcc -Xptxas -v`` log, names shortened from their mangled form
@@ -2440,13 +2792,13 @@ def ptxas_report(log):
 
 
 def load_parent(root):
-    """Another tree's ``pdanet_tpu_torch`` FPS, ball-query, attention, IoU
-    and NMS wrappers, imported under another package name so that both
+    """Another tree's ``pdanet_tpu_torch`` models, serving closure and FPS,
+    ball-query, attention, IoU and NMS wrappers, imported under another
+    package name so that both
     trees run in this process; its kernels build into that tree's own
     ``_build``."""
     import importlib
     import importlib.util
-    import types
 
     name = "parent_pdanet_tpu_torch"
     pkg = Path(root).resolve() / "pdanet_tpu_torch"
@@ -2456,7 +2808,9 @@ def load_parent(root):
     sys.modules[name] = module
     spec.loader.exec_module(module)
     importlib.import_module(f"{name}.ops.cuda_lib").lib()
-    return types.SimpleNamespace(sampling=importlib.import_module(f"{name}.ops.sampling"),
+    return types.SimpleNamespace(models=importlib.import_module(f"{name}.models"),
+                                 serving=importlib.import_module(f"{name}.serving"),
+                                 sampling=importlib.import_module(f"{name}.ops.sampling"),
                                  ball_query=importlib.import_module(f"{name}.ops.ball_query"),
                                  attention=importlib.import_module(f"{name}.ops.attention"),
                                  rotated_iou=importlib.import_module(f"{name}.ops.rotated_iou"),
@@ -2470,8 +2824,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of another checkout of the repository whose FPS, "
-                    "ball-query, float32 attention, IoU and NMS kernels phases 3 and 6 time in "
-                    "turns beside this tree's")
+                    "ball-query, float32 attention, IoU and NMS kernels and eager b1 request "
+                    "phases 3, 4 and 6 time in turns beside this tree's")
     ap.add_argument("--sweep", action="store_true", help="time FPS and the ball query in the "
                     "launch shapes their defaults were chosen from, instead of phases 3-7")
     args = ap.parse_args()
@@ -2538,7 +2892,7 @@ def main():
 
     stats = timed("3 (kernels)", check_kernels, dev, parent)
     cfg = load_config()
-    served, weights, predict = timed("4 (serve)", serve, cfg, dev)
+    served, weights, predict = timed("4 (serve)", serve, cfg, dev, parent)
     timed("5 (float32 frame)", compare_f32, cfg, weights, dev, predict)
     timed("6 (attention backward)", check_attention_bwd, dev, stats, parent)
     trained = timed("7 (train)", train, cfg, weights, dev)
@@ -2547,14 +2901,15 @@ def main():
         once = timed("8 (ONCE)", once_phase, dev, work)
     with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as work:
         kitti = timed("9 (KITTI through the CLIs)", kitti_phase, dev, work)
+    with tempfile.TemporaryDirectory(prefix="pdanet_export_") as work:
+        exported = timed("10 (export and serve)", export_phase, dev, work)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
-    # and eval_one_epoch (phase 8) and the KITTI train and test CLIs
-    # (phase 9), each counted from 0
-    launches = {name: served.get(name, 0) + trained["bf16"].get(name, 0)
-                + trained["f32"].get(name, 0) + once.get(name, 0) + kitti.get(name, 0)
-                for name in KERNELS}
+    # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9)
+    # and the exported programs' requests (phase 10), each counted from 0
+    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported)
+    launches = {name: sum(run.get(name, 0) for run in runs) for name in KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the main path")
         require(once.get(name, 0) > 0, f"kernel {name} never launched on the ONCE path")

@@ -1,2 +1,8 @@
-"""Point-cloud ops.  Each op with a kernel runs its CUDA kernel for a CUDA
-tensor and its plain PyTorch version for a CPU tensor."""
+"""Point-cloud ops.  Each op with a kernel is a ``torch.library`` custom op
+with a ``"cpu"`` kernel (its plain PyTorch version), a ``"cuda"`` kernel
+(the hand-written kernel's wrapper) and a fake implementation that gives
+the output shapes: PyTorch's dispatcher picks the kernel by the device of
+the inputs, and ``torch.export`` traces the op through its fake.
+Importing this package registers all six ops (see ``cuda_lib.NAMESPACE``)."""
+
+from . import attention, ball_query, nms, rotated_iou, sampling  # noqa: F401

@@ -22,9 +22,12 @@ its dtype:
   the float64 train step are held index for index and to rounding against
   the CPU.
 
-A CPU tensor runs :func:`neighbor_attention_flat_plain` and
-:func:`neighbor_attention_flat_bwd_plain`.  Under autograd the call goes
-through :class:`NeighborAttention`, whose backward recomputes the softmax.
+The ops ``<package>::neighbor_attention`` and
+``<package>::neighbor_attention_bwd`` run those kernels for a CUDA tensor
+and :func:`neighbor_attention_flat_plain` /
+:func:`neighbor_attention_flat_bwd_plain` for a CPU tensor.  The forward
+op's gradient (``torch.library.register_autograd``) keeps only q, k and v
+and calls the backward op, which recomputes the softmax.
 """
 
 import math
@@ -41,42 +44,13 @@ _SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to
 
 def neighbor_attention_flat(q2, k2, v2, K, H, hd):
     """(R, H*hd) q, k, v -> (R, H*hd) attended values, in the input dtype."""
-    if torch.is_grad_enabled() and (q2.requires_grad or k2.requires_grad
-                                    or v2.requires_grad):
-        return NeighborAttention.apply(q2, k2, v2, K, H, hd)
-    return _forward(q2, k2, v2, K, H, hd)
-
-
-def _forward(q2, k2, v2, K, H, hd):
-    if q2.device.type == "cpu":
-        return neighbor_attention_flat_plain(q2, k2, v2, K, H, hd)
-    return neighbor_attention_flat_cuda(q2, k2, v2, K, H, hd)
+    return attention_op(q2, k2, v2, int(K), int(H), int(hd))
 
 
 def neighbor_attention_flat_bwd(q2, k2, v2, do2, K, H, hd):
     """(dq, dk, dv) of :func:`neighbor_attention_flat` for the output
     cotangent ``do2``, each (R, H*hd) in the input dtype."""
-    if q2.device.type == "cpu":
-        return neighbor_attention_flat_bwd_plain(q2, k2, v2, do2, K, H, hd)
-    return neighbor_attention_flat_bwd_cuda(q2, k2, v2, do2, K, H, hd)
-
-
-class NeighborAttention(torch.autograd.Function):
-    """The attention with its hand-written backward: the forward keeps
-    only q, k and v, and the backward recomputes the softmax."""
-
-    @staticmethod
-    def forward(ctx, q2, k2, v2, K, H, hd):
-        ctx.save_for_backward(q2, k2, v2)
-        ctx.shape = (K, H, hd)
-        return _forward(q2, k2, v2, K, H, hd)
-
-    @staticmethod
-    def backward(ctx, do2):
-        q2, k2, v2 = ctx.saved_tensors
-        dq, dk, dv = neighbor_attention_flat_bwd(
-            q2, k2, v2, do2.to(q2.dtype).contiguous(), *ctx.shape)
-        return dq, dk, dv, None, None, None
+    return tuple(attention_bwd_op(q2, k2, v2, do2, int(K), int(H), int(hd)))
 
 
 def _heads(t, K, H, hd, dtype):  # (R, H*hd) -> (R/K, H, K, hd)
@@ -222,3 +196,50 @@ def neighbor_attention_flat_bwd_cuda(q2, k2, v2, do2, K, H, hd):
     cuda_lib.check(code, name)
     cuda_lib.launches[name] += 1
     return dq, dk, dv
+
+
+@torch.library.custom_op(f"{cuda_lib.NAMESPACE}::neighbor_attention", mutates_args=(),
+                         device_types="cpu")
+def attention_op(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, K: int, H: int,
+                 hd: int) -> torch.Tensor:
+    return neighbor_attention_flat_plain(q2, k2, v2, K, H, hd)
+
+
+attention_op.register_kernel("cuda")(neighbor_attention_flat_cuda)
+
+
+@attention_op.register_fake
+def _(q2, k2, v2, K, H, hd):
+    return torch.empty_like(q2)
+
+
+@torch.library.custom_op(f"{cuda_lib.NAMESPACE}::neighbor_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def attention_bwd_op(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
+                     do2: torch.Tensor, K: int, H: int, hd: int) -> list[torch.Tensor]:
+    return list(neighbor_attention_flat_bwd_plain(q2, k2, v2, do2, K, H, hd))
+
+
+@attention_bwd_op.register_kernel("cuda")
+def _(q2, k2, v2, do2, K, H, hd):
+    return list(neighbor_attention_flat_bwd_cuda(q2, k2, v2, do2, K, H, hd))
+
+
+@attention_bwd_op.register_fake
+def _(q2, k2, v2, do2, K, H, hd):
+    return [torch.empty_like(q2) for _ in range(3)]
+
+
+def _setup_context(ctx, inputs, output):
+    q2, k2, v2, K, H, hd = inputs
+    ctx.save_for_backward(q2, k2, v2)
+    ctx.shape = (K, H, hd)
+
+
+def _backward(ctx, do2):
+    q2, k2, v2 = ctx.saved_tensors
+    dq, dk, dv = attention_bwd_op(q2, k2, v2, do2.to(q2.dtype).contiguous(), *ctx.shape)
+    return dq, dk, dv, None, None, None
+
+
+attention_op.register_autograd(_backward, setup_context=_setup_context)

@@ -3,9 +3,9 @@
 Counterpart of ``pdanet_tpu/ops/ball_query.py:109-188``.  For each centre
 and each (radius, K): the first K support indices in scan order with
 ``d2 < r2`` (strict, ``r2 = float32(radius * radius)``).  Unfilled slots
-repeat the first hit; a centre with no hit gets index 0.  A CUDA tensor
-runs the kernel in ``csrc/ball_query.cu``; a CPU tensor runs
-:func:`ball_query_multi_plain`.
+repeat the first hit; a centre with no hit gets index 0.  The op
+``<package>::ball_query`` runs the kernel in ``csrc/ball_query.cu`` for a
+CUDA tensor and :func:`ball_query_multi_plain` for a CPU tensor.
 """
 
 import ctypes
@@ -30,10 +30,8 @@ def ball_query_multi(radii, nsamples, xyz, new_xyz):
     Returns a tuple of (B, M, nsample_i) int32 index tensors.  The indices
     carry no gradient, so the wrapper takes ``xyz`` and ``new_xyz`` detached.
     """
-    xyz, new_xyz = xyz.detach(), new_xyz.detach()
-    if xyz.device.type == "cpu":
-        return ball_query_multi_plain(radii, nsamples, xyz, new_xyz)
-    return ball_query_multi_cuda(radii, nsamples, xyz, new_xyz)
+    return tuple(ball_query_op([float(r) for r in radii], [int(k) for k in nsamples],
+                               xyz.detach(), new_xyz.detach()))
 
 
 def _r2(radius):
@@ -106,3 +104,21 @@ def ball_query_multi_cuda(radii, nsamples, xyz, new_xyz, stats=None):
     cuda_lib.check(code, "ball_query")
     cuda_lib.launches["ball_query"] += 1
     return outs
+
+
+@torch.library.custom_op(f"{cuda_lib.NAMESPACE}::ball_query", mutates_args=(),
+                         device_types="cpu")
+def ball_query_op(radii: list[float], nsamples: list[int], xyz: torch.Tensor,
+                  new_xyz: torch.Tensor) -> list[torch.Tensor]:
+    return list(ball_query_multi_plain(radii, nsamples, xyz, new_xyz))
+
+
+@ball_query_op.register_kernel("cuda")
+def _(radii, nsamples, xyz, new_xyz):
+    return list(ball_query_multi_cuda(radii, nsamples, xyz, new_xyz))
+
+
+@ball_query_op.register_fake
+def _(radii, nsamples, xyz, new_xyz):
+    B, M = new_xyz.shape[:2]
+    return [xyz.new_empty((B, M, k), dtype=torch.int32) for k in nsamples]

@@ -18,7 +18,14 @@ tensor cores (``mma.sync``), which the flag does not touch.
 
 ``launches`` counts kernel launches per kernel name.  Each wrapper adds
 one where it launches its kernel and nowhere else, so a caller can clear
-the counter, run a path and see which kernels it went through.
+the counter, run a path and see which kernels it went through.  The
+wrappers are the ``"cuda"`` kernels of the ``torch.library`` ops of
+``ops/``, so the counter also counts the launches of a program that
+``torch.export`` saved and loaded.
+
+``NAMESPACE``, the ops' namespace, is the name of the top-level package:
+a second tree imported under another name (``chip_smoke.py --parent``)
+registers its own ops beside these.
 """
 
 import collections
@@ -45,6 +52,7 @@ NVCC_FLAGS = (
 )
 
 launches = collections.Counter()
+NAMESPACE = __name__.split(".")[0]
 
 _lib = None
 _lock = threading.Lock()

@@ -1,9 +1,9 @@
 """Greedy NMS keep mask over score-sorted candidates.
 
 Counterpart of ``pdanet_tpu/ops/nms.py:25-81``: keep[i] = valid[i] and no
-earlier kept candidate j has IoU[j, i] > thresh.  A CUDA tensor runs the
-kernels in ``csrc/nms.cu`` (K up to ``NMS_MAX_K``); a CPU tensor runs
-:func:`greedy_nms_mask_batched_plain`.
+earlier kept candidate j has IoU[j, i] > thresh.  The op ``<package>::nms``
+runs the kernels in ``csrc/nms.cu`` (K up to ``NMS_MAX_K``) for a CUDA
+tensor and :func:`greedy_nms_mask_batched_plain` for a CPU tensor.
 """
 
 import ctypes
@@ -18,9 +18,7 @@ NMS_MAX_K = 4096  # kMaxK in csrc/nms.cu: 64 removed words, two a lane of one wa
 
 def greedy_nms_mask_batched(iou, valid, thresh):
     """(B, K, K) float32 IoU x (B, K) bool -> (B, K) bool keep."""
-    if iou.device.type == "cpu":
-        return greedy_nms_mask_batched_plain(iou, valid, thresh)
-    return greedy_nms_mask_batched_cuda(iou, valid, thresh)
+    return nms_op(iou, valid, float(thresh))
 
 
 def greedy_nms_mask_batched_plain(iou, valid, thresh):
@@ -61,3 +59,16 @@ def greedy_nms_mask_batched_cuda(iou, valid, thresh):
     cuda_lib.check(code, "nms")
     cuda_lib.launches["nms"] += 1
     return keep
+
+
+@torch.library.custom_op(f"{cuda_lib.NAMESPACE}::nms", mutates_args=(), device_types="cpu")
+def nms_op(iou: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
+    return greedy_nms_mask_batched_plain(iou, valid, thresh)
+
+
+nms_op.register_kernel("cuda")(greedy_nms_mask_batched_cuda)
+
+
+@nms_op.register_fake
+def _(iou, valid, thresh):
+    return valid.new_empty(valid.shape, dtype=torch.bool)

@@ -8,14 +8,15 @@ overlap clamped to the smaller box area so IoU <= 1).  PyTorch runs each
 elementwise op as its own kernel, so no product is contracted into an FMA
 and coincident edges give exact zero cross products.
 
-``boxes_iou_bev_batched_self`` -- the NMS matrix -- runs the kernel in
-``csrc/rotated_iou.cu`` for a CUDA tensor and
-:func:`boxes_iou_bev_batched_self_plain` for a CPU tensor.  The kernel
-writes IoU 0 without the clip for a pair whose centres lie farther apart
-than the sum of the boxes' circumradii and ``SKIP_SLACK``: no corner passes
-the containment margin and no edge crossing passes the straddle and
-bounding-box tests there, so the clip gives exactly 0 (the argument is at
-``kSkipSlack`` in the source; the CPU tests sweep it).
+``boxes_iou_bev_batched_self`` -- the NMS matrix -- is the op
+``<package>::rotated_iou``: the kernel in ``csrc/rotated_iou.cu`` for a
+CUDA tensor and :func:`boxes_iou_bev_batched_self_plain` for a CPU
+tensor.  The kernel writes IoU 0 without the clip for a pair whose
+centres lie farther apart than the sum of the boxes' circumradii and
+``SKIP_SLACK``: no corner passes the containment margin and no edge
+crossing passes the straddle and bounding-box tests there, so the clip
+gives exactly 0 (the argument is at ``kSkipSlack`` in the source; the CPU
+tests sweep it).
 """
 
 import torch
@@ -191,9 +192,7 @@ def boxes_iou3d(boxes_a, boxes_b):
 
 def boxes_iou_bev_batched_self(boxes):
     """(B, K, 7) -> (B, K, K) self-IoU, the NMS suppression matrix."""
-    if boxes.device.type == "cpu":
-        return boxes_iou_bev_batched_self_plain(boxes)
-    return boxes_iou_bev_batched_self_cuda(boxes)
+    return rotated_iou_op(boxes)
 
 
 def boxes_iou_bev_batched_self_plain(boxes):
@@ -219,3 +218,18 @@ def boxes_iou_bev_batched_self_cuda(boxes):
     cuda_lib.check(code, "rotated_iou")
     cuda_lib.launches["rotated_iou"] += 1
     return out
+
+
+@torch.library.custom_op(f"{cuda_lib.NAMESPACE}::rotated_iou", mutates_args=(),
+                         device_types="cpu")
+def rotated_iou_op(boxes: torch.Tensor) -> torch.Tensor:
+    return boxes_iou_bev_batched_self_plain(boxes)
+
+
+rotated_iou_op.register_kernel("cuda")(boxes_iou_bev_batched_self_cuda)
+
+
+@rotated_iou_op.register_fake
+def _(boxes):
+    B, K = boxes.shape[:2]
+    return boxes.new_empty((B, K, K), dtype=torch.float32)

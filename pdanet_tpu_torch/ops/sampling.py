@@ -2,8 +2,9 @@
 
 Counterpart of ``pdanet_tpu/ops/sampling.py:27-83``.  The first index is
 always 0, the running min-distance starts at 1e10, and each step takes the
-argmax with the lowest index on ties.  A CUDA tensor runs the kernel in
-``csrc/fps.cu``; a CPU tensor runs :func:`farthest_point_sample_plain`.
+argmax with the lowest index on ties.  The op ``<package>::fps`` runs the
+kernel in ``csrc/fps.cu`` for a CUDA tensor and
+:func:`farthest_point_sample_plain` for a CPU tensor.
 """
 
 import ctypes
@@ -16,10 +17,7 @@ from . import cuda_lib
 def farthest_point_sample(xyz, npoint):
     """(B, N, 3) float32 -> (B, npoint) int32 indices.  The indices carry
     no gradient, so the wrapper takes ``xyz`` detached."""
-    xyz = xyz.detach()
-    if xyz.device.type == "cpu":
-        return farthest_point_sample_plain(xyz, npoint)
-    return farthest_point_sample_cuda(xyz, npoint)
+    return fps_op(xyz.detach(), int(npoint))
 
 
 def farthest_point_sample_plain(xyz, npoint):
@@ -77,3 +75,16 @@ def farthest_point_sample_cuda(xyz, npoint):
     cuda_lib.check(code, "fps")
     cuda_lib.launches["fps"] += 1
     return out
+
+
+@torch.library.custom_op(f"{cuda_lib.NAMESPACE}::fps", mutates_args=(), device_types="cpu")
+def fps_op(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    return farthest_point_sample_plain(xyz, npoint)
+
+
+fps_op.register_kernel("cuda")(farthest_point_sample_cuda)
+
+
+@fps_op.register_fake
+def _(xyz, npoint):
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)

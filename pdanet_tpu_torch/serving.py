@@ -1,17 +1,36 @@
-"""Serving path: forward plus post-processing on one device batch.
+"""Serving path: forward plus post-processing on one device batch, and
+its export as one saved program.
 
-Counterpart of ``pdanet_tpu/serving.py:126-183``.  ``make_predict_fn``
+Counterpart of ``pdanet_tpu/serving.py:63-228``.  ``make_predict_fn``
 returns the closure a server calls per request: the model's forward and
 the rotated-NMS post-processing under ``torch.inference_mode()``,
 returning the fixed-shape ``pred_boxes / pred_scores / pred_labels /
-pred_counts`` dict.  The JAX package stages the same closure to a
-StableHLO artifact; exporting the port is ROADMAP queue 1 item 8.
+pred_counts`` dict.
+
+``export_serving`` traces the same forward and post-processing with
+``torch.export`` into one ``ExportedProgram``, the weights inside it, at
+the static shapes of ``serving_input_spec``; ``save_serving`` writes it
+(``.pt2``) with a JSON sidecar (the I/O contract, the test split's
+x-sort and the device), and ``load_serving`` reads it back.  The kernels
+are ``torch.library`` custom ops (``pdanet_tpu_torch.ops``), so the
+program calls them by name.
+
+What a saved program needs: unlike a ``jax.export`` artifact it does not
+run with torch alone.  Loading it needs this package's ``ops`` module,
+which registers the ops (``load_serving`` imports it), and running it on
+the card needs ``nvcc`` to build the kernels at their first launch, as
+every CUDA run of the port does.  The program is traced for one device:
+one traced on CUDA runs on CUDA and ``load_serving`` raises where there is
+none; it never falls back to the CPU.  No config, checkpoint or model
+code is read at load time.
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import torch
-
-from .models.detectors import get_post_processor
+from torch import nn
 
 
 def _processor_map(data_cfg):
@@ -31,35 +50,141 @@ def _test_budget(value):
     return int(value["test"]) if isinstance(value, dict) else int(value)
 
 
-def example_device_batch(cfg, batch_size, device, seed=0):
-    """Synthetic device batch at the serving shapes: ``{"points": (B, N, C)}``
-    with N the test-split ``sample_points`` budget, coordinates uniform over
-    ``POINT_CLOUD_RANGE`` and x-sorted when the pipeline sorts."""
+def serving_input_spec(cfg, batch_size):
+    """``{"points": ((B, N, C), torch.float32)}``: the device batch of a
+    point-cloud detector, N the test split's ``sample_points`` budget."""
     data_cfg = cfg.DATA_CONFIG
     procs = _processor_map(data_cfg)
+    if "transform_points_to_voxels" in procs:
+        raise NotImplementedError("serving a voxel pipeline (voxels, voxel_coords, "
+                                  "voxel_num_points) is ROADMAP queue 1 item 9")
     if "sample_points" not in procs:
-        raise ValueError("a point-cloud device batch needs a `sample_points` "
-                         "DATA_PROCESSOR entry to fix its size")
+        raise ValueError(
+            "serving export of a model whose device batch carries 'points' requires a "
+            "`sample_points` DATA_PROCESSOR entry: its NUM_POINTS budget is what fixes "
+            "the static (B, N, C) point-cloud shape the program is traced at")
     n = _test_budget(procs["sample_points"]["NUM_POINTS"])
     num_feats = len(data_cfg.POINT_FEATURE_ENCODING["used_feature_list"])
-    pc_range = np.asarray(data_cfg.POINT_CLOUD_RANGE, np.float32)
+    return {"points": ((batch_size, n, num_feats), torch.float32)}
+
+
+def example_device_batch(cfg, batch_size, device, seed=0):
+    """Synthetic device batch at the serving shapes, coordinates uniform
+    over ``POINT_CLOUD_RANGE`` and x-sorted when the pipeline sorts."""
+    (shape, dtype), = serving_input_spec(cfg, batch_size).values()
+    pc_range = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, np.float32)
     rs = np.random.RandomState(seed)
-    pts = np.zeros((batch_size, n, num_feats), np.float32)
-    pts[..., :3] = rs.uniform(pc_range[:3], pc_range[3:6], (batch_size, n, 3))
-    if test_split_sorts_points(data_cfg):
+    pts = np.zeros(shape, np.float32)
+    pts[..., :3] = rs.uniform(pc_range[:3], pc_range[3:6], shape[:2] + (3,))
+    if test_split_sorts_points(cfg.DATA_CONFIG):
         order = np.argsort(pts[..., 0], axis=1)
         pts = np.take_along_axis(pts, order[..., None], axis=1)
-    return {"points": torch.from_numpy(pts).to(device)}
+    return {"points": torch.from_numpy(pts).to(device=device, dtype=dtype)}
+
+
+class _Predict(nn.Module):
+    """The forward and the post-processing as one module: what the
+    closure runs and what the export traces."""
+
+    def __init__(self, model, model_cfg):
+        super().__init__()
+        from .models.detectors import get_post_processor
+
+        self.model = model.eval()
+        self.model_cfg = model_cfg
+        self.post_fn = get_post_processor(model_cfg.NAME)
+
+    def forward(self, batch):
+        return self.post_fn(self.model.forward_batch(batch), self.model_cfg)
 
 
 def make_predict_fn(model, model_cfg):
     """The serving closure: forward + post-processing, inference mode."""
-    post_fn = get_post_processor(model_cfg.NAME)
-    model.eval()
+    module = _Predict(model, model_cfg)
 
     def predict(batch):
         with torch.inference_mode():
-            out = model.forward_batch(batch)
-            return post_fn(out, model_cfg)
+            return module(batch)
 
     return predict
+
+
+def export_serving(model, model_cfg, example_batch):
+    """The predict path traced by ``torch.export`` at the example batch's
+    shapes, dtypes and device, in the model's own compute dtype; the
+    weights travel in the returned ``ExportedProgram``."""
+    with torch.no_grad():
+        exported = torch.export.export(_Predict(model, model_cfg), (dict(example_batch),),
+                                       strict=False)
+    # the trace puts a host-side check of dtype, device and layout before
+    # each ``.to()`` (hundreds in a PDA-SSD request); the program's input
+    # spec fixes them already, and each is one more dispatch per request
+    graph = exported.graph_module.graph
+    for node in list(graph.nodes):
+        if node.target is torch.ops.aten._assert_tensor_metadata.default and not node.users:
+            graph.erase_node(node)
+    exported.graph_module.recompile()
+    return exported
+
+
+def _dtype_name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
+def serving_meta(cfg, cfg_file, example_batch, exported):
+    """The sidecar's I/O contract for an export of ``cfg`` at
+    ``example_batch``: the keys of the JAX package's sidecar
+    (``platforms`` and ``jax_version`` replaced by ``device`` and
+    ``torch_version``)."""
+    out_node = next(n for n in exported.graph.nodes if n.op == "output")
+    vals = [a.meta["val"] for a in out_node.args[0]]
+    outputs = torch.utils._pytree.tree_unflatten(vals, exported.call_spec.out_spec)
+    points = example_batch["points"]
+    return {
+        "cfg_file": str(cfg_file),
+        "model": cfg.MODEL.NAME,
+        "class_names": list(cfg.CLASS_NAMES),
+        "batch_size": int(points.shape[0]),
+        "inputs": {k: {"shape": list(v.shape), "dtype": _dtype_name(v.dtype)}
+                   for k, v in example_batch.items()},
+        "outputs": {k: {"shape": list(v.shape), "dtype": _dtype_name(v.dtype)}
+                    for k, v in outputs.items()},
+        "preprocess": {"sort_points": test_split_sorts_points(cfg.DATA_CONFIG)},
+        "device": str(points.device),
+        "torch_version": torch.__version__,
+    }
+
+
+def save_serving(exported, path, meta):
+    """Write the program (``torch.export.save``) and its sidecar ``meta``
+    (``serving_meta``) at ``<path>.json``.  Returns the program's size in
+    bytes."""
+    torch.export.save(exported, str(path))
+    with open(f"{path}.json", "w") as f:
+        json.dump(meta, f, indent=2, default=str)
+    return Path(path).stat().st_size
+
+
+def load_serving(path):
+    """Load a saved program and return ``(predict, exported)``.
+    ``predict`` takes the device-batch dict and returns the fixed-shape
+    pred dict, under ``torch.inference_mode()``.  Raises if the sidecar is
+    missing, or if it names a CUDA device and this process has none."""
+    from . import ops  # noqa: F401  (registers the ops the program calls)
+
+    sidecar = Path(f"{path}.json")
+    if not sidecar.exists():
+        raise FileNotFoundError(f"{sidecar}: the program's sidecar is missing; export with "
+                                f"pdanet_tpu_torch.tools.export, which writes it")
+    device = torch.device(json.loads(sidecar.read_text())["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{path} was exported for {device}, and this process has no "
+                           f"CUDA device: the program runs where it was traced")
+    exported = torch.export.load(str(path))
+    module = exported.module()
+
+    def predict(batch):
+        with torch.inference_mode():
+            return module(dict(batch))
+
+    return predict, exported

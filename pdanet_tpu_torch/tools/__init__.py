@@ -1,2 +1,2 @@
-"""Command-line entry points: ``python -m pdanet_tpu_torch.tools.train`` and
-``python -m pdanet_tpu_torch.tools.test``."""
+"""Command-line entry points: ``python -m pdanet_tpu_torch.tools.train``,
+``.test``, ``.export`` and ``.serve``."""

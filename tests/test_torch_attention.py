@@ -7,8 +7,9 @@ tolerance) and 5e-2 in bfloat16.  Its plain backward is held against
 ``jax.vjp`` of the Pallas kernel's custom VJP, also in interpret mode: atol
 1e-5 in float32, 5e-2 of the largest |gradient| in bfloat16 (the Pallas
 backward rounds P and dS to bfloat16 between its products, the plain one
-does not).  ``torch.autograd.gradcheck`` holds the autograd Function's CPU
-path against finite differences in float64.  ``scaled_dot_product_attention``
+does not).  ``torch.autograd.gradcheck`` holds the attention op's CPU
+path and its gradient (``register_autograd``) against finite differences
+in float64.  ``scaled_dot_product_attention``
 on the (centres, H, K, hd) view of the flat tensors -- the library call the
 chip check times beside the kernels -- is held against the plain forward and
 backward in float32 (atol 1e-5), so that the yardstick computes the
@@ -35,8 +36,8 @@ from pdanet_tpu.ops.pallas.attention import (
 )
 from pdanet_tpu_torch.models.blocks import TransformerEncoderLayerPreNorm
 from pdanet_tpu_torch.ops.attention import (
-    NeighborAttention,
     _check_shapes,
+    attention_op,
     _shape_rule,
     neighbor_attention_flat,
     neighbor_attention_flat_bwd_plain,
@@ -147,7 +148,7 @@ def test_function_gradcheck_float64():
     q, k, v = (torch.tensor(rs.randn(3 * K, H * hd), dtype=torch.float64,
                             requires_grad=True) for _ in range(3))
     assert torch.autograd.gradcheck(
-        lambda a, b, c: NeighborAttention.apply(a, b, c, K, H, hd), (q, k, v))
+        lambda a, b, c: attention_op(a, b, c, K, H, hd), (q, k, v))
     out = neighbor_attention_flat(q, k, v, K, H, hd)
     assert out.dtype == torch.float64 and out.grad_fn is not None
 
@@ -185,9 +186,9 @@ def test_transformer_layer_grads_match_flax_train():
 
 
 def test_cpu_autograd_takes_the_plain_versions():
-    """On CPU tensors the Function runs the plain forward and backward and
-    never the kernel library; the backward kernel's wrapper refuses a CPU
-    tensor instead of falling back."""
+    """On CPU tensors the op and its gradient run the plain forward and
+    backward and never the kernel library; the backward kernel's wrapper
+    refuses a CPU tensor instead of falling back."""
     from pdanet_tpu_torch.ops import cuda_lib
     from pdanet_tpu_torch.ops.attention import neighbor_attention_flat_bwd_cuda
 
