@@ -137,9 +137,10 @@ Phases, each of which raises on failure:
    backward, IoU and NMS kernels must launch on this path.  Then the same
    B = 4 bfloat16 steps on the loader's batches with the loader idle, the
    device split of one, and one val
-   frame in float32 through the test CLI on the card and on the CPU:
-   equal detection counts, every detection paired by mutual nearest
-   centre within 1e-3 m.
+   frame in float32 through the test CLI on the card and on the CPU (at
+   the yaml's SCORE_THRESH, cut tenfold on the card until the frame has a
+   detection): equal detection counts, at least one, every detection
+   paired by mutual nearest centre within 1e-3 m.
 
 10. Export and serve: the shipped KITTI yaml at b1 and b2 and the ONCE
    yaml at b1 (full width, bfloat16 as shipped, seeded random weights)
@@ -158,12 +159,34 @@ Phases, each of which raises on failure:
    in this process; medians of 20 after warm-up, host clock ending in a
    synchronise, two turns) with the device busy time and the operators
    each dispatches a request, a report.
+11. Data parallel.  (a) Phase 9's root and yaml through the port's
+   ``tools/scripts/dist_train.sh`` (torchrun, ``--launcher pytorch``,
+   world 1: NCCL refuses two ranks on one GPU; one epoch at B = 4 with
+   the evaluation) and ``dist_test.sh`` on its checkpoint: the process
+   group's backend NCCL (from the rank-0 log), one checkpoint, finite
+   losses, both merged evaluations holding every val frame in order; the
+   NCCL version and the iteration times beside phase 9's; then, in a
+   fresh process, the B = 4 bfloat16 step with the loader idle in three
+   turns -- no process group, NCCL's world 1, none -- with a device split
+   of each mode.  (b) Two ranks sharing the card through Gloo (each a
+   fresh ``python3``), one LiDAR-like frame each, against one process at
+   B = 2 on the same frames: a float32 data-parallel step (the ranks'
+   state bit-equal after it), a float64 step with the one process's
+   sampling and ball-query picks fed (loss within 1e-9 relative; every
+   gradient leaf within 1e-9 of its scale, floored at 1e-3 of the largest
+   leaf's, or within 10 times the one process's own difference with its
+   frames in reverse order; BatchNorm statistics within 1e-9; parameters
+   after the update within 1e-9 of their scale plus the learning rate
+   times the gradient's error over Adam's eps; the ranks bit-equal), and
+   each frame through the serving closure; all six ops launched in the
+   one process and in each rank.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
 (phase 4's requests, phase 7's bfloat16 and float32 train steps, phase
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
-CLIs and phase 10's exported programs, each run counted from 0), its
+CLIs, phase 10's exported programs and phase 11's CLI processes, one
+process and ranks, each run counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -174,6 +197,10 @@ the same function.  The last line is ``{"ok": true, "device": {...}}``.
 import contextlib
 import copy
 import json
+import os
+import pickle
+import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -1705,7 +1732,8 @@ def feed_all(picks, recorded):
 
 def _recorded_step(cfg, mcfg, weights, device, dtype, pts, gt, train_frames=3712):
     """One train step from ``weights`` on ``device`` in ``dtype``: its loss,
-    forward dict, gradients and BatchNorm statistics (on the CPU, float64)."""
+    forward dict, gradients, BatchNorm statistics and parameters after the
+    update (on the CPU, float64)."""
     import torch
 
     model, train_step = _train_model(cfg, mcfg, weights, device, train_frames)
@@ -1723,7 +1751,8 @@ def _recorded_step(cfg, mcfg, weights, device, dtype, pts, gt, train_frames=3712
         loss=loss, out=captured, fps_identity=model.backbone_3d.fps_identity,
         grads={n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
         stats={n: b.detach().double().cpu() for n, b in model.named_buffers()
-               if n.endswith(("running_mean", "running_var"))})
+               if n.endswith(("running_mean", "running_var"))},
+        params={n: p.detach().double().cpu() for n, p in model.named_parameters()})
 
 
 def compare_train(cfg, weights, dev):
@@ -2347,10 +2376,9 @@ def kitti_phase(dev, work_dir):
     """Phase 9: the shipped KITTI yaml at full width through the port's
     train and test CLIs on a synthetic KITTI root.  Returns the kernel
     launches of its main path (the train CLI, with its post-train
-    evaluation, and the test CLI, counted from 0)."""
-    import pickle
-    import re
-
+    evaluation, and the test CLI, counted from 0), and what phase 11 reads
+    of the run: the root, its val frames, the batch size, the number of
+    steps and the train CLI's median ms per iteration after the first."""
     import torch
 
     from pdanet_tpu_torch.config import cfg_from_yaml_file
@@ -2509,27 +2537,41 @@ def kitti_phase(dev, work_dir):
         f32 = set_data + ["DATA_CONFIG.INFO_PATH.test", "['kitti_infos_val1.pkl']",
                           "MODEL.BACKBONE_3D.COMPUTE_DTYPE", "None",
                           "MODEL.BACKBONE_3D.TRAIN_COMPUTE_DTYPE", "None"]
-        runs = {}
-        for tag, device in (("card", "cuda"), ("cpu", "cpu")):
+
+        def f32_frame(device, thresh):
+            tag = f"f32_{'card' if device == 'cuda' else 'cpu'}_{thresh:g}"
             t0 = time.perf_counter()
             test_cli.main(["--cfg_file", KITTI_CFG_REL, "--ckpt", str(ckpt), "--batch_size",
-                           "1", "--workers", "0", "--device", device, "--eval_tag",
-                           f"f32_{tag}", *f32])
-            with open(out / "eval" / "epoch_1" / "val" / f"f32_{tag}" / "result.pkl",
-                      "rb") as f:
-                runs[tag] = pickle.load(f)
-            print(f"KITTI float32 frame through the test CLI on the {tag}: "
+                           "1", "--workers", "0", "--device", device, "--eval_tag", tag,
+                           *f32, "MODEL.POST_PROCESSING.SCORE_THRESH", repr(thresh)])
+            with open(out / "eval" / "epoch_1" / "val" / tag / "result.pkl", "rb") as f:
+                (res,) = pickle.load(f)
+            print(f"KITTI float32 frame through the test CLI on {device} at SCORE_THRESH "
+                  f"{thresh:g}: {len(res['score'])} detections, "
                   f"{time.perf_counter() - t0:.1f} s")
-        (g,), (c,) = runs["card"], runs["cpu"]
+            return res
+
+        # Eight steps from random weights may leave the frame no box above the
+        # yaml's SCORE_THRESH (the trained checkpoint differs run to run: the
+        # loader's threads draw the augmentation in any order).  The threshold is
+        # then cut tenfold, on the card, until the frame has a detection, and the
+        # CPU runs at the threshold the card's comparison run used.
+        thresh = float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH)
+        g = f32_frame("cuda", thresh)
+        while not len(g["score"]) and thresh > 1e-6:
+            thresh /= 10
+            g = f32_frame("cuda", thresh)
+        c = f32_frame("cpu", thresh)
         pairs, n_g, n_c, gap_c, gap_s = match_detections(annos_as_pred(g, names),
                                                          annos_as_pred(c, names))
-        print(f"KITTI float32 frame {g['frame_id']}, card vs CPU through the test CLI: "
-              f"detections {n_g} vs {n_c}, {pairs} paired by mutual nearest centre (largest "
-              f"centre distance {gap_c:.3g} m, score {gap_s:.3g})")
+        print(f"KITTI float32 frame {g['frame_id']} at SCORE_THRESH {thresh:g}, card vs CPU "
+              f"through the test CLI: detections {n_g} vs {n_c}, {pairs} paired by mutual "
+              f"nearest centre (largest centre distance {gap_c:.3g} m, score {gap_s:.3g})")
         require(n_g > 0, "no KITTI float32 detection to compare")
         require(n_g == n_c == pairs, "KITTI float32 detections differ card vs CPU")
         require(gap_c <= 1e-3, f"KITTI float32 boxes card vs CPU {gap_c} m apart > 1e-3")
-    return launches
+    return launches, dict(root=root, val_ids=val_ids, B=B, steps=len(batches),
+                          step_ms=statistics.median(step_ms[1:]))
 
 
 EXPORTS = ((YAML, (1, 2)), (ONCE_YAML, (1,)))  # the yamls exported, and their batch sizes
@@ -2757,12 +2799,498 @@ def export_phase(dev, work_dir):
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data parallel
+
+
+DIST_SCRIPTS = ROOT / "pdanet_tpu_torch" / "tools" / "scripts"
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+DP_RANK = """
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.dp_rank({spec!r}, {rank}, {world}, {port})
+"""
+DP_STEP = """
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.dp_step_cost({reps}, {turns!r})
+"""
+DP_STEP_TURNS = ("none", "identity", "nccl", "none")
+DP_STEP_REPS = 6  # B = 4 steps a turn
+# the six kernel ops, and the kernels that run each
+DP_OPS = {"fps": ("fps",), "ball_query": ("ball_query",),
+          "neighbor_attention": ("neighbor_attention", "neighbor_attention_bf16"),
+          "neighbor_attention_bwd": ("neighbor_attention_bwd", "neighbor_attention_bwd_bf16"),
+          "rotated_iou": ("rotated_iou",), "nms": ("nms",)}
+DP_RTOL = 1e-9  # two ranks against one process, float64
+# A gradient leaf may also differ by this many times the one process's own
+# difference with its frames in reverse order: the DensityNet's first Dense
+# feeds a BatchNorm over one input channel, which cancels its scale, so its
+# gradient is the eps term's residue of large sums, and any other order of
+# summation moves it by ~1e-7 of its scale in float64
+DP_ORDER_MARGIN = 10.0
+ADAM_EPS = 1e-8  # the yaml's adam_onecycle (optax's default)
+
+
+def run_dist_script(script, nproc, args, cwd, timeout=900):
+    """``pdanet_tpu_torch/tools/scripts/<script> nproc args`` from ``cwd``
+    (torchrun, ``--launcher pytorch``); returns its seconds."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCH_ENV}
+    t0 = time.perf_counter()
+    res = subprocess.run(["bash", str(DIST_SCRIPTS / script), str(nproc), *args], cwd=cwd,
+                         env=env, capture_output=True, text=True, timeout=timeout)
+    require(res.returncode == 0, f"{script} failed (exit {res.returncode}):\n"
+            f"{res.stdout[-2000:]}\n{res.stderr[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def cli_log(out_dir, kind):
+    """The one log of a CLI run (rank 0's) and the kernel launches it
+    reports for its process."""
+    logs = list(Path(out_dir).glob(f"log_{kind}_*.txt"))
+    require(len(logs) == 1, f"{out_dir}: {len(logs)} {kind} logs")
+    log = logs[0].read_text()
+    found = re.findall(r"kernel launches of this process: (\{.*\})", log)
+    require(len(found) == 1, f"{logs[0]}: no kernel launch line")
+    return log, json.loads(found[0])
+
+
+def dp_cli(work, kitti_run, world=1):
+    """Phase 11 (a): the KITTI yaml through ``dist_train.sh`` and
+    ``dist_test.sh`` on ``world`` GPUs (one process each, NCCL) on phase
+    9's root; at world 1 also the collectives' cost a step
+    (``dp_step_cost``).  Returns the kernel launches of rank 0's CLI
+    processes."""
+    import torch
+
+    root, B, val_ids = kitti_run["root"], kitti_run["B"], kitti_run["val_ids"]
+    set_data = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+    group = f"process group: backend nccl, world {world}"
+    train_s = run_dist_script("dist_train.sh", world, [
+        "--cfg_file", KITTI_CFG_REL, "--epochs", "1", "--batch_size", str(B),
+        "--num_epochs_to_eval", "1", "--extra_tag", f"dp{world}", *set_data], work)
+    out = Path(work) / "output" / "kitti_models" / "PDA-SSD" / f"dp{world}"
+    log, train_counts = cli_log(out, "train")
+    require(group in log, f"dist_train.sh: not NCCL at world {world}")
+    series = {}
+    for line in (out / "tensorboard" / "metrics.jsonl").read_text().splitlines():
+        m = json.loads(line)
+        series.setdefault(m["tag"], []).append(m["value"])
+    losses, step_ms = series["train/loss"], [1e3 * t for t in series["meta_data/batch_time"]]
+    require(len(losses) == kitti_run["steps"] // world and all(np.isfinite(losses)),
+            f"dist_train.sh losses {losses}")
+    ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+    require(sorted(p.name for p in ckpt.parent.iterdir()) == [ckpt.name],
+            "dist_train.sh: one checkpoint")
+    test_s = run_dist_script("dist_test.sh", world, [
+        "--cfg_file", KITTI_CFG_REL, "--ckpt", str(ckpt), "--batch_size", "1",
+        "--extra_tag", f"dp{world}", *set_data], work)
+    res_dir = out / "eval" / "epoch_1" / "val" / "default"
+    tlog, test_counts = cli_log(res_dir, "eval")
+    require(group in tlog, f"dist_test.sh: not NCCL at world {world}")
+    for res in (out / "eval" / "eval_with_train" / "epoch_1" / "val", res_dir):
+        with open(res / "result.pkl", "rb") as f:
+            annos = pickle.load(f)
+        require([a["frame_id"] for a in annos] == val_ids, f"{res}: merged frames")
+        for a in annos:
+            require(np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all(),
+                    f"{res}: detections not finite")
+    print(f"NCCL {'.'.join(str(v) for v in torch.cuda.nccl.version())}")
+    print(f"KITTI train CLI through dist_train.sh (torchrun, world {world}, NCCL; 1 epoch at "
+          f"B={B} a GPU and the evaluation): {train_s:.1f} s; losses "
+          f"{[round(x, 4) for x in losses]}; ms per iteration {[round(t, 2) for t in step_ms]}, "
+          f"median after the first {statistics.median(step_ms[1:] or step_ms):.2f} ms against "
+          f"{kitti_run['step_ms']:.2f} ms with --launcher none (phase 9, same root); rank 0's "
+          f"kernel launches {train_counts}")
+    print(f"KITTI test CLI through dist_test.sh (world {world}, NCCL, B=1 a GPU): {test_s:.1f} "
+          f"s, the merged eval covers {len(val_ids)} val frames; rank 0's kernel launches "
+          f"{test_counts}")
+    if world > 1:
+        return {k: train_counts.get(k, 0) + test_counts.get(k, 0)
+                for k in set(train_counts) | set(test_counts)}
+
+    # the collectives' cost a step: the same step with and without the group
+    res = subprocess.run([sys.executable, "-c", DP_STEP.format(
+        root=str(ROOT), reps=DP_STEP_REPS, turns=DP_STEP_TURNS)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    require(res.returncode == 0, f"the step-cost process failed (exit {res.returncode}):\n"
+            f"{res.stdout[-2000:]}\n{res.stderr[-6000:]}")
+    lines = res.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    turns = json.loads(lines[-1])
+    print(f"KITTI B={B} bf16 step, loader idle, in one process (ms, turns of "
+          f"{DP_STEP_REPS}): " + "; ".join(
+              f"{kind} {[round(t, 2) for t in times]} (median {statistics.median(times):.2f})"
+              for kind, times in turns))
+    return {k: train_counts.get(k, 0) + test_counts.get(k, 0)
+            for k in set(train_counts) | set(test_counts)}
+
+
+def host_ops(fn, top=8):
+    """The host operators of one run of ``fn`` (after a warm-up) under
+    torch.profiler: (their number, the ``top`` by self CPU milliseconds
+    with their calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    return (sum(e.count for e in rows),
+            [(e.key, round(e.self_cpu_time_total / 1e3, 3), e.count) for e in rows[:top]])
+
+
+def dp_step_cost(reps, turns=("none", "nccl", "none")):
+    """Phase 11 (a), the collectives' cost, in a fresh process: the yaml's
+    B = 4 bfloat16 step on one LiDAR-like batch, the loader idle, in
+    ``turns`` of ``reps`` steps each: ``none`` without a process group,
+    ``nccl`` in the group of torchrun's world 1 over NCCL (``init_dist``,
+    destroyed after the turn), ``identity`` on the data-parallel code path
+    with every collective a no-op (no group).  The first turn of each
+    kind also prints the device split and the host operators of one step;
+    the first ``nccl`` turn the host time of one all-reduce call.  Prints
+    one JSON line: [kind, step times] a turn."""
+    import torch
+    import torch.distributed as dist
+
+    from pdanet_tpu_torch import parallel
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.utils import common_utils
+
+    dev = torch.device("cuda", 0)
+    cfg = load_config()
+    weights = init_random_weights(build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev),
+                                  seed=0).state_dict()
+    model, train_step = _train_model(cfg, cfg.MODEL, weights, dev)
+    mean_size = np.asarray(cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER_CONFIG.mean_size,
+                           np.float32)
+    pts, gt = lidar_like_batch(400, cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU, N_POINTS, mean_size)
+    batch = {"points": torch.from_numpy(pts).to(dev), "gt_boxes": torch.from_numpy(gt).to(dev)}
+    small = torch.ones(65, device=dev, requires_grad=True)
+
+    class Clone(torch.autograd.Function):  # parallel's Function without the collective
+        @staticmethod
+        def forward(ctx, t):
+            return t.clone()
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad.clone()
+
+    def step_times():
+        train_step(batch)  # warm-up
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    res, seen = [], set()
+    for kind in turns:
+        if kind == "nccl":
+            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                              MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+            common_utils.init_dist("pytorch")
+            require(dist.get_backend() == "nccl", f"init_dist took {dist.get_backend()}")
+        own = parallel.is_dist, dist.all_reduce
+        if kind == "identity":
+            parallel.is_dist, dist.all_reduce = (lambda: True), (lambda t, *a, **k: None)
+        try:
+            res.append((kind, step_times()))
+            if kind not in seen:
+                what = {"none": "no process group", "nccl": "NCCL at world 1",
+                        "identity": "the data-parallel path, collectives no-ops"}[kind]
+                print_split(f"a B=4 bf16 step, {what}", device_split(lambda: train_step(batch)))
+                print(f"host operators of a B=4 bf16 step, {what}: "
+                      f"{host_ops(lambda: train_step(batch))}")
+            if kind == "nccl" and kind not in seen:
+                print(f"host time of one call at world 1 (µs, median of 200): dist.all_reduce "
+                      f"of 65 float32 {host_us(lambda: dist.all_reduce(small.detach())):.1f}; "
+                      f"parallel.all_reduce_sum "
+                      f"{host_us(lambda: parallel.all_reduce_sum(small)):.1f}; the same "
+                      f"forward and backward "
+                      f"{host_us(lambda: parallel.all_reduce_sum(small).sum().backward()):.1f}; "
+                      f"a Python autograd Function's clone, forward and backward "
+                      f"{host_us(lambda: Clone.apply(small).sum().backward()):.1f}; "
+                      f"small.sum() {host_us(lambda: small.sum()):.1f}")
+        finally:
+            parallel.is_dist, dist.all_reduce = own
+            if kind == "nccl":
+                dist.destroy_process_group()
+        seen.add(kind)
+    print(json.dumps(res))
+
+
+def _f32_model_cfg(cfg):
+    mcfg = copy.deepcopy(cfg.MODEL)
+    mcfg.BACKBONE_3D.pop("COMPUTE_DTYPE", None)
+    mcfg.BACKBONE_3D.pop("TRAIN_COMPUTE_DTYPE", None)
+    return mcfg
+
+
+def _predict_frames(cfg, weights, dev, pts):
+    """The frames ``pts`` through the serving closure (bfloat16 as shipped):
+    the detections per frame."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.serving import make_predict_fn
+
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev)
+    model.load_state_dict(weights)
+    res = make_predict_fn(model, cfg.MODEL)({"points": torch.as_tensor(pts).to(dev)})
+    require(all(bool(torch.isfinite(v.float()).all()) for v in res.values()),
+            "data-parallel frames: detections not finite")
+    return res["pred_counts"].tolist()
+
+
+def _ops_run(counts):
+    return [op for op, kernels in DP_OPS.items() if any(counts.get(k, 0) for k in kernels)]
+
+
+def dp_rank(spec_path, rank, world, port):
+    """One rank of phase 11 (b), in its own process, in a group of
+    ``world`` at ``tcp://127.0.0.1:port``: under Gloo on the one process's
+    device, under NCCL on ``cuda:<rank>``.  The float32 train step of its
+    frame (the data-parallel path through every train kernel), the float64
+    step with the one process's indices of its frame fed, and its frame
+    through the serving closure.  Writes the results to
+    ``<spec>.rank<rank>`` and prints its kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    from pdanet_tpu_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    nccl = spec["backend"] == "nccl"
+    dev = torch.device("cuda", rank) if nccl else torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = spec["cfg"]
+    mcfg = _f32_model_cfg(cfg)
+    mine = slice(rank, rank + 1)
+    pts, gt = spec["points"][mine], spec["gt_boxes"][mine]
+    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, **({"device_id": dev} if nccl else {}))
+    try:
+        cuda_lib.launches.clear()
+        model, train_step = _train_model(cfg, mcfg, spec["weights"], dev)
+        loss32, _ = train_step({"points": torch.as_tensor(pts).to(dev),
+                                "gt_boxes": torch.as_tensor(gt).to(dev)})
+        state32 = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+        del model, train_step
+        samp = [p[mine] for p in spec["picks"]]
+        ball = [tuple(t[mine] for t in b) for b in spec["ball"]]
+        with fed(sampling=lambda *a: samp.pop(0).to(a[3].device),
+                 ball_query=lambda r, n, xyz, c: tuple(t.to(xyz.device) for t in ball.pop(0))):
+            rec64 = _recorded_step(cfg, mcfg, spec["weights"], dev, torch.float64, pts, gt)
+        require(not samp and not ball, f"rank {rank}: fed indices left over")
+        rec64.pop("out")
+        detections = _predict_frames(cfg, spec["weights"], dev, pts)
+        launches = dict(cuda_lib.launches)
+    finally:
+        dist.destroy_process_group()
+    torch.save(dict(loss32=loss32.item(), state32=state32, rec64=rec64,
+                    detections=detections), f"{spec_path}.rank{rank}")
+    print(json.dumps({"rank": rank, "launches": launches}))
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_ranks(dev, cfg, weights, work, world=1):
+    """Phase 11 (b): ranks of one frame each against one process on the
+    same frames -- on one card (``world`` 1) two ranks sharing it through
+    Gloo, on ``world`` cards one rank a card over NCCL.  Returns the
+    kernel launches of the one process and the ranks."""
+    import torch
+
+    from pdanet_tpu_torch.ops import cuda_lib
+
+    n_ranks = 2 if world == 1 else world
+    backend = "nccl" if world > 1 and dev.type == "cuda" else "gloo"
+    mcfg = _f32_model_cfg(cfg)
+    mean_size = np.asarray(mcfg.POINT_HEAD.TARGET_CONFIG.BOX_CODER_CONFIG.mean_size,
+                           np.float32)
+    pts, gt = lidar_like_batch(600, n_ranks, N_POINTS, mean_size)
+
+    # one process, B = n_ranks: a float32 step (its picks are fed to every
+    # float64 step), the float64 step, and the frames through the serving
+    # closure
+    cuda_lib.launches.clear()
+    one32 = _recorded_step(cfg, mcfg, weights, dev, torch.float32, pts, gt)
+    picks = [i.cpu() for k, i in enumerate(one32["out"]["sampled_idx"])
+             if i is not None and not one32["fps_identity"][k]]
+    ball = [tuple(t.cpu() for t in b) for b in one32["out"]["ball_query_idx"] if b is not None]
+    with fed(**feed_all(picks, one32)):
+        one64 = _recorded_step(cfg, mcfg, weights, dev, torch.float64, pts, gt)
+    # its own rounding: the float64 step with its frames in reverse order
+    swap = list(range(n_ranks))[::-1]
+    with fed(**feed_all([p[swap] for p in picks],
+                        {"out": {"ball_query_idx": [tuple(t[swap] for t in b) for b in ball]}})):
+        swapped = _recorded_step(cfg, mcfg, weights, dev, torch.float64, pts[swap], gt[swap])
+    one_detections = _predict_frames(cfg, weights, dev, pts)
+    one_launches = dict(cuda_lib.launches)
+
+    spec = Path(work) / "dp_spec.pt"
+    torch.save(dict(cfg=cfg, device=str(dev), backend=backend,
+                    weights={k: v.cpu() for k, v in weights.items()},
+                    points=pts, gt_boxes=gt, picks=picks, ball=ball), spec)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", DP_RANK.format(
+        root=str(ROOT), spec=str(spec), rank=r, world=n_ranks, port=port)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(n_ranks)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    ranks_s = time.perf_counter() - t0
+    rank_launches = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"data-parallel rank {r} failed (exit {p.returncode}):\n"
+                f"{out[-2000:]}\n{err[-6000:]}")
+        line = json.loads(out.strip().splitlines()[-1])
+        require(line["rank"] == r, f"rank {r}: {line}")
+        rank_launches.append(line["launches"])
+    got = [torch.load(f"{spec}.rank{r}", weights_only=False) for r in range(n_ranks)]
+
+    # the ranks hold one state: bit for bit after either step
+    for other in got[1:]:
+        for key, val in got[0]["state32"].items():
+            require(torch.equal(other["state32"][key], val), f"float32 ranks differ at {key}")
+        for what in ("params", "stats", "grads"):
+            for key, val in got[0]["rec64"][what].items():
+                require(torch.equal(other["rec64"][what][key], val),
+                        f"float64 ranks' {what} differ at {key}")
+        require(got[0]["rec64"]["loss"] == other["rec64"]["loss"],
+                "float64 ranks' losses differ")
+    require(all(np.isfinite(g["loss32"]) for g in got), "float32 data-parallel loss")
+
+    # against the one process: loss, every gradient leaf (over its scale,
+    # floored at 1e-3 of the largest leaf's: below that a float64 gradient
+    # is rounding noise; or over DP_ORDER_MARGIN times the leaf's own
+    # difference under the swap), BN statistics, and parameters after the
+    # update (Adam's first update moves a parameter by lr * g / (|g| + eps),
+    # which amplifies a gradient's rounding by up to lr / eps: the bound
+    # adds that to DP_RTOL of the leaf's scale)
+    rec, want = got[0]["rec64"], one64
+    rel = abs(rec["loss"] - want["loss"]) / abs(want["loss"])
+    gerrs = _leaf_errors(rec["grads"], want["grads"], 1e-3)
+    order = _leaf_errors(swapped["grads"], want["grads"], 1e-3)
+    top = 1e-3 * max(w.abs().max().item() for w in want["grads"].values())
+    gbound = []
+    for n, w in want["grads"].items():
+        err = (rec["grads"][n] - w).abs().max().item()
+        own = (swapped["grads"][n] - w).abs().max().item()
+        gbound.append((err / max(DP_RTOL * max(w.abs().max().item(), top),
+                                 DP_ORDER_MARGIN * own), n))
+    gbound.sort(reverse=True)
+    serr = max((rec["stats"][n] - s).abs().max().item() / max(s.abs().max().item(), 1.0)
+               for n, s in want["stats"].items())
+    lr = float(cfg.OPTIMIZATION.LR)  # at least the first update's rate
+    perrs = []
+    for n, w in want["params"].items():
+        dg = (rec["grads"][n] - want["grads"][n]).abs().max().item()
+        err = (rec["params"][n] - w).abs().max().item()
+        perrs.append((err / (DP_RTOL * max(w.abs().max().item(), 1.0) + lr * dg / ADAM_EPS), n))
+    perrs.sort(reverse=True)
+    print(f"{n_ranks} ranks through {backend} (one frame each) against one process at "
+          f"B={n_ranks}, float64, indices fed: loss {rec['loss']!r} vs {want['loss']!r} "
+          f"(rel {rel:.3g}); {len(gerrs)} gradient leaves, largest err / scale "
+          f"{gerrs[0][0]:.3g} ({gerrs[0][1]}), deciles {_deciles(gerrs)}; the one process "
+          f"with its frames reversed, largest {order[0][0]:.3g} ({order[0][1]}), deciles "
+          f"{_deciles(order)}; largest err over its bound {gbound[0][0]:.3g} ({gbound[0][1]}); "
+          f"BN statistics {serr:.3g}; parameters after the update, largest err over its "
+          f"bound {perrs[0][0]:.3g} ({perrs[0][1]}); the ranks' state bit-equal after the "
+          f"float32 and float64 steps")
+    print(f"float32 data-parallel step (unfed): losses {[g['loss32'] for g in got]}; "
+          f"detections a frame: ranks {[g['detections'] for g in got]}, one process "
+          f"{one_detections}; the ranks' processes {ranks_s:.1f} s")
+    print(f"kernel launches: one process {one_launches}; ranks {rank_launches}")
+    require(rel <= DP_RTOL, f"float64 data-parallel loss rel {rel} > {DP_RTOL}")
+    require(gbound[0][0] <= 1.0, f"float64 data-parallel gradient {gbound[0][1]}: "
+            f"{gbound[0][0]} times its bound")
+    require(serr <= DP_RTOL, f"float64 data-parallel BN statistics: {serr} > {DP_RTOL}")
+    require(perrs[0][0] <= 1.0, f"float64 data-parallel parameter {perrs[0][1]}: "
+            f"{perrs[0][0]} times its bound")
+    for who, counts in (("the one process", one_launches),
+                        *((f"rank {r}", c) for r, c in enumerate(rank_launches))):
+        require(_ops_run(counts) == list(DP_OPS), f"{who} ran the ops {_ops_run(counts)}")
+    total = {}
+    for counts in (one_launches, *rank_launches):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def check_off_device(dev):
+    """Each kernel on tensors of ``dev`` while ``cuda:0`` is the current
+    device, against its plain version on ``dev``: the wrappers' device
+    guard.  Returns the number of kernel launches it saw."""
+    import torch
+
+    from pdanet_tpu_torch.ops import attention, ball_query, cuda_lib, nms, rotated_iou, sampling
+
+    torch.cuda.set_device(0)
+    cuda_lib.launches.clear()
+    xyz = torch.from_numpy(lidar_like_cloud(7, 1, N_POINTS)[..., :3].copy()).to(dev)
+    idx = sampling.farthest_point_sample_cuda(xyz, 4096)
+    require(torch.equal(idx, sampling.farthest_point_sample_plain(xyz, 4096)),
+            f"FPS on {dev} differs from its plain version")
+    ctr = xyz[:, idx[0].long()].contiguous()
+    for got, want in zip(ball_query.ball_query_multi_cuda((0.2, 0.8), (16, 32), xyz, ctr),
+                         ball_query.ball_query_multi_plain((0.2, 0.8), (16, 32), xyz, ctr)):
+        require(torch.equal(got, want), f"ball query on {dev} differs from its plain version")
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn(1024 * 32, 4 * 64, device=dev, generator=g) for _ in range(4))
+    err = (attention.neighbor_attention_flat_cuda(q, k, v, 32, 4, 64)
+           - attention.neighbor_attention_flat_plain(q, k, v, 32, 4, 64)).abs().max().item()
+    require(err <= 2e-5, f"attention on {dev}: err {err}")
+    for got, want in zip(attention.neighbor_attention_flat_bwd_cuda(q, k, v, do, 32, 4, 64),
+                         attention.neighbor_attention_flat_bwd_plain(q, k, v, do, 32, 4, 64)):
+        err = (got - want).abs().max().item()
+        require(err <= 2e-5, f"attention backward on {dev}: err {err}")
+    boxes = torch.from_numpy(random_boxes(5, 1, 256)).to(dev)
+    iou = rotated_iou.boxes_iou_bev_batched_self_cuda(boxes)
+    require(torch.allclose(iou, rotated_iou.boxes_iou_bev_batched_self_plain(boxes),
+                           rtol=2e-4, atol=2e-5), f"IoU on {dev} differs from its plain version")
+    valid = torch.ones(1, 256, dtype=torch.bool, device=dev)
+    require(torch.equal(nms.greedy_nms_mask_batched_cuda(iou, valid, 0.1),
+                        nms.greedy_nms_mask_batched_plain(iou, valid, 0.1)),
+            f"NMS on {dev} differs from its plain version")
+    require(torch.cuda.current_device() == 0, "a wrapper left its device current")
+    return sum(cuda_lib.launches.values())
+
+
+def dp_phase(dev, work_dir, kitti_run, cfg, weights, world=1):
+    """Phase 11: data parallel.  (a) the CLIs over NCCL on ``world`` GPUs,
+    (b) ranks of one frame each against one process.  Returns the kernel
+    launches of every run, counted from 0."""
+    cli = dp_cli(work_dir, kitti_run, world)
+    ranks = dp_ranks(dev, cfg, weights, work_dir, world)
+    return {k: cli.get(k, 0) + ranks.get(k, 0) for k in set(cli) | set(ranks)}
+
+
 def ptxas_report(log):
     """(kernel, registers, shared-memory bytes, spill bytes) per kernel of
     an ``nvcc -Xptxas -v`` log, names shortened from their mangled form
     (the tensor-core attention kernels as name<KP,HD>)."""
-    import re
-
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN(\w+)'", line)
@@ -2817,6 +3345,36 @@ def load_parent(root):
                                  nms=importlib.import_module(f"{name}.ops.nms"))
 
 
+def multi_gpu(dev, world):
+    """``--world``: the device guard on every other GPU, then phase 9 on
+    ``dev`` and phase 11 over ``world`` GPUs."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+
+    require(torch.cuda.device_count() >= world,
+            f"--world {world}: {torch.cuda.device_count()} GPUs")
+    for k in range(1, world):
+        t0 = time.perf_counter()
+        n = check_off_device(torch.device("cuda", k))
+        print(f"every kernel on cuda:{k} with cuda:0 current: equal to its plain version "
+              f"({n} launches), {time.perf_counter() - t0:.1f} s")
+    cfg = load_config()
+    weights = init_random_weights(build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev),
+                                  seed=0).state_dict()
+    with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as work:
+        t0 = time.perf_counter()
+        _, kitti_run = kitti_phase(dev, work)
+        print(f"phase 9 (KITTI through the CLIs): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp_phase(dev, work, kitti_run, cfg, weights, world)
+        print(f"phase 11 (data parallel, {world} GPUs): {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     import argparse
 
@@ -2828,6 +3386,9 @@ def main():
                     "phases 3, 4 and 6 time in turns beside this tree's")
     ap.add_argument("--sweep", action="store_true", help="time FPS and the ball query in the "
                     "launch shapes their defaults were chosen from, instead of phases 3-7")
+    ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
+                    "phases 3-11, every kernel on cuda:1 and up while cuda:0 is current, then "
+                    "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port is checked on a GPU only")
@@ -2877,6 +3438,9 @@ def main():
     if args.sweep:
         sweep(dev)
         return
+    if args.world > 1:
+        multi_gpu(dev, args.world)
+        return
 
     # ---- 3.-7.
     parent = None
@@ -2899,16 +3463,19 @@ def main():
     timed("7 (train, card against CPU)", compare_train, cfg, weights, dev)
     with tempfile.TemporaryDirectory(prefix="pdanet_once_") as work:
         once = timed("8 (ONCE)", once_phase, dev, work)
-    with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as work:
-        kitti = timed("9 (KITTI through the CLIs)", kitti_phase, dev, work)
-    with tempfile.TemporaryDirectory(prefix="pdanet_export_") as work:
-        exported = timed("10 (export and serve)", export_phase, dev, work)
+    with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as kitti_work:
+        kitti, kitti_run = timed("9 (KITTI through the CLIs)", kitti_phase, dev, kitti_work)
+        with tempfile.TemporaryDirectory(prefix="pdanet_export_") as work:
+            exported = timed("10 (export and serve)", export_phase, dev, work)
+        dp = timed("11 (data parallel)", dp_phase, dev, kitti_work, kitti_run, cfg, weights)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
-    # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9)
-    # and the exported programs' requests (phase 10), each counted from 0
-    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported)
+    # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9),
+    # the exported programs' requests (phase 10) and the data-parallel runs
+    # (phase 11: its CLIs' processes, the one process and the two ranks),
+    # each counted from 0
+    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported, dp)
     launches = {name: sum(run.get(name, 0) for run in runs) for name in KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the main path")

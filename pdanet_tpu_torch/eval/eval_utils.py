@@ -7,8 +7,11 @@ counts recall on the device with the port's ``boxes_iou3d``, reads each
 batch back to the host once, and hands the trimmed per-frame predictions
 to the dataset's prediction dicts and official evaluation.  It keeps the
 reference's ``--infer_time`` meter (the first 10 % of iterations
-skipped) and its ``result.pkl``.  Merging the results of several
-processes is ROADMAP queue 1 item 8.
+skipped) and its ``result.pkl``.  Under ``dist_test`` each process of
+a process group evaluates its shard of the frames; the prediction dicts
+are merged into dataset order by ``common_utils.merge_results_dist`` and
+the recall counters summed over the ranks (JAX :139-158), and rank 0
+alone evaluates and writes ``result.pkl``.
 """
 
 import pickle
@@ -17,9 +20,11 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..models.detectors.iassd import generate_recall_record
 from ..serving import make_predict_fn
 from ..train.train_utils import select_device_batch
+from ..utils.common_utils import merge_results_dist
 
 
 def statistics_info(cfg, ret_dict, metric, disp_dict):
@@ -44,9 +49,11 @@ def _to_host(tensors, device):
 
 
 def eval_one_epoch(cfg, model, dataloader, epoch_id, logger, result_dir,
-                   save_to_file=False, infer_time=False, device="cuda"):
+                   save_to_file=False, infer_time=False, device="cuda", dist_test=False):
     """Evaluate ``model`` on every batch of ``dataloader`` on ``device``;
-    returns the recall and the dataset's evaluation as one dict."""
+    returns the recall and the dataset's evaluation as one dict.  With
+    ``dist_test`` the loader holds this rank's shard, and ranks other than
+    0 return ``{}`` once their predictions are merged."""
     device = torch.device(device)
     model.to(device)
     result_dir.mkdir(parents=True, exist_ok=True)
@@ -110,6 +117,15 @@ def eval_one_epoch(cfg, model, dataloader, epoch_id, logger, result_dir,
             output_path=final_output_dir if save_to_file else None,
         )
         det_annos += annos
+
+    if dist_test:
+        det_annos = merge_results_dist(det_annos, len(dataset), str(result_dir / "tmpdir"))
+        keys = list(metric)
+        counts = parallel.all_reduce_detached(
+            torch.tensor([metric[k] for k in keys], dtype=torch.int64, device=device))
+        metric = dict(zip(keys, counts.tolist()))
+        if det_annos is None:
+            return {}
 
     sec_per_example = (time.time() - start_time) / max(len(det_annos), 1)
     logger.info(

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops.attention import neighbor_attention_flat
 
 BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
@@ -80,6 +81,13 @@ class BatchNorm(nn.Module):
     0.9), in place and outside autograd.  At eval the running statistics
     normalize.  Both compute in float32 (float64 for float64 input):
     ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
+
+    In a process group (``parallel.is_dist()``) the training moments are
+    those of the global batch, as under the JAX package's GSPMD data
+    parallelism: the mean is the all-reduced sum over the all-reduced n,
+    the variance the all-reduced sum of squares about that mean over n,
+    both sums differentiable, so that the backward carries the other
+    ranks' terms; every rank's running statistics stay the same.
     """
 
     def __init__(self, channels, eps=1e-5, dtype=None):
@@ -96,12 +104,22 @@ class BatchNorm(nn.Module):
         xc = x.to(ct)
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = xc.mean(dim=dims)
-            centred = xc - mean
-            var = (centred * centred).mean(dim=dims)
             n = xc.numel() // xc.shape[-1]
+            if parallel.is_dist():
+                total = parallel.all_reduce_sum(
+                    torch.cat([xc.sum(dim=dims), xc.new_full((1,), float(n))]))
+                n = total[-1].detach()
+                mean = total[:-1] / n
+                centred = xc - mean
+                var = parallel.all_reduce_sum((centred * centred).sum(dim=dims)) / n
+                bessel = n / (n - 1).clamp(min=1)
+            else:
+                mean = xc.mean(dim=dims)
+                centred = xc - mean
+                var = (centred * centred).mean(dim=dims)
+                bessel = n / max(n - 1, 1)
             with torch.no_grad():
-                unbiased = var * (n / max(n - 1, 1))
+                unbiased = var * bessel
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                         + (1 - BN_MOMENTUM) * mean)
                 self.running_var.copy_(BN_MOMENTUM * self.running_var

@@ -12,12 +12,25 @@ Gradient paths follow the reference: target assignment works on detached
 target uses detached centres, so targets are constants; the vote loss and
 the corner loss reach the vote layer through ``ctr_offsets`` and the
 decoded boxes.
+
+Data parallelism (``parallel``): every count and normalizer that reduces
+over the batch -- the positives behind each classification weight, the
+vote loss's per-class counts and classes present, the instances with
+points, the regression weights' sum, the element count behind the
+orientation residual's mean and the corner loss's positives -- is that of
+the global batch, summed over the ranks.  A rank's loss is then its share
+of the global loss (its own numerator over the global denominator), and
+so is each tb scalar (``pos_num`` counts this rank's positives): summed
+over the ranks they give the JAX package's values on the global batch.
+In one process nothing changes.  The ver1/ver2 per-instance bins stay
+local: an instance lies in one frame.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import parallel
 from ...ops.chamfer import cd_loss_l1
 from ...ops.geometry import enlarge_box3d, points_in_boxes, rotate_points_along_z
 from ...utils import loss_utils
@@ -169,12 +182,13 @@ def _one_hot_fg(labels, num_class, dtype):
 
 
 def _cls_weights(labels, dtype):
-    """(positive | negative) / max(num_pos, 1), ignored rows 0; and the
-    number of positives."""
+    """(positive | negative) / max(num_pos, 1), ignored rows 0, num_pos
+    the positives of the global batch; and this rank's positives."""
     positives = labels > 0
     weights = (positives | (labels == 0)).to(dtype)
-    num_pos = positives.sum().to(dtype)
-    return weights / torch.clamp(num_pos, min=1.0), num_pos
+    num_pos = positives.sum()
+    norm = parallel.all_reduce_detached(num_pos).to(dtype)
+    return weights / torch.clamp(norm, min=1.0), num_pos.to(dtype)
 
 
 def contextual_vote_loss(forward_ret, num_class, weight):
@@ -185,13 +199,14 @@ def contextual_vote_loss(forward_ret, num_class, weight):
     gt_ctr = forward_ret["gt_box_of_center_origin"][..., 0:3]
     pred = forward_ret["centers_origin"] + forward_ret["ctr_offsets"]
     per_elem = loss_utils.smooth_l1(pred - gt_ctr, beta=1.0)  # (B, N, 3)
-    losses, present = [], []
+    sums, cnts = [], []
     for k in range(1, num_class + 1):
         m = (labels == k).to(per_elem.dtype)
-        cnt = m.sum()
-        losses.append((per_elem * m[..., None]).sum() / torch.clamp(cnt * 3.0, min=1.0))
-        present.append((cnt > 0).to(per_elem.dtype))
-    losses, present = torch.stack(losses), torch.stack(present)
+        sums.append((per_elem * m[..., None]).sum())
+        cnts.append(m.sum())
+    cnts = parallel.all_reduce_detached(torch.stack(cnts))
+    losses = torch.stack(sums) / torch.clamp(cnts * 3.0, min=1.0)
+    present = (cnts > 0).to(per_elem.dtype)
     return (losses * present).sum() / torch.clamp(present.sum(), min=1.0) * weight
 
 
@@ -226,7 +241,8 @@ def _segment_sum(values, seg, num_seg):
 def _mean_over_instances(per_ins, counts):
     """Mean of the per-instance terms over the instances with points."""
     has_pts = (counts[:-1] > 0).to(per_ins.dtype)
-    return (per_ins * has_pts).sum() / torch.clamp(has_pts.sum(), min=1.0)
+    n_ins = parallel.all_reduce_detached(has_pts.sum())
+    return (per_ins * has_pts).sum() / torch.clamp(n_ins, min=1.0)
 
 
 def contextual_vote_loss_ver1(forward_ret, num_boxes, weight):
@@ -355,7 +371,7 @@ def center_box_binori_layer_loss(forward_ret, loss_cfg, box_coder):
     preds = forward_ret["center_box_preds"]  # (B, N, 6 + 2 bins)
     bin_size = box_coder.bin_size
     reg_w = pos.to(preds.dtype)
-    reg_w = reg_w / torch.clamp(reg_w.sum(), min=1.0)
+    reg_w = reg_w / torch.clamp(parallel.all_reduce_detached(reg_w.sum()), min=1.0)
 
     lw = loss_cfg.LOSS_WEIGHTS
     loss_xyzwhl = loss_utils.weighted_smooth_l1_loss(
@@ -366,7 +382,9 @@ def center_box_binori_layer_loss(forward_ret, loss_cfg, box_coder):
     bin_id = labels[..., 6].long()
     loss_ori_cls = (loss_utils.softmax_cross_entropy(bin_logits, bin_id) * reg_w).sum()
     picked = torch.gather(bin_res_pred, -1, bin_id[..., None])[..., 0]
-    loss_ori_reg = loss_utils.smooth_l1(picked - labels[..., 7], beta=1.0).mean() * reg_w.sum()
+    res = loss_utils.smooth_l1(picked - labels[..., 7], beta=1.0)
+    loss_ori_reg = (res.mean() * parallel.share(res.numel(), res)
+                    * parallel.all_reduce_detached(reg_w.sum()))
     loss_ori_cls = loss_ori_cls * lw.get("dir_weight", 1.0)
     loss_box = (loss_xyzwhl + loss_ori_reg + loss_ori_cls) * lw["point_box_weight"]
     return loss_box, {
@@ -386,7 +404,7 @@ def corner_layer_loss(forward_ret, loss_cfg):
     per_box = loss_utils.get_corner_loss_lidar(
         pred.reshape(B * N, 7), gt[..., 0:7].reshape(B * N, 7)).reshape(B, N)
     m = pos.to(per_box.dtype)
-    loss = (per_box * m).sum() / torch.clamp(m.sum(), min=1.0)
+    loss = (per_box * m).sum() / torch.clamp(parallel.all_reduce_detached(m.sum()), min=1.0)
     loss = loss * loss_cfg.LOSS_WEIGHTS["corner_weight"]
     return loss, {"corner_loss_reg": loss}
 
@@ -425,7 +443,8 @@ def cd_loss_metric(forward_ret, loss_cfg):
         cds.append(cd_loss_l1(cur_xyz, sel))
     if not cds:
         return None
-    return sum(cds) / len(cds)
+    # each distance is a mean over the frames: this rank's share of it
+    return sum(cds) / len(cds) * parallel.share(coords[0].shape[0], cds[0])
 
 
 def get_loss(forward_ret, model_cfg, box_coder, num_class, num_boxes):

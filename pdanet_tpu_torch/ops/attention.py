@@ -138,6 +138,7 @@ def _check_shapes(name, K, H, hd, *tensors, tiles):
                          f"shared memory, above the {_SMEM_LIMIT} a block may have")
 
 
+@cuda_lib.on_tensor_device
 def neighbor_attention_flat_cuda(q2, k2, v2, K, H, hd):
     """The forward kernel.  bfloat16: ``neighbor_attention_mma.cu``, one
     warp per (centre, head) at a time on ``mma.sync`` (launches counted as
@@ -168,6 +169,7 @@ def neighbor_attention_flat_cuda(q2, k2, v2, K, H, hd):
     return out
 
 
+@cuda_lib.on_tensor_device
 def neighbor_attention_flat_bwd_cuda(q2, k2, v2, do2, K, H, hd):
     """The backward kernel: softmax recomputed, each (centre, head) owning
     its rows of dq, dk and dv (no atomics).  bfloat16:

@@ -72,6 +72,7 @@ def ball_query_multi_plain(radii, nsamples, xyz, new_xyz):
     return tuple(outs)
 
 
+@cuda_lib.on_tensor_device
 def ball_query_multi_cuda(radii, nsamples, xyz, new_xyz, stats=None):
     """The kernel: one CTA per block of centres, the support staged
     through shared memory, tiles out of reach skipped (``csrc/ball_query.cu``).
@@ -92,7 +93,7 @@ def ball_query_multi_cuda(radii, nsamples, xyz, new_xyz, stats=None):
     n = len(radii)
     r2 = (ctypes.c_float * n)(*(_r2(r) for r in radii))
     ks = (ctypes.c_int * n)(*(int(k) for k in nsamples))
-    ptrs = (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs))
+    ptrs = (ctypes.c_void_p * n)(*(cuda_lib.ptr(o) for o in outs))
     lib = cuda_lib.lib()
     code = lib.pdanet_ball_query(
         cuda_lib.ptr(xyz), cuda_lib.ptr(new_xyz), B, N, M, n,

@@ -23,6 +23,12 @@ wrappers are the ``"cuda"`` kernels of the ``torch.library`` ops of
 ``ops/``, so the counter also counts the launches of a program that
 ``torch.export`` saved and loaded.
 
+Each wrapper runs under :func:`on_tensor_device`: the device of its
+tensors is the current device while it allocates, takes the stream and
+launches, so that a process driving ``cuda:1`` (one process per GPU under
+a launcher) launches there, and the kernels' ``cudaFuncSetAttribute``
+calls and per-device caches act on that device.
+
 ``NAMESPACE``, the ops' namespace, is the name of the top-level package:
 a second tree imported under another name (``chip_smoke.py --parent``)
 registers its own ops beside these.
@@ -30,6 +36,7 @@ registers its own ops beside these.
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -172,6 +179,23 @@ def lib():
         if _lib is None:
             _lib = load(build())
         return _lib
+
+
+def on_tensor_device(wrapper):
+    """Run a kernel wrapper with the device of its first tensor argument
+    current (``torch.cuda.device``): the CUDA runtime launches on the
+    current device, whatever the stream's device.  A tensor off CUDA goes
+    to the wrapper unguarded, whose checks refuse it."""
+
+    @functools.wraps(wrapper)
+    def guarded(*args, **kwargs):
+        first = next(a for a in args if isinstance(a, torch.Tensor))
+        if first.device.type != "cuda":
+            return wrapper(*args, **kwargs)
+        with torch.cuda.device(first.device):
+            return wrapper(*args, **kwargs)
+
+    return guarded
 
 
 def stream_handle(device):

@@ -33,6 +33,7 @@ def greedy_nms_mask_batched_plain(iou, valid, thresh):
     return keep
 
 
+@cuda_lib.on_tensor_device
 def greedy_nms_mask_batched_cuda(iou, valid, thresh):
     """The kernels: one warp per (frame, row) turns the IoU into 64-bit
     suppression words in a (B, K, ceil(K / 64)) workspace, then one warp

@@ -200,6 +200,7 @@ def boxes_iou_bev_batched_self_plain(boxes):
     return boxes_iou_bev(boxes, boxes)
 
 
+@cuda_lib.on_tensor_device
 def boxes_iou_bev_batched_self_cuda(boxes):
     """The kernel: one CTA per 16 x 16 tile of pairs computes its 32 boxes'
     corners and trig once, writes 0 for the pairs its circle skip proves

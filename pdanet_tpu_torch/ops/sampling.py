@@ -50,6 +50,7 @@ def fps_config(N):
     return tuple(cfg)
 
 
+@cuda_lib.on_tensor_device
 def farthest_point_sample_cuda(xyz, npoint):
     """The kernel: one thread-block cluster per frame (``csrc/fps.cu``), in
     the launch shape :func:`fps_config` gives.  A refused launch (no room

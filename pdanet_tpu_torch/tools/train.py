@@ -12,24 +12,35 @@ Without ``--ckpt`` it resumes from the newest readable checkpoint in
 package's ``.pkl``.  ``--profile`` writes a ``torch.profiler`` trace of
 train steps 3-5 under ``profile/``.
 
-It runs on CUDA unless ``--device cpu``.  One process trains on one
-device: ``--launcher`` other than ``none`` raises (data-parallel training
-over NCCL is ROADMAP queue 1 item 8).
+It runs on CUDA unless ``--device cpu``.  ``--launcher pytorch`` (one
+process per GPU under torchrun:
+``pdanet_tpu_torch/tools/scripts/dist_train.sh``) or
+``slurm`` trains data-parallel: each process joins the process group
+(NCCL on CUDA, Gloo on the CPU), drives GPU ``LOCAL_RANK`` and loads its
+shard of every global batch of world x ``--batch_size`` frames; BatchNorm
+and the loss's normalizers see the global batch, the gradients are
+summed over the processes, rank 0 alone logs and writes checkpoints, and
+the post-train evaluation runs on every process with its results merged.
 """
 
 import argparse
+import collections
 import datetime
 import glob
+import json
 import os
 import re
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
+from .. import parallel
 from ..config import cfg_from_list, cfg_from_yaml_file, log_config_to_file
 from ..datasets import build_dataloader
 from ..eval import eval_one_epoch
 from ..models import build_network
+from ..ops import cuda_lib
 from ..train import (
     build_optimizer_and_schedule,
     load_checkpoint,
@@ -41,13 +52,13 @@ from ..train import (
 from ..utils import common_utils
 from ..utils.metrics import MetricsLogger
 
-DDP = "data-parallel training over NCCL is ROADMAP queue 1 item 8"
-
 
 def parse_config(argv=None):
     parser = argparse.ArgumentParser(description="arg parser")
     parser.add_argument("--cfg_file", type=str, default=None, help="specify the config for training")
-    parser.add_argument("--batch_size", type=int, default=None, required=False, help="batch size for training")
+    parser.add_argument("--batch_size", type=int, default=None, required=False,
+                        help="frames a process (a GPU) takes each step; the global batch is "
+                             "world x batch_size (the yaml's BATCH_SIZE_PER_GPU by default)")
     parser.add_argument("--epochs", type=int, default=None, required=False, help="number of epochs to train for")
     parser.add_argument("--workers", type=int, default=4, help="number of loader threads")
     parser.add_argument("--extra_tag", type=str, default="default", help="extra tag for this experiment")
@@ -55,14 +66,17 @@ def parse_config(argv=None):
     parser.add_argument("--pretrained_model", type=str, default=None,
                         help="weights to start from: the port's checkpoint or the JAX package's .pkl")
     parser.add_argument("--launcher", choices=["none", "pytorch", "slurm"], default="none",
-                        help="only 'none': " + DDP)
+                        help="data-parallel training: 'pytorch' under torchrun, 'slurm' "
+                             "under srun, one process per GPU")
     parser.add_argument("--tcp_port", type=int, default=18888,
-                        help="accepted for reference-script compatibility")
+                        help="rendezvous port where the launcher's environment names none")
     parser.add_argument("--local_rank", type=int, default=0,
-                        help="accepted for reference-script compatibility")
+                        help="accepted for reference-script compatibility (torchrun's "
+                             "LOCAL_RANK is read)")
     parser.add_argument("--sync_bn", action="store_true", default=False,
-                        help="accepted for reference-script compatibility: one process "
-                             "normalizes over its whole batch")
+                        help="accepted for reference-script compatibility: under a launcher "
+                             "BatchNorm always normalizes over the global batch (world x "
+                             "--batch_size frames), as the JAX package does")
     parser.add_argument("--fix_random_seed", action="store_true", default=False)
     parser.add_argument("--ckpt_save_interval", type=int, default=1)
     parser.add_argument("--max_ckpt_save_num", type=int, default=8)
@@ -93,33 +107,40 @@ def main(argv=None):
     """Train, then evaluate the last checkpoints; returns the output
     directory."""
     args, cfg = parse_config(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(f"--launcher {args.launcher}: {DDP}")
-    device = torch.device(args.device)
+    with common_utils.launched(args.launcher, args.tcp_port,
+                               torch.device(args.device)) as (rank, world, device):
+        return _train(args, cfg, device, rank, world)
+
+
+def _train(args, cfg, device, rank, world):
     batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     epochs = args.epochs or cfg.OPTIMIZATION.NUM_EPOCHS
-    if args.fix_random_seed:
-        common_utils.set_random_seed(666)
+    if args.fix_random_seed:  # each rank its own augmentation stream (reference train.py)
+        common_utils.set_random_seed(666 + rank)
 
     output_dir = Path("output") / cfg.EXP_GROUP_PATH / cfg.TAG / args.extra_tag
     ckpt_dir = output_dir / "ckpt"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     log_file = output_dir / (
         "log_train_%s.txt" % datetime.datetime.now().strftime("%Y%m%d-%H%M%S"))
-    logger = common_utils.create_logger(log_file)
+    logger = common_utils.create_logger(log_file if rank == 0 else None, rank=rank)
     tb_log = None
+    launches_before = collections.Counter(cuda_lib.launches)
     try:
         logger.info("**********************Start logging**********************")
         log_config_to_file(cfg, logger=logger)
-        logger.info(f"device {device}, batch size {batch_size}")
+        logger.info(f"device {device}, world {world}, batch size {batch_size} a process, "
+                    f"global batch {batch_size * world}")
+        if parallel.is_dist():
+            logger.info(f"process group: backend {dist.get_backend()}, world {world}")
         train_set, train_loader, _ = build_dataloader(
             dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES, batch_size=batch_size,
             training=True, logger=logger, workers=args.workers,
             merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch,
-            total_epochs=epochs)
+            total_epochs=epochs, rank=rank, world=world)
         if len(train_loader) == 0:
-            raise RuntimeError(f"dataset ({len(train_set)} frames) smaller than the batch "
-                               f"({batch_size}); reduce --batch_size")
+            raise RuntimeError(f"dataset ({len(train_set)} frames) smaller than the global "
+                               f"batch ({batch_size * world}); reduce --batch_size")
         # the initial weights are seeded, as the JAX package's PRNGKey(0)
         torch.manual_seed(0)
         model = build_network(
@@ -144,7 +165,7 @@ def main(argv=None):
             load_model_state(model, args.pretrained_model)
             logger.info(f"loaded pretrained model {args.pretrained_model}")
 
-        tb_log = MetricsLogger(output_dir / "tensorboard")
+        tb_log = MetricsLogger(output_dir / "tensorboard") if rank == 0 else None
         profiler = None
         if args.profile:
             activities = [torch.profiler.ProfilerActivity.CPU]
@@ -171,9 +192,12 @@ def main(argv=None):
         # post-train evaluation of the last checkpoints (reference train.py:191-208)
         if args.num_epochs_to_eval > 0:
             logger.info("**********************Start evaluation**********************")
+            # rank 0 wrote the last checkpoint: every rank sees it before the glob
+            parallel.barrier()
             _, test_loader, _ = build_dataloader(
                 dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
-                batch_size=batch_size, training=False, logger=logger, workers=args.workers)
+                batch_size=batch_size, training=False, logger=logger, workers=args.workers,
+                rank=rank, world=world)
             eval_output_dir = output_dir / "eval" / "eval_with_train"
             start_eval_epoch = max(epochs - args.num_epochs_to_eval, args.start_epoch, 0)
             for ck_path in sorted(glob.glob(str(ckpt_dir / "checkpoint_epoch_*.pth"))):
@@ -185,9 +209,12 @@ def main(argv=None):
                     cfg, model, test_loader, m[-1], logger,
                     result_dir=eval_output_dir / ("epoch_%s" % m[-1])
                     / cfg.DATA_CONFIG.DATA_SPLIT["test"],
-                    save_to_file=args.save_to_file, device=device)
+                    save_to_file=args.save_to_file, device=device,
+                    dist_test=parallel.is_dist())
                 logger.info("Epoch %s has been evaluated" % m[-1])
             logger.info("**********************End evaluation**********************")
+        logger.info("kernel launches of this process: %s" % json.dumps(dict(
+            cuda_lib.launches - launches_before)))
     finally:
         if tb_log is not None:
             tb_log.close()

@@ -1,17 +1,23 @@
 """Training runtime: the train step, the epoch loop and checkpoints.
 
-Counterpart of ``pdanet_tpu/train/train_utils.py`` without its data
-mesh: ``make_train_step`` (:66-106) is one iteration -- forward in
-training mode, loss, backward, the optimizer's clip and update, and the
-BatchNorm running statistics, which the forward updates in place;
-``train_one_epoch`` runs it over one epoch of the loader, on one device,
-and ``train_model`` (:250-322) is the epoch loop with its checkpoints,
+Counterpart of ``pdanet_tpu/train/train_utils.py``: ``make_train_step``
+(:66-106) is one iteration -- forward in training mode, loss, backward,
+the optimizer's clip and update, and the BatchNorm running statistics,
+which the forward updates in place; ``train_one_epoch`` runs it over one
+epoch of the loader, on one device, and ``train_model`` (:250-322) is the
+epoch loop with its checkpoints,
 every ``ckpt_save_interval`` epochs, the oldest removed beyond
 ``max_ckpt_save_num``.  Checkpoints keep the reference's schema
 ``{epoch, it, model_state, optimizer_state, version}``, written to a
 temporary file and published with ``os.replace``, with a CRC-32 over the
 payload checked on load (:161-213); ``load_newest_checkpoint`` falls back
 past a corrupt newest file (:216).
+
+In a process group (``parallel``) each process trains on its shard of the
+global batch, as the JAX package's data mesh does: the loss is each
+rank's share of the global loss (the head's normalizers are global), the
+gradients are summed over the ranks before the optimizer's clip sees
+them, and rank 0 alone writes checkpoints.
 """
 
 import glob
@@ -24,6 +30,7 @@ import zlib
 
 import torch
 
+from .. import parallel
 from ..utils.jax_weights import load_jax_checkpoint, load_jax_variables
 
 CKPT_FORMAT_VERSION = 2
@@ -46,7 +53,9 @@ def make_train_step(model, optimizer, schedule):
     Update *t* takes the learning rate ``schedule.lr(t)`` and, for Adam,
     b1 ``schedule.mom(t)``, t the optimizer's update count.  The returned
     loss and tb scalars are detached tensors on the device; nothing waits
-    for the device.
+    for the device.  In a process group the gradients are summed over the
+    ranks between the backward and the update, and the loss and tb scalars
+    returned are those of the global batch (the ranks' shares summed).
     """
 
     def train_step(batch):
@@ -60,10 +69,24 @@ def make_train_step(model, optimizer, schedule):
         out = model.forward_batch(batch)
         loss, tb = model.loss_batch(out, batch)
         loss.backward()
+        parallel.reduce_gradients(model.parameters())
         optimizer.step()
+        if parallel.is_dist():
+            return _global_scalars(loss, tb)
         return loss.detach(), {k: torch.as_tensor(v).detach() for k, v in tb.items()}
 
     return train_step
+
+
+def _global_scalars(loss, tb):
+    """The loss and tb scalars of the global batch: each rank's shares
+    summed, in one float64 all-reduce, each returned in its own dtype."""
+    vals = [loss, *tb.values()]
+    total = parallel.all_reduce_detached(torch.stack(
+        [torch.as_tensor(v, device=loss.device).detach().to(torch.float64) for v in vals]))
+    dtypes = [torch.as_tensor(v).dtype for v in vals]
+    return total[0].to(dtypes[0]), {k: total[i + 1].to(dtypes[i + 1])
+                                    for i, k in enumerate(tb)}
 
 
 def train_one_epoch(train_step, loader, device, accumulated_iter=0, logger=None,
@@ -105,23 +128,28 @@ def train_model(model, optimizer, schedule, train_loader, start_epoch, total_epo
     checkpoint ``checkpoint_epoch_<n>.pth`` in ``ckpt_save_dir`` every
     ``ckpt_save_interval`` epochs, the oldest by modification time removed
     so that at most ``max_ckpt_save_num`` remain.  Returns the global
-    iteration count."""
+    iteration count.  In a process group the parameters and buffers are
+    broadcast from rank 0 before the first step, and rank 0 alone writes
+    and removes checkpoints while the others wait (JAX :304-305)."""
     train_step = make_train_step(model, optimizer, schedule)
+    parallel.broadcast_module(model)
     for cur_epoch in range(start_epoch, total_epochs):
         train_loader.set_epoch(cur_epoch)
         accumulated_iter = train_one_epoch(train_step, train_loader, device, accumulated_iter,
                                            logger=logger, tb_log=tb_log, step_hook=step_hook)
         trained_epoch = cur_epoch + 1
         if trained_epoch % ckpt_save_interval == 0:
-            ckpt_list = sorted(glob.glob(str(ckpt_save_dir / "checkpoint_epoch_*.pth")),
-                               key=os.path.getmtime)
-            for old in ckpt_list[:max(len(ckpt_list) - max_ckpt_save_num + 1, 0)]:
-                os.remove(old)
-            ckpt_name = ckpt_save_dir / ("checkpoint_epoch_%d.pth" % trained_epoch)
-            save_checkpoint(checkpoint_state(model, optimizer, trained_epoch, accumulated_iter),
-                            ckpt_name)
-            if logger is not None:
-                logger.info("checkpoint saved: %s" % ckpt_name)
+            if parallel.rank() == 0:
+                ckpt_list = sorted(glob.glob(str(ckpt_save_dir / "checkpoint_epoch_*.pth")),
+                                   key=os.path.getmtime)
+                for old in ckpt_list[:max(len(ckpt_list) - max_ckpt_save_num + 1, 0)]:
+                    os.remove(old)
+                ckpt_name = ckpt_save_dir / ("checkpoint_epoch_%d.pth" % trained_epoch)
+                save_checkpoint(checkpoint_state(model, optimizer, trained_epoch,
+                                                 accumulated_iter), ckpt_name)
+                if logger is not None:
+                    logger.info("checkpoint saved: %s" % ckpt_name)
+            parallel.barrier()
     return accumulated_iter
 
 

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..ops.geometry import boxes_to_corners_3d
 
 
@@ -50,14 +51,16 @@ def weighted_smooth_l1_loss(preds, targets, weights=None, beta=1.0 / 9.0,
 
 def smooth_l1_mean(pred, target, mask=None, beta=1.0):
     """``F.smooth_l1_loss(reduction='mean')`` over the rows ``mask``
-    selects: the sum over selected rows divided by their element count."""
+    selects: the sum over selected rows divided by their element count,
+    the count of the global batch in a process group (this rank's share of
+    the global mean, ``parallel``)."""
     loss = smooth_l1(pred - target, beta)
     if mask is None:
-        return loss.mean()
+        return loss.mean() * parallel.share(loss.numel(), loss)
     tail = int(np.prod(loss.shape[mask.dim():])) if loss.dim() > mask.dim() else 1
     m = mask.to(loss.dtype)
     mb = m.reshape(m.shape + (1,) * (loss.dim() - m.dim()))
-    denom = torch.clamp(m.sum() * tail, min=1.0)
+    denom = torch.clamp(parallel.all_reduce_detached(m.sum()) * tail, min=1.0)
     return (loss * mb).sum() / denom
 
 

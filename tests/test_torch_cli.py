@@ -7,6 +7,7 @@ full data pipeline (FOV crop, gt sampling on the road plane, world flip /
 rotation / scaling, the four point processors) at a 512-point budget and
 the tiny model of ``tests/model_cfg.py``.
 
+* ``--launcher pytorch`` without torchrun's ``RANK`` raises.
 * The train CLI trains one epoch and writes its checkpoint and metrics;
   a second run resumes from it; a corrupt newest checkpoint is skipped
   for the one before it; old checkpoints rotate out beyond
@@ -118,9 +119,16 @@ def test_clis_default_to_cuda():
         assert args.device == "cuda"
 
 
-def test_launcher_other_than_none_raises(workdir):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        _train("--launcher", "pytorch")
+def test_launcher_other_than_none_raises(workdir, monkeypatch):
+    """``--launcher pytorch`` outside torchrun (no RANK in the environment)
+    raises before it joins a process group, where every process would
+    otherwise claim rank 0 and hang the rendezvous."""
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for cli in (train_cli, test_cli):
+        with pytest.raises(RuntimeError, match="needs RANK"):
+            cli.main(["--cfg_file", CFG_REL, "--device", "cpu", "--launcher", "pytorch"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_set_overrides_the_yaml():

@@ -1,0 +1,227 @@
+"""Data-parallel training and multi-process evaluation of pdanet_tpu_torch,
+on the CPU with Gloo.
+
+* ``tools/scripts/dist_train.sh`` of the port (torchrun, two processes,
+  ``--device cpu``) trains the tiny model of ``tests/model_cfg.py`` on the
+  mini-KITTI of ``tests/kitti_fixture.py`` (five frames, two a process, so
+  that one frame pads the shards) for one epoch and evaluates its
+  checkpoint: one checkpoint, written by rank 0; one log, rank 0's; a
+  merged ``result.pkl`` holding every frame once, in dataset order.  A
+  second run at once beside it (``--fix_random_seed``) writes a bit-equal
+  checkpoint and the same detections.  ``dist_test.sh`` on the checkpoint
+  merges every frame's detections in dataset order (its point sampling is
+  seeded apart from the train CLI's, so its detections are not those of
+  the post-train evaluation).
+* ``init_dist`` reads torchrun's and Slurm's environments and raises
+  without ``RANK``; ``interleave_parts`` and ``merge_results_dist`` on
+  simulated ranks, as the JAX package's tests hold its copies.
+
+The global-batch train step against the JAX package is
+``tests/test_torch_train.py::test_two_ranks_step_like_jax_float64``.
+"""
+
+import os
+import pickle
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from kitti_fixture import build_mini_kitti
+from model_cfg import tiny_model_cfg
+from pdanet_tpu_torch.config import cfg_from_yaml_file
+from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+from pdanet_tpu_torch.train import load_checkpoint
+from pdanet_tpu_torch.utils import common_utils
+
+REPO = Path(__file__).resolve().parent.parent
+SCRIPTS = REPO / "pdanet_tpu_torch" / "tools" / "scripts"
+KITTI_YAML = REPO / "tools" / "cfgs" / "kitti_models" / "PDA-SSD.yaml"
+CLASSES = ["Car", "Pedestrian", "Cyclist"]
+CFG_REL = "cfgs/tiny/PDA-SSD-tiny.yaml"
+N_FRAMES = 5  # two processes, two frames a batch: the shards pad one frame
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _plain(d):
+    if isinstance(d, dict):
+        return {k: _plain(v) for k, v in d.items()}
+    if isinstance(d, list):
+        return [_plain(v) for v in d]
+    return d
+
+
+@pytest.fixture(scope="module")
+def dist_env(tmp_path_factory):
+    """A working directory holding the config (the shipped KITTI yaml at
+    512 points with the tiny model) over a five-frame mini-KITTI, and the
+    environment of the launched processes: one torch thread each."""
+    root = tmp_path_factory.mktemp("dist_kitti")
+    ids = build_mini_kitti(root, num_frames=N_FRAMES)
+    cfg = cfg_from_yaml_file(str(KITTI_YAML))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == "sample_points":
+            proc.NUM_POINTS = {"train": 512, "test": 512}
+    cfg.MODEL = tiny_model_cfg(len(CLASSES))
+    create_kitti_infos(cfg.DATA_CONFIG, CLASSES, root, root, workers=1)
+    work = tmp_path_factory.mktemp("dist_work")
+    (work / CFG_REL).parent.mkdir(parents=True)
+    (work / CFG_REL).write_text(yaml.safe_dump(_plain(cfg)))
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCH_ENV}
+    env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    return work, env, ids
+
+
+def _launch(script, args, work, env):
+    """Start ``script`` on two processes; returns the Popen."""
+    return subprocess.Popen(["bash", str(SCRIPTS / script), "2", "--cfg_file", CFG_REL,
+                             "--device", "cpu", "--workers", "0", "--batch_size", "2", *args],
+                            cwd=work, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _wait(proc, what, timeout=240):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    assert proc.returncode == 0, f"{what} failed ({proc.returncode}):\n{out[-2000:]}\n{err[-4000:]}"
+
+
+def _annos(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _assert_same_annos(got, want):
+    assert [a["frame_id"] for a in got] == [a["frame_id"] for a in want]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=f"{w['frame_id']} {k}")
+
+
+def test_dist_train_then_dist_test_two_ranks(dist_env):
+    work, env, ids = dist_env
+    train_args = ["--epochs", "1", "--num_epochs_to_eval", "1", "--fix_random_seed"]
+    runs = {tag: _launch("dist_train.sh", [*train_args, "--extra_tag", tag], work, env)
+            for tag in ("first", "rerun")}
+    for tag, proc in runs.items():
+        _wait(proc, f"dist_train.sh ({tag})")
+    out = {tag: work / "output" / "tiny" / "PDA-SSD-tiny" / tag for tag in runs}
+
+    ckpts = sorted((out["first"] / "ckpt").iterdir())
+    assert [p.name for p in ckpts] == ["checkpoint_epoch_1.pth"], ckpts
+    logs = list(out["first"].glob("log_train_*.txt"))
+    assert len(logs) == 1, logs
+    log = logs[0].read_text()
+    assert "process group: backend gloo, world 2" in log and "global batch 4" in log
+    metrics = (out["first"] / "tensorboard" / "metrics.jsonl").read_text().splitlines()
+    assert sum('"train/loss"' in line for line in metrics) == 1  # 3 frames a rank: 1 step
+
+    first, rerun = (load_checkpoint(out[t] / "ckpt" / "checkpoint_epoch_1.pth") for t in runs)
+    assert first["it"] == rerun["it"] == 1
+    for key, val in first["model_state"].items():
+        assert torch.equal(rerun["model_state"][key], val), key
+    res = {t: out[t] / "eval" / "eval_with_train" / "epoch_1" / "val" / "result.pkl"
+           for t in runs}
+    merged = _annos(res["first"])
+    assert [a["frame_id"] for a in merged] == ids
+    _assert_same_annos(_annos(res["rerun"]), merged)
+    assert not (res["first"].parent / "tmpdir").exists()
+
+    _wait(_launch("dist_test.sh", ["--ckpt", str(ckpts[0]), "--extra_tag", "first"], work,
+                  env), "dist_test.sh")
+    res_dir = out["first"] / "eval" / "epoch_1" / "val" / "default"
+    tested = _annos(res_dir / "result.pkl")
+    assert [a["frame_id"] for a in tested] == ids
+    for a in tested:
+        assert {"name", "score", "boxes_lidar", "bbox", "location"} <= set(a)
+        assert np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+    logs = list(res_dir.glob("log_eval_*.txt"))
+    assert len(logs) == 1 and "process group: backend gloo, world 2" in logs[0].read_text()
+
+
+@pytest.mark.parametrize("env,want", [
+    ({"RANK": "1", "WORLD_SIZE": "4", "LOCAL_RANK": "1", "MASTER_ADDR": "10.0.0.2",
+      "MASTER_PORT": "29511"}, (1, 4, 1, "10.0.0.2", 29511)),
+    ({"RANK": "3", "WORLD_SIZE": "4", "LOCAL_RANK": "1", "MASTER_ADDR": "host7:29600"},
+     (3, 4, 1, "host7", 29600)),
+    ({"RANK": "0", "WORLD_SIZE": "1"}, (0, 1, 0, "127.0.0.1", 18888)),
+])
+def test_init_dist_reads_torchrun_env(env, want, monkeypatch):
+    for k in LAUNCH_ENV:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert common_utils._launch_env("pytorch", 18888) == want
+
+
+def test_init_dist_reads_slurm_env(monkeypatch):
+    for k, v in dict(SLURM_PROCID="5", SLURM_NTASKS="8", SLURM_LOCALID="1",
+                     SLURM_NODELIST="gpu[012-015],login3").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    assert common_utils._launch_env("slurm", 29500) == (5, 8, 1, "gpu012", 29500)
+    monkeypatch.delenv("SLURM_PROCID")
+    with pytest.raises(RuntimeError, match="SLURM_PROCID"):
+        common_utils._launch_env("slurm", 29500)
+
+
+@pytest.mark.parametrize("env,match", [
+    ({"WORLD_SIZE": "2"}, "needs RANK"),
+    ({}, "needs RANK and WORLD_SIZE"),
+    ({"RANK": "2", "WORLD_SIZE": "2"}, "out of range"),
+])
+def test_init_dist_raises_without_rank(env, match, monkeypatch):
+    for k in LAUNCH_ENV:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match=match):
+        common_utils.init_dist("pytorch")
+    assert not torch.distributed.is_initialized()
+
+
+def test_merge_results_dist_simulated_world3(tmp_path):
+    """Simulated 3-process eval merge (``tests/test_train.py::
+    test_merge_results_dist_simulated_world3`` for the JAX package's
+    copy): stride-sharded parts interleave back into dataset order and
+    ranks other than 0 return None."""
+    size = 8
+    padded = [f"s{i}" for i in range(size)] + ["s0"]  # pad to 9 = 3 * 3
+    parts = {r: [padded[i] for i in range(r, 9, 3)] for r in range(3)}
+    barriers = []
+    out = {}
+    for r in (1, 2, 0):  # ranks 1, 2 write first; rank 0 merges
+        out[r] = common_utils.merge_results_dist(parts[r], size, str(tmp_path / "merge"),
+                                                 rank=r, world=3,
+                                                 barrier=lambda: barriers.append(1))
+    assert out[1] is None and out[2] is None
+    assert out[0] == [f"s{i}" for i in range(size)]
+    assert len(barriers) == 3 and not (tmp_path / "merge").exists()
+
+
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
+def test_interleave_parts_inverts_the_loader_shards(world):
+    """``interleave_parts`` undoes ``SimpleLoader``'s pad + stride shard of
+    an eval split, whatever the world size."""
+    from pdanet_tpu_torch.datasets import SimpleLoader
+
+    class Frames:
+        def __init__(self, n):
+            self.n = n
+
+        def __len__(self):
+            return self.n
+
+    n = 7
+    parts = [[i for chunk in SimpleLoader(Frames(n), 2, shuffle=False, rank=r,
+                                          world=world)._sample_plan() for i in chunk]
+             for r in range(world)]
+    assert common_utils.interleave_parts(parts, n) == list(range(n))

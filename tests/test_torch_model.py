@@ -257,6 +257,8 @@ def test_port_imports_no_jax():
         "import pdanet_tpu_torch.datasets.once.once_eval.evaluation\n"
         "import pdanet_tpu_torch.eval.eval_utils\n"
         "import pdanet_tpu_torch.tools.export, pdanet_tpu_torch.tools.serve\n"
+        "import pdanet_tpu_torch.tools.train, pdanet_tpu_torch.tools.test\n"
+        "import pdanet_tpu_torch.parallel\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"

@@ -8,7 +8,9 @@ function on the same numpy inputs: FPS, the multi-radius ball query
 the box decode.  Index outputs must be equal;
 IoU holds the Pallas IoU test's tolerance (rtol 2e-4, atol 2e-5), the box
 decode atol 1e-5.  The kernels themselves are held against the same plain
-versions on the card by chip_smoke.py.
+versions on the card by chip_smoke.py.  Each of the six kernel wrappers
+enters the device of its tensors around its launch (fake tensors on
+``cuda:1``, the kernel library stubbed).
 """
 
 import numpy as np
@@ -403,3 +405,68 @@ def test_ball_query_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         ball_query_multi_cuda((0.5,), (8,), xyz, xyz[:, :8].contiguous())
     assert sum(cuda_lib.launches.values()) == 0
+
+
+@pytest.mark.parametrize("name", ["fps", "ball_query", "neighbor_attention",
+                                  "neighbor_attention_bwd", "rotated_iou", "nms"])
+def test_kernel_wrappers_enter_the_device_of_their_tensors(name, monkeypatch):
+    """Each kernel wrapper launches with the device of its tensors current,
+    so that a process driving ``cuda:1`` launches there.  Without a card:
+    fake tensors on ``cuda:1`` (``FakeTensorMode``), the kernel library
+    stubbed to record the current device at each call, and
+    ``torch.cuda.device`` recording the device it enters."""
+    import contextlib
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from pdanet_tpu_torch.ops.attention import (
+        neighbor_attention_flat_bwd_cuda,
+        neighbor_attention_flat_cuda,
+    )
+
+    entered, current, calls = [], [None], []
+
+    @contextlib.contextmanager
+    def device(d):
+        entered.append(torch.device(d))
+        outer, current[0] = current[0], torch.device(d)
+        try:
+            yield
+        finally:
+            current[0] = outer
+
+    class StubLib:
+        def __getattr__(self, symbol):
+            return lambda *args: calls.append((symbol, current[0])) or 0
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(cuda_lib, "lib", StubLib)
+    monkeypatch.setattr(cuda_lib, "stream_handle", lambda dev: None)
+    monkeypatch.setattr(cuda_lib, "ptr", lambda t: None)
+    # a CPU-only build refuses Tensor.contiguous on a fake CUDA tensor; a
+    # contiguous clone is what it returns
+    monkeypatch.setattr(torch.Tensor, "contiguous", lambda t: t if t.is_contiguous() else
+                        t.clone(memory_format=torch.contiguous_format))
+    dev = torch.device("cuda", 1)
+    cuda_lib.launches.clear()
+    with FakeTensorMode():
+        xyz = torch.empty(2, 64, 3, device=dev)
+        q = torch.empty(32, 2 * 16, device=dev)
+        boxes = torch.empty(2, 8, 7, device=dev)
+        wrappers = {
+            "fps": lambda: farthest_point_sample_cuda(xyz, 8),
+            "ball_query": lambda: ball_query_multi_cuda((0.5, 1.0), (8, 16), xyz,
+                                                    torch.empty(2, 8, 3, device=dev)),
+            "neighbor_attention": lambda: neighbor_attention_flat_cuda(q, q, q, 8, 2, 16),
+            "neighbor_attention_bwd": lambda: neighbor_attention_flat_bwd_cuda(
+                q, q, q, q, 8, 2, 16),
+            "rotated_iou": lambda: boxes_iou_bev_batched_self_cuda(boxes),
+            "nms": lambda: greedy_nms_mask_batched_cuda(
+                torch.empty(2, 8, 8, device=dev), torch.empty(2, 8, dtype=torch.bool,
+                                                              device=dev), 0.1),
+        }
+        wrappers[name]()
+    assert entered == [dev], entered
+    assert calls and all(d == dev for _, d in calls), calls
+    assert dict(cuda_lib.launches) == {name: 1}
+    cuda_lib.launches.clear()

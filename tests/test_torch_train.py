@@ -28,11 +28,23 @@ both packages:
 * bfloat16 train compute against float32 in the port: the loss stays
   within 5 % over six steps (``tests/test_train.py::
   test_bf16_loss_trajectory`` holds the same bound for JAX);
+* data parallelism: two Gloo processes, one frame each of the first
+  step's batch with its indices fed, against JAX's step on the two-frame
+  batch in float64: loss and tb within 1e-6 relative, every gradient leaf
+  within 1e-6 of its scale, statistics and parameters after the update
+  within the bounds above, the ranks' state bit-equal; without a process
+  group no collective runs;
 * checkpoints: a round trip restores model and optimizer; a corrupt file
   raises ``CheckpointError``; ``train_one_epoch`` steps once per batch.
 """
 
 import copy
+import os
+import pickle
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -50,6 +62,7 @@ from pdanet_tpu.ops import geometry as j_geometry
 from pdanet_tpu.ops.ball_query import ball_query_multi as j_ball_query_multi
 from pdanet_tpu.train import build_optimizer_and_schedule as j_build_optimizer
 from pdanet_tpu.utils.box_coder_utils import build_box_coder as j_build_box_coder
+from pdanet_tpu_torch import parallel
 from pdanet_tpu_torch.models import build_network
 from pdanet_tpu_torch.models.backbones_3d import iassd_backbone
 from pdanet_tpu_torch.models.blocks import BatchNorm, init_random_weights
@@ -83,6 +96,7 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(old)
 
+REPO = Path(__file__).resolve().parent.parent
 NUM_CLASS = 3
 N_STEPS = 3
 ITERS_PER_EPOCH, EPOCHS = 2, 4
@@ -134,8 +148,8 @@ def _adam_state(opt_state):
 @pytest.fixture(scope="module")
 def jax_run():
     """Three JAX train steps in float64 from perturbed weights, with each
-    step's forward dict, loss, tb scalars, sampling and ball-query indices,
-    and the state before each step."""
+    step's forward dict, loss, tb scalars, gradients, sampling and
+    ball-query indices, and the state before each step."""
     cfg = EasyDict(tiny_model_cfg(NUM_CLASS))
     sa_cfg = cfg.BACKBONE_3D.SA_CONFIG
     batches = [_batch(11 + i) for i in range(N_STEPS)]
@@ -179,7 +193,7 @@ def jax_run():
                 loss_fn, has_aux=True)(params)
             updates, new_opt = tx.update(grads, opt_state, params)
             return (optax.apply_updates(params, updates), mut["batch_stats"],
-                    new_opt, loss, tb, out, mut["intermediates"])
+                    new_opt, loss, tb, out, mut["intermediates"], grads)
 
         step = jax.jit(step)
         params, bs = variables["params"], variables["batch_stats"]
@@ -188,7 +202,7 @@ def jax_run():
         for pts, gt in batches:
             before = {"variables": {"params": _np(params), "batch_stats": _np(bs)},
                       "adam": _adam_state(opt_state)}
-            params, bs, opt_state, loss, tb, out, inter = step(
+            params, bs, opt_state, loss, tb, out, inter, grads = step(
                 params, bs, opt_state, jnp.asarray(pts, jnp.float64),
                 jnp.asarray(gt, jnp.float64))
             enc_xyz = [np.asarray(t) for t in out["encoder_xyz"]]
@@ -204,22 +218,29 @@ def jax_run():
                         jnp.asarray(enc_xyz[sa_cfg.LAYER_INPUT[k]]),
                         jnp.asarray(enc_xyz[k + 1]))])
             steps.append(dict(before, loss=float(loss), tb=_np(tb), out=_np(out),
-                              samp=samp, ball=ball, batch=(pts, gt)))
+                              samp=samp, ball=ball, batch=(pts, gt), grads=_np(grads)))
         after = {"params": _np(params), "batch_stats": _np(bs)}
     finally:
         jax.config.update("jax_enable_x64", False)
     return dict(cfg=cfg, steps=steps, after=after)
 
 
-def _fed_indices(monkeypatch, model, steps):
-    """Feed each step's JAX sampling and ball-query indices to the port, in
-    call order (tests/test_torch_model.py:148-164)."""
+def _call_order(model, steps):
+    """Each step's JAX sampling and ball-query indices, in the port's call
+    order (tests/test_torch_model.py:148-164)."""
     fps_identity = [f for f, t in zip(model.backbone_3d.fps_identity,
                                       model.backbone_3d.layer_types) if t == "SA_Layer"]
     samp, ball = [], []
     for st in steps:
         samp += [s for s, f in zip(st["samp"], fps_identity) if s is not None and not f]
         ball += st["ball"]
+    return samp, ball
+
+
+def _fed_indices(monkeypatch, model, steps):
+    """Feed each step's JAX sampling and ball-query indices to the port, in
+    call order."""
+    samp, ball = _call_order(model, steps)
     monkeypatch.setattr(iassd_backbone, "run_sampling",
                         lambda *a: torch.tensor(samp.pop(0)).long())
     monkeypatch.setattr(iassd_backbone, "ball_query_multi",
@@ -290,6 +311,110 @@ def test_resume_from_jax_optimizer_state(jax_run, monkeypatch):
     rel = abs(loss.item() - last["loss"]) / abs(last["loss"])
     assert rel <= 1e-6, f"loss relative error {rel:.3g}"
     _assert_state_close(model, cfg, jax_run["after"], [schedule.lr(N_STEPS - 1)])
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _leaf_errors(got, want, floor=1e-6):
+    """Per gradient leaf, max |got - want| over the leaf's scale: its
+    largest |want|, floored at ``floor`` times the largest |want| of any
+    leaf (below that a gradient is rounding noise: a softmax row ignores a
+    shift, so the key projection's bias has a zero true gradient).  Worst
+    first."""
+    top = floor * max(w.abs().max().item() for w in want.values())
+    return sorted((((got[n] - w).abs().max().item() / max(w.abs().max().item(), top), n)
+                   for n, w in want.items()), reverse=True)
+
+
+def test_two_ranks_step_like_jax_float64(jax_run, tmp_path):
+    """Data parallelism against the JAX package's global batch: two Gloo
+    processes (``tests/torch_dist_step.py``) take one frame each of step
+    0's two-frame batch, JAX's sampling and ball-query indices of their
+    frame fed.  Under GSPMD the JAX package's data-mesh step on that batch
+    is its single-device step, the fixture's.  Both ranks' loss and tb
+    scalars (the global batch's) within 1e-6 relative of JAX's, every
+    gradient leaf (summed over the ranks) within 1e-6 of its scale, the
+    BatchNorm statistics and parameters after the update within
+    ``test_slice_trains_like_jax_float64``'s bounds, and the two ranks'
+    state bit-equal."""
+    st, cfg = jax_run["steps"][0], jax_run["cfg"]
+    model = _port_f64(cfg, st["variables"])
+    samp, ball = _call_order(model, [st])
+    pts, gt = st["batch"]
+    ranks = [dict(points=pts[r:r + 1], gt_boxes=gt[r:r + 1], samp=[s[r:r + 1] for s in samp],
+                  ball=[[i[r:r + 1] for i in b] for b in ball]) for r in range(2)]
+    spec = tmp_path / "spec.pkl"
+    with open(spec, "wb") as f:
+        pickle.dump(dict(cfg=cfg, num_class=NUM_CLASS, variables=st["variables"],
+                         optim_cfg=_optim_cfg(), schedule=(ITERS_PER_EPOCH, EPOCHS),
+                         dtype=torch.float64, ranks=ranks), f)
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(REPO / "tests" / "torch_dist_step.py"),
+                               str(spec), str(r), "2", str(port)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    for r, proc in enumerate(procs):
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise
+        assert proc.returncode == 0, f"rank {r} failed:\n{err[-3000:]}"
+    got = [torch.load(f"{spec}.rank{r}.pt", weights_only=False) for r in range(2)]
+    for key, val in got[0]["state"].items():
+        assert torch.equal(got[1]["state"][key], val), key
+
+    for res in got:
+        assert torch.equal(res["loss"], got[0]["loss"])
+        rel = abs(res["loss"].item() - st["loss"]) / abs(st["loss"])
+        assert rel <= 1e-6, f"loss relative error {rel:.3g}"
+        assert set(res["tb"]) == set(st["tb"])
+        errs = {k: abs(float(res["tb"][k]) - float(w)) / max(abs(float(w)), 1e-6)
+                for k, w in st["tb"].items()}
+        assert max(errs.values()) <= 1e-6, errs
+    want = dict(_port_f64(cfg, {"params": st["grads"],
+                                "batch_stats": st["variables"]["batch_stats"]})
+                .named_parameters())
+    errs = _leaf_errors({n: g for n, g in got[0]["grads"].items()}, want)
+    assert errs[0][0] <= 1e-6, f"gradients: worst {errs[:4]}"
+    model.load_state_dict(got[0]["state"])
+    _, schedule = build_optimizer_and_schedule(model, _optim_cfg(), ITERS_PER_EPOCH, EPOCHS)
+    _assert_state_close(model, cfg, jax_run["steps"][1]["variables"], [schedule.lr(0)])
+
+
+def test_one_process_runs_no_collective(monkeypatch):
+    """Without a process group the data-parallel code stays out of the
+    way: a train step calls no collective, the ``parallel`` helpers hand
+    back their input (a share is 1.0, whose product is exact), and
+    training-mode BatchNorm is the two-pass formula bit for bit."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a collective ran without a process group")
+
+    for name in ("all_reduce", "broadcast", "barrier"):
+        monkeypatch.setattr(torch.distributed, name, refuse)
+    assert not parallel.is_dist() and (parallel.rank(), parallel.world()) == (0, 1)
+    t = torch.arange(3.0, requires_grad=True)
+    assert parallel.all_reduce_sum(t) is t and parallel.all_reduce_detached(t) is t
+    assert parallel.share(7, t) == 1.0
+
+    cfg = EasyDict(tiny_model_cfg(NUM_CLASS))
+    model = build_network(cfg, NUM_CLASS, device="cpu")
+    optimizer, schedule = build_optimizer_and_schedule(model, _optim_cfg(), 2, 4)
+    loss, tb = make_train_step(model, optimizer, schedule)(_batch_t(*_batch(5), torch.float32))
+    assert torch.isfinite(loss) and "center_pos_num" in tb
+
+    x = torch.from_numpy(np.random.RandomState(8).randn(2, 5, 7, 6).astype(np.float32))
+    bn = BatchNorm(6).train()
+    mean = x.mean(dim=(0, 1, 2))
+    centred = x - mean
+    var = (centred * centred).mean(dim=(0, 1, 2))
+    assert torch.equal(bn(x), centred * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias)
 
 
 def test_assign_targets_and_loss_terms_match_jax(jax_run):
