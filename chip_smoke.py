@@ -180,18 +180,50 @@ Phases, each of which raises on failure:
    times the gradient's error over Adam's eps; the ranks bit-equal), and
    each frame through the serving closure; all six ops launched in the
    one process and in each rank.
+12. PointPillar: tools/cfgs/kitti_models/pointpillar.yaml at full width,
+   nothing cut (432 x 496 pillars of 0.16 m, 40000 test and 16000 train
+   pillars of 32 points, 64 BEV channels, 321408 anchors a frame), seeded
+   weights, float32 (the yaml sets no compute dtype), cuDNN's TF32 off as
+   phase 1 leaves it.  (a) Serving: 120000-point LiDAR-like KITTI frames
+   (phase 9's generator) through the yaml's processors and the host
+   voxelizer at the test budget; three b1 requests and one b2 through
+   ``serving.make_predict_fn``, the IoU and NMS kernels launched at K =
+   NMS_PRE_MAXSIZE = 4096; a b1 request's device split, and its latency
+   with cuDNN's TF32 on beside it (a report); one frame on the card
+   against the CPU (plain versions): logits within 2e-3, boxes within
+   1e-3 of max(1, |value|) with headings compared modulo the direction
+   bins' period (an anchor may turn by pi only where its two bin logits,
+   or its raw heading and the period's fold, tie within 1e-4), and the
+   detections paired box for box by
+   mutual nearest centre (equal counts, centres within 1e-3 m, scores
+   within 1e-4).  (b)
+   Training: 5 float32 steps at B = 4 on the train budget (step time,
+   peak memory, device split), then one float64 step at B = 1 on the card
+   against the CPU (loss within 1e-10 relative, gradient leaves within
+   1e-8 of their scale, statistics within 1e-10).  (c) The yaml through
+   the train CLI (one epoch of phase 9's 32 frames at B = 4, augmentor and
+   all) and the test CLI with the official KITTI evaluation, then
+   ``dist_train.sh`` at world 1 over NCCL.  (d) The b1 program through
+   ``serving.export_serving``, ``save_serving`` and ``load_serving``,
+   bit-equal to the eager closure.  (e) The self-IoU (rtol 2e-4 / atol
+   2e-5 of its plain version, run 1024 rows at a time) and the NMS walk
+   (equal) at K 4096 on frame 0's candidates, timed in turns with their
+   plain versions under CUDA events, with their device times and bounds.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
 (phase 4's requests, phase 7's bfloat16 and float32 train steps, phase
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
-CLIs, phase 10's exported programs and phase 11's CLI processes, one
-process and ranks, each run counted from 0), its
+CLIs, phase 10's exported programs, phase 11's CLI processes, one
+process and ranks, and phase 12's requests, CLIs and program, each run
+counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
 their type, from this run's inputs) and SDPA's time where SDPA computes
-the same function.  The last line is ``{"ok": true, "device": {...}}``.
+the same function; then the IoU and the NMS walk again at phase 12's K
+4096 (``rotated_iou_k4096``, ``nms_k4096``: phase 12's launches, (e)'s
+numbers).  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -3287,6 +3319,534 @@ def dp_phase(dev, work_dir, kitti_run, cfg, weights, world=1):
     return {k: cli.get(k, 0) + ranks.get(k, 0) for k in set(cli) | set(ranks)}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: PointPillar
+
+
+PP_CFG_REL = "cfgs/kitti_models/pointpillar.yaml"  # in phase 9's working directory
+PP_SERVE_FRAMES = 5  # three b1 requests and one b2
+PP_TRAIN_STEPS = 5
+PP_ROW_BLOCK = 1024  # rows of the plain IoU at a time at K 4096 (64 MiB of output each)
+PP_KERNELS = ("rotated_iou", "nms")  # the kernels of its path
+PP_NMS_PRE = 4096  # the yaml's NMS_PRE_MAXSIZE: the candidates of its IoU and NMS
+
+
+def pp_batch(cfg, frames, training, dev, model=None):
+    """LiDAR-like frames ``(points, boxes, names)`` through the yaml's point
+    processors of the split (range mask, shuffle on the train split, the
+    host voxelizer at the split's budget) and the collate: the device
+    batch and the host milliseconds a frame."""
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+    from pdanet_tpu_torch.datasets.processor.data_processor import DataProcessor
+    from pdanet_tpu_torch.train import select_device_batch
+
+    dp = DataProcessor(cfg.DATA_CONFIG.DATA_PROCESSOR, cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                       training=training, num_point_features=4)
+    names = list(cfg.CLASS_NAMES)
+    out, host_ms = [], []
+    for pts, boxes, box_names in frames:
+        gt = np.concatenate([boxes, [[names.index(n) + 1] for n in box_names]], 1)
+        t0 = time.perf_counter()
+        out.append(dp.forward({"points": pts, "gt_boxes": gt.astype(np.float32)}))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    batch = DatasetTemplate.collate_batch_static(out, cfg.DATA_CONFIG.MAX_GT_BOXES)
+    return select_device_batch(batch, dev, model), host_ms
+
+
+class RecordIoUShapes:
+    """Records the shape of every self-IoU the post-processing asks for
+    (``iassd.post_processing``'s candidates), the kernel running as ever."""
+
+    def __enter__(self):
+        from pdanet_tpu_torch.models.detectors import iassd
+
+        self.shapes, self.module = [], iassd
+        self.orig = iassd.boxes_iou_bev_batched_self
+
+        def record(boxes):
+            self.shapes.append(tuple(boxes.shape))
+            return self.orig(boxes)
+
+        iassd.boxes_iou_bev_batched_self = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.boxes_iou_bev_batched_self = self.orig
+
+
+def pp_candidates(out, post_cfg):
+    """The NMS candidates of frame 0 as ``post_processing`` picks them: the
+    ``NMS_PRE_MAXSIZE`` best anchors by score, stable order, and which of
+    them clear ``SCORE_THRESH``."""
+    import torch
+
+    scores = torch.sigmoid(out["batch_cls_preds"][:1]).max(dim=-1).values
+    valid = torch.isfinite(scores) & (scores >= post_cfg.SCORE_THRESH)
+    masked = torch.where(valid, scores, -torch.inf)
+    K = min(int(post_cfg.NMS_CONFIG.NMS_PRE_MAXSIZE), scores.shape[1])
+    order = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :K]
+    boxes = torch.gather(out["batch_box_preds"][:1], 1,
+                         order[..., None].expand(1, K, 7)).contiguous()
+    return boxes, torch.gather(valid, 1, order).contiguous(), int(valid.sum())
+
+
+def pp_iou_plain_blocked(boxes):
+    """The plain self-IoU on ``PP_ROW_BLOCK`` rows at a time: the same
+    function as ``boxes_iou_bev_batched_self_plain``, a piece at a time
+    (at K 4096 its pair-wise temporaries would hold tens of GB at once)."""
+    import torch
+
+    from pdanet_tpu_torch.ops import rotated_iou
+
+    return torch.cat([rotated_iou.boxes_iou_bev(boxes[:, r:r + PP_ROW_BLOCK], boxes)
+                      for r in range(0, boxes.shape[1], PP_ROW_BLOCK)], dim=1)
+
+
+def pp_kernels(dev, out, post_cfg):
+    """Phase 12 (e): the rotated self-IoU and the NMS walk at K 4096 on the
+    path's own candidates (frame 0 of a b1 request) against their plain
+    versions: the IoU within rtol 2e-4 / atol 2e-5, the keep mask equal; CUDA-event times in turns (kernel, plain, plain,
+    kernel), device times under the profiler and bounds from these
+    candidates.  Returns the two rows' numbers."""
+    import torch
+
+    from pdanet_tpu_torch.ops import nms, rotated_iou
+
+    boxes, valid, n_valid = pp_candidates(out, post_cfg)
+    K = boxes.shape[1]
+    thresh = float(post_cfg.NMS_CONFIG.NMS_THRESH)
+    got = rotated_iou.boxes_iou_bev_batched_self_cuda(boxes)
+    want = pp_iou_plain_blocked(boxes)
+    err = (got - want).abs().max().item()
+    require(torch.allclose(got, want, rtol=2e-4, atol=2e-5),
+            f"IoU K={K} on the PointPillar candidates outside rtol 2e-4 / atol 2e-5 ({err})")
+    # no diagonal gate here: seeded weights decode boxes millimetres thin
+    # and 70 m out, whose float32 clip leaves a self-IoU below 1 in the
+    # plain version too (the kernel is held to the plain version above)
+    diag_min = torch.diagonal(got, dim1=1, dim2=2).min().item()
+    keep = nms.greedy_nms_mask_batched_cuda(got, valid, thresh)
+    keep_p = nms.greedy_nms_mask_batched_plain(got, valid, thresh)
+    require(torch.equal(keep, keep_p), f"NMS K={K}: the keep mask differs from the plain version")
+    del want
+
+    def turns(kern, plain, plain_reps):
+        k1 = cuda_ms(kern, reps=20)
+        p1 = cuda_ms(plain, reps=plain_reps, warmup=1)
+        p2 = cuda_ms(plain, reps=plain_reps, warmup=1)
+        k2 = cuda_ms(kern, reps=20)
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    pairs = iou_pairs_needed(boxes)
+    rows = {}
+    iou_ms, iou_plain = turns(lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
+                              lambda: pp_iou_plain_blocked(boxes), 2)
+    iou_dev = kernel_device_ms(lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
+                               "iou_self_kernel")
+    bnd = bound((boxes.numel() + got.numel()) * 4, pairs * IOU_PAIR_OPS, F32_OPS_PER_S)
+    rows["rotated_iou"] = dict(max_abs_err=err, ms=iou_ms, plain_ms=iou_plain, bound_ms=bnd[0],
+                               bound_by=bnd[1], library_ms=None)
+    print(f"{'rotated_iou':27s} PointPillar K={K} (frame 0's candidates, {n_valid} anchors of "
+          f"{out['batch_cls_preds'].shape[1]} over SCORE_THRESH, {pairs} pairs whose circles "
+          f"meet): max_abs_err {err:.3g}, diagonal at least {diag_min:.6g}; kernel "
+          f"{iou_ms:.4f} ms (device "
+          f"{fmt_ms(iou_dev)}), plain {iou_plain:.4f} ms ({PP_ROW_BLOCK} rows at a time); "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at {100 * bnd[0] / iou_ms:.1f} % of it")
+
+    row_reads = int((K - 1 - torch.nonzero(keep)[:, 1]).sum())
+    nms_ms, nms_plain = turns(lambda: nms.greedy_nms_mask_batched_cuda(got, valid, thresh),
+                              lambda: nms.greedy_nms_mask_batched_plain(got, valid, thresh), 2)
+    nms_dev = [kernel_device_ms(lambda: nms.greedy_nms_mask_batched_cuda(got, valid, thresh),
+                                name) for name in ("nms_", "nms_mask_kernel", "nms_walk_kernel")]
+    bnd = bound(row_reads * 4 + valid.numel() + keep.numel(), row_reads, F32_OPS_PER_S)
+    rows["nms"] = dict(max_abs_err=0.0, ms=nms_ms, plain_ms=nms_plain, bound_ms=bnd[0],
+                       bound_by=bnd[1], library_ms=None)
+    print(f"{'nms':27s} PointPillar K={K} thresh {thresh:g}: keep mask equal, "
+          f"{int(keep.sum())} kept of {int(valid.sum())} valid; kernel {nms_ms:.4f} ms "
+          f"(device {fmt_ms(nms_dev[0])}: words {fmt_ms(nms_dev[1])}, walk "
+          f"{fmt_ms(nms_dev[2])}), plain {nms_plain:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}, "
+          f"the IoU rows right of {int(keep.sum())} kept boxes)")
+    return rows
+
+
+def pp_serve(cfg, dev, template):
+    """Phase 12 (a): seeded weights at full width; 120000-point LiDAR-like
+    KITTI frames through the host voxelizer at the test budget; three b1
+    requests and one b2 in float32 through ``serving.make_predict_fn``,
+    their latency, the IoU and NMS kernels launched at K = NMS_PRE_MAXSIZE;
+    a b1 request's latency and device split, beside one with cuDNN's TF32
+    on (torch's default; this script turns it off in phase 1); one frame
+    on the card against the CPU.  Returns the launches of the requests, the weights,
+    the closure and frame 0's batch and forward."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.models.detectors import get_post_processor
+    from pdanet_tpu_torch.ops import cuda_lib
+    from pdanet_tpu_torch.serving import example_device_batch, make_predict_fn
+
+    names = list(cfg.CLASS_NAMES)
+    mean_sizes = [c["anchor_sizes"][0] for c in cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG]
+    model = init_random_weights(build_network(cfg.MODEL, len(names), dataset=template,
+                                              device=dev), seed=0)
+    weights = copy.deepcopy(model.state_dict())
+    predict = make_predict_fn(model, cfg.MODEL)
+    for B in (1, 2):
+        predict(example_device_batch(cfg, B, dev))
+    rs = np.random.RandomState(1200)
+    frames = [kitti_like_frame(rs, names, mean_sizes) for _ in range(PP_SERVE_FRAMES)]
+    requests, host_ms = [], []
+    for chunk in ([frames[0]], [frames[1]], [frames[2]], frames[3:5]):
+        batch, ms = pp_batch(cfg, chunk, False, dev, model)
+        batch.pop("gt_boxes")  # a request carries the voxels alone
+        requests.append(batch)
+        host_ms += ms
+    K = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE)
+    require(K == PP_NMS_PRE, f"pointpillar.yaml's NMS_PRE_MAXSIZE {K} != {PP_NMS_PRE}")
+    pillars = [int((r["voxel_num_points"] > 0).sum(dim=1).min()) for r in requests]
+    print(f"PointPillar frames: {KITTI_FRAME_POINTS} points each, host processors and "
+          f"voxelizer (test split, at most {requests[0]['voxels'].shape[1]} pillars of "
+          f"{requests[0]['voxels'].shape[2]}) {[round(t, 1) for t in host_ms]} ms a frame; "
+          f"non-empty pillars (fewest of each request) {pillars}")
+    torch.cuda.synchronize()
+
+    cuda_lib.launches.clear()
+    results = []
+    with RecordIoUShapes() as rec:
+        for batch in requests:
+            t0 = time.perf_counter()
+            res = predict(batch)
+            torch.cuda.synchronize()
+            results.append((batch["voxels"].shape[0], (time.perf_counter() - t0) * 1e3, res))
+    launches = dict(cuda_lib.launches)
+    for i, (B, ms, res) in enumerate(results):
+        for key, val in res.items():
+            require(tuple(val.shape[:1]) == (B,), f"PointPillar request {i}: {key} batch shape")
+            require(bool(torch.isfinite(val.float()).all()),
+                    f"PointPillar request {i}: {key} not finite")
+        counts = res["pred_counts"]
+        require(bool(((counts >= 0) & (counts <= 500)).all()), f"request {i}: counts {counts}")
+        print(f"PointPillar request {i}: B={B} latency {ms:.2f} ms (float32, cuDNN TF32 off), "
+              f"detections {counts.tolist()}")
+    print(f"PointPillar kernel launches in the served requests: {launches}; the self-IoU's "
+          f"inputs {rec.shapes}")
+    for name in PP_KERNELS:
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched on the PointPillar "
+                f"path")
+    require(rec.shapes and all(s[1] == K for s in rec.shapes),
+            f"the PointPillar self-IoU ran at {rec.shapes}, not K {K}")
+    b1 = requests[0]
+    # latency in turns (off, on, on, off), before any profiler runs
+    ms = {False: [], True: []}
+    try:
+        for tf32 in (False, True, True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            ms[tf32].append(request_ms(predict, b1, reps=10))
+        torch.backends.cudnn.allow_tf32 = True
+        split_tf32 = device_split(lambda: predict(b1))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False  # as phase 1 left it
+    print_split("a PointPillar b1 request under torch.profiler (TF32 off)",
+                device_split(lambda: predict(b1)))
+    print_split("a PointPillar b1 request under torch.profiler (cuDNN TF32 on)", split_tf32)
+    for tf32, turns in ms.items():
+        print(f"PointPillar b1 request with cuDNN TF32 {'on' if tf32 else 'off'}: median "
+              f"latency " + " / ".join(f"{lat:.2f}" for lat, _ in turns) + " ms, host enqueue "
+              + " / ".join(f"{enq:.2f}" for _, enq in turns) + " ms (10 after warm-up, two "
+              "turns)")
+
+    # one frame in float32 on the card (kernels) against the CPU (plain versions)
+    with torch.inference_mode():
+        out_card = model.forward_batch(b1)
+    cpu_model = build_network(cfg.MODEL, len(names), dataset=template, device="cpu")
+    cpu_model.load_state_dict(weights)
+    cpu_batch = {k: v.cpu() for k, v in b1.items()}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out_cpu = cpu_model.eval().forward_batch(cpu_batch)
+        post_cpu = get_post_processor(cfg.MODEL.NAME)(out_cpu, cfg.MODEL)
+    cpu_s = time.perf_counter() - t0
+    logit_err = (out_card["batch_cls_preds"].cpu() - out_cpu["batch_cls_preds"]).abs().max().item()
+    # a heading is compared modulo the direction bins' period: where the two
+    # bins' logits nearly tie, or the raw heading lies on a fold of the
+    # period, rounding picks the other turn, pi apart
+    head = cfg.MODEL.DENSE_HEAD
+    period = 2 * np.pi / head.NUM_DIR_BINS
+    bc, bg = out_cpu["batch_box_preds"], out_card["batch_box_preds"].cpu()
+    box_err = ((bg[..., :6] - bc[..., :6]).abs() / bc[..., :6].abs().clamp(min=1.0)).max().item()
+    turn = torch.remainder(bg[..., 6] - bc[..., 6] + period / 2, period) - period / 2
+    head_err = turn.abs().max().item()
+    flipped = (bg[..., 6] - bc[..., 6]).abs() > period / 2
+    dir_cpu = out_cpu["dir_cls_preds"].reshape(1, -1, head.NUM_DIR_BINS)
+    bin_tie = (dir_cpu[..., 0] - dir_cpu[..., 1]).abs()
+    raw = (out_cpu["box_preds"].reshape(1, -1, 7)[..., 6] + cpu_model.anchors_flat[:, 6]
+           - head.DIR_OFFSET) / period + head.DIR_LIMIT_OFFSET
+    fold_tie = (raw - torch.round(raw)).abs()
+    tie = torch.minimum(bin_tie / 1e-4, fold_tie / 1e-4)[flipped]  # <= 1: a tie
+    pairs, n_g, n_c, gap_c, gap_s = match_detections(results[0][2], post_cpu)
+    print(f"PointPillar float32 frame, card vs CPU ({cpu_s:.1f} s on the CPU): logits within "
+          f"{logit_err:.3g}; boxes within {box_err:.3g} of max(1, |value|), headings within "
+          f"{head_err:.3g} modulo pi; {int(flipped.sum())} of {flipped.numel()} anchors pi "
+          f"apart (direction logits within {bin_tie[flipped].tolist()}, raw headings "
+          f"{fold_tie[flipped].tolist()} periods from a fold); detections {n_g} vs {n_c}, {pairs} "
+          f"paired by mutual nearest centre (largest centre distance {gap_c:.3g} m, score "
+          f"{gap_s:.3g})")
+    require(logit_err <= 2e-3, f"PointPillar logits card vs CPU {logit_err} > 2e-3")
+    require(box_err <= 1e-3 and head_err <= 1e-3,
+            f"PointPillar boxes card vs CPU {box_err} / {head_err} > 1e-3")
+    require(not len(tie) or tie.max().item() <= 1.0,
+            "PointPillar: a heading turned by pi card vs CPU with no tie (direction logits "
+            "or the period's fold within 1e-4)")
+    require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
+            "PointPillar float32 detections card vs CPU not paired box for box")
+    return launches, weights, predict, b1, out_card
+
+
+def pp_train(cfg, weights, dev, template):
+    """Phase 12 (b): 5 float32 steps at B = 4 on the train budget (frames
+    through the train split's processors, gt on their boxes): finite
+    losses and gradients, the step time, peak memory and a device split;
+    then one float64 step at B = 1 on the card against the CPU."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.train import build_optimizer_and_schedule, make_train_step
+
+    names = list(cfg.CLASS_NAMES)
+    mean_sizes = [c["anchor_sizes"][0] for c in cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG]
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    rs = np.random.RandomState(1300)
+    frames = [kitti_like_frame(rs, names, mean_sizes) for _ in range(B)]
+    np.random.seed(1300)  # shuffle_points
+    ocfg = cfg.OPTIMIZATION
+
+    def train_model(device, dtype=torch.float32):
+        model = build_network(cfg.MODEL, len(names), dataset=template, device=device)
+        model.load_state_dict(weights)
+        model.to(dtype)
+        optimizer, schedule = build_optimizer_and_schedule(
+            model, ocfg, total_iters_each_epoch=3712 // B, total_epochs=ocfg.NUM_EPOCHS)
+        return model, make_train_step(model, optimizer, schedule)
+
+    model, step = train_model(dev)
+    batch, host_ms = pp_batch(cfg, frames, True, dev, model)
+    print(f"PointPillar train frames: host processors and voxelizer (train split, at most "
+          f"{batch['voxels'].shape[1]} pillars) {[round(t, 1) for t in host_ms]} ms a frame; "
+          f"non-empty pillars {(batch['voxel_num_points'] > 0).sum(dim=1).tolist()}, gt boxes "
+          f"{(batch['gt_boxes'][..., 7] > 0).sum(dim=1).tolist()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for i in range(PP_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, tb = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        require(np.isfinite(losses[-1]), f"PointPillar step {i}: loss {losses[-1]}")
+        require(_grads_finite(model), f"PointPillar step {i}: gradients not finite")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print_split(f"a PointPillar float32 train step B={B} under torch.profiler (TF32 off)",
+                device_split(lambda: step(batch)))
+    print(f"PointPillar train float32 B={B}: losses {[round(x, 4) for x in losses]}; ms/step "
+          f"{[round(t, 2) for t in times]}, median after warm-up "
+          f"{statistics.median(times[1:]):.2f} ms; peak memory {peak:.2f} GiB; tb of the last "
+          f"step { {k: round(float(v), 4) for k, v in tb.items()} }")
+    del model, step
+
+    # one float64 step at B = 1, the card against the CPU from the same weights
+    one = {k: v[:1] for k, v in batch.items()}
+    res = []
+    for device in (dev, torch.device("cpu")):
+        model, step = train_model(device, torch.float64)
+        t0 = time.perf_counter()
+        loss, tb = step({k: (v.double() if v.is_floating_point() else v).to(device)
+                         for k, v in one.items()})
+        res.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    {n: b.cpu() for n, b in model.named_buffers() if "running" in n},
+                    time.perf_counter() - t0))
+        del model, step
+    (l_g, g_g, s_g, t_g), (l_c, g_c, s_c, t_c) = res
+    rel = abs(l_g - l_c) / abs(l_c)
+    errs = _leaf_errors(g_g, g_c, floor=1e-6)
+    stat_err = max((s_g[n] - s_c[n]).abs().max().item() for n in s_c)
+    print(f"PointPillar float64 step B=1, card vs CPU ({t_g:.1f} s / {t_c:.1f} s): loss "
+          f"{l_g:.17g} vs {l_c:.17g} (rel {rel:.3g}); gradient leaves within "
+          f"{errs[0][0]:.3g} of their scale at worst ({errs[0][1]}), deciles "
+          f"{_deciles(errs)}; statistics within {stat_err:.3g}")
+    require(rel <= 1e-10, f"PointPillar float64 loss card vs CPU rel {rel}")
+    require(errs[0][0] <= 1e-8, f"PointPillar float64 gradients card vs CPU: {errs[:3]}")
+    require(stat_err <= 1e-10, f"PointPillar float64 statistics card vs CPU {stat_err}")
+
+
+def pp_clis(work, kitti_run):
+    """Phase 12 (c): pointpillar.yaml through the train CLI (one epoch of
+    phase 9's 32 frames at B = 4, augmentor and all) and the test CLI on
+    its checkpoint with the official KITTI evaluation; then
+    ``dist_train.sh`` at world 1 over NCCL (the BEV BatchNorms' global
+    moments).  Returns the launches of the train and test CLIs."""
+    from pdanet_tpu_torch.ops import cuda_lib
+    from pdanet_tpu_torch.tools import test as test_cli
+    from pdanet_tpu_torch.tools import train as train_cli
+
+    root, val_ids = kitti_run["root"], kitti_run["val_ids"]
+    set_data = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+    launches = {}
+    with contextlib.chdir(work):
+        cuda_lib.launches.clear()
+        t0 = time.perf_counter()
+        out = train_cli.main(["--cfg_file", PP_CFG_REL, "--epochs", "1", "--batch_size", "4",
+                              "--num_epochs_to_eval", "0", *set_data])
+        train_s = time.perf_counter() - t0
+        train_counts = dict(cuda_lib.launches)
+        series = {}
+        for line in (out / "tensorboard" / "metrics.jsonl").read_text().splitlines():
+            m = json.loads(line)
+            series.setdefault(m["tag"], []).append(m["value"])
+        losses = series["train/loss"]
+        step_ms = [1e3 * t for t in series["meta_data/batch_time"]]
+        wait_ms = [1e3 * t for t in series["meta_data/data_time"]]
+        require(len(losses) == kitti_run["steps"] and all(np.isfinite(losses)),
+                f"PointPillar train CLI losses {losses}")
+        print(f"PointPillar train CLI (1 epoch at B=4 on phase 9's root): {train_s:.1f} s; "
+              f"losses {[round(x, 4) for x in losses]}; ms per iteration "
+              f"{[round(t, 2) for t in step_ms]}, median after the first "
+              f"{statistics.median(step_ms[1:]):.2f} ms, waiting for the loader "
+              f"{[round(t, 2) for t in wait_ms]} ms")
+        ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+        cuda_lib.launches.clear()
+        t0 = time.perf_counter()
+        result = test_cli.main(["--cfg_file", PP_CFG_REL, "--ckpt", str(ckpt), "--batch_size",
+                                "1", "--infer_time", *set_data])
+        test_s = time.perf_counter() - t0
+        test_counts = dict(cuda_lib.launches)
+        res_dir = out / "eval" / "epoch_1" / "val" / "default"
+        with open(res_dir / "result.pkl", "rb") as f:
+            annos = pickle.load(f)
+        require([a["frame_id"] for a in annos] == val_ids, "PointPillar test CLI: frames")
+        # not a gate: eight steps from torch's initial weights leave the
+        # BatchNorms' running statistics 92 % at their start (momentum
+        # 0.01), so at eval the activations are not normalized and the
+        # box decode's exp may overflow
+        n_dets = sum(len(a["score"]) for a in annos)
+        n_bad = sum(int((~np.isfinite(a["boxes_lidar"]).all(axis=-1)).sum()) for a in annos)
+        require("Car_3d/moderate_R40" in result and all(
+            np.isfinite(float(v)) for v in result.values()), "PointPillar KITTI result dict")
+        log = "".join(p.read_text() for p in res_dir.glob("log_eval_*.txt"))
+        infer = re.findall(r"Average infer time: ([0-9.]+) ms", log)
+        print(f"PointPillar test CLI (--infer_time, B=1): {test_s:.1f} s, {infer} ms a frame; "
+              f"detections per val frame {[len(a['score']) for a in annos]} ({n_bad} of "
+              f"{n_dets} with a non-finite box); official "
+              f"evaluation " + json.dumps({k: round(float(v), 4) for k, v in result.items()
+                                           if k.startswith(("recall/", "Car_3d"))}))
+        print(f"PointPillar CLIs' kernel launches: train {train_counts}, test {test_counts}")
+        for name in PP_KERNELS:
+            require(test_counts.get(name, 0) > 0, f"kernel {name} never launched by the "
+                    f"PointPillar test CLI")
+        for counts in (train_counts, test_counts):
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+
+    train_s = run_dist_script("dist_train.sh", 1, [
+        "--cfg_file", PP_CFG_REL, "--epochs", "1", "--batch_size", "4",
+        "--num_epochs_to_eval", "0", "--extra_tag", "dp1", *set_data], work)
+    dp_out = Path(work) / "output" / "kitti_models" / "pointpillar" / "dp1"
+    log, dp_counts = cli_log(dp_out, "train")
+    require("process group: backend nccl, world 1" in log,
+            "PointPillar dist_train.sh: not NCCL at world 1")
+    dp_losses, dp_ms = [], []
+    for line in (dp_out / "tensorboard" / "metrics.jsonl").read_text().splitlines():
+        m = json.loads(line)
+        if m["tag"] == "train/loss":
+            dp_losses.append(m["value"])
+        elif m["tag"] == "meta_data/batch_time":
+            dp_ms.append(1e3 * m["value"])
+    require(len(dp_losses) == kitti_run["steps"] and all(np.isfinite(dp_losses)),
+            f"PointPillar dist_train.sh losses {dp_losses}")
+    print(f"PointPillar train CLI through dist_train.sh (world 1, NCCL): {train_s:.1f} s; "
+          f"losses {[round(x, 4) for x in dp_losses]}; ms per iteration median after the "
+          f"first {statistics.median(dp_ms[1:]):.2f} ms; rank 0's launches {dp_counts}")
+    return launches
+
+
+def pp_export(cfg, model_predict, weights, dev, template, b1, work):
+    """Phase 12 (d): the b1 program through ``serving.export_serving``,
+    ``save_serving`` and ``load_serving``, bit-equal to the eager closure
+    on a LiDAR-like frame.  Returns the launches of the program's
+    request."""
+    import torch
+
+    from pdanet_tpu_torch import serving
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.ops import cuda_lib
+
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=dev)
+    model.load_state_dict(weights)
+    t0 = time.perf_counter()
+    exported = serving.export_serving(model, cfg.MODEL, serving.example_device_batch(cfg, 1, dev))
+    path = Path(work) / "pointpillar_b1.pt2"
+    nbytes = serving.save_serving(exported, path, serving.serving_meta(
+        cfg, PP_CFG_REL, b1, exported))
+    export_s = time.perf_counter() - t0
+    predict, _ = serving.load_serving(path)
+    cuda_lib.launches.clear()
+    got = predict(b1)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    want = model_predict(b1)
+    for k in want:
+        require(torch.equal(got[k], want[k]), f"PointPillar program: {k} differs from the "
+                f"eager closure's")
+    lat, enq = request_ms(predict, b1, reps=10)
+    print(f"PointPillar b1 export: {export_s:.1f} s, {nbytes / 1e6:.2f} MB, "
+          f"{len(exported.graph.nodes)} graph nodes; reloaded, bit-equal to the eager closure "
+          f"({int(got['pred_counts'][0])} detections), latency {lat:.2f} ms (enqueue "
+          f"{enq:.2f}); launches {launches}")
+    for name in PP_KERNELS:
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched in the PointPillar "
+                f"program")
+    return launches
+
+
+def pointpillar_phase(dev, work, kitti_run):
+    """Phase 12: tools/cfgs/kitti_models/pointpillar.yaml at full width
+    (432 x 496 pillars of 0.16 m, 40000 test / 16000 train pillars of 32
+    points, 64 BEV channels, 321408 anchors a frame), nothing cut.  (a)
+    serving, (b) training, (c) the CLIs, (d) export, (e) the IoU and NMS
+    kernels at K 4096.  Returns the launches of its main-path runs ((a)'s
+    requests, (c)'s CLIs, (d)'s program request, each counted from 0) and
+    (e)'s rows."""
+    import torch
+
+    from pdanet_tpu_torch.config import cfg_from_yaml_file
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+
+    cfg = cfg_from_yaml_file(str(Path(work) / PP_CFG_REL))
+    template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
+                               training=False, root_path=str(kitti_run["root"]))
+    t0 = time.perf_counter()
+    served, weights, predict, b1, out = pp_serve(cfg, dev, template)
+    print(f"phase 12 (a) serving: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pp_train(cfg, weights, dev, template)
+    print(f"phase 12 (b) training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    clis = pp_clis(work, kitti_run)
+    print(f"phase 12 (c) the CLIs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    program = pp_export(cfg, predict, weights, dev, template, b1, work)
+    print(f"phase 12 (d) export: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows = pp_kernels(dev, out, cfg.MODEL.POST_PROCESSING)
+    print(f"phase 12 (e) the kernels at K {cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE}:"
+          f" {time.perf_counter() - t0:.1f} s")
+    del predict, out
+    torch.cuda.empty_cache()
+    launches = {k: served.get(k, 0) + clis.get(k, 0) + program.get(k, 0)
+                for k in set(served) | set(clis) | set(program)}
+    return launches, rows
+
+
 def ptxas_report(log):
     """(kernel, registers, shared-memory bytes, spill bytes) per kernel of
     an ``nvcc -Xptxas -v`` log, names shortened from their mangled form
@@ -3387,7 +3947,7 @@ def main():
     ap.add_argument("--sweep", action="store_true", help="time FPS and the ball query in the "
                     "launch shapes their defaults were chosen from, instead of phases 3-7")
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
-                    "phases 3-11, every kernel on cuda:1 and up while cuda:0 is current, then "
+                    "phases 3-12, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3468,22 +4028,29 @@ def main():
         with tempfile.TemporaryDirectory(prefix="pdanet_export_") as work:
             exported = timed("10 (export and serve)", export_phase, dev, work)
         dp = timed("11 (data parallel)", dp_phase, dev, kitti_work, kitti_run, cfg, weights)
+        pp, pp_rows = timed("12 (PointPillar)", pointpillar_phase, dev, kitti_work, kitti_run)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
     # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9),
     # the exported programs' requests (phase 10) and the data-parallel runs
-    # (phase 11: its CLIs' processes, the one process and the two ranks),
-    # each counted from 0
-    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported, dp)
+    # (phase 11: its CLIs' processes, the one process and the two ranks)
+    # and the PointPillar runs (phase 12: the requests, the CLIs and the
+    # program's request), each counted from 0; the K-4096 rows count phase
+    # 12's alone
+    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported, dp, pp)
     launches = {name: sum(run.get(name, 0) for run in runs) for name in KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the main path")
         require(once.get(name, 0) > 0, f"kernel {name} never launched on the ONCE path")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **stats[name]}
-        for name, (src, rep) in KERNELS.items()]}))
+    K = PP_NMS_PRE
+    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launches[name], **stats[name]}
+            for name, (src, rep) in KERNELS.items()]
+    rows += [{"name": f"{name}_k{K}", "route": "cuda", "source": KERNELS[name][0],
+              "replaces": KERNELS[name][1], "launches": pp[name], **pp_rows[name]}
+             for name in PP_KERNELS]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

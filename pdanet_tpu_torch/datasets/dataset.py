@@ -3,14 +3,19 @@
 
 ``prepare_data`` (reference :102-158) composes PointFeatureEncoder ->
 DataAugmentor (train) -> DataProcessor and re-rolls empty-gt frames.
+``grid_size`` and ``voxel_size`` are the voxel processor's (None for a
+point pipeline), which ``models.build_network`` reads.
 
-``collate_batch`` (reference :160-229) collates frames to dense
-``(B, N, C)`` points (the fixed ``sample_points`` budget gives equal N) and
-zero-pads gt boxes to ``(B, MAX_GT_BOXES, 8)``, the static cap of the
-dataset config, as the JAX package does; KITTI's per-frame ``calib`` and
-``image_shape`` stay lists.  The ragged points, voxel and
-camera keys of the zoo's other families are not produced by the port's
-processors.
+``collate_batch`` (reference :160-229) collates frames to dense arrays as
+the JAX package does (JAX :145-180): points to ``(B, N, C)``, an exact
+stack when every frame has the same count (the ``sample_points`` budget of
+the point models) and otherwise zero-padded to the batch's largest, with
+``num_points``; the voxel triplet padded to the largest
+``max_number_of_voxels`` of the batch (coords with -1, voxels and counts
+with 0); gt boxes zero-padded to ``(B, MAX_GT_BOXES, 8)``, the static cap
+of the dataset config.  KITTI's per-frame ``calib`` and ``image_shape``
+stay lists.  The camera keys of the zoo's other families are not produced
+by the port's processors.
 """
 
 from collections import defaultdict
@@ -61,6 +66,8 @@ class DatasetTemplate:
             training=self.training,
             num_point_features=self.point_feature_encoder.num_point_features,
         )
+        self.grid_size = self.data_processor.grid_size
+        self.voxel_size = self.data_processor.voxel_size
         self.total_epochs = 0
         self._merge_all_iters_to_one_epoch = False
 
@@ -126,7 +133,8 @@ class DatasetTemplate:
 
     @staticmethod
     def collate_batch_static(batch_list, max_gt_cap=None):
-        """Dense collate: (B, N, C) points + (B, M, 8) padded gt.
+        """Dense collate: (B, N, C) points, the (B, V, ...) voxel triplet and
+        (B, M, 8) padded gt.
 
         ``max_gt_cap`` pins the gt axis to a per-config constant, so every
         batch of an epoch has one shape.  Frames with more than
@@ -137,11 +145,27 @@ class DatasetTemplate:
                 data_dict[key].append(val)
         batch_size = len(batch_list)
         ret = {}
+        # the voxel budget: every frame padded to the split's cap
+        v_max = max(data_dict.pop("max_number_of_voxels", [0]))
         for key, val in data_dict.items():
-            if key == "points":
-                # the point models take a fixed budget per frame (the
-                # sample_points processor): frames of other sizes raise
-                ret[key] = np.stack(val, axis=0).astype(np.float32)
+            if key in ("voxels", "voxel_coords", "voxel_num_points"):
+                fill = -1 if key == "voxel_coords" else 0
+                ret[key] = np.stack([
+                    np.pad(v, [(0, v_max - v.shape[0])] + [(0, 0)] * (v.ndim - 1),
+                           constant_values=fill) for v in val], axis=0)
+            elif key == "points":
+                lens = {v.shape[0] for v in val}
+                if len(lens) == 1:
+                    # the point models' fixed budget: an exact stack, so no
+                    # padding ever reaches FPS or BatchNorm
+                    ret[key] = np.stack(val, axis=0).astype(np.float32)
+                else:
+                    # ragged frames (voxel pipelines sample no budget):
+                    # zero-padded; the voxel models read the voxels
+                    n_max = max(lens)
+                    ret[key] = np.stack([np.pad(v, [(0, n_max - v.shape[0]), (0, 0)])
+                                         for v in val], axis=0).astype(np.float32)
+                    ret["num_points"] = np.array([v.shape[0] for v in val], dtype=np.int32)
             elif key == "gt_boxes":
                 max_gt = max([len(x) for x in val]) if val else 0
                 max_gt = max(max_gt, 1)

@@ -1,10 +1,14 @@
-"""Host data processor (numpy): the point processors of
-``pdanet_tpu/datasets/processor/data_processor.py`` that the PDA-SSD yamls
-name -- ``mask_points_and_boxes_outside_range`` (reference :78-91),
-``shuffle_points`` (:93-103), ``sample_points`` (:187-217, the near/far
-fixed budget that gives the model its static point count) and
-``sort_points`` (an x-sort with no reference counterpart).  The voxel and
-depth-map processors belong to the zoo's other families and raise.
+"""Host data processor (numpy): the processors of
+``pdanet_tpu/datasets/processor/data_processor.py`` that the PDA-SSD and
+PointPillar yamls name -- ``mask_points_and_boxes_outside_range``
+(reference :78-91), ``shuffle_points`` (:93-103), ``sample_points``
+(:187-217, the near/far fixed budget that gives a point model its static
+point count), ``sort_points`` (an x-sort with no reference counterpart),
+and the voxel grid: ``transform_points_to_voxels`` (JAX :156-235, its
+numpy grid-hash path; the JAX package's g++ voxelizer, which
+``tests/test_native.py`` holds equal to it, is ROADMAP queue 1 item 9),
+``calculate_grid_size`` and ``transform_points_to_voxels_placeholder``.
+The other processors belong to the zoo's other families and raise.
 """
 
 from functools import partial
@@ -13,8 +17,9 @@ import numpy as np
 
 from ...utils import box_utils
 
-POINT_PROCESSORS = ("mask_points_and_boxes_outside_range", "shuffle_points",
-                    "sort_points", "sample_points")
+PROCESSORS = ("mask_points_and_boxes_outside_range", "shuffle_points", "sort_points",
+              "sample_points", "calculate_grid_size", "transform_points_to_voxels_placeholder",
+              "transform_points_to_voxels")
 
 
 class DataProcessor:
@@ -24,9 +29,10 @@ class DataProcessor:
         self.training = training
         self.num_point_features = num_point_features
         self.mode = "train" if training else "test"
+        self.grid_size = self.voxel_size = None
         self.data_processor_queue = []
         for cur_cfg in processor_configs:
-            if cur_cfg.NAME not in POINT_PROCESSORS:
+            if cur_cfg.NAME not in PROCESSORS:
                 raise NotImplementedError(
                     f"data processor {cur_cfg.NAME} is ROADMAP queue 1 item 9")
             self.data_processor_queue.append(
@@ -114,6 +120,76 @@ class DataProcessor:
                 choice = np.concatenate((choice, extra_choice), axis=0)
             np.random.shuffle(choice)
         data_dict["points"] = points[choice]
+        return data_dict
+
+    def _set_grid(self, config):
+        grid_size = (self.point_cloud_range[3:6] - self.point_cloud_range[0:3]) \
+            / np.array(config.VOXEL_SIZE)
+        self.grid_size = np.round(grid_size).astype(np.int64)
+        self.voxel_size = config.VOXEL_SIZE
+
+    def calculate_grid_size(self, data_dict=None, config=None):
+        if data_dict is None:
+            self._set_grid(config)
+            return partial(self.calculate_grid_size, config=config)
+        return data_dict
+
+    def transform_points_to_voxels_placeholder(self, data_dict=None, config=None):
+        if data_dict is None:
+            self._set_grid(config)
+            return partial(self.transform_points_to_voxels_placeholder, config=config)
+        return data_dict
+
+    def transform_points_to_voxels(self, data_dict=None, config=None):
+        """Voxelization by a numpy grid hash: voxels in order of their first
+        point, points in scan order within a voxel, at most
+        ``MAX_POINTS_PER_VOXEL`` points a voxel and ``MAX_NUMBER_OF_VOXELS``
+        voxels (of this split) a frame -- what the reference's spconv CPU
+        voxelizer gives (data_processor.py:115-143).  Adds ``voxels``
+        (V, P, C), ``voxel_coords`` (V, 3) zyx, ``voxel_num_points`` (V,)
+        and the split's cap ``max_number_of_voxels``, which the collate
+        pads to."""
+        if data_dict is None:
+            self._set_grid(config)
+            return partial(self.transform_points_to_voxels, config=config)
+
+        points = data_dict["points"]
+        voxel_size = np.asarray(config.VOXEL_SIZE, dtype=np.float32)
+        max_pts = int(config.MAX_POINTS_PER_VOXEL)
+        max_voxels = int(config.MAX_NUMBER_OF_VOXELS[self.mode])
+        pcr = self.point_cloud_range
+
+        coords = np.floor((points[:, 0:3] - pcr[0:3]) / voxel_size).astype(np.int64)
+        grid = self.grid_size
+        inside = ((coords >= 0).all(axis=1) & (coords[:, 0] < grid[0])
+                  & (coords[:, 1] < grid[1]) & (coords[:, 2] < grid[2]))
+        points = points[inside]
+        coords = coords[inside]
+        # voxel id in zyx scan order (reference coords are (z, y, x))
+        vid = (coords[:, 2] * grid[1] + coords[:, 1]) * grid[0] + coords[:, 0]
+        _, first_idx, inverse = np.unique(vid, return_index=True, return_inverse=True)
+        order = np.argsort(np.argsort(first_idx))  # rank by first appearance
+        slot = order[inverse]
+        num_voxels = min(len(first_idx), max_voxels)
+
+        # rank of each point within its voxel, in scan order
+        order_pts = np.argsort(slot, kind="stable")
+        sorted_slot = slot[order_pts]
+        boundaries = np.concatenate([[0], np.cumsum(np.bincount(sorted_slot))])
+        rank = np.empty(len(points), dtype=np.int64)
+        rank[order_pts] = np.arange(len(points)) - boundaries[sorted_slot]
+
+        keep = (slot < num_voxels) & (rank < max_pts)
+        voxels = np.zeros((num_voxels, max_pts, points.shape[1]), dtype=np.float32)
+        voxels[slot[keep], rank[keep]] = points[keep]
+        counts = np.bincount(slot, minlength=num_voxels)[:num_voxels]
+        # first_idx is ordered by voxel id; reorder to first-appearance slots
+        voxel_coords = coords[first_idx[np.argsort(order)]][:num_voxels][:, ::-1]
+
+        data_dict["voxels"] = voxels
+        data_dict["voxel_coords"] = voxel_coords.astype(np.int32)
+        data_dict["voxel_num_points"] = np.minimum(counts, max_pts).astype(np.int32)
+        data_dict["max_number_of_voxels"] = max_voxels
         return data_dict
 
     def forward(self, data_dict):

@@ -78,7 +78,7 @@ def eval_one_epoch(cfg, model, dataloader, epoch_id, logger, result_dir,
     num_iters = len(dataloader)
 
     for i, batch_dict in enumerate(dataloader):
-        dev_batch = select_device_batch(batch_dict, device)
+        dev_batch = select_device_batch(batch_dict, device, model)
         gt_boxes = dev_batch.pop("gt_boxes", None)
         t0 = time.time()
         pred = predict(dev_batch)

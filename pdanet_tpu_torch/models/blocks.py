@@ -1,7 +1,8 @@
 """Shared neural blocks (channels-last), for training and inference.
 
-Counterparts of ``pdanet_tpu/models/blocks.py`` and
-``pdanet_tpu/models/norm.py``.  Attribute names follow the flax module and
+Counterparts of ``pdanet_tpu/models/blocks.py``,
+``pdanet_tpu/models/norm.py`` and flax's ``Conv`` / ``ConvTranspose`` on
+channels-last maps.  Attribute names follow the flax module and
 parameter names (``layer0.dense``, ``bn``, ``self_attn.query`` ...), so a
 JAX variable tree maps onto the state_dict mechanically
 (``utils/jax_weights.py``).  ``Module.training`` is the JAX package's
@@ -70,15 +71,19 @@ class Dense(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the trailing channel axis, eps 1e-5, with the JAX
-    package's torch running-statistics semantics (``models/norm.py``).
+    """BatchNorm over the trailing channel axis with the JAX package's torch
+    running-statistics semantics (``models/norm.py``).  ``eps`` and
+    ``momentum`` are flax's ``epsilon`` and ``momentum``: the IASSD blocks
+    keep the defaults 1e-5 and 0.9, PointPillar's VFE and BEV backbone
+    take 1e-3 and 0.99 (torch momentum 0.01).
 
     In training mode the statistics come over every leading axis (for a
-    (B, M, K, C) input: B, M and K).  The variance is two-pass and biased
+    (B, M, K, C) input: B, M and K; for a (B, H, W, C) map: B, H and W,
+    empty cells included).  The variance is two-pass and biased
     for normalizing, ``mean((x - mean)^2)``; ``running_var`` takes the
     unbiased ``var * n / (n - 1)``, n the number of reduced elements.  The
-    running statistics move by ``0.9 * old + 0.1 * new`` (flax momentum
-    0.9), in place and outside autograd.  At eval the running statistics
+    running statistics move by ``momentum * old + (1 - momentum) * new``,
+    in place and outside autograd.  At eval the running statistics
     normalize.  Both compute in float32 (float64 for float64 input):
     ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
 
@@ -90,9 +95,10 @@ class BatchNorm(nn.Module):
     ranks' terms; every rank's running statistics stay the same.
     """
 
-    def __init__(self, channels, eps=1e-5, dtype=None):
+    def __init__(self, channels, eps=1e-5, momentum=BN_MOMENTUM, dtype=None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -120,10 +126,9 @@ class BatchNorm(nn.Module):
                 bessel = n / max(n - 1, 1)
             with torch.no_grad():
                 unbiased = var * bessel
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
-                                        + (1 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var
-                                       + (1 - BN_MOMENTUM) * unbiased)
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * unbiased)
         else:
             centred = xc - self.running_mean
             var = self.running_var
@@ -150,6 +155,65 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.to(ct), self.weight.shape, self.weight, self.bias,
                          self.eps)
         return y.to(norm_dtype(self.compute_dtype, self.training) or ct)
+
+
+def _same_padding(size, k, s):
+    """flax's 'SAME' padding of one axis: (before, after)."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Conv2d):
+    """flax ``nn.Conv`` over a channels-last (B, H, W, C) map: the kernel
+    (kh, kw, in, out) is ``weight`` (out, in, kh, kw).  ``padding`` is
+    flax's: ``"SAME"`` or one (before, after) pair for both axes.  The map
+    reaches ``F.conv2d`` as a permuted view, NCHW in shape and channels-last
+    in memory, and comes back the same way, so no copy is made on either
+    side.  Computes in the input's and weight's promoted dtype."""
+
+    def __init__(self, in_features, features, kernel_size, stride=1, padding="SAME",
+                 bias=True):
+        super().__init__(in_features, features, kernel_size, stride=stride, bias=bias)
+        self.flax_padding = padding
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        x = x.to(dt).permute(0, 3, 1, 2)
+        k, s = self.kernel_size[0], self.stride[0]
+        if self.flax_padding == "SAME":
+            (t, b), (l, r) = (_same_padding(n, k, s) for n in x.shape[2:])
+        else:
+            (t, b), (l, r) = (self.flax_padding,) * 2
+        if t == b and l == r:
+            pad = (t, l)
+        else:
+            x, pad = F.pad(x, (l, r, t, b)), 0
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x, self.weight.to(dt), bias, self.stride, pad)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose`` (``transpose_kernel=False``, 'SAME') over
+    a channels-last map, for a kernel as large as its stride (the BEV
+    backbone's upsampling): every input cell paints its own s x s patch.
+    flax applies the kernel unflipped and ``F.conv_transpose2d`` flipped,
+    so ``weight`` (in, out, kh, kw) is the flax kernel (kh, kw, in, out)
+    flipped in both spatial axes (``utils/jax_weights.py``)."""
+
+    def __init__(self, in_features, features, kernel_size, stride, bias=True):
+        if kernel_size != stride:
+            raise NotImplementedError(
+                f"ConvTranspose: kernel {kernel_size} != stride {stride} (flax's SAME "
+                f"padding then overlaps patches)")
+        super().__init__(in_features, features, kernel_size, stride=stride, bias=bias)
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
+                               self.stride)
+        return y.permute(0, 2, 3, 1)
 
 
 class DenseBNReLU(nn.Module):
@@ -251,14 +315,17 @@ class TransformerEncoderLayerPreNorm(nn.Module):
 
 @torch.no_grad()
 def init_random_weights(model, seed):
-    """Seeded random weights in the flax initializers' spirit: Dense
-    kernels lecun-normal, biases zero; BatchNorm running statistics drawn
-    around (0, 1) so that eval-mode normalization is not the identity."""
+    """Seeded random weights in the flax initializers' spirit: Dense and
+    convolution kernels lecun-normal, biases zero; BatchNorm running
+    statistics drawn around (0, 1) so that eval-mode normalization is not
+    the identity."""
     g = torch.Generator().manual_seed(int(seed))
     for mod in model.modules():
-        if isinstance(mod, Dense):
+        if isinstance(mod, (Dense, Conv, ConvTranspose)):
             w = torch.randn(mod.weight.shape, generator=g)
-            mod.weight.copy_(w / math.sqrt(mod.in_features))
+            fan_in = (mod.in_features if isinstance(mod, Dense)
+                      else mod.in_channels * math.prod(mod.kernel_size))
+            mod.weight.copy_(w / math.sqrt(fan_in))
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, BatchNorm):

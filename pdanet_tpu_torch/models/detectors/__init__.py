@@ -1,28 +1,59 @@
-"""Detector registry (``pdanet_tpu/models/detectors/__init__.py:74-97``).
+"""Detector registry (``pdanet_tpu/models/detectors/__init__.py``).
 
-Only IASSD (PDA-SSD) is ported; the other detectors of the zoo are ROADMAP
-queue 1 item 9.
+IASSD (PDA-SSD) and PointPillar are ported; the other detectors of the
+zoo are ROADMAP queue 1 item 9.
 """
 
 import torch
 
 from .iassd import IASSD, post_processing
+from .pointpillar import PointPillar
 
-__all__ = {"IASSD": IASSD}
+__all__ = {"IASSD": IASSD, "PointPillar": PointPillar}
+
+#: voxel-pipeline detectors, which take their grid geometry from the dataset
+VOXEL_DETECTORS = ("PointPillar",)
 
 
 def get_post_processor(name):
-    """fn(forward_out, model_cfg) -> fixed-shape pred dict."""
-    if name != "IASSD":
+    """fn(forward_out, model_cfg) -> fixed-shape pred dict: the
+    sigmoid + score sort + rotated NMS of ``iassd.post_processing``
+    (detector3d_template.py:179-285) for every ported detector."""
+    if name not in __all__:
         raise NotImplementedError(f"{name} is ROADMAP queue 1 item 9")
     return lambda out, mcfg: post_processing(
         out["batch_cls_preds"], out["batch_box_preds"], mcfg.POST_PROCESSING)
 
 
-def build_network(model_cfg, num_class, input_channels=4, device=None):
+def resolve_detector_name(model_cfg):
+    """The reference overloads MODEL.NAME 'PointRCNN' for PartA2-free
+    (PartA2_free.yaml wires it with a UNetV2 voxel backbone): the class
+    that name resolves to."""
+    name = model_cfg.NAME
+    if name == "PointRCNN" and model_cfg.get("BACKBONE_3D", {}).get("NAME") == "UNetV2":
+        return "PartA2Free"
+    return name
+
+
+def build_network(model_cfg, num_class, dataset=None, input_channels=4, device=None,
+                  **kwargs):
     """Build the detector named by ``model_cfg.NAME`` on ``device``: the
-    current CUDA device unless the caller names one (``device="cpu"``)."""
-    if model_cfg.NAME not in __all__:
+    current CUDA device unless the caller names one (``device="cpu"``).
+
+    With a ``dataset`` (JAX :81-97), the input channels are its point
+    encoder's and a voxel detector takes the grid size, voxel size, point
+    cloud range and class names from it, where ``kwargs`` does not give
+    them."""
+    name = resolve_detector_name(model_cfg)
+    if name not in __all__:
         raise NotImplementedError(f"{model_cfg.NAME} is ROADMAP queue 1 item 9")
+    if dataset is not None:
+        input_channels = dataset.point_feature_encoder.num_point_features
+        if name in VOXEL_DETECTORS:
+            kwargs.setdefault("grid_size", tuple(int(x) for x in dataset.grid_size))
+            kwargs.setdefault("voxel_size", tuple(dataset.voxel_size))
+            kwargs.setdefault("point_cloud_range",
+                              tuple(float(x) for x in dataset.point_cloud_range))
+            kwargs.setdefault("class_names", tuple(dataset.class_names))
     device = torch.device("cuda") if device is None else torch.device(device)
-    return __all__[model_cfg.NAME](model_cfg, num_class, input_channels).to(device)
+    return __all__[name](model_cfg, num_class, input_channels, **kwargs).to(device)

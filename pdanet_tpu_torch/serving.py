@@ -9,7 +9,8 @@ pred_counts`` dict.
 
 ``export_serving`` traces the same forward and post-processing with
 ``torch.export`` into one ``ExportedProgram``, the weights inside it, at
-the static shapes of ``serving_input_spec``; ``save_serving`` writes it
+the static shapes of ``serving_input_spec`` (the point cloud of a point
+detector, the voxel triplet of a voxel one); ``save_serving`` writes it
 (``.pt2``) with a JSON sidecar (the I/O contract, the test split's
 x-sort and the device), and ``load_serving`` reads it back.  The kernels
 are ``torch.library`` custom ops (``pdanet_tpu_torch.ops``), so the
@@ -51,35 +52,64 @@ def _test_budget(value):
 
 
 def serving_input_spec(cfg, batch_size):
-    """``{"points": ((B, N, C), torch.float32)}``: the device batch of a
-    point-cloud detector, N the test split's ``sample_points`` budget."""
+    """``{key: (shape, dtype)}`` of the device batch (JAX :65-122): the
+    voxel triplet for a voxelizing pipeline, ``voxels`` (B, V, P, C),
+    ``voxel_coords`` (B, V, 3) and ``voxel_num_points`` (B, V), V and P the
+    test split's ``MAX_NUMBER_OF_VOXELS`` and ``MAX_POINTS_PER_VOXEL``;
+    else ``points`` (B, N, C), N the test split's ``sample_points``
+    budget."""
     data_cfg = cfg.DATA_CONFIG
     procs = _processor_map(data_cfg)
+    num_feats = len(data_cfg.POINT_FEATURE_ENCODING["used_feature_list"])
     if "transform_points_to_voxels" in procs:
-        raise NotImplementedError("serving a voxel pipeline (voxels, voxel_coords, "
-                                  "voxel_num_points) is ROADMAP queue 1 item 9")
+        p = procs["transform_points_to_voxels"]
+        v = _test_budget(p["MAX_NUMBER_OF_VOXELS"])
+        return {"voxels": ((batch_size, v, int(p["MAX_POINTS_PER_VOXEL"]), num_feats),
+                           torch.float32),
+                "voxel_coords": ((batch_size, v, 3), torch.int32),
+                "voxel_num_points": ((batch_size, v), torch.int32)}
     if "sample_points" not in procs:
         raise ValueError(
             "serving export of a model whose device batch carries 'points' requires a "
             "`sample_points` DATA_PROCESSOR entry: its NUM_POINTS budget is what fixes "
             "the static (B, N, C) point-cloud shape the program is traced at")
     n = _test_budget(procs["sample_points"]["NUM_POINTS"])
-    num_feats = len(data_cfg.POINT_FEATURE_ENCODING["used_feature_list"])
     return {"points": ((batch_size, n, num_feats), torch.float32)}
 
 
 def example_device_batch(cfg, batch_size, device, seed=0):
-    """Synthetic device batch at the serving shapes, coordinates uniform
-    over ``POINT_CLOUD_RANGE`` and x-sorted when the pipeline sorts."""
-    (shape, dtype), = serving_input_spec(cfg, batch_size).values()
+    """Synthetic device batch at the serving shapes (JAX :125-168):
+    coordinates uniform over ``POINT_CLOUD_RANGE``, points x-sorted when
+    the pipeline sorts; full voxels at distinct random cells of the grid."""
+    spec = serving_input_spec(cfg, batch_size)
     pc_range = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, np.float32)
     rs = np.random.RandomState(seed)
-    pts = np.zeros(shape, np.float32)
-    pts[..., :3] = rs.uniform(pc_range[:3], pc_range[3:6], shape[:2] + (3,))
-    if test_split_sorts_points(cfg.DATA_CONFIG):
-        order = np.argsort(pts[..., 0], axis=1)
-        pts = np.take_along_axis(pts, order[..., None], axis=1)
-    return {"points": torch.from_numpy(pts).to(device=device, dtype=dtype)}
+    batch = {}
+    for key, (shape, dtype) in spec.items():
+        if key == "points":
+            arr = np.zeros(shape, np.float32)
+            arr[..., :3] = rs.uniform(pc_range[:3], pc_range[3:6], shape[:2] + (3,))
+            if test_split_sorts_points(cfg.DATA_CONFIG):
+                order = np.argsort(arr[..., 0], axis=1)
+                arr = np.take_along_axis(arr, order[..., None], axis=1)
+        elif key == "voxels":
+            arr = np.zeros(shape, np.float32)
+            arr[..., :3] = rs.uniform(pc_range[:3], pc_range[3:6], shape[:3] + (3,))
+        elif key == "voxel_coords":
+            p = _processor_map(cfg.DATA_CONFIG)["transform_points_to_voxels"]
+            grid = np.round((pc_range[3:6] - pc_range[:3])
+                            / np.asarray(p["VOXEL_SIZE"], np.float32)).astype(int)
+            # distinct cells, as the voxelizer gives: no two pillars of a
+            # frame land on one cell of the scatter
+            cells = np.stack([rs.choice(int(np.prod(grid)), shape[1], replace=False)
+                              for _ in range(shape[0])])
+            z, rest = np.divmod(cells, grid[1] * grid[0])
+            arr = np.stack([z, *np.divmod(rest, grid[0])], axis=-1)
+        else:  # voxel_num_points
+            p = _processor_map(cfg.DATA_CONFIG)["transform_points_to_voxels"]
+            arr = np.full(shape, int(p["MAX_POINTS_PER_VOXEL"]))
+        batch[key] = torch.from_numpy(arr).to(device=device, dtype=dtype)
+    return batch
 
 
 class _Predict(nn.Module):
@@ -139,18 +169,18 @@ def serving_meta(cfg, cfg_file, example_batch, exported):
     out_node = next(n for n in exported.graph.nodes if n.op == "output")
     vals = [a.meta["val"] for a in out_node.args[0]]
     outputs = torch.utils._pytree.tree_unflatten(vals, exported.call_spec.out_spec)
-    points = example_batch["points"]
+    first = next(iter(example_batch.values()))
     return {
         "cfg_file": str(cfg_file),
         "model": cfg.MODEL.NAME,
         "class_names": list(cfg.CLASS_NAMES),
-        "batch_size": int(points.shape[0]),
+        "batch_size": int(first.shape[0]),
         "inputs": {k: {"shape": list(v.shape), "dtype": _dtype_name(v.dtype)}
                    for k, v in example_batch.items()},
         "outputs": {k: {"shape": list(v.shape), "dtype": _dtype_name(v.dtype)}
                     for k, v in outputs.items()},
         "preprocess": {"sort_points": test_split_sorts_points(cfg.DATA_CONFIG)},
-        "device": str(points.device),
+        "device": str(first.device),
         "torch_version": torch.__version__,
     }
 

@@ -28,6 +28,7 @@ import torch
 
 from .. import serving
 from ..config import cfg_from_list, cfg_from_yaml_file
+from ..datasets.dataset import DatasetTemplate
 from ..models import build_network
 from ..models.blocks import init_random_weights
 from ..train import load_model_state
@@ -79,8 +80,12 @@ def main(argv=None):
               f"counts per frame {pred['pred_counts'].tolist()}")
         return pred
 
-    model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
-                          input_channels=batch["points"].shape[-1], device=device)
+    # the test split's pipeline, for the point features and a voxel
+    # detector's grid (JAX tools/export.py:82-88)
+    template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
+                               training=False, root_path=".")
+    model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset=template,
+                          device=device)
     if args.ckpt is not None:
         load_model_state(model, args.ckpt)
         print(f"loaded checkpoint {args.ckpt}")

@@ -8,8 +8,10 @@ writing one JSON line of detections per frame (to ``--out`` or stdout)
 with scores at or above ``--score_thresh``.  The preprocessing is the
 sidecar's: each cloud is brought to its point budget and x-sorted when
 the test split sorts (``load_cloud``); a last batch short of frames is
-padded with zero clouds.  The frames per second, host I/O included, go
-to stderr.  No config or model code is read.
+padded with zero clouds.  A program that takes the voxel triplet (a voxel
+detector's) is refused, as the JAX package's serve CLI takes point clouds
+only.  The frames per second, host I/O included, go to stderr.  No config
+or model code is read.
 
 Usage:
     python -m pdanet_tpu_torch.tools.serve --artifact PDA-SSD_b1.pt2 \\
@@ -82,6 +84,9 @@ def main(argv=None):
     args = parse_args(argv)
     predict, _ = load_serving(args.artifact)  # raises without the sidecar
     meta = json.loads(Path(args.artifact + ".json").read_text())
+    if "points" not in meta["inputs"]:
+        raise SystemExit(f"{args.artifact} takes {sorted(meta['inputs'])}: the serve CLI feeds "
+                         f"point clouds to a point detector's program only")
     B, n_points, num_feats = meta["inputs"]["points"]["shape"]
     sort_points = meta["preprocess"]["sort_points"]
     device = torch.device(meta["device"])

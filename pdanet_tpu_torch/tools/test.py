@@ -159,9 +159,8 @@ def _test(args, cfg, device, rank, world):
         test_set, test_loader, _ = build_dataloader(
             dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES, batch_size=batch_size,
             training=False, logger=logger, workers=args.workers, rank=rank, world=world)
-        model = build_network(
-            cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
-            input_channels=test_set.point_feature_encoder.num_point_features, device=device)
+        model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset=test_set,
+                              device=device)
         if not args.eval_all:
             result = eval_single_ckpt(cfg, args, model, test_loader, eval_output_dir, logger,
                                       epoch_id, args.ckpt, device)

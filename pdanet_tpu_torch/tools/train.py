@@ -143,9 +143,8 @@ def _train(args, cfg, device, rank, world):
                                f"batch ({batch_size * world}); reduce --batch_size")
         # the initial weights are seeded, as the JAX package's PRNGKey(0)
         torch.manual_seed(0)
-        model = build_network(
-            cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
-            input_channels=train_set.point_feature_encoder.num_point_features, device=device)
+        model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset=train_set,
+                              device=device)
         optimizer, schedule = build_optimizer_and_schedule(
             model, cfg.OPTIMIZATION, len(train_loader), epochs)
 

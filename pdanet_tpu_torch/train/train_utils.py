@@ -40,15 +40,26 @@ class CheckpointError(RuntimeError):
     """A checkpoint file is unreadable, truncated, or fails its checksum."""
 
 
-def select_device_batch(batch, device):
-    """The keys a point detector consumes, as tensors on ``device``."""
-    return {k: torch.as_tensor(batch[k]).to(device) for k in ("points", "gt_boxes")
-            if k in batch}
+POINT_KEYS = ("points", "gt_boxes")
+VOXEL_KEYS = ("voxels", "voxel_coords", "voxel_num_points", "gt_boxes")
+
+
+def select_device_batch(batch, device, model=None):
+    """The keys the detector consumes, as tensors on ``device`` (JAX
+    ``train_utils.py:27-39``): the model's ``DEVICE_BATCH_KEYS`` where it
+    declares them, else the voxel triplet when the batch has voxels and the
+    points when not, with the gt boxes where the batch has them."""
+    keys = getattr(model, "DEVICE_BATCH_KEYS", None)
+    if keys is None:
+        keys = VOXEL_KEYS if "voxels" in batch else POINT_KEYS
+    return {k: torch.as_tensor(batch[k]).to(device) for k in keys if k in batch}
 
 
 def make_train_step(model, optimizer, schedule):
     """``train_step(batch) -> (loss, tb)``: one training iteration on a
-    device batch ``{"points": (B, N, 3 + C), "gt_boxes": (B, M, 8)}``.
+    device batch (:func:`select_device_batch`: ``{"points": (B, N, 3 + C),
+    "gt_boxes": (B, M, 8)}`` for a point detector, the voxel triplet and
+    ``gt_boxes`` for a voxel one).
 
     Update *t* takes the learning rate ``schedule.lr(t)`` and, for Adam,
     b1 ``schedule.mom(t)``, t the optimizer's update count.  The returned
@@ -90,7 +101,7 @@ def _global_scalars(loss, tb):
 
 
 def train_one_epoch(train_step, loader, device, accumulated_iter=0, logger=None,
-                    log_every=50, tb_log=None, step_hook=None):
+                    log_every=50, tb_log=None, step_hook=None, model=None):
     """Run ``train_step`` over every batch of ``loader``.  Returns the
     global iteration count after the epoch.  The loss is read back to the
     host on logging iterations, and on every iteration when ``tb_log`` (a
@@ -102,7 +113,7 @@ def train_one_epoch(train_step, loader, device, accumulated_iter=0, logger=None,
     end = time.time()
     for batch in loader:
         data_time = time.time() - end
-        loss, tb = train_step(select_device_batch(batch, device))
+        loss, tb = train_step(select_device_batch(batch, device, model))
         accumulated_iter += 1
         log_iter = accumulated_iter % log_every == 0
         if tb_log is not None:
@@ -136,7 +147,8 @@ def train_model(model, optimizer, schedule, train_loader, start_epoch, total_epo
     for cur_epoch in range(start_epoch, total_epochs):
         train_loader.set_epoch(cur_epoch)
         accumulated_iter = train_one_epoch(train_step, train_loader, device, accumulated_iter,
-                                           logger=logger, tb_log=tb_log, step_hook=step_hook)
+                                           logger=logger, tb_log=tb_log, step_hook=step_hook,
+                                           model=model)
         trained_epoch = cur_epoch + 1
         if trained_epoch % ckpt_save_interval == 0:
             if parallel.rank() == 0:

@@ -1,8 +1,9 @@
-"""Box coder: encode (training targets) and decode.
+"""Box coders: encode (training targets) and decode.
 
-Counterpart of ``pdanet_tpu/utils/box_coder_utils.py:21-110``
-(``PointResidual_BinOri_Coder``): xyz/size residuals against per-class
-mean sizes plus a binned orientation with an in-bin residual.
+Counterparts of ``pdanet_tpu/utils/box_coder_utils.py``:
+``PointResidual_BinOri_Coder`` (:21-110, the point head's: xyz/size
+residuals against per-class mean sizes plus a binned orientation with an
+in-bin residual) and ``ResidualCoder`` (:172-237, the anchor head's).
 """
 
 import numpy as np
@@ -84,8 +85,61 @@ class PointResidual_BinOri_Coder:
                          dim=-1)
 
 
+class ResidualCoder:
+    """Anchor-based 7-dim residual coder (reference :5-76): xy residuals
+    normalized by the anchor BEV diagonal, log size ratios, the raw angle
+    residual (the anchor-head loss applies the sin difference)."""
+
+    def __init__(self, code_size=7, encode_angle_by_sincos=False, **kwargs):
+        self.code_size = code_size
+        self.encode_angle_by_sincos = encode_angle_by_sincos
+        if self.encode_angle_by_sincos:
+            self.code_size += 1
+
+    def encode(self, boxes, anchors):
+        """(..., 7+) gt boxes x (..., 7+) anchors -> (..., code_size)."""
+        anchors_d = torch.clamp(anchors[..., 3:6], min=1e-5)
+        boxes_d = torch.clamp(boxes[..., 3:6], min=1e-5)
+        diagonal = torch.sqrt(anchors_d[..., 0] ** 2 + anchors_d[..., 1] ** 2)
+        xt = (boxes[..., 0] - anchors[..., 0]) / diagonal
+        yt = (boxes[..., 1] - anchors[..., 1]) / diagonal
+        zt = (boxes[..., 2] - anchors[..., 2]) / anchors_d[..., 2]
+        dt = torch.log(boxes_d / anchors_d)
+        if self.encode_angle_by_sincos:
+            tail = [torch.cos(boxes[..., 6]) - torch.cos(anchors[..., 6]),
+                    torch.sin(boxes[..., 6]) - torch.sin(anchors[..., 6])]
+        else:
+            tail = [boxes[..., 6] - anchors[..., 6]]
+        extras = [boxes[..., 7 + i] - anchors[..., 7 + i] for i in range(boxes.shape[-1] - 7)]
+        return torch.cat([torch.stack([xt, yt, zt], -1), dt, torch.stack(tail, -1)]
+                         + ([torch.stack(extras, -1)] if extras else []), dim=-1)
+
+    def decode(self, encodings, anchors):
+        anchors_d = anchors[..., 3:6]
+        diagonal = torch.sqrt(anchors_d[..., 0] ** 2 + anchors_d[..., 1] ** 2)
+        xg = encodings[..., 0] * diagonal + anchors[..., 0]
+        yg = encodings[..., 1] * diagonal + anchors[..., 1]
+        zg = encodings[..., 2] * anchors_d[..., 2] + anchors[..., 2]
+        dg = torch.exp(encodings[..., 3:6]) * anchors_d
+        if self.encode_angle_by_sincos:
+            rg = torch.atan2(encodings[..., 7] + torch.sin(anchors[..., 6]),
+                             encodings[..., 6] + torch.cos(anchors[..., 6]))
+            rest = 8
+        else:
+            rg = encodings[..., 6] + anchors[..., 6]
+            rest = 7
+        extras = [encodings[..., rest + i] + anchors[..., 7 + i]
+                  for i in range(anchors.shape[-1] - 7)]
+        return torch.cat([torch.stack([xg, yg, zg], -1), dg, rg[..., None]]
+                         + ([torch.stack(extras, -1)] if extras else []), dim=-1)
+
+
+BOX_CODERS = {"PointResidual_BinOri_Coder": PointResidual_BinOri_Coder,
+              "ResidualCoder": ResidualCoder}
+
+
 def build_box_coder(name, config):
-    if name != "PointResidual_BinOri_Coder":
+    if name not in BOX_CODERS:
         raise NotImplementedError(
             f"box coder {name} comes with the rest of the zoo (ROADMAP queue 1 item 9)")
-    return PointResidual_BinOri_Coder(**config)
+    return BOX_CODERS[name](**config)

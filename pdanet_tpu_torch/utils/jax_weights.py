@@ -16,6 +16,11 @@ attention q/k/v ``kernel`` (D, H,  ``weight``: reshaped to (D, H*hd),
 hd), ``bias`` (H, hd)              transposed; ``bias`` (H*hd,)
 attention ``out`` ``kernel`` (H,   ``weight``: reshaped to (H*hd, D),
 hd, D)                             transposed
+Conv ``kernel`` (kh, kw, in, out)  ``weight`` (out, in, kh, kw)
+ConvTranspose ``kernel`` (kh, kw,  ``weight`` (in, out, kh, kw), flipped
+in, out)                           in both spatial axes (flax applies it
+                                   unflipped, ``conv_transpose2d``
+                                   flipped)
 BatchNorm / LayerNorm ``scale``    ``weight``
 BatchNorm ``mean`` / ``var``       ``running_mean`` / ``running_var``
 =================================  =====================================
@@ -41,6 +46,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from ..models.blocks import ConvTranspose
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 JAX_CKPT_MARKER = "__pdanet_ckpt_format__"
@@ -117,7 +124,12 @@ def _leaves(tree, prefix=()):
             yield path, np.asarray(value)
 
 
-def _convert_param(path, arr):
+def _transposed_convs(model):
+    """The dotted names of ``model``'s transposed convolutions."""
+    return {name for name, mod in model.named_modules() if isinstance(mod, ConvTranspose)}
+
+
+def _convert_param(path, arr, transposed):
     *mods, leaf = path
     if leaf == "scale":
         return mods, "weight", arr
@@ -125,6 +137,10 @@ def _convert_param(path, arr):
         return mods, "bias", arr.reshape(-1)
     if leaf != "kernel":
         raise KeyError(f"unknown flax parameter {'/'.join(path)}")
+    if arr.ndim == 4 and ".".join(mods) in transposed:  # (kh, kw, in, out)
+        return mods, "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()
+    if arr.ndim == 4:
+        return mods, "weight", arr.transpose(3, 2, 0, 1).copy()
     if arr.ndim == 3 and mods[-1] == "out":  # (H, hd, D)
         arr = arr.reshape(-1, arr.shape[-1])
     elif arr.ndim == 3:  # query/key/value (D, H, hd)
@@ -134,14 +150,15 @@ def _convert_param(path, arr):
     return mods, "weight", arr.T
 
 
-def _port_param(path, arr):
-    mods, name, arr = _convert_param(path, arr)
+def _port_param(path, arr, transposed):
+    mods, name, arr = _convert_param(path, arr, transposed)
     return ".".join(list(mods) + [name]), arr
 
 
 def load_jax_variables(model, variables):
     """Fill ``model`` from a flax variable tree of numpy arrays."""
     state = model.state_dict()
+    transposed = _transposed_convs(model)
     filled = {}
 
     def put(mods, name, arr, path):
@@ -156,7 +173,7 @@ def load_jax_variables(model, variables):
         filled[key] = torch.tensor(arr)
 
     for path, arr in _leaves(variables.get("params", {})):
-        put(*_convert_param(path, arr), path)
+        put(*_convert_param(path, arr, transposed), path)
     for path, arr in _leaves(variables.get("batch_stats", {})):
         *mods, leaf = path
         if leaf not in _STAT_NAMES:
@@ -175,10 +192,11 @@ def load_jax_optimizer_state(optimizer, model, mu, nu, count):
     update count to ``count``.  Every parameter of ``model`` must get both
     moments; a leaf with no port parameter raises."""
     params = dict(model.named_parameters())
+    transposed = _transposed_convs(model)
     moments = {}
     for which, tree in (("mu", mu), ("nu", nu)):
         for path, arr in _leaves(tree):
-            key, arr = _port_param(path, arr)
+            key, arr = _port_param(path, arr, transposed)
             if key not in params:
                 raise KeyError(f"optax leaf {'/'.join(path)} has no port parameter {key}")
             p = params[key]

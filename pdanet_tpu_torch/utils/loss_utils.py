@@ -1,8 +1,9 @@
 """Loss primitives as masked fixed-shape reductions.
 
 Counterpart of ``pdanet_tpu/utils/loss_utils.py:15-116`` (behaviour of
-``pcdet/utils/loss_utils.py``): sigmoid and softmax cross entropy, smooth
-L1 in its weighted and masked-mean forms, and the corner loss.  The
+``pcdet/utils/loss_utils.py``): sigmoid and softmax cross entropy, the
+sigmoid focal loss, smooth L1 in its weighted and masked-mean forms, and
+the corner loss.  The
 centernet losses come with the detectors that use them (ROADMAP queue 1
 item 9).
 """
@@ -25,6 +26,17 @@ def weighted_classification_loss(logits, one_hot_targets, weights):
     """Per-element sigmoid CE scaled by per-point weights: (..., C)."""
     ce = sigmoid_cross_entropy_with_logits(logits, one_hot_targets)
     return ce * weights[..., None]
+
+
+def sigmoid_focal_loss(logits, one_hot_targets, weights, gamma=2.0, alpha=0.25):
+    """``SigmoidFocalClassificationLoss`` (loss_utils.py:9-72), per element:
+    (..., C)."""
+    pred_sigmoid = torch.sigmoid(logits)
+    alpha_weight = one_hot_targets * alpha + (1 - one_hot_targets) * (1 - alpha)
+    pt = one_hot_targets * (1.0 - pred_sigmoid) + (1.0 - one_hot_targets) * pred_sigmoid
+    focal_weight = alpha_weight * torch.pow(pt, gamma)
+    ce = sigmoid_cross_entropy_with_logits(logits, one_hot_targets)
+    return focal_weight * ce * weights[..., None]
 
 
 def smooth_l1(diff, beta):

@@ -14,6 +14,10 @@ the tiny model of ``tests/model_cfg.py``.
   ``--max_ckpt_save_num``; the post-train evaluation writes its results.
 * The test CLI writes ``result.pkl`` with every val frame; ``--eval_all``
   evaluates the one checkpoint and stops.
+* The shipped ``pointpillar.yaml`` (a voxel pipeline: ragged frames,
+  the host voxelizer, the voxel collate; the PointPillar detector at a
+  tiny width on 0.32 m pillars) trains one epoch through the train CLI,
+  and the test CLI evaluates its checkpoint.
 * A JAX-package checkpoint of the same config, saved by
   ``pdanet_tpu.train.save_checkpoint``, is evaluated by the port's test
   CLI and by JAX's ``eval_one_epoch`` on the same frames: equal detection
@@ -53,6 +57,8 @@ from pdanet_tpu_torch.tools import train as train_cli
 
 REPO = Path(__file__).resolve().parent.parent
 KITTI_YAML = REPO / "tools" / "cfgs" / "kitti_models" / "PDA-SSD.yaml"
+PP_YAML = REPO / "tools" / "cfgs" / "kitti_models" / "pointpillar.yaml"
+PP_CFG_REL = "cfgs/tiny/pointpillar-tiny.yaml"
 CLASSES = ["Car", "Pedestrian", "Cyclist"]
 N_POINTS = 512
 CFG_REL = "cfgs/tiny/PDA-SSD-tiny.yaml"  # relative to the run's working directory
@@ -210,6 +216,51 @@ def test_test_cli_single_ckpt_and_eval_all(workdir, monkeypatch):
     assert (watch / "eval_list_val.txt").read_text().split() == ["1"]
     assert (out / "eval" / "eval_all_default" / "epoch_1" / "val" / "result.pkl").exists()
     assert sleeps == [test_cli.POLL_SECONDS]
+
+
+def _pointpillar_tiny_yaml(root):
+    """The shipped pointpillar.yaml on the mini-KITTI at ``root``, cut to
+    size: 0.32 m pillars (a 216 x 248 grid) of at most 8 points, 2048 of
+    them a frame, 16 / 32 filters, NMS over the best 256 anchors."""
+    cfg = cfg_from_yaml_file(str(PP_YAML))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == "transform_points_to_voxels":
+            proc.VOXEL_SIZE = [0.32, 0.32, 4]
+            proc.MAX_POINTS_PER_VOXEL = 8
+            proc.MAX_NUMBER_OF_VOXELS = {"train": 2048, "test": 2048}
+    m = cfg.MODEL
+    m.VFE.NUM_FILTERS = [16]
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    m.BACKBONE_2D.update(LAYER_NUMS=[1, 1], LAYER_STRIDES=[2, 2], NUM_FILTERS=[16, 32],
+                         UPSAMPLE_STRIDES=[1, 2], NUM_UPSAMPLE_FILTERS=[16, 16])
+    m.POST_PROCESSING.NMS_CONFIG.update(NMS_PRE_MAXSIZE=256, NMS_POST_MAXSIZE=32)
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 2
+    return yaml.safe_dump(_plain(cfg))
+
+
+def test_pointpillar_train_then_test_cli(kitti_env, tmp_path, monkeypatch):
+    """PointPillar through both CLIs: one epoch (two steps at B = 2) with
+    finite losses, then the test CLI on its checkpoint with the official
+    evaluation over every val frame."""
+    (tmp_path / PP_CFG_REL).parent.mkdir(parents=True)
+    (tmp_path / PP_CFG_REL).write_text(_pointpillar_tiny_yaml(kitti_env[0]))
+    monkeypatch.chdir(tmp_path)
+    out = train_cli.main(["--cfg_file", PP_CFG_REL, "--device", "cpu", "--workers", "0",
+                          "--batch_size", "2", "--epochs", "1", "--num_epochs_to_eval", "0"])
+    lines = [json.loads(line) for line in
+             (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in lines if r["tag"] == "train/rpn_loss"]
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+    result = test_cli.main(["--cfg_file", PP_CFG_REL, "--ckpt", str(ckpt), "--device", "cpu",
+                            "--workers", "0", "--batch_size", "2"])
+    assert "recall/rcnn_0.3" in result and "Car_3d/moderate_R40" in result
+    with open(out / "eval" / "epoch_1" / "val" / "default" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    assert [a["frame_id"] for a in annos] == ["000000", "000001", "000002", "000003"]
+    for a in annos:
+        assert set(a) >= KITTI_KEYS
 
 
 @pytest.fixture(scope="module")

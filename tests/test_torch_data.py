@@ -256,8 +256,7 @@ def test_point_processor_equals_jax(proc, training):
     assert_same(outs[0], outs[1])
 
 
-@pytest.mark.parametrize("name", ["transform_points_to_voxels", "calculate_grid_size",
-                                  "sample_points_by_voxels", "downsample_depth_map"])
+@pytest.mark.parametrize("name", ["sample_points_by_voxels", "downsample_depth_map"])
 def test_unported_processors_raise(name):
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         DataProcessor([EasyDict({"NAME": name, "VOXEL_SIZE": [0.1, 0.1, 0.1]})],

@@ -17,12 +17,17 @@ on the CPU with Gloo.
   simulated ranks, as the JAX package's tests hold its copies.
 
 The global-batch train step against the JAX package is
-``tests/test_torch_train.py::test_two_ranks_step_like_jax_float64``.
+``tests/test_torch_train.py::test_two_ranks_step_like_jax_float64``; the
+PointPillar step of two Gloo ranks (``tests/torch_dist_step.py``) equals
+one process on the same two frames in float64 (its BEV BatchNorms take
+the global moments over (B, H, W), empty cells included).
 """
 
 import os
 import pickle
+import socket
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -33,9 +38,15 @@ import yaml
 from kitti_fixture import build_mini_kitti
 from model_cfg import tiny_model_cfg
 from pdanet_tpu_torch.config import cfg_from_yaml_file
+from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
 from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
-from pdanet_tpu_torch.train import load_checkpoint
+from pdanet_tpu_torch.datasets.processor.data_processor import DataProcessor
+from pdanet_tpu_torch.models import build_network
+from pdanet_tpu_torch.models.blocks import init_random_weights
+from pdanet_tpu_torch.train import build_optimizer_and_schedule, load_checkpoint, make_train_step
 from pdanet_tpu_torch.utils import common_utils
+from pdanet_tpu_torch.utils.easydict import EasyDict
+from test_pointpillar import GRID, PCR, PP_MODEL_CFG, VOXEL
 
 REPO = Path(__file__).resolve().parent.parent
 SCRIPTS = REPO / "pdanet_tpu_torch" / "tools" / "scripts"
@@ -225,3 +236,85 @@ def test_interleave_parts_inverts_the_loader_shards(world):
                                           world=world)._sample_plan() for i in chunk]
              for r in range(world)]
     assert common_utils.interleave_parts(parts, n) == list(range(n))
+
+
+def _pp_frames(seed=3, n_frames=2):
+    """Voxelized frames of the tiny PointPillar grid (300 uniform points
+    and four dense clusters each) with a Car and a Pedestrian of gt."""
+    rs = np.random.RandomState(seed)
+    dp = DataProcessor([EasyDict(NAME="transform_points_to_voxels", VOXEL_SIZE=VOXEL,
+                                 MAX_POINTS_PER_VOXEL=8,
+                                 MAX_NUMBER_OF_VOXELS={"train": 512, "test": 512})],
+                       point_cloud_range=np.asarray(PCR), training=False,
+                       num_point_features=4)
+    frames = []
+    for _ in range(n_frames):
+        xyz = rs.uniform([0, -12.8, -3], [25.6, 12.8, 1], (300, 3))
+        for c in rs.uniform([2, -10, -2], [23, 10, 0], (4, 3)):
+            xyz = np.concatenate([xyz, c + rs.uniform(-0.3, 0.3, (40, 3))])
+        pts = np.concatenate([xyz, rs.rand(len(xyz), 1)], axis=1).astype(np.float32)
+        dd = dp.forward({"points": pts})
+        dd["gt_boxes"] = np.array([[*rs.uniform([4, -8], [20, 8]), -1.0, 3.9, 1.6, 1.56,
+                                    rs.uniform(-1, 1), 1],
+                                   [*rs.uniform([4, -8], [20, 8]), -0.6, 0.8, 0.6, 1.73,
+                                    rs.uniform(-1, 1), 2]], np.float32)
+        frames.append(dd)
+    batch = DatasetTemplate.collate_batch_static(frames)
+    return {k: batch[k] for k in ("voxels", "voxel_coords", "voxel_num_points", "gt_boxes")}
+
+
+def test_pointpillar_two_ranks_step_like_one_process_float64(tmp_path):
+    """Two Gloo processes take one frame each of a two-frame batch of the
+    tiny PointPillar (``tests/test_pointpillar.py``'s config) from the same
+    seeded weights, against one process on both frames, in float64: loss
+    and tb scalars (the global batch's) within 1e-9 relative, every
+    gradient leaf (summed over the ranks) within 1e-9 of its largest
+    |gradient|, the BatchNorm running statistics within 1e-12, and the two
+    ranks' state bit-equal."""
+    cfg = EasyDict(PP_MODEL_CFG)
+    build = dict(grid_size=GRID, voxel_size=tuple(VOXEL), point_cloud_range=tuple(PCR),
+                 class_names=("Car", "Pedestrian"))
+    optim_cfg = EasyDict(dict(OPTIMIZER="adam_onecycle", LR=0.01, WEIGHT_DECAY=0.01,
+                              MOMS=[0.95, 0.85], PCT_START=0.4, DIV_FACTOR=10,
+                              GRAD_NORM_CLIP=10))
+    model = init_random_weights(build_network(cfg, 2, device="cpu", **build), seed=5).double()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _pp_frames()
+    spec = tmp_path / "spec.pkl"
+    with open(spec, "wb") as f:
+        pickle.dump(dict(cfg=cfg, num_class=2, build=build, state=state, optim_cfg=optim_cfg,
+                         schedule=(4, 2), dtype=torch.float64,
+                         ranks=[dict(batch={k: v[r:r + 1] for k, v in batch.items()})
+                                for r in range(2)]), f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(REPO / "tests" / "torch_dist_step.py"),
+                               str(spec), str(r), "2", str(port)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+
+    # one process on both frames, while the ranks run
+    optimizer, schedule = build_optimizer_and_schedule(model, optim_cfg, 4, 2)
+    loss, tb = make_train_step(model, optimizer, schedule)(
+        {k: torch.from_numpy(v).double() if v.dtype == np.float32 else torch.from_numpy(v)
+         for k, v in batch.items()})
+    assert tb["rpn_loss_loc"] > 0  # the gt has positives
+    want_grads = {n: p.grad for n, p in model.named_parameters()}
+
+    for r, proc in enumerate(procs):
+        _wait(proc, f"rank {r}", timeout=300)
+    got = [torch.load(f"{spec}.rank{r}.pt", weights_only=False) for r in range(2)]
+    for key, val in got[0]["state"].items():
+        assert torch.equal(got[1]["state"][key], val), key
+    res = got[0]
+    assert abs(res["loss"].item() - loss.item()) <= 1e-9 * abs(loss.item())
+    for k, w in tb.items():
+        assert abs(float(res["tb"][k]) - float(w)) <= 1e-9 * max(abs(float(w)), 1e-6), k
+    worst = max((res["grads"][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                for n, g in want_grads.items())
+    assert worst <= 1e-9, worst
+    for name, buf in model.state_dict().items():
+        if "running" in name:
+            torch.testing.assert_close(res["state"][name], buf, rtol=0, atol=1e-12)

@@ -213,9 +213,13 @@ def test_serving_input_spec_and_device_guard(program, tmp_path):
                                       if p.NAME != "sample_points"]
     with pytest.raises(ValueError, match="sample_points"):
         serving.serving_input_spec(cfg, 1)
-    cfg.DATA_CONFIG.DATA_PROCESSOR.append(EasyDict(NAME="transform_points_to_voxels"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        serving.serving_input_spec(cfg, 1)
+    cfg.DATA_CONFIG.DATA_PROCESSOR.append(EasyDict(
+        NAME="transform_points_to_voxels", VOXEL_SIZE=[0.16, 0.16, 4], MAX_POINTS_PER_VOXEL=32,
+        MAX_NUMBER_OF_VOXELS={"train": 16000, "test": 40000}))
+    assert serving.serving_input_spec(cfg, 1) == {
+        "voxels": ((1, 40000, 32, 4), torch.float32),
+        "voxel_coords": ((1, 40000, 3), torch.int32),
+        "voxel_num_points": ((1, 40000), torch.int32)}
     # a program without its sidecar is refused
     bare = tmp_path / "bare.pt2"
     bare.write_bytes(program.path.read_bytes())

@@ -259,6 +259,11 @@ def test_port_imports_no_jax():
         "import pdanet_tpu_torch.tools.export, pdanet_tpu_torch.tools.serve\n"
         "import pdanet_tpu_torch.tools.train, pdanet_tpu_torch.tools.test\n"
         "import pdanet_tpu_torch.parallel\n"
+        "import pdanet_tpu_torch.models.detectors.pointpillar\n"
+        "from pdanet_tpu_torch.models.backbones_3d.vfe import pillar_vfe\n"
+        "from pdanet_tpu_torch.models.backbones_2d import base_bev_backbone\n"
+        "from pdanet_tpu_torch.models.backbones_2d.map_to_bev import pointpillar_scatter\n"
+        "from pdanet_tpu_torch.models.dense_heads import anchor_head\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"

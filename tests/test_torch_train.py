@@ -345,7 +345,8 @@ def test_two_ranks_step_like_jax_float64(jax_run, tmp_path):
     model = _port_f64(cfg, st["variables"])
     samp, ball = _call_order(model, [st])
     pts, gt = st["batch"]
-    ranks = [dict(points=pts[r:r + 1], gt_boxes=gt[r:r + 1], samp=[s[r:r + 1] for s in samp],
+    ranks = [dict(batch=dict(points=pts[r:r + 1], gt_boxes=gt[r:r + 1]),
+                  samp=[s[r:r + 1] for s in samp],
                   ball=[[i[r:r + 1] for i in b] for b in ball]) for r in range(2)]
     spec = tmp_path / "spec.pkl"
     with open(spec, "wb") as f:

@@ -1,12 +1,16 @@
 """One train step of pdanet_tpu_torch in one process of a Gloo group, for
-``tests/test_torch_train.py``:
+``tests/test_torch_train.py`` and ``tests/test_torch_dist.py``:
 
     python torch_dist_step.py SPEC RANK WORLD PORT
 
-SPEC is a pickle the test writes: the model config, its variables (the
-JAX package's, as numpy), the optimizer config and schedule length, the
-dtype, and per rank its frames with their sampling and ball-query indices
-in call order, fed to the backbone.  The process joins the group at
+SPEC is a pickle the test writes: the model config and the keyword
+arguments of ``build_network`` (``build``, a voxel detector's geometry),
+its weights (``variables``, the JAX package's as numpy, or ``state``, a
+port state dict), the optimizer config and schedule length, the dtype,
+and per rank its device batch (``batch``: numpy arrays, floats cast to
+the dtype) and, for IASSD, the sampling and ball-query indices of its
+frames in call order (``samp``, ``ball``), fed to the backbone.  The
+process joins the group at
 ``tcp://127.0.0.1:PORT``, runs ``train.make_train_step`` once and writes
 its loss and tb scalars (the global batch's), its gradients (summed over
 the ranks) and its state dict after the update to ``SPEC.rank<RANK>.pt``.
@@ -16,6 +20,7 @@ It imports torch and the port only.
 import pickle
 import sys
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -31,20 +36,24 @@ def main(spec_path, rank, world, port):
         spec = pickle.load(f)
     mine = spec["ranks"][rank]
     dtype = spec["dtype"]
-    model = build_network(spec["cfg"], spec["num_class"], device="cpu").to(dtype)
-    load_jax_variables(model, spec["variables"])
+    model = build_network(spec["cfg"], spec["num_class"], device="cpu",
+                          **spec.get("build", {})).to(dtype)
+    if "state" in spec:
+        model.load_state_dict(spec["state"])
+    else:
+        load_jax_variables(model, spec["variables"])
     optimizer, schedule = build_optimizer_and_schedule(model, spec["optim_cfg"],
                                                        *spec["schedule"])
-    samp, ball = list(mine["samp"]), list(mine["ball"])
+    samp, ball = list(mine.get("samp", ())), list(mine.get("ball", ()))
     iassd_backbone.run_sampling = lambda *a: torch.tensor(samp.pop(0)).long()
     iassd_backbone.ball_query_multi = lambda r, n, xyz, c: tuple(
         torch.tensor(i).long() for i in ball.pop(0))
+    batch = {k: torch.tensor(v, dtype=dtype if np.issubdtype(v.dtype, np.floating) else None)
+             for k, v in mine["batch"].items()}
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=world)
     try:
-        loss, tb = make_train_step(model, optimizer, schedule)(
-            {"points": torch.tensor(mine["points"], dtype=dtype),
-             "gt_boxes": torch.tensor(mine["gt_boxes"], dtype=dtype)})
+        loss, tb = make_train_step(model, optimizer, schedule)(batch)
     finally:
         dist.destroy_process_group()
     if samp or ball:
