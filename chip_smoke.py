@@ -189,7 +189,7 @@ Phases, each of which raises on failure:
    voxelizer at the test budget; three b1 requests and one b2 through
    ``serving.make_predict_fn``, the IoU and NMS kernels launched at K =
    NMS_PRE_MAXSIZE = 4096; a b1 request's device split, and its latency
-   with cuDNN's TF32 on beside it (a report); one frame on the card
+   with TF32 on in cuDNN and cuBLAS beside it (a report); one frame on the card
    against the CPU (plain versions): logits within 2e-3, boxes within
    1e-3 of max(1, |value|) with headings compared modulo the direction
    bins' period (an anchor may turn by pi only where its two bin logits,
@@ -204,26 +204,41 @@ Phases, each of which raises on failure:
    the train CLI (one epoch of phase 9's 32 frames at B = 4, augmentor and
    all) and the test CLI with the official KITTI evaluation, then
    ``dist_train.sh`` at world 1 over NCCL.  (d) The b1 program through
-   ``serving.export_serving``, ``save_serving`` and ``load_serving``,
-   bit-equal to the eager closure.  (e) The self-IoU (rtol 2e-4 / atol
-   2e-5 of its plain version, run 1024 rows at a time) and the NMS walk
-   (equal) at K 4096 on frame 0's candidates, timed in turns with their
-   plain versions under CUDA events, with their device times and bounds.
+   ``serving.export_serving`` and ``save_serving``, reloaded by
+   ``load_serving`` in a fresh process (torch and the port's ops and
+   serving modules only), bit-equal to the eager closure.  (e) The
+   self-IoU (rtol 2e-4 / atol 2e-5 of its plain version, run 1024 rows at
+   a time) and the NMS walk (equal) at K 4096 on frame 0's candidates,
+   timed in turns with their plain versions under CUDA events, with their
+   device times and bounds.
+13. SECOND: tools/cfgs/kitti_models/second.yaml at full width, nothing
+   cut (a 0.05 x 0.05 x 0.1 m grid of 1408 x 1600 x 40 cells, 40000 test
+   and 16000 train voxels of 5 points, MeanVFE, the gather-matmul
+   ``SparseVoxelBackBone8x`` with ``NUM_FILTERS [16, 16, 32, 64, 64]`` and
+   128 output features, a 2 x 128 = 256-channel BEV map of 200 x 176,
+   ``LAYER_NUMS [5, 5]``, 211200 anchors a frame), seeded weights,
+   float32, TF32 off: (a)-(e) as phase 12, on the same root and frames,
+   and in (a) the active sites of every level of the sparse backbone in
+   each request, which levels filled their budget, and the b1 frame's
+   coordinates and neighbour tables of every level on the card equal to
+   the CPU's.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
 (phase 4's requests, phase 7's bfloat16 and float32 train steps, phase
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
 CLIs, phase 10's exported programs, phase 11's CLI processes, one
-process and ranks, and phase 12's requests, CLIs and program, each run
-counted from 0), its
+process and ranks, and phases 12 and 13's requests, CLIs and programs,
+each run counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
 their type, from this run's inputs) and SDPA's time where SDPA computes
 the same function; then the IoU and the NMS walk again at phase 12's K
 4096 (``rotated_iou_k4096``, ``nms_k4096``: phase 12's launches, (e)'s
-numbers).  The last line is ``{"ok": true, "device": {...}}``.
+numbers) and at phase 13's (``rotated_iou_k4096_second``,
+``nms_k4096_second``).  The line before it gives the script's seconds.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -2584,10 +2599,11 @@ def kitti_phase(dev, work_dir):
             return res
 
         # Eight steps from random weights may leave the frame no box above the
-        # yaml's SCORE_THRESH (the trained checkpoint differs run to run: the
-        # loader's threads draw the augmentation in any order).  The threshold is
-        # then cut tenfold, on the card, until the frame has a detection, and the
-        # CPU runs at the threshold the card's comparison run used.
+        # yaml's SCORE_THRESH (the loader's draws are reproducible, the card's
+        # atomic sums in the backward are not, so the checkpoint differs run to
+        # run).  The threshold is then cut tenfold, on the card, until the frame
+        # has a detection, and the CPU runs at the threshold the card's
+        # comparison run used.
         thresh = float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH)
         g = f32_frame("cuda", thresh)
         while not len(g["score"]) and thresh > 1e-6:
@@ -3320,18 +3336,38 @@ def dp_phase(dev, work_dir, kitti_run, cfg, weights, world=1):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: PointPillar
+# phases 12 and 13: the voxel detectors, PointPillar and SECOND
 
 
 PP_CFG_REL = "cfgs/kitti_models/pointpillar.yaml"  # in phase 9's working directory
-PP_SERVE_FRAMES = 5  # three b1 requests and one b2
-PP_TRAIN_STEPS = 5
-PP_ROW_BLOCK = 1024  # rows of the plain IoU at a time at K 4096 (64 MiB of output each)
-PP_KERNELS = ("rotated_iou", "nms")  # the kernels of its path
-PP_NMS_PRE = 4096  # the yaml's NMS_PRE_MAXSIZE: the candidates of its IoU and NMS
+SECOND_CFG_REL = "cfgs/kitti_models/second.yaml"
+VOXEL_SERVE_FRAMES = 5  # three b1 requests and one b2
+VOXEL_TRAIN_STEPS = 5
+IOU_ROW_BLOCK = 1024  # rows of the plain IoU at a time at K 4096 (64 MiB of output each)
+VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
+NMS_PRE = 4096  # both yamls' NMS_PRE_MAXSIZE: the candidates of their IoU and NMS
+SPARSE_LEVELS = ("x_conv1", "x_conv2", "x_conv3", "x_conv4", "conv_out")
+# the fresh process that reloads a saved voxel program: it imports torch and
+# the port's ops and serving modules only, and computes float32 as this
+# process does (TF32 off); argv: program, batch file, output
+RELOAD_VOXELS = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets them here
+torch.backends.cudnn.allow_tf32 = False
+from pdanet_tpu_torch.ops import cuda_lib
+from pdanet_tpu_torch.serving import load_serving
+predict, _ = load_serving(sys.argv[1])
+batch = torch.load(sys.argv[2])
+cuda_lib.launches.clear()
+res = {k: v.cpu() for k, v in predict(batch).items()}
+torch.save(res, sys.argv[3])
+print(json.dumps({"launches": dict(cuda_lib.launches), "modules": sorted(
+    m for m in sys.modules if m.startswith("pdanet_tpu_torch"))}))
+"""
 
 
-def pp_batch(cfg, frames, training, dev, model=None):
+def voxel_batch(cfg, frames, training, dev, model=None):
     """LiDAR-like frames ``(points, boxes, names)`` through the yaml's point
     processors of the split (range mask, shuffle on the train split, the
     host voxelizer at the split's budget) and the collate: the device
@@ -3374,7 +3410,7 @@ class RecordIoUShapes:
         self.module.boxes_iou_bev_batched_self = self.orig
 
 
-def pp_candidates(out, post_cfg):
+def nms_candidates(out, post_cfg):
     """The NMS candidates of frame 0 as ``post_processing`` picks them: the
     ``NMS_PRE_MAXSIZE`` best anchors by score, stable order, and which of
     them clear ``SCORE_THRESH``."""
@@ -3390,43 +3426,45 @@ def pp_candidates(out, post_cfg):
     return boxes, torch.gather(valid, 1, order).contiguous(), int(valid.sum())
 
 
-def pp_iou_plain_blocked(boxes):
-    """The plain self-IoU on ``PP_ROW_BLOCK`` rows at a time: the same
+def iou_plain_blocked(boxes):
+    """The plain self-IoU on ``IOU_ROW_BLOCK`` rows at a time: the same
     function as ``boxes_iou_bev_batched_self_plain``, a piece at a time
     (at K 4096 its pair-wise temporaries would hold tens of GB at once)."""
     import torch
 
     from pdanet_tpu_torch.ops import rotated_iou
 
-    return torch.cat([rotated_iou.boxes_iou_bev(boxes[:, r:r + PP_ROW_BLOCK], boxes)
-                      for r in range(0, boxes.shape[1], PP_ROW_BLOCK)], dim=1)
+    return torch.cat([rotated_iou.boxes_iou_bev(boxes[:, r:r + IOU_ROW_BLOCK], boxes)
+                      for r in range(0, boxes.shape[1], IOU_ROW_BLOCK)], dim=1)
 
 
-def pp_kernels(dev, out, post_cfg):
-    """Phase 12 (e): the rotated self-IoU and the NMS walk at K 4096 on the
-    path's own candidates (frame 0 of a b1 request) against their plain
-    versions: the IoU within rtol 2e-4 / atol 2e-5, the keep mask equal; CUDA-event times in turns (kernel, plain, plain,
-    kernel), device times under the profiler and bounds from these
-    candidates.  Returns the two rows' numbers."""
+def voxel_kernels(dev, out, post_cfg, label):
+    """Phases 12 and 13 (e): the rotated self-IoU and the NMS walk at K 4096
+    on the path's own candidates (frame 0 of a b1 request) against their
+    plain versions: the IoU within rtol 2e-4 / atol 2e-5, the keep mask
+    equal; CUDA-event times in turns (kernel, plain, plain, kernel), device
+    times under the profiler and bounds from these candidates.  Returns
+    the two rows' numbers."""
     import torch
 
     from pdanet_tpu_torch.ops import nms, rotated_iou
 
-    boxes, valid, n_valid = pp_candidates(out, post_cfg)
+    boxes, valid, n_valid = nms_candidates(out, post_cfg)
     K = boxes.shape[1]
     thresh = float(post_cfg.NMS_CONFIG.NMS_THRESH)
     got = rotated_iou.boxes_iou_bev_batched_self_cuda(boxes)
-    want = pp_iou_plain_blocked(boxes)
+    want = iou_plain_blocked(boxes)
     err = (got - want).abs().max().item()
     require(torch.allclose(got, want, rtol=2e-4, atol=2e-5),
-            f"IoU K={K} on the PointPillar candidates outside rtol 2e-4 / atol 2e-5 ({err})")
+            f"IoU K={K} on the {label} candidates outside rtol 2e-4 / atol 2e-5 ({err})")
     # no diagonal gate here: seeded weights decode boxes millimetres thin
     # and 70 m out, whose float32 clip leaves a self-IoU below 1 in the
     # plain version too (the kernel is held to the plain version above)
     diag_min = torch.diagonal(got, dim1=1, dim2=2).min().item()
     keep = nms.greedy_nms_mask_batched_cuda(got, valid, thresh)
     keep_p = nms.greedy_nms_mask_batched_plain(got, valid, thresh)
-    require(torch.equal(keep, keep_p), f"NMS K={K}: the keep mask differs from the plain version")
+    require(torch.equal(keep, keep_p), f"{label} NMS K={K}: the keep mask differs from the "
+            f"plain version")
     del want
 
     def turns(kern, plain, plain_reps):
@@ -3439,17 +3477,17 @@ def pp_kernels(dev, out, post_cfg):
     pairs = iou_pairs_needed(boxes)
     rows = {}
     iou_ms, iou_plain = turns(lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
-                              lambda: pp_iou_plain_blocked(boxes), 2)
+                              lambda: iou_plain_blocked(boxes), 2)
     iou_dev = kernel_device_ms(lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
                                "iou_self_kernel")
     bnd = bound((boxes.numel() + got.numel()) * 4, pairs * IOU_PAIR_OPS, F32_OPS_PER_S)
     rows["rotated_iou"] = dict(max_abs_err=err, ms=iou_ms, plain_ms=iou_plain, bound_ms=bnd[0],
                                bound_by=bnd[1], library_ms=None)
-    print(f"{'rotated_iou':27s} PointPillar K={K} (frame 0's candidates, {n_valid} anchors of "
+    print(f"{'rotated_iou':27s} {label} K={K} (frame 0's candidates, {n_valid} anchors of "
           f"{out['batch_cls_preds'].shape[1]} over SCORE_THRESH, {pairs} pairs whose circles "
           f"meet): max_abs_err {err:.3g}, diagonal at least {diag_min:.6g}; kernel "
           f"{iou_ms:.4f} ms (device "
-          f"{fmt_ms(iou_dev)}), plain {iou_plain:.4f} ms ({PP_ROW_BLOCK} rows at a time); "
+          f"{fmt_ms(iou_dev)}), plain {iou_plain:.4f} ms ({IOU_ROW_BLOCK} rows at a time); "
           f"bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at {100 * bnd[0] / iou_ms:.1f} % of it")
 
     row_reads = int((K - 1 - torch.nonzero(keep)[:, 1]).sum())
@@ -3460,7 +3498,7 @@ def pp_kernels(dev, out, post_cfg):
     bnd = bound(row_reads * 4 + valid.numel() + keep.numel(), row_reads, F32_OPS_PER_S)
     rows["nms"] = dict(max_abs_err=0.0, ms=nms_ms, plain_ms=nms_plain, bound_ms=bnd[0],
                        bound_by=bnd[1], library_ms=None)
-    print(f"{'nms':27s} PointPillar K={K} thresh {thresh:g}: keep mask equal, "
+    print(f"{'nms':27s} {label} K={K} thresh {thresh:g}: keep mask equal, "
           f"{int(keep.sum())} kept of {int(valid.sum())} valid; kernel {nms_ms:.4f} ms "
           f"(device {fmt_ms(nms_dev[0])}: words {fmt_ms(nms_dev[1])}, walk "
           f"{fmt_ms(nms_dev[2])}), plain {nms_plain:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}, "
@@ -3468,15 +3506,48 @@ def pp_kernels(dev, out, post_cfg):
     return rows
 
 
-def pp_serve(cfg, dev, template):
-    """Phase 12 (a): seeded weights at full width; 120000-point LiDAR-like
-    KITTI frames through the host voxelizer at the test budget; three b1
-    requests and one b2 in float32 through ``serving.make_predict_fn``,
-    their latency, the IoU and NMS kernels launched at K = NMS_PRE_MAXSIZE;
-    a b1 request's latency and device split, beside one with cuDNN's TF32
-    on (torch's default; this script turns it off in phase 1); one frame
-    on the card against the CPU.  Returns the launches of the requests, the weights,
-    the closure and frame 0's batch and forward."""
+def sparse_levels(model, cpu_model, requests):
+    """Phase 13 (a): the active sites of every level of the sparse backbone
+    in each request, and which levels filled their budget; then the first
+    request's coordinates and neighbour tables of every level on the card
+    equal to the CPU's (``geometry``: the sorted-key search, the dedup and
+    the compaction of each level)."""
+    import torch
+
+    with torch.inference_mode():
+        for i, batch in enumerate(requests):
+            levels = model.backbone_3d.geometry(batch["voxel_coords"])
+            sites = {name: lv["valid"].sum(dim=1).tolist()
+                     for name, lv in zip(SPARSE_LEVELS, levels)}
+            full = [name for name, lv in zip(SPARSE_LEVELS, levels)
+                    if bool((lv["valid"].sum(dim=1) == lv["valid"].shape[1]).any())]
+            budgets = {name: lv["valid"].shape[1] for name, lv in zip(SPARSE_LEVELS, levels)}
+            print(f"SECOND request {i}: active sites a level {sites} of budgets {budgets}; "
+                  f"levels that filled their budget: {full or 'none'}")
+        card = model.backbone_3d.geometry(requests[0]["voxel_coords"])
+        cpu = cpu_model.backbone_3d.geometry(requests[0]["voxel_coords"].cpu())
+    taps = {}
+    for name, g, c in zip(SPARSE_LEVELS, card, cpu):
+        for key, want in c.items():
+            require(torch.equal(g[key].cpu(), want), f"SECOND {name}: {key} on the card differs "
+                    f"from the CPU's")
+        table = c["subm"] if "subm" in c else c["down"]
+        taps[name] = round(float((table >= 0).sum(dim=-1)[c["valid"]].float().mean()), 2)
+    print(f"SECOND b1 frame, card vs CPU: every level's coordinates and neighbour tables "
+          f"equal; mean taps found a site (submanifold table, conv_out's strided) {taps}")
+
+
+def voxel_serve(cfg, dev, template, label):
+    """Phases 12 and 13 (a): seeded weights at full width; 120000-point
+    LiDAR-like KITTI frames through the host voxelizer at the test budget;
+    three b1 requests and one b2 in float32 through
+    ``serving.make_predict_fn``, their latency, the IoU and NMS kernels
+    launched at K = NMS_PRE_MAXSIZE; a b1 request's latency and device
+    split, beside one with TF32 on in cuDNN and cuBLAS (this script turns
+    it off in phase 1); one frame on the card against the CPU, and for a
+    sparse backbone its levels (``sparse_levels``).  Returns the launches
+    of the requests, the weights, the closure and frame 0's batch and
+    forward."""
     import torch
 
     from pdanet_tpu_torch.models import build_network
@@ -3494,20 +3565,20 @@ def pp_serve(cfg, dev, template):
     for B in (1, 2):
         predict(example_device_batch(cfg, B, dev))
     rs = np.random.RandomState(1200)
-    frames = [kitti_like_frame(rs, names, mean_sizes) for _ in range(PP_SERVE_FRAMES)]
+    frames = [kitti_like_frame(rs, names, mean_sizes) for _ in range(VOXEL_SERVE_FRAMES)]
     requests, host_ms = [], []
     for chunk in ([frames[0]], [frames[1]], [frames[2]], frames[3:5]):
-        batch, ms = pp_batch(cfg, chunk, False, dev, model)
+        batch, ms = voxel_batch(cfg, chunk, False, dev, model)
         batch.pop("gt_boxes")  # a request carries the voxels alone
         requests.append(batch)
         host_ms += ms
     K = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE)
-    require(K == PP_NMS_PRE, f"pointpillar.yaml's NMS_PRE_MAXSIZE {K} != {PP_NMS_PRE}")
-    pillars = [int((r["voxel_num_points"] > 0).sum(dim=1).min()) for r in requests]
-    print(f"PointPillar frames: {KITTI_FRAME_POINTS} points each, host processors and "
-          f"voxelizer (test split, at most {requests[0]['voxels'].shape[1]} pillars of "
+    require(K == NMS_PRE, f"{label}: NMS_PRE_MAXSIZE {K} != {NMS_PRE}")
+    voxels = [int((r["voxel_num_points"] > 0).sum(dim=1).min()) for r in requests]
+    print(f"{label} frames: {KITTI_FRAME_POINTS} points each, host processors and "
+          f"voxelizer (test split, at most {requests[0]['voxels'].shape[1]} voxels of "
           f"{requests[0]['voxels'].shape[2]}) {[round(t, 1) for t in host_ms]} ms a frame; "
-          f"non-empty pillars (fewest of each request) {pillars}")
+          f"non-empty voxels (fewest of each request) {voxels}")
     torch.cuda.synchronize()
 
     cuda_lib.launches.clear()
@@ -3521,36 +3592,42 @@ def pp_serve(cfg, dev, template):
     launches = dict(cuda_lib.launches)
     for i, (B, ms, res) in enumerate(results):
         for key, val in res.items():
-            require(tuple(val.shape[:1]) == (B,), f"PointPillar request {i}: {key} batch shape")
+            require(tuple(val.shape[:1]) == (B,), f"{label} request {i}: {key} batch shape")
             require(bool(torch.isfinite(val.float()).all()),
-                    f"PointPillar request {i}: {key} not finite")
+                    f"{label} request {i}: {key} not finite")
         counts = res["pred_counts"]
         require(bool(((counts >= 0) & (counts <= 500)).all()), f"request {i}: counts {counts}")
-        print(f"PointPillar request {i}: B={B} latency {ms:.2f} ms (float32, cuDNN TF32 off), "
+        print(f"{label} request {i}: B={B} latency {ms:.2f} ms (float32, TF32 off), "
               f"detections {counts.tolist()}")
-    print(f"PointPillar kernel launches in the served requests: {launches}; the self-IoU's "
+    print(f"{label} kernel launches in the served requests: {launches}; the self-IoU's "
           f"inputs {rec.shapes}")
-    for name in PP_KERNELS:
-        require(launches.get(name, 0) > 0, f"kernel {name} never launched on the PointPillar "
+    for name in VOXEL_KERNELS:
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched on the {label} "
                 f"path")
     require(rec.shapes and all(s[1] == K for s in rec.shapes),
-            f"the PointPillar self-IoU ran at {rec.shapes}, not K {K}")
+            f"the {label} self-IoU ran at {rec.shapes}, not K {K}")
     b1 = requests[0]
     # latency in turns (off, on, on, off), before any profiler runs
     ms = {False: [], True: []}
+
+    def set_tf32(on):
+        torch.backends.cudnn.allow_tf32 = on
+        torch.backends.cuda.matmul.allow_tf32 = on
+
     try:
         for tf32 in (False, True, True, False):
-            torch.backends.cudnn.allow_tf32 = tf32
+            set_tf32(tf32)
             ms[tf32].append(request_ms(predict, b1, reps=10))
-        torch.backends.cudnn.allow_tf32 = True
+        set_tf32(True)
         split_tf32 = device_split(lambda: predict(b1))
     finally:
-        torch.backends.cudnn.allow_tf32 = False  # as phase 1 left it
-    print_split("a PointPillar b1 request under torch.profiler (TF32 off)",
+        set_tf32(False)  # as phase 1 left it
+    print_split(f"a {label} b1 request under torch.profiler (TF32 off)",
                 device_split(lambda: predict(b1)))
-    print_split("a PointPillar b1 request under torch.profiler (cuDNN TF32 on)", split_tf32)
+    print_split(f"a {label} b1 request under torch.profiler (TF32 on in cuDNN and cuBLAS)",
+                split_tf32)
     for tf32, turns in ms.items():
-        print(f"PointPillar b1 request with cuDNN TF32 {'on' if tf32 else 'off'}: median "
+        print(f"{label} b1 request with TF32 {'on' if tf32 else 'off'}: median "
               f"latency " + " / ".join(f"{lat:.2f}" for lat, _ in turns) + " ms, host enqueue "
               + " / ".join(f"{enq:.2f}" for _, enq in turns) + " ms (10 after warm-up, two "
               "turns)")
@@ -3584,29 +3661,31 @@ def pp_serve(cfg, dev, template):
     fold_tie = (raw - torch.round(raw)).abs()
     tie = torch.minimum(bin_tie / 1e-4, fold_tie / 1e-4)[flipped]  # <= 1: a tie
     pairs, n_g, n_c, gap_c, gap_s = match_detections(results[0][2], post_cpu)
-    print(f"PointPillar float32 frame, card vs CPU ({cpu_s:.1f} s on the CPU): logits within "
+    print(f"{label} float32 frame, card vs CPU ({cpu_s:.1f} s on the CPU): logits within "
           f"{logit_err:.3g}; boxes within {box_err:.3g} of max(1, |value|), headings within "
           f"{head_err:.3g} modulo pi; {int(flipped.sum())} of {flipped.numel()} anchors pi "
           f"apart (direction logits within {bin_tie[flipped].tolist()}, raw headings "
           f"{fold_tie[flipped].tolist()} periods from a fold); detections {n_g} vs {n_c}, {pairs} "
           f"paired by mutual nearest centre (largest centre distance {gap_c:.3g} m, score "
           f"{gap_s:.3g})")
-    require(logit_err <= 2e-3, f"PointPillar logits card vs CPU {logit_err} > 2e-3")
+    require(logit_err <= 2e-3, f"{label} logits card vs CPU {logit_err} > 2e-3")
     require(box_err <= 1e-3 and head_err <= 1e-3,
-            f"PointPillar boxes card vs CPU {box_err} / {head_err} > 1e-3")
+            f"{label} boxes card vs CPU {box_err} / {head_err} > 1e-3")
     require(not len(tie) or tie.max().item() <= 1.0,
-            "PointPillar: a heading turned by pi card vs CPU with no tie (direction logits "
+            f"{label}: a heading turned by pi card vs CPU with no tie (direction logits "
             "or the period's fold within 1e-4)")
     require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
-            "PointPillar float32 detections card vs CPU not paired box for box")
+            f"{label} float32 detections card vs CPU not paired box for box")
+    if hasattr(model, "backbone_3d"):
+        sparse_levels(model, cpu_model, requests)
     return launches, weights, predict, b1, out_card
 
 
-def pp_train(cfg, weights, dev, template):
-    """Phase 12 (b): 5 float32 steps at B = 4 on the train budget (frames
-    through the train split's processors, gt on their boxes): finite
-    losses and gradients, the step time, peak memory and a device split;
-    then one float64 step at B = 1 on the card against the CPU."""
+def voxel_train(cfg, weights, dev, template, label):
+    """Phases 12 and 13 (b): 5 float32 steps at B = 4 on the train budget
+    (frames through the train split's processors, gt on their boxes):
+    finite losses and gradients, the step time, peak memory and a device
+    split; then one float64 step at B = 1 on the card against the CPU."""
     import torch
 
     from pdanet_tpu_torch.models import build_network
@@ -3629,26 +3708,26 @@ def pp_train(cfg, weights, dev, template):
         return model, make_train_step(model, optimizer, schedule)
 
     model, step = train_model(dev)
-    batch, host_ms = pp_batch(cfg, frames, True, dev, model)
-    print(f"PointPillar train frames: host processors and voxelizer (train split, at most "
-          f"{batch['voxels'].shape[1]} pillars) {[round(t, 1) for t in host_ms]} ms a frame; "
-          f"non-empty pillars {(batch['voxel_num_points'] > 0).sum(dim=1).tolist()}, gt boxes "
+    batch, host_ms = voxel_batch(cfg, frames, True, dev, model)
+    print(f"{label} train frames: host processors and voxelizer (train split, at most "
+          f"{batch['voxels'].shape[1]} voxels) {[round(t, 1) for t in host_ms]} ms a frame; "
+          f"non-empty voxels {(batch['voxel_num_points'] > 0).sum(dim=1).tolist()}, gt boxes "
           f"{(batch['gt_boxes'][..., 7] > 0).sum(dim=1).tolist()}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     times, losses = [], []
-    for i in range(PP_TRAIN_STEPS):
+    for i in range(VOXEL_TRAIN_STEPS):
         t0 = time.perf_counter()
         loss, tb = step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
-        require(np.isfinite(losses[-1]), f"PointPillar step {i}: loss {losses[-1]}")
-        require(_grads_finite(model), f"PointPillar step {i}: gradients not finite")
+        require(np.isfinite(losses[-1]), f"{label} step {i}: loss {losses[-1]}")
+        require(_grads_finite(model), f"{label} step {i}: gradients not finite")
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    print_split(f"a PointPillar float32 train step B={B} under torch.profiler (TF32 off)",
+    print_split(f"a {label} float32 train step B={B} under torch.profiler (TF32 off)",
                 device_split(lambda: step(batch)))
-    print(f"PointPillar train float32 B={B}: losses {[round(x, 4) for x in losses]}; ms/step "
+    print(f"{label} train float32 B={B}: losses {[round(x, 4) for x in losses]}; ms/step "
           f"{[round(t, 2) for t in times]}, median after warm-up "
           f"{statistics.median(times[1:]):.2f} ms; peak memory {peak:.2f} GiB; tb of the last "
           f"step { {k: round(float(v), 4) for k, v in tb.items()} }")
@@ -3670,20 +3749,20 @@ def pp_train(cfg, weights, dev, template):
     rel = abs(l_g - l_c) / abs(l_c)
     errs = _leaf_errors(g_g, g_c, floor=1e-6)
     stat_err = max((s_g[n] - s_c[n]).abs().max().item() for n in s_c)
-    print(f"PointPillar float64 step B=1, card vs CPU ({t_g:.1f} s / {t_c:.1f} s): loss "
+    print(f"{label} float64 step B=1, card vs CPU ({t_g:.1f} s / {t_c:.1f} s): loss "
           f"{l_g:.17g} vs {l_c:.17g} (rel {rel:.3g}); gradient leaves within "
           f"{errs[0][0]:.3g} of their scale at worst ({errs[0][1]}), deciles "
           f"{_deciles(errs)}; statistics within {stat_err:.3g}")
-    require(rel <= 1e-10, f"PointPillar float64 loss card vs CPU rel {rel}")
-    require(errs[0][0] <= 1e-8, f"PointPillar float64 gradients card vs CPU: {errs[:3]}")
-    require(stat_err <= 1e-10, f"PointPillar float64 statistics card vs CPU {stat_err}")
+    require(rel <= 1e-10, f"{label} float64 loss card vs CPU rel {rel}")
+    require(errs[0][0] <= 1e-8, f"{label} float64 gradients card vs CPU: {errs[:3]}")
+    require(stat_err <= 1e-10, f"{label} float64 statistics card vs CPU {stat_err}")
 
 
-def pp_clis(work, kitti_run):
-    """Phase 12 (c): pointpillar.yaml through the train CLI (one epoch of
+def voxel_clis(work, kitti_run, cfg_rel, label):
+    """Phases 12 and 13 (c): the yaml through the train CLI (one epoch of
     phase 9's 32 frames at B = 4, augmentor and all) and the test CLI on
     its checkpoint with the official KITTI evaluation; then
-    ``dist_train.sh`` at world 1 over NCCL (the BEV BatchNorms' global
+    ``dist_train.sh`` at world 1 over NCCL (the BatchNorms' global
     moments).  Returns the launches of the train and test CLIs."""
     from pdanet_tpu_torch.ops import cuda_lib
     from pdanet_tpu_torch.tools import test as test_cli
@@ -3695,7 +3774,7 @@ def pp_clis(work, kitti_run):
     with contextlib.chdir(work):
         cuda_lib.launches.clear()
         t0 = time.perf_counter()
-        out = train_cli.main(["--cfg_file", PP_CFG_REL, "--epochs", "1", "--batch_size", "4",
+        out = train_cli.main(["--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", "4",
                               "--num_epochs_to_eval", "0", *set_data])
         train_s = time.perf_counter() - t0
         train_counts = dict(cuda_lib.launches)
@@ -3707,8 +3786,8 @@ def pp_clis(work, kitti_run):
         step_ms = [1e3 * t for t in series["meta_data/batch_time"]]
         wait_ms = [1e3 * t for t in series["meta_data/data_time"]]
         require(len(losses) == kitti_run["steps"] and all(np.isfinite(losses)),
-                f"PointPillar train CLI losses {losses}")
-        print(f"PointPillar train CLI (1 epoch at B=4 on phase 9's root): {train_s:.1f} s; "
+                f"{label} train CLI losses {losses}")
+        print(f"{label} train CLI (1 epoch at B=4 on phase 9's root): {train_s:.1f} s; "
               f"losses {[round(x, 4) for x in losses]}; ms per iteration "
               f"{[round(t, 2) for t in step_ms]}, median after the first "
               f"{statistics.median(step_ms[1:]):.2f} ms, waiting for the loader "
@@ -3716,14 +3795,14 @@ def pp_clis(work, kitti_run):
         ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
         cuda_lib.launches.clear()
         t0 = time.perf_counter()
-        result = test_cli.main(["--cfg_file", PP_CFG_REL, "--ckpt", str(ckpt), "--batch_size",
+        result = test_cli.main(["--cfg_file", cfg_rel, "--ckpt", str(ckpt), "--batch_size",
                                 "1", "--infer_time", *set_data])
         test_s = time.perf_counter() - t0
         test_counts = dict(cuda_lib.launches)
         res_dir = out / "eval" / "epoch_1" / "val" / "default"
         with open(res_dir / "result.pkl", "rb") as f:
             annos = pickle.load(f)
-        require([a["frame_id"] for a in annos] == val_ids, "PointPillar test CLI: frames")
+        require([a["frame_id"] for a in annos] == val_ids, f"{label} test CLI: frames")
         # not a gate: eight steps from torch's initial weights leave the
         # BatchNorms' running statistics 92 % at their start (momentum
         # 0.01), so at eval the activations are not normalized and the
@@ -3731,29 +3810,29 @@ def pp_clis(work, kitti_run):
         n_dets = sum(len(a["score"]) for a in annos)
         n_bad = sum(int((~np.isfinite(a["boxes_lidar"]).all(axis=-1)).sum()) for a in annos)
         require("Car_3d/moderate_R40" in result and all(
-            np.isfinite(float(v)) for v in result.values()), "PointPillar KITTI result dict")
+            np.isfinite(float(v)) for v in result.values()), f"{label} KITTI result dict")
         log = "".join(p.read_text() for p in res_dir.glob("log_eval_*.txt"))
         infer = re.findall(r"Average infer time: ([0-9.]+) ms", log)
-        print(f"PointPillar test CLI (--infer_time, B=1): {test_s:.1f} s, {infer} ms a frame; "
+        print(f"{label} test CLI (--infer_time, B=1): {test_s:.1f} s, {infer} ms a frame; "
               f"detections per val frame {[len(a['score']) for a in annos]} ({n_bad} of "
               f"{n_dets} with a non-finite box); official "
               f"evaluation " + json.dumps({k: round(float(v), 4) for k, v in result.items()
                                            if k.startswith(("recall/", "Car_3d"))}))
-        print(f"PointPillar CLIs' kernel launches: train {train_counts}, test {test_counts}")
-        for name in PP_KERNELS:
+        print(f"{label} CLIs' kernel launches: train {train_counts}, test {test_counts}")
+        for name in VOXEL_KERNELS:
             require(test_counts.get(name, 0) > 0, f"kernel {name} never launched by the "
-                    f"PointPillar test CLI")
+                    f"{label} test CLI")
         for counts in (train_counts, test_counts):
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
 
     train_s = run_dist_script("dist_train.sh", 1, [
-        "--cfg_file", PP_CFG_REL, "--epochs", "1", "--batch_size", "4",
+        "--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", "4",
         "--num_epochs_to_eval", "0", "--extra_tag", "dp1", *set_data], work)
-    dp_out = Path(work) / "output" / "kitti_models" / "pointpillar" / "dp1"
+    dp_out = Path(work) / "output" / "kitti_models" / Path(cfg_rel).stem / "dp1"
     log, dp_counts = cli_log(dp_out, "train")
     require("process group: backend nccl, world 1" in log,
-            "PointPillar dist_train.sh: not NCCL at world 1")
+            f"{label} dist_train.sh: not NCCL at world 1")
     dp_losses, dp_ms = [], []
     for line in (dp_out / "tensorboard" / "metrics.jsonl").read_text().splitlines():
         m = json.loads(line)
@@ -3762,89 +3841,112 @@ def pp_clis(work, kitti_run):
         elif m["tag"] == "meta_data/batch_time":
             dp_ms.append(1e3 * m["value"])
     require(len(dp_losses) == kitti_run["steps"] and all(np.isfinite(dp_losses)),
-            f"PointPillar dist_train.sh losses {dp_losses}")
-    print(f"PointPillar train CLI through dist_train.sh (world 1, NCCL): {train_s:.1f} s; "
+            f"{label} dist_train.sh losses {dp_losses}")
+    print(f"{label} train CLI through dist_train.sh (world 1, NCCL): {train_s:.1f} s; "
           f"losses {[round(x, 4) for x in dp_losses]}; ms per iteration median after the "
           f"first {statistics.median(dp_ms[1:]):.2f} ms; rank 0's launches {dp_counts}")
     return launches
 
 
-def pp_export(cfg, model_predict, weights, dev, template, b1, work):
-    """Phase 12 (d): the b1 program through ``serving.export_serving``,
-    ``save_serving`` and ``load_serving``, bit-equal to the eager closure
-    on a LiDAR-like frame.  Returns the launches of the program's
-    request."""
+def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, label):
+    """Phases 12 and 13 (d): the b1 program through
+    ``serving.export_serving`` and ``save_serving``, reloaded by
+    ``load_serving`` in a fresh process (``RELOAD_VOXELS``: torch and the
+    port's ops and serving modules only) on a LiDAR-like frame, bit-equal
+    to the eager closure.  Returns the launches of the program's request
+    there."""
     import torch
 
     from pdanet_tpu_torch import serving
     from pdanet_tpu_torch.models import build_network
-    from pdanet_tpu_torch.ops import cuda_lib
 
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=dev)
     model.load_state_dict(weights)
     t0 = time.perf_counter()
     exported = serving.export_serving(model, cfg.MODEL, serving.example_device_batch(cfg, 1, dev))
-    path = Path(work) / "pointpillar_b1.pt2"
+    stem = Path(work) / f"{Path(cfg_rel).stem}_b1"
+    path = stem.with_suffix(".pt2")
     nbytes = serving.save_serving(exported, path, serving.serving_meta(
-        cfg, PP_CFG_REL, b1, exported))
+        cfg, cfg_rel, b1, exported))
     export_s = time.perf_counter() - t0
-    predict, _ = serving.load_serving(path)
-    cuda_lib.launches.clear()
-    got = predict(b1)
-    torch.cuda.synchronize()
-    launches = dict(cuda_lib.launches)
+    torch.save(dict(b1), f"{stem}.batch.pt")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RELOAD_VOXELS, str(path), f"{stem}.batch.pt",
+                           f"{stem}.out.pt"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    require(proc.returncode == 0, f"{label} program's fresh process failed:\n"
+            f"{proc.stderr[-6000:]}")
+    reload_s = time.perf_counter() - t0
+    report = json.loads(proc.stdout.splitlines()[-1])
+    require(not any(m.split(".")[1] in ("models", "datasets", "train", "eval", "tools")
+                    for m in report["modules"] if "." in m),
+            f"the fresh process imported model code: {report['modules']}")
+    got = torch.load(f"{stem}.out.pt")
     want = model_predict(b1)
     for k in want:
-        require(torch.equal(got[k], want[k]), f"PointPillar program: {k} differs from the "
+        require(torch.equal(got[k], want[k].cpu()), f"{label} program: {k} differs from the "
                 f"eager closure's")
-    lat, enq = request_ms(predict, b1, reps=10)
-    print(f"PointPillar b1 export: {export_s:.1f} s, {nbytes / 1e6:.2f} MB, "
-          f"{len(exported.graph.nodes)} graph nodes; reloaded, bit-equal to the eager closure "
-          f"({int(got['pred_counts'][0])} detections), latency {lat:.2f} ms (enqueue "
-          f"{enq:.2f}); launches {launches}")
-    for name in PP_KERNELS:
-        require(launches.get(name, 0) > 0, f"kernel {name} never launched in the PointPillar "
+    launches = report["launches"]
+    print(f"{label} b1 export: {export_s:.1f} s, {nbytes / 1e6:.2f} MB, "
+          f"{len(exported.graph.nodes)} graph nodes; reloaded in a fresh process "
+          f"({reload_s:.1f} s), bit-equal to the eager closure "
+          f"({int(got['pred_counts'][0])} detections), launches there {launches}")
+    for name in VOXEL_KERNELS:
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched in the {label} "
                 f"program")
     return launches
 
 
-def pointpillar_phase(dev, work, kitti_run):
-    """Phase 12: tools/cfgs/kitti_models/pointpillar.yaml at full width
-    (432 x 496 pillars of 0.16 m, 40000 test / 16000 train pillars of 32
-    points, 64 BEV channels, 321408 anchors a frame), nothing cut.  (a)
-    serving, (b) training, (c) the CLIs, (d) export, (e) the IoU and NMS
-    kernels at K 4096.  Returns the launches of its main-path runs ((a)'s
-    requests, (c)'s CLIs, (d)'s program request, each counted from 0) and
-    (e)'s rows."""
+def voxel_phase(dev, work, kitti_run, phase, cfg_rel, label):
+    """Phases 12 and 13, on one yaml at full width: (a) serving, (b)
+    training, (c) the CLIs, (d) export, (e) the IoU and NMS kernels at K
+    4096.  Returns the launches of its main-path runs ((a)'s requests,
+    (c)'s CLIs, (d)'s program request, each counted from 0) and (e)'s
+    rows."""
     import torch
 
     from pdanet_tpu_torch.config import cfg_from_yaml_file
     from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
 
-    cfg = cfg_from_yaml_file(str(Path(work) / PP_CFG_REL))
+    cfg = cfg_from_yaml_file(str(Path(work) / cfg_rel))
     template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                                training=False, root_path=str(kitti_run["root"]))
     t0 = time.perf_counter()
-    served, weights, predict, b1, out = pp_serve(cfg, dev, template)
-    print(f"phase 12 (a) serving: {time.perf_counter() - t0:.1f} s")
+    served, weights, predict, b1, out = voxel_serve(cfg, dev, template, label)
+    print(f"phase {phase} (a) serving: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    pp_train(cfg, weights, dev, template)
-    print(f"phase 12 (b) training: {time.perf_counter() - t0:.1f} s")
+    voxel_train(cfg, weights, dev, template, label)
+    print(f"phase {phase} (b) training: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    clis = pp_clis(work, kitti_run)
-    print(f"phase 12 (c) the CLIs: {time.perf_counter() - t0:.1f} s")
+    clis = voxel_clis(work, kitti_run, cfg_rel, label)
+    print(f"phase {phase} (c) the CLIs: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    program = pp_export(cfg, predict, weights, dev, template, b1, work)
-    print(f"phase 12 (d) export: {time.perf_counter() - t0:.1f} s")
+    program = voxel_export(cfg, predict, weights, dev, template, b1, work, cfg_rel, label)
+    print(f"phase {phase} (d) export: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows = pp_kernels(dev, out, cfg.MODEL.POST_PROCESSING)
-    print(f"phase 12 (e) the kernels at K {cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE}:"
-          f" {time.perf_counter() - t0:.1f} s")
+    rows = voxel_kernels(dev, out, cfg.MODEL.POST_PROCESSING, label)
+    print(f"phase {phase} (e) the kernels at K {NMS_PRE}: {time.perf_counter() - t0:.1f} s")
     del predict, out
     torch.cuda.empty_cache()
     launches = {k: served.get(k, 0) + clis.get(k, 0) + program.get(k, 0)
                 for k in set(served) | set(clis) | set(program)}
     return launches, rows
+
+
+def pointpillar_phase(dev, work, kitti_run):
+    """Phase 12: tools/cfgs/kitti_models/pointpillar.yaml at full width
+    (432 x 496 pillars of 0.16 m, 40000 test / 16000 train pillars of 32
+    points, 64 BEV channels, 321408 anchors a frame), nothing cut."""
+    return voxel_phase(dev, work, kitti_run, 12, PP_CFG_REL, "PointPillar")
+
+
+def second_phase(dev, work, kitti_run):
+    """Phase 13: tools/cfgs/kitti_models/second.yaml at full width (a 0.05 x
+    0.05 x 0.1 m grid of 1408 x 1600 x 40 cells, 40000 test / 16000 train
+    voxels of 5 points, the sparse backbone's [16, 16, 32, 64, 64] filters
+    and 128 output features, a 256-channel BEV map of 200 x 176, 211200
+    anchors a frame), nothing cut."""
+    return voxel_phase(dev, work, kitti_run, 13, SECOND_CFG_REL, "SECOND")
 
 
 def ptxas_report(log):
@@ -3947,9 +4049,10 @@ def main():
     ap.add_argument("--sweep", action="store_true", help="time FPS and the ball query in the "
                     "launch shapes their defaults were chosen from, instead of phases 3-7")
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
-                    "phases 3-12, every kernel on cuda:1 and up while cuda:0 is current, then "
+                    "phases 3-13, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
     args = ap.parse_args()
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port is checked on a GPU only")
     sys.path.insert(0, str(ROOT))
@@ -4029,27 +4132,29 @@ def main():
             exported = timed("10 (export and serve)", export_phase, dev, work)
         dp = timed("11 (data parallel)", dp_phase, dev, kitti_work, kitti_run, cfg, weights)
         pp, pp_rows = timed("12 (PointPillar)", pointpillar_phase, dev, kitti_work, kitti_run)
+        second, second_rows = timed("13 (SECOND)", second_phase, dev, kitti_work, kitti_run)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
     # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9),
     # the exported programs' requests (phase 10) and the data-parallel runs
     # (phase 11: its CLIs' processes, the one process and the two ranks)
-    # and the PointPillar runs (phase 12: the requests, the CLIs and the
-    # program's request), each counted from 0; the K-4096 rows count phase
-    # 12's alone
-    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported, dp, pp)
+    # and the PointPillar and SECOND runs (phases 12 and 13: the requests,
+    # the CLIs and the program's request), each counted from 0; the K-4096
+    # rows count their own phase's alone
+    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported, dp, pp, second)
     launches = {name: sum(run.get(name, 0) for run in runs) for name in KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the main path")
         require(once.get(name, 0) > 0, f"kernel {name} never launched on the ONCE path")
-    K = PP_NMS_PRE
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], **stats[name]}
             for name, (src, rep) in KERNELS.items()]
-    rows += [{"name": f"{name}_k{K}", "route": "cuda", "source": KERNELS[name][0],
-              "replaces": KERNELS[name][1], "launches": pp[name], **pp_rows[name]}
-             for name in PP_KERNELS]
+    for suffix, run, run_rows in (("", pp, pp_rows), ("_second", second, second_rows)):
+        rows += [{"name": f"{name}_k{NMS_PRE}{suffix}", "route": "cuda",
+                  "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                  "launches": run[name], **run_rows[name]} for name in VOXEL_KERNELS]
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the argument parse")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ import numpy as np
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset import KittiDataset
 from .once.once_dataset import ONCEDataset
+from .random_draws import sample_generator
 
 __all__ = {
     "DatasetTemplate": DatasetTemplate,
@@ -35,7 +36,11 @@ class SimpleLoader:
     4 torch DataLoader workers, datasets/__init__.py:66-73): ``__getitem__``
     is numpy-heavy (augmentor, gt-sampling) and numpy releases the GIL, so
     threads overlap host preprocessing with the device step.
-    A sliding window of ~2 batches is kept in flight."""
+    A sliding window of ~2 batches is kept in flight.  Each sample then
+    draws from its own ``RandomState``, seeded from (``seed``, epoch,
+    sample index) (``random_draws``), so a pass gives the same batches
+    whatever the number of threads and their order; ``workers=0`` draws
+    from numpy's global RNG, in the JAX package's order."""
 
     def __init__(self, dataset, batch_size, shuffle, seed=0, rank=0, world=1,
                  drop_last=None, workers=0):
@@ -77,6 +82,12 @@ class SimpleLoader:
             chunks.append([int(i) for i in chunk])
         return chunks
 
+    def _load(self, index):
+        """Sample ``index`` under its own generator."""
+        rs = np.random.RandomState([int(self.seed), int(self.epoch), int(index)])
+        with sample_generator(rs):
+            return self.dataset[index]
+
     def __iter__(self):
         chunks = self._sample_plan()
         if self.workers <= 0:
@@ -95,9 +106,7 @@ class SimpleLoader:
             pos = 0
             for chunk in chunks:
                 while cursor < len(flat) and cursor < pos + window:
-                    futures[cursor] = pool.submit(
-                        self.dataset.__getitem__, flat[cursor]
-                    )
+                    futures[cursor] = pool.submit(self._load, flat[cursor])
                     cursor += 1
                 batch = [futures.pop(pos + j).result() for j in range(len(chunk))]
                 pos += len(chunk)

@@ -12,6 +12,7 @@ import numpy as np
 
 from ...utils import box_utils
 from ...utils.iou3d_np import boxes_bev_iou_cpu
+from ..random_draws import own_generator
 
 
 class DataBaseSampler:
@@ -88,8 +89,16 @@ class DataBaseSampler:
 
     def sample_with_fixed_number(self, class_name, sample_group):
         """Round-robin over a shuffled epoch of db entries
-        (database_sampler.py:118-134)."""
+        (database_sampler.py:118-134); under a sample's own generator
+        (``random_draws.sample_generator``), a fresh draw of that
+        generator's instead."""
         sample_num = int(sample_group["sample_num"])
+        rs = own_generator()
+        if rs is not None:
+            # a sample of a threaded loader draws its own entries: the
+            # round-robin's shared pointer would depend on the threads' order
+            picks = rs.permutation(len(self.db_infos[class_name]))[:sample_num]
+            return [self.db_infos[class_name][idx] for idx in picks]
         pointer, indices = sample_group["pointer"], sample_group["indices"]
         if pointer >= len(self.db_infos[class_name]):
             indices = np.random.permutation(len(self.db_infos[class_name]))

@@ -27,6 +27,7 @@ from ..utils import common_utils
 from .augmentor.data_augmentor import DataAugmentor
 from .processor.data_processor import DataProcessor
 from .processor.point_feature_encoder import PointFeatureEncoder
+from .random_draws import rng
 
 
 class DatasetTemplate:
@@ -118,7 +119,7 @@ class DatasetTemplate:
 
         if self.training and len(data_dict["gt_boxes"]) == 0:
             # re-roll empty-gt frames (reference :152-154)
-            new_index = np.random.randint(self.__len__())
+            new_index = rng().randint(self.__len__())
             return self.__getitem__(new_index)
 
         data_dict.pop("gt_names", None)

@@ -16,6 +16,7 @@ from functools import partial
 import numpy as np
 
 from ...utils import box_utils
+from ..random_draws import rng
 
 PROCESSORS = ("mask_points_and_boxes_outside_range", "shuffle_points", "sort_points",
               "sample_points", "calculate_grid_size", "transform_points_to_voxels_placeholder",
@@ -65,7 +66,7 @@ class DataProcessor:
             return partial(self.shuffle_points, config=config)
         if config.SHUFFLE_ENABLED[self.mode]:
             points = data_dict["points"]
-            shuffle_idx = np.random.permutation(points.shape[0])
+            shuffle_idx = rng().permutation(points.shape[0])
             data_dict["points"] = points[shuffle_idx]
         return data_dict
 
@@ -101,7 +102,7 @@ class DataProcessor:
             far_idxs_choice = np.where(pts_near_flag == 0)[0]
             near_idxs = np.where(pts_near_flag == 1)[0]
             if num_points > len(far_idxs_choice):
-                near_idxs_choice = np.random.choice(
+                near_idxs_choice = rng().choice(
                     near_idxs, num_points - len(far_idxs_choice), replace=False
                 )
                 choice = (
@@ -111,14 +112,14 @@ class DataProcessor:
                 )
             else:
                 choice = np.arange(0, len(points), dtype=np.int32)
-                choice = np.random.choice(choice, num_points, replace=False)
-            np.random.shuffle(choice)
+                choice = rng().choice(choice, num_points, replace=False)
+            rng().shuffle(choice)
         else:
             choice = np.arange(0, len(points), dtype=np.int32)
             if num_points > len(points):
-                extra_choice = np.random.choice(choice, num_points - len(points))
+                extra_choice = rng().choice(choice, num_points - len(points))
                 choice = np.concatenate((choice, extra_choice), axis=0)
-            np.random.shuffle(choice)
+            rng().shuffle(choice)
         data_dict["points"] = points[choice]
         return data_dict
 

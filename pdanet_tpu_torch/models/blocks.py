@@ -318,7 +318,9 @@ def init_random_weights(model, seed):
     """Seeded random weights in the flax initializers' spirit: Dense and
     convolution kernels lecun-normal, biases zero; BatchNorm running
     statistics drawn around (0, 1) so that eval-mode normalization is not
-    the identity."""
+    the identity.  A parameter kept in flax's layout under its flax name
+    (the sparse conv kernels, (K, C_in, C_out)) is lecun-normal over its
+    fan-in K * C_in."""
     g = torch.Generator().manual_seed(int(seed))
     for mod in model.modules():
         if isinstance(mod, (Dense, Conv, ConvTranspose)):
@@ -337,4 +339,8 @@ def init_random_weights(model, seed):
         elif isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+    for name, p in model.named_parameters():
+        if not name.endswith((".weight", ".bias")):
+            w = torch.randn(p.shape, generator=g)
+            p.copy_(w / math.sqrt(math.prod(p.shape[:-1])))
     return model

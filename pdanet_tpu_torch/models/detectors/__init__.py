@@ -1,18 +1,19 @@
 """Detector registry (``pdanet_tpu/models/detectors/__init__.py``).
 
-IASSD (PDA-SSD) and PointPillar are ported; the other detectors of the
-zoo are ROADMAP queue 1 item 9.
+IASSD (PDA-SSD), PointPillar and SECOND are ported; the other detectors
+of the zoo are ROADMAP queue 1 item 9.
 """
 
 import torch
 
 from .iassd import IASSD, post_processing
 from .pointpillar import PointPillar
+from .second import SECOND
 
-__all__ = {"IASSD": IASSD, "PointPillar": PointPillar}
+__all__ = {"IASSD": IASSD, "PointPillar": PointPillar, "SECOND": SECOND}
 
 #: voxel-pipeline detectors, which take their grid geometry from the dataset
-VOXEL_DETECTORS = ("PointPillar",)
+VOXEL_DETECTORS = ("PointPillar", "SECOND")
 
 
 def get_post_processor(name):

@@ -9,103 +9,27 @@ score sort, the rotated self-IoU and the NMS walk over the
 ``NMS_PRE_MAXSIZE`` best anchors.
 """
 
-import numpy as np
-import torch
-from torch import nn
-
-from ...utils.box_coder_utils import build_box_coder
-from ...utils.easydict import EasyDict
-from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_2d.map_to_bev.pointpillar_scatter import pointpillar_scatter
 from ..backbones_3d.vfe.pillar_vfe import PillarVFE
-from ..dense_heads import anchor_head as AH
+from .anchor_detector import AnchorDetector
 
 
-class PointPillar(nn.Module):
-    """MODEL.NAME: PointPillar.  ``grid_size`` (nx, ny, nz), ``voxel_size``,
-    ``point_cloud_range`` and ``class_names`` come from the dataset
-    (``build_network(..., dataset=...)``)."""
-
-    DEVICE_BATCH_KEYS = ("voxels", "voxel_coords", "voxel_num_points", "gt_boxes")
+class PointPillar(AnchorDetector):
+    """MODEL.NAME: PointPillar, its grid from the dataset."""
 
     def __init__(self, model_cfg, num_class, input_channels=4, grid_size=None,
                  voxel_size=None, point_cloud_range=None, class_names=None):
-        super().__init__()
-        if grid_size is None or voxel_size is None or point_cloud_range is None \
-                or class_names is None:
-            raise ValueError("PointPillar takes its grid from the dataset: "
-                             "build_network(..., dataset=...)")
-        cfg = EasyDict(model_cfg)
-        self.cfg = cfg
-        self.num_class = num_class
-        self.grid_size = tuple(int(g) for g in grid_size)
-        self.class_names = list(class_names)
-        vfe_name = cfg.VFE.get("NAME", "PillarVFE")
+        super().__init__(model_cfg, num_class, grid_size, voxel_size, point_cloud_range,
+                         class_names)
+        vfe_name = self.cfg.VFE.get("NAME", "PillarVFE")
         if vfe_name != "PillarVFE":
             raise NotImplementedError(f"VFE {vfe_name} is ROADMAP queue 1 item 9")
-        head_cfg = cfg.DENSE_HEAD
-        ta_cfg = head_cfg.TARGET_ASSIGNER_CONFIG
-        if ta_cfg.get("NAME", "AxisAlignedTargetAssigner") != "AxisAlignedTargetAssigner":
-            raise NotImplementedError(f"target assigner {ta_cfg.NAME} is ROADMAP queue 1 item 9")
-        self.vfe = PillarVFE(cfg.VFE, input_channels, voxel_size, point_cloud_range)
-        self.backbone_2d = BaseBEVBackbone(cfg.BACKBONE_2D, cfg.MAP_TO_BEV.NUM_BEV_FEATURES)
-
-        anchors, num_per_loc = AH.generate_anchors(head_cfg.ANCHOR_GENERATOR_CONFIG,
-                                                   self.grid_size, point_cloud_range)
-        flat, per_class = AH.flat_anchors_per_class(anchors)
-        # constants of the grid, float32 whatever the model's dtype (they
-        # are read back to float32 at use): not in the state dict, and
-        # contiguous, as NCCL's broadcast of the module's buffers wants them
-        self.register_buffer("anchors_flat", torch.from_numpy(np.ascontiguousarray(flat)),
-                             persistent=False)
-        for i, a in enumerate(per_class):
-            self.register_buffer(f"anchors_class_{i}",
-                                 torch.from_numpy(np.ascontiguousarray(a)), persistent=False)
-        self.num_anchor_classes = len(per_class)
-        self.box_coder = build_box_coder(ta_cfg.BOX_CODER, {})
-        self.dense_head = AH.AnchorHeadSingleNet(
-            self.backbone_2d.num_bev_features, num_class, sum(num_per_loc),
-            self.box_coder.code_size, head_cfg.get("USE_DIRECTION_CLASSIFIER", True),
-            head_cfg.get("NUM_DIR_BINS", 2))
-
-    def _anchors(self):
-        return self.anchors_flat.float()
+        self.vfe = PillarVFE(self.cfg.VFE, input_channels, voxel_size, point_cloud_range)
+        self.build_head(self.cfg.MAP_TO_BEV.NUM_BEV_FEATURES)
 
     def forward(self, voxels, voxel_coords, voxel_num_points):
         """The voxel triplet (B, V, P, C), (B, V, 3) zyx with -1 pads and
-        (B, V) -> the forward dict, ``batch_cls_preds`` (B, A, C) logits and
-        ``batch_box_preds`` (B, A, 7) among it."""
+        (B, V) -> the forward dict (:meth:`AnchorDetector.head_forward`)."""
         pillar_features = self.vfe(voxels, voxel_coords, voxel_num_points)
-        spatial = pointpillar_scatter(pillar_features, voxel_coords, self.grid_size)
-        cls_preds, box_preds, dir_preds = self.dense_head(self.backbone_2d(spatial))
-        head_cfg = self.cfg.DENSE_HEAD
-        batch_cls, batch_boxes = AH.generate_predicted_boxes(
-            cls_preds, box_preds, dir_preds, self._anchors(), self.box_coder, self.num_class,
-            dir_offset=head_cfg.get("DIR_OFFSET", 0.78539),
-            dir_limit_offset=head_cfg.get("DIR_LIMIT_OFFSET", 0.0),
-            num_dir_bins=head_cfg.get("NUM_DIR_BINS", 2))
-        return {"cls_preds": cls_preds, "box_preds": box_preds, "dir_cls_preds": dir_preds,
-                "batch_cls_preds": batch_cls, "batch_box_preds": batch_boxes}
-
-    def forward_batch(self, batch):
-        return self(batch["voxels"], batch["voxel_coords"], batch["voxel_num_points"])
-
-    def loss(self, forward_out, gt_boxes):
-        """Target assignment on ``gt_boxes`` (B, M, 8) and the head's loss:
-        ``(loss, tb_dict)``."""
-        head_cfg = self.cfg.DENSE_HEAD
-        gen = head_cfg.ANCHOR_GENERATOR_CONFIG
-        targets = AH.assign_targets(
-            [getattr(self, f"anchors_class_{i}").float()
-             for i in range(self.num_anchor_classes)],
-            gt_boxes, [self.class_names.index(c["class_name"]) + 1 for c in gen],
-            [(c["matched_threshold"], c["unmatched_threshold"]) for c in gen],
-            self.box_coder)
-        return AH.anchor_head_loss(
-            forward_out["cls_preds"], forward_out["box_preds"], forward_out["dir_cls_preds"],
-            targets, self._anchors(), self.num_class, dict(head_cfg.LOSS_CONFIG.LOSS_WEIGHTS),
-            dir_offset=head_cfg.get("DIR_OFFSET", 0.78539),
-            num_dir_bins=head_cfg.get("NUM_DIR_BINS", 2))
-
-    def loss_batch(self, forward_out, batch):
-        return self.loss(forward_out, batch["gt_boxes"])
+        return self.head_forward(pointpillar_scatter(pillar_features, voxel_coords,
+                                                     self.grid_size))

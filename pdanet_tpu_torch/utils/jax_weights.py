@@ -21,6 +21,9 @@ ConvTranspose ``kernel`` (kh, kw,  ``weight`` (in, out, kh, kw), flipped
 in, out)                           in both spatial axes (flax applies it
                                    unflipped, ``conv_transpose2d``
                                    flipped)
+sparse conv ``kernel``, ``kernel1``  the same name, layout (K, C_in, C_out)
+/ ``kernel2``, ``conv2_down_kernel``  kept: the port's sparse convs take
+... ``conv_out_kernel``             flax's layout (``sparse_backbone.py``)
 BatchNorm / LayerNorm ``scale``    ``weight``
 BatchNorm ``mean`` / ``var``       ``running_mean`` / ``running_var``
 =================================  =====================================
@@ -124,17 +127,25 @@ def _leaves(tree, prefix=()):
             yield path, np.asarray(value)
 
 
-def _transposed_convs(model):
-    """The dotted names of ``model``'s transposed convolutions."""
-    return {name for name, mod in model.named_modules() if isinstance(mod, ConvTranspose)}
+def _layouts(model):
+    """What the conversion needs to know of ``model``: the dotted names of
+    its transposed convolutions, and of its parameters named after their
+    flax leaf (the sparse conv kernels), which keep flax's layout."""
+    transposed = {name for name, mod in model.named_modules() if isinstance(mod, ConvTranspose)}
+    kept = {name for name, _ in model.named_parameters()
+            if not name.endswith((".weight", ".bias"))}
+    return transposed, kept
 
 
-def _convert_param(path, arr, transposed):
+def _convert_param(path, arr, layouts):
+    transposed, kept = layouts
     *mods, leaf = path
     if leaf == "scale":
         return mods, "weight", arr
     if leaf == "bias":
         return mods, "bias", arr.reshape(-1)
+    if ".".join(path) in kept:
+        return mods, leaf, arr
     if leaf != "kernel":
         raise KeyError(f"unknown flax parameter {'/'.join(path)}")
     if arr.ndim == 4 and ".".join(mods) in transposed:  # (kh, kw, in, out)
@@ -150,15 +161,15 @@ def _convert_param(path, arr, transposed):
     return mods, "weight", arr.T
 
 
-def _port_param(path, arr, transposed):
-    mods, name, arr = _convert_param(path, arr, transposed)
+def _port_param(path, arr, layouts):
+    mods, name, arr = _convert_param(path, arr, layouts)
     return ".".join(list(mods) + [name]), arr
 
 
 def load_jax_variables(model, variables):
     """Fill ``model`` from a flax variable tree of numpy arrays."""
     state = model.state_dict()
-    transposed = _transposed_convs(model)
+    layouts = _layouts(model)
     filled = {}
 
     def put(mods, name, arr, path):
@@ -173,7 +184,7 @@ def load_jax_variables(model, variables):
         filled[key] = torch.tensor(arr)
 
     for path, arr in _leaves(variables.get("params", {})):
-        put(*_convert_param(path, arr, transposed), path)
+        put(*_convert_param(path, arr, layouts), path)
     for path, arr in _leaves(variables.get("batch_stats", {})):
         *mods, leaf = path
         if leaf not in _STAT_NAMES:
@@ -192,11 +203,11 @@ def load_jax_optimizer_state(optimizer, model, mu, nu, count):
     update count to ``count``.  Every parameter of ``model`` must get both
     moments; a leaf with no port parameter raises."""
     params = dict(model.named_parameters())
-    transposed = _transposed_convs(model)
+    layouts = _layouts(model)
     moments = {}
     for which, tree in (("mu", mu), ("nu", nu)):
         for path, arr in _leaves(tree):
-            key, arr = _port_param(path, arr, transposed)
+            key, arr = _port_param(path, arr, layouts)
             if key not in params:
                 raise KeyError(f"optax leaf {'/'.join(path)} has no port parameter {key}")
             p = params[key]

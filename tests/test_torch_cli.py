@@ -18,6 +18,9 @@ the tiny model of ``tests/model_cfg.py``.
   the host voxelizer, the voxel collate; the PointPillar detector at a
   tiny width on 0.32 m pillars) trains one epoch through the train CLI,
   and the test CLI evaluates its checkpoint.
+* The shipped ``second.yaml`` (MeanVFE, the sparse voxel backbone, at a
+  tiny width on 0.2 x 0.2 x 0.1 m voxels) the same, its train loader on
+  two threads.
 * A JAX-package checkpoint of the same config, saved by
   ``pdanet_tpu.train.save_checkpoint``, is evaluated by the port's test
   CLI and by JAX's ``eval_one_epoch`` on the same frames: equal detection
@@ -255,6 +258,56 @@ def test_pointpillar_train_then_test_cli(kitti_env, tmp_path, monkeypatch):
     ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
     result = test_cli.main(["--cfg_file", PP_CFG_REL, "--ckpt", str(ckpt), "--device", "cpu",
                             "--workers", "0", "--batch_size", "2"])
+    assert "recall/rcnn_0.3" in result and "Car_3d/moderate_R40" in result
+    with open(out / "eval" / "epoch_1" / "val" / "default" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    assert [a["frame_id"] for a in annos] == ["000000", "000001", "000002", "000003"]
+    for a in annos:
+        assert set(a) >= KITTI_KEYS
+
+SECOND_YAML = REPO / "tools" / "cfgs" / "kitti_models" / "second.yaml"
+SECOND_CFG_REL = "cfgs/tiny/second-tiny.yaml"
+
+
+def _second_tiny_yaml(root):
+    """The shipped second.yaml on the mini-KITTI at ``root``, cut to size:
+    0.2 x 0.2 x 0.1 m voxels (a 352 x 400 x 40 grid, the reference's z
+    ladder) of at most 5 points, 2048 of them a frame, ``NUM_FILTERS [4,
+    4, 8, 8, 8]`` and 8 output features, a 16 / 32-filter BEV backbone,
+    NMS over the best 256 anchors."""
+    cfg = cfg_from_yaml_file(str(SECOND_YAML))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == "transform_points_to_voxels":
+            proc.VOXEL_SIZE = [0.2, 0.2, 0.1]
+            proc.MAX_NUMBER_OF_VOXELS = {"train": 2048, "test": 2048}
+    m = cfg.MODEL
+    m.BACKBONE_3D.update(NUM_FILTERS=[4, 4, 8, 8, 8], NUM_OUTPUT_FEATURES=8)
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    m.BACKBONE_2D.update(LAYER_NUMS=[1, 1], LAYER_STRIDES=[1, 2], NUM_FILTERS=[16, 32],
+                         UPSAMPLE_STRIDES=[1, 2], NUM_UPSAMPLE_FILTERS=[16, 16])
+    m.POST_PROCESSING.NMS_CONFIG.update(NMS_PRE_MAXSIZE=256, NMS_POST_MAXSIZE=32)
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 2
+    return yaml.safe_dump(_plain(cfg))
+
+
+def test_second_train_then_test_cli(kitti_env, tmp_path, monkeypatch):
+    """SECOND through both CLIs: one epoch (two steps at B = 2, the gt
+    sampler and world augmentors of the yaml) with finite losses, then the
+    test CLI on its checkpoint with the official evaluation over every val
+    frame."""
+    (tmp_path / SECOND_CFG_REL).parent.mkdir(parents=True)
+    (tmp_path / SECOND_CFG_REL).write_text(_second_tiny_yaml(kitti_env[0]))
+    monkeypatch.chdir(tmp_path)
+    out = train_cli.main(["--cfg_file", SECOND_CFG_REL, "--device", "cpu", "--workers", "2",
+                          "--batch_size", "2", "--epochs", "1", "--num_epochs_to_eval", "0"])
+    lines = [json.loads(line) for line in
+             (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in lines if r["tag"] == "train/rpn_loss"]
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+    result = test_cli.main(["--cfg_file", SECOND_CFG_REL, "--ckpt", str(ckpt), "--device",
+                            "cpu", "--workers", "0", "--batch_size", "2"])
     assert "recall/rcnn_0.3" in result and "Car_3d/moderate_R40" in result
     with open(out / "eval" / "epoch_1" / "val" / "default" / "result.pkl", "rb") as f:
         annos = pickle.load(f)

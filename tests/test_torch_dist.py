@@ -20,7 +20,10 @@ The global-batch train step against the JAX package is
 ``tests/test_torch_train.py::test_two_ranks_step_like_jax_float64``; the
 PointPillar step of two Gloo ranks (``tests/torch_dist_step.py``) equals
 one process on the same two frames in float64 (its BEV BatchNorms take
-the global moments over (B, H, W), empty cells included).
+the global moments over (B, H, W), empty cells included); the SECOND step
+of two Gloo ranks whose frames hold different numbers of valid voxels
+equals the JAX package's step on the global batch in float64 (the masked
+BatchNorms all-reduce their valid-row count with the sum of x).
 """
 
 import os
@@ -318,3 +321,68 @@ def test_pointpillar_two_ranks_step_like_one_process_float64(tmp_path):
     for name, buf in model.state_dict().items():
         if "running" in name:
             torch.testing.assert_close(res["state"][name], buf, rtol=0, atol=1e-12)
+
+
+def test_second_two_ranks_step_like_jax_float64(tmp_path):
+    """Two Gloo processes take one frame each of the tiny SECOND's
+    two-frame batch (``tests/test_torch_second.py``; 198 and 168 valid
+    voxels, so each rank's masked BatchNorms count their own rows), from
+    the JAX package's weights, against JAX's step on the global batch in
+    float64: the loss and tb scalars within 1e-9 relative, every gradient
+    leaf (summed over the ranks) within 1e-9 of its largest |gradient|, the
+    running statistics within 1e-9 (JAX's Bessel factor is float32), and
+    the two ranks' state bit-equal."""
+    from test_torch_second import CLASSES as S_CLASSES
+    from test_torch_second import GEOMETRY as S_GEOMETRY
+    from test_torch_second import (_gt, jax_f64_step, jax_second, jax_variables, make_batch,
+                                   second_cfg)
+
+    batch = make_batch()
+    gt = _gt()
+    counts = (batch["voxel_coords"][..., 0] >= 0).sum(axis=1)
+    assert counts[0] != counts[1]
+    jmodel = jax_second()
+    want = jax_f64_step(jmodel, jax_variables(jmodel, batch), batch, gt)
+    optim_cfg = EasyDict(dict(OPTIMIZER="adam_onecycle", LR=0.01, WEIGHT_DECAY=0.01,
+                              MOMS=[0.95, 0.85], PCT_START=0.4, DIV_FACTOR=10,
+                              GRAD_NORM_CLIP=10))
+    spec = tmp_path / "spec.pkl"
+    with open(spec, "wb") as f:
+        pickle.dump(dict(cfg=EasyDict(second_cfg()), num_class=len(S_CLASSES),
+                         build=dict(S_GEOMETRY), variables=want["variables"],
+                         optim_cfg=optim_cfg, schedule=(4, 2), dtype=torch.float64,
+                         ranks=[dict(batch={**{k: v[r:r + 1] for k, v in batch.items()},
+                                            "gt_boxes": gt[r:r + 1]})
+                                for r in range(2)]), f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(REPO / "tests" / "torch_dist_step.py"),
+                               str(spec), str(r), "2", str(port)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    for r, proc in enumerate(procs):
+        _wait(proc, f"rank {r}", timeout=300)
+    got = [torch.load(f"{spec}.rank{r}.pt", weights_only=False) for r in range(2)]
+    for key, val in got[0]["state"].items():
+        assert torch.equal(got[1]["state"][key], val), key
+    res = got[0]
+    assert abs(res["loss"].item() - want["loss"]) <= 1e-9 * abs(want["loss"])
+    assert want["tb"]["rpn_loss_loc"] > 0
+    for k, w in want["tb"].items():
+        assert abs(float(res["tb"][k]) - w) <= 1e-9 * max(abs(w), 1e-6), k
+    model = build_network(EasyDict(second_cfg()), len(S_CLASSES), device="cpu",
+                          **S_GEOMETRY).double()
+    from pdanet_tpu_torch.utils.jax_weights import load_jax_variables
+
+    load_jax_variables(model, {"params": want["grads"],
+                               "batch_stats": want["variables"]["batch_stats"]})
+    worst = max(((res["grads"][n] - g).abs().max().item() / g.abs().max().item(), n)
+                for n, g in model.named_parameters())
+    assert worst[0] <= 1e-9, worst
+    load_jax_variables(model, {"params": want["variables"]["params"],
+                               "batch_stats": want["stats"]})
+    for name, buf in model.state_dict().items():
+        if "running" in name:
+            torch.testing.assert_close(res["state"][name], buf, rtol=0, atol=1e-9)

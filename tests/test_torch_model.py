@@ -264,6 +264,11 @@ def test_port_imports_no_jax():
         "from pdanet_tpu_torch.models.backbones_2d import base_bev_backbone\n"
         "from pdanet_tpu_torch.models.backbones_2d.map_to_bev import pointpillar_scatter\n"
         "from pdanet_tpu_torch.models.dense_heads import anchor_head\n"
+        "import pdanet_tpu_torch.models.detectors.second\n"
+        "from pdanet_tpu_torch.models.backbones_3d import sparse_backbone\n"
+        "from pdanet_tpu_torch.models.backbones_3d.vfe import mean_vfe\n"
+        "from pdanet_tpu_torch.ops import sparse_conv\n"
+        "from pdanet_tpu_torch.datasets import random_draws\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"
