@@ -49,7 +49,9 @@ Phases, each of which raises on failure:
    of its circle skip's distance (diagonal 1 for boxes of nonzero area);
    the NMS keep mask equal at K 1, 63, 64, 65, 256, 1024 and 4096 (the
    last two on a synthetic sparse IoU), thresh 0.01, 0.1 and 0.7, valid
-   all, none and random, with its device time per serial step.
+   all, none and random, and at K 4097, 9000 (B = 2) and 10240 (the
+   walk's second instantiation, five removed words a lane), thresh 0.1
+   and 0.8, random valid, with its device time per serial step.
    ``--parent DIR`` (another checkout, e.g. a ``git archive`` of the
    parent commit) times that tree's FPS, ball query, float32 attention
    forward, IoU and NMS in turns beside this tree's at each of those
@@ -198,7 +200,7 @@ Phases, each of which raises on failure:
    mutual nearest centre (equal counts, centres within 1e-3 m, scores
    within 1e-4).  (b)
    Training: 5 float32 steps at B = 4 on the train budget (step time,
-   peak memory, device split), then one float64 step at B = 1 on the card
+   peak memory, device split; no self-IoU runs there), then one float64 step at B = 1 on the card
    against the CPU (loss within 1e-10 relative, gradient leaves within
    1e-8 of their scale, statistics within 1e-10).  (c) The yaml through
    the train CLI (one epoch of phase 9's 32 frames at B = 4, augmentor and
@@ -217,27 +219,60 @@ Phases, each of which raises on failure:
    ``SparseVoxelBackBone8x`` with ``NUM_FILTERS [16, 16, 32, 64, 64]`` and
    128 output features, a 2 x 128 = 256-channel BEV map of 200 x 176,
    ``LAYER_NUMS [5, 5]``, 211200 anchors a frame), seeded weights,
-   float32, TF32 off: (a)-(e) as phase 12, on the same root and frames,
-   and in (a) the active sites of every level of the sparse backbone in
-   each request, which levels filled their budget, and the b1 frame's
+   float32, TF32 off: (a)-(e) as phase 12, on the same root and frames, at
+   less depth (3 latency repeats a turn, 3 train steps), and in (a) the
+   active sites of every level of the sparse backbone in each request, which levels filled their budget, and the b1 frame's
    coordinates and neighbour tables of every level on the card equal to
    the CPU's.
+14. Voxel-RCNN: tools/cfgs/kitti_models/voxel_rcnn_car.yaml at full
+   width, nothing cut (phase 13's grid, voxels and sparse backbone, a
+   256-channel BEV map of 200 x 176 with ``[64, 128]`` filters, 70400
+   anchors; the proposal layer at NMS_PRE_MAXSIZE 2048 to serve and 9000
+   to train, 100 / 512 RoIs kept, 128 sampled a frame to train; the RoI
+   grid pool of 216 points a RoI over x_conv2-x_conv4, 9 x 9 x 9 windows,
+   16 samples; the 256-wide FC stacks), seeded weights with the box conv
+   scaled by 0.01 (so that boxes stay near their anchors), float32, TF32
+   off.  (a) Serving as phase 13, the IoU and NMS kernels launched at K
+   2048 (the proposals, some suppressed) and K 100 (the refined boxes);
+   the RoIs kept and the grid points with an empty and with a full window
+   on each level (some full); one frame on the card against the CPU: the
+   first stage's logits within 2e-3, then, on the card's own inputs, the
+   proposal layer's keep mask and RoIs equal, every level's voxel-query
+   table, hits and empty windows equal, ``rcnn_cls`` / ``rcnn_reg`` within
+   2e-3 and the detections paired box for box; the voxel query and pool
+   of RoIs on the frame's gt boxes equal (pooled features within 2e-3),
+   full windows on every level there.  (b) 5 float32 steps at B = 2 on
+   the train budget, 2 gt boxes a frame planted on its proposals, the IoU
+   and NMS kernels launched at K 9000 and suppressing, foreground RoIs in
+   the first step's sample, then one float64 step at B = 1 on the card
+   against the CPU (loss within 1e-10 relative, gradient leaves within
+   1e-8 of their scale), the same per-frame draws on both, the CPU's
+   proposal layer fed the plain IoU of the card's candidates (computed on
+   the card) and its keep mask equal to the kernel's, foreground RoIs in
+   the sample.  (c) The
+   CLIs as phase 12 at B = 2, with the first-stage ``recall_roi_*``
+   beside ``recall_rcnn_*``.  (d) Export as phase 12.  (e) The self-IoU
+   and the NMS walk on frame 0's proposal candidates at K 9000 (the
+   TRAIN proposal layer) and K 2048 (TEST), against their plain versions,
+   timed in turns, with device times and bounds.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
 (phase 4's requests, phase 7's bfloat16 and float32 train steps, phase
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
 CLIs, phase 10's exported programs, phase 11's CLI processes, one
-process and ranks, and phases 12 and 13's requests, CLIs and programs,
-each run counted from 0), its
+process and ranks, and phases 12-14's requests, train steps, CLIs and
+programs, each run counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
 their type, from this run's inputs) and SDPA's time where SDPA computes
 the same function; then the IoU and the NMS walk again at phase 12's K
-4096 (``rotated_iou_k4096``, ``nms_k4096``: phase 12's launches, (e)'s
-numbers) and at phase 13's (``rotated_iou_k4096_second``,
-``nms_k4096_second``).  The line before it gives the script's seconds.
+4096 (``rotated_iou_k4096``, ``nms_k4096``: phase 12's launches at that
+K, (e)'s numbers) and at phase 13's (``rotated_iou_k4096_second``,
+``nms_k4096_second``), and at phase 14's K 9000 and 2048
+(``rotated_iou_k9000_voxel_rcnn`` ... ``nms_k2048_voxel_rcnn``, phase
+14's launches at each K, ``cuda_lib.launches_by_k``).  The line before it gives the script's seconds.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -815,6 +850,9 @@ def skip_pair_boxes(seed, P, gaps, square=60.0, odd=True):
 
 
 NMS_SIZES = (1, 63, 64, 65, 256, 1024, 4096)  # K; from 1024 on a synthetic sparse IoU
+# K beyond 4096 (the walk's five-words-a-lane instantiation), with B: fewer
+# cases each, the plain walk taking about a second at K 10240
+NMS_LARGE = ((4097, 1), (9000, 2), (10240, 1))
 
 
 def sparse_iou(seed, B, K, dev, per_row=4.0):
@@ -932,6 +970,23 @@ def check_iou_nms(dev, stats, parent=None):
             vs_parent("NMS B=1 K=1024 (sparse IoU)", kern,
                       lambda: parent.nms.greedy_nms_mask_batched_cuda(iou, valid, 0.1),
                       device_name="nms_")
+    for K, B in NMS_LARGE:
+        iou = sparse_iou(60 + K, B, K, dev)
+        valid = torch.from_numpy(rs.rand(B, K) > 0.1).to(dev)
+        kept = []
+        for thresh in (0.1, 0.8):
+            got = nms.greedy_nms_mask_batched_cuda(iou, valid, thresh)
+            want = nms.greedy_nms_mask_batched_plain(iou, valid, thresh)
+            require(torch.equal(got, want), f"NMS B={B} K={K} thresh {thresh}: keep mask "
+                    f"differs from the plain version")
+            kept.append(got.sum(dim=1).tolist())
+        ms = [kernel_device_ms(lambda: nms.greedy_nms_mask_batched_cuda(iou, valid, 0.1), name)
+              for name in ("nms_", "nms_mask_kernel", "nms_walk_kernel")]
+        print(f"{'nms':27s} B={B} K={K} (sparse IoU): keep mask equal at thresh 0.1/0.8, "
+              f"random valid, kept {kept}; thresh 0.1: device time {fmt_ms(ms[0])} (words "
+              f"{fmt_ms(ms[1])}, walk {fmt_ms(ms[2])})"
+              + (f", {1e3 * ms[0] / K:.4f} us per serial step" if ms[0] is not None else ""))
+        del iou
 
 
 def kernel_device_ms(fn, name, reps=20):
@@ -3341,12 +3396,27 @@ def dp_phase(dev, work_dir, kitti_run, cfg, weights, world=1):
 
 PP_CFG_REL = "cfgs/kitti_models/pointpillar.yaml"  # in phase 9's working directory
 SECOND_CFG_REL = "cfgs/kitti_models/second.yaml"
+VRCNN_CFG_REL = "cfgs/kitti_models/voxel_rcnn_car.yaml"
+# phase: (yaml, label, seed of the served frames; the train frames' is 100 more)
+VOXEL_PHASES = {12: (PP_CFG_REL, "PointPillar", 1200), 13: (SECOND_CFG_REL, "SECOND", 1200),
+                14: (VRCNN_CFG_REL, "Voxel-RCNN", 1400)}
 VOXEL_SERVE_FRAMES = 5  # three b1 requests and one b2
 VOXEL_TRAIN_STEPS = 5
-IOU_ROW_BLOCK = 1024  # rows of the plain IoU at a time at K 4096 (64 MiB of output each)
+VOXEL_LATENCY_REPS = 10
+# phase 13's depth, cut to keep the script near 900 s (its widths and
+# every run stay): fewer latency repeats and train steps
+VOXEL_DEPTH = {13: dict(latency_reps=3, train_steps=3)}
 VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
-NMS_PRE = 4096  # both yamls' NMS_PRE_MAXSIZE: the candidates of their IoU and NMS
+# a two-stage model's seeded box conv is scaled by this: the seeded weights
+# decode boxes millimetres thin and tens of metres from their anchors,
+# whose IoU with any box is ~0 (no proposal suppressed, no foreground RoI,
+# the grid points of a RoI in one spot); scaled, the boxes stay near their
+# anchors
+BOX_CONV_SCALE = 0.01
+PLANTED_GT = 2  # gt boxes planted on each training frame's proposals (two-stage)
 SPARSE_LEVELS = ("x_conv1", "x_conv2", "x_conv3", "x_conv4", "conv_out")
+KITTI_MEAN_SIZES = {"Car": (3.9, 1.6, 1.56), "Pedestrian": (0.8, 0.6, 1.73),
+                    "Cyclist": (1.76, 0.6, 1.73)}  # phase 9's frames, all three classes
 # the fresh process that reloads a saved voxel program: it imports torch and
 # the port's ops and serving modules only, and computes float32 as this
 # process does (TF32 off); argv: program, batch file, output
@@ -3360,11 +3430,44 @@ from pdanet_tpu_torch.serving import load_serving
 predict, _ = load_serving(sys.argv[1])
 batch = torch.load(sys.argv[2])
 cuda_lib.launches.clear()
+cuda_lib.launches_by_k.clear()
 res = {k: v.cpu() for k, v in predict(batch).items()}
 torch.save(res, sys.argv[3])
-print(json.dumps({"launches": dict(cuda_lib.launches), "modules": sorted(
+print(json.dumps({"launches": {**cuda_lib.launches, **cuda_lib.launches_by_k}, "modules": sorted(
     m for m in sys.modules if m.startswith("pdanet_tpu_torch"))}))
 """
+
+
+def clear_launches():
+    from pdanet_tpu_torch.ops import cuda_lib
+
+    cuda_lib.launches.clear()
+    cuda_lib.launches_by_k.clear()
+
+
+def counted_launches():
+    """The launches since :func:`clear_launches`: each kernel's, and the IoU's
+    and the NMS walk's at each K (``<name>_k<K>``)."""
+    from pdanet_tpu_torch.ops import cuda_lib
+
+    return {**cuda_lib.launches, **cuda_lib.launches_by_k}
+
+
+def add_launches(*runs):
+    return {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
+
+
+def voxel_frames(seed, n, classes):
+    """``n`` of phase 9's LiDAR-like frames, all three KITTI classes in the
+    points, the gt boxes of ``classes`` alone (the yaml's)."""
+    rs = np.random.RandomState(seed)
+    frames = []
+    for _ in range(n):
+        pts, boxes, names = kitti_like_frame(rs, list(KITTI_MEAN_SIZES),
+                                             list(KITTI_MEAN_SIZES.values()))
+        keep = np.isin(names, list(classes))
+        frames.append((pts, boxes[keep], names[keep]))
+    return frames
 
 
 def voxel_batch(cfg, frames, training, dev, model=None):
@@ -3390,24 +3493,56 @@ def voxel_batch(cfg, frames, training, dev, model=None):
 
 
 class RecordIoUShapes:
-    """Records the shape of every self-IoU the post-processing asks for
-    (``iassd.post_processing``'s candidates), the kernel running as ever."""
+    """Records the shape of every self-IoU that ``batched_nms_candidates``
+    (every detector's post-processing, the two-stage proposal layer) asks
+    for, and each NMS walk's keep mask, the kernels running as ever.  With
+    ``keep_boxes`` it also keeps each IoU's input boxes; with ``feed`` (IoU
+    matrices) it returns them in turn instead of computing the IoU."""
+
+    def __init__(self, keep_boxes=False, feed=None):
+        self.keep_boxes, self.feed = keep_boxes, None if feed is None else list(feed)
 
     def __enter__(self):
-        from pdanet_tpu_torch.models.detectors import iassd
+        from pdanet_tpu_torch.models.model_utils import model_nms_utils
 
-        self.shapes, self.module = [], iassd
-        self.orig = iassd.boxes_iou_bev_batched_self
+        self.shapes, self.keeps, self.boxes, self.module = [], [], [], model_nms_utils
+        self.orig = (model_nms_utils.boxes_iou_bev_batched_self,
+                     model_nms_utils.greedy_nms_mask_batched)
 
-        def record(boxes):
+        def iou(boxes):
             self.shapes.append(tuple(boxes.shape))
-            return self.orig(boxes)
+            if self.keep_boxes:
+                self.boxes.append(boxes)
+            if self.feed is not None:
+                fed = self.feed.pop(0)
+                require(fed.shape[:2] == boxes.shape[:2], f"fed IoU {tuple(fed.shape)} for "
+                        f"candidates {tuple(boxes.shape)}")
+                return fed.to(boxes.device)
+            return self.orig[0](boxes)
 
-        iassd.boxes_iou_bev_batched_self = record
+        def walk(iou, valid, thresh):
+            keep = self.orig[1](iou, valid, thresh)
+            self.keeps.append(keep)
+            return keep
+
+        model_nms_utils.boxes_iou_bev_batched_self = iou
+        model_nms_utils.greedy_nms_mask_batched = walk
         return self
 
     def __exit__(self, *exc):
-        self.module.boxes_iou_bev_batched_self = self.orig
+        (self.module.boxes_iou_bev_batched_self,
+         self.module.greedy_nms_mask_batched) = self.orig
+
+
+def serve_ks(cfg):
+    """The K of every self-IoU and walk a request runs: a two-stage model's
+    proposal layer's and its final NMS's (at most its RoIs), else the
+    post-processing's."""
+    post = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE)
+    if "ROI_HEAD" not in cfg.MODEL:
+        return {post}
+    test = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+    return {int(test.NMS_PRE_MAXSIZE), min(post, int(test.NMS_POST_MAXSIZE))}
 
 
 def nms_candidates(out, post_cfg):
@@ -3426,34 +3561,53 @@ def nms_candidates(out, post_cfg):
     return boxes, torch.gather(valid, 1, order).contiguous(), int(valid.sum())
 
 
-def iou_plain_blocked(boxes):
-    """The plain self-IoU on ``IOU_ROW_BLOCK`` rows at a time: the same
-    function as ``boxes_iou_bev_batched_self_plain``, a piece at a time
-    (at K 4096 its pair-wise temporaries would hold tens of GB at once)."""
+def proposal_candidates(first, nms_cfg):
+    """Frame 0's proposal-layer candidates as ``batched_nms_candidates``
+    picks them: the ``NMS_PRE_MAXSIZE`` best anchors by their best raw
+    logit, stable order, all valid."""
     import torch
 
-    from pdanet_tpu_torch.ops import rotated_iou
+    scores = first["batch_cls_preds"][:1].max(dim=-1).values
+    K = min(int(nms_cfg.NMS_PRE_MAXSIZE), scores.shape[1])
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :K]
+    boxes = torch.gather(first["batch_box_preds"][:1], 1,
+                         order[..., None].expand(1, K, 7)).contiguous()
+    return boxes, torch.ones((1, K), dtype=torch.bool, device=boxes.device)
 
-    return torch.cat([rotated_iou.boxes_iou_bev(boxes[:, r:r + IOU_ROW_BLOCK], boxes)
-                      for r in range(0, boxes.shape[1], IOU_ROW_BLOCK)], dim=1)
 
-
-def voxel_kernels(dev, out, post_cfg, label):
-    """Phases 12 and 13 (e): the rotated self-IoU and the NMS walk at K 4096
-    on the path's own candidates (frame 0 of a b1 request) against their
-    plain versions: the IoU within rtol 2e-4 / atol 2e-5, the keep mask
-    equal; CUDA-event times in turns (kernel, plain, plain, kernel), device
-    times under the profiler and bounds from these candidates.  Returns
-    the two rows' numbers."""
+def kernel_candidates(cfg, out):
+    """(e)'s inputs: (boxes, valid, thresh, what) for each K of the path,
+    from frame 0 of a b1 request's forward ``out`` (a two-stage model's
+    first stage): the proposal layer's TRAIN and TEST candidates, or the
+    post-processing's."""
+    if "ROI_HEAD" not in cfg.MODEL:
+        post_cfg = cfg.MODEL.POST_PROCESSING
+        boxes, valid, n_valid = nms_candidates(out, post_cfg)
+        return [(boxes, valid, float(post_cfg.NMS_CONFIG.NMS_THRESH),
+                 f"frame 0's candidates, {n_valid} anchors of "
+                 f"{out['batch_cls_preds'].shape[1]} over SCORE_THRESH")]
+    rows = []
+    for split in ("TRAIN", "TEST"):
+        nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG[split]
+        boxes, valid = proposal_candidates(out, nms_cfg)
+        rows.append((boxes, valid, float(nms_cfg.NMS_THRESH),
+                     f"frame 0's {split} proposal candidates of "
+                     f"{out['batch_cls_preds'].shape[1]} anchors"))
+    return rows
+def voxel_kernels(dev, boxes, valid, thresh, label, what):
+    """Phases 12-14 (e): the rotated self-IoU and the NMS walk on the path's
+    own candidates ``boxes`` (1, K, 7) / ``valid`` (1, K) (frame 0 of a b1
+    request, ``what`` says which) against their plain versions: the IoU
+    within rtol 2e-4 / atol 2e-5, the keep mask equal; CUDA-event times in
+    turns (kernel, plain, plain, kernel), device times under the profiler
+    and bounds from these candidates.  Returns the two rows' numbers."""
     import torch
 
     from pdanet_tpu_torch.ops import nms, rotated_iou
 
-    boxes, valid, n_valid = nms_candidates(out, post_cfg)
     K = boxes.shape[1]
-    thresh = float(post_cfg.NMS_CONFIG.NMS_THRESH)
     got = rotated_iou.boxes_iou_bev_batched_self_cuda(boxes)
-    want = iou_plain_blocked(boxes)
+    want = rotated_iou.boxes_iou_bev_batched_self_plain(boxes)
     err = (got - want).abs().max().item()
     require(torch.allclose(got, want, rtol=2e-4, atol=2e-5),
             f"IoU K={K} on the {label} candidates outside rtol 2e-4 / atol 2e-5 ({err})")
@@ -3477,17 +3631,16 @@ def voxel_kernels(dev, out, post_cfg, label):
     pairs = iou_pairs_needed(boxes)
     rows = {}
     iou_ms, iou_plain = turns(lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
-                              lambda: iou_plain_blocked(boxes), 2)
+                              lambda: rotated_iou.boxes_iou_bev_batched_self_plain(boxes), 2)
     iou_dev = kernel_device_ms(lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
                                "iou_self_kernel")
     bnd = bound((boxes.numel() + got.numel()) * 4, pairs * IOU_PAIR_OPS, F32_OPS_PER_S)
     rows["rotated_iou"] = dict(max_abs_err=err, ms=iou_ms, plain_ms=iou_plain, bound_ms=bnd[0],
                                bound_by=bnd[1], library_ms=None)
-    print(f"{'rotated_iou':27s} {label} K={K} (frame 0's candidates, {n_valid} anchors of "
-          f"{out['batch_cls_preds'].shape[1]} over SCORE_THRESH, {pairs} pairs whose circles "
+    print(f"{'rotated_iou':27s} {label} K={K} ({what}, {pairs} pairs whose circles "
           f"meet): max_abs_err {err:.3g}, diagonal at least {diag_min:.6g}; kernel "
           f"{iou_ms:.4f} ms (device "
-          f"{fmt_ms(iou_dev)}), plain {iou_plain:.4f} ms ({IOU_ROW_BLOCK} rows at a time); "
+          f"{fmt_ms(iou_dev)}), plain {iou_plain:.4f} ms; "
           f"bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at {100 * bnd[0] / iou_ms:.1f} % of it")
 
     row_reads = int((K - 1 - torch.nonzero(keep)[:, 1]).sum())
@@ -3537,105 +3690,22 @@ def sparse_levels(model, cpu_model, requests):
           f"equal; mean taps found a site (submanifold table, conv_out's strided) {taps}")
 
 
-def voxel_serve(cfg, dev, template, label):
-    """Phases 12 and 13 (a): seeded weights at full width; 120000-point
-    LiDAR-like KITTI frames through the host voxelizer at the test budget;
-    three b1 requests and one b2 in float32 through
-    ``serving.make_predict_fn``, their latency, the IoU and NMS kernels
-    launched at K = NMS_PRE_MAXSIZE; a b1 request's latency and device
-    split, beside one with TF32 on in cuDNN and cuBLAS (this script turns
-    it off in phase 1); one frame on the card against the CPU, and for a
-    sparse backbone its levels (``sparse_levels``).  Returns the launches
-    of the requests, the weights, the closure and frame 0's batch and
-    forward."""
+def anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label):
+    """Phases 12 and 13 (a): request 0's frame in float32 on the card
+    (kernels) against the CPU (plain versions): logits within 2e-3, boxes
+    and headings within 1e-3 (a heading pi apart only where the direction
+    bins or the period's fold tie), the detections paired box for box;
+    for a sparse backbone its levels (``sparse_levels``).  Returns the
+    card's forward."""
     import torch
 
     from pdanet_tpu_torch.models import build_network
-    from pdanet_tpu_torch.models.blocks import init_random_weights
     from pdanet_tpu_torch.models.detectors import get_post_processor
-    from pdanet_tpu_torch.ops import cuda_lib
-    from pdanet_tpu_torch.serving import example_device_batch, make_predict_fn
 
-    names = list(cfg.CLASS_NAMES)
-    mean_sizes = [c["anchor_sizes"][0] for c in cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG]
-    model = init_random_weights(build_network(cfg.MODEL, len(names), dataset=template,
-                                              device=dev), seed=0)
-    weights = copy.deepcopy(model.state_dict())
-    predict = make_predict_fn(model, cfg.MODEL)
-    for B in (1, 2):
-        predict(example_device_batch(cfg, B, dev))
-    rs = np.random.RandomState(1200)
-    frames = [kitti_like_frame(rs, names, mean_sizes) for _ in range(VOXEL_SERVE_FRAMES)]
-    requests, host_ms = [], []
-    for chunk in ([frames[0]], [frames[1]], [frames[2]], frames[3:5]):
-        batch, ms = voxel_batch(cfg, chunk, False, dev, model)
-        batch.pop("gt_boxes")  # a request carries the voxels alone
-        requests.append(batch)
-        host_ms += ms
-    K = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE)
-    require(K == NMS_PRE, f"{label}: NMS_PRE_MAXSIZE {K} != {NMS_PRE}")
-    voxels = [int((r["voxel_num_points"] > 0).sum(dim=1).min()) for r in requests]
-    print(f"{label} frames: {KITTI_FRAME_POINTS} points each, host processors and "
-          f"voxelizer (test split, at most {requests[0]['voxels'].shape[1]} voxels of "
-          f"{requests[0]['voxels'].shape[2]}) {[round(t, 1) for t in host_ms]} ms a frame; "
-          f"non-empty voxels (fewest of each request) {voxels}")
-    torch.cuda.synchronize()
-
-    cuda_lib.launches.clear()
-    results = []
-    with RecordIoUShapes() as rec:
-        for batch in requests:
-            t0 = time.perf_counter()
-            res = predict(batch)
-            torch.cuda.synchronize()
-            results.append((batch["voxels"].shape[0], (time.perf_counter() - t0) * 1e3, res))
-    launches = dict(cuda_lib.launches)
-    for i, (B, ms, res) in enumerate(results):
-        for key, val in res.items():
-            require(tuple(val.shape[:1]) == (B,), f"{label} request {i}: {key} batch shape")
-            require(bool(torch.isfinite(val.float()).all()),
-                    f"{label} request {i}: {key} not finite")
-        counts = res["pred_counts"]
-        require(bool(((counts >= 0) & (counts <= 500)).all()), f"request {i}: counts {counts}")
-        print(f"{label} request {i}: B={B} latency {ms:.2f} ms (float32, TF32 off), "
-              f"detections {counts.tolist()}")
-    print(f"{label} kernel launches in the served requests: {launches}; the self-IoU's "
-          f"inputs {rec.shapes}")
-    for name in VOXEL_KERNELS:
-        require(launches.get(name, 0) > 0, f"kernel {name} never launched on the {label} "
-                f"path")
-    require(rec.shapes and all(s[1] == K for s in rec.shapes),
-            f"the {label} self-IoU ran at {rec.shapes}, not K {K}")
     b1 = requests[0]
-    # latency in turns (off, on, on, off), before any profiler runs
-    ms = {False: [], True: []}
-
-    def set_tf32(on):
-        torch.backends.cudnn.allow_tf32 = on
-        torch.backends.cuda.matmul.allow_tf32 = on
-
-    try:
-        for tf32 in (False, True, True, False):
-            set_tf32(tf32)
-            ms[tf32].append(request_ms(predict, b1, reps=10))
-        set_tf32(True)
-        split_tf32 = device_split(lambda: predict(b1))
-    finally:
-        set_tf32(False)  # as phase 1 left it
-    print_split(f"a {label} b1 request under torch.profiler (TF32 off)",
-                device_split(lambda: predict(b1)))
-    print_split(f"a {label} b1 request under torch.profiler (TF32 on in cuDNN and cuBLAS)",
-                split_tf32)
-    for tf32, turns in ms.items():
-        print(f"{label} b1 request with TF32 {'on' if tf32 else 'off'}: median "
-              f"latency " + " / ".join(f"{lat:.2f}" for lat, _ in turns) + " ms, host enqueue "
-              + " / ".join(f"{enq:.2f}" for _, enq in turns) + " ms (10 after warm-up, two "
-              "turns)")
-
-    # one frame in float32 on the card (kernels) against the CPU (plain versions)
     with torch.inference_mode():
         out_card = model.forward_batch(b1)
-    cpu_model = build_network(cfg.MODEL, len(names), dataset=template, device="cpu")
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device="cpu")
     cpu_model.load_state_dict(weights)
     cpu_batch = {k: v.cpu() for k, v in b1.items()}
     t0 = time.perf_counter()
@@ -3678,106 +3748,446 @@ def voxel_serve(cfg, dev, template, label):
             f"{label} float32 detections card vs CPU not paired box for box")
     if hasattr(model, "backbone_3d"):
         sparse_levels(model, cpu_model, requests)
-    return launches, weights, predict, b1, out_card
+    return out_card
 
 
-def voxel_train(cfg, weights, dev, template, label):
-    """Phases 12 and 13 (b): 5 float32 steps at B = 4 on the train budget
-    (frames through the train split's processors, gt on their boxes):
-    finite losses and gradients, the step time, peak memory and a device
-    split; then one float64 step at B = 1 on the card against the CPU."""
+def vrcnn_queries(model, out, rois):
+    """The RoI head's voxel query of ``rois`` (B, R, 7) on the forward's
+    sparse levels: the (B, G, 3) grid points and, a level, ``query``'s
+    ``(table, pos_idx, valid_k, empty, rel)``."""
+    from pdanet_tpu_torch.models.roi_heads.voxelrcnn_head import get_dense_grid_points
+
+    head = model.roi_head
+    grid_size, voxel_size, pc_range = head.geometry
+    grid = get_dense_grid_points(rois, head.grid).reshape(rois.shape[0], -1, 3)
+    return grid, {src: getattr(head, f"pool_{src}").query(
+        out["multi_scale_3d_features"][src][0], head.strides[src], grid, voxel_size, pc_range,
+        grid_size) for src in head.sources}
+
+
+def roi_traffic(cfg, model, requests, keeps, label):
+    """Phase 14 (a): what the served requests gave the second stage.  The
+    proposal layer's walks (``keeps``, at the TEST K) must suppress some
+    candidates; per request the RoIs kept, and per level the grid points
+    whose window is empty and whose window is full (``NSAMPLE`` hits, so
+    that the first-``NSAMPLE`` pick and the max over slots choose): some
+    level must hold full windows."""
+    import torch
+
+    K_prop = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_PRE_MAXSIZE)
+    n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE)
+    kept = [k.sum(dim=1).tolist() for k in keeps if k.shape[1] == K_prop]
+    print(f"{label} proposal layer: candidates kept by the walk at K {K_prop} {kept}")
+    require(kept and any(n < K_prop for frame in kept for n in frame),
+            f"{label}: the proposal layer's walk suppressed no candidate")
+    full = {}
+    with torch.inference_mode():
+        for i, batch in enumerate(requests):
+            out = model.forward_batch(batch)
+            _, queries = vrcnn_queries(model, out, out["rois"])
+            nsample = {src: q[2].shape[-1] for src, q in queries.items()}
+            hits = {src: q[2].sum(dim=-1) for src, q in queries.items()}
+            for src in queries:
+                full[src] = full.get(src, 0) + int((hits[src] == nsample[src]).sum())
+            print(f"{label} request {i}: RoIs kept by the proposal layer "
+                  f"{out['roi_valid'].sum(dim=1).tolist()} of {n_rois}; of "
+                  f"{queries['x_conv2'][3].shape[1]} grid points a frame, a level: empty windows "
+                  f"{ {src: q[3].sum(dim=1).tolist() for src, q in queries.items()} }, full "
+                  f"windows ({nsample} hits) "
+                  f"{ {src: (h == nsample[src]).sum(dim=1).tolist() for src, h in hits.items()} }, "
+                  f"mean hits { {src: round(float(h.float().mean()), 2) for src, h in hits.items()} }")
+            del out, queries, hits
+    require(any(full.values()), f"{label}: no grid point's window was full on any level")
+
+
+def vrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label, gt):
+    """Phase 14 (a): request 0's frame on the card against the CPU's plain
+    path.  The whole forward on the CPU gives the first stage's logits
+    (within 2e-3) and the agreement of its proposals; then each stage on
+    the card's own inputs, so that a float32 difference upstream moves no
+    index: the proposal layer on the card's first-stage outputs (keep mask
+    and RoIs equal), the voxel query of the card's grid points on the
+    card's sparse levels (every level's table, hits and empty windows
+    equal), the RoI head on the card's levels and grid points
+    (``rcnn_cls`` / ``rcnn_reg`` within 2e-3), the refined boxes'
+    post-processing (the detections paired box for box with the card's
+    request).  Then the voxel query and pool of RoIs placed on the frame's
+    gt boxes ``gt`` (1, M, 8), whose windows hold the objects' sites:
+    tables and hits equal, pooled features within 2e-3, and full windows
+    on every level.  Returns the card's first-stage forward."""
     import torch
 
     from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.detectors.second import SECOND
+    from pdanet_tpu_torch.models.detectors.voxel_rcnn import post_processing
+    from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
+
+    b1 = requests[0]
+    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+    with torch.inference_mode():
+        with RecordIoUShapes() as rec_card:
+            out_card = model.forward_batch(b1)
+        first_card = SECOND.forward(model, b1["voxels"], b1["voxel_coords"],
+                                    b1["voxel_num_points"])
+        grid_card, q_card = vrcnn_queries(model, out_card, out_card["rois"])
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device="cpu")
+    cpu_model.load_state_dict(weights)
+    cpu_model.eval()
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else tuple(x.cpu() for x in t)  # noqa: E731
+    t0 = time.perf_counter()
+    with torch.inference_mode(), RecordIoUShapes() as rec_cpu:
+        out_cpu = cpu_model.forward_batch({k: v.cpu() for k, v in b1.items()})
+    cpu_s = time.perf_counter() - t0
+    logit_err = (out_card["cls_preds"].cpu() - out_cpu["cls_preds"]).abs().max().item()
+    whole_keep = torch.equal(rec_card.keeps[0].cpu(), rec_cpu.keeps[0])
+    whole_rois = (out_card["rois"].cpu() - out_cpu["rois"]).abs().max().item()
+    require(logit_err <= 2e-3, f"{label} first-stage logits card vs CPU {logit_err} > 2e-3")
+
+    with torch.inference_mode():
+        with RecordIoUShapes() as rec_fed:
+            props = RHT.proposal_layer(cpu(first_card["batch_cls_preds"]),
+                                       cpu(first_card["batch_box_preds"]), nms_cfg)
+        require(torch.equal(rec_fed.keeps[0], rec_card.keeps[0].cpu()),
+                f"{label} proposal keep mask card vs CPU (the card's first stage fed)")
+        for key in ("rois", "roi_labels", "roi_valid"):
+            require(torch.equal(props[key], out_card[key].cpu()),
+                    f"{label} proposals: {key} card vs CPU (the card's first stage fed)")
+        ms = {k: cpu(v) for k, v in out_card["multi_scale_3d_features"].items()}
+        fed = {"multi_scale_3d_features": ms}
+        head = cpu_model.roi_head
+        grid_size, voxel_size, pc_range = head.geometry
+
+        def queries_equal(grid, queries, what):
+            """Every level's voxel query of ``grid`` on the CPU equal to the
+            card's ``queries``: mean taps found a site, mean hits kept and
+            full windows a level."""
+            taps, hits, full = {}, {}, {}
+            for src, q in queries.items():
+                q_cpu = getattr(head, f"pool_{src}").query(ms[src][0], head.strides[src],
+                                                           grid.cpu(), voxel_size, pc_range,
+                                                           grid_size)
+                for name, g, c in zip(("table", "pos_idx", "valid_k", "empty"), q, q_cpu):
+                    if name == "pos_idx":  # the taps picked, where they are hits
+                        g, c = torch.where(q[2], g, -1).cpu(), torch.where(q_cpu[2], c, -1)
+                    require(torch.equal(g.cpu(), c), f"{label} {src} voxel query of {what}: "
+                            f"{name} card vs CPU (the card's grid points and sites fed)")
+                n_hits = q_cpu[2].sum(dim=-1)
+                taps[src] = round(float((q_cpu[0] >= 0).sum(dim=-1).float().mean()), 1)
+                hits[src] = round(float(n_hits.float().mean()), 2)
+                full[src] = int((n_hits == q_cpu[2].shape[-1]).sum())
+            return taps, hits, full
+
+        taps, hits, _ = queries_equal(grid_card, q_card, "the proposals")
+        B, R = out_card["rois"].shape[:2]
+        rcnn_cls, rcnn_reg = head.refine(head.pool(ms, grid_card.cpu()).reshape(B, R, -1))
+        cls_err = (rcnn_cls - out_card["rcnn_cls"].cpu()).abs().max().item()
+        reg_err = (rcnn_reg - out_card["rcnn_reg"].cpu()).abs().max().item()
+        require(cls_err <= 2e-3 and reg_err <= 2e-3,
+                f"{label} rcnn_cls / rcnn_reg card vs CPU {cls_err} / {reg_err} > 2e-3")
+        fed.update(batch_cls_preds=rcnn_cls, roi_labels=props["roi_labels"],
+                   roi_valid=props["roi_valid"],
+                   batch_box_preds=RHT.decode_roi_boxes(props["rois"], rcnn_reg,
+                                                        cpu_model.roi_box_coder))
+        post_cpu = post_processing(fed, cfg.MODEL)
+        gt_rois = gt[:, gt[0, :, 7] > 0, :7].contiguous()
+        grid_gt, q_gt = vrcnn_queries(model, out_card, gt_rois)
+        gt_taps, gt_hits, gt_full = queries_equal(grid_gt, q_gt, "the gt boxes")
+        pooled_err = (head.pool(ms, grid_gt.cpu()) - model.roi_head.pool(
+            out_card["multi_scale_3d_features"], grid_gt).cpu()).abs().max().item()
+    print(f"{label} RoIs on frame 0's {gt_rois.shape[1]} gt boxes, card vs CPU: every level's "
+          f"voxel query equal (mean taps found a site {gt_taps}, mean hits kept {gt_hits}, "
+          f"full windows {gt_full} of {grid_gt.shape[1]} grid points), pooled features within "
+          f"{pooled_err:.3g}")
+    require(pooled_err <= 2e-3, f"{label} pooled features on the gt boxes card vs CPU "
+            f"{pooled_err} > 2e-3")
+    require(all(gt_full.values()), f"{label}: a level filled no window on the gt boxes "
+            f"{gt_full}")
+    pairs, n_g, n_c, gap_c, gap_s = match_detections(results[0][2], post_cpu)
+    print(f"{label} float32 frame, card vs CPU (the whole forward {cpu_s:.1f} s on the CPU): "
+          f"first-stage logits within {logit_err:.3g}; the whole CPU forward's proposal keep "
+          f"mask {'equal' if whole_keep else 'different'}, its RoIs within {whole_rois:.3g}; "
+          f"on the card's inputs: the proposal keep mask and RoIs equal, every level's voxel "
+          f"query (tables, first-{head.pool_x_conv2.nsample} hits, empty windows) equal (mean "
+          f"taps found a site {taps}, mean hits kept {hits} of {grid_card.shape[1]} grid "
+          f"points), rcnn_cls within {cls_err:.3g}, rcnn_reg within {reg_err:.3g}; detections "
+          f"{n_g} vs {n_c}, {pairs} paired (largest centre distance {gap_c:.3g} m, score "
+          f"{gap_s:.3g})")
+    require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
+            f"{label} float32 detections card vs CPU not paired box for box")
+    return first_card
+
+
+def voxel_serve(cfg, dev, template, label, seed, latency_reps=VOXEL_LATENCY_REPS):
+    """Phases 12-14 (a): seeded weights at full width (a two-stage model's
+    box conv scaled by ``BOX_CONV_SCALE``); 120000-point LiDAR-like KITTI
+    frames through the host voxelizer at the test budget; three b1
+    requests and one b2 in float32 through ``serving.make_predict_fn``,
+    their latency, the IoU and NMS kernels launched at every K of
+    ``serve_ks``; a b1 request's latency, host enqueue and device split,
+    beside one with TF32 on in cuDNN and cuBLAS (this script turns it off
+    in phase 1); a two-stage model's RoI traffic (``roi_traffic``); one
+    frame on the card against the CPU (``vrcnn_card_vs_cpu`` or
+    ``anchors_card_vs_cpu``).  Returns the launches of the requests, the
+    weights, the closure and frame 0's batch and (first-stage) forward."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.serving import example_device_batch, make_predict_fn
+
+    two_stage = "ROI_HEAD" in cfg.MODEL
+    model = init_random_weights(build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template,
+                                              device=dev), seed=0)
+    if two_stage:
+        with torch.no_grad():
+            model.dense_head.conv_box.weight.mul_(BOX_CONV_SCALE)
+    weights = copy.deepcopy(model.state_dict())
+    predict = make_predict_fn(model, cfg.MODEL)
+    for B in (1, 2):
+        predict(example_device_batch(cfg, B, dev))
+    frames = voxel_frames(seed, VOXEL_SERVE_FRAMES, cfg.CLASS_NAMES)
+    requests, gts, host_ms = [], [], []
+    for chunk in ([frames[0]], [frames[1]], [frames[2]], frames[3:5]):
+        batch, ms = voxel_batch(cfg, chunk, False, dev, model)
+        gts.append(batch.pop("gt_boxes"))  # a request carries the voxels alone
+        requests.append(batch)
+        host_ms += ms
+    ks = serve_ks(cfg)
+    max_dets = min(int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE), min(ks))
+    voxels = [int((r["voxel_num_points"] > 0).sum(dim=1).min()) for r in requests]
+    print(f"{label} frames: {KITTI_FRAME_POINTS} points each, host processors and "
+          f"voxelizer (test split, at most {requests[0]['voxels'].shape[1]} voxels of "
+          f"{requests[0]['voxels'].shape[2]}) {[round(t, 1) for t in host_ms]} ms a frame; "
+          f"non-empty voxels (fewest of each request) {voxels}")
+    torch.cuda.synchronize()
+
+    clear_launches()
+    results = []
+    with RecordIoUShapes() as rec:
+        for batch in requests:
+            t0 = time.perf_counter()
+            res = predict(batch)
+            torch.cuda.synchronize()
+            results.append((batch["voxels"].shape[0], (time.perf_counter() - t0) * 1e3, res))
+    launches = counted_launches()
+    for i, (B, ms, res) in enumerate(results):
+        for key, val in res.items():
+            require(tuple(val.shape[:1]) == (B,), f"{label} request {i}: {key} batch shape")
+            require(bool(torch.isfinite(val.float()).all()),
+                    f"{label} request {i}: {key} not finite")
+        counts = res["pred_counts"]
+        require(bool(((counts >= 0) & (counts <= max_dets)).all()),
+                f"{label} request {i}: counts {counts}")
+        print(f"{label} request {i}: B={B} latency {ms:.2f} ms (float32, TF32 off), "
+              f"detections {counts.tolist()}")
+    print(f"{label} kernel launches in the served requests: {launches}; the self-IoU's "
+          f"inputs {rec.shapes}")
+    for name in VOXEL_KERNELS:
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched on the {label} "
+                f"path")
+    require({s[1] for s in rec.shapes} == ks,
+            f"the {label} self-IoU ran at {rec.shapes}, not K {sorted(ks)}")
+    b1 = requests[0]
+    # latency in turns (off, on, on, off), before any profiler runs
+    ms = {False: [], True: []}
+
+    def set_tf32(on):
+        torch.backends.cudnn.allow_tf32 = on
+        torch.backends.cuda.matmul.allow_tf32 = on
+
+    try:
+        for tf32 in (False, True, True, False):
+            set_tf32(tf32)
+            ms[tf32].append(request_ms(predict, b1, reps=latency_reps))
+        set_tf32(True)
+        split_tf32 = device_split(lambda: predict(b1))
+    finally:
+        set_tf32(False)  # as phase 1 left it
+    print_split(f"a {label} b1 request under torch.profiler (TF32 off)",
+                device_split(lambda: predict(b1)))
+    print_split(f"a {label} b1 request under torch.profiler (TF32 on in cuDNN and cuBLAS)",
+                split_tf32)
+    for tf32, turns in ms.items():
+        print(f"{label} b1 request with TF32 {'on' if tf32 else 'off'}: median "
+              f"latency " + " / ".join(f"{lat:.2f}" for lat, _ in turns) + " ms, host enqueue "
+              + " / ".join(f"{enq:.2f}" for _, enq in turns) + f" ms ({latency_reps} after "
+              "warm-up, two turns)")
+    if two_stage:
+        roi_traffic(cfg, model, requests, rec.keeps, label)
+        out = vrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label,
+                                gts[0])
+    else:
+        out = anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label)
+    return launches, weights, predict, b1, out
+
+
+def plant_gt(cfg, model, batch, n):
+    """``batch`` with ``n`` more gt boxes a frame, on the first ``n``
+    proposals the TRAIN proposal layer keeps in a training-mode forward
+    of ``model`` (a throwaway copy: its BatchNorm statistics move), so
+    that a seeded two-stage model samples foreground RoIs."""
+    import torch
+
+    from pdanet_tpu_torch.models.detectors.second import SECOND
+    from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
+
+    with torch.no_grad():
+        first = SECOND.forward(model.train(), batch["voxels"], batch["voxel_coords"],
+                               batch["voxel_num_points"])
+        props = RHT.proposal_layer(first["batch_cls_preds"], first["batch_box_preds"],
+                                   cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN)
+    gt = batch["gt_boxes"]
+    extra = []
+    for b in range(gt.shape[0]):
+        pick = torch.nonzero(props["roi_valid"][b])[:n, 0]
+        require(len(pick) == n, f"plant_gt: {len(pick)} proposals kept, want {n}")
+        extra.append(torch.cat([props["rois"][b, pick],
+                                props["roi_labels"][b, pick, None].to(gt.dtype)], -1))
+    return {**batch, "gt_boxes": torch.cat([gt, torch.stack(extra).to(gt.dtype)], dim=1)}
+
+
+def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAIN_STEPS):
+    """Phases 12-14 (b): ``train_steps`` float32 steps at the yaml's batch
+    size on the train budget (frames through the train split's processors,
+    gt on their boxes; for a two-stage model ``PLANTED_GT`` more a frame on
+    its proposals, so that foreground RoIs are sampled): finite losses and
+    gradients, the IoU and NMS kernels launched at the TRAIN proposal
+    layer's K and suppressing there (a two-stage model) or not at all,
+    foreground in the first step's sample, the step time, peak memory and
+    a device split; then one float64 step at B = 1 on the card against the
+    CPU, each frame's draws from the same CPU generator on both (a
+    two-stage model: gt planted again, the CPU's proposal layer fed the
+    plain IoU of the card's candidates, computed on the card, and its keep
+    mask equal to the card kernel's).  Returns the steps' launches."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.ops.rotated_iou import boxes_iou_bev_batched_self_plain
     from pdanet_tpu_torch.train import build_optimizer_and_schedule, make_train_step
 
-    names = list(cfg.CLASS_NAMES)
-    mean_sizes = [c["anchor_sizes"][0] for c in cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG]
+    two_stage = "ROI_HEAD" in cfg.MODEL
     B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
-    rs = np.random.RandomState(1300)
-    frames = [kitti_like_frame(rs, names, mean_sizes) for _ in range(B)]
-    np.random.seed(1300)  # shuffle_points
+    frames = voxel_frames(seed, B, cfg.CLASS_NAMES)
+    np.random.seed(seed)  # shuffle_points
     ocfg = cfg.OPTIMIZATION
+    K_train = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE) if two_stage else None
+
+    def fresh(device, dtype):
+        model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=device)
+        model.load_state_dict(weights)
+        return model.to(dtype)
 
     def train_model(device, dtype=torch.float32):
-        model = build_network(cfg.MODEL, len(names), dataset=template, device=device)
-        model.load_state_dict(weights)
-        model.to(dtype)
+        model = fresh(device, dtype)
         optimizer, schedule = build_optimizer_and_schedule(
             model, ocfg, total_iters_each_epoch=3712 // B, total_epochs=ocfg.NUM_EPOCHS)
         return model, make_train_step(model, optimizer, schedule)
 
     model, step = train_model(dev)
     batch, host_ms = voxel_batch(cfg, frames, True, dev, model)
+    plain_batch = batch
+    if two_stage:
+        batch = plant_gt(cfg, fresh(dev, torch.float32), batch, PLANTED_GT)
     print(f"{label} train frames: host processors and voxelizer (train split, at most "
           f"{batch['voxels'].shape[1]} voxels) {[round(t, 1) for t in host_ms]} ms a frame; "
           f"non-empty voxels {(batch['voxel_num_points'] > 0).sum(dim=1).tolist()}, gt boxes "
           f"{(batch['gt_boxes'][..., 7] > 0).sum(dim=1).tolist()}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    times, losses = [], []
-    for i in range(VOXEL_TRAIN_STEPS):
-        t0 = time.perf_counter()
-        loss, tb = step(batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss.item())
-        require(np.isfinite(losses[-1]), f"{label} step {i}: loss {losses[-1]}")
-        require(_grads_finite(model), f"{label} step {i}: gradients not finite")
+    clear_launches()
+    times, losses, fg = [], [], []
+    with RecordIoUShapes() as rec:
+        for i in range(train_steps):
+            t0 = time.perf_counter()
+            loss, tb = step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+            fg.append(float(tb.get("rcnn_loss_reg", 0.0)))
+            require(np.isfinite(losses[-1]), f"{label} step {i}: loss {losses[-1]}")
+            require(_grads_finite(model), f"{label} step {i}: gradients not finite")
+    launches = counted_launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if two_stage:
+        require(rec.shapes and all(s == (B, K_train, 7) for s in rec.shapes),
+                f"the {label} training self-IoU ran at {rec.shapes}, not B {B} K {K_train}")
+        for name in VOXEL_KERNELS:
+            require(launches.get(name, 0) > 0, f"kernel {name} never launched in {label} "
+                    f"training")
+        kept = [k.sum(dim=1).tolist() for k in rec.keeps]
+        require(any(n < K_train for frame in kept for n in frame),
+                f"{label} training: the proposal layer's walk suppressed no candidate {kept}")
+        require(fg[0] > 0, f"{label} step 0: no foreground RoI sampled")
+        print(f"{label} training: candidates kept by the walk at K {K_train} a step {kept}; "
+              f"rcnn_loss_reg a step (> 0: foreground RoIs sampled) "
+              f"{[round(x, 4) for x in fg]}")
+    else:
+        require(not rec.shapes, f"{label} training ran a self-IoU: {rec.shapes}")
     print_split(f"a {label} float32 train step B={B} under torch.profiler (TF32 off)",
                 device_split(lambda: step(batch)))
     print(f"{label} train float32 B={B}: losses {[round(x, 4) for x in losses]}; ms/step "
           f"{[round(t, 2) for t in times]}, median after warm-up "
-          f"{statistics.median(times[1:]):.2f} ms; peak memory {peak:.2f} GiB; tb of the last "
-          f"step { {k: round(float(v), 4) for k, v in tb.items()} }")
+          f"{statistics.median(times[1:]):.2f} ms; peak memory {peak:.2f} GiB; launches "
+          f"{launches}; tb of the last step "
+          f"{ {k: round(float(v), 4) for k, v in tb.items()} }")
     del model, step
 
     # one float64 step at B = 1, the card against the CPU from the same weights
-    one = {k: v[:1] for k, v in batch.items()}
-    res = []
+    one = {k: (v[:1].double() if v.is_floating_point() else v[:1])
+           for k, v in plain_batch.items()}
+    if two_stage:
+        one = plant_gt(cfg, fresh(dev, torch.float64), one, PLANTED_GT)
+    res, fed = [], None
     for device in (dev, torch.device("cpu")):
         model, step = train_model(device, torch.float64)
         t0 = time.perf_counter()
-        loss, tb = step({k: (v.double() if v.is_floating_point() else v).to(device)
-                         for k, v in one.items()})
+        with RecordIoUShapes(keep_boxes=fed is None, feed=fed) as rec:
+            loss, tb = step({k: v.to(device) for k, v in one.items()})
+        if fed is None:
+            fed = [boxes_iou_bev_batched_self_plain(b).cpu() for b in rec.boxes]
         res.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
                     {n: b.cpu() for n, b in model.named_buffers() if "running" in n},
-                    time.perf_counter() - t0))
+                    time.perf_counter() - t0, float(tb.get("rcnn_loss_reg", 0.0)),
+                    [k.cpu() for k in rec.keeps]))
         del model, step
-    (l_g, g_g, s_g, t_g), (l_c, g_c, s_c, t_c) = res
+    (l_g, g_g, s_g, t_g, r_g, k_g), (l_c, g_c, s_c, t_c, r_c, k_c) = res
     rel = abs(l_g - l_c) / abs(l_c)
     errs = _leaf_errors(g_g, g_c, floor=1e-6)
     stat_err = max((s_g[n] - s_c[n]).abs().max().item() for n in s_c)
-    print(f"{label} float64 step B=1, card vs CPU ({t_g:.1f} s / {t_c:.1f} s): loss "
+    keeps_equal = len(k_g) == len(k_c) and all(map(torch.equal, k_g, k_c))
+    fed_note = (f", the CPU fed the plain IoU of the card's K {K_train} candidates; proposal "
+                f"keep mask {'equal' if keeps_equal else 'different'}, rcnn_loss_reg "
+                f"{r_g:.6g}" if two_stage else "")
+    print(f"{label} float64 step B=1, card vs CPU ({t_g:.1f} s / {t_c:.1f} s{fed_note}): loss "
           f"{l_g:.17g} vs {l_c:.17g} (rel {rel:.3g}); gradient leaves within "
           f"{errs[0][0]:.3g} of their scale at worst ({errs[0][1]}), deciles "
           f"{_deciles(errs)}; statistics within {stat_err:.3g}")
+    require(keeps_equal, f"{label} float64 step: proposal keep mask card vs CPU")
     require(rel <= 1e-10, f"{label} float64 loss card vs CPU rel {rel}")
     require(errs[0][0] <= 1e-8, f"{label} float64 gradients card vs CPU: {errs[:3]}")
     require(stat_err <= 1e-10, f"{label} float64 statistics card vs CPU {stat_err}")
+    require(not two_stage or r_c > 0, f"{label} float64 step: no foreground RoI sampled")
+    return launches
 
 
-def voxel_clis(work, kitti_run, cfg_rel, label):
-    """Phases 12 and 13 (c): the yaml through the train CLI (one epoch of
-    phase 9's 32 frames at B = 4, augmentor and all) and the test CLI on
+def voxel_clis(work, kitti_run, cfg_rel, label, batch_size):
+    """Phases 12-14 (c): the yaml through the train CLI (one epoch of phase
+    9's 32 frames at ``batch_size``, augmentor and all) and the test CLI on
     its checkpoint with the official KITTI evaluation; then
     ``dist_train.sh`` at world 1 over NCCL (the BatchNorms' global
     moments).  Returns the launches of the train and test CLIs."""
-    from pdanet_tpu_torch.ops import cuda_lib
     from pdanet_tpu_torch.tools import test as test_cli
     from pdanet_tpu_torch.tools import train as train_cli
 
     root, val_ids = kitti_run["root"], kitti_run["val_ids"]
     set_data = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
-    launches = {}
     with contextlib.chdir(work):
-        cuda_lib.launches.clear()
+        clear_launches()
         t0 = time.perf_counter()
-        out = train_cli.main(["--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", "4",
-                              "--num_epochs_to_eval", "0", *set_data])
+        out = train_cli.main(["--cfg_file", cfg_rel, "--epochs", "1", "--batch_size",
+                              str(batch_size), "--num_epochs_to_eval", "0", *set_data])
         train_s = time.perf_counter() - t0
-        train_counts = dict(cuda_lib.launches)
+        train_counts = counted_launches()
         series = {}
         for line in (out / "tensorboard" / "metrics.jsonl").read_text().splitlines():
             m = json.loads(line)
@@ -3785,20 +4195,21 @@ def voxel_clis(work, kitti_run, cfg_rel, label):
         losses = series["train/loss"]
         step_ms = [1e3 * t for t in series["meta_data/batch_time"]]
         wait_ms = [1e3 * t for t in series["meta_data/data_time"]]
-        require(len(losses) == kitti_run["steps"] and all(np.isfinite(losses)),
+        steps = kitti_run["steps"] * kitti_run["B"] // batch_size
+        require(len(losses) == steps and all(np.isfinite(losses)),
                 f"{label} train CLI losses {losses}")
-        print(f"{label} train CLI (1 epoch at B=4 on phase 9's root): {train_s:.1f} s; "
+        print(f"{label} train CLI (1 epoch at B={batch_size} on phase 9's root): {train_s:.1f} s; "
               f"losses {[round(x, 4) for x in losses]}; ms per iteration "
               f"{[round(t, 2) for t in step_ms]}, median after the first "
               f"{statistics.median(step_ms[1:]):.2f} ms, waiting for the loader "
               f"{[round(t, 2) for t in wait_ms]} ms")
         ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
-        cuda_lib.launches.clear()
+        clear_launches()
         t0 = time.perf_counter()
         result = test_cli.main(["--cfg_file", cfg_rel, "--ckpt", str(ckpt), "--batch_size",
                                 "1", "--infer_time", *set_data])
         test_s = time.perf_counter() - t0
-        test_counts = dict(cuda_lib.launches)
+        test_counts = counted_launches()
         res_dir = out / "eval" / "epoch_1" / "val" / "default"
         with open(res_dir / "result.pkl", "rb") as f:
             annos = pickle.load(f)
@@ -3822,12 +4233,9 @@ def voxel_clis(work, kitti_run, cfg_rel, label):
         for name in VOXEL_KERNELS:
             require(test_counts.get(name, 0) > 0, f"kernel {name} never launched by the "
                     f"{label} test CLI")
-        for counts in (train_counts, test_counts):
-            for k, v in counts.items():
-                launches[k] = launches.get(k, 0) + v
-
+        launches = add_launches(train_counts, test_counts)
     train_s = run_dist_script("dist_train.sh", 1, [
-        "--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", "4",
+        "--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", str(batch_size),
         "--num_epochs_to_eval", "0", "--extra_tag", "dp1", *set_data], work)
     dp_out = Path(work) / "output" / "kitti_models" / Path(cfg_rel).stem / "dp1"
     log, dp_counts = cli_log(dp_out, "train")
@@ -3840,7 +4248,7 @@ def voxel_clis(work, kitti_run, cfg_rel, label):
             dp_losses.append(m["value"])
         elif m["tag"] == "meta_data/batch_time":
             dp_ms.append(1e3 * m["value"])
-    require(len(dp_losses) == kitti_run["steps"] and all(np.isfinite(dp_losses)),
+    require(len(dp_losses) == steps and all(np.isfinite(dp_losses)),
             f"{label} dist_train.sh losses {dp_losses}")
     print(f"{label} train CLI through dist_train.sh (world 1, NCCL): {train_s:.1f} s; "
           f"losses {[round(x, 4) for x in dp_losses]}; ms per iteration median after the "
@@ -3849,7 +4257,7 @@ def voxel_clis(work, kitti_run, cfg_rel, label):
 
 
 def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, label):
-    """Phases 12 and 13 (d): the b1 program through
+    """Phases 12-14 (d): the b1 program through
     ``serving.export_serving`` and ``save_serving``, reloaded by
     ``load_serving`` in a fresh process (``RELOAD_VOXELS``: torch and the
     port's ops and serving modules only) on a LiDAR-like frame, bit-equal
@@ -3897,47 +4305,52 @@ def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, 
     return launches
 
 
-def voxel_phase(dev, work, kitti_run, phase, cfg_rel, label):
-    """Phases 12 and 13, on one yaml at full width: (a) serving, (b)
-    training, (c) the CLIs, (d) export, (e) the IoU and NMS kernels at K
-    4096.  Returns the launches of its main-path runs ((a)'s requests,
-    (c)'s CLIs, (d)'s program request, each counted from 0) and (e)'s
-    rows."""
+def voxel_phase(dev, work, kitti_run, phase):
+    """Phases 12-14, on one yaml of ``VOXEL_PHASES`` at full width: (a)
+    serving, (b) training, (c) the CLIs, (d) export, (e) the IoU and NMS
+    kernels at each K of the path.  Returns the launches of its main-path
+    runs ((a)'s requests, (b)'s steps, (c)'s CLIs, (d)'s program request,
+    each counted from 0), with the IoU's and the walk's at each K, and
+    (e)'s rows by K."""
     import torch
 
     from pdanet_tpu_torch.config import cfg_from_yaml_file
     from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
 
+    cfg_rel, label, seed = VOXEL_PHASES[phase]
+    depth = VOXEL_DEPTH.get(phase, {})
     cfg = cfg_from_yaml_file(str(Path(work) / cfg_rel))
     template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                                training=False, root_path=str(kitti_run["root"]))
     t0 = time.perf_counter()
-    served, weights, predict, b1, out = voxel_serve(cfg, dev, template, label)
+    served, weights, predict, b1, out = voxel_serve(
+        cfg, dev, template, label, seed, depth.get("latency_reps", VOXEL_LATENCY_REPS))
     print(f"phase {phase} (a) serving: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    voxel_train(cfg, weights, dev, template, label)
+    trained = voxel_train(cfg, weights, dev, template, label, seed + 100,
+                          depth.get("train_steps", VOXEL_TRAIN_STEPS))
     print(f"phase {phase} (b) training: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    clis = voxel_clis(work, kitti_run, cfg_rel, label)
+    clis = voxel_clis(work, kitti_run, cfg_rel, label, cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     print(f"phase {phase} (c) the CLIs: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     program = voxel_export(cfg, predict, weights, dev, template, b1, work, cfg_rel, label)
     print(f"phase {phase} (d) export: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows = voxel_kernels(dev, out, cfg.MODEL.POST_PROCESSING, label)
-    print(f"phase {phase} (e) the kernels at K {NMS_PRE}: {time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for boxes, valid, thresh, what in kernel_candidates(cfg, out):
+        rows[boxes.shape[1]] = voxel_kernels(dev, boxes, valid, thresh, label, what)
+    print(f"phase {phase} (e) the kernels at K {sorted(rows)}: {time.perf_counter() - t0:.1f} s")
     del predict, out
     torch.cuda.empty_cache()
-    launches = {k: served.get(k, 0) + clis.get(k, 0) + program.get(k, 0)
-                for k in set(served) | set(clis) | set(program)}
-    return launches, rows
+    return add_launches(served, trained, clis, program), rows
 
 
 def pointpillar_phase(dev, work, kitti_run):
     """Phase 12: tools/cfgs/kitti_models/pointpillar.yaml at full width
     (432 x 496 pillars of 0.16 m, 40000 test / 16000 train pillars of 32
     points, 64 BEV channels, 321408 anchors a frame), nothing cut."""
-    return voxel_phase(dev, work, kitti_run, 12, PP_CFG_REL, "PointPillar")
+    return voxel_phase(dev, work, kitti_run, 12)
 
 
 def second_phase(dev, work, kitti_run):
@@ -3946,7 +4359,16 @@ def second_phase(dev, work, kitti_run):
     voxels of 5 points, the sparse backbone's [16, 16, 32, 64, 64] filters
     and 128 output features, a 256-channel BEV map of 200 x 176, 211200
     anchors a frame), nothing cut."""
-    return voxel_phase(dev, work, kitti_run, 13, SECOND_CFG_REL, "SECOND")
+    return voxel_phase(dev, work, kitti_run, 13)
+
+
+def voxel_rcnn_phase(dev, work, kitti_run):
+    """Phase 14: tools/cfgs/kitti_models/voxel_rcnn_car.yaml at full width
+    (SECOND's grid and sparse backbone, a 256-channel BEV map, 70400
+    anchors a frame, the proposal layer at K 2048 / 9000, a 6 x 6 x 6 RoI
+    grid pooled from three sparse levels in 9 x 9 x 9 windows), nothing
+    cut; the yaml's batch of 2 to train."""
+    return voxel_phase(dev, work, kitti_run, 14)
 
 
 def ptxas_report(log):
@@ -4049,7 +4471,7 @@ def main():
     ap.add_argument("--sweep", action="store_true", help="time FPS and the ball query in the "
                     "launch shapes their defaults were chosen from, instead of phases 3-7")
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
-                    "phases 3-13, every kernel on cuda:1 and up while cuda:0 is current, then "
+                    "phases 3-14, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -4090,9 +4512,9 @@ def main():
     require(len(simt) == 12 and not any(sp for _, sp in simt),
             f"the float32 / float64 attention instantiations spill or are missing: {simt}")
     post = [(name, spill) for name, _, _, spill in ptxas_report(cuda_lib.build_log)
-            if name in ("iou_self_kernel", "nms_mask_kernel", "nms_walk_kernel")]
-    require(len(post) == 3 and not any(sp for _, sp in post),
-            f"the IoU / NMS kernels spill or are missing: {post}")
+            if name.split("<")[0] in ("iou_self_kernel", "nms_mask_kernel", "nms_walk_kernel")]
+    require(len(post) == 4 and not any(sp for _, sp in post),
+            f"the IoU / NMS kernels (two walk instantiations) spill or are missing: {post}")
     for K, hd in ((16, 64), (32, 64), (16, 128), (32, 128), (64, 128)):
         print(f"  bfloat16 attention K={K} hd={hd}: one-warp CTAs resident per SM, forward "
               f"{lib.pdanet_neighbor_attention_bf16_occupancy(K, hd)}, backward "
@@ -4133,16 +4555,20 @@ def main():
         dp = timed("11 (data parallel)", dp_phase, dev, kitti_work, kitti_run, cfg, weights)
         pp, pp_rows = timed("12 (PointPillar)", pointpillar_phase, dev, kitti_work, kitti_run)
         second, second_rows = timed("13 (SECOND)", second_phase, dev, kitti_work, kitti_run)
+        vrcnn, vrcnn_rows = timed("14 (Voxel-RCNN)", voxel_rcnn_phase, dev, kitti_work,
+                                  kitti_run)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
     # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9),
     # the exported programs' requests (phase 10) and the data-parallel runs
     # (phase 11: its CLIs' processes, the one process and the two ranks)
-    # and the PointPillar and SECOND runs (phases 12 and 13: the requests,
-    # the CLIs and the program's request), each counted from 0; the K-4096
-    # rows count their own phase's alone
-    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported, dp, pp, second)
+    # and the PointPillar, SECOND and Voxel-RCNN runs (phases 12-14: the
+    # requests, the train steps, the train and test CLIs and the program's
+    # request), each counted from 0; a row of phases 12-14 counts its own
+    # phase's launches at its own K
+    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported, dp, pp, second,
+            vrcnn)
     launches = {name: sum(run.get(name, 0) for run in runs) for name in KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the main path")
@@ -4150,10 +4576,16 @@ def main():
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], **stats[name]}
             for name, (src, rep) in KERNELS.items()]
-    for suffix, run, run_rows in (("", pp, pp_rows), ("_second", second, second_rows)):
-        rows += [{"name": f"{name}_k{NMS_PRE}{suffix}", "route": "cuda",
-                  "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-                  "launches": run[name], **run_rows[name]} for name in VOXEL_KERNELS]
+    for phase, suffix, run, run_rows in ((12, "", pp, pp_rows),
+                                         (13, "_second", second, second_rows),
+                                         (14, "_voxel_rcnn", vrcnn, vrcnn_rows)):
+        for K, k_rows in sorted(run_rows.items(), reverse=True):
+            for name in VOXEL_KERNELS:
+                n = run.get(f"{name}_k{K}", 0)
+                require(n > 0, f"kernel {name} never launched at K {K} in phase {phase}")
+                rows.append({"name": f"{name}_k{K}{suffix}", "route": "cuda",
+                             "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                             "launches": n, **k_rows[name]})
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the argument parse")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@
 // Semantics (held exactly against _greedy_nms_mask_xla,
 // pdanet_tpu/ops/nms.py:69-81): keep[i] = valid[i] and no earlier kept j
 // has IoU[j, i] > thresh (float32 compare), candidates in score order.
-// Any K from 1 to kMaxK.
+// Any K from 1 to kMaxK (10240).
 //
 // What bounds it on the H100: the K-step dependency chain, on one SM per
 // frame; the bytes are one IoU row per candidate.  Design, after the
@@ -19,7 +19,10 @@
 //    Bits at c <= i are 0, so a word left of the diagonal is 0.  Rows, not
 //    the transpose: a kept candidate suppresses by its row.
 // 2. nms_walk_kernel, one warp per frame: the removed words live in
-//    registers, word w on lane w % 32 (kWordsPerLane a lane).  The walk
+//    registers, word w on lane w % 32 (WPL a lane: 2 up to K 4096, the
+//    instantiation every K <= 4096 runs, and 5 up to K 10240, which the
+//    two-stage detectors' proposal layer needs at NMS_PRE_MAXSIZE 9000).
+//    The walk
 //    takes one block of 64 candidates at a time.  Lane l holds the
 //    block's diagonal words of rows 64 w + l and 64 w + 32 + l (loaded one
 //    block ahead); every lane resolves the block's 64 candidates in order
@@ -38,9 +41,8 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaskWarps = 8;                  // rows a CTA of nms_mask_kernel
-constexpr int kWordsPerLane = 2;               // removed words a lane holds
-constexpr int kMaxK = 64 * 32 * kWordsPerLane;  // 4096
-constexpr int kBatch = 16;                     // kept rows loaded at once
+constexpr int kMaxWordsPerLane = 5;            // removed words a lane holds, at most
+constexpr int kMaxK = 64 * 32 * kMaxWordsPerLane;  // 10240
 
 using u64 = unsigned long long;
 
@@ -88,6 +90,9 @@ __device__ __forceinline__ BlockIn load_block(const u64* mb, const uint8_t* vb, 
   return r;
 }
 
+// WPL: the removed words a lane holds (K <= 64 * 32 * WPL); kBatch: the kept
+// rows whose words are loaded at once (WPL * kBatch words in flight a lane).
+template <int WPL, int kBatch>
 __global__ void __launch_bounds__(32)
     nms_walk_kernel(const u64* __restrict__ mask, const uint8_t* __restrict__ valid, int K,
                     int W, uint8_t* __restrict__ keep) {
@@ -96,15 +101,24 @@ __global__ void __launch_bounds__(32)
   const u64* mb = mask + (size_t)b * K * W;
   const uint8_t* vb = valid + (size_t)b * K;
   uint8_t* kb = keep + (size_t)b * K;
-  u64 rem0 = 0ull, rem1 = 0ull;  // removed words lane and lane + 32
+  u64 rem[WPL];  // removed words lane, lane + 32, ...
   // a lane whose word lies past the row re-reads word W - 1 into a slot no
   // block reads
-  const int c0 = min(lane, W - 1), c1 = min(lane + 32, W - 1);
+  int col[WPL];
+#pragma unroll
+  for (int v = 0; v < WPL; ++v) {
+    rem[v] = 0ull;
+    col[v] = min(lane + 32 * v, W - 1);
+  }
   BlockIn cur = load_block(mb, vb, K, W, 0, lane);
   for (int w = 0; w < W; ++w) {
     BlockIn nxt = cur;
     if (w + 1 < W) nxt = load_block(mb, vb, K, W, w + 1, lane);
-    const u64 removed = shfl64(w < 32 ? rem0 : rem1, w & 31);
+    u64 mine = rem[0];  // this lane's word of block w's register slot w / 32
+#pragma unroll
+    for (int v = 1; v < WPL; ++v)
+      if ((w >> 5) == v) mine = rem[v];
+    const u64 removed = shfl64(mine, w & 31);
     const u64 vbits = __ballot_sync(kFull, cur.v0) | ((u64)__ballot_sync(kFull, cur.v1) << 32);
     // resolve the block in order: the diagonal word of row t has bits
     // above t only, so bit t of cand is final when its turn comes
@@ -128,7 +142,7 @@ __global__ void __launch_bounds__(32)
       u64 todo = cand;
       while (todo) {
         const int first = __ffsll((long long)todo) - 1;
-        u64 a0[kBatch], a1[kBatch];
+        u64 a[kBatch][WPL];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           int t = first;
@@ -137,14 +151,13 @@ __global__ void __launch_bounds__(32)
             todo &= todo - 1;
           }
           const u64* row = mb + (size_t)((w << 6) + t) * W;
-          a0[u] = row[c0];
-          a1[u] = W > 32 ? row[c1] : 0ull;
+#pragma unroll
+          for (int v = 0; v < WPL; ++v) a[u][v] = (v == 0 || W > 32 * v) ? row[col[v]] : 0ull;
         }
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          rem0 |= a0[u];
-          rem1 |= a1[u];
-        }
+        for (int u = 0; u < kBatch; ++u)
+#pragma unroll
+          for (int v = 0; v < WPL; ++v) rem[v] |= a[u][v];
       }
     }
     cur = nxt;
@@ -167,6 +180,9 @@ extern "C" int pdanet_nms_walk(const float* iou, const uint8_t* valid, int B, in
       iou, rows, K, W, thresh, words);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  nms_walk_kernel<<<B, 32, 0, s>>>(words, valid, K, W, keep);
+  if (W <= 64)  // K <= 4096
+    nms_walk_kernel<2, 16><<<B, 32, 0, s>>>(words, valid, K, W, keep);
+  else
+    nms_walk_kernel<5, 8><<<B, 32, 0, s>>>(words, valid, K, W, keep);
   return (int)cudaGetLastError();
 }

@@ -81,15 +81,17 @@ def eval_one_epoch(cfg, model, dataloader, epoch_id, logger, result_dir,
         dev_batch = select_device_batch(batch_dict, device, model)
         gt_boxes = dev_batch.pop("gt_boxes", None)
         t0 = time.time()
-        pred = predict(dev_batch)
+        pred, out = predict(dev_batch, with_forward=True)
         keys = list(pred)
         if gt_boxes is not None:
             with torch.inference_mode():
                 P = pred["pred_boxes"].shape[1]
                 pred_valid = (torch.arange(P, device=device)[None, :]
                               < pred["pred_counts"][:, None])
+                # a two-stage detector's first-stage proposals give roi_<t>
                 rec = generate_recall_record(pred["pred_boxes"], pred_valid,
-                                             gt_boxes, thresh_list)
+                                             gt_boxes, thresh_list, out.get("rois"),
+                                             out.get("roi_valid"))
                 pred.update({"recall/" + k: v.sum() for k, v in rec.items()})
         host = _to_host(pred, device)
         if infer_time and i > num_iters * 0.1:

@@ -4,18 +4,19 @@ post-processing.
 Counterpart of ``pdanet_tpu/models/detectors/iassd.py``: the forward
 (:25-70), the loss (``loss``, ``loss_batch``, ``compute_loss``, :72-103),
 ``post_processing`` (:106-172) on its single-NMS path and the recall
-record of the eval loop (``generate_recall_record``, :175-206).
+record of the eval loop (``generate_recall_record``, :175-206), which
+also counts a two-stage detector's first-stage proposals.
 """
 
 import torch
 from torch import nn
 
-from ...ops.nms import greedy_nms_mask_batched
-from ...ops.rotated_iou import boxes_iou3d, boxes_iou_bev_batched_self
+from ...ops.rotated_iou import boxes_iou3d
 from ...utils.box_coder_utils import build_box_coder
 from ...utils.easydict import EasyDict
 from ..backbones_3d.iassd_backbone import IASSDBackbone
 from ..dense_heads import iassd_head
+from ..model_utils.model_nms_utils import batched_nms_candidates
 
 
 class IASSD(nn.Module):
@@ -89,52 +90,33 @@ def post_processing(batch_cls_preds, batch_box_preds, post_cfg):
     scores_all = torch.sigmoid(batch_cls_preds)
     cls_scores = scores_all.max(dim=-1).values
     labels = torch.argmax(scores_all, dim=-1) + 1  # first maximum
-    B, N = cls_scores.shape
-    pre = min(int(nms_cfg.NMS_PRE_MAXSIZE), N)
-    post = min(int(nms_cfg.NMS_POST_MAXSIZE), pre)
-
-    valid = torch.isfinite(cls_scores) & (cls_scores >= post_cfg.SCORE_THRESH)
-    masked = torch.where(valid, cls_scores, -torch.inf)
-    # stable descending order: equal scores keep the lower index first
-    order = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :pre]
-    cand_valid = torch.gather(valid, 1, order)
-    cand_boxes = torch.gather(
-        batch_box_preds, 1, order[..., None].expand(B, pre, 7)).contiguous()
-    iou = boxes_iou_bev_batched_self(cand_boxes)
-    keep = greedy_nms_mask_batched(iou, cand_valid.contiguous(),
-                                   float(nms_cfg.NMS_THRESH))
-
-    # stable compaction of the kept candidates (already in score order)
-    rank = torch.cumsum(keep.to(torch.int64), dim=-1) - 1
-    src = torch.where(keep & (rank < post), rank, post)
-    sel = torch.full((B, post + 1), -1, dtype=torch.int64, device=order.device)
-    sel.scatter_(1, src, order)  # slot `post` collects what is dropped
-    sel = sel[:, :post]
-    counts = torch.clamp(keep.sum(dim=-1), max=post).to(torch.int32)
-    hit = sel >= 0
-    safe = sel.clamp(min=0)
-    out_boxes = torch.gather(batch_box_preds, 1, safe[..., None].expand(B, post, 7))
-    return {
-        "pred_boxes": torch.where(hit[..., None], out_boxes, 0.0),
-        "pred_scores": torch.where(hit, torch.gather(cls_scores, 1, safe), 0.0),
-        "pred_labels": torch.where(hit, torch.gather(labels, 1, safe), 0).to(torch.int32),
-        "pred_counts": counts,
-    }
+    return batched_nms_candidates(batch_box_preds, cls_scores, labels,
+                                  torch.ones_like(cls_scores, dtype=torch.bool), nms_cfg,
+                                  score_thresh=post_cfg.SCORE_THRESH)
 
 
-def generate_recall_record(pred_boxes, pred_valid, gt_boxes, thresh_list):
+def generate_recall_record(pred_boxes, pred_valid, gt_boxes, thresh_list, rois=None,
+                           roi_valid=None):
     """Recall against the gt at 3-D IoU thresholds
     (detector3d_template.py:287-329), per frame.
 
     pred_boxes (..., P, 7), pred_valid (..., P) bool, gt_boxes (..., M, 8)
-    zero-padded -> ``{"gt": count, "rcnn_<t>": recalled count}``, int64
-    tensors of the leading shape.  A single-stage detector has no
-    first-stage rois, so no ``roi_<t>`` counts."""
+    zero-padded -> ``{"gt": count, "rcnn_<t>": recalled count, "roi_<t>":
+    ...}``, int64 tensors of the leading shape.  ``rois`` (..., R, 7) and
+    ``roi_valid`` (..., R), a two-stage detector's first-stage proposals,
+    give the ``roi_<t>`` counts (JAX :175-206); without them they are 0."""
     gt_valid = (gt_boxes[..., 0:7] != 0).any(dim=-1)
-    iou = boxes_iou3d(pred_boxes, gt_boxes[..., 0:7])  # (..., P, M)
-    iou = torch.where(pred_valid.unsqueeze(-1) & gt_valid.unsqueeze(-2), iou, 0.0)
-    best_per_gt = iou.max(dim=-2).values
+
+    def best_per_gt(boxes, valid):
+        iou = boxes_iou3d(boxes[..., 0:7], gt_boxes[..., 0:7])  # (..., P, M)
+        iou = torch.where(valid.unsqueeze(-1) & gt_valid.unsqueeze(-2), iou, 0.0)
+        return iou.max(dim=-2).values
+
+    best = best_per_gt(pred_boxes, pred_valid)
+    best_roi = None if rois is None else best_per_gt(rois, roi_valid)
     out = {"gt": gt_valid.sum(dim=-1)}
     for t in thresh_list:
-        out[f"rcnn_{t}"] = (best_per_gt > t).sum(dim=-1)
+        out[f"rcnn_{t}"] = (best > t).sum(dim=-1)
+        out[f"roi_{t}"] = (torch.zeros_like(out["gt"]) if best_roi is None
+                           else (best_roi > t).sum(dim=-1))
     return out

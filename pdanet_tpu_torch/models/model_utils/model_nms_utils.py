@@ -1,0 +1,59 @@
+"""Post-processing NMS over fixed-size candidates: counterpart of
+``pdanet_tpu/models/model_utils/model_nms_utils.py:38-83``
+(``batched_nms_candidates``), the one copy every ported detector's
+post-processing and the two-stage proposal layer call.
+
+The candidates a frame are the ``NMS_PRE_MAXSIZE`` best by score in a
+stable order; their rotated BEV self-IoU and the greedy walk run as one
+batched call each (the kernels of ``ops/rotated_iou.py`` and
+``ops/nms.py`` on a CUDA tensor), and the kept candidates are compacted,
+in score order, into ``NMS_POST_MAXSIZE`` slots.
+"""
+
+import torch
+
+from ...ops.nms import greedy_nms_mask_batched
+from ...ops.rotated_iou import boxes_iou_bev_batched_self
+
+
+def batched_nms_candidates(boxes, scores, labels, valid, nms_cfg, score_thresh=None):
+    """Batched class-agnostic rotated NMS.
+
+    boxes (B, N, 7+), scores (B, N), labels (B, N) int, valid (B, N) bool
+    (a pre-filter) -> ``pred_boxes`` (B, POST, 7+), ``pred_scores`` (B,
+    POST), ``pred_labels`` (B, POST) int32 and ``pred_counts`` (B,) int32,
+    zero past each frame's count.  A candidate takes part where it is
+    valid, its score finite and, with ``score_thresh``, at least that."""
+    B, N = scores.shape
+    pre = min(int(nms_cfg.NMS_PRE_MAXSIZE), N)
+    post = min(int(nms_cfg.NMS_POST_MAXSIZE), pre)
+    C = boxes.shape[-1]
+    ok = valid & torch.isfinite(scores)
+    if score_thresh is not None:
+        ok = ok & (scores >= score_thresh)
+    masked = torch.where(ok, scores, -torch.inf)
+    # stable descending order: equal scores keep the lower index first
+    order = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :pre]
+    cand_valid = torch.gather(ok, 1, order)
+    # the IoU is float32 whatever the model's dtype, as the JAX package's
+    cand_boxes = torch.gather(boxes[..., :7], 1, order[..., None].expand(B, pre, 7)).to(
+        torch.float32).contiguous()
+    iou = boxes_iou_bev_batched_self(cand_boxes)
+    keep = greedy_nms_mask_batched(iou, cand_valid.contiguous(), float(nms_cfg.NMS_THRESH))
+
+    # stable compaction of the kept candidates (already in score order)
+    rank = torch.cumsum(keep.to(torch.int64), dim=-1) - 1
+    src = torch.where(keep & (rank < post), rank, post)
+    sel = torch.full((B, post + 1), -1, dtype=torch.int64, device=order.device)
+    sel.scatter_(1, src, order)  # slot `post` collects what is dropped
+    sel = sel[:, :post]
+    counts = torch.clamp(keep.sum(dim=-1), max=post).to(torch.int32)
+    hit = sel >= 0
+    safe = sel.clamp(min=0)
+    out_boxes = torch.gather(boxes, 1, safe[..., None].expand(B, post, C))
+    return {
+        "pred_boxes": torch.where(hit[..., None], out_boxes, 0.0),
+        "pred_scores": torch.where(hit, torch.gather(scores, 1, safe), 0.0),
+        "pred_labels": torch.where(hit, torch.gather(labels, 1, safe), 0).to(torch.int32),
+        "pred_counts": counts,
+    }

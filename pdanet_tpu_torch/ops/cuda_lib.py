@@ -21,7 +21,10 @@ one where it launches its kernel and nowhere else, so a caller can clear
 the counter, run a path and see which kernels it went through.  The
 wrappers are the ``"cuda"`` kernels of the ``torch.library`` ops of
 ``ops/``, so the counter also counts the launches of a program that
-``torch.export`` saved and loaded.
+``torch.export`` saved and loaded.  ``launches_by_k`` counts the rotated
+self-IoU's and the NMS walk's launches once more under ``<name>_k<K>``,
+the candidates a frame of the call, since one path runs them at several
+K (a two-stage detector's proposal layer and final NMS).
 
 Each wrapper runs under :func:`on_tensor_device`: the device of its
 tensors is the current device while it allocates, takes the stream and
@@ -59,6 +62,7 @@ NVCC_FLAGS = (
 )
 
 launches = collections.Counter()
+launches_by_k = collections.Counter()
 NAMESPACE = __name__.split(".")[0]
 
 _lib = None

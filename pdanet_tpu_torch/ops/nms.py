@@ -13,7 +13,8 @@ import torch
 
 from . import cuda_lib
 
-NMS_MAX_K = 4096  # kMaxK in csrc/nms.cu: 64 removed words, two a lane of one warp
+NMS_MAX_K = 10240  # kMaxK in csrc/nms.cu: 160 removed words, five a lane of one warp
+# (two a lane up to K 4096)
 
 
 def greedy_nms_mask_batched(iou, valid, thresh):
@@ -37,7 +38,8 @@ def greedy_nms_mask_batched_plain(iou, valid, thresh):
 def greedy_nms_mask_batched_cuda(iou, valid, thresh):
     """The kernels: one warp per (frame, row) turns the IoU into 64-bit
     suppression words in a (B, K, ceil(K / 64)) workspace, then one warp
-    per frame walks the candidates 64 at a time.  One launch count a call."""
+    per frame walks the candidates 64 at a time.  One launch count a call.
+    Raises beyond ``NMS_MAX_K`` candidates a frame."""
     if iou.dim() != 3 or iou.shape[1] != iou.shape[2] \
             or tuple(valid.shape) != tuple(iou.shape[:2]):
         raise ValueError(
@@ -59,6 +61,7 @@ def greedy_nms_mask_batched_cuda(iou, valid, thresh):
         cuda_lib.stream_handle(iou.device))
     cuda_lib.check(code, "nms")
     cuda_lib.launches["nms"] += 1
+    cuda_lib.launches_by_k[f"nms_k{K}"] += 1
     return keep
 
 

@@ -30,6 +30,14 @@ SKIP_SLACK = 0.05  # metres; kSkipSlack in csrc/rotated_iou.cu
 MAX_FRAMES = 65535  # the kernel's grid takes frames on its z axis
 
 
+def _cos_sin(angle):
+    """cos and sin in float64, rounded once to ``angle``'s dtype: the same
+    bits on every device (float32 ``cos`` / ``sin`` of the CPU and of CUDA
+    differ in the last place, and the clip carries it into the IoU)."""
+    a = angle.double()
+    return torch.cos(a).to(angle.dtype), torch.sin(a).to(angle.dtype)
+
+
 def box_corners_bev(boxes):
     """(..., 7) -> x (..., 4), y (..., 4) BEV corners, reference order."""
     cx, cy = boxes[..., 0:1], boxes[..., 1:2]
@@ -37,8 +45,7 @@ def box_corners_bev(boxes):
     hy = boxes[..., 4] / 2.0
     sx = torch.stack([-hx, hx, hx, -hx], dim=-1)
     sy = torch.stack([-hy, -hy, hy, hy], dim=-1)
-    c = torch.cos(boxes[..., 6:7])
-    s = torch.sin(boxes[..., 6:7])
+    c, s = _cos_sin(boxes[..., 6:7])
     return sx * c - sy * s + cx, sx * s + sy * c + cy
 
 
@@ -115,8 +122,7 @@ def _pair_overlap(boxes_a, boxes_b):
         # broadcast as the a side (axis -1) or the b side (axis -2)
         return tuple(t.unsqueeze(axis) for t in (
             boxes[..., 0], boxes[..., 1], boxes[..., 3] / 2.0,
-            boxes[..., 4] / 2.0, torch.cos(-boxes[..., 6]),
-            torch.sin(-boxes[..., 6])))
+            boxes[..., 4] / 2.0, *_cos_sin(-boxes[..., 6])))
 
     def inside(frame, px, py):
         cx, cy, hx, hy, cos_, sin_ = frame
@@ -195,9 +201,16 @@ def boxes_iou_bev_batched_self(boxes):
     return rotated_iou_op(boxes)
 
 
+PLAIN_PAIRS = 1 << 22  # pairs of the plain version at a time
+
+
 def boxes_iou_bev_batched_self_plain(boxes):
-    """The plain PyTorch version."""
-    return boxes_iou_bev(boxes, boxes)
+    """The plain PyTorch version, a block of rows at a time (no pair
+    depends on another; the clip's (24, rows, K) temporaries of all K^2
+    pairs at once outgrow a host's memory at the proposal layer's K 9000)."""
+    rows = max(1, PLAIN_PAIRS // max(boxes.shape[0] * boxes.shape[1], 1))
+    return torch.cat([boxes_iou_bev(boxes[:, r:r + rows], boxes)
+                      for r in range(0, boxes.shape[1], rows)], dim=1)
 
 
 @cuda_lib.on_tensor_device
@@ -218,6 +231,7 @@ def boxes_iou_bev_batched_self_cuda(boxes):
         cuda_lib.stream_handle(boxes.device))
     cuda_lib.check(code, "rotated_iou")
     cuda_lib.launches["rotated_iou"] += 1
+    cuda_lib.launches_by_k[f"rotated_iou_k{K}"] += 1
     return out
 
 

@@ -148,17 +148,21 @@ class _Predict(nn.Module):
         self.model_cfg = model_cfg
         self.post_fn = get_post_processor(model_cfg.NAME)
 
-    def forward(self, batch):
-        return self.post_fn(self.model.forward_batch(batch), self.model_cfg)
+    def forward(self, batch, with_forward=False):
+        out = self.model.forward_batch(batch)
+        pred = self.post_fn(out, self.model_cfg)
+        return (pred, out) if with_forward else pred
 
 
 def make_predict_fn(model, model_cfg):
-    """The serving closure: forward + post-processing, inference mode."""
+    """The serving closure: forward + post-processing, inference mode.
+    ``predict(batch, with_forward=True)`` also returns the forward dict (the
+    eval loop reads a two-stage detector's ``rois`` from it)."""
     module = _Predict(model, model_cfg)
 
-    def predict(batch):
+    def predict(batch, with_forward=False):
         with torch.inference_mode():
-            return module(batch)
+            return module(batch, with_forward)
 
     return predict
 

@@ -28,6 +28,7 @@ import time
 import zipfile
 import zlib
 
+import numpy as np
 import torch
 
 from .. import parallel
@@ -55,11 +56,30 @@ def select_device_batch(batch, device, model=None):
     return {k: torch.as_tensor(batch[k]).to(device) for k in keys if k in batch}
 
 
+TRAIN_SEED = 0x5EED  # the JAX package's step key (train_utils.py:73)
+
+
+def frame_generator(seed, step, frame):
+    """The CPU ``torch.Generator`` of one frame of one step, seeded from
+    (seed, step, the frame's index in the global batch)."""
+    state = np.random.SeedSequence([int(seed), int(step), int(frame)]).generate_state(2)
+    return torch.Generator().manual_seed((int(state[0]) << 31) ^ int(state[1]))
+
+
 def make_train_step(model, optimizer, schedule):
-    """``train_step(batch) -> (loss, tb)``: one training iteration on a
-    device batch (:func:`select_device_batch`: ``{"points": (B, N, 3 + C),
-    "gt_boxes": (B, M, 8)}`` for a point detector, the voxel triplet and
-    ``gt_boxes`` for a voxel one).
+    """``train_step(batch, draws=None) -> (loss, tb)``: one training
+    iteration on a device batch (:func:`select_device_batch`: ``{"points":
+    (B, N, 3 + C), "gt_boxes": (B, M, 8)}`` for a point detector, the voxel
+    triplet and ``gt_boxes`` for a voxel one).
+
+    A detector that draws random numbers in training (a two-stage RoI
+    sampler, dropout; it has ``train_draws``) takes them as a value: the
+    caller's ``draws``, or those of :func:`frame_generator` for each frame,
+    seeded from ``TRAIN_SEED``, the update count and the frame's index in
+    the global batch (``rank * B + i``), so that ranks of a process group
+    draw what one process draws on the same global batch, and the card and
+    the CPU draw the same bits (the generators are the CPU's).  Other
+    detectors are unaffected.
 
     Update *t* takes the learning rate ``schedule.lr(t)`` and, for Adam,
     b1 ``schedule.mom(t)``, t the optimizer's update count.  The returned
@@ -69,7 +89,7 @@ def make_train_step(model, optimizer, schedule):
     returned are those of the global batch (the ranks' shares summed).
     """
 
-    def train_step(batch):
+    def train_step(batch, draws=None):
         model.train()
         t = optimizer.count
         for group in optimizer.param_groups:
@@ -77,7 +97,16 @@ def make_train_step(model, optimizer, schedule):
             if "b1" in group:
                 group["b1"] = schedule.mom(t)
         optimizer.zero_grad(set_to_none=True)
-        out = model.forward_batch(batch)
+        if hasattr(model, "train_draws"):
+            if draws is None:
+                B = batch["gt_boxes"].shape[0]
+                draws = model.train_draws(
+                    [frame_generator(TRAIN_SEED, t, parallel.rank() * B + i)
+                     for i in range(B)],
+                    batch["gt_boxes"].device)
+            out = model.forward_batch(batch, draws=draws)
+        else:
+            out = model.forward_batch(batch)
         loss, tb = model.loss_batch(out, batch)
         loss.backward()
         parallel.reduce_gradients(model.parameters())

@@ -21,6 +21,9 @@ the tiny model of ``tests/model_cfg.py``.
 * The shipped ``second.yaml`` (MeanVFE, the sparse voxel backbone, at a
   tiny width on 0.2 x 0.2 x 0.1 m voxels) the same, its train loader on
   two threads.
+* The shipped ``voxel_rcnn_car.yaml`` cut to size the same way, with its
+  second stage (the RoI sampler, the voxel-query pool, the refined
+  post-processing and the ``roi_<t>`` recall).
 * A JAX-package checkpoint of the same config, saved by
   ``pdanet_tpu.train.save_checkpoint``, is evaluated by the port's test
   CLI and by JAX's ``eval_one_epoch`` on the same frames: equal detection
@@ -314,6 +317,70 @@ def test_second_train_then_test_cli(kitti_env, tmp_path, monkeypatch):
     assert [a["frame_id"] for a in annos] == ["000000", "000001", "000002", "000003"]
     for a in annos:
         assert set(a) >= KITTI_KEYS
+
+
+VOXEL_RCNN_YAML = REPO / "tools" / "cfgs" / "kitti_models" / "voxel_rcnn_car.yaml"
+VOXEL_RCNN_CFG_REL = "cfgs/tiny/voxel_rcnn-tiny.yaml"
+
+
+def _voxel_rcnn_tiny_yaml(root):
+    """The shipped voxel_rcnn_car.yaml on the mini-KITTI at ``root``, cut to
+    size as ``_second_tiny_yaml`` cuts second.yaml, and its second stage:
+    proposals from the best 256 / 128 anchors (train / test), 16 RoIs a
+    frame, a 3 x 3 x 3 RoI grid, 4-channel pools and 16-wide FC stacks."""
+    cfg = cfg_from_yaml_file(str(VOXEL_RCNN_YAML))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == "transform_points_to_voxels":
+            proc.VOXEL_SIZE = [0.2, 0.2, 0.1]
+            proc.MAX_NUMBER_OF_VOXELS = {"train": 2048, "test": 2048}
+    m = cfg.MODEL
+    m.BACKBONE_3D.update(NUM_FILTERS=[4, 4, 8, 8, 8], NUM_OUTPUT_FEATURES=8)
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    m.BACKBONE_2D.update(LAYER_NUMS=[1, 1], LAYER_STRIDES=[1, 2], NUM_FILTERS=[16, 32],
+                         UPSAMPLE_STRIDES=[1, 2], NUM_UPSAMPLE_FILTERS=[16, 16])
+    roi = m.ROI_HEAD
+    roi.update(SHARED_FC=[16, 16], CLS_FC=[16, 16], REG_FC=[16, 16])
+    roi.NMS_CONFIG.TRAIN.update(NMS_PRE_MAXSIZE=256, NMS_POST_MAXSIZE=64)
+    roi.NMS_CONFIG.TEST.update(NMS_PRE_MAXSIZE=128, NMS_POST_MAXSIZE=32)
+    roi.ROI_GRID_POOL.GRID_SIZE = 3
+    for layer in roi.ROI_GRID_POOL.POOL_LAYERS.values():
+        layer.MLPS = [[4, 4]]
+    roi.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    m.POST_PROCESSING.NMS_CONFIG.update(NMS_PRE_MAXSIZE=32, NMS_POST_MAXSIZE=16)
+    return yaml.safe_dump(_plain(cfg))
+
+
+def test_voxel_rcnn_train_then_test_cli(kitti_env, tmp_path, monkeypatch):
+    """Voxel-RCNN through both CLIs: one epoch (two steps at B = 2, the RoI
+    sampler and dropout drawing from each frame's generator) with finite
+    RPN and RCNN losses, then the test CLI on its checkpoint: the refined
+    post-processing, the first-stage ``roi_<t>`` recall beside the
+    ``rcnn_<t>``, the official evaluation over every val frame."""
+    (tmp_path / VOXEL_RCNN_CFG_REL).parent.mkdir(parents=True)
+    (tmp_path / VOXEL_RCNN_CFG_REL).write_text(_voxel_rcnn_tiny_yaml(kitti_env[0]))
+    monkeypatch.chdir(tmp_path)
+    out = train_cli.main(["--cfg_file", VOXEL_RCNN_CFG_REL, "--device", "cpu", "--workers",
+                          "0", "--batch_size", "2", "--epochs", "1", "--num_epochs_to_eval",
+                          "0"])
+    lines = [json.loads(line) for line in
+             (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()]
+    for tag in ("train/rpn_loss", "train/rcnn_loss_cls", "train/rcnn_loss_reg"):
+        values = [r["value"] for r in lines if r["tag"] == tag]
+        assert len(values) == 2 and all(np.isfinite(values)), (tag, values)
+    ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+    result = test_cli.main(["--cfg_file", VOXEL_RCNN_CFG_REL, "--ckpt", str(ckpt), "--device",
+                            "cpu", "--workers", "0", "--batch_size", "2"])
+    assert {"recall/roi_0.3", "recall/rcnn_0.3", "Car_3d/moderate_R40"} <= set(result)
+    log = "".join(p.read_text() for p in (out / "eval" / "epoch_1" / "val" / "default")
+                  .glob("log_eval_*.txt"))
+    assert "recall_roi_0.3" in log
+    with open(out / "eval" / "epoch_1" / "val" / "default" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    assert [a["frame_id"] for a in annos] == ["000000", "000001", "000002", "000003"]
+    for a in annos:
+        assert set(a) >= KITTI_KEYS
+        assert len(a["score"]) <= 16
 
 
 @pytest.fixture(scope="module")

@@ -269,6 +269,9 @@ def test_port_imports_no_jax():
         "from pdanet_tpu_torch.models.backbones_3d.vfe import mean_vfe\n"
         "from pdanet_tpu_torch.ops import sparse_conv\n"
         "from pdanet_tpu_torch.datasets import random_draws\n"
+        "import pdanet_tpu_torch.models.detectors.voxel_rcnn\n"
+        "from pdanet_tpu_torch.models.roi_heads import roi_head_template, voxelrcnn_head\n"
+        "from pdanet_tpu_torch.models.model_utils import model_nms_utils\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"

@@ -10,7 +10,8 @@ IoU holds the Pallas IoU test's tolerance (rtol 2e-4, atol 2e-5), the box
 decode atol 1e-5.  The kernels themselves are held against the same plain
 versions on the card by chip_smoke.py.  Each of the six kernel wrappers
 enters the device of its tensors around its launch (fake tensors on
-``cuda:1``, the kernel library stubbed).
+``cuda:1``, the kernel library stubbed), and the IoU and NMS wrappers
+count their launches by K as well.
 """
 
 import numpy as np
@@ -470,3 +471,40 @@ def test_kernel_wrappers_enter_the_device_of_their_tensors(name, monkeypatch):
     assert calls and all(d == dev for _, d in calls), calls
     assert dict(cuda_lib.launches) == {name: 1}
     cuda_lib.launches.clear()
+
+
+@pytest.mark.parametrize("name", ["rotated_iou", "nms"])
+def test_iou_and_nms_count_launches_by_k(name, monkeypatch):
+    """The rotated self-IoU and the NMS walk count each launch once in
+    ``launches`` and once more in ``launches_by_k`` under ``<name>_k<K>``, K
+    the candidates a frame of the call.  Without a card: fake tensors on
+    ``cuda:0``, the kernel library stubbed."""
+    import contextlib
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    class StubLib:
+        def __getattr__(self, symbol):
+            return lambda *args: 0
+
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(cuda_lib, "lib", StubLib)
+    monkeypatch.setattr(cuda_lib, "stream_handle", lambda dev: None)
+    monkeypatch.setattr(cuda_lib, "ptr", lambda t: None)
+    monkeypatch.setattr(torch.Tensor, "contiguous", lambda t: t if t.is_contiguous() else
+                        t.clone(memory_format=torch.contiguous_format))
+    dev = torch.device("cuda", 0)
+    cuda_lib.launches.clear()
+    cuda_lib.launches_by_k.clear()
+    with FakeTensorMode():
+        for K in (8, 100, 100):
+            if name == "rotated_iou":
+                boxes_iou_bev_batched_self_cuda(torch.empty(2, K, 7, device=dev))
+            else:
+                greedy_nms_mask_batched_cuda(
+                    torch.empty(2, K, K, device=dev),
+                    torch.empty(2, K, dtype=torch.bool, device=dev), 0.1)
+    assert dict(cuda_lib.launches) == {name: 3}
+    assert dict(cuda_lib.launches_by_k) == {f"{name}_k8": 1, f"{name}_k100": 2}
+    cuda_lib.launches.clear()
+    cuda_lib.launches_by_k.clear()
