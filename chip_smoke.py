@@ -241,7 +241,7 @@ Phases, each of which raises on failure:
    table, hits and empty windows equal, ``rcnn_cls`` / ``rcnn_reg`` within
    2e-3 and the detections paired box for box; the voxel query and pool
    of RoIs on the frame's gt boxes equal (pooled features within 2e-3),
-   full windows on every level there.  (b) 5 float32 steps at B = 2 on
+   full windows on every level there.  (b) 3 float32 steps at B = 2 on
    the train budget, 2 gt boxes a frame planted on its proposals, the IoU
    and NMS kernels launched at K 9000 and suppressing, foreground RoIs in
    the first step's sample, then one float64 step at B = 1 on the card
@@ -255,13 +255,44 @@ Phases, each of which raises on failure:
    and the NMS walk on frame 0's proposal candidates at K 9000 (the
    TRAIN proposal layer) and K 2048 (TEST), against their plain versions,
    timed in turns, with device times and bounds.
+15. The dense voxel backbone, SECOND-IoU and the multi-head:
+   tools/cfgs/kitti_models/second_iou.yaml at full width (the dense
+   ``VoxelBackBone8x`` over a grid of 1408 x 1600 x 40 cells plus the top
+   plane, 40000 test / 16000 train voxels of 5 points, ``NUM_FILTERS [16,
+   16, 32, 64, 64]`` -> 128, a 256-channel BEV map of 200 x 176 into 512,
+   211200 anchors; proposals at K 1024 -> 100 RoIs to serve and K 9000 ->
+   512 -> 128 sampled a frame to train; a 7 x 7 BEV pool over 512
+   channels, 256-wide FC stacks), seeded weights with the box conv scaled
+   by 0.01, float32, TF32 off, on phase 9's frames.  (a) As phase 14, with
+   each request's peak memory, the b1 request in NCDHW against
+   channels-last-3d in turns, the dense ladder alone under CUDA events
+   beside its 3-D convolutions' operations and bound, its device split by
+   full kernel name; one frame card vs CPU on ``DENSE_CROP`` (first-stage
+   maps within 2e-3), then at full width on the card's inputs: the
+   proposal keep mask at K 1024 and the RoIs equal, ``rcnn_iou`` within
+   2e-3, the detections paired box for box.  (b) 3 float32 steps at B = 1
+   (the yaml's 4 cut), the IoU and NMS at K 9000 suppressing, foreground
+   RoIs in the first sample, peak memory; one float64 step on the crop on
+   the card against the CPU, the CPU fed the card's plain self-IoU and
+   3-D RoI IoUs (loss within 1e-10 relative, gradient leaves within 1e-8
+   of their scale).  (c) The train CLI (one epoch of a root of its own,
+   ``DENSE_CLI_SPLITS``, at B = 1), the test CLI and the export CLI on its
+   checkpoint with ``--verify``.  (d) Export as phase 12.  (e) The IoU and
+   NMS on frame 0's candidates at K 9000 and 1024 and on its scored RoIs
+   at K 100.  Then tools/cfgs/kitti_models/second_multihead.yaml at full
+   width (the same ladder, three separate heads of one class, the
+   per-class NMS at K 4096), seeded weights, at less depth: (a) one b1
+   request, the three per-class keep masks on the card's inputs equal to
+   the CPU's walk on the plain IoU of the card's candidates, the
+   detections paired; (b) two steps and the float64 step on the crop; (d);
+   (e) each class's candidates at K 4096.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
 (phase 4's requests, phase 7's bfloat16 and float32 train steps, phase
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
 CLIs, phase 10's exported programs, phase 11's CLI processes, one
-process and ranks, and phases 12-14's requests, train steps, CLIs and
+process and ranks, and phases 12-15's requests, train steps, CLIs and
 programs, each run counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
@@ -272,7 +303,9 @@ the same function; then the IoU and the NMS walk again at phase 12's K
 K, (e)'s numbers) and at phase 13's (``rotated_iou_k4096_second``,
 ``nms_k4096_second``), and at phase 14's K 9000 and 2048
 (``rotated_iou_k9000_voxel_rcnn`` ... ``nms_k2048_voxel_rcnn``, phase
-14's launches at each K, ``cuda_lib.launches_by_k``).  The line before it gives the script's seconds.
+14's launches at each K, ``cuda_lib.launches_by_k``), and at phase 15's
+K 9000, 1024 and 100 (``rotated_iou_k9000_second_iou`` ...) and K 4096
+(``rotated_iou_k4096_multihead``, ``nms_k4096_multihead``).  The line before it gives the script's seconds.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -332,6 +365,9 @@ BF16_TC_OPS_PER_S = 989e12  # bfloat16 on the tensor cores
 IOU_PAIR_OPS = 2700
 ATTN_SHAPES = (("SA1", 1024, 64), ("SA2", 512, 128))  # label, centres per frame, hd; H 4
 ATTN_OFF_PATH = ((64, 128), (8, 32), (40, 80), (1, 16))  # (K, hd)
+# repeats of a plain version's time in phase 3 (the plain FPS takes ~0.5 s a
+# call; cut from 20 to keep the script inside its limit)
+PLAIN_REPS = 5
 
 
 def require(cond, msg):
@@ -521,13 +557,14 @@ def short_name(name):
     return (f"{head}<{tmpl}>" if tmpl else head)[:60]
 
 
-def device_split(fn, top=5):
+def device_split(fn, top=5, full=False):
     """The second of two runs of ``fn`` under torch.profiler (the first
     warms the tracer up, which can drop the first kernel of a cold start):
     its device activity (kernels and memsets) as (count, busy milliseconds
     -- the union of their intervals --, the ``top`` names by summed
     milliseconds, and the port's own kernels with their milliseconds and
-    launches); None when the profiler cannot trace the card."""
+    launches); None when the profiler cannot trace the card.  With ``full``
+    the names are the kernels' own (their first 160 characters)."""
     import collections
 
     import torch
@@ -551,7 +588,7 @@ def device_split(fn, top=5):
     for e in sorted(spans, key=lambda e: e.time_range.start):
         ms = e.time_range.elapsed_us() / 1e3
         name = short_name(e.name)
-        by_name[name] += ms
+        by_name[e.name[:160] if full else name] += ms
         if name.split("<")[0] in PORT_KERNELS:
             t, n = own.get(name, (0.0, 0))
             own[name] = (t + ms, n + 1)
@@ -654,7 +691,7 @@ def check_kernels(dev, parent=None):
             kern_ms, lib_ms = cuda_ms(kern_fn), None
         else:
             kern_ms, lib_ms = in_turns(kern_fn, lib_fn)
-        plain_ms = cuda_ms(plain_fn)
+        plain_ms = cuda_ms(plain_fn, reps=PLAIN_REPS, warmup=1)
         st = stats[name]
         st["max_abs_err"] = max(st["max_abs_err"], float(err))
         if headline:
@@ -1510,27 +1547,42 @@ def vs_parent_request(parent, cfg, weights, predict, batch, dev):
 
 def match_detections(a, b):
     """Detections of one frame from two runs (``pred_*`` dicts at B = 1)
-    paired by mutual nearest box centre among boxes of the same label.
-    Returns (pairs, count in a, count in b, largest centre distance and
-    largest score difference over the pairs)."""
+    paired by mutual nearest box among boxes of the same label, the
+    distance taken over the whole box (centre, size, heading), so that two
+    boxes of one label on one centre (the per-class NMS keeps a box in
+    each class that scores it; two anchors of a location) pair with their
+    own, and boxes that tie pair in turn among those left.  Returns (pairs,
+    count in a, count in b, largest centre distance and largest score
+    difference over the pairs)."""
     import torch
 
     def dets(r):
         n = int(r["pred_counts"][0])
-        return (r["pred_boxes"][0, :n, :3].double().cpu(), r["pred_labels"][0, :n].cpu(),
+        return (r["pred_boxes"][0, :n, :7].double().cpu(), r["pred_labels"][0, :n].cpu(),
                 r["pred_scores"][0, :n].double().cpu())
 
-    (ca, la, sa), (cb, lb, sb) = dets(a), dets(b)
-    if not len(ca) or not len(cb):
-        return 0, len(ca), len(cb), 0.0, 0.0
-    d = torch.cdist(ca, cb)
+    (ba, la, sa), (bb, lb, sb) = dets(a), dets(b)
+    if not len(ba) or not len(bb):
+        return 0, len(ba), len(bb), 0.0, 0.0
+    d = torch.cdist(ba, bb)
     d[la[:, None] != lb[None, :]] = float("inf")
     near_b, near_a = d.argmin(1), d.argmin(0)
     pairs = [(i, int(j)) for i, j in enumerate(near_b)
              if torch.isfinite(d[i, j]) and int(near_a[j]) == i]
-    gap_c = max((d[i, j].item() for i, j in pairs), default=0.0)
+    # boxes that tie (equal boxes of one label) pair in turn among the rest
+    used_a, used_b = {i for i, _ in pairs}, {j for _, j in pairs}
+    for i in range(len(ba)):
+        if i in used_a:
+            continue
+        rest = d[i].clone()
+        rest[list(used_b)] = float("inf")
+        j = int(rest.argmin())
+        if torch.isfinite(rest[j]):
+            pairs.append((i, j))
+            used_b.add(j)
+    gap_c = max(((ba[i, :3] - bb[j, :3]).norm().item() for i, j in pairs), default=0.0)
     gap_s = max(((sa[i] - sb[j]).abs().item() for i, j in pairs), default=0.0)
-    return len(pairs), len(ca), len(cb), gap_c, gap_s
+    return len(pairs), len(ba), len(bb), gap_c, gap_s
 
 
 def compare_f32(cfg, weights, dev, predict_bf16):
@@ -3397,15 +3449,39 @@ def dp_phase(dev, work_dir, kitti_run, cfg, weights, world=1):
 PP_CFG_REL = "cfgs/kitti_models/pointpillar.yaml"  # in phase 9's working directory
 SECOND_CFG_REL = "cfgs/kitti_models/second.yaml"
 VRCNN_CFG_REL = "cfgs/kitti_models/voxel_rcnn_car.yaml"
+SECOND_IOU_CFG_REL = "cfgs/kitti_models/second_iou.yaml"
+MULTIHEAD_CFG_REL = "cfgs/kitti_models/second_multihead.yaml"
 # phase: (yaml, label, seed of the served frames; the train frames' is 100 more)
 VOXEL_PHASES = {12: (PP_CFG_REL, "PointPillar", 1200), 13: (SECOND_CFG_REL, "SECOND", 1200),
-                14: (VRCNN_CFG_REL, "Voxel-RCNN", 1400)}
+                14: (VRCNN_CFG_REL, "Voxel-RCNN", 1400),
+                "15a": (SECOND_IOU_CFG_REL, "SECOND-IoU", 1500),
+                "15b": (MULTIHEAD_CFG_REL, "SECOND-multihead", 1500)}
 VOXEL_SERVE_FRAMES = 5  # three b1 requests and one b2
 VOXEL_TRAIN_STEPS = 5
 VOXEL_LATENCY_REPS = 10
-# phase 13's depth, cut to keep the script near 900 s (its widths and
-# every run stay): fewer latency repeats and train steps
-VOXEL_DEPTH = {13: dict(latency_reps=3, train_steps=3)}
+# the card-vs-CPU checks of the dense 3-D backbone run on this crop of
+# POINT_CLOUD_RANGE (the voxel size, widths and every other setting the
+# yaml's): 256 x 256 x 40 cells, where the full grid's 41 x 1600 x 1408
+# would take the host minutes and tens of GB a forward
+DENSE_CROP = (0.0, -6.4, -3.0, 12.8, 6.4, 1.0)
+# phase 15's CLIs train on a root of their own: a B=1 step of the dense
+# ladder takes seconds, an epoch of phase 9's 32 frames minutes
+DENSE_CLI_SPLITS = (("train", 2), ("val", 2))
+# the depth of phases 12-15, cut to keep the script inside its limit (their
+# widths and every run stay): fewer latency repeats and train steps;
+# phase 15 trains at B=1 (the yaml's 4 would need four times B=1's ~50
+# GiB) without a device split of the step (a B=1 step takes ~7 s), runs
+# (a), (b), (d) and (e) of the multi-head once (one b1 request, two steps,
+# without the layout and TF32 turns that (a) of SECOND-IoU gives for the
+# same ladder), and has the export CLI in place of dist_train.sh
+VOXEL_DEPTH = {12: dict(latency_reps=3, train_steps=3),
+               13: dict(latency_reps=3, train_steps=3),
+               14: dict(latency_reps=3, train_steps=3),
+               "15a": dict(latency_reps=3, train_steps=3, batch_size=1, crop=DENSE_CROP,
+                           cli="export", train_split=False),
+               "15b": dict(latency_reps=3, train_steps=2, batch_size=1, crop=DENSE_CROP,
+                           serve_requests=1, cli=None, layout=False, train_split=False,
+                           tf32=False)}
 VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
 # a two-stage model's seeded box conv is scaled by this: the seeded weights
 # decode boxes millimetres thin and tens of metres from their anchors,
@@ -3545,13 +3621,15 @@ def serve_ks(cfg):
     return {int(test.NMS_PRE_MAXSIZE), min(post, int(test.NMS_POST_MAXSIZE))}
 
 
-def nms_candidates(out, post_cfg):
+def nms_candidates(out, post_cfg, column=None):
     """The NMS candidates of frame 0 as ``post_processing`` picks them: the
-    ``NMS_PRE_MAXSIZE`` best anchors by score, stable order, and which of
+    ``NMS_PRE_MAXSIZE`` best anchors by score (the best class's, or class
+    ``column``'s with ``MULTI_CLASSES_NMS``), stable order, and which of
     them clear ``SCORE_THRESH``."""
     import torch
 
-    scores = torch.sigmoid(out["batch_cls_preds"][:1]).max(dim=-1).values
+    scores = torch.sigmoid(out["batch_cls_preds"][:1])
+    scores = scores.max(dim=-1).values if column is None else scores[..., column]
     valid = torch.isfinite(scores) & (scores >= post_cfg.SCORE_THRESH)
     masked = torch.where(valid, scores, -torch.inf)
     K = min(int(post_cfg.NMS_CONFIG.NMS_PRE_MAXSIZE), scores.shape[1])
@@ -3579,13 +3657,22 @@ def kernel_candidates(cfg, out):
     """(e)'s inputs: (boxes, valid, thresh, what) for each K of the path,
     from frame 0 of a b1 request's forward ``out`` (a two-stage model's
     first stage): the proposal layer's TRAIN and TEST candidates, or the
-    post-processing's."""
+    post-processing's (each class's with ``MULTI_CLASSES_NMS``); with
+    ``out["final_forward"]`` (SECOND-IoU) also the final NMS's of the
+    scored RoIs."""
+    import torch
+
     if "ROI_HEAD" not in cfg.MODEL:
         post_cfg = cfg.MODEL.POST_PROCESSING
-        boxes, valid, n_valid = nms_candidates(out, post_cfg)
-        return [(boxes, valid, float(post_cfg.NMS_CONFIG.NMS_THRESH),
-                 f"frame 0's candidates, {n_valid} anchors of "
-                 f"{out['batch_cls_preds'].shape[1]} over SCORE_THRESH")]
+        rows = []
+        multi = post_cfg.NMS_CONFIG.get("MULTI_CLASSES_NMS", False)
+        for column in (range(len(cfg.CLASS_NAMES)) if multi else [None]):
+            boxes, valid, n_valid = nms_candidates(out, post_cfg, column)
+            what = "" if column is None else f"class {cfg.CLASS_NAMES[column]}'s "
+            rows.append((boxes, valid, float(post_cfg.NMS_CONFIG.NMS_THRESH),
+                         f"frame 0's {what}candidates, {n_valid} anchors of "
+                         f"{out['batch_cls_preds'].shape[1]} over SCORE_THRESH"))
+        return rows
     rows = []
     for split in ("TRAIN", "TEST"):
         nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG[split]
@@ -3593,6 +3680,18 @@ def kernel_candidates(cfg, out):
         rows.append((boxes, valid, float(nms_cfg.NMS_THRESH),
                      f"frame 0's {split} proposal candidates of "
                      f"{out['batch_cls_preds'].shape[1]} anchors"))
+    if "final_forward" in out:  # SECOND-IoU's NMS of its scored RoIs
+        final, post_cfg = out["final_forward"], cfg.MODEL.POST_PROCESSING
+        scores = torch.sigmoid(final["rcnn_iou"][:1].max(dim=-1).values)
+        valid = final["roi_valid"][:1] & (scores >= post_cfg.SCORE_THRESH)
+        K = min(int(post_cfg.NMS_CONFIG.NMS_PRE_MAXSIZE), scores.shape[1])
+        order = torch.sort(torch.where(valid, scores, -torch.inf), dim=-1, descending=True,
+                           stable=True).indices[:, :K]
+        rows.append((torch.gather(final["batch_box_preds"][:1], 1,
+                                  order[..., None].expand(1, K, 7)).contiguous(),
+                     torch.gather(valid, 1, order).contiguous(),
+                     float(post_cfg.NMS_CONFIG.NMS_THRESH),
+                     f"frame 0's {int(valid.sum())} RoIs scored over SCORE_THRESH"))
     return rows
 def voxel_kernels(dev, boxes, valid, thresh, label, what):
     """Phases 12-14 (e): the rotated self-IoU and the NMS walk on the path's
@@ -3917,7 +4016,200 @@ def vrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label, g
     return first_card
 
 
-def voxel_serve(cfg, dev, template, label, seed, latency_reps=VOXEL_LATENCY_REPS):
+def _dense_backbone_type():
+    from pdanet_tpu_torch.models.backbones_3d.voxel_backbone import _DenseBackbone8x
+
+    return _DenseBackbone8x
+
+
+def conv3d_operations(model, fn):
+    """(operations, convolutions): twice the multiply-adds of every 3-D
+    convolution that one call of ``fn`` runs through ``model``, counted
+    from its output's shape, its input channels and its kernel."""
+    import torch
+
+    ops = []
+
+    def hook(mod, inp, out):
+        taps = mod.kernel_size[0] * mod.kernel_size[1] * mod.kernel_size[2]
+        ops.append(2 * out.numel() * (mod.in_channels // mod.groups) * taps)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv3d)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(ops), len(ops)
+
+
+def dense_report(model, predict, b1, label, reps, layout=True):
+    """Phase 15 (a): the dense 3-D ladder of a b1 request.  The request's
+    latency with the grid in NCDHW against channels-last-3d (in turns:
+    NCDHW, channels-last, channels-last, NCDHW); the ladder alone (scatter,
+    occupancies, convolutions, masked BatchNorms) under CUDA events beside
+    its 3-D convolutions' operations over the float32 peak (their bound),
+    and its device split by full kernel name."""
+    import torch
+
+    bb = model.backbone_3d
+    ms = {}
+    try:
+        for fmt in ("NCDHW", "channels-last-3d", "channels-last-3d", "NCDHW")[:4 if layout else 0]:
+            bb.memory_format = (torch.channels_last_3d if fmt == "channels-last-3d"
+                                else torch.contiguous_format)
+            ms.setdefault(fmt, []).append(request_ms(predict, b1, reps=reps, warmup=1))
+    finally:
+        bb.memory_format = torch.contiguous_format
+    if layout:
+        print(f"{label} b1 request by the dense grid's layout: " + "; ".join(
+            f"{fmt} latency " + " / ".join(f"{lat:.2f}" for lat, _ in turns) + " ms"
+            for fmt, turns in ms.items()) + f" ({reps} after warm-up, two turns)")
+
+    def ladder():
+        with torch.inference_mode():
+            return bb(model.vfe(b1["voxels"], b1["voxel_num_points"]), b1["voxel_coords"])
+
+    ops, n_conv = conv3d_operations(model, ladder)
+    ladder_ms = cuda_ms(ladder, reps=reps, warmup=1)
+    bnd = ops / F32_OPS_PER_S * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    ladder()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label} dense 3-D ladder of the b1 request (levels z {bb.z_chain}): {ladder_ms:.2f} "
+          f"ms under CUDA events, peak {peak:.2f} GiB; its {n_conv} 3-D convolutions "
+          f"{ops / 1e12:.3f} TFLOP, bound {bnd:.2f} ms at 67 TFLOP/s float32, the ladder at "
+          f"{100 * bnd / ladder_ms:.1f} % of it")
+    print_split(f"the {label} dense ladder, b1, under torch.profiler (full kernel names)",
+                device_split(ladder, top=8, full=True))
+
+
+def dense_card_vs_cpu(cfg, model, weights, template, requests, results, label, keeps, seed,
+                      crop):
+    """Phase 15 (a): the dense model's frame 0 on the card against the CPU.
+    (1) On ``crop`` of POINT_CLOUD_RANGE (the voxel size and every other
+    setting kept, the same weights, the frame through the crop's
+    processors): the first stage's raw cls / box / direction maps within
+    2e-3, the BEV map reported.  (2) At full width on the card's own
+    inputs: SECOND-IoU's proposal layer on the CPU from the card's first
+    stage (keep mask, RoIs, scores and labels equal), the BEV pool and the
+    IoU head on the CPU from the card's BEV map (``rcnn_iou`` within 2e-3),
+    its post-processing; the multi-head's multi-class NMS on the CPU from
+    the card's scores and boxes, fed the plain IoU of the card's candidates
+    (computed on the card), each class's keep mask equal to the kernel's; the
+    detections paired box for box with the card's request.  Returns the
+    card's first-stage forward of frame 0."""
+    import torch
+
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.detectors import get_post_processor
+    from pdanet_tpu_torch.models.detectors.second import SECOND
+    from pdanet_tpu_torch.models.model_utils.model_nms_utils import batched_multi_classes_nms
+    from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
+    from pdanet_tpu_torch.ops.rotated_iou import boxes_iou_bev_batched_self_plain
+
+    names = list(cfg.CLASS_NAMES)
+    dev = requests[0]["voxels"].device
+    cpu = torch.device("cpu")
+    # (1) the crop
+    crop_cfg = copy.deepcopy(cfg)
+    crop_cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(crop)
+    crop_template = DatasetTemplate(dataset_cfg=crop_cfg.DATA_CONFIG, class_names=names,
+                                    training=False, root_path=template.root_path)
+    crop_models = {}
+    for device in (dev, cpu):
+        m = build_network(crop_cfg.MODEL, len(names), dataset=crop_template, device=device)
+        m.load_state_dict(weights)
+        crop_models[device.type] = m.eval()
+    batch, _ = voxel_batch(crop_cfg, voxel_frames(seed, 1, names), False, dev,
+                           crop_models["cuda"])
+    batch.pop("gt_boxes", None)
+    args = [batch[k] for k in ("voxels", "voxel_coords", "voxel_num_points")]
+    with torch.inference_mode():
+        first = {d: SECOND.forward(crop_models[d], *[a.to(d) for a in args])
+                 for d in ("cuda", "cpu")}
+    errs = {}
+    for key in ("cls_preds", "box_preds", "dir_cls_preds", "spatial_features"):
+        want = first["cpu"][key]
+        errs[key] = (first["cuda"][key].cpu() - want).abs().max().item()
+    rel_bev = errs["spatial_features"] / max(first["cpu"]["spatial_features"].abs().max().item(),
+                                             1e-30)
+    print(f"{label} crop {list(crop)} (grid {crop_template.grid_size.tolist()}, "
+          f"{int((batch['voxel_num_points'] > 0).sum())} voxels of frame 0), card vs CPU: "
+          f"first-stage maps within {errs['cls_preds']:.3g} (cls) / {errs['box_preds']:.3g} "
+          f"(box) / {errs['dir_cls_preds']:.3g} (direction); BEV map within "
+          f"{errs['spatial_features']:.3g} ({rel_bev:.3g} of its largest)")
+    require(max(errs["cls_preds"], errs["box_preds"], errs["dir_cls_preds"]) <= 2e-3,
+            f"{label} first-stage maps on the crop card vs CPU {errs} > 2e-3")
+    del crop_models, first
+
+    # (2) full width, the card's inputs
+    b1 = requests[0]
+    cpu_model = build_network(cfg.MODEL, len(names), dataset=template, device="cpu")
+    cpu_model.load_state_dict(weights)
+    cpu_model.eval()
+    with torch.inference_mode():
+        first = SECOND.forward(model, b1["voxels"], b1["voxel_coords"], b1["voxel_num_points"])
+        if "ROI_HEAD" in cfg.MODEL:
+            out_card = model.forward_batch(b1)
+            nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+            with RecordIoUShapes() as rec_cpu:
+                props = RHT.proposal_layer(first["batch_cls_preds"].cpu(),
+                                           first["batch_box_preds"].cpu(), nms_cfg)
+            K = rec_cpu.shapes[0][1]
+            card_keep = next(k for k in keeps if k.shape[1] == K)[:1].cpu()
+            require(torch.equal(rec_cpu.keeps[0], card_keep),
+                    f"{label} proposal keep mask at K {K} card vs CPU (the card's first stage fed)")
+            for key in ("rois", "roi_scores", "roi_labels", "roi_valid"):
+                require(torch.equal(props[key], out_card[key].cpu()),
+                        f"{label} proposals: {key} card vs CPU (the card's first stage fed)")
+            pool = cfg.MODEL.ROI_HEAD.ROI_GRID_POOL
+            pooled = RHT.roi_grid_pool_bev(out_card["spatial_features_2d"].cpu(), props["rois"],
+                                           int(pool.GRID_SIZE), cpu_model.point_cloud_range,
+                                           cpu_model.voxel_size, int(pool.DOWNSAMPLE_RATIO))
+            rcnn_iou = cpu_model.roi_head(pooled)
+            iou_err = (rcnn_iou - out_card["rcnn_iou"].cpu()).abs().max().item()
+            require(iou_err <= 2e-3, f"{label} rcnn_iou card vs CPU {iou_err} > 2e-3")
+            fed = {"rcnn_iou": rcnn_iou, "batch_box_preds": props["rois"], **{
+                k: props[k] for k in ("roi_scores", "roi_labels", "roi_valid")}}
+            post_cpu = get_post_processor(cfg.MODEL.NAME)(fed, cfg.MODEL)
+            note = (f"the proposal keep mask at K {K} ({int(card_keep.sum())} kept) and the "
+                    f"{int(props['roi_valid'].sum())} RoIs equal; rcnn_iou within {iou_err:.3g}")
+            first["final_forward"] = out_card
+        else:
+            with RecordIoUShapes(keep_boxes=True) as rec_card:
+                get_post_processor(cfg.MODEL.NAME)(first, cfg.MODEL)
+            fed = [boxes_iou_bev_batched_self_plain(b).cpu() for b in rec_card.boxes]
+            # the card's scores: a float32 sigmoid of the CPU and of CUDA may
+            # round an ulp apart, which reorders scores that near-tie
+            post_cfg = cfg.MODEL.POST_PROCESSING
+            scores = torch.sigmoid(first["batch_cls_preds"]).cpu()
+            with RecordIoUShapes(feed=fed) as rec_cpu:
+                post_cpu = batched_multi_classes_nms(
+                    scores, first["batch_box_preds"].cpu(),
+                    torch.ones(scores.shape[:2], dtype=torch.bool), post_cfg.NMS_CONFIG,
+                    score_thresh=float(post_cfg.SCORE_THRESH))
+            require(len(rec_cpu.keeps) == len(rec_card.keeps) == len(names) and all(
+                torch.equal(c, g.cpu()) for c, g in zip(rec_cpu.keeps, rec_card.keeps)),
+                f"{label}: a class's keep mask card vs CPU (the plain IoU of the card's "
+                f"candidates fed)")
+            note = (f"{len(names)} per-class keep masks at K {rec_card.shapes[0][1]} equal "
+                    f"({[int(k.sum()) for k in rec_cpu.keeps]} kept)")
+    pairs, n_g, n_c, gap_c, gap_s = match_detections(results[0][2], post_cpu)
+    print(f"{label} b1 frame at full width, card vs CPU on the card's inputs: {note}; "
+          f"detections {n_g} vs {n_c}, {pairs} paired (largest centre distance {gap_c:.3g} m, "
+          f"score {gap_s:.3g})")
+    require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
+            f"{label} float32 detections card vs CPU not paired box for box")
+    # the dense levels (~8 GB a forward) would stay allocated through (b)
+    for out in (first, first.get("final_forward", {})):
+        out.pop("multi_scale_3d_features", None)
+    return first
+
+
+def voxel_serve(cfg, dev, template, label, seed, depth):
     """Phases 12-14 (a): seeded weights at full width (a two-stage model's
     box conv scaled by ``BOX_CONV_SCALE``); 120000-point LiDAR-like KITTI
     frames through the host voxelizer at the test budget; three b1
@@ -3925,10 +4217,16 @@ def voxel_serve(cfg, dev, template, label, seed, latency_reps=VOXEL_LATENCY_REPS
     their latency, the IoU and NMS kernels launched at every K of
     ``serve_ks``; a b1 request's latency, host enqueue and device split,
     beside one with TF32 on in cuDNN and cuBLAS (this script turns it off
-    in phase 1); a two-stage model's RoI traffic (``roi_traffic``); one
-    frame on the card against the CPU (``vrcnn_card_vs_cpu`` or
-    ``anchors_card_vs_cpu``).  Returns the launches of the requests, the
-    weights, the closure and frame 0's batch and (first-stage) forward."""
+    in phase 1), and each request's peak memory; a dense 3-D backbone's
+    b1 latency in NCDHW against channels-last-3d and its convolutions'
+    operations (``dense_report``); a two-stage model's RoI traffic
+    (``roi_traffic``); one frame on the card against the CPU
+    (``vrcnn_card_vs_cpu``, ``dense_card_vs_cpu`` or
+    ``anchors_card_vs_cpu``).  ``depth``: ``latency_reps``,
+    ``serve_requests`` 1 for one b1 request alone, ``tf32`` False for no
+    TF32 turns, ``layout`` False for no layout turns.  Returns the launches of
+    the requests, the weights, the closure and frame 0's batch and
+    (first-stage) forward."""
     import torch
 
     from pdanet_tpu_torch.models import build_network
@@ -3945,15 +4243,20 @@ def voxel_serve(cfg, dev, template, label, seed, latency_reps=VOXEL_LATENCY_REPS
     predict = make_predict_fn(model, cfg.MODEL)
     for B in (1, 2):
         predict(example_device_batch(cfg, B, dev))
+    latency_reps = depth.get("latency_reps", VOXEL_LATENCY_REPS)
+    dense = isinstance(getattr(model, "backbone_3d", None), _dense_backbone_type())
     frames = voxel_frames(seed, VOXEL_SERVE_FRAMES, cfg.CLASS_NAMES)
     requests, gts, host_ms = [], [], []
-    for chunk in ([frames[0]], [frames[1]], [frames[2]], frames[3:5]):
+    chunks = ([frames[0]], [frames[1]], [frames[2]], frames[3:5])
+    for chunk in chunks[:depth.get("serve_requests", len(chunks))]:
         batch, ms = voxel_batch(cfg, chunk, False, dev, model)
         gts.append(batch.pop("gt_boxes"))  # a request carries the voxels alone
         requests.append(batch)
         host_ms += ms
     ks = serve_ks(cfg)
     max_dets = min(int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE), min(ks))
+    if cfg.MODEL.POST_PROCESSING.NMS_CONFIG.get("MULTI_CLASSES_NMS", False):
+        max_dets *= len(cfg.CLASS_NAMES)  # one segment of slots a class
     voxels = [int((r["voxel_num_points"] > 0).sum(dim=1).min()) for r in requests]
     print(f"{label} frames: {KITTI_FRAME_POINTS} points each, host processors and "
           f"voxelizer (test split, at most {requests[0]['voxels'].shape[1]} voxels of "
@@ -3962,13 +4265,15 @@ def voxel_serve(cfg, dev, template, label, seed, latency_reps=VOXEL_LATENCY_REPS
     torch.cuda.synchronize()
 
     clear_launches()
-    results = []
+    results, peaks = [], []
     with RecordIoUShapes() as rec:
         for batch in requests:
+            torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
             res = predict(batch)
             torch.cuda.synchronize()
             results.append((batch["voxels"].shape[0], (time.perf_counter() - t0) * 1e3, res))
+            peaks.append(round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2))
     launches = counted_launches()
     for i, (B, ms, res) in enumerate(results):
         for key, val in res.items():
@@ -3981,7 +4286,7 @@ def voxel_serve(cfg, dev, template, label, seed, latency_reps=VOXEL_LATENCY_REPS
         print(f"{label} request {i}: B={B} latency {ms:.2f} ms (float32, TF32 off), "
               f"detections {counts.tolist()}")
     print(f"{label} kernel launches in the served requests: {launches}; the self-IoU's "
-          f"inputs {rec.shapes}")
+          f"inputs {rec.shapes}; peak memory a request {peaks} GiB")
     for name in VOXEL_KERNELS:
         require(launches.get(name, 0) > 0, f"kernel {name} never launched on the {label} "
                 f"path")
@@ -3995,27 +4300,34 @@ def voxel_serve(cfg, dev, template, label, seed, latency_reps=VOXEL_LATENCY_REPS
         torch.backends.cudnn.allow_tf32 = on
         torch.backends.cuda.matmul.allow_tf32 = on
 
+    tf32_turns = depth.get("tf32", True)
     try:
-        for tf32 in (False, True, True, False):
+        for tf32 in (False, True, True, False) if tf32_turns else (False,):
             set_tf32(tf32)
             ms[tf32].append(request_ms(predict, b1, reps=latency_reps))
         set_tf32(True)
-        split_tf32 = device_split(lambda: predict(b1))
+        split_tf32 = device_split(lambda: predict(b1)) if tf32_turns else None
     finally:
         set_tf32(False)  # as phase 1 left it
     print_split(f"a {label} b1 request under torch.profiler (TF32 off)",
                 device_split(lambda: predict(b1)))
-    print_split(f"a {label} b1 request under torch.profiler (TF32 on in cuDNN and cuBLAS)",
-                split_tf32)
-    for tf32, turns in ms.items():
+    if tf32_turns:
+        print_split(f"a {label} b1 request under torch.profiler (TF32 on in cuDNN and cuBLAS)",
+                    split_tf32)
+    for tf32, turns in ((k, v) for k, v in ms.items() if v):
         print(f"{label} b1 request with TF32 {'on' if tf32 else 'off'}: median "
               f"latency " + " / ".join(f"{lat:.2f}" for lat, _ in turns) + " ms, host enqueue "
               + " / ".join(f"{enq:.2f}" for _, enq in turns) + f" ms ({latency_reps} after "
-              "warm-up, two turns)")
-    if two_stage:
+              f"warm-up, {len(turns)} turn(s))")
+    if dense:
+        dense_report(model, predict, b1, label, latency_reps, depth.get("layout", True))
+    if two_stage and hasattr(model.roi_head, "pool"):
         roi_traffic(cfg, model, requests, rec.keeps, label)
         out = vrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label,
                                 gts[0])
+    elif dense:
+        out = dense_card_vs_cpu(cfg, model, weights, template, requests, results, label,
+                                rec.keeps, seed, depth["crop"])
     else:
         out = anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label)
     return launches, weights, predict, b1, out
@@ -4046,9 +4358,47 @@ def plant_gt(cfg, model, batch, n):
     return {**batch, "gt_boxes": torch.cat([gt, torch.stack(extra).to(gt.dtype)], dim=1)}
 
 
-def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAIN_STEPS):
-    """Phases 12-14 (b): ``train_steps`` float32 steps at the yaml's batch
-    size on the train budget (frames through the train split's processors,
+class RecordSamples:
+    """Counts, in each RoI sample a two-stage training forward draws
+    (``roi_head_template.assign_targets``), the sampled RoIs that are
+    foreground (``reg_valid_mask``: IoU above REG_FG_THRESH), and keeps the
+    RoIs' 3-D IoUs with the gt that the sampler computes (``ious``); with
+    ``feed`` it returns those in turn instead (their float32 BEV overlap
+    rounds in the last place apart on the card and the CPU, and the
+    roi_iou soft labels carry it into the loss)."""
+
+    def __init__(self, feed=None):
+        self.feed = None if feed is None else list(feed)
+
+    def __enter__(self):
+        from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
+
+        self.module, self.fg, self.ious = RHT, [], []
+        self.orig = (RHT.assign_targets, RHT.boxes_iou3d)
+
+        def assign(*args, **kwargs):
+            t = self.orig[0](*args, **kwargs)
+            self.fg.append(int((t["reg_valid_mask"] > 0).sum()))
+            return t
+
+        def iou3d(a, b):
+            if self.feed is not None:
+                return self.feed.pop(0).to(a.device)
+            out = self.orig[1](a, b)
+            self.ious.append(out)
+            return out
+
+        RHT.assign_targets, RHT.boxes_iou3d = assign, iou3d
+        return self
+
+    def __exit__(self, *exc):
+        self.module.assign_targets, self.module.boxes_iou3d = self.orig
+
+
+def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAIN_STEPS,
+                batch_size=None, crop=None, split=True):
+    """Phases 12-15 (b): ``train_steps`` float32 steps at the yaml's batch
+    size (or ``batch_size``) on the train budget (frames through the train split's processors,
     gt on their boxes; for a two-stage model ``PLANTED_GT`` more a frame on
     its proposals, so that foreground RoIs are sampled): finite losses and
     gradients, the IoU and NMS kernels launched at the TRAIN proposal
@@ -4058,27 +4408,32 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     CPU, each frame's draws from the same CPU generator on both (a
     two-stage model: gt planted again, the CPU's proposal layer fed the
     plain IoU of the card's candidates, computed on the card, and its keep
-    mask equal to the card kernel's).  Returns the steps' launches."""
+    mask equal to the card kernel's, the CPU's sampler fed the card's 3-D
+    IoUs of the RoIs with the gt), on ``crop`` of POINT_CLOUD_RANGE
+    where given (a dense 3-D backbone: the CPU's float64 step at full width
+    would take many minutes).  Returns the steps' launches."""
     import torch
 
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
     from pdanet_tpu_torch.models import build_network
     from pdanet_tpu_torch.ops.rotated_iou import boxes_iou_bev_batched_self_plain
     from pdanet_tpu_torch.train import build_optimizer_and_schedule, make_train_step
 
     two_stage = "ROI_HEAD" in cfg.MODEL
-    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    B = batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     frames = voxel_frames(seed, B, cfg.CLASS_NAMES)
     np.random.seed(seed)  # shuffle_points
     ocfg = cfg.OPTIMIZATION
     K_train = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE) if two_stage else None
 
-    def fresh(device, dtype):
-        model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=device)
+    def fresh(device, dtype, geometry=(cfg, template)):
+        model = build_network(geometry[0].MODEL, len(cfg.CLASS_NAMES), dataset=geometry[1],
+                              device=device)
         model.load_state_dict(weights)
         return model.to(dtype)
 
-    def train_model(device, dtype=torch.float32):
-        model = fresh(device, dtype)
+    def train_model(device, dtype=torch.float32, geometry=(cfg, template)):
+        model = fresh(device, dtype, geometry)
         optimizer, schedule = build_optimizer_and_schedule(
             model, ocfg, total_iters_each_epoch=3712 // B, total_epochs=ocfg.NUM_EPOCHS)
         return model, make_train_step(model, optimizer, schedule)
@@ -4095,17 +4450,17 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     clear_launches()
-    times, losses, fg = [], [], []
-    with RecordIoUShapes() as rec:
+    times, losses = [], []
+    with RecordIoUShapes() as rec, RecordSamples() as samples:
         for i in range(train_steps):
             t0 = time.perf_counter()
             loss, tb = step(batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss.item())
-            fg.append(float(tb.get("rcnn_loss_reg", 0.0)))
             require(np.isfinite(losses[-1]), f"{label} step {i}: loss {losses[-1]}")
             require(_grads_finite(model), f"{label} step {i}: gradients not finite")
+    fg = samples.fg
     launches = counted_launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if two_stage:
@@ -4119,12 +4474,12 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
                 f"{label} training: the proposal layer's walk suppressed no candidate {kept}")
         require(fg[0] > 0, f"{label} step 0: no foreground RoI sampled")
         print(f"{label} training: candidates kept by the walk at K {K_train} a step {kept}; "
-              f"rcnn_loss_reg a step (> 0: foreground RoIs sampled) "
-              f"{[round(x, 4) for x in fg]}")
+              f"foreground RoIs (IoU above REG_FG_THRESH) in each step's sample {fg}")
     else:
         require(not rec.shapes, f"{label} training ran a self-IoU: {rec.shapes}")
-    print_split(f"a {label} float32 train step B={B} under torch.profiler (TF32 off)",
-                device_split(lambda: step(batch)))
+    if split:
+        print_split(f"a {label} float32 train step B={B} under torch.profiler (TF32 off)",
+                    device_split(lambda: step(batch)))
     print(f"{label} train float32 B={B}: losses {[round(x, 4) for x in losses]}; ms/step "
           f"{[round(t, 2) for t in times]}, median after warm-up "
           f"{statistics.median(times[1:]):.2f} ms; peak memory {peak:.2f} GiB; launches "
@@ -4133,32 +4488,45 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     del model, step
 
     # one float64 step at B = 1, the card against the CPU from the same weights
+    geometry, where = (cfg, template), ""
+    if crop is not None:
+        crop_cfg = copy.deepcopy(cfg)
+        crop_cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(crop)
+        geometry = (crop_cfg, DatasetTemplate(dataset_cfg=crop_cfg.DATA_CONFIG,
+                                              class_names=cfg.CLASS_NAMES, training=False,
+                                              root_path=template.root_path))
+        np.random.seed(seed)
+        plain_batch, _ = voxel_batch(crop_cfg, frames[:1], True, dev)
+        where = f" on the crop {list(crop)} (grid {geometry[1].grid_size.tolist()})"
+    torch.cuda.empty_cache()
     one = {k: (v[:1].double() if v.is_floating_point() else v[:1])
            for k, v in plain_batch.items()}
     if two_stage:
-        one = plant_gt(cfg, fresh(dev, torch.float64), one, PLANTED_GT)
-    res, fed = [], None
+        one = plant_gt(geometry[0], fresh(dev, torch.float64, geometry), one, PLANTED_GT)
+    res, fed, fed_3d = [], None, None
     for device in (dev, torch.device("cpu")):
-        model, step = train_model(device, torch.float64)
+        model, step = train_model(device, torch.float64, geometry)
         t0 = time.perf_counter()
-        with RecordIoUShapes(keep_boxes=fed is None, feed=fed) as rec:
+        with RecordIoUShapes(keep_boxes=fed is None, feed=fed) as rec, \
+                RecordSamples(feed=fed_3d) as samples:
             loss, tb = step({k: v.to(device) for k, v in one.items()})
         if fed is None:
             fed = [boxes_iou_bev_batched_self_plain(b).cpu() for b in rec.boxes]
+            fed_3d = [t.cpu() for t in samples.ious]
         res.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
                     {n: b.cpu() for n, b in model.named_buffers() if "running" in n},
-                    time.perf_counter() - t0, float(tb.get("rcnn_loss_reg", 0.0)),
-                    [k.cpu() for k in rec.keeps]))
+                    time.perf_counter() - t0, sum(samples.fg), [k.cpu() for k in rec.keeps]))
         del model, step
     (l_g, g_g, s_g, t_g, r_g, k_g), (l_c, g_c, s_c, t_c, r_c, k_c) = res
     rel = abs(l_g - l_c) / abs(l_c)
     errs = _leaf_errors(g_g, g_c, floor=1e-6)
     stat_err = max((s_g[n] - s_c[n]).abs().max().item() for n in s_c)
     keeps_equal = len(k_g) == len(k_c) and all(map(torch.equal, k_g, k_c))
-    fed_note = (f", the CPU fed the plain IoU of the card's K {K_train} candidates; proposal "
-                f"keep mask {'equal' if keeps_equal else 'different'}, rcnn_loss_reg "
-                f"{r_g:.6g}" if two_stage else "")
-    print(f"{label} float64 step B=1, card vs CPU ({t_g:.1f} s / {t_c:.1f} s{fed_note}): loss "
+    fed_note = (f", the CPU fed the plain IoU of the card's K {K_train} candidates and the "
+                f"card's 3-D IoUs of the RoIs with the gt; proposal "
+                f"keep mask {'equal' if keeps_equal else 'different'}, foreground RoIs "
+                f"sampled {r_g} / {r_c}" if two_stage else "")
+    print(f"{label} float64 step B=1{where}, card vs CPU ({t_g:.1f} s / {t_c:.1f} s{fed_note}): loss "
           f"{l_g:.17g} vs {l_c:.17g} (rel {rel:.3g}); gradient leaves within "
           f"{errs[0][0]:.3g} of their scale at worst ({errs[0][1]}), deciles "
           f"{_deciles(errs)}; statistics within {stat_err:.3g}")
@@ -4170,12 +4538,14 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     return launches
 
 
-def voxel_clis(work, kitti_run, cfg_rel, label, batch_size):
-    """Phases 12-14 (c): the yaml through the train CLI (one epoch of phase
-    9's 32 frames at ``batch_size``, augmentor and all) and the test CLI on
-    its checkpoint with the official KITTI evaluation; then
-    ``dist_train.sh`` at world 1 over NCCL (the BatchNorms' global
-    moments).  Returns the launches of the train and test CLIs."""
+def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, last="dist_train"):
+    """Phases 12-15 (c): the yaml through the train CLI (one epoch of the
+    root's train frames at ``batch_size``, augmentor and all) and the test
+    CLI on its checkpoint with the official KITTI evaluation; then
+    (``last``) ``dist_train.sh`` at world 1 over NCCL (the BatchNorms'
+    global moments), or the export CLI on the checkpoint at b1 with its
+    ``--verify`` (the saved program against the live model).  Returns the
+    launches of the train, test and export CLIs."""
     from pdanet_tpu_torch.tools import test as test_cli
     from pdanet_tpu_torch.tools import train as train_cli
 
@@ -4234,6 +4604,21 @@ def voxel_clis(work, kitti_run, cfg_rel, label, batch_size):
             require(test_counts.get(name, 0) > 0, f"kernel {name} never launched by the "
                     f"{label} test CLI")
         launches = add_launches(train_counts, test_counts)
+        if last == "export":
+            from pdanet_tpu_torch.tools import export as export_cli
+
+            clear_launches()
+            t0 = time.perf_counter()
+            path = export_cli.main(["--cfg_file", cfg_rel, "--ckpt", str(ckpt), "--batch_size",
+                                    "1", "--verify", *set_data])
+            export_counts = counted_launches()
+            print(f"{label} export CLI (--ckpt of the train CLI, b1, --verify): "
+                  f"{time.perf_counter() - t0:.1f} s, {Path(path).stat().st_size / 1e6:.2f} MB; "
+                  f"launches {export_counts}")
+            for name in VOXEL_KERNELS:
+                require(export_counts.get(name, 0) > 0, f"kernel {name} never launched by the "
+                        f"{label} export CLI")
+            return add_launches(launches, export_counts)
     train_s = run_dist_script("dist_train.sh", 1, [
         "--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", str(batch_size),
         "--num_epochs_to_eval", "0", "--extra_tag", "dp1", *set_data], work)
@@ -4278,6 +4663,9 @@ def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, 
         cfg, cfg_rel, b1, exported))
     export_s = time.perf_counter() - t0
     torch.save(dict(b1), f"{stem}.batch.pt")
+    n_nodes = len(exported.graph.nodes)
+    del exported
+    torch.cuda.empty_cache()  # the fresh process needs the card's memory (a dense model ~25 GB)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", RELOAD_VOXELS, str(path), f"{stem}.batch.pt",
                            f"{stem}.out.pt"], cwd=ROOT, capture_output=True, text=True,
@@ -4296,7 +4684,7 @@ def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, 
                 f"eager closure's")
     launches = report["launches"]
     print(f"{label} b1 export: {export_s:.1f} s, {nbytes / 1e6:.2f} MB, "
-          f"{len(exported.graph.nodes)} graph nodes; reloaded in a fresh process "
+          f"{n_nodes} graph nodes; reloaded in a fresh process "
           f"({reload_s:.1f} s), bit-equal to the eager closure "
           f"({int(got['pred_counts'][0])} detections), launches there {launches}")
     for name in VOXEL_KERNELS:
@@ -4305,10 +4693,27 @@ def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, 
     return launches
 
 
+def dense_cli_root(work, cfg):
+    """Phase 15 (c)'s KITTI root, beside phase 9's in its working directory:
+    ``DENSE_CLI_SPLITS`` frames of phase 9's kind, with the yaml's infos
+    and gt database.  Returns the ``kitti_run`` dict the CLIs take (B 1)."""
+    from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+
+    root = Path(work) / "kitti_dense"
+    t0 = time.perf_counter()
+    counts = write_kitti_root(root, list(KITTI_MEAN_SIZES), list(KITTI_MEAN_SIZES.values()),
+                              seed=15, splits=DENSE_CLI_SPLITS)
+    create_kitti_infos(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), root, root, workers=4)
+    print(f"phase 15 (c) KITTI root {counts} (frames, boxes, fewest points in the field of "
+          f"view) with infos in {time.perf_counter() - t0:.1f} s")
+    val_ids = (root / "ImageSets" / "val.txt").read_text().split()
+    return dict(root=root, val_ids=val_ids, B=1, steps=dict(DENSE_CLI_SPLITS)["train"])
+
+
 def voxel_phase(dev, work, kitti_run, phase):
-    """Phases 12-14, on one yaml of ``VOXEL_PHASES`` at full width: (a)
+    """Phases 12-15, on one yaml of ``VOXEL_PHASES`` at full width: (a)
     serving, (b) training, (c) the CLIs, (d) export, (e) the IoU and NMS
-    kernels at each K of the path.  Returns the launches of its main-path
+    kernels at each K of the path, at the phase's ``VOXEL_DEPTH``.  Returns the launches of its main-path
     runs ((a)'s requests, (b)'s steps, (c)'s CLIs, (d)'s program request,
     each counted from 0), with the IoU's and the walk's at each K, and
     (e)'s rows by K."""
@@ -4322,24 +4727,29 @@ def voxel_phase(dev, work, kitti_run, phase):
     cfg = cfg_from_yaml_file(str(Path(work) / cfg_rel))
     template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                                training=False, root_path=str(kitti_run["root"]))
+    batch_size = depth.get("batch_size") or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     t0 = time.perf_counter()
-    served, weights, predict, b1, out = voxel_serve(
-        cfg, dev, template, label, seed, depth.get("latency_reps", VOXEL_LATENCY_REPS))
+    served, weights, predict, b1, out = voxel_serve(cfg, dev, template, label, seed, depth)
     print(f"phase {phase} (a) serving: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trained = voxel_train(cfg, weights, dev, template, label, seed + 100,
-                          depth.get("train_steps", VOXEL_TRAIN_STEPS))
+                          depth.get("train_steps", VOXEL_TRAIN_STEPS), batch_size,
+                          depth.get("crop"), depth.get("train_split", True))
     print(f"phase {phase} (b) training: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    clis = voxel_clis(work, kitti_run, cfg_rel, label, cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
-    print(f"phase {phase} (c) the CLIs: {time.perf_counter() - t0:.1f} s")
+    clis = {}
+    cli = depth.get("cli", "dist_train")
+    if cli is not None:
+        t0 = time.perf_counter()
+        run = kitti_run if cli == "dist_train" else dense_cli_root(work, cfg)
+        clis = voxel_clis(work, run, cfg_rel, label, batch_size, last=cli)
+        print(f"phase {phase} (c) the CLIs: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     program = voxel_export(cfg, predict, weights, dev, template, b1, work, cfg_rel, label)
     print(f"phase {phase} (d) export: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows = {}
     for boxes, valid, thresh, what in kernel_candidates(cfg, out):
-        rows[boxes.shape[1]] = voxel_kernels(dev, boxes, valid, thresh, label, what)
+        rows.setdefault(boxes.shape[1], voxel_kernels(dev, boxes, valid, thresh, label, what))
     print(f"phase {phase} (e) the kernels at K {sorted(rows)}: {time.perf_counter() - t0:.1f} s")
     del predict, out
     torch.cuda.empty_cache()
@@ -4369,6 +4779,24 @@ def voxel_rcnn_phase(dev, work, kitti_run):
     grid pooled from three sparse levels in 9 x 9 x 9 windows), nothing
     cut; the yaml's batch of 2 to train."""
     return voxel_phase(dev, work, kitti_run, 14)
+
+
+def second_iou_phase(dev, work, kitti_run):
+    """Phase 15, SECOND-IoU: tools/cfgs/kitti_models/second_iou.yaml at full
+    width (the dense ``VoxelBackBone8x`` over 41 x 1600 x 1408 cells of
+    0.05 x 0.05 x 0.1 m, 40000 test / 16000 train voxels of 5 points, a
+    256-channel BEV map of 200 x 176 into 512, 211200 anchors; proposals
+    at K 1024 to serve and 9000 to train, 100 / 512 RoIs, 128 sampled a
+    frame; a 7 x 7 BEV pool over 512 channels, 256-wide FC stacks), at
+    ``VOXEL_DEPTH["15a"]``."""
+    return voxel_phase(dev, work, kitti_run, "15a")
+
+
+def multihead_phase(dev, work, kitti_run):
+    """Phase 15, the multi-head: tools/cfgs/kitti_models/second_multihead.yaml
+    at full width (the same dense ladder, three separate heads of one class,
+    the per-class NMS at K 4096), at ``VOXEL_DEPTH["15b"]``."""
+    return voxel_phase(dev, work, kitti_run, "15b")
 
 
 def ptxas_report(log):
@@ -4557,6 +4985,9 @@ def main():
         second, second_rows = timed("13 (SECOND)", second_phase, dev, kitti_work, kitti_run)
         vrcnn, vrcnn_rows = timed("14 (Voxel-RCNN)", voxel_rcnn_phase, dev, kitti_work,
                                   kitti_run)
+        iou, iou_rows = timed("15 (SECOND-IoU)", second_iou_phase, dev, kitti_work, kitti_run)
+        multi, multi_rows = timed("15 (SECOND-multihead)", multihead_phase, dev, kitti_work,
+                                  kitti_run)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
@@ -4568,7 +4999,7 @@ def main():
     # request), each counted from 0; a row of phases 12-14 counts its own
     # phase's launches at its own K
     runs = (served, trained["bf16"], trained["f32"], once, kitti, exported, dp, pp, second,
-            vrcnn)
+            vrcnn, iou, multi)
     launches = {name: sum(run.get(name, 0) for run in runs) for name in KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the main path")
@@ -4578,7 +5009,9 @@ def main():
             for name, (src, rep) in KERNELS.items()]
     for phase, suffix, run, run_rows in ((12, "", pp, pp_rows),
                                          (13, "_second", second, second_rows),
-                                         (14, "_voxel_rcnn", vrcnn, vrcnn_rows)):
+                                         (14, "_voxel_rcnn", vrcnn, vrcnn_rows),
+                                         (15, "_second_iou", iou, iou_rows),
+                                         (15, "_multihead", multi, multi_rows)):
         for K, k_rows in sorted(run_rows.items(), reverse=True):
             for name in VOXEL_KERNELS:
                 n = run.get(f"{name}_k{K}", 0)

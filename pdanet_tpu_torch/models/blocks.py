@@ -193,6 +193,19 @@ class Conv(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class Conv3d(nn.Conv3d):
+    """flax ``nn.Conv`` over a 3-D grid, on a (B, C, Z, Y, X) tensor: the
+    kernel (kz, ky, kx, in, out) is ``weight`` (out, in, kz, ky, kx);
+    ``padding`` is torch's symmetric one a axis (the JAX package's dense
+    backbones give it explicitly).  Computes in the input's and weight's
+    promoted dtype; the output keeps the input's memory format."""
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv3d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
+
+
 class ConvTranspose(nn.ConvTranspose2d):
     """flax ``nn.ConvTranspose`` (``transpose_kernel=False``, 'SAME') over
     a channels-last map, for a kernel as large as its stride (the BEV
@@ -323,7 +336,7 @@ def init_random_weights(model, seed):
     fan-in K * C_in."""
     g = torch.Generator().manual_seed(int(seed))
     for mod in model.modules():
-        if isinstance(mod, (Dense, Conv, ConvTranspose)):
+        if isinstance(mod, (Dense, Conv, Conv3d, ConvTranspose)):
             w = torch.randn(mod.weight.shape, generator=g)
             fan_in = (mod.in_features if isinstance(mod, Dense)
                       else mod.in_channels * math.prod(mod.kernel_size))

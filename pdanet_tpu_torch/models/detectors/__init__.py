@@ -1,7 +1,7 @@
 """Detector registry (``pdanet_tpu/models/detectors/__init__.py``).
 
-IASSD (PDA-SSD), PointPillar, SECOND and Voxel-RCNN are ported; the
-other detectors of the zoo are ROADMAP queue 1 item 9.
+IASSD (PDA-SSD), PointPillar, SECOND, SECOND-IoU and Voxel-RCNN are
+ported; the other detectors of the zoo are ROADMAP queue 1 item 9.
 """
 
 import torch
@@ -9,24 +9,30 @@ import torch
 from .iassd import IASSD, post_processing
 from .pointpillar import PointPillar
 from .second import SECOND
+from .second_iou import SECONDNetIoU
+from .second_iou import post_processing as iou_post_processing
 from .voxel_rcnn import VoxelRCNN
 from .voxel_rcnn import post_processing as refined_post_processing
 
 __all__ = {"IASSD": IASSD, "PointPillar": PointPillar, "SECOND": SECOND,
-           "VoxelRCNN": VoxelRCNN}
+           "SECONDNetIoU": SECONDNetIoU, "VoxelRCNN": VoxelRCNN}
 
 #: voxel-pipeline detectors, which take their grid geometry from the dataset
-VOXEL_DETECTORS = ("PointPillar", "SECOND", "VoxelRCNN")
+VOXEL_DETECTORS = ("PointPillar", "SECOND", "SECONDNetIoU", "VoxelRCNN")
 
 
 def get_post_processor(name):
-    """fn(forward_out, model_cfg) -> fixed-shape pred dict: the refined
-    RoIs' NMS (``voxel_rcnn.post_processing``) for Voxel-RCNN, which the JAX
-    registry gives every two-stage detector (:49-53), else the sigmoid +
-    score sort + rotated NMS of ``iassd.post_processing``
-    (detector3d_template.py:179-285)."""
+    """fn(forward_out, model_cfg) -> fixed-shape pred dict: SECOND-IoU's
+    scoring and NMS of its RoIs (``second_iou.post_processing``, JAX
+    :45-48); the refined RoIs' NMS (``voxel_rcnn.post_processing``) for
+    Voxel-RCNN, which the JAX registry gives every other two-stage detector
+    (:49-53); else the sigmoid + score sort + rotated NMS of
+    ``iassd.post_processing`` (detector3d_template.py:179-285), per class
+    with ``MULTI_CLASSES_NMS``."""
     if name not in __all__:
         raise NotImplementedError(f"{name} is ROADMAP queue 1 item 9")
+    if name == "SECONDNetIoU":
+        return iou_post_processing
     if name == "VoxelRCNN":
         return refined_post_processing
     return lambda out, mcfg: post_processing(

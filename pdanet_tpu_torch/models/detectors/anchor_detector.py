@@ -1,7 +1,8 @@
 """What the port's anchor-head detectors share (PointPillar, SECOND): the
-anchors of the static grid, the single anchor head over the BEV map, the
-box decode, and the axis-aligned assigner and loss (JAX ``detectors/
-pointpillar.py`` and ``detectors/second.py``, which each hold a copy).
+anchors of the static grid, the single or multi-group anchor head over the
+BEV map, the box decode, and the axis-aligned assigner and loss (JAX
+``detectors/pointpillar.py`` and ``detectors/second.py``, which each hold
+a copy).
 
 A subclass builds its feature extractor, then calls :meth:`build_head`
 with the BEV map's channel count, and its ``forward`` ends in
@@ -16,6 +17,7 @@ from ...utils.box_coder_utils import build_box_coder
 from ...utils.easydict import EasyDict
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..dense_heads import anchor_head as AH
+from ..dense_heads import anchor_head_multi as AHM
 
 
 class AnchorDetector(nn.Module):
@@ -42,14 +44,32 @@ class AnchorDetector(nn.Module):
             raise NotImplementedError(f"target assigner {ta_cfg.NAME} is ROADMAP queue 1 item 9")
 
     def build_head(self, bev_channels):
-        """The BEV backbone over ``bev_channels`` and the anchor head."""
+        """The BEV backbone over ``bev_channels`` and the anchor head: the
+        single head, or ``AnchorHeadMulti``'s groups (JAX ``second.py:
+        108-125``), whose flat anchors are head-major."""
         head_cfg = self.cfg.DENSE_HEAD
-        if head_cfg.get("NAME", "AnchorHeadSingle") != "AnchorHeadSingle":
-            raise NotImplementedError(f"dense head {head_cfg.NAME} is ROADMAP queue 1 item 9")
+        head_name = head_cfg.get("NAME", "AnchorHeadSingle")
+        if head_name not in ("AnchorHeadSingle", "AnchorHeadMulti"):
+            raise NotImplementedError(f"dense head {head_name} is ROADMAP queue 1 item 9")
         self.backbone_2d = BaseBEVBackbone(self.cfg.BACKBONE_2D, bev_channels)
         anchors, num_per_loc = AH.generate_anchors(head_cfg.ANCHOR_GENERATOR_CONFIG,
                                                    self.grid_size, self.point_cloud_range)
         flat, per_class = AH.flat_anchors_per_class(anchors)
+        self.box_coder = build_box_coder(head_cfg.TARGET_ASSIGNER_CONFIG.BOX_CODER, {})
+        self.head_groups = None
+        if head_name == "AnchorHeadMulti":
+            names = [c["class_name"] for c in head_cfg.ANCHOR_GENERATOR_CONFIG]
+            self.head_groups = AHM.build_head_groups(head_cfg.RPN_HEAD_CFGS, names)
+            flat, self.head_anchor_counts = AHM.multihead_flat_anchors(per_class,
+                                                                       self.head_groups)
+            self.dense_head = AHM.AnchorHeadMultiNet(
+                head_cfg, self.backbone_2d.num_bev_features, self.head_groups, num_per_loc,
+                self.box_coder.code_size, self.num_class)
+        else:
+            self.dense_head = AH.AnchorHeadSingleNet(
+                self.backbone_2d.num_bev_features, self.num_class, sum(num_per_loc),
+                self.box_coder.code_size, head_cfg.get("USE_DIRECTION_CLASSIFIER", True),
+                head_cfg.get("NUM_DIR_BINS", 2))
         # constants of the grid, float32 whatever the model's dtype (they
         # are read back to float32 at use): not in the state dict, and
         # contiguous, as NCCL's broadcast of the module's buffers wants them
@@ -59,29 +79,35 @@ class AnchorDetector(nn.Module):
             self.register_buffer(f"anchors_class_{i}",
                                  torch.from_numpy(np.ascontiguousarray(a)), persistent=False)
         self.num_anchor_classes = len(per_class)
-        self.box_coder = build_box_coder(head_cfg.TARGET_ASSIGNER_CONFIG.BOX_CODER, {})
-        self.dense_head = AH.AnchorHeadSingleNet(
-            self.backbone_2d.num_bev_features, self.num_class, sum(num_per_loc),
-            self.box_coder.code_size, head_cfg.get("USE_DIRECTION_CLASSIFIER", True),
-            head_cfg.get("NUM_DIR_BINS", 2))
 
     def _anchors(self):
         return self.anchors_flat.float()
 
     def head_forward(self, spatial):
         """The BEV map (B, H, W, C) -> the forward dict, ``batch_cls_preds``
-        (B, A, C) logits and ``batch_box_preds`` (B, A, 7) among it."""
+        (B, A, C) logits and ``batch_box_preds`` (B, A, 7) among it; with
+        ``AnchorHeadMulti`` also each head's maps (``head_outs``)."""
         spatial_2d = self.backbone_2d(spatial)
-        cls_preds, box_preds, dir_preds = self.dense_head(spatial_2d)
         head_cfg = self.cfg.DENSE_HEAD
+        head_outs = None
+        if self.head_groups is not None:
+            head_outs = self.dense_head(spatial_2d)
+            cls_preds, box_preds, dir_preds = AHM.concat_head_preds(
+                head_outs, self.head_groups, self.num_class, self.box_coder.code_size,
+                head_cfg.get("NUM_DIR_BINS", 2), head_cfg.get("SEPARATE_MULTIHEAD", False))
+        else:
+            cls_preds, box_preds, dir_preds = self.dense_head(spatial_2d)
         batch_cls, batch_boxes = AH.generate_predicted_boxes(
             cls_preds, box_preds, dir_preds, self._anchors(), self.box_coder, self.num_class,
             dir_offset=head_cfg.get("DIR_OFFSET", 0.78539),
             dir_limit_offset=head_cfg.get("DIR_LIMIT_OFFSET", 0.0),
             num_dir_bins=head_cfg.get("NUM_DIR_BINS", 2))
-        return {"cls_preds": cls_preds, "box_preds": box_preds, "dir_cls_preds": dir_preds,
-                "batch_cls_preds": batch_cls, "batch_box_preds": batch_boxes,
-                "spatial_features": spatial, "spatial_features_2d": spatial_2d}
+        out = {"cls_preds": cls_preds, "box_preds": box_preds, "dir_cls_preds": dir_preds,
+               "batch_cls_preds": batch_cls, "batch_box_preds": batch_boxes,
+               "spatial_features": spatial, "spatial_features_2d": spatial_2d}
+        if head_outs is not None:
+            out["head_outs"] = head_outs
+        return out
 
     def forward_batch(self, batch):
         return self(batch["voxels"], batch["voxel_coords"], batch["voxel_num_points"])
@@ -91,17 +117,25 @@ class AnchorDetector(nn.Module):
         ``(loss, tb_dict)``."""
         head_cfg = self.cfg.DENSE_HEAD
         gen = head_cfg.ANCHOR_GENERATOR_CONFIG
-        targets = AH.assign_targets(
-            [getattr(self, f"anchors_class_{i}").float()
-             for i in range(self.num_anchor_classes)],
-            gt_boxes, [self.class_names.index(c["class_name"]) + 1 for c in gen],
-            [(c["matched_threshold"], c["unmatched_threshold"]) for c in gen],
-            self.box_coder)
+        per_class = [getattr(self, f"anchors_class_{i}").float()
+                     for i in range(self.num_anchor_classes)]
+        class_ids = [self.class_names.index(c["class_name"]) + 1 for c in gen]
+        thresholds = [(c["matched_threshold"], c["unmatched_threshold"]) for c in gen]
+        weights = dict(head_cfg.LOSS_CONFIG.LOSS_WEIGHTS)
+        dir_kw = dict(dir_offset=head_cfg.get("DIR_OFFSET", 0.78539),
+                      num_dir_bins=head_cfg.get("NUM_DIR_BINS", 2))
+        if self.head_groups is not None:
+            targets = AHM.assign_targets_multi(per_class, self.head_groups, gt_boxes,
+                                               class_ids, thresholds, self.box_coder)
+            return AHM.anchor_head_multi_loss(
+                forward_out["head_outs"], self.head_groups, self.head_anchor_counts, targets,
+                self._anchors(), self.num_class, weights, self.box_coder.code_size,
+                separate=head_cfg.get("SEPARATE_MULTIHEAD", False), **dir_kw)
+        targets = AH.assign_targets(per_class, gt_boxes, class_ids, thresholds,
+                                    self.box_coder)
         return AH.anchor_head_loss(
             forward_out["cls_preds"], forward_out["box_preds"], forward_out["dir_cls_preds"],
-            targets, self._anchors(), self.num_class, dict(head_cfg.LOSS_CONFIG.LOSS_WEIGHTS),
-            dir_offset=head_cfg.get("DIR_OFFSET", 0.78539),
-            num_dir_bins=head_cfg.get("NUM_DIR_BINS", 2))
+            targets, self._anchors(), self.num_class, weights, **dir_kw)
 
     def loss_batch(self, forward_out, batch):
         return self.loss(forward_out, batch["gt_boxes"])

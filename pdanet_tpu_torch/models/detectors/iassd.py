@@ -3,7 +3,7 @@ post-processing.
 
 Counterpart of ``pdanet_tpu/models/detectors/iassd.py``: the forward
 (:25-70), the loss (``loss``, ``loss_batch``, ``compute_loss``, :72-103),
-``post_processing`` (:106-172) on its single-NMS path and the recall
+``post_processing`` (:106-172), single- or multi-class NMS, and the recall
 record of the eval loop (``generate_recall_record``, :175-206), which
 also counts a two-stage detector's first-stage proposals.
 """
@@ -16,7 +16,7 @@ from ...utils.box_coder_utils import build_box_coder
 from ...utils.easydict import EasyDict
 from ..backbones_3d.iassd_backbone import IASSDBackbone
 from ..dense_heads import iassd_head
-from ..model_utils.model_nms_utils import batched_nms_candidates
+from ..model_utils.model_nms_utils import batched_multi_classes_nms, batched_nms_candidates
 
 
 class IASSD(nn.Module):
@@ -81,13 +81,16 @@ def post_processing(batch_cls_preds, batch_box_preds, post_cfg):
 
     batch_cls_preds (B, N, C) raw logits, batch_box_preds (B, N, 7) ->
     fixed-size per-frame outputs: pred_boxes (B, POST, 7), pred_scores
-    (B, POST), pred_labels (B, POST) in 1..C, pred_counts (B,).
+    (B, POST), pred_labels (B, POST) in 1..C, pred_counts (B,); with
+    ``MULTI_CLASSES_NMS`` one NMS a class (``batched_multi_classes_nms``),
+    C * POST slots.
     """
     nms_cfg = post_cfg.NMS_CONFIG
-    if nms_cfg.get("MULTI_CLASSES_NMS", False):
-        raise NotImplementedError(
-            "MULTI_CLASSES_NMS is ROADMAP queue 1 item 5")
     scores_all = torch.sigmoid(batch_cls_preds)
+    if nms_cfg.get("MULTI_CLASSES_NMS", False):  # JAX :123-131
+        return batched_multi_classes_nms(scores_all, batch_box_preds,
+                                         torch.ones_like(scores_all[..., 0], dtype=torch.bool),
+                                         nms_cfg, score_thresh=float(post_cfg.SCORE_THRESH))
     cls_scores = scores_all.max(dim=-1).values
     labels = torch.argmax(scores_all, dim=-1) + 1  # first maximum
     return batched_nms_candidates(batch_box_preds, cls_scores, labels,

@@ -1,28 +1,33 @@
 """SECOND detector: counterpart of ``pdanet_tpu/models/detectors/second.py``
-(``pcdet/models/detectors/second_net.py``): MeanVFE -> a sparse 3-D voxel
-backbone with the height compression folded into its last level's
-scatter -> BEV backbone -> anchor head.
+(``pcdet/models/detectors/second_net.py``): MeanVFE -> a 3-D voxel
+backbone with the height compression folded in -> BEV backbone -> the
+single or multi-group anchor head.
 
 The 3-D backbones are the gather-matmul ones (``SparseVoxelBackBone8x``,
-``SparseVoxelResBackBone8x``) that the shipped ``second.yaml`` names at
-the 0.05 m grid.  The BEV map's channel count is the backbone's own (z
-sites of the last level times NUM_OUTPUT_FEATURES), which flax infers and
+``SparseVoxelResBackBone8x``) that the shipped ``second.yaml`` names, and
+the dense ones (``VoxelBackBone8x``, ``VoxelResBackBone8x``) of
+``second_iou.yaml`` and ``second_multihead.yaml``, all at the 0.05 m
+grid.  The BEV map's channel count is the backbone's own (z sites of the
+last level times NUM_OUTPUT_FEATURES), which flax infers and
 MAP_TO_BEV.NUM_BEV_FEATURES states.  Post-processing is IASSD's
-(``get_post_processor``), as for PointPillar.
+(``get_post_processor``), as for PointPillar; with ``MULTI_CLASSES_NMS``
+its per-class NMS.
 """
 
 from ..backbones_3d.sparse_backbone import SparseVoxelBackBone8x, SparseVoxelResBackBone8x
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
+from ..backbones_3d.voxel_backbone import VoxelBackBone8x, VoxelResBackBone8x
 from .anchor_detector import AnchorDetector
 
-BACKBONES_3D = {"SparseVoxelBackBone8x": SparseVoxelBackBone8x,
+BACKBONES_3D = {"VoxelBackBone8x": VoxelBackBone8x, "VoxelResBackBone8x": VoxelResBackBone8x,
+                "SparseVoxelBackBone8x": SparseVoxelBackBone8x,
                 "SparseVoxelResBackBone8x": SparseVoxelResBackBone8x}
 
 
 class SECOND(AnchorDetector):
     """MODEL.NAME: SECOND, its grid from the dataset.  The dynamic VFE, the
-    dense and UNet 3-D backbones, the multi-group head and the ATSS
-    assigner of the JAX package raise (ROADMAP queue 1 item 9)."""
+    UNet 3-D backbones and the ATSS assigner of the JAX package raise
+    (ROADMAP queue 1 item 9)."""
 
     def __init__(self, model_cfg, num_class, input_channels=4, grid_size=None,
                  voxel_size=None, point_cloud_range=None, class_names=None):

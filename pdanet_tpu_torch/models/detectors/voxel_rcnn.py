@@ -22,7 +22,8 @@ import torch
 from ...utils.box_coder_utils import build_box_coder
 from ..model_utils.model_nms_utils import batched_nms_candidates
 from ..roi_heads import roi_head_template as RHT
-from ..roi_heads.voxelrcnn_head import VoxelRCNNHeadNet
+from ..backbones_3d.voxel_backbone import _DenseBackbone8x
+from ..roi_heads.voxelrcnn_head import NeighborGridPool, VoxelRCNNHeadNet
 from .second import SECOND
 
 STRIDES = {"x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
@@ -30,7 +31,8 @@ STRIDES = {"x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
 
 class VoxelRCNN(SECOND):
     """MODEL.NAME: VoxelRCNN, its grid from the dataset (``build_network(...,
-    dataset=...)``), over the sparse 3-D backbones of SECOND."""
+    dataset=...)``), over the sparse 3-D backbones of SECOND; over a dense
+    one it raises (its pool, ``NeighborGridPool``, is not ported)."""
 
     def __init__(self, model_cfg, num_class, input_channels=4, grid_size=None,
                  voxel_size=None, point_cloud_range=None, class_names=None):
@@ -40,6 +42,8 @@ class VoxelRCNN(SECOND):
         target_cfg = self.roi_cfg.TARGET_CONFIG
         self.roi_box_coder = build_box_coder(target_cfg.BOX_CODER,
                                              target_cfg.get("BOX_CODER_CONFIG", {}))
+        if isinstance(self.backbone_3d, _DenseBackbone8x):
+            NeighborGridPool()  # the dense grid's pool: raises (ROADMAP queue 1 item 9)
         n_cls = 1 if self.roi_cfg.get("CLASS_AGNOSTIC", True) else num_class
         widths = self.backbone_3d.widths
         channels = {f"x_conv{i}": widths[i] for i in range(1, 5)}
@@ -80,26 +84,10 @@ class VoxelRCNN(SECOND):
 
     def train_draws(self, generators, device):
         """The draws of one training forward, one CPU ``torch.Generator`` a
-        frame: ``{"sampler": {...}, "dropout": {...}}`` of (B, ...) tensors on
-        ``device``, the sampler's uniforms (``RHT.sampler_draws``) drawn
-        first, then the dropout keep masks, Bernoulli(1 - DP_RATIO), in the
-        order of ``roi_head.dropout_shapes``.  The same generators give the
-        same draws on every device."""
-        nms_cfg = self.roi_cfg.NMS_CONFIG.TRAIN
-        pre = min(int(nms_cfg.NMS_PRE_MAXSIZE), self.anchors_flat.shape[0])
-        n_rois = min(int(nms_cfg.NMS_POST_MAXSIZE), pre)
-        R = int(self.roi_cfg.TARGET_CONFIG.ROI_PER_IMAGE)
-        p = self.roi_head.dp
-        frames = []
-        for g in generators:
-            sampler = RHT.sampler_draws(g, n_rois, R)
-            keep = {name: torch.rand(shape, generator=g) < 1.0 - p
-                    for name, shape in self.roi_head.dropout_shapes(R).items()}
-            frames.append((sampler, keep))
-        stack = lambda dicts: {k: torch.stack([d[k] for d in dicts]).to(device)  # noqa: E731
-                               for k in dicts[0]}
-        return {"sampler": stack([f[0] for f in frames]),
-                "dropout": stack([f[1] for f in frames]) if frames[0][1] else {}}
+        frame (``RHT.frame_draws``): the sampler's uniforms, then the
+        dropout keep masks of ``roi_head.dropout_shapes``."""
+        return RHT.frame_draws(self.roi_cfg, self.roi_head, self.anchors_flat.shape[0],
+                               generators, device)
 
     def forward_batch(self, batch, draws=None):
         return self(batch["voxels"], batch["voxel_coords"], batch["voxel_num_points"],

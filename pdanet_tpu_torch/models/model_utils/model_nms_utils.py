@@ -1,7 +1,8 @@
 """Post-processing NMS over fixed-size candidates: counterpart of
-``pdanet_tpu/models/model_utils/model_nms_utils.py:38-83``
-(``batched_nms_candidates``), the one copy every ported detector's
-post-processing and the two-stage proposal layer call.
+``pdanet_tpu/models/model_utils/model_nms_utils.py:38-153``
+(``batched_nms_candidates``, the one copy every ported detector's
+post-processing and the two-stage proposal layer call, and
+``batched_multi_classes_nms``, one such NMS a class).
 
 The candidates a frame are the ``NMS_PRE_MAXSIZE`` best by score in a
 stable order; their rotated BEV self-IoU and the greedy walk run as one
@@ -14,6 +15,7 @@ import torch
 
 from ...ops.nms import greedy_nms_mask_batched
 from ...ops.rotated_iou import boxes_iou_bev_batched_self
+from ...utils.easydict import EasyDict
 
 
 def batched_nms_candidates(boxes, scores, labels, valid, nms_cfg, score_thresh=None):
@@ -57,3 +59,44 @@ def batched_nms_candidates(boxes, scores, labels, valid, nms_cfg, score_thresh=N
         "pred_labels": torch.where(hit, torch.gather(labels, 1, safe), 0).to(torch.int32),
         "pred_counts": counts,
     }
+
+
+def batched_multi_classes_nms(cls_scores, boxes, valid, nms_cfg, score_thresh=None):
+    """Per-class rotated NMS (``multi_classes_nms``, model_nms_utils.py:
+    28-66; JAX :86-153): class k runs :func:`batched_nms_candidates` over
+    every box with its own score column, and no class suppresses another.
+
+    cls_scores (B, N, C) sigmoid scores, boxes (B, N, 7+), valid (B, N)
+    bool; ``NMS_THRESH`` a scalar or one a class.  The classes' segments
+    of POST slots each are concatenated in class order and their kept
+    detections compacted into the leading slots: ``pred_boxes`` (B, C *
+    POST, 7+), ``pred_scores``, ``pred_labels`` (1..C), ``pred_counts``."""
+    B, N, C = cls_scores.shape
+    thresh = nms_cfg.NMS_THRESH
+    threshes = [float(t) for t in thresh] if isinstance(thresh, (list, tuple)) \
+        else [float(thresh)] * C
+    outs = []
+    for k in range(C):
+        cfg_k = {"NMS_THRESH": threshes[k], "NMS_PRE_MAXSIZE": nms_cfg.NMS_PRE_MAXSIZE,
+                 "NMS_POST_MAXSIZE": nms_cfg.NMS_POST_MAXSIZE}
+        labels_k = torch.full((B, N), k + 1, dtype=torch.int32, device=boxes.device)
+        outs.append(batched_nms_candidates(boxes, cls_scores[..., k], labels_k, valid,
+                                           EasyDict(cfg_k), score_thresh=score_thresh))
+    post = outs[0]["pred_scores"].shape[1]
+    slot = torch.arange(post, device=boxes.device)[None, :]
+    keep = torch.cat([slot < o["pred_counts"][:, None] for o in outs], dim=1)
+    n = keep.shape[1]
+    # stable compaction: the kept slots, in class order, to the front; the
+    # rest onto one extra slot that is cut off
+    rank = torch.cumsum(keep.to(torch.int64), dim=1) - 1
+    dst = torch.where(keep, rank, n)
+
+    def compact(key):
+        cat = torch.cat([o[key] for o in outs], dim=1)
+        index = dst.reshape(dst.shape + (1,) * (cat.dim() - 2)).expand(cat.shape)
+        out = cat.new_zeros((B, n + 1) + cat.shape[2:])
+        return out.scatter_(1, index, cat)[:, :n]
+
+    return {"pred_boxes": compact("pred_boxes"), "pred_scores": compact("pred_scores"),
+            "pred_labels": compact("pred_labels"),
+            "pred_counts": keep.sum(dim=1).to(torch.int32)}

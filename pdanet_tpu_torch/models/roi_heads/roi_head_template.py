@@ -1,5 +1,5 @@
-"""The two-stage (RoI) machinery that Voxel-RCNN uses: counterpart of
-``pdanet_tpu/models/roi_heads/roi_head_template.py:36-312``
+"""The two-stage (RoI) machinery that Voxel-RCNN and SECOND-IoU use:
+counterpart of ``pdanet_tpu/models/roi_heads/roi_head_template.py:36-425``
 (``pcdet/models/roi_heads/roi_head_template.py`` and
 ``target_assigner/proposal_target_layer.py``).
 
@@ -14,9 +14,12 @@ Every stage has a static shape, as in the JAX package:
   the hard and easy pools, the fg/bg split a count, not a branch.
 * ``canonicalize_gt_of_rois`` / ``assign_targets``, the RoI losses and
   ``decode_roi_boxes``: masked reductions over the fixed RoI axis.
+* ``roi_grid_pool_bev`` (SECOND-IoU): each RoI's rotated affine grid on
+  the BEV map, sampled by ``F.grid_sample``; ``FCStack``.
 
 The sampler's randomness is a value, ``draws``: per frame, uniforms drawn
-from the frame's own generator (:func:`sampler_draws`).  ``fg_perm``
+from the frame's own generator (:func:`sampler_draws`; with the dropout
+keep masks, :func:`frame_draws`).  ``fg_perm``
 (N,) ranks the foreground pool, ``fg_rep`` (R,) picks foreground with
 replacement (``floor(u * n_fg)``), ``hard`` and ``easy`` (R,) pick from
 those pools (``floor(u * n)``, the JAX package's ``randint``).  A caller
@@ -30,11 +33,14 @@ package's GSPMD sums (``parallel``).
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from ... import parallel
 from ...ops.geometry import rotate_points_along_z
 from ...ops.rotated_iou import boxes_iou3d
 from ...utils import loss_utils
+from ..blocks import BatchNorm, Dense
 from ..model_utils.model_nms_utils import batched_nms_candidates
 
 
@@ -257,3 +263,109 @@ def decode_roi_boxes(rois, rcnn_reg, box_coder):
     rotated = rotate_points_along_z(decoded[:, None, :], rois[..., 6].reshape(-1))[:, 0, :]
     out = torch.cat([rotated[:, 0:3] + rois[..., 0:3].reshape(-1, 3), rotated[:, 3:]], dim=-1)
     return out.reshape(B, R, code_size)
+
+
+def frame_draws(roi_cfg, roi_head, n_anchors, generators, device):
+    """The draws of one two-stage training forward, one CPU
+    ``torch.Generator`` a frame: ``{"sampler": {...}, "dropout": {...}}`` of
+    (B, ...) tensors on ``device``, the sampler's uniforms
+    (:func:`sampler_draws`) drawn first, then the dropout keep masks,
+    Bernoulli(1 - ``roi_head.dp``), in the order of
+    ``roi_head.dropout_shapes``.  The same generators give the same draws
+    on every device."""
+    nms_cfg = roi_cfg.NMS_CONFIG.TRAIN
+    pre = min(int(nms_cfg.NMS_PRE_MAXSIZE), n_anchors)
+    n_rois = min(int(nms_cfg.NMS_POST_MAXSIZE), pre)
+    R = int(roi_cfg.TARGET_CONFIG.ROI_PER_IMAGE)
+    frames = []
+    for g in generators:
+        sampler = sampler_draws(g, n_rois, R)
+        keep = {name: torch.rand(shape, generator=g) < 1.0 - roi_head.dp
+                for name, shape in roi_head.dropout_shapes(R).items()}
+        frames.append((sampler, keep))
+    stack = lambda dicts: {k: torch.stack([d[k] for d in dicts]).to(device)  # noqa: E731
+                           for k in dicts[0]}
+    return {"sampler": stack([f[0] for f in frames]),
+            "dropout": stack([f[1] for f in frames]) if frames[0][1] else {}}
+
+
+def dropout(x, keep, name, rate):
+    """flax's ``Dropout`` with its keep mask given: ``x / (1 - rate)`` where
+    ``keep[name]`` holds, else 0."""
+    return torch.where(keep[name].to(x.device), x / (1.0 - rate), 0.0)
+
+
+class FCStack(nn.Module):
+    """Dense (no bias) + BatchNorm (eps 1e-5, momentum 0.9) + ReLU layers
+    ``fc{k}`` / ``bn{k}``, an optional biased ``out`` layer, and dropout of
+    ``dp_ratio`` after the first layer in training (JAX :315-337,
+    ``make_fc_layers``), its keep mask ``keep["fc0"]`` given."""
+
+    def __init__(self, in_features, fc_list, out_features=None, dp_ratio=0.0):
+        super().__init__()
+        self.n, self.dp = len(fc_list), float(dp_ratio)
+        c = in_features
+        for k, f in enumerate(fc_list):
+            self.add_module(f"fc{k}", Dense(c, f, bias=False))
+            self.add_module(f"bn{k}", BatchNorm(f))
+            c = f
+        self.out = None if out_features is None else Dense(c, out_features)
+
+    def dropout_shapes(self, rows):
+        return {"fc0": (rows, self.fc0.out_features)} if self.dp > 0 and self.n else {}
+
+    def forward(self, x, keep=None):
+        for k in range(self.n):
+            x = torch.relu(getattr(self, f"bn{k}")(getattr(self, f"fc{k}")(x)))
+            if k == 0 and self.dp > 0 and self.training:
+                x = dropout(x, keep, "fc0", self.dp)
+        return x if self.out is None else self.out(x)
+
+
+def _div(a, d):
+    """``a / d`` for a Python number ``d``, as a true division on every
+    device (CUDA divides by a host scalar through its reciprocal)."""
+    return a / torch.tensor(d, dtype=a.dtype, device=a.device)
+
+
+def bilinear_grid_sample_2d(feat, gx, gy):
+    """JAX :340-370: ``F.grid_sample(align_corners=False,
+    padding_mode="zeros")`` of a channels-last (B, H, W, C) map at the
+    normalized [-1, 1] points ``gx`` / ``gy`` (B, ...) -> (B, ..., C)."""
+    B, H, W, C = feat.shape
+    lead = gx.shape[1:]
+    grid = torch.stack([gx, gy], dim=-1).reshape(B, -1, 1, 2)
+    out = F.grid_sample(feat.permute(0, 3, 1, 2), grid.to(feat.dtype), mode="bilinear",
+                        padding_mode="zeros", align_corners=False)  # (B, C, n, 1)
+    return out[..., 0].permute(0, 2, 1).reshape((B,) + lead + (C,))
+
+
+def roi_grid_pool_bev(spatial_features_2d, rois, grid_size, pc_range, voxel_size,
+                      downsample_ratio):
+    """Rotated RoI grid pooling from the BEV map (second_head.py:53-113, JAX
+    :373-425): each RoI's affine grid of ``grid_size`` x ``grid_size``
+    points (``affine_grid`` with align_corners False, its (W - 1) / (H - 1)
+    denominators), sampled bilinearly.  spatial_features_2d (B, H, W, C),
+    rois (B, R, 7) -> (B, R, g, g, C)."""
+    B, H, W, C = spatial_features_2d.shape
+    g = int(grid_size)
+    sx = float(voxel_size[0]) * downsample_ratio
+    sy = float(voxel_size[1]) * downsample_ratio
+    x1 = _div(rois[..., 0] - rois[..., 3] / 2 - pc_range[0], sx)
+    x2 = _div(rois[..., 0] + rois[..., 3] / 2 - pc_range[0], sx)
+    y1 = _div(rois[..., 1] - rois[..., 4] / 2 - pc_range[1], sy)
+    y2 = _div(rois[..., 1] + rois[..., 4] / 2 - pc_range[1], sy)
+    cosa, sina = torch.cos(rois[..., 6]), torch.sin(rois[..., 6])
+    # affine_grid's base coordinates (2i + 1) / g - 1 of a (g, g) output, in
+    # float32 as XLA compiles the JAX package's: the quotient by the
+    # constant g is a product with its float32 reciprocal (an ulp off the
+    # true quotient for g = 7)
+    base = torch.from_numpy((np.float32(2.0) * np.arange(g, dtype=np.float32)
+                             + np.float32(1.0)) * np.float32(1.0 / g) - np.float32(1.0))
+    base = base.to(device=rois.device, dtype=rois.dtype)
+    bx, by = base[None, :], base[:, None]  # x varies along the last axis
+    e = lambda t: t[..., None, None]  # noqa: E731  (B, R) -> (B, R, 1, 1)
+    wx, wy = _div(x2 - x1, W - 1), _div(y2 - y1, H - 1)
+    gx = e(wx) * e(cosa) * bx + e(wx) * e(-sina) * by + e(_div(x1 + x2 - W + 1, W - 1))
+    gy = e(wy) * e(sina) * bx + e(wy) * e(cosa) * by + e(_div(y1 + y2 - H + 1, H - 1))
+    return bilinear_grid_sample_2d(spatial_features_2d, gx, gy)

@@ -16,8 +16,8 @@ pooled grid of every RoI goes through the shared, cls and reg FC stacks
 Module and parameter names are the flax ones (``pool_x_conv2.mlp_in``,
 ``shared_fc0``, ``shared_bn0``, ``cls_pred`` ...), so the weight bridge
 maps a JAX tree onto the state dict.  The dense-grid pool of the JAX
-package (``NeighborGridPool``) goes with the dense ``VoxelBackBone8x``
-and raises.
+package (``NeighborGridPool``), Voxel-RCNN's over the dense
+``VoxelBackBone8x``, raises.
 """
 
 import math
@@ -30,6 +30,7 @@ from ...ops.geometry import rotate_points_along_z
 from ...ops.sparse_conv import _kernel_offsets, build_neighbor_table, stage_grids
 from ...utils.easydict import EasyDict
 from ..blocks import BatchNorm, Dense
+from .roi_head_template import dropout
 
 # a query cell is clamped into +-2^20 before its int32 cast: far outside
 # every grid, so nothing it finds changes, and the cast of a far or
@@ -58,11 +59,12 @@ def get_dense_grid_points(rois, grid_size):
 
 class NeighborGridPool(nn.Module):
     """The JAX package's fixed 3 x 3 x 3 window pool over a dense level
-    (JAX :58-119), for the dense ``VoxelBackBone8x``: not ported."""
+    (JAX :58-119), Voxel-RCNN's over the dense ``VoxelBackBone8x``: not
+    ported."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the dense-grid NeighborGridPool (with the dense "
-                                  "VoxelBackBone8x) is ROADMAP queue 1 item 9")
+        raise NotImplementedError("the dense-grid NeighborGridPool (Voxel-RCNN over the "
+                                  "dense VoxelBackBone8x) is ROADMAP queue 1 item 9")
 
 
 class SparseNeighborGridPool(nn.Module):
@@ -212,8 +214,7 @@ class VoxelRCNNHeadNet(nn.Module):
         for k in range(len(widths)):
             x = torch.relu(getattr(self, f"{prefix}_bn{k}")(getattr(self, f"{prefix}_fc{k}")(x)))
             if k != len(widths) - 1 and self.training and self.dp > 0:
-                mask = keep[f"{prefix}{k}"].to(x.device)
-                x = torch.where(mask, x / (1.0 - self.dp), 0.0)
+                x = dropout(x, keep, f"{prefix}{k}", self.dp)
         return x
 
     def pool(self, multi_scale, grid_xyz):

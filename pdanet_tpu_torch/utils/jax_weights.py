@@ -17,6 +17,8 @@ hd), ``bias`` (H, hd)              transposed; ``bias`` (H*hd,)
 attention ``out`` ``kernel`` (H,   ``weight``: reshaped to (H*hd, D),
 hd, D)                             transposed
 Conv ``kernel`` (kh, kw, in, out)  ``weight`` (out, in, kh, kw)
+3-D Conv ``kernel`` (kz, ky, kx,   ``weight`` (out, in, kz, ky, kx)
+in, out)
 ConvTranspose ``kernel`` (kh, kw,  ``weight`` (in, out, kh, kw), flipped
 in, out)                           in both spatial axes (flax applies it
                                    unflipped, ``conv_transpose2d``
@@ -152,6 +154,8 @@ def _convert_param(path, arr, layouts):
         return mods, "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()
     if arr.ndim == 4:
         return mods, "weight", arr.transpose(3, 2, 0, 1).copy()
+    if arr.ndim == 5:  # 3-D Conv (kz, ky, kx, in, out)
+        return mods, "weight", arr.transpose(4, 3, 0, 1, 2).copy()
     if arr.ndim == 3 and mods[-1] == "out":  # (H, hd, D)
         arr = arr.reshape(-1, arr.shape[-1])
     elif arr.ndim == 3:  # query/key/value (D, H, hd)
