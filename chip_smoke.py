@@ -204,8 +204,9 @@ Phases, each of which raises on failure:
    against the CPU (loss within 1e-10 relative, gradient leaves within
    1e-8 of their scale, statistics within 1e-10).  (c) The yaml through
    the train CLI (one epoch of phase 9's 32 frames at B = 4, augmentor and
-   all) and the test CLI with the official KITTI evaluation, then
-   ``dist_train.sh`` at world 1 over NCCL.  (d) The b1 program through
+   all) and the test CLI with the official KITTI evaluation
+   (``dist_train.sh`` at world 1 over NCCL runs in phases 11 and 16).
+   (d) The b1 program through
    ``serving.export_serving`` and ``save_serving``, reloaded by
    ``load_serving`` in a fresh process (torch and the port's ops and
    serving modules only), bit-equal to the eager closure.  (e) The
@@ -220,7 +221,8 @@ Phases, each of which raises on failure:
    128 output features, a 2 x 128 = 256-channel BEV map of 200 x 176,
    ``LAYER_NUMS [5, 5]``, 211200 anchors a frame), seeded weights,
    float32, TF32 off: (a)-(e) as phase 12, on the same root and frames, at
-   less depth (3 latency repeats a turn, 3 train steps), and in (a) the
+   less depth (3 latency repeats a turn, 3 train steps, no device split of
+   a step), and in (a) the
    active sites of every level of the sparse backbone in each request, which levels filled their budget, and the b1 frame's
    coordinates and neighbour tables of every level on the card equal to
    the CPU's.
@@ -270,7 +272,7 @@ Phases, each of which raises on failure:
    full kernel name; one frame card vs CPU on ``DENSE_CROP`` (first-stage
    maps within 2e-3), then at full width on the card's inputs: the
    proposal keep mask at K 1024 and the RoIs equal, ``rcnn_iou`` within
-   2e-3, the detections paired box for box.  (b) 3 float32 steps at B = 1
+   2e-3, the detections paired box for box.  (b) 2 float32 steps at B = 1
    (the yaml's 4 cut), the IoU and NMS at K 9000 suppressing, foreground
    RoIs in the first sample, peak memory; one float64 step on the crop on
    the card against the CPU, the CPU fed the card's plain self-IoU and
@@ -286,6 +288,36 @@ Phases, each of which raises on failure:
    the CPU's walk on the plain IoU of the card's candidates, the
    detections paired; (b) two steps and the float64 step on the crop; (d);
    (e) each class's candidates at K 4096.
+16. CenterPoint and the zoo's point augmentors:
+   tools/cfgs/kitti_models/centerpoint.yaml at full width (phase 13's grid,
+   voxels and ``SparseVoxelResBackBone8x`` with ``ACTIVE_BUDGETS [16384,
+   16384, 16384, 8192]``, a 256-channel BEV map of 200 x 176 into the
+   anchor-free head's 400 x 352 maps, three classes in one head, the top
+   500 candidates into one NMS at K 500, thresh 0.7), seeded weights (the
+   heatmap's output bias -2.19; the dim, centre and heading sine output
+   convs scaled, ``seed_center_boxes``, so that neighbouring candidates
+   overlap), float32, TF32 off.  (a) Serving as phase 13 (three b1
+   requests and one b2, busy time, peak memory), some candidates
+   suppressed; one frame on the card against the CPU: the head's maps
+   within 1e-5 of the CPU's own forward, then on the card's maps the
+   top-K indices, the decoded candidates and the NMS keep mask equal to
+   the CPU's and the detections paired box for box.  (b) 3 float32 steps
+   at the yaml's B = 4, then the float64 step at B = 1 card vs CPU.  (c)
+   The CLIs and ``dist_train.sh`` on phase 9's root.  (d) Export as phase
+   12.  (e) The IoU and NMS on the candidates that request 0's NMS was
+   given (recorded by ``RecordIoUShapes``) at K 500, some suppressed.
+   Then
+   tools/cfgs/kitti_models/pointpillar_newaugs.yaml and
+   pointpillar_pyramid_aug.yaml through the train CLI, one epoch at B = 4
+   on a root of their own (``AUG_CLI_SPLITS``), and the newaugs yaml's
+   loader alone over that epoch with its DISABLE_AUG_LIST emptied (the
+   shipped yaml disables both frustum dropouts and the local
+   translation): for each augmentor, on how many frames it changed the
+   points or the boxes.
+
+In phases 12-14 and 16, ``dist_train.sh`` runs in the background while
+(d) exports and reloads the program, and is checked before (e) times the
+kernels.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
@@ -293,7 +325,7 @@ Each phase prints its wall time.  The line before the last is
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
 CLIs, phase 10's exported programs, phase 11's CLI processes, one
 process and ranks, and phases 12-15's requests, train steps, CLIs and
-programs, each run counted from 0), its
+programs, and phase 16's, each run counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -305,7 +337,9 @@ K, (e)'s numbers) and at phase 13's (``rotated_iou_k4096_second``,
 (``rotated_iou_k9000_voxel_rcnn`` ... ``nms_k2048_voxel_rcnn``, phase
 14's launches at each K, ``cuda_lib.launches_by_k``), and at phase 15's
 K 9000, 1024 and 100 (``rotated_iou_k9000_second_iou`` ...) and K 4096
-(``rotated_iou_k4096_multihead``, ``nms_k4096_multihead``).  The line before it gives the script's seconds.
+(``rotated_iou_k4096_multihead``, ``nms_k4096_multihead``), and at phase
+16's K 500 (``rotated_iou_k500_centerpoint``, ``nms_k500_centerpoint``).
+The line before it gives the script's seconds.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -970,6 +1004,8 @@ def check_iou_nms(dev, stats, parent=None):
                       lambda: parent.rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
                       device_name="iou_self_kernel")
 
+    check_nonfinite_iou_nms(dev, stats)
+
     for K in NMS_SIZES:
         if K <= 256:
             iou = rotated_iou.boxes_iou_bev_batched_self_cuda(
@@ -1024,6 +1060,63 @@ def check_iou_nms(dev, stats, parent=None):
               f"{fmt_ms(ms[1])}, walk {fmt_ms(ms[2])})"
               + (f", {1e3 * ms[0] / K:.4f} us per serial step" if ms[0] is not None else ""))
         del iou
+
+
+NONFINITE = ((0, np.inf), (1, -np.inf), (3, np.inf), (4, np.nan), (6, np.nan), (0, np.nan),
+             (6, np.inf), (3, 0.0), (4, 0.0), (1, np.nan), (4, np.inf), (3, np.nan))
+
+
+def nonfinite_boxes(seed, B, K, spread=12.0):
+    """``random_boxes`` with every 7th box given one of ``NONFINITE`` (an
+    inf, -inf or NaN in x, y, dx, dy or the heading, or a zero extent), in
+    turn, and one finite box's copy with an infinite length."""
+    arr = random_boxes(seed, B, K, spread)
+    for n, i in enumerate(range(3, K, 7)):
+        col, val = NONFINITE[n % len(NONFINITE)]
+        arr[:, i, col] = val
+    arr[:, 1] = arr[:, 0]
+    arr[:, 1, 3] = np.inf
+    return arr
+
+
+def check_nonfinite_iou_nms(dev, stats):
+    """Phase 3: the rotated self-IoU and the NMS walk on boxes with inf,
+    -inf or NaN in x, y, dx, dy or the heading, and zero extents (what an
+    unclamped ``exp`` of a seeded model's box code gives): the IoU NaN and
+    infinite at the same pairs as its plain version, the rest within rtol
+    2e-4 / atol 2e-5; the keep mask equal to the plain version's, fed the
+    kernel's IoU, at thresh 0.01, 0.1 and 0.7.  ``tests/
+    test_torch_centerpoint.py`` holds the plain versions to the JAX
+    package's on such boxes."""
+    import torch
+
+    from pdanet_tpu_torch.ops import nms, rotated_iou
+
+    rs = np.random.RandomState(48)
+    for B, K, spread in ((1, 256, 6.0), (2, 500, 12.0)):
+        boxes = torch.from_numpy(nonfinite_boxes(48 + K, B, K, spread)).to(dev)
+        got = rotated_iou.boxes_iou_bev_batched_self_cuda(boxes)
+        want = rotated_iou.boxes_iou_bev_batched_self_plain(boxes)
+        same_nan = torch.equal(got.isnan(), want.isnan())
+        same_inf = torch.equal(got.isinf(), want.isinf())
+        fin = torch.isfinite(want)
+        err = (got[fin] - want[fin]).abs().max().item()
+        where = torch.nonzero(got.isnan() != want.isnan())[:5].tolist()
+        require(same_nan and same_inf, f"IoU on non-finite boxes B={B} K={K}: NaN / inf at "
+                f"other pairs than the plain version's (first {where})")
+        require(torch.allclose(got[fin], want[fin], rtol=2e-4, atol=2e-5),
+                f"IoU on non-finite boxes B={B} K={K} outside rtol 2e-4 / atol 2e-5 ({err})")
+        stats["rotated_iou"]["max_abs_err"] = max(stats["rotated_iou"]["max_abs_err"], err)
+        valid = torch.from_numpy(rs.rand(B, K) > 0.1).to(dev)
+        kept = []
+        for thresh in (0.01, 0.1, 0.7):
+            keep = nms.greedy_nms_mask_batched_cuda(got, valid, thresh)
+            require(torch.equal(keep, nms.greedy_nms_mask_batched_plain(got, valid, thresh)),
+                    f"NMS on non-finite boxes B={B} K={K} thresh {thresh}: keep mask differs")
+            kept.append(keep.sum(dim=1).tolist())
+        print(f"{'rotated_iou / nms':27s} non-finite boxes B={B} K={K}: "
+              f"{int(torch.isnan(want).sum())} NaN IoUs at the plain version's pairs, finite "
+              f"ones within {err:.3g}; keep masks equal at thresh 0.01/0.1/0.7, kept {kept}")
 
 
 def kernel_device_ms(fn, name, reps=20):
@@ -2989,16 +3082,50 @@ DP_ORDER_MARGIN = 10.0
 ADAM_EPS = 1e-8  # the yaml's adam_onecycle (optax's default)
 
 
-def run_dist_script(script, nproc, args, cwd, timeout=900):
+class DistScript:
     """``pdanet_tpu_torch/tools/scripts/<script> nproc args`` from ``cwd``
-    (torchrun, ``--launcher pytorch``); returns its seconds."""
-    env = {k: v for k, v in os.environ.items() if k not in LAUNCH_ENV}
-    t0 = time.perf_counter()
-    res = subprocess.run(["bash", str(DIST_SCRIPTS / script), str(nproc), *args], cwd=cwd,
-                         env=env, capture_output=True, text=True, timeout=timeout)
-    require(res.returncode == 0, f"{script} failed (exit {res.returncode}):\n"
-            f"{res.stdout[-2000:]}\n{res.stderr[-6000:]}")
-    return time.perf_counter() - t0
+    (torchrun, ``--launcher pytorch``), started in the background, its
+    output in files under ``cwd``; ``wait`` checks its exit and returns its
+    seconds.  Leaving the ``with`` block kills it if it still runs."""
+
+    def __init__(self, script, nproc, args, cwd, timeout=900):
+        env = {k: v for k, v in os.environ.items() if k not in LAUNCH_ENV}
+        self.script, self.timeout, self.t0 = script, timeout, time.perf_counter()
+        stem = Path(cwd) / f"{script}.{os.getpid()}.{id(self)}"
+        self.out, self.err = open(f"{stem}.out", "w+"), open(f"{stem}.err", "w+")
+        self.proc = subprocess.Popen(["bash", str(DIST_SCRIPTS / script), str(nproc), *args],
+                                     cwd=cwd, env=env, stdout=self.out, stderr=self.err,
+                                     text=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+
+    def wait(self):
+        try:
+            code = self.proc.wait(timeout=max(1.0, self.timeout
+                                              - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            code = "timed out"
+        seconds = time.perf_counter() - self.t0
+        tails = []
+        for f, n in ((self.out, 2000), (self.err, 6000)):
+            f.seek(0)
+            tails.append(f.read()[-n:])
+        require(code == 0, f"{self.script} failed (exit {code}):\n{tails[0]}\n{tails[1]}")
+        return seconds
+
+
+def run_dist_script(script, nproc, args, cwd, timeout=900):
+    """``DistScript`` in the foreground: returns its seconds."""
+    with DistScript(script, nproc, args, cwd, timeout) as run:
+        return run.wait()
 
 
 def cli_log(out_dir, kind):
@@ -3451,11 +3578,18 @@ SECOND_CFG_REL = "cfgs/kitti_models/second.yaml"
 VRCNN_CFG_REL = "cfgs/kitti_models/voxel_rcnn_car.yaml"
 SECOND_IOU_CFG_REL = "cfgs/kitti_models/second_iou.yaml"
 MULTIHEAD_CFG_REL = "cfgs/kitti_models/second_multihead.yaml"
+CENTERPOINT_CFG_REL = "cfgs/kitti_models/centerpoint.yaml"
+AUG_CFG_RELS = ("cfgs/kitti_models/pointpillar_newaugs.yaml",
+                "cfgs/kitti_models/pointpillar_pyramid_aug.yaml")
+# phase 16's augmentor yamls train on a root of their own: 8 train frames,
+# two steps at the yaml's B = 4
+AUG_CLI_SPLITS = (("train", 8), ("val", 2))
 # phase: (yaml, label, seed of the served frames; the train frames' is 100 more)
 VOXEL_PHASES = {12: (PP_CFG_REL, "PointPillar", 1200), 13: (SECOND_CFG_REL, "SECOND", 1200),
                 14: (VRCNN_CFG_REL, "Voxel-RCNN", 1400),
                 "15a": (SECOND_IOU_CFG_REL, "SECOND-IoU", 1500),
-                "15b": (MULTIHEAD_CFG_REL, "SECOND-multihead", 1500)}
+                "15b": (MULTIHEAD_CFG_REL, "SECOND-multihead", 1500),
+                16: (CENTERPOINT_CFG_REL, "CenterPoint", 1600)}
 VOXEL_SERVE_FRAMES = 5  # three b1 requests and one b2
 VOXEL_TRAIN_STEPS = 5
 VOXEL_LATENCY_REPS = 10
@@ -3473,15 +3607,20 @@ DENSE_CLI_SPLITS = (("train", 2), ("val", 2))
 # GiB) without a device split of the step (a B=1 step takes ~7 s), runs
 # (a), (b), (d) and (e) of the multi-head once (one b1 request, two steps,
 # without the layout and TF32 turns that (a) of SECOND-IoU gives for the
-# same ladder), and has the export CLI in place of dist_train.sh
+# same ladder), and has the export CLI in place of dist_train.sh; phase 16
+# has no TF32 turns (phase 13 times the same BEV convolution with TF32 on);
+# phases 13 and 14 take no device split of a train step (both were read on
+# the card: SECOND's is the BEV FFT's backward), and SECOND-IoU takes 2
+# steps; phases 12-14 and 16 run dist_train.sh beside (d)
 VOXEL_DEPTH = {12: dict(latency_reps=3, train_steps=3),
-               13: dict(latency_reps=3, train_steps=3),
-               14: dict(latency_reps=3, train_steps=3),
-               "15a": dict(latency_reps=3, train_steps=3, batch_size=1, crop=DENSE_CROP,
+               13: dict(latency_reps=3, train_steps=3, train_split=False),
+               14: dict(latency_reps=3, train_steps=3, train_split=False),
+               "15a": dict(latency_reps=3, train_steps=2, batch_size=1, crop=DENSE_CROP,
                            cli="export", train_split=False),
                "15b": dict(latency_reps=3, train_steps=2, batch_size=1, crop=DENSE_CROP,
                            serve_requests=1, cli=None, layout=False, train_split=False,
-                           tf32=False)}
+                           tf32=False),
+               16: dict(latency_reps=3, train_steps=3, tf32=False)}
 VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
 # a two-stage model's seeded box conv is scaled by this: the seeded weights
 # decode boxes millimetres thin and tens of metres from their anchors,
@@ -3489,6 +3628,17 @@ VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
 # the grid points of a RoI in one spot); scaled, the boxes stay near their
 # anchors
 BOX_CONV_SCALE = 0.01
+# CenterPoint's seeded head decodes boxes of random size (the exp of its
+# dim map) and heading (the atan2 of its rot map), so that no two of the
+# 500 candidates overlap by the NMS threshold 0.7 and none is suppressed;
+# its dim, centre and heading-sine output convs are scaled by this, the dim
+# bias set to the log of the first class's mean size: boxes of that size,
+# at heading 0 or pi, at their cells, which neighbouring peaks overlap
+CENTER_CONV_SCALE = 0.01
+# CenterPoint's float32 head maps, card against CPU, of max(1, |value|):
+# three runs on an H100 read 8.05e-07 at most (the centre map) and 5.96e-08
+# on the sigmoided heatmap, both TF32 off: the gate is 12 times the larger
+CENTER_MAPS_TOL = 1e-5
 PLANTED_GT = 2  # gt boxes planted on each training frame's proposals (two-stage)
 SPARSE_LEVELS = ("x_conv1", "x_conv2", "x_conv3", "x_conv4", "conv_out")
 KITTI_MEAN_SIZES = {"Car": (3.9, 1.6, 1.56), "Pedestrian": (0.8, 0.6, 1.73),
@@ -3571,9 +3721,10 @@ def voxel_batch(cfg, frames, training, dev, model=None):
 class RecordIoUShapes:
     """Records the shape of every self-IoU that ``batched_nms_candidates``
     (every detector's post-processing, the two-stage proposal layer) asks
-    for, and each NMS walk's keep mask, the kernels running as ever.  With
-    ``keep_boxes`` it also keeps each IoU's input boxes; with ``feed`` (IoU
-    matrices) it returns them in turn instead of computing the IoU."""
+    for, and each NMS walk's keep mask and its (valid, thresh), the kernels
+    running as ever.  With ``keep_boxes`` it also keeps each IoU's input
+    boxes; with ``feed`` (IoU matrices) it returns them in turn instead of
+    computing the IoU."""
 
     def __init__(self, keep_boxes=False, feed=None):
         self.keep_boxes, self.feed = keep_boxes, None if feed is None else list(feed)
@@ -3581,7 +3732,8 @@ class RecordIoUShapes:
     def __enter__(self):
         from pdanet_tpu_torch.models.model_utils import model_nms_utils
 
-        self.shapes, self.keeps, self.boxes, self.module = [], [], [], model_nms_utils
+        self.shapes, self.keeps, self.walks, self.boxes = [], [], [], []
+        self.module = model_nms_utils
         self.orig = (model_nms_utils.boxes_iou_bev_batched_self,
                      model_nms_utils.greedy_nms_mask_batched)
 
@@ -3599,6 +3751,7 @@ class RecordIoUShapes:
         def walk(iou, valid, thresh):
             keep = self.orig[1](iou, valid, thresh)
             self.keeps.append(keep)
+            self.walks.append((valid, thresh))
             return keep
 
         model_nms_utils.boxes_iou_bev_batched_self = iou
@@ -3610,11 +3763,24 @@ class RecordIoUShapes:
          self.module.greedy_nms_mask_batched) = self.orig
 
 
+def post_cfg_of(cfg):
+    """The post-processing config the model's NMS reads: CenterPoint's
+    head's own (``DENSE_HEAD.POST_PROCESSING``), else the model's."""
+    if cfg.MODEL.NAME == "CenterPoint":
+        return cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+    return cfg.MODEL.POST_PROCESSING
+
+
 def serve_ks(cfg):
     """The K of every self-IoU and walk a request runs: a two-stage model's
-    proposal layer's and its final NMS's (at most its RoIs), else the
+    proposal layer's and its final NMS's (at most its RoIs), CenterPoint's
+    over its heads' top ``MAX_OBJ_PER_SAMPLE`` candidates each, else the
     post-processing's."""
-    post = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE)
+    post = int(post_cfg_of(cfg).NMS_CONFIG.NMS_PRE_MAXSIZE)
+    if cfg.MODEL.NAME == "CenterPoint":
+        head = cfg.MODEL.DENSE_HEAD
+        return {min(post, len(head.CLASS_NAMES_EACH_HEAD)
+                    * int(head.POST_PROCESSING.MAX_OBJ_PER_SAMPLE))}
     if "ROI_HEAD" not in cfg.MODEL:
         return {post}
     test = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
@@ -3653,15 +3819,22 @@ def proposal_candidates(first, nms_cfg):
     return boxes, torch.ones((1, K), dtype=torch.bool, device=boxes.device)
 
 
-def kernel_candidates(cfg, out):
-    """(e)'s inputs: (boxes, valid, thresh, what) for each K of the path,
-    from frame 0 of a b1 request's forward ``out`` (a two-stage model's
-    first stage): the proposal layer's TRAIN and TEST candidates, or the
-    post-processing's (each class's with ``MULTI_CLASSES_NMS``); with
-    ``out["final_forward"]`` (SECOND-IoU) also the final NMS's of the
-    scored RoIs."""
+def kernel_candidates(cfg, out, served):
+    """(e)'s inputs: (boxes, valid, thresh, what, suppress) for each K of
+    the path, from frame 0 of a b1 request's forward ``out`` (a two-stage
+    model's first stage): the proposal layer's TRAIN and TEST candidates,
+    or the post-processing's (each class's with ``MULTI_CLASSES_NMS``);
+    with ``out["final_forward"]`` (SECOND-IoU) also the final NMS's of the
+    scored RoIs.  A forward without class logits (CenterPoint's decoded
+    scores) gives the candidates that request 0's NMS was given, as
+    ``served`` (``RecordIoUShapes`` of (a)) recorded them, and its walk
+    must suppress some (``suppress``)."""
     import torch
 
+    if "batch_cls_preds" not in out:
+        (valid, thresh), boxes = served.walks[0], served.boxes[0]
+        return [(boxes, valid, float(thresh), f"request 0's {int(valid.sum())} valid NMS "
+                 f"candidates as its post-processing gave them", True)]
     if "ROI_HEAD" not in cfg.MODEL:
         post_cfg = cfg.MODEL.POST_PROCESSING
         rows = []
@@ -3671,7 +3844,7 @@ def kernel_candidates(cfg, out):
             what = "" if column is None else f"class {cfg.CLASS_NAMES[column]}'s "
             rows.append((boxes, valid, float(post_cfg.NMS_CONFIG.NMS_THRESH),
                          f"frame 0's {what}candidates, {n_valid} anchors of "
-                         f"{out['batch_cls_preds'].shape[1]} over SCORE_THRESH"))
+                         f"{out['batch_cls_preds'].shape[1]} over SCORE_THRESH", False))
         return rows
     rows = []
     for split in ("TRAIN", "TEST"):
@@ -3679,7 +3852,7 @@ def kernel_candidates(cfg, out):
         boxes, valid = proposal_candidates(out, nms_cfg)
         rows.append((boxes, valid, float(nms_cfg.NMS_THRESH),
                      f"frame 0's {split} proposal candidates of "
-                     f"{out['batch_cls_preds'].shape[1]} anchors"))
+                     f"{out['batch_cls_preds'].shape[1]} anchors", False))
     if "final_forward" in out:  # SECOND-IoU's NMS of its scored RoIs
         final, post_cfg = out["final_forward"], cfg.MODEL.POST_PROCESSING
         scores = torch.sigmoid(final["rcnn_iou"][:1].max(dim=-1).values)
@@ -3691,15 +3864,17 @@ def kernel_candidates(cfg, out):
                                   order[..., None].expand(1, K, 7)).contiguous(),
                      torch.gather(valid, 1, order).contiguous(),
                      float(post_cfg.NMS_CONFIG.NMS_THRESH),
-                     f"frame 0's {int(valid.sum())} RoIs scored over SCORE_THRESH"))
+                     f"frame 0's {int(valid.sum())} RoIs scored over SCORE_THRESH", False))
     return rows
-def voxel_kernels(dev, boxes, valid, thresh, label, what):
-    """Phases 12-14 (e): the rotated self-IoU and the NMS walk on the path's
+def voxel_kernels(dev, boxes, valid, thresh, label, what, suppress=False, parent=None):
+    """Phases 12-16 (e): the rotated self-IoU and the NMS walk on the path's
     own candidates ``boxes`` (1, K, 7) / ``valid`` (1, K) (frame 0 of a b1
     request, ``what`` says which) against their plain versions: the IoU
-    within rtol 2e-4 / atol 2e-5, the keep mask equal; CUDA-event times in
-    turns (kernel, plain, plain, kernel), device times under the profiler
-    and bounds from these candidates.  Returns the two rows' numbers."""
+    within rtol 2e-4 / atol 2e-5, the keep mask equal (with ``suppress``,
+    some valid candidate suppressed); CUDA-event times in turns (kernel,
+    plain, plain, kernel), device times under the profiler and bounds from
+    these candidates; with ``parent``, that tree's IoU kernel timed in
+    turns beside this tree's.  Returns the two rows' numbers."""
     import torch
 
     from pdanet_tpu_torch.ops import nms, rotated_iou
@@ -3718,6 +3893,8 @@ def voxel_kernels(dev, boxes, valid, thresh, label, what):
     keep_p = nms.greedy_nms_mask_batched_plain(got, valid, thresh)
     require(torch.equal(keep, keep_p), f"{label} NMS K={K}: the keep mask differs from the "
             f"plain version")
+    require(not suppress or int(keep.sum()) < int(valid.sum()),
+            f"{label} NMS K={K}: no valid candidate suppressed")
     del want
 
     def turns(kern, plain, plain_reps):
@@ -3733,6 +3910,10 @@ def voxel_kernels(dev, boxes, valid, thresh, label, what):
                               lambda: rotated_iou.boxes_iou_bev_batched_self_plain(boxes), 2)
     iou_dev = kernel_device_ms(lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
                                "iou_self_kernel")
+    if parent:
+        vs_parent(f"IoU {label} K={K}", lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
+                  lambda: parent.rotated_iou.boxes_iou_bev_batched_self_cuda(boxes), reps=20,
+                  device_name="iou_self_kernel")
     bnd = bound((boxes.numel() + got.numel()) * 4, pairs * IOU_PAIR_OPS, F32_OPS_PER_S)
     rows["rotated_iou"] = dict(max_abs_err=err, ms=iou_ms, plain_ms=iou_plain, bound_ms=bnd[0],
                                bound_by=bnd[1], library_ms=None)
@@ -3758,7 +3939,7 @@ def voxel_kernels(dev, boxes, valid, thresh, label, what):
     return rows
 
 
-def sparse_levels(model, cpu_model, requests):
+def sparse_levels(model, cpu_model, requests, label="SECOND"):
     """Phase 13 (a): the active sites of every level of the sparse backbone
     in each request, and which levels filled their budget; then the first
     request's coordinates and neighbour tables of every level on the card
@@ -3774,18 +3955,18 @@ def sparse_levels(model, cpu_model, requests):
             full = [name for name, lv in zip(SPARSE_LEVELS, levels)
                     if bool((lv["valid"].sum(dim=1) == lv["valid"].shape[1]).any())]
             budgets = {name: lv["valid"].shape[1] for name, lv in zip(SPARSE_LEVELS, levels)}
-            print(f"SECOND request {i}: active sites a level {sites} of budgets {budgets}; "
+            print(f"{label} request {i}: active sites a level {sites} of budgets {budgets}; "
                   f"levels that filled their budget: {full or 'none'}")
         card = model.backbone_3d.geometry(requests[0]["voxel_coords"])
         cpu = cpu_model.backbone_3d.geometry(requests[0]["voxel_coords"].cpu())
     taps = {}
     for name, g, c in zip(SPARSE_LEVELS, card, cpu):
         for key, want in c.items():
-            require(torch.equal(g[key].cpu(), want), f"SECOND {name}: {key} on the card differs "
-                    f"from the CPU's")
+            require(torch.equal(g[key].cpu(), want), f"{label} {name}: {key} on the card "
+                    f"differs from the CPU's")
         table = c["subm"] if "subm" in c else c["down"]
         taps[name] = round(float((table >= 0).sum(dim=-1)[c["valid"]].float().mean()), 2)
-    print(f"SECOND b1 frame, card vs CPU: every level's coordinates and neighbour tables "
+    print(f"{label} b1 frame, card vs CPU: every level's coordinates and neighbour tables "
           f"equal; mean taps found a site (submanifold table, conv_out's strided) {taps}")
 
 
@@ -3847,6 +4028,91 @@ def anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label)
             f"{label} float32 detections card vs CPU not paired box for box")
     if hasattr(model, "backbone_3d"):
         sparse_levels(model, cpu_model, requests)
+    return out_card
+
+
+def center_card_vs_cpu(cfg, model, weights, template, requests, results, label):
+    """Phase 16 (a): request 0's frame in float32 on the card (kernels)
+    against the CPU (plain versions): each head's maps within
+    ``CENTER_MAPS_TOL`` of max(1, |value|) of the CPU's own forward (the
+    heatmap after the sigmoid too); then on the card's maps (its sigmoided heatmap
+    and box maps) the CPU's top-K indices and classes equal to the card's,
+    its decode within 1e-4 of max(1, |value|) with the same valid
+    candidates, and its post-processing of the card's decoded candidates
+    (the plain IoU and walk) paired box for box with the card's request
+    (equal counts, centres within 1e-5 m, scores equal); the pairing of the
+    CPU's own forward's detections is printed beside it; the sparse
+    backbone's levels (``sparse_levels``).  Returns the card's forward."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.dense_heads import center_head as CH
+    from pdanet_tpu_torch.models.detectors import get_post_processor
+    from pdanet_tpu_torch.models.model_utils import centernet_utils as CU
+
+    b1 = requests[0]
+    post_fn = get_post_processor(cfg.MODEL.NAME)
+    with torch.inference_mode():
+        out_card = model.forward_batch(b1)
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device="cpu")
+    cpu_model.load_state_dict(weights)
+    cpu_batch = {k: v.cpu() for k, v in b1.items()}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out_cpu = cpu_model.eval().forward_batch(cpu_batch)
+        post_own = post_fn(out_cpu, cfg.MODEL)
+    cpu_s = time.perf_counter() - t0
+    map_err, hm_err = {}, 0.0
+    for card_maps, cpu_maps in zip(out_card["pred_dicts"], out_cpu["pred_dicts"]):
+        for key, want in cpu_maps.items():
+            err = ((card_maps[key].cpu() - want).abs().max() / want.abs().max().clamp(min=1.0))
+            map_err[key] = max(map_err.get(key, 0.0), err.item())
+        hm_err = max(hm_err, (torch.sigmoid(card_maps["hm"]).cpu()
+                              - torch.sigmoid(cpu_maps["hm"])).abs().max().item())
+    require(max(map_err.values()) <= CENTER_MAPS_TOL and hm_err <= CENTER_MAPS_TOL,
+            f"{label} head maps card vs CPU {map_err}, heatmap {hm_err} > {CENTER_MAPS_TOL}")
+
+    # the decode and the post-processing on the card's own maps
+    head = cfg.MODEL.DENSE_HEAD
+    K = int(head.POST_PROCESSING.MAX_OBJ_PER_SAMPLE)
+    with torch.inference_mode():
+        fed = []
+        for card_maps in out_card["pred_dicts"]:
+            hm_card = torch.sigmoid(card_maps["hm"])
+            on_card = [t.cpu() for t in CU.topk_heatmap(hm_card, K)]
+            on_cpu = CU.topk_heatmap(hm_card.cpu(), K)
+            for name, g, c in zip(("score", "inds", "class", "ys", "xs"), on_card, on_cpu):
+                require(torch.equal(g, c), f"{label} top-K {name} on the card's heatmap differs "
+                        f"from the CPU's")
+            fed.append({k: v.cpu() for k, v in card_maps.items()})
+        boxes, scores, labels, valid = CH.generate_predicted_boxes(
+            fed, cpu_model.class_id_mapping_each_head, head.POST_PROCESSING,
+            np.asarray(cpu_model.point_cloud_range, np.float32),
+            np.asarray(cpu_model.voxel_size, np.float32), cpu_model.feature_map_stride,
+            cpu_model.head_order)
+        card_boxes = out_card["batch_box_preds"].cpu()
+        box_err = ((card_boxes - boxes).abs() / boxes.abs().clamp(min=1.0)).max().item()
+        require(torch.equal(out_card["batch_valid_preds"].cpu(), valid)
+                and torch.equal(out_card["batch_label_preds"].cpu(), labels)
+                and box_err <= 1e-4,
+                f"{label} decode on the card's maps: boxes within {box_err}, valid / labels "
+                f"differ")
+        post_fed = post_fn({k: out_card[k].cpu() for k in (
+            "batch_box_preds", "batch_score_preds", "batch_label_preds", "batch_valid_preds")},
+            cfg.MODEL)
+    pairs, n_g, n_c, gap_c, gap_s = match_detections(results[0][2], post_fed)
+    own = match_detections(results[0][2], post_own)
+    n_valid = int(out_card["batch_valid_preds"].sum())
+    print(f"{label} float32 frame, card vs CPU ({cpu_s:.1f} s on the CPU): head maps within "
+          f"{ {k: float(f'{v:.3g}') for k, v in map_err.items()} } of max(1, |value|), heatmap "
+          f"within {hm_err:.3g}; on the card's maps: top-{K} indices equal, decode within "
+          f"{box_err:.3g}, {n_valid} valid candidates; detections {n_g} vs {n_c}, {pairs} paired "
+          f"(largest centre distance {gap_c:.3g} m, score {gap_s:.3g}); the CPU's own forward: "
+          f"{own[2]} detections, {own[0]} paired with the card's (centres within {own[3]:.3g} "
+          f"m, scores {own[4]:.3g})")
+    require(n_g == n_c == pairs and gap_c <= 1e-5 and gap_s == 0.0,
+            f"{label} float32 detections on the card's candidates not paired box for box")
+    sparse_levels(model, cpu_model, requests, label)
     return out_card
 
 
@@ -4209,9 +4475,29 @@ def dense_card_vs_cpu(cfg, model, weights, template, requests, results, label, k
     return first
 
 
+def seed_center_boxes(model, classes):
+    """Scale a seeded CenterPoint head's box outputs by
+    ``CENTER_CONV_SCALE`` (the dim, centre and heading-sine output convs of
+    every head), the dim bias the log of ``classes[0]``'s mean size."""
+    import torch
+
+    size = torch.log(torch.tensor(KITTI_MEAN_SIZES[classes[0]], dtype=torch.float32))
+    dense_head = model.dense_head
+    with torch.no_grad():
+        for i in range(dense_head.num_heads):
+            head = getattr(dense_head, f"head_{i}")
+            for conv in (head.dim_out, head.center_out):
+                conv.weight.mul_(CENTER_CONV_SCALE)
+                conv.bias.mul_(CENTER_CONV_SCALE)
+            head.dim_out.bias.add_(size.to(head.dim_out.bias))
+            head.rot_out.weight[1].mul_(CENTER_CONV_SCALE)  # (cos, sin): heading 0 or pi
+            head.rot_out.bias[1].mul_(CENTER_CONV_SCALE)
+
+
 def voxel_serve(cfg, dev, template, label, seed, depth):
-    """Phases 12-14 (a): seeded weights at full width (a two-stage model's
-    box conv scaled by ``BOX_CONV_SCALE``); 120000-point LiDAR-like KITTI
+    """Phases 12-16 (a): seeded weights at full width (a two-stage model's
+    box conv scaled by ``BOX_CONV_SCALE``, CenterPoint's head by
+    ``seed_center_boxes``); 120000-point LiDAR-like KITTI
     frames through the host voxelizer at the test budget; three b1
     requests and one b2 in float32 through ``serving.make_predict_fn``,
     their latency, the IoU and NMS kernels launched at every K of
@@ -4225,8 +4511,9 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
     ``anchors_card_vs_cpu``).  ``depth``: ``latency_reps``,
     ``serve_requests`` 1 for one b1 request alone, ``tf32`` False for no
     TF32 turns, ``layout`` False for no layout turns.  Returns the launches of
-    the requests, the weights, the closure and frame 0's batch and
-    (first-stage) forward."""
+    the requests, the weights, the closure, frame 0's batch and
+    (first-stage) forward and the requests' ``RecordIoUShapes`` (with the
+    IoU's input boxes)."""
     import torch
 
     from pdanet_tpu_torch.models import build_network
@@ -4239,6 +4526,8 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
     if two_stage:
         with torch.no_grad():
             model.dense_head.conv_box.weight.mul_(BOX_CONV_SCALE)
+    elif cfg.MODEL.DENSE_HEAD.NAME == "CenterHead":
+        seed_center_boxes(model, cfg.CLASS_NAMES)
     weights = copy.deepcopy(model.state_dict())
     predict = make_predict_fn(model, cfg.MODEL)
     for B in (1, 2):
@@ -4254,8 +4543,8 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
         requests.append(batch)
         host_ms += ms
     ks = serve_ks(cfg)
-    max_dets = min(int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE), min(ks))
-    if cfg.MODEL.POST_PROCESSING.NMS_CONFIG.get("MULTI_CLASSES_NMS", False):
+    max_dets = min(int(post_cfg_of(cfg).NMS_CONFIG.NMS_POST_MAXSIZE), min(ks))
+    if post_cfg_of(cfg).NMS_CONFIG.get("MULTI_CLASSES_NMS", False):
         max_dets *= len(cfg.CLASS_NAMES)  # one segment of slots a class
     voxels = [int((r["voxel_num_points"] > 0).sum(dim=1).min()) for r in requests]
     print(f"{label} frames: {KITTI_FRAME_POINTS} points each, host processors and "
@@ -4266,7 +4555,7 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
 
     clear_launches()
     results, peaks = [], []
-    with RecordIoUShapes() as rec:
+    with RecordIoUShapes(keep_boxes=True) as rec:
         for batch in requests:
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
@@ -4286,7 +4575,9 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
         print(f"{label} request {i}: B={B} latency {ms:.2f} ms (float32, TF32 off), "
               f"detections {counts.tolist()}")
     print(f"{label} kernel launches in the served requests: {launches}; the self-IoU's "
-          f"inputs {rec.shapes}; peak memory a request {peaks} GiB")
+          f"inputs {rec.shapes}, candidates kept by the walks "
+          f"{[k.sum(dim=1).tolist() for k in rec.keeps]} of the valid "
+          f"{[v.sum(dim=1).tolist() for v, _ in rec.walks]}; peak memory a request {peaks} GiB")
     for name in VOXEL_KERNELS:
         require(launches.get(name, 0) > 0, f"kernel {name} never launched on the {label} "
                 f"path")
@@ -4328,9 +4619,11 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
     elif dense:
         out = dense_card_vs_cpu(cfg, model, weights, template, requests, results, label,
                                 rec.keeps, seed, depth["crop"])
+    elif cfg.MODEL.NAME == "CenterPoint":
+        out = center_card_vs_cpu(cfg, model, weights, template, requests, results, label)
     else:
         out = anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label)
-    return launches, weights, predict, b1, out
+    return launches, weights, predict, b1, out, rec
 
 
 def plant_gt(cfg, model, batch, n):
@@ -4538,12 +4831,11 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     return launches
 
 
-def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, last="dist_train"):
-    """Phases 12-15 (c): the yaml through the train CLI (one epoch of the
+def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, export=False):
+    """Phases 12-16 (c): the yaml through the train CLI (one epoch of the
     root's train frames at ``batch_size``, augmentor and all) and the test
-    CLI on its checkpoint with the official KITTI evaluation; then
-    (``last``) ``dist_train.sh`` at world 1 over NCCL (the BatchNorms'
-    global moments), or the export CLI on the checkpoint at b1 with its
+    CLI on its checkpoint with the official KITTI evaluation; with
+    ``export`` also the export CLI on the checkpoint at b1 with its
     ``--verify`` (the saved program against the live model).  Returns the
     launches of the train, test and export CLIs."""
     from pdanet_tpu_torch.tools import test as test_cli
@@ -4604,7 +4896,7 @@ def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, last="dist_train"):
             require(test_counts.get(name, 0) > 0, f"kernel {name} never launched by the "
                     f"{label} test CLI")
         launches = add_launches(train_counts, test_counts)
-        if last == "export":
+        if export:
             from pdanet_tpu_torch.tools import export as export_cli
 
             clear_launches()
@@ -4619,9 +4911,22 @@ def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, last="dist_train"):
                 require(export_counts.get(name, 0) > 0, f"kernel {name} never launched by the "
                         f"{label} export CLI")
             return add_launches(launches, export_counts)
-    train_s = run_dist_script("dist_train.sh", 1, [
-        "--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", str(batch_size),
-        "--num_epochs_to_eval", "0", "--extra_tag", "dp1", *set_data], work)
+    return launches
+
+
+@contextlib.contextmanager
+def background_dist_train(work, kitti_run, cfg_rel, label, batch_size):
+    """Phases 12-14 and 16 (c): the yaml through ``dist_train.sh`` at world
+    1 over NCCL (the BatchNorms' global moments), one epoch of phase 9's
+    root at ``batch_size``, run while the ``with`` block runs and checked
+    when it ends (its losses, NCCL, rank 0's launches)."""
+    root = kitti_run["root"]
+    with DistScript("dist_train.sh", 1, [
+            "--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", str(batch_size),
+            "--num_epochs_to_eval", "0", "--extra_tag", "dp1",
+            "--set", "DATA_CONFIG.DATA_PATH", str(root)], work) as run:
+        yield
+        train_s = run.wait()
     dp_out = Path(work) / "output" / "kitti_models" / Path(cfg_rel).stem / "dp1"
     log, dp_counts = cli_log(dp_out, "train")
     require("process group: backend nccl, world 1" in log,
@@ -4633,12 +4938,12 @@ def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, last="dist_train"):
             dp_losses.append(m["value"])
         elif m["tag"] == "meta_data/batch_time":
             dp_ms.append(1e3 * m["value"])
+    steps = kitti_run["steps"] * kitti_run["B"] // batch_size
     require(len(dp_losses) == steps and all(np.isfinite(dp_losses)),
             f"{label} dist_train.sh losses {dp_losses}")
-    print(f"{label} train CLI through dist_train.sh (world 1, NCCL): {train_s:.1f} s; "
-          f"losses {[round(x, 4) for x in dp_losses]}; ms per iteration median after the "
+    print(f"{label} train CLI through dist_train.sh (world 1, NCCL, beside (d)): {train_s:.1f} "
+          f"s; losses {[round(x, 4) for x in dp_losses]}; ms per iteration median after the "
           f"first {statistics.median(dp_ms[1:]):.2f} ms; rank 0's launches {dp_counts}")
-    return launches
 
 
 def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, label):
@@ -4710,10 +5015,11 @@ def dense_cli_root(work, cfg):
     return dict(root=root, val_ids=val_ids, B=1, steps=dict(DENSE_CLI_SPLITS)["train"])
 
 
-def voxel_phase(dev, work, kitti_run, phase):
-    """Phases 12-15, on one yaml of ``VOXEL_PHASES`` at full width: (a)
+def voxel_phase(dev, work, kitti_run, phase, parent=None):
+    """Phases 12-16, on one yaml of ``VOXEL_PHASES`` at full width: (a)
     serving, (b) training, (c) the CLIs, (d) export, (e) the IoU and NMS
-    kernels at each K of the path, at the phase's ``VOXEL_DEPTH``.  Returns the launches of its main-path
+    kernels at each K of the path (with ``parent``, that tree's IoU timed
+    beside), at the phase's ``VOXEL_DEPTH``.  Returns the launches of its main-path
     runs ((a)'s requests, (b)'s steps, (c)'s CLIs, (d)'s program request,
     each counted from 0), with the IoU's and the walk's at each K, and
     (e)'s rows by K."""
@@ -4729,7 +5035,7 @@ def voxel_phase(dev, work, kitti_run, phase):
                                training=False, root_path=str(kitti_run["root"]))
     batch_size = depth.get("batch_size") or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     t0 = time.perf_counter()
-    served, weights, predict, b1, out = voxel_serve(cfg, dev, template, label, seed, depth)
+    served, weights, predict, b1, out, rec = voxel_serve(cfg, dev, template, label, seed, depth)
     print(f"phase {phase} (a) serving: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trained = voxel_train(cfg, weights, dev, template, label, seed + 100,
@@ -4741,47 +5047,53 @@ def voxel_phase(dev, work, kitti_run, phase):
     if cli is not None:
         t0 = time.perf_counter()
         run = kitti_run if cli == "dist_train" else dense_cli_root(work, cfg)
-        clis = voxel_clis(work, run, cfg_rel, label, batch_size, last=cli)
+        clis = voxel_clis(work, run, cfg_rel, label, batch_size, export=cli == "export")
         print(f"phase {phase} (c) the CLIs: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    program = voxel_export(cfg, predict, weights, dev, template, b1, work, cfg_rel, label)
-    print(f"phase {phase} (d) export: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()  # for the background dist_train.sh and (d)'s fresh process
+    with (background_dist_train(work, kitti_run, cfg_rel, label, batch_size)
+          if cli == "dist_train" else contextlib.nullcontext()):
+        program = voxel_export(cfg, predict, weights, dev, template, b1, work, cfg_rel, label)
+        print(f"phase {phase} (d) export: {time.perf_counter() - t0:.1f} s")
+    if cli == "dist_train":
+        print(f"phase {phase} (c) dist_train.sh and (d): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows = {}
-    for boxes, valid, thresh, what in kernel_candidates(cfg, out):
-        rows.setdefault(boxes.shape[1], voxel_kernels(dev, boxes, valid, thresh, label, what))
+    for boxes, valid, thresh, what, suppress in kernel_candidates(cfg, out, rec):
+        rows.setdefault(boxes.shape[1], voxel_kernels(dev, boxes, valid, thresh, label, what,
+                                                      suppress, parent))
     print(f"phase {phase} (e) the kernels at K {sorted(rows)}: {time.perf_counter() - t0:.1f} s")
-    del predict, out
+    del predict, out, rec
     torch.cuda.empty_cache()
     return add_launches(served, trained, clis, program), rows
 
 
-def pointpillar_phase(dev, work, kitti_run):
+def pointpillar_phase(dev, work, kitti_run, parent=None):
     """Phase 12: tools/cfgs/kitti_models/pointpillar.yaml at full width
     (432 x 496 pillars of 0.16 m, 40000 test / 16000 train pillars of 32
     points, 64 BEV channels, 321408 anchors a frame), nothing cut."""
-    return voxel_phase(dev, work, kitti_run, 12)
+    return voxel_phase(dev, work, kitti_run, 12, parent)
 
 
-def second_phase(dev, work, kitti_run):
+def second_phase(dev, work, kitti_run, parent=None):
     """Phase 13: tools/cfgs/kitti_models/second.yaml at full width (a 0.05 x
     0.05 x 0.1 m grid of 1408 x 1600 x 40 cells, 40000 test / 16000 train
     voxels of 5 points, the sparse backbone's [16, 16, 32, 64, 64] filters
     and 128 output features, a 256-channel BEV map of 200 x 176, 211200
     anchors a frame), nothing cut."""
-    return voxel_phase(dev, work, kitti_run, 13)
+    return voxel_phase(dev, work, kitti_run, 13, parent)
 
 
-def voxel_rcnn_phase(dev, work, kitti_run):
+def voxel_rcnn_phase(dev, work, kitti_run, parent=None):
     """Phase 14: tools/cfgs/kitti_models/voxel_rcnn_car.yaml at full width
     (SECOND's grid and sparse backbone, a 256-channel BEV map, 70400
     anchors a frame, the proposal layer at K 2048 / 9000, a 6 x 6 x 6 RoI
     grid pooled from three sparse levels in 9 x 9 x 9 windows), nothing
     cut; the yaml's batch of 2 to train."""
-    return voxel_phase(dev, work, kitti_run, 14)
+    return voxel_phase(dev, work, kitti_run, 14, parent)
 
 
-def second_iou_phase(dev, work, kitti_run):
+def second_iou_phase(dev, work, kitti_run, parent=None):
     """Phase 15, SECOND-IoU: tools/cfgs/kitti_models/second_iou.yaml at full
     width (the dense ``VoxelBackBone8x`` over 41 x 1600 x 1408 cells of
     0.05 x 0.05 x 0.1 m, 40000 test / 16000 train voxels of 5 points, a
@@ -4789,14 +5101,154 @@ def second_iou_phase(dev, work, kitti_run):
     at K 1024 to serve and 9000 to train, 100 / 512 RoIs, 128 sampled a
     frame; a 7 x 7 BEV pool over 512 channels, 256-wide FC stacks), at
     ``VOXEL_DEPTH["15a"]``."""
-    return voxel_phase(dev, work, kitti_run, "15a")
+    return voxel_phase(dev, work, kitti_run, "15a", parent)
 
 
-def multihead_phase(dev, work, kitti_run):
+def multihead_phase(dev, work, kitti_run, parent=None):
     """Phase 15, the multi-head: tools/cfgs/kitti_models/second_multihead.yaml
     at full width (the same dense ladder, three separate heads of one class,
     the per-class NMS at K 4096), at ``VOXEL_DEPTH["15b"]``."""
-    return voxel_phase(dev, work, kitti_run, "15b")
+    return voxel_phase(dev, work, kitti_run, "15b", parent)
+
+
+def centerpoint_phase(dev, work, kitti_run, parent=None):
+    """Phase 16, CenterPoint: tools/cfgs/kitti_models/centerpoint.yaml at
+    full width (phase 13's grid, voxels and the residual sparse backbone
+    with ``ACTIVE_BUDGETS [16384, 16384, 16384, 8192]``, a 256-channel BEV
+    map of 200 x 176, the anchor-free head at 400 x 352, three classes in
+    one head, one NMS at K 500), at ``VOXEL_DEPTH[16]``."""
+    return voxel_phase(dev, work, kitti_run, 16, parent)
+
+
+@contextlib.contextmanager
+def count_augmentor_changes():
+    """Wrap every augmentor of the port's ``DataAugmentor`` but the gt
+    sampler: yields (calls, changed, dropped) counters by name, counting
+    the frames each ran on, those whose points or boxes it changed, and
+    those it dropped boxes of (the loader's threads included)."""
+    import collections
+    import functools
+    import threading
+
+    from pdanet_tpu_torch.datasets.augmentor import data_augmentor as da
+
+    calls, changed, dropped = (collections.Counter() for _ in range(3))
+    lock = threading.Lock()
+    originals = {name: getattr(da.DataAugmentor, name) for name in da.AUGMENTORS[1:]}
+
+    def wrap(name, orig):
+        def method(self, data_dict=None, config=None):
+            if data_dict is None:
+                return functools.partial(method, self, config=config)
+            pts, boxes = data_dict["points"].copy(), data_dict["gt_boxes"].copy()
+            out = orig(self, data_dict=data_dict, config=config)
+            moved = (pts.shape != out["points"].shape or boxes.shape != out["gt_boxes"].shape
+                     or not np.array_equal(pts, out["points"])
+                     or not np.array_equal(boxes, out["gt_boxes"]))
+            with lock:
+                calls[name] += 1
+                changed[name] += moved
+                dropped[name] += len(out["gt_boxes"]) < len(boxes)
+            return out
+        return method
+
+    for name, orig in originals.items():
+        setattr(da.DataAugmentor, name, wrap(name, orig))
+    try:
+        yield calls, changed, dropped
+    finally:
+        for name, orig in originals.items():
+            setattr(da.DataAugmentor, name, orig)
+
+
+def augmentor_phase(dev, work):
+    """Phase 16, the zoo's point augmentors: ``AUG_CFG_RELS`` through the
+    train CLI for one epoch of a root of their own (``AUG_CLI_SPLITS``, at
+    the yaml's B = 4, no evaluation): finite losses, every enabled
+    augmentor run on every train frame and the new ones (local rotation
+    and scaling, world translation, the pyramid augmentation) changing
+    some; then the newaugs yaml's loader alone over the same epoch with
+    its DISABLE_AUG_LIST emptied, every one of its augmentors run, the
+    frustum dropouts and the local translation changing frames and the
+    names and masks staying aligned where the world dropout drops boxes.
+    Prints, a yaml and augmentor, on how many frames it changed the points
+    or the boxes.  Returns the CLIs' launches."""
+    from pdanet_tpu_torch.config import cfg_from_yaml_file
+    from pdanet_tpu_torch.datasets import build_dataloader
+    from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+    from pdanet_tpu_torch.tools import train as train_cli
+
+    work = Path(work)
+    cfgs = [cfg_from_yaml_file(str(work / rel)) for rel in AUG_CFG_RELS]
+    root = work / "kitti_augs"
+    t0 = time.perf_counter()
+    counts = write_kitti_root(root, list(KITTI_MEAN_SIZES), list(KITTI_MEAN_SIZES.values()),
+                              seed=16, splits=AUG_CLI_SPLITS)
+    create_kitti_infos(cfgs[0].DATA_CONFIG, list(cfgs[0].CLASS_NAMES), root, root, workers=4)
+    print(f"phase 16 augmentor KITTI root {counts} (frames, boxes, fewest points in the field "
+          f"of view) with infos in {time.perf_counter() - t0:.1f} s")
+    n_train = dict(AUG_CLI_SPLITS)["train"]
+    new = ("random_local_rotation", "random_local_scaling", "random_world_translation",
+           "random_local_pyramid_aug")
+    launches = []
+    for rel, cfg in zip(AUG_CFG_RELS, cfgs):
+        aug_cfg = cfg.DATA_CONFIG.DATA_AUGMENTOR
+        enabled = [c.NAME for c in aug_cfg.AUG_CONFIG_LIST
+                   if c.NAME not in aug_cfg.DISABLE_AUG_LIST and c.NAME != "gt_sampling"]
+        B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+        clear_launches()
+        t0 = time.perf_counter()
+        with count_augmentor_changes() as (calls, changed, _), contextlib.chdir(work):
+            out = train_cli.main(["--cfg_file", rel, "--epochs", "1", "--batch_size", str(B),
+                                  "--num_epochs_to_eval", "0", "--set", "DATA_CONFIG.DATA_PATH",
+                                  str(root)])
+        out = work / out  # the CLI's output directory, relative to its working directory
+        launches.append(counted_launches())
+        losses = [json.loads(line)["value"] for line in
+                  (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()
+                  if json.loads(line)["tag"] == "train/loss"]
+        require(len(losses) == n_train // B and all(np.isfinite(losses)),
+                f"{Path(rel).stem} train CLI losses {losses}")
+        print(f"{Path(rel).stem} train CLI (1 epoch at B={B}, {n_train} frames): "
+              f"{time.perf_counter() - t0:.1f} s; losses {[round(x, 4) for x in losses]}; "
+              f"frames each augmentor changed (of those it ran on): "
+              + ", ".join(f"{n} {changed[n]}/{calls[n]}" for n in enabled)
+              + (f"; disabled by the yaml: {list(aug_cfg.DISABLE_AUG_LIST)}"
+                 if any(c.NAME in aug_cfg.DISABLE_AUG_LIST for c in aug_cfg.AUG_CONFIG_LIST)
+                 else ""))
+        for name in enabled:
+            require(calls[name] == n_train, f"{Path(rel).stem}: {name} ran on {calls[name]} of "
+                    f"{n_train} train frames")
+            require(name not in new or changed[name] > 0,
+                    f"{Path(rel).stem}: {name} changed no frame")
+
+    # the newaugs yaml's loader with every augmentor it configures
+    cfg = copy.deepcopy(cfgs[0])
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    disabled = list(cfg.DATA_CONFIG.DATA_AUGMENTOR.DISABLE_AUG_LIST)
+    cfg.DATA_CONFIG.DATA_AUGMENTOR.DISABLE_AUG_LIST = []
+    t0 = time.perf_counter()
+    with count_augmentor_changes() as (calls, changed, dropped):
+        _, loader, _ = build_dataloader(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES),
+                                        cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU, workers=4,
+                                        training=True)
+        batches = list(loader)
+    require(len(batches) == n_train // cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU,
+            f"newaugs loader: {len(batches)} batches")
+    names = [c.NAME for c in cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST
+             if c.NAME != "gt_sampling"]
+    print(f"{Path(AUG_CFG_RELS[0]).stem} loader alone with its DISABLE_AUG_LIST {disabled} "
+          f"emptied ({time.perf_counter() - t0:.1f} s, {len(batches)} batches): frames each "
+          f"augmentor changed (of those it ran on): "
+          + ", ".join(f"{n} {changed[n]}/{calls[n]}" for n in names)
+          + f"; frames whose boxes the world frustum dropout dropped (their names and masks "
+          f"with them): {dropped['random_world_frustum_dropout']}")
+    for name in names:
+        require(calls[name] == n_train, f"newaugs loader: {name} ran on {calls[name]} of "
+                f"{n_train} frames")
+    for name in disabled:
+        require(changed[name] > 0, f"newaugs loader: {name} changed no frame")
+    return add_launches(*launches)
 
 
 def ptxas_report(log):
@@ -4895,12 +5347,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of another checkout of the repository whose FPS, "
                     "ball-query, float32 attention, IoU and NMS kernels and eager b1 request "
-                    "phases 3, 4 and 6 time in turns beside this tree's")
+                    "phases 3, 4 and 6 time in turns beside this tree's, and whose IoU kernel "
+                    "phases 12-16 (e) time beside this tree's on their candidates")
     ap.add_argument("--sweep", action="store_true", help="time FPS and the ball query in the "
                     "launch shapes their defaults were chosen from, instead of phases 3-7")
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
-                    "phases 3-14, every kernel on cuda:1 and up while cuda:0 is current, then "
+                    "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
+    ap.add_argument("--phases", help="comma-separated phases of 3-16 to run, with those they "
+                    "read (3 for 6, 4 for 5 and 11, 9 for 11-16); every phase without it, and "
+                    "only then are the launches of every kernel required")
     args = ap.parse_args()
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4955,7 +5411,13 @@ def main():
         multi_gpu(dev, args.world)
         return
 
-    # ---- 3.-7.
+    # ---- 3.-16.
+    every = set(range(3, 17))
+    want = every if not args.phases else {int(p) for p in args.phases.split(",")}
+    require(want <= every, f"--phases {args.phases}: phases 3-16 only")
+    want |= {3} if 6 in want else set()
+    want |= {4} if want & {5, 11} else set()
+    want |= {9} if want & set(range(11, 17)) else set()
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -4967,51 +5429,66 @@ def main():
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    stats = timed("3 (kernels)", check_kernels, dev, parent)
-    cfg = load_config()
-    served, weights, predict = timed("4 (serve)", serve, cfg, dev, parent)
-    timed("5 (float32 frame)", compare_f32, cfg, weights, dev, predict)
-    timed("6 (attention backward)", check_attention_bwd, dev, stats, parent)
-    trained = timed("7 (train)", train, cfg, weights, dev)
-    timed("7 (train, card against CPU)", compare_train, cfg, weights, dev)
-    with tempfile.TemporaryDirectory(prefix="pdanet_once_") as work:
-        once = timed("8 (ONCE)", once_phase, dev, work)
-    with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as kitti_work:
-        kitti, kitti_run = timed("9 (KITTI through the CLIs)", kitti_phase, dev, kitti_work)
-        with tempfile.TemporaryDirectory(prefix="pdanet_export_") as work:
-            exported = timed("10 (export and serve)", export_phase, dev, work)
-        dp = timed("11 (data parallel)", dp_phase, dev, kitti_work, kitti_run, cfg, weights)
-        pp, pp_rows = timed("12 (PointPillar)", pointpillar_phase, dev, kitti_work, kitti_run)
-        second, second_rows = timed("13 (SECOND)", second_phase, dev, kitti_work, kitti_run)
-        vrcnn, vrcnn_rows = timed("14 (Voxel-RCNN)", voxel_rcnn_phase, dev, kitti_work,
-                                  kitti_run)
-        iou, iou_rows = timed("15 (SECOND-IoU)", second_iou_phase, dev, kitti_work, kitti_run)
-        multi, multi_rows = timed("15 (SECOND-multihead)", multihead_phase, dev, kitti_work,
-                                  kitti_run)
+    runs, voxel_runs, stats, cfg = {}, [], None, load_config()
+    if 3 in want:
+        stats = timed("3 (kernels)", check_kernels, dev, parent)
+    if 4 in want:
+        runs["served"], weights, predict = timed("4 (serve)", serve, cfg, dev, parent)
+    if 5 in want:
+        timed("5 (float32 frame)", compare_f32, cfg, weights, dev, predict)
+    if 6 in want:
+        timed("6 (attention backward)", check_attention_bwd, dev, stats, parent)
+    if 7 in want:
+        trained = timed("7 (train)", train, cfg, weights, dev)
+        runs["train_bf16"], runs["train_f32"] = trained["bf16"], trained["f32"]
+        timed("7 (train, card against CPU)", compare_train, cfg, weights, dev)
+    if 8 in want:
+        with tempfile.TemporaryDirectory(prefix="pdanet_once_") as work:
+            runs["once"] = timed("8 (ONCE)", once_phase, dev, work)
+    if 9 in want:
+        with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as kitti_work:
+            runs["kitti"], kitti_run = timed("9 (KITTI through the CLIs)", kitti_phase, dev,
+                                             kitti_work)
+            if 10 in want:
+                with tempfile.TemporaryDirectory(prefix="pdanet_export_") as work:
+                    runs["exported"] = timed("10 (export and serve)", export_phase, dev, work)
+            if 11 in want:
+                runs["dp"] = timed("11 (data parallel)", dp_phase, dev, kitti_work, kitti_run,
+                                   cfg, weights)
+            for phase, label, fn, suffix in (
+                    (12, "PointPillar", pointpillar_phase, ""),
+                    (13, "SECOND", second_phase, "_second"),
+                    (14, "Voxel-RCNN", voxel_rcnn_phase, "_voxel_rcnn"),
+                    (15, "SECOND-IoU", second_iou_phase, "_second_iou"),
+                    (15, "SECOND-multihead", multihead_phase, "_multihead"),
+                    (16, "CenterPoint", centerpoint_phase, "_centerpoint")):
+                if phase in want:
+                    run, run_rows = timed(f"{phase} ({label})", fn, dev, kitti_work, kitti_run,
+                                          parent)
+                    runs[label] = run
+                    voxel_runs.append((phase, suffix, run, run_rows))
+            if 16 in want:
+                runs["augmentors"] = timed("16 (the augmentors' yamls)", augmentor_phase, dev,
+                                           kitti_work)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
     # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9),
     # the exported programs' requests (phase 10) and the data-parallel runs
     # (phase 11: its CLIs' processes, the one process and the two ranks)
-    # and the PointPillar, SECOND and Voxel-RCNN runs (phases 12-14: the
-    # requests, the train steps, the train and test CLIs and the program's
-    # request), each counted from 0; a row of phases 12-14 counts its own
-    # phase's launches at its own K
-    runs = (served, trained["bf16"], trained["f32"], once, kitti, exported, dp, pp, second,
-            vrcnn, iou, multi)
-    launches = {name: sum(run.get(name, 0) for run in runs) for name in KERNELS}
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} never launched on the main path")
-        require(once.get(name, 0) > 0, f"kernel {name} never launched on the ONCE path")
-    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name], **stats[name]}
-            for name, (src, rep) in KERNELS.items()]
-    for phase, suffix, run, run_rows in ((12, "", pp, pp_rows),
-                                         (13, "_second", second, second_rows),
-                                         (14, "_voxel_rcnn", vrcnn, vrcnn_rows),
-                                         (15, "_second_iou", iou, iou_rows),
-                                         (15, "_multihead", multi, multi_rows)):
+    # and the voxel detectors' runs (phases 12-16: the requests, the train
+    # steps, the CLIs and the program's request), each counted from 0; a
+    # row of phases 12-16 counts its own phase's launches at its own K
+    launches = {name: sum(run.get(name, 0) for run in runs.values()) for name in KERNELS}
+    if want == every:
+        for name, n in launches.items():
+            require(n > 0, f"kernel {name} never launched on the main path")
+            require(runs["once"].get(name, 0) > 0, f"kernel {name} never launched on the ONCE "
+                    f"path")
+    rows = [] if stats is None else [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], **stats[name]} for name, (src, rep) in KERNELS.items()]
+    for phase, suffix, run, run_rows in voxel_runs:
         for K, k_rows in sorted(run_rows.items(), reverse=True):
             for name in VOXEL_KERNELS:
                 n = run.get(f"{name}_k{K}", 0)

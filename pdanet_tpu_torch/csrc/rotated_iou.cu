@@ -124,6 +124,15 @@ __device__ __forceinline__ Box rec_box(const float (*rec)[2 * kTile], int k) {
   return r;
 }
 
+// torch.minimum / torch.maximum: a NaN operand gives NaN, where fminf /
+// fmaxf return the other operand.  Only the overlap's cap and the IoU's
+// denominator need them, so that a NaN area or fan reaches the IoU as in the
+// plain version and the JAX package's.  The clip keeps fminf / fmaxf: a
+// NaN in any of a candidate's eight coordinates makes s1 * s2 NaN, so the
+// candidate is invalid whatever `rect` and `on_seg` say.
+__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
+
 __device__ __forceinline__ float cross3(float x1, float y1, float x2, float y2, float x0,
                                         float y0) {
   return (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0);
@@ -235,8 +244,8 @@ __device__ float overlap(const Box& a, const Box& b) {
     vy = ny;
   }
   const float area = fabsf(area2) / 2.0f;
-  const float cap = fminf(a.area, b.area);
-  return fminf(area, cap);
+  const float cap = nan_min(a.area, b.area);
+  return nan_min(area, cap);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -298,7 +307,7 @@ __global__ void __launch_bounds__(kThreads)
     const Box A = rec_box(rec, qi);
     const Box Bx = rec_box(rec, kTile + qj);
     const float ov = overlap(A, Bx);
-    ob[(size_t)(i0 + qi) * K + j0 + qj] = ov / fmaxf(A.area + Bx.area - ov, kEps);
+    ob[(size_t)(i0 + qi) * K + j0 + qj] = ov / nan_max(A.area + Bx.area - ov, kEps);
   }
 }
 

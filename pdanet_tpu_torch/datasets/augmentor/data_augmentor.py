@@ -1,9 +1,15 @@
 """Augmentation queue, copied from
-``pdanet_tpu/datasets/augmentor/data_augmentor.py`` on the PDA-SSD path
-(``pcdet/datasets/augmentor/data_augmentor.py``): gt_sampling and the world
-flip / rotation / scaling with their ENABLE_PROB gates.  The local,
-frustum, pyramid, translation and image augmentors of the zoo's other
-configs raise."""
+``pdanet_tpu/datasets/augmentor/data_augmentor.py``
+(``pcdet/datasets/augmentor/data_augmentor.py``): gt_sampling, the world
+flip / rotation / scaling with their ENABLE_PROB gates, the world and local
+translations, the local rotation and scaling, the world and local frustum
+dropouts and the SE-SSD pyramid augmentation.  CaDDN's image flip raises
+(ROADMAP queue 1 item 9f).
+
+``random_world_frustum_dropout`` drops the names, the gt-sampling mask and
+the 2-D boxes of the boxes it drops, with them: the JAX package drops the
+boxes alone, so that its ``forward`` raises on the frame's mask, or its
+names and boxes disagree in length without one (ROADMAP queue 3)."""
 
 from functools import partial
 
@@ -13,7 +19,10 @@ from ...utils import common_utils
 from . import augmentor_utils, database_sampler
 
 AUGMENTORS = ("gt_sampling", "random_world_flip", "random_world_rotation",
-              "random_world_scaling")
+              "random_world_scaling", "random_world_translation", "random_local_translation",
+              "random_local_rotation", "random_local_scaling", "random_world_frustum_dropout",
+              "random_local_frustum_dropout", "random_local_pyramid_aug")
+PER_BOX_KEYS = ("gt_names", "gt_boxes_mask", "gt_boxes2d")  # rows that go with gt_boxes
 
 
 class DataAugmentor:
@@ -33,7 +42,7 @@ class DataAugmentor:
                     continue
             if cur_cfg.NAME not in AUGMENTORS:
                 raise NotImplementedError(
-                    f"augmentor {cur_cfg.NAME} is ROADMAP queue 1 item 9")
+                    f"augmentor {cur_cfg.NAME} is ROADMAP queue 1 item 9f")
             cur_augmentor = getattr(self, cur_cfg.NAME)(config=cur_cfg)
             self.data_augmentor_queue.append(cur_augmentor)
 
@@ -92,6 +101,90 @@ class DataAugmentor:
         )
         data_dict["gt_boxes"] = gt_boxes
         data_dict["points"] = points
+        return data_dict
+
+    def random_world_translation(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_world_translation, config=config)
+        # the reference reads NOISE_TRANSLATE_STD (data_augmentor.py:142);
+        # pointpillar_newaugs.yaml ships WORLD_TRANSLATION_RANGE instead,
+        # read as a (min, max) whose half-width is the std (JAX :108-115)
+        if "NOISE_TRANSLATE_STD" in config:
+            std = config["NOISE_TRANSLATE_STD"]
+        else:
+            lo, hi = config["WORLD_TRANSLATION_RANGE"]
+            std = (hi - lo) / 2.0
+        if std == 0:
+            return data_dict
+        gt_boxes, points = augmentor_utils.random_world_translation(
+            data_dict["gt_boxes"], data_dict["points"], std, config["ALONG_AXIS_LIST"])
+        data_dict["gt_boxes"], data_dict["points"] = gt_boxes, points
+        return data_dict
+
+    def random_local_translation(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_local_translation, config=config)
+        gt_boxes, points = augmentor_utils.random_local_translation(
+            data_dict["gt_boxes"], data_dict["points"], config["LOCAL_TRANSLATION_RANGE"],
+            config["ALONG_AXIS_LIST"])
+        data_dict["gt_boxes"], data_dict["points"] = gt_boxes, points
+        return data_dict
+
+    def random_local_rotation(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_local_rotation, config=config)
+        rot_range = config["LOCAL_ROT_ANGLE"]
+        if not isinstance(rot_range, list):
+            rot_range = [-rot_range, rot_range]
+        gt_boxes, points = augmentor_utils.local_rotation(
+            data_dict["gt_boxes"], data_dict["points"], rot_range)
+        data_dict["gt_boxes"], data_dict["points"] = gt_boxes, points
+        return data_dict
+
+    def random_local_scaling(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_local_scaling, config=config)
+        gt_boxes, points = augmentor_utils.local_scaling(
+            data_dict["gt_boxes"], data_dict["points"], config["LOCAL_SCALE_RANGE"])
+        data_dict["gt_boxes"], data_dict["points"] = gt_boxes, points
+        return data_dict
+
+    def random_world_frustum_dropout(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_world_frustum_dropout, config=config)
+        gt_boxes, points = data_dict["gt_boxes"], data_dict["points"]
+        for direction in config["DIRECTION"]:
+            gt_boxes, points, keep = augmentor_utils.global_frustum_dropout(
+                gt_boxes, points, config["INTENSITY_RANGE"], direction)
+            for key in PER_BOX_KEYS:
+                if key in data_dict:
+                    data_dict[key] = data_dict[key][keep]
+        data_dict["gt_boxes"], data_dict["points"] = gt_boxes, points
+        return data_dict
+
+    def random_local_frustum_dropout(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_local_frustum_dropout, config=config)
+        gt_boxes, points = data_dict["gt_boxes"], data_dict["points"]
+        for direction in config["DIRECTION"]:
+            gt_boxes, points = augmentor_utils.local_frustum_dropout(
+                gt_boxes, points, config["INTENSITY_RANGE"], direction)
+        data_dict["gt_boxes"], data_dict["points"] = gt_boxes, points
+        return data_dict
+
+    def random_local_pyramid_aug(self, data_dict=None, config=None):
+        """SE-SSD pyramid dropout, then sparsify, then swap (reference
+        data_augmentor.py:246-267)."""
+        if data_dict is None:
+            return partial(self.random_local_pyramid_aug, config=config)
+        gt_boxes, points = data_dict["gt_boxes"], data_dict["points"]
+        gt_boxes, points, pyramids = augmentor_utils.local_pyramid_dropout(
+            gt_boxes, points, config["DROP_PROB"])
+        gt_boxes, points, pyramids = augmentor_utils.local_pyramid_sparsify(
+            gt_boxes, points, config["SPARSIFY_PROB"], config["SPARSIFY_MAX_NUM"], pyramids)
+        gt_boxes, points = augmentor_utils.local_pyramid_swap(
+            gt_boxes, points, config["SWAP_PROB"], config["SWAP_MAX_NUM"], pyramids)
+        data_dict["gt_boxes"], data_dict["points"] = gt_boxes, points
         return data_dict
 
     def forward(self, data_dict):

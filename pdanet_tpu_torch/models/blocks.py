@@ -329,7 +329,8 @@ class TransformerEncoderLayerPreNorm(nn.Module):
 @torch.no_grad()
 def init_random_weights(model, seed):
     """Seeded random weights in the flax initializers' spirit: Dense and
-    convolution kernels lecun-normal, biases zero; BatchNorm running
+    convolution kernels lecun-normal, biases zero (a conv's ``bias_init``
+    where it has one: CenterPoint's heatmap output, -2.19); BatchNorm running
     statistics drawn around (0, 1) so that eval-mode normalization is not
     the identity.  A parameter kept in flax's layout under its flax name
     (the sparse conv kernels, (K, C_in, C_out)) is lecun-normal over its
@@ -342,7 +343,7 @@ def init_random_weights(model, seed):
                       else mod.in_channels * math.prod(mod.kernel_size))
             mod.weight.copy_(w / math.sqrt(fan_in))
             if mod.bias is not None:
-                mod.bias.zero_()
+                mod.bias.fill_(getattr(mod, "bias_init", 0.0))
         elif isinstance(mod, BatchNorm):
             c = mod.weight.shape[0]
             mod.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=g))

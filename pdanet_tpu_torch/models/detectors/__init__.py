@@ -1,11 +1,14 @@
 """Detector registry (``pdanet_tpu/models/detectors/__init__.py``).
 
-IASSD (PDA-SSD), PointPillar, SECOND, SECOND-IoU and Voxel-RCNN are
-ported; the other detectors of the zoo are ROADMAP queue 1 item 9.
+IASSD (PDA-SSD), PointPillar, SECOND, SECOND-IoU, Voxel-RCNN and
+CenterPoint are ported; the other detectors of the zoo are ROADMAP queue 1
+item 9.
 """
 
 import torch
 
+from .centerpoint import CenterPoint
+from .centerpoint import post_processing as center_post_processing
 from .iassd import IASSD, post_processing
 from .pointpillar import PointPillar
 from .second import SECOND
@@ -14,15 +17,17 @@ from .second_iou import post_processing as iou_post_processing
 from .voxel_rcnn import VoxelRCNN
 from .voxel_rcnn import post_processing as refined_post_processing
 
-__all__ = {"IASSD": IASSD, "PointPillar": PointPillar, "SECOND": SECOND,
-           "SECONDNetIoU": SECONDNetIoU, "VoxelRCNN": VoxelRCNN}
+__all__ = {"CenterPoint": CenterPoint, "IASSD": IASSD, "PointPillar": PointPillar,
+           "SECOND": SECOND, "SECONDNetIoU": SECONDNetIoU, "VoxelRCNN": VoxelRCNN}
 
 #: voxel-pipeline detectors, which take their grid geometry from the dataset
-VOXEL_DETECTORS = ("PointPillar", "SECOND", "SECONDNetIoU", "VoxelRCNN")
+VOXEL_DETECTORS = ("PointPillar", "SECOND", "CenterPoint", "SECONDNetIoU", "VoxelRCNN")
 
 
 def get_post_processor(name):
-    """fn(forward_out, model_cfg) -> fixed-shape pred dict: SECOND-IoU's
+    """fn(forward_out, model_cfg) -> fixed-shape pred dict: CenterPoint's
+    NMS of its decoded candidates under the head's own
+    ``DENSE_HEAD.POST_PROCESSING`` (JAX :41-43); SECOND-IoU's
     scoring and NMS of its RoIs (``second_iou.post_processing``, JAX
     :45-48); the refined RoIs' NMS (``voxel_rcnn.post_processing``) for
     Voxel-RCNN, which the JAX registry gives every other two-stage detector
@@ -31,6 +36,8 @@ def get_post_processor(name):
     with ``MULTI_CLASSES_NMS``."""
     if name not in __all__:
         raise NotImplementedError(f"{name} is ROADMAP queue 1 item 9")
+    if name == "CenterPoint":
+        return lambda out, mcfg: center_post_processing(out, mcfg.DENSE_HEAD.POST_PROCESSING)
     if name == "SECONDNetIoU":
         return iou_post_processing
     if name == "VoxelRCNN":

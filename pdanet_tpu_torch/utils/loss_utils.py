@@ -93,3 +93,37 @@ def get_corner_loss_lidar(pred_boxes, gt_boxes):
         torch.linalg.vector_norm(pred_corners - gt_corners, dim=2),
         torch.linalg.vector_norm(pred_corners - gt_corners_flip, dim=2))
     return smooth_l1(dist, beta=1.0).mean(dim=1)
+
+
+def focal_loss_centernet(pred, gt):
+    """CornerNet's modified focal loss over dense heatmaps
+    (``neg_loss_cornernet``, loss_utils.py:395-430; JAX :117-136): ``pred``
+    sigmoided and clamped, any layout.  With no positive cell it is the
+    negative term alone, not normalized.
+
+    In a process group the positive count is the global batch's, and each
+    rank's loss its share of the global loss: its own sums over the global
+    count (the negatives alone where the global batch has no positive)."""
+    pos_inds = (gt == 1.0).to(pred.dtype)
+    neg_inds = (gt < 1.0).to(pred.dtype)
+    neg_weights = torch.square(torch.square(1.0 - gt))  # XLA's integer_pow(x, 4)
+    pos_loss = torch.log(pred) * torch.square(1.0 - pred) * pos_inds
+    neg_loss = torch.log(1.0 - pred) * torch.square(pred) * neg_weights * neg_inds
+    num_pos = parallel.all_reduce_detached(pos_inds.sum())
+    pos_sum = pos_loss.sum()
+    neg_sum = neg_loss.sum()
+    return torch.where(num_pos == 0, -neg_sum,
+                       -(pos_sum + neg_sum) / torch.clamp(num_pos, min=1.0))
+
+
+def reg_loss_centernet(pred, mask, target):
+    """Per-dimension L1 over the gathered object slots (``_reg_loss``,
+    loss_utils.py:445-474; JAX :139-156): the sum of |pred - target| over
+    (batch, objects), where the slot is valid and the target finite, over
+    the positive count (the global batch's in a process group).
+
+    pred, target (B, M, D); mask (B, M).  Returns (D,)."""
+    num = parallel.all_reduce_detached(mask.to(pred.dtype).sum())
+    m = mask.to(pred.dtype)[..., None] * torch.isfinite(target).to(pred.dtype)
+    diff = torch.abs(pred * m - torch.where(m > 0, target, 0.0) * m)
+    return diff.sum(dim=(0, 1)) / torch.clamp(num, min=1.0)

@@ -269,9 +269,9 @@ def test_unported_dataset_and_augmentor_raise(tmp_path):
     assert get_dataset_class("ONCEDataset") is ONCEDataset
     with pytest.raises(KeyError):
         get_dataset_class("NuScenesDataset")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9f"):
         DataAugmentor(tmp_path, EasyDict({"DISABLE_AUG_LIST": [], "AUG_CONFIG_LIST": [
-            {"NAME": "random_local_rotation", "LOCAL_ROT_ANGLE": 0.1}]}), CLASSES)
+            {"NAME": "random_image_flip", "ALONG_AXIS_LIST": ["horizontal"]}]}), CLASSES)
 
 
 @pytest.mark.parametrize("fn,args", [
