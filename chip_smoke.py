@@ -199,13 +199,13 @@ Phases, each of which raises on failure:
    detections paired box for box by
    mutual nearest centre (equal counts, centres within 1e-3 m, scores
    within 1e-4).  (b)
-   Training: 5 float32 steps at B = 4 on the train budget (step time,
+   Training: 2 float32 steps at B = 4 on the train budget (step time,
    peak memory, device split; no self-IoU runs there), then one float64 step at B = 1 on the card
    against the CPU (loss within 1e-10 relative, gradient leaves within
    1e-8 of their scale, statistics within 1e-10).  (c) The yaml through
-   the train CLI (one epoch of phase 9's 32 frames at B = 4, augmentor and
-   all) and the test CLI with the official KITTI evaluation
-   (``dist_train.sh`` at world 1 over NCCL runs in phases 11 and 16).
+   the train CLI (one epoch of the first 8 of phase 9's 32 train frames at
+   B = 4, augmentor and all) and the test CLI with the official KITTI
+   evaluation; ``dist_train.sh`` at world 1 over NCCL beside (d).
    (d) The b1 program through
    ``serving.export_serving`` and ``save_serving``, reloaded by
    ``load_serving`` in a fresh process (torch and the port's ops and
@@ -243,7 +243,7 @@ Phases, each of which raises on failure:
    table, hits and empty windows equal, ``rcnn_cls`` / ``rcnn_reg`` within
    2e-3 and the detections paired box for box; the voxel query and pool
    of RoIs on the frame's gt boxes equal (pooled features within 2e-3),
-   full windows on every level there.  (b) 3 float32 steps at B = 2 on
+   full windows on every level there.  (b) 2 float32 steps at B = 2 on
    the train budget, 2 gt boxes a frame planted on its proposals, the IoU
    and NMS kernels launched at K 9000 and suppressing, foreground RoIs in
    the first step's sample, then one float64 step at B = 1 on the card
@@ -301,7 +301,7 @@ Phases, each of which raises on failure:
    suppressed; one frame on the card against the CPU: the head's maps
    within 1e-5 of the CPU's own forward, then on the card's maps the
    top-K indices, the decoded candidates and the NMS keep mask equal to
-   the CPU's and the detections paired box for box.  (b) 3 float32 steps
+   the CPU's and the detections paired box for box.  (b) 2 float32 steps
    at the yaml's B = 4, then the float64 step at B = 1 card vs CPU.  (c)
    The CLIs and ``dist_train.sh`` on phase 9's root.  (d) Export as phase
    12.  (e) The IoU and NMS on the candidates that request 0's NMS was
@@ -314,8 +314,35 @@ Phases, each of which raises on failure:
    shipped yaml disables both frustum dropouts and the local
    translation): for each augmentor, on how many frames it changed the
    points or the boxes.
+17. PV-RCNN and PV-RCNN++: tools/cfgs/kitti_models/pv_rcnn.yaml at full
+   width (SECOND's grid, voxels and sparse backbone, three classes of
+   anchors; the proposal layer at K 1024 / 9000 into 100 / 512 RoIs, 128
+   sampled a frame; 2048 keypoints by FPS over the 16384 sampled raw
+   points; the VSA over the BEV map, the raw points and x_conv1-x_conv4
+   by the ball query, sentinel rows of the levels at 1e6; a 6 x 6 x 6 RoI
+   grid pooled from the keypoints by the ball query; the final NMS at K
+   100), seeded weights with the box conv scaled as in phase 14, float32,
+   TF32 off.  (a) Serving as phase 13; one frame on the card against the
+   CPU (``pv_card_vs_cpu``): the first-stage logits within 2e-3, then on
+   the card's inputs the proposals, the keypoint indices and each
+   source's ball-query indices equal, each source's pooled keypoint
+   features, the fused ones, the point scores and the RCNN outputs within
+   1e-5 of max(1, |value|) (``PV_STAGE_TOL``; the same stages with TF32
+   on, the control, must exceed it), the detections paired box for box.  (b) 2 float32
+   steps at the yaml's B = 2 (gt planted on the proposals), then the
+   float64 step at B = 1 card vs CPU, the CPU fed the card's FPS and
+   ball-query indices (``RecordPicks``).  (c) The CLIs and
+   ``dist_train.sh``.  (d) Export.  (e) FPS 16384 -> 2048 and the ball
+   query at each of its six supports on request 0's own inputs, and the
+   IoU and the NMS at K 9000, 1024 and 100.  Then
+   tools/cfgs/kitti_models/pv_rcnn_plusplus.yaml at full width (SPC
+   sampling, VectorPool over the raw points, x_conv3, x_conv4 and in the
+   RoI grid pool) at less depth: one b1 request card against CPU, one
+   float32 step and the float64 step, (d), and FPS on request 0's
+   SPC-collapsed cloud and on the raw cloud with all but 1024 points
+   collapsed onto its first point, against the plain version.
 
-In phases 12-14 and 16, ``dist_train.sh`` runs in the background while
+In phases 12-14, 16 and 17, ``dist_train.sh`` runs in the background while
 (d) exports and reloads the program, and is checked before (e) times the
 kernels.
 
@@ -325,7 +352,7 @@ Each phase prints its wall time.  The line before the last is
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
 CLIs, phase 10's exported programs, phase 11's CLI processes, one
 process and ranks, and phases 12-15's requests, train steps, CLIs and
-programs, and phase 16's, each run counted from 0), its
+programs, and phase 16's and 17's, each run counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -338,8 +365,14 @@ K, (e)'s numbers) and at phase 13's (``rotated_iou_k4096_second``,
 14's launches at each K, ``cuda_lib.launches_by_k``), and at phase 15's
 K 9000, 1024 and 100 (``rotated_iou_k9000_second_iou`` ...) and K 4096
 (``rotated_iou_k4096_multihead``, ``nms_k4096_multihead``), and at phase
-16's K 500 (``rotated_iou_k500_centerpoint``, ``nms_k500_centerpoint``).
-The line before it gives the script's seconds.
+16's K 500 (``rotated_iou_k500_centerpoint``, ``nms_k500_centerpoint``),
+and at phase 17's K 9000, 1024 and 100 (``rotated_iou_k9000_pv_rcnn`` ...
+``nms_k100_pv_rcnn``), with PV-RCNN's FPS (``fps_k2048_pv_rcnn``: the
+phase's FPS launches) and ball query at each source
+(``ball_query_raw_points_pv_rcnn``, ``ball_query_x_conv1_pv_rcnn`` ...
+``ball_query_roi_grid_pool_pv_rcnn``: the phase's ball-query launches
+at that site, ``cuda_lib.launches_by_site``) and PV-RCNN++'s FPS on the collapsed cloud
+(``fps_spc_pv_rcnn_pp``).  The line before it gives the script's seconds.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -400,8 +433,8 @@ IOU_PAIR_OPS = 2700
 ATTN_SHAPES = (("SA1", 1024, 64), ("SA2", 512, 128))  # label, centres per frame, hd; H 4
 ATTN_OFF_PATH = ((64, 128), (8, 32), (40, 80), (1, 16))  # (K, hd)
 # repeats of a plain version's time in phase 3 (the plain FPS takes ~0.5 s a
-# call; cut from 20 to keep the script inside its limit)
-PLAIN_REPS = 5
+# call; cut from 20, then 5, to keep the script inside its limit)
+PLAIN_REPS = 3
 
 
 def require(cond, msg):
@@ -1503,14 +1536,15 @@ def serve(cfg, dev, parent=None):
     from pdanet_tpu_torch.models import build_network
     from pdanet_tpu_torch.models.blocks import init_random_weights
     from pdanet_tpu_torch.ops import cuda_lib
-    from pdanet_tpu_torch.serving import example_device_batch, make_predict_fn
+    from pdanet_tpu_torch.serving import (example_device_batch, make_predict_fn,
+                                          serving_input_spec)
 
     model = init_random_weights(
         build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev), seed=0)
     weights = copy.deepcopy(model.state_dict())
     predict = make_predict_fn(model, cfg.MODEL)
     for B in (1, 2):  # warm-up: allocator and library set-up per batch size
-        predict(example_device_batch(cfg, B, dev))
+        predict(example_device_batch(cfg, serving_input_spec(cfg, B, model), dev))
     requests = [torch.from_numpy(lidar_like_cloud(100 + i, 1, N_POINTS)).to(dev)
                 for i in range(3)]
     requests.append(torch.from_numpy(lidar_like_cloud(200, 2, N_POINTS)).to(dev))
@@ -2919,7 +2953,8 @@ def export_phase(dev, work_dir):
         pc = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
         for B in sizes:
             label = f"{yaml_path.parent.name.split('_')[0].upper()} b{B}"
-            batch = serving.example_device_batch(cfg, B, dev)
+            batch = serving.example_device_batch(cfg, serving.serving_input_spec(cfg, B, model),
+                                                 dev)
             t0 = time.perf_counter()
             exported = serving.export_serving(model, cfg.MODEL, batch)
             path = work / f"{yaml_path.parent.name}_b{B}.pt2"
@@ -3066,7 +3101,7 @@ import chip_smoke
 chip_smoke.dp_step_cost({reps}, {turns!r})
 """
 DP_STEP_TURNS = ("none", "identity", "nccl", "none")
-DP_STEP_REPS = 6  # B = 4 steps a turn
+DP_STEP_REPS = 4  # B = 4 steps a turn (6 before phase 17 came)
 # the six kernel ops, and the kernels that run each
 DP_OPS = {"fps": ("fps",), "ball_query": ("ball_query",),
           "neighbor_attention": ("neighbor_attention", "neighbor_attention_bf16"),
@@ -3579,6 +3614,9 @@ VRCNN_CFG_REL = "cfgs/kitti_models/voxel_rcnn_car.yaml"
 SECOND_IOU_CFG_REL = "cfgs/kitti_models/second_iou.yaml"
 MULTIHEAD_CFG_REL = "cfgs/kitti_models/second_multihead.yaml"
 CENTERPOINT_CFG_REL = "cfgs/kitti_models/centerpoint.yaml"
+PV_CFG_REL = "cfgs/kitti_models/pv_rcnn.yaml"
+PVPP_CFG_REL = "cfgs/kitti_models/pv_rcnn_plusplus.yaml"
+PV_NAMES = ("PVRCNN", "PVRCNNPlusPlus")
 AUG_CFG_RELS = ("cfgs/kitti_models/pointpillar_newaugs.yaml",
                 "cfgs/kitti_models/pointpillar_pyramid_aug.yaml")
 # phase 16's augmentor yamls train on a root of their own: 8 train frames,
@@ -3589,7 +3627,11 @@ VOXEL_PHASES = {12: (PP_CFG_REL, "PointPillar", 1200), 13: (SECOND_CFG_REL, "SEC
                 14: (VRCNN_CFG_REL, "Voxel-RCNN", 1400),
                 "15a": (SECOND_IOU_CFG_REL, "SECOND-IoU", 1500),
                 "15b": (MULTIHEAD_CFG_REL, "SECOND-multihead", 1500),
-                16: (CENTERPOINT_CFG_REL, "CenterPoint", 1600)}
+                16: (CENTERPOINT_CFG_REL, "CenterPoint", 1600),
+                17: (PV_CFG_REL, "PV-RCNN", 1700), "17b": (PVPP_CFG_REL, "PV-RCNN++", 1700)}
+# the suffix of a phase's rows in the kernels line
+VOXEL_SUFFIX = {12: "", 13: "_second", 14: "_voxel_rcnn", "15a": "_second_iou",
+                "15b": "_multihead", 16: "_centerpoint", 17: "_pv_rcnn", "17b": "_pv_rcnn_pp"}
 VOXEL_SERVE_FRAMES = 5  # three b1 requests and one b2
 VOXEL_TRAIN_STEPS = 5
 VOXEL_LATENCY_REPS = 10
@@ -3600,28 +3642,47 @@ VOXEL_LATENCY_REPS = 10
 DENSE_CROP = (0.0, -6.4, -3.0, 12.8, 6.4, 1.0)
 # phase 15's CLIs train on a root of their own: a B=1 step of the dense
 # ladder takes seconds, an epoch of phase 9's 32 frames minutes
-DENSE_CLI_SPLITS = (("train", 2), ("val", 2))
-# the depth of phases 12-15, cut to keep the script inside its limit (their
+DENSE_CLI_SPLITS = (("train", 1), ("val", 2))
+# the train CLIs and dist_train.sh of phases 12-14, 16 and 17 train one
+# epoch over the first frames of phase 9's train split (its infos cut to
+# these, ``cli_run``), its four val frames to test
+CLI_TRAIN_FRAMES = 8
+# the depth of phases 12-17, cut to keep the script inside its limit (their
 # widths and every run stay): fewer latency repeats and train steps;
 # phase 15 trains at B=1 (the yaml's 4 would need four times B=1's ~50
 # GiB) without a device split of the step (a B=1 step takes ~7 s), runs
-# (a), (b), (d) and (e) of the multi-head once (one b1 request, two steps,
+# (a), (b), (d) and (e) of the multi-head once (one b1 request, one step,
 # without the layout and TF32 turns that (a) of SECOND-IoU gives for the
-# same ladder), and has the export CLI in place of dist_train.sh; phase 16
-# has no TF32 turns (phase 13 times the same BEV convolution with TF32 on);
-# phases 13 and 14 take no device split of a train step (both were read on
-# the card: SECOND's is the BEV FFT's backward), and SECOND-IoU takes 2
-# steps; phases 12-14 and 16 run dist_train.sh beside (d)
-VOXEL_DEPTH = {12: dict(latency_reps=3, train_steps=3),
-               13: dict(latency_reps=3, train_steps=3, train_split=False),
-               14: dict(latency_reps=3, train_steps=3, train_split=False),
-               "15a": dict(latency_reps=3, train_steps=2, batch_size=1, crop=DENSE_CROP,
+# same ladder), and has the export CLI in place of dist_train.sh; phases 16
+# and 17 have no TF32 turns (phase 13 times the same BEV convolution with
+# TF32 on); phases 13, 14 and 17 take no device split of a train step
+# (both were read on the card: SECOND's is the BEV FFT's backward);
+# phases 12-14, 16 and 17 run dist_train.sh beside (d).  Cut with phase 17:
+# SECOND-IoU and the multi-head take 1 step (were 2), the dense CLI root 1
+# train frame (was 2), and the CLIs and dist_train.sh of phases 12-14, 16
+# and 17 train over ``CLI_TRAIN_FRAMES`` of phase 9's 32 train frames,
+# phases 12-14 and 16 take 2 steps (were 3), the TF32 latency one turn
+# each way (was two), (e) one plain call a median at K 4096 and more;
+# PV-RCNN takes 2 steps, PV-RCNN++ 1 and one b1 request, no CLIs
+VOXEL_DEPTH = {12: dict(latency_reps=3, train_steps=2),
+               13: dict(latency_reps=3, train_steps=2, train_split=False),
+               14: dict(latency_reps=3, train_steps=2, train_split=False),
+               "15a": dict(latency_reps=3, train_steps=1, batch_size=1, crop=DENSE_CROP,
                            cli="export", train_split=False),
-               "15b": dict(latency_reps=3, train_steps=2, batch_size=1, crop=DENSE_CROP,
+               "15b": dict(latency_reps=3, train_steps=1, batch_size=1, crop=DENSE_CROP,
                            serve_requests=1, cli=None, layout=False, train_split=False,
                            tf32=False),
-               16: dict(latency_reps=3, train_steps=3, tf32=False)}
+               16: dict(latency_reps=3, train_steps=2, tf32=False),
+               17: dict(latency_reps=3, train_steps=2, train_split=False, tf32=False),
+               "17b": dict(latency_reps=3, train_steps=1, serve_requests=1, cli=None,
+                           tf32=False, train_split=False, iou_rows=False)}
 VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
+# PV-RCNN's float32 keypoint features (each source's, fused), point scores
+# and RCNN outputs, card against CPU, the CPU run on the card's inputs, of
+# max(1, |value|): on an H100 the stages read 2.92e-07 at most (PV-RCNN++
+# 1.91e-06, rcnn_reg) with TF32 off; the control, the card's stages with
+# TF32 on, 4.68e-05 to 8.47e-04 (PV-RCNN++ 1.11e-05 to 2.47e-03)
+PV_STAGE_TOL = 1e-5
 # a two-stage model's seeded box conv is scaled by this: the seeded weights
 # decode boxes millimetres thin and tens of metres from their anchors,
 # whose IoU with any box is ~0 (no proposal suppressed, no foreground RoI,
@@ -3657,9 +3718,11 @@ predict, _ = load_serving(sys.argv[1])
 batch = torch.load(sys.argv[2])
 cuda_lib.launches.clear()
 cuda_lib.launches_by_k.clear()
+cuda_lib.launches_by_site.clear()
 res = {k: v.cpu() for k, v in predict(batch).items()}
 torch.save(res, sys.argv[3])
-print(json.dumps({"launches": {**cuda_lib.launches, **cuda_lib.launches_by_k}, "modules": sorted(
+print(json.dumps({"launches": {**cuda_lib.launches, **cuda_lib.launches_by_k,
+                               **cuda_lib.launches_by_site}, "modules": sorted(
     m for m in sys.modules if m.startswith("pdanet_tpu_torch"))}))
 """
 
@@ -3669,18 +3732,41 @@ def clear_launches():
 
     cuda_lib.launches.clear()
     cuda_lib.launches_by_k.clear()
+    cuda_lib.launches_by_site.clear()
 
 
 def counted_launches():
-    """The launches since :func:`clear_launches`: each kernel's, and the IoU's
-    and the NMS walk's at each K (``<name>_k<K>``)."""
+    """The launches since :func:`clear_launches`: each kernel's, the IoU's
+    and the NMS walk's at each K (``<name>_k<K>``), and the ball query's at
+    each named site (``ball_query_<site>``)."""
     from pdanet_tpu_torch.ops import cuda_lib
 
-    return {**cuda_lib.launches, **cuda_lib.launches_by_k}
+    return {**cuda_lib.launches, **cuda_lib.launches_by_k, **cuda_lib.launches_by_site}
 
 
 def add_launches(*runs):
     return {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
+
+
+def ball_query_sites(model):
+    """The sites of ``model``'s ball queries (``MaskedSAModuleMSG.site``):
+    PV-RCNN's feature sources and RoI grid pool that aggregate by the ball
+    query, not VectorPool."""
+    from pdanet_tpu_torch.models.backbones_3d.pfe.voxel_set_abstraction import (
+        MaskedSAModuleMSG)
+
+    return [m.site for m in model.modules() if isinstance(m, MaskedSAModuleMSG)]
+
+
+def path_kernels(model):
+    """The launch counts a voxel model's path must raise: the IoU's and the
+    NMS walk's; PV-RCNN's VSA adds FPS's and, with the ball query's, its
+    count at each of ``ball_query_sites`` (``ball_query_<site>``)."""
+    if not hasattr(model, "pfe"):
+        return VOXEL_KERNELS
+    sites = ball_query_sites(model)
+    return (VOXEL_KERNELS + ("fps",) + (("ball_query",) if sites else ())
+            + tuple(f"ball_query_{s}" for s in sites))
 
 
 def voxel_frames(seed, n, classes):
@@ -3763,6 +3849,24 @@ class RecordIoUShapes:
          self.module.greedy_nms_mask_batched) = self.orig
 
 
+@contextlib.contextmanager
+def plain_iou_on(dev):
+    """A CPU run's self-IoU (``batched_nms_candidates``) by the plain
+    version on ``dev``, on the CPU run's own candidates, its NMS walk on the
+    CPU as ever: the plain IoU takes the host ~17 s at K 4096, the card a
+    fraction of a second."""
+    from pdanet_tpu_torch.models.model_utils import model_nms_utils
+    from pdanet_tpu_torch.ops.rotated_iou import boxes_iou_bev_batched_self_plain
+
+    own = model_nms_utils.boxes_iou_bev_batched_self
+    model_nms_utils.boxes_iou_bev_batched_self = (
+        lambda boxes: boxes_iou_bev_batched_self_plain(boxes.to(dev)).to(boxes.device))
+    try:
+        yield
+    finally:
+        model_nms_utils.boxes_iou_bev_batched_self = own
+
+
 def post_cfg_of(cfg):
     """The post-processing config the model's NMS reads: CenterPoint's
     head's own (``DENSE_HEAD.POST_PROCESSING``), else the model's."""
@@ -3825,7 +3929,8 @@ def kernel_candidates(cfg, out, served):
     model's first stage): the proposal layer's TRAIN and TEST candidates,
     or the post-processing's (each class's with ``MULTI_CLASSES_NMS``);
     with ``out["final_forward"]`` (SECOND-IoU) also the final NMS's of the
-    scored RoIs.  A forward without class logits (CenterPoint's decoded
+    scored RoIs; for PV-RCNN the final NMS's of request 0's refined RoIs
+    (``served``).  A forward without class logits (CenterPoint's decoded
     scores) gives the candidates that request 0's NMS was given, as
     ``served`` (``RecordIoUShapes`` of (a)) recorded them, and its walk
     must suppress some (``suppress``)."""
@@ -3853,6 +3958,13 @@ def kernel_candidates(cfg, out, served):
         rows.append((boxes, valid, float(nms_cfg.NMS_THRESH),
                      f"frame 0's {split} proposal candidates of "
                      f"{out['batch_cls_preds'].shape[1]} anchors", False))
+    if cfg.MODEL.NAME in PV_NAMES:  # the final NMS of request 0's refined RoIs
+        K = min(int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE),
+                int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE))
+        i = next(i for i, b in enumerate(served.boxes) if b.shape[:2] == (1, K))
+        (valid, thresh), boxes = served.walks[i], served.boxes[i]
+        rows.append((boxes, valid, float(thresh), f"request 0's {int(valid.sum())} refined RoIs "
+                     f"over SCORE_THRESH as its post-processing gave them", False))
     if "final_forward" in out:  # SECOND-IoU's NMS of its scored RoIs
         final, post_cfg = out["final_forward"], cfg.MODEL.POST_PROCESSING
         scores = torch.sigmoid(final["rcnn_iou"][:1].max(dim=-1).values)
@@ -3866,6 +3978,18 @@ def kernel_candidates(cfg, out, served):
                      float(post_cfg.NMS_CONFIG.NMS_THRESH),
                      f"frame 0's {int(valid.sum())} RoIs scored over SCORE_THRESH", False))
     return rows
+def turns(kern, plain, plain_reps):
+    """A kernel and its plain version timed in turns (kernel, plain, plain,
+    kernel) under CUDA events, the kernel's medians of 20 runs, the plain
+    version's of ``plain_reps``: (kernel ms, plain ms), each the mean of
+    its two medians."""
+    k1 = cuda_ms(kern, reps=20)
+    p1 = cuda_ms(plain, reps=plain_reps, warmup=1)
+    p2 = cuda_ms(plain, reps=plain_reps, warmup=1)
+    k2 = cuda_ms(kern, reps=20)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def voxel_kernels(dev, boxes, valid, thresh, label, what, suppress=False, parent=None):
     """Phases 12-16 (e): the rotated self-IoU and the NMS walk on the path's
     own candidates ``boxes`` (1, K, 7) / ``valid`` (1, K) (frame 0 of a b1
@@ -3896,18 +4020,12 @@ def voxel_kernels(dev, boxes, valid, thresh, label, what, suppress=False, parent
     require(not suppress or int(keep.sum()) < int(valid.sum()),
             f"{label} NMS K={K}: no valid candidate suppressed")
     del want
-
-    def turns(kern, plain, plain_reps):
-        k1 = cuda_ms(kern, reps=20)
-        p1 = cuda_ms(plain, reps=plain_reps, warmup=1)
-        p2 = cuda_ms(plain, reps=plain_reps, warmup=1)
-        k2 = cuda_ms(kern, reps=20)
-        return (k1 + k2) / 2, (p1 + p2) / 2
-
     pairs = iou_pairs_needed(boxes)
     rows = {}
+    plain_reps = 1 if K >= 4096 else 2  # the plain IoU takes ~0.2-0.9 s a call there
     iou_ms, iou_plain = turns(lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
-                              lambda: rotated_iou.boxes_iou_bev_batched_self_plain(boxes), 2)
+                              lambda: rotated_iou.boxes_iou_bev_batched_self_plain(boxes),
+                              plain_reps)
     iou_dev = kernel_device_ms(lambda: rotated_iou.boxes_iou_bev_batched_self_cuda(boxes),
                                "iou_self_kernel")
     if parent:
@@ -3925,7 +4043,8 @@ def voxel_kernels(dev, boxes, valid, thresh, label, what, suppress=False, parent
 
     row_reads = int((K - 1 - torch.nonzero(keep)[:, 1]).sum())
     nms_ms, nms_plain = turns(lambda: nms.greedy_nms_mask_batched_cuda(got, valid, thresh),
-                              lambda: nms.greedy_nms_mask_batched_plain(got, valid, thresh), 2)
+                              lambda: nms.greedy_nms_mask_batched_plain(got, valid, thresh),
+                              plain_reps)
     nms_dev = [kernel_device_ms(lambda: nms.greedy_nms_mask_batched_cuda(got, valid, thresh),
                                 name) for name in ("nms_", "nms_mask_kernel", "nms_walk_kernel")]
     bnd = bound(row_reads * 4 + valid.numel() + keep.numel(), row_reads, F32_OPS_PER_S)
@@ -3936,6 +4055,77 @@ def voxel_kernels(dev, boxes, valid, thresh, label, what, suppress=False, parent
           f"(device {fmt_ms(nms_dev[0])}: words {fmt_ms(nms_dev[1])}, walk "
           f"{fmt_ms(nms_dev[2])}), plain {nms_plain:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}, "
           f"the IoU rows right of {int(keep.sum())} kept boxes)")
+    return rows
+
+
+def pv_kernels(dev, first, label, suffix):
+    """Phase 17 (e): FPS and each ball query of request 0 (``first``'s
+    ``pv_picks``) on its own inputs against the plain versions: FPS equal
+    (for PV-RCNN++ on SPC's collapsed cloud, and on the raw cloud with all
+    but half as many points as picks collapsed onto its first point, so
+    that the picks run out of distinct points), each source's ball query
+    equal; CUDA-event times in turns, device times under the profiler and
+    bounds from these inputs.  Returns ``[(row name, kernel, the key of
+    its launches in ``counted_launches``, numbers)]``."""
+    import torch
+
+    from pdanet_tpu_torch.ops import ball_query, sampling
+
+    picks, rows = first["pv_picks"], []
+    xyz, npoint, _ = picks.fps[0]
+    xyz = xyz.float().contiguous()
+    N = xyz.shape[1]
+    clouds = [("request 0's cloud", xyz)]
+    spc = suffix.endswith("_pp")
+    if spc:  # the raw points, all but npoint / 2 collapsed onto the first
+        few = first["pv_points"].float().clone()
+        few[:, npoint // 2:] = few[:, :1]
+        clouds.append((f"the raw cloud with points {npoint // 2} on collapsed onto point 0",
+                       few.contiguous()))
+    for what, cloud in clouds:
+        got = sampling.farthest_point_sample_cuda(cloud, npoint)
+        want = sampling.farthest_point_sample_plain(cloud, npoint)
+        distinct = int(torch.unique(cloud[0], dim=0).shape[0])
+        require(torch.equal(got, want), f"{label} FPS {N} -> {npoint} on {what} ({distinct} "
+                f"distinct points): indices differ from the plain version")
+        print(f"{'fps':27s} {label} {N}->{npoint} on {what}: {distinct} distinct points, "
+              f"indices equal, {int(torch.unique(got).numel())} distinct indices picked")
+    fps_ms, fps_plain = turns(lambda: sampling.farthest_point_sample_cuda(xyz, npoint),
+                              lambda: sampling.farthest_point_sample_plain(xyz, npoint), 2)
+    fps_dev = kernel_device_ms(lambda: sampling.farthest_point_sample_cuda(xyz, npoint),
+                               "fps_kernel")
+    # per step and point: 3 sub, 3 mul, 2 add, the min and the argmax compare
+    bnd = bound(xyz.numel() * 4 + npoint * 4, npoint * N * 10, F32_OPS_PER_S)
+    print(f"{'fps':27s} {label} {N}->{npoint}: kernel {fps_ms:.4f} ms (device "
+          f"{fmt_ms(fps_dev)}, {1e3 * fps_ms / (npoint - 1):.4f} us per serial step, launch "
+          f"shape {sampling.fps_config(N)}), plain {fps_plain:.4f} ms; bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}), kernel at {100 * bnd[0] / fps_ms:.1f} % of it")
+    rows.append((f"fps_spc{suffix}" if spc else f"fps_k{npoint}{suffix}", "fps", "fps",
+                 dict(max_abs_err=0.0, ms=fps_ms, plain_ms=fps_plain, bound_ms=bnd[0],
+                      bound_by=bnd[1], library_ms=None)))
+    for radii, ks, sup, ctr, _, src in picks.ball:
+        sup, ctr = sup.float().contiguous(), ctr.float().contiguous()
+        got = ball_query.ball_query_multi_cuda(radii, ks, sup, ctr)
+        want = ball_query.ball_query_multi_plain(radii, ks, sup, ctr)
+        for r, (g, w) in enumerate(zip(got, want)):
+            require(torch.equal(g, w), f"{label} ball query {src} (radius {radii[r]}) differs "
+                    f"from the plain version")
+        scan, in_reach = ball_query_work(radii, ks, sup, ctr)
+        bq_ms, bq_plain = turns(lambda: ball_query.ball_query_multi_cuda(radii, ks, sup, ctr),
+                                lambda: ball_query.ball_query_multi_plain(radii, ks, sup, ctr), 2)
+        # per point of a tile in reach, before the first-K scan ends: the
+        # distance (3 sub, 3 mul, 2 add) and a compare per radius
+        bnd = bound((sup.numel() + ctr.numel() + sum(w.numel() for w in want)) * 4,
+                    in_reach * (8 + len(radii)), F32_OPS_PER_S)
+        n_far = int((sup[..., 0] >= 1e6).sum())
+        print(f"{'ball_query':27s} {label} {src}: N={sup.shape[1]} ({n_far} rows at "
+              f"FAR_SENTINEL) M={ctr.shape[1]} radii {radii} K {ks}, equal; kernel "
+              f"{bq_ms:.4f} ms, plain {bq_plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), kernel "
+              f"at {100 * bnd[0] / bq_ms:.1f} % of it")
+        print_ball_query_work(f"{label} {src}", radii, ks, sup, ctr, (scan, in_reach))
+        rows.append((f"ball_query_{src}{suffix}", "ball_query", f"ball_query_{src}",
+                     dict(max_abs_err=0.0, ms=bq_ms, plain_ms=bq_plain, bound_ms=bnd[0],
+                          bound_by=bnd[1], library_ms=None)))
     return rows
 
 
@@ -3972,7 +4162,8 @@ def sparse_levels(model, cpu_model, requests, label="SECOND"):
 
 def anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label):
     """Phases 12 and 13 (a): request 0's frame in float32 on the card
-    (kernels) against the CPU (plain versions): logits within 2e-3, boxes
+    (kernels) against the CPU (plain versions; the CPU's self-IoU by the
+    plain version on the card, ``plain_iou_on``): logits within 2e-3, boxes
     and headings within 1e-3 (a heading pi apart only where the direction
     bins or the period's fold tie), the detections paired box for box;
     for a sparse backbone its levels (``sparse_levels``).  Returns the
@@ -3989,7 +4180,7 @@ def anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label)
     cpu_model.load_state_dict(weights)
     cpu_batch = {k: v.cpu() for k, v in b1.items()}
     t0 = time.perf_counter()
-    with torch.inference_mode():
+    with torch.inference_mode(), plain_iou_on(b1["voxels"].device):
         out_cpu = cpu_model.eval().forward_batch(cpu_batch)
         post_cpu = get_post_processor(cfg.MODEL.NAME)(out_cpu, cfg.MODEL)
     cpu_s = time.perf_counter() - t0
@@ -4200,7 +4391,8 @@ def vrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label, g
     cpu_model.eval()
     cpu = lambda t: t.cpu() if torch.is_tensor(t) else tuple(x.cpu() for x in t)  # noqa: E731
     t0 = time.perf_counter()
-    with torch.inference_mode(), RecordIoUShapes() as rec_cpu:
+    dev = b1["voxels"].device
+    with torch.inference_mode(), plain_iou_on(dev), RecordIoUShapes() as rec_cpu:
         out_cpu = cpu_model.forward_batch({k: v.cpu() for k, v in b1.items()})
     cpu_s = time.perf_counter() - t0
     logit_err = (out_card["cls_preds"].cpu() - out_cpu["cls_preds"]).abs().max().item()
@@ -4209,7 +4401,7 @@ def vrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label, g
     require(logit_err <= 2e-3, f"{label} first-stage logits card vs CPU {logit_err} > 2e-3")
 
     with torch.inference_mode():
-        with RecordIoUShapes() as rec_fed:
+        with plain_iou_on(dev), RecordIoUShapes() as rec_fed:
             props = RHT.proposal_layer(cpu(first_card["batch_cls_preds"]),
                                        cpu(first_card["batch_box_preds"]), nms_cfg)
         require(torch.equal(rec_fed.keeps[0], rec_card.keeps[0].cpu()),
@@ -4280,6 +4472,186 @@ def vrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label, g
     require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
             f"{label} float32 detections card vs CPU not paired box for box")
     return first_card
+
+
+def pv_card_vs_cpu(cfg, model, weights, template, requests, results, label, gt):
+    """Phase 17 (a): request 0's frame on the card against the CPU's plain
+    path, each stage on the card's own inputs, so that a float32
+    difference upstream moves no index: the first stage on the CPU (its
+    logits within 2e-3); the proposal layer on the card's first-stage
+    outputs (keep mask and RoIs equal; its plain IoU on the card,
+    ``plain_iou_on``); the VSA on the card's raw points,
+    levels, BEV map and RoIs (the keypoint indices equal, each source's
+    ball-query indices equal); the point head on the card's keypoint
+    features; the RoI head on the card's keypoints, weighted features and
+    RoIs (the grid pool's ball-query indices equal); the refined boxes'
+    post-processing (the detections paired box for box with the card's
+    request); the RoI head on RoIs placed on the frame's gt boxes ``gt``
+    (1, M, 8), where the keypoints lie (the grid pool's indices equal,
+    some balls holding keypoints).  Each source's pooled features, the
+    fused ones, the point scores and the RoI head's outputs are within
+    ``PV_STAGE_TOL`` of max(1, |value|) (``pv_stage_gaps``); the card's
+    stages with TF32 on, on the same inputs (the control), exceed it.
+    PV-RCNN++'s three-NN searches (plain PyTorch on both devices, billions
+    of distances a frame) are the card's, fed to the CPU.  Returns the
+    card's first-stage forward, request 0's FPS and ball queries as
+    ``pv_picks`` (``RecordPicks``) beside it."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.detectors.pv_rcnn import BEV_STRIDE
+    from pdanet_tpu_torch.models.detectors.second import SECOND
+    from pdanet_tpu_torch.models.detectors.voxel_rcnn import post_processing
+    from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
+
+    b1 = requests[0]
+    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+    gt_rois = gt[:, gt[0, :, 7] > 0, :7].contiguous()
+    with torch.inference_mode():
+        with RecordPicks() as card:
+            out_card = model.forward_batch(b1)
+        first_card = SECOND.forward(model, b1["voxels"], b1["voxel_coords"],
+                                    b1["voxel_num_points"])
+        kp = out_card["point_coords"]
+        weighted = out_card["point_features"] * out_card["point_cls_scores"][..., None]
+        with RecordPicks() as card_gt:
+            gt_card = model.roi_head(kp, weighted, gt_rois)
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device="cpu")
+    cpu_model.load_state_dict(weights)
+    cpu_model.eval()
+    cpu_b1 = {k: v.cpu() for k, v in b1.items()}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        first_cpu = SECOND.forward(cpu_model, cpu_b1["voxels"], cpu_b1["voxel_coords"],
+                                   cpu_b1["voxel_num_points"])
+    cpu_s = time.perf_counter() - t0
+    logit_err = (first_card["cls_preds"].cpu() - first_cpu["cls_preds"]).abs().max().item()
+    require(logit_err <= 2e-3, f"{label} first-stage logits card vs CPU {logit_err} > 2e-3")
+
+    pfe = cpu_model.pfe
+    queried = [b[5] for b in card.ball]  # the sites, in call order
+    require(len(card.fps) == 1 and sorted(queried) == sorted(ball_query_sites(model)),
+            f"{label}: {len(card.fps)} FPS and the ball queries at {queried} in a request, "
+            f"want 1 and one at each of {ball_query_sites(model)}")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        with plain_iou_on(b1["voxels"].device):
+            props = RHT.proposal_layer(first_card["batch_cls_preds"].cpu(),
+                                       first_card["batch_box_preds"].cpu(), nms_cfg)
+        for key in ("rois", "roi_labels", "roi_valid"):
+            require(torch.equal(props[key], out_card[key].cpu()),
+                    f"{label} proposals: {key} card vs CPU (the card's first stage fed)")
+        ms = {k: tuple(t.cpu() for t in v) for k, v in first_card["multi_scale_3d_features"].items()}
+        with RecordPicks(feed={"nn": card.picks()["nn"]}) as cpu:
+            vsa = pfe(cpu_b1["points"], ms, {}, first_card["spatial_features"].cpu(), BEV_STRIDE,
+                      rois=props["rois"])
+            head_in = (out_card["point_features_before_fusion"]
+                       if cpu_model.point_cfg.get("USE_POINT_FEATURES_BEFORE_FUSION", False)
+                       else out_card["point_features"]).cpu()
+            scores = torch.sigmoid(cpu_model.point_head(head_in)).max(dim=-1).values
+            rcnn_cls, rcnn_reg = cpu_model.roi_head(kp.cpu(), weighted.cpu(),
+                                                    out_card["rois"].cpu())
+        with RecordPicks(feed={"nn": card_gt.picks()["nn"]}) as cpu_gt:
+            gt_cpu = cpu_model.roi_head(kp.cpu(), weighted.cpu(), gt_rois.cpu())
+        require(torch.equal(cpu.fps[0][2], card.fps[0][2].cpu()),
+                f"{label}: the keypoint indices card vs CPU")
+        for src, c, g in zip(queried, cpu.ball, card.ball):
+            for r, (ci, gi) in enumerate(zip(c[4], g[4])):
+                require(torch.equal(ci, gi.cpu()), f"{label} {src} ball query (radius "
+                        f"{c[0][r]}) indices card vs CPU (the card's inputs fed)")
+        for c, g in zip(cpu_gt.ball, card_gt.ball):
+            for r, (ci, gi) in enumerate(zip(c[4], g[4])):
+                require(torch.equal(ci, gi.cpu()), f"{label} RoI grid pool on the gt boxes: "
+                        f"ball query (radius {c[0][r]}) indices card vs CPU")
+        want = {"point_features_before_fusion": vsa["point_features_before_fusion"],
+                "point_features": vsa["point_features"], "point_cls_scores": scores,
+                "rcnn_cls": rcnn_cls, "rcnn_reg": rcnn_reg, "gt": gt_cpu}
+        errs = pv_stage_gaps(pfe.source_channels, {**out_card, "gt": gt_card}, want)
+        fed = {"batch_cls_preds": rcnn_cls, "roi_labels": props["roi_labels"],
+               "roi_valid": props["roi_valid"],
+               "batch_box_preds": RHT.decode_roi_boxes(props["rois"], rcnn_reg,
+                                                       cpu_model.roi_box_coder)}
+        post_cpu = post_processing(fed, cfg.MODEL)
+    stage_s = time.perf_counter() - t0
+    # the control: the card's stages with TF32 on in cuDNN and cuBLAS, on
+    # the inputs the CPU was given
+    with torch.inference_mode(), tf32_on():
+        control = model.pfe(b1["points"], first_card["multi_scale_3d_features"], {},
+                            first_card["spatial_features"], BEV_STRIDE, rois=out_card["rois"])
+        control["point_cls_scores"] = torch.sigmoid(model.point_head(
+            head_in.to(b1["points"].device))).max(dim=-1).values
+        control["rcnn_cls"], control["rcnn_reg"] = model.roi_head(kp, weighted, out_card["rois"])
+        control["gt"] = model.roi_head(kp, weighted, gt_rois)
+    control_errs = pv_stage_gaps(pfe.source_channels, control, want)
+
+    def grouped(ball):  # share of centres whose ball holds two or more points, a radius
+        return [round(float((o[..., 1:] != o[..., :1]).any(-1).float().mean()), 3)
+                for o in ball[4]]
+
+    sentinel = {src: int((g[2][..., 0] >= 1e6).sum()) for src, g in zip(queried, card.ball)}
+    shares = {src: grouped(g) for src, g in zip(queried, card.ball)}
+    gt_shares = grouped(card_gt.ball[0]) if card_gt.ball else []
+    pairs, n_g, n_c, gap_c, gap_s = match_detections(results[0][2], post_cpu)
+    nn_note = ", its three-NN searches the card's" if card.nn else ""
+    print(f"{label} float32 frame, card vs CPU (the first stage {cpu_s:.1f} s, the rest "
+          f"{stage_s:.1f} s on the CPU{nn_note}): "
+          f"first-stage logits within {logit_err:.3g}; on the card's inputs: the proposals "
+          f"equal, the {card.fps[0][1]} keypoint indices equal, the ball-query indices of "
+          f"{queried} equal (support rows at FAR_SENTINEL {sentinel}; share of centres whose "
+          f"ball holds two or more points, a radius {shares}); detections {n_g} vs {n_c}, "
+          f"{pairs} paired (largest centre distance {gap_c:.3g} m, score {gap_s:.3g}); RoIs on "
+          f"frame 0's {gt_rois.shape[1]} gt boxes: the grid pool's ball-query indices equal "
+          f"(share grouping two or more keypoints {gt_shares})")
+    for what, gaps in (("TF32 off", errs),
+                       ("TF32 on in cuDNN and cuBLAS, the control", control_errs)):
+        print(f"{label} stages card vs CPU, {what}: largest differences of max(1, |value|) "
+              f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} }; over PV_STAGE_TOL "
+              f"{PV_STAGE_TOL}: {sorted(k for k, v in gaps.items() if not v <= PV_STAGE_TOL)}")
+    bad = {k: v for k, v in errs.items() if not v <= PV_STAGE_TOL}
+    require(not bad, f"{label} keypoint features, scores and RCNN outputs card vs CPU over "
+            f"{PV_STAGE_TOL} of max(1, |value|): {bad}")
+    require(max(control_errs.values()) > PV_STAGE_TOL, f"{label}: PV_STAGE_TOL {PV_STAGE_TOL} "
+            f"passes the control's stages (TF32 on) too: {control_errs}")
+    require(not gt_shares or max(gt_shares) > 0, f"{label}: no grid point on the gt boxes "
+            f"grouped two keypoints")
+    require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
+            f"{label} float32 detections card vs CPU not paired box for box")
+    first_card.update(pv_picks=card, pv_points=b1["points"][..., :3])
+    return first_card
+
+
+def pv_stage_gaps(source_channels, got, want):
+    """``{stage: largest |got - want| / max(1, max |want|)}`` of PV-RCNN's
+    stages (``want`` the CPU's): each source's pooled keypoint features,
+    the fused ones, the point scores, ``rcnn_cls`` / ``rcnn_reg``, and the
+    RoI head's outputs on the gt boxes (``gt``)."""
+    def gap(g, w):
+        return ((g.cpu() - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
+
+    gaps, start = {}, 0
+    for src, width in source_channels.items():
+        gaps[src] = gap(got["point_features_before_fusion"][..., start:start + width],
+                        want["point_features_before_fusion"][..., start:start + width])
+        start += width
+    gaps["fused"] = gap(got["point_features"], want["point_features"])
+    gaps["point scores"] = gap(got["point_cls_scores"], want["point_cls_scores"])
+    for key in ("rcnn_cls", "rcnn_reg"):
+        gaps[key] = gap(got[key], want[key])
+    gaps["gt boxes' rcnn"] = max(gap(g, w) for g, w in zip(got["gt"], want["gt"]))
+    return gaps
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 on in cuDNN and cuBLAS inside the block, off after it (as phase
+    1 leaves it)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def _dense_backbone_type():
@@ -4507,7 +4879,7 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
     b1 latency in NCDHW against channels-last-3d and its convolutions'
     operations (``dense_report``); a two-stage model's RoI traffic
     (``roi_traffic``); one frame on the card against the CPU
-    (``vrcnn_card_vs_cpu``, ``dense_card_vs_cpu`` or
+    (``pv_card_vs_cpu``, ``vrcnn_card_vs_cpu``, ``dense_card_vs_cpu`` or
     ``anchors_card_vs_cpu``).  ``depth``: ``latency_reps``,
     ``serve_requests`` 1 for one b1 request alone, ``tf32`` False for no
     TF32 turns, ``layout`` False for no layout turns.  Returns the launches of
@@ -4518,7 +4890,8 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
 
     from pdanet_tpu_torch.models import build_network
     from pdanet_tpu_torch.models.blocks import init_random_weights
-    from pdanet_tpu_torch.serving import example_device_batch, make_predict_fn
+    from pdanet_tpu_torch.serving import (example_device_batch, make_predict_fn,
+                                          serving_input_spec)
 
     two_stage = "ROI_HEAD" in cfg.MODEL
     model = init_random_weights(build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template,
@@ -4531,7 +4904,7 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
     weights = copy.deepcopy(model.state_dict())
     predict = make_predict_fn(model, cfg.MODEL)
     for B in (1, 2):
-        predict(example_device_batch(cfg, B, dev))
+        predict(example_device_batch(cfg, serving_input_spec(cfg, B, model), dev))
     latency_reps = depth.get("latency_reps", VOXEL_LATENCY_REPS)
     dense = isinstance(getattr(model, "backbone_3d", None), _dense_backbone_type())
     frames = voxel_frames(seed, VOXEL_SERVE_FRAMES, cfg.CLASS_NAMES)
@@ -4578,13 +4951,14 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
           f"inputs {rec.shapes}, candidates kept by the walks "
           f"{[k.sum(dim=1).tolist() for k in rec.keeps]} of the valid "
           f"{[v.sum(dim=1).tolist() for v, _ in rec.walks]}; peak memory a request {peaks} GiB")
-    for name in VOXEL_KERNELS:
+    kernels = path_kernels(model)
+    for name in kernels:
         require(launches.get(name, 0) > 0, f"kernel {name} never launched on the {label} "
                 f"path")
     require({s[1] for s in rec.shapes} == ks,
             f"the {label} self-IoU ran at {rec.shapes}, not K {sorted(ks)}")
     b1 = requests[0]
-    # latency in turns (off, on, on, off), before any profiler runs
+    # latency with TF32 off, then on, before any profiler runs
     ms = {False: [], True: []}
 
     def set_tf32(on):
@@ -4593,7 +4967,7 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
 
     tf32_turns = depth.get("tf32", True)
     try:
-        for tf32 in (False, True, True, False) if tf32_turns else (False,):
+        for tf32 in (False, True) if tf32_turns else (False,):
             set_tf32(tf32)
             ms[tf32].append(request_ms(predict, b1, reps=latency_reps))
         set_tf32(True)
@@ -4605,14 +4979,16 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
     if tf32_turns:
         print_split(f"a {label} b1 request under torch.profiler (TF32 on in cuDNN and cuBLAS)",
                     split_tf32)
-    for tf32, turns in ((k, v) for k, v in ms.items() if v):
+    for tf32, reads in ((k, v) for k, v in ms.items() if v):
         print(f"{label} b1 request with TF32 {'on' if tf32 else 'off'}: median "
-              f"latency " + " / ".join(f"{lat:.2f}" for lat, _ in turns) + " ms, host enqueue "
-              + " / ".join(f"{enq:.2f}" for _, enq in turns) + f" ms ({latency_reps} after "
-              f"warm-up, {len(turns)} turn(s))")
+              f"latency " + " / ".join(f"{lat:.2f}" for lat, _ in reads) + " ms, host enqueue "
+              + " / ".join(f"{enq:.2f}" for _, enq in reads) + f" ms ({latency_reps} after "
+              f"warm-up, {len(reads)} turn(s))")
     if dense:
         dense_report(model, predict, b1, label, latency_reps, depth.get("layout", True))
-    if two_stage and hasattr(model.roi_head, "pool"):
+    if cfg.MODEL.NAME in PV_NAMES:
+        out = pv_card_vs_cpu(cfg, model, weights, template, requests, results, label, gts[0])
+    elif two_stage and hasattr(model.roi_head, "pool"):
         roi_traffic(cfg, model, requests, rec.keeps, label)
         out = vrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label,
                                 gts[0])
@@ -4623,7 +4999,7 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
         out = center_card_vs_cpu(cfg, model, weights, template, requests, results, label)
     else:
         out = anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label)
-    return launches, weights, predict, b1, out, rec
+    return launches, weights, predict, b1, out, rec, kernels
 
 
 def plant_gt(cfg, model, batch, n):
@@ -4686,6 +5062,63 @@ class RecordSamples:
 
     def __exit__(self, *exc):
         self.module.assign_targets, self.module.boxes_iou3d = self.orig
+
+
+class RecordPicks:
+    """Records the indices that PV-RCNN's VSA and RoI head pick (the
+    ``voxel_set_abstraction`` module's ``farthest_point_sample`` and
+    ``ball_query_multi``, the kernels running as ever; ``three_nn`` of
+    ``vector_pool``, PV-RCNN++'s), with the inputs of the first two, in
+    call order.  With ``feed`` (another run's :meth:`picks`, or some of its
+    kinds) it returns those indices in turn instead: the CPU's runs take
+    the card's picks, as phase 7's ``fed`` does for PDA-SSD (a fed
+    ``three_nn`` keeps its distances' arithmetic on this run's inputs)."""
+
+    def __init__(self, feed=None):
+        self.feed = {k: list(v) for k, v in (feed or {}).items()}
+
+    def __enter__(self):
+        from pdanet_tpu_torch.models.backbones_3d.pfe import vector_pool as vp
+        from pdanet_tpu_torch.models.backbones_3d.pfe import voxel_set_abstraction as vsa
+        from pdanet_tpu_torch.ops.interpolate import picked_dist2
+
+        self.modules, self.fps, self.ball, self.nn = (vsa, vp), [], [], []
+        self.orig = (vsa.farthest_point_sample, vsa.ball_query_multi, vp.three_nn)
+
+        def fps(xyz, npoint):
+            if "fps" in self.feed:
+                return self.feed["fps"].pop(0).to(xyz.device)
+            idx = self.orig[0](xyz, npoint)
+            self.fps.append((xyz, npoint, idx))
+            return idx
+
+        def ball(radii, nsamples, xyz, new_xyz, site=""):
+            if "ball" in self.feed:
+                return tuple(t.to(xyz.device) for t in self.feed["ball"].pop(0))
+            out = self.orig[1](radii, nsamples, xyz, new_xyz, site)
+            self.ball.append((tuple(radii), tuple(nsamples), xyz, new_xyz, out, site))
+            return out
+
+        def nn(unknown, known):
+            if "nn" in self.feed:
+                idx = self.feed["nn"].pop(0).to(unknown.device)
+                return picked_dist2(unknown, known, idx), idx
+            d2, idx = self.orig[2](unknown, known)
+            self.nn.append(idx)
+            return d2, idx
+
+        vsa.farthest_point_sample, vsa.ball_query_multi, vp.three_nn = fps, ball, nn
+        return self
+
+    def __exit__(self, *exc):
+        vsa, vp = self.modules
+        vsa.farthest_point_sample, vsa.ball_query_multi, vp.three_nn = self.orig
+
+    def picks(self):
+        """The recorded indices on the CPU, another run's ``feed``."""
+        return {"fps": [idx.cpu() for *_, idx in self.fps],
+                "ball": [tuple(t.cpu() for t in b[4]) for b in self.ball],
+                "nn": [idx.cpu() for idx in self.nn]}
 
 
 def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAIN_STEPS,
@@ -4759,7 +5192,7 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     if two_stage:
         require(rec.shapes and all(s == (B, K_train, 7) for s in rec.shapes),
                 f"the {label} training self-IoU ran at {rec.shapes}, not B {B} K {K_train}")
-        for name in VOXEL_KERNELS:
+        for name in path_kernels(model):
             require(launches.get(name, 0) > 0, f"kernel {name} never launched in {label} "
                     f"training")
         kept = [k.sum(dim=1).tolist() for k in rec.keeps]
@@ -4775,7 +5208,7 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
                     device_split(lambda: step(batch)))
     print(f"{label} train float32 B={B}: losses {[round(x, 4) for x in losses]}; ms/step "
           f"{[round(t, 2) for t in times]}, median after warm-up "
-          f"{statistics.median(times[1:]):.2f} ms; peak memory {peak:.2f} GiB; launches "
+          f"{statistics.median(times[1:] or times):.2f} ms; peak memory {peak:.2f} GiB; launches "
           f"{launches}; tb of the last step "
           f"{ {k: round(float(v), 4) for k, v in tb.items()} }")
     del model, step
@@ -4796,16 +5229,17 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
            for k, v in plain_batch.items()}
     if two_stage:
         one = plant_gt(geometry[0], fresh(dev, torch.float64, geometry), one, PLANTED_GT)
-    res, fed, fed_3d = [], None, None
+    res, fed, fed_3d, picks = [], None, None, None
     for device in (dev, torch.device("cpu")):
         model, step = train_model(device, torch.float64, geometry)
         t0 = time.perf_counter()
         with RecordIoUShapes(keep_boxes=fed is None, feed=fed) as rec, \
-                RecordSamples(feed=fed_3d) as samples:
+                RecordSamples(feed=fed_3d) as samples, RecordPicks(feed=picks) as pv:
             loss, tb = step({k: v.to(device) for k, v in one.items()})
         if fed is None:
             fed = [boxes_iou_bev_batched_self_plain(b).cpu() for b in rec.boxes]
             fed_3d = [t.cpu() for t in samples.ious]
+            picks = pv.picks()
         res.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
                     {n: b.cpu() for n, b in model.named_buffers() if "running" in n},
                     time.perf_counter() - t0, sum(samples.fg), [k.cpu() for k in rec.keeps]))
@@ -4815,8 +5249,10 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     errs = _leaf_errors(g_g, g_c, floor=1e-6)
     stat_err = max((s_g[n] - s_c[n]).abs().max().item() for n in s_c)
     keeps_equal = len(k_g) == len(k_c) and all(map(torch.equal, k_g, k_c))
-    fed_note = (f", the CPU fed the plain IoU of the card's K {K_train} candidates and the "
-                f"card's 3-D IoUs of the RoIs with the gt; proposal "
+    pv_note = (f", the card's {len(picks['fps'])} FPS picks, {len(picks['ball'])} ball "
+               f"queries and {len(picks['nn'])} three-NN searches" if picks["fps"] else "")
+    fed_note = (f", the CPU fed the plain IoU of the card's K {K_train} candidates{pv_note} and "
+                f"the card's 3-D IoUs of the RoIs with the gt; proposal "
                 f"keep mask {'equal' if keeps_equal else 'different'}, foreground RoIs "
                 f"sampled {r_g} / {r_c}" if two_stage else "")
     print(f"{label} float64 step B=1{where}, card vs CPU ({t_g:.1f} s / {t_c:.1f} s{fed_note}): loss "
@@ -4831,18 +5267,19 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     return launches
 
 
-def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, export=False):
+def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, export=False,
+               kernels=VOXEL_KERNELS):
     """Phases 12-16 (c): the yaml through the train CLI (one epoch of the
     root's train frames at ``batch_size``, augmentor and all) and the test
-    CLI on its checkpoint with the official KITTI evaluation; with
-    ``export`` also the export CLI on the checkpoint at b1 with its
+    CLI on its checkpoint with the official KITTI evaluation (each of
+    ``kernels`` launched there); with ``export`` also the export CLI on the checkpoint at b1 with its
     ``--verify`` (the saved program against the live model).  Returns the
     launches of the train, test and export CLIs."""
     from pdanet_tpu_torch.tools import test as test_cli
     from pdanet_tpu_torch.tools import train as train_cli
 
     root, val_ids = kitti_run["root"], kitti_run["val_ids"]
-    set_data = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+    set_data = ["--set", "DATA_CONFIG.DATA_PATH", str(root), *kitti_run.get("set", ())]
     with contextlib.chdir(work):
         clear_launches()
         t0 = time.perf_counter()
@@ -4860,10 +5297,10 @@ def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, export=False):
         steps = kitti_run["steps"] * kitti_run["B"] // batch_size
         require(len(losses) == steps and all(np.isfinite(losses)),
                 f"{label} train CLI losses {losses}")
-        print(f"{label} train CLI (1 epoch at B={batch_size} on phase 9's root): {train_s:.1f} s; "
-              f"losses {[round(x, 4) for x in losses]}; ms per iteration "
+        print(f"{label} train CLI (1 epoch of {steps * batch_size} frames at B={batch_size}): "
+              f"{train_s:.1f} s; losses {[round(x, 4) for x in losses]}; ms per iteration "
               f"{[round(t, 2) for t in step_ms]}, median after the first "
-              f"{statistics.median(step_ms[1:]):.2f} ms, waiting for the loader "
+              f"{statistics.median(step_ms[1:] or step_ms):.2f} ms, waiting for the loader "
               f"{[round(t, 2) for t in wait_ms]} ms")
         ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
         clear_launches()
@@ -4892,7 +5329,7 @@ def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, export=False):
               f"evaluation " + json.dumps({k: round(float(v), 4) for k, v in result.items()
                                            if k.startswith(("recall/", "Car_3d"))}))
         print(f"{label} CLIs' kernel launches: train {train_counts}, test {test_counts}")
-        for name in VOXEL_KERNELS:
+        for name in kernels:
             require(test_counts.get(name, 0) > 0, f"kernel {name} never launched by the "
                     f"{label} test CLI")
         launches = add_launches(train_counts, test_counts)
@@ -4907,7 +5344,7 @@ def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, export=False):
             print(f"{label} export CLI (--ckpt of the train CLI, b1, --verify): "
                   f"{time.perf_counter() - t0:.1f} s, {Path(path).stat().st_size / 1e6:.2f} MB; "
                   f"launches {export_counts}")
-            for name in VOXEL_KERNELS:
+            for name in kernels:
                 require(export_counts.get(name, 0) > 0, f"kernel {name} never launched by the "
                         f"{label} export CLI")
             return add_launches(launches, export_counts)
@@ -4924,7 +5361,8 @@ def background_dist_train(work, kitti_run, cfg_rel, label, batch_size):
     with DistScript("dist_train.sh", 1, [
             "--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", str(batch_size),
             "--num_epochs_to_eval", "0", "--extra_tag", "dp1",
-            "--set", "DATA_CONFIG.DATA_PATH", str(root)], work) as run:
+            "--set", "DATA_CONFIG.DATA_PATH", str(root), *kitti_run.get("set", ())],
+            work) as run:
         yield
         train_s = run.wait()
     dp_out = Path(work) / "output" / "kitti_models" / Path(cfg_rel).stem / "dp1"
@@ -4943,7 +5381,7 @@ def background_dist_train(work, kitti_run, cfg_rel, label, batch_size):
             f"{label} dist_train.sh losses {dp_losses}")
     print(f"{label} train CLI through dist_train.sh (world 1, NCCL, beside (d)): {train_s:.1f} "
           f"s; losses {[round(x, 4) for x in dp_losses]}; ms per iteration median after the "
-          f"first {statistics.median(dp_ms[1:]):.2f} ms; rank 0's launches {dp_counts}")
+          f"first {statistics.median(dp_ms[1:] or dp_ms):.2f} ms; rank 0's launches {dp_counts}")
 
 
 def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, label):
@@ -4961,7 +5399,8 @@ def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, 
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=dev)
     model.load_state_dict(weights)
     t0 = time.perf_counter()
-    exported = serving.export_serving(model, cfg.MODEL, serving.example_device_batch(cfg, 1, dev))
+    exported = serving.export_serving(model, cfg.MODEL, serving.example_device_batch(
+        cfg, serving.serving_input_spec(cfg, 1, model), dev))
     stem = Path(work) / f"{Path(cfg_rel).stem}_b1"
     path = stem.with_suffix(".pt2")
     nbytes = serving.save_serving(exported, path, serving.serving_meta(
@@ -4992,10 +5431,26 @@ def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, 
           f"{n_nodes} graph nodes; reloaded in a fresh process "
           f"({reload_s:.1f} s), bit-equal to the eager closure "
           f"({int(got['pred_counts'][0])} detections), launches there {launches}")
-    for name in VOXEL_KERNELS:
+    for name in path_kernels(model):
         require(launches.get(name, 0) > 0, f"kernel {name} never launched in the {label} "
                 f"program")
     return launches
+
+
+def cli_run(kitti_run):
+    """The ``kitti_run`` of phases 12-14, 16 and 17 (c): phase 9's root, its
+    train infos cut to the first ``CLI_TRAIN_FRAMES`` frames
+    (``kitti_infos_train_cli.pkl``, written once), which the CLIs and
+    dist_train.sh read through ``--set``."""
+    root = Path(kitti_run["root"])
+    cut = root / "kitti_infos_train_cli.pkl"
+    if not cut.exists():
+        with open(root / "kitti_infos_train.pkl", "rb") as f:
+            infos = pickle.load(f)
+        with open(cut, "wb") as f:
+            pickle.dump(infos[:CLI_TRAIN_FRAMES], f)
+    return {**kitti_run, "B": 1, "steps": CLI_TRAIN_FRAMES,
+            "set": ("DATA_CONFIG.INFO_PATH.train", f"['{cut.name}']")}
 
 
 def dense_cli_root(work, cfg):
@@ -5016,13 +5471,14 @@ def dense_cli_root(work, cfg):
 
 
 def voxel_phase(dev, work, kitti_run, phase, parent=None):
-    """Phases 12-16, on one yaml of ``VOXEL_PHASES`` at full width: (a)
+    """Phases 12-17, on one yaml of ``VOXEL_PHASES`` at full width: (a)
     serving, (b) training, (c) the CLIs, (d) export, (e) the IoU and NMS
     kernels at each K of the path (with ``parent``, that tree's IoU timed
     beside), at the phase's ``VOXEL_DEPTH``.  Returns the launches of its main-path
     runs ((a)'s requests, (b)'s steps, (c)'s CLIs, (d)'s program request,
-    each counted from 0), with the IoU's and the walk's at each K, and
-    (e)'s rows by K."""
+    each counted from 0), with the IoU's and the walk's at each K, (e)'s
+    rows by K, and PV-RCNN's FPS and ball-query rows of (e) (row name,
+    kernel, numbers, launches) (``pv_kernels``)."""
     import torch
 
     from pdanet_tpu_torch.config import cfg_from_yaml_file
@@ -5035,7 +5491,8 @@ def voxel_phase(dev, work, kitti_run, phase, parent=None):
                                training=False, root_path=str(kitti_run["root"]))
     batch_size = depth.get("batch_size") or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     t0 = time.perf_counter()
-    served, weights, predict, b1, out, rec = voxel_serve(cfg, dev, template, label, seed, depth)
+    served, weights, predict, b1, out, rec, kernels = voxel_serve(cfg, dev, template, label,
+                                                                   seed, depth)
     print(f"phase {phase} (a) serving: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trained = voxel_train(cfg, weights, dev, template, label, seed + 100,
@@ -5046,26 +5503,36 @@ def voxel_phase(dev, work, kitti_run, phase, parent=None):
     cli = depth.get("cli", "dist_train")
     if cli is not None:
         t0 = time.perf_counter()
-        run = kitti_run if cli == "dist_train" else dense_cli_root(work, cfg)
-        clis = voxel_clis(work, run, cfg_rel, label, batch_size, export=cli == "export")
+        run = cli_run(kitti_run) if cli == "dist_train" else dense_cli_root(work, cfg)
+        clis = voxel_clis(work, run, cfg_rel, label, batch_size, export=cli == "export",
+                          kernels=kernels)
         print(f"phase {phase} (c) the CLIs: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()  # for the background dist_train.sh and (d)'s fresh process
-    with (background_dist_train(work, kitti_run, cfg_rel, label, batch_size)
+    with (background_dist_train(work, cli_run(kitti_run), cfg_rel, label, batch_size)
           if cli == "dist_train" else contextlib.nullcontext()):
         program = voxel_export(cfg, predict, weights, dev, template, b1, work, cfg_rel, label)
         print(f"phase {phase} (d) export: {time.perf_counter() - t0:.1f} s")
     if cli == "dist_train":
         print(f"phase {phase} (c) dist_train.sh and (d): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows = {}
-    for boxes, valid, thresh, what, suppress in kernel_candidates(cfg, out, rec):
-        rows.setdefault(boxes.shape[1], voxel_kernels(dev, boxes, valid, thresh, label, what,
-                                                      suppress, parent))
-    print(f"phase {phase} (e) the kernels at K {sorted(rows)}: {time.perf_counter() - t0:.1f} s")
+    rows, extra = {}, []
+    if depth.get("iou_rows", True):
+        for boxes, valid, thresh, what, suppress in kernel_candidates(cfg, out, rec):
+            rows.setdefault(boxes.shape[1], voxel_kernels(dev, boxes, valid, thresh, label, what,
+                                                          suppress, parent))
+    if "pv_picks" in out:
+        extra = pv_kernels(dev, out, label, VOXEL_SUFFIX[phase])
+    print(f"phase {phase} (e) the kernels at K {sorted(rows)}"
+          f"{' and ' + str([r[0] for r in extra]) if extra else ''}: "
+          f"{time.perf_counter() - t0:.1f} s")
     del predict, out, rec
     torch.cuda.empty_cache()
-    return add_launches(served, trained, clis, program), rows
+    launches = add_launches(served, trained, clis, program)
+    # a row's launches: FPS's, or the ball query's at the row's site
+    extra = [(name, kernel, numbers, launches.get(count, 0))
+             for name, kernel, count, numbers in extra]
+    return launches, rows, extra
 
 
 def pointpillar_phase(dev, work, kitti_run, parent=None):
@@ -5118,6 +5585,27 @@ def centerpoint_phase(dev, work, kitti_run, parent=None):
     map of 200 x 176, the anchor-free head at 400 x 352, three classes in
     one head, one NMS at K 500), at ``VOXEL_DEPTH[16]``."""
     return voxel_phase(dev, work, kitti_run, 16, parent)
+
+
+def pv_rcnn_phase(dev, work, kitti_run, parent=None):
+    """Phase 17, PV-RCNN: tools/cfgs/kitti_models/pv_rcnn.yaml at full width
+    (SECOND's grid and sparse backbone, 70400 anchors a frame of three
+    classes, proposals at K 1024 to serve and 9000 to train, 100 / 512
+    RoIs, 128 sampled a frame; 2048 keypoints by FPS over the 16384 raw
+    points, the BEV map and five ball-query sources; a 6 x 6 x 6 RoI grid
+    pooled from the keypoints by the ball query; the final NMS at K 100),
+    at ``VOXEL_DEPTH[17]``."""
+    return voxel_phase(dev, work, kitti_run, 17, parent)
+
+
+def pv_rcnn_pp_phase(dev, work, kitti_run, parent=None):
+    """Phase 17, PV-RCNN++: tools/cfgs/kitti_models/pv_rcnn_plusplus.yaml at
+    full width (PV-RCNN's first stage; 2048 keypoints by FPS over SPC's
+    collapse of the raw points on the proposals; VectorPool over the raw
+    points, x_conv3, x_conv4 and in the RoI grid pool), at
+    ``VOXEL_DEPTH["17b"]``: one b1 request, one train step and the float64
+    step, export, and (e) FPS on the collapsed cloud."""
+    return voxel_phase(dev, work, kitti_run, "17b", parent)
 
 
 @contextlib.contextmanager
@@ -5354,8 +5842,8 @@ def main():
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
                     "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
-    ap.add_argument("--phases", help="comma-separated phases of 3-16 to run, with those they "
-                    "read (3 for 6, 4 for 5 and 11, 9 for 11-16); every phase without it, and "
+    ap.add_argument("--phases", help="comma-separated phases of 3-17 to run, with those they "
+                    "read (3 for 6, 4 for 5 and 11, 9 for 11-17); every phase without it, and "
                     "only then are the launches of every kernel required")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -5412,12 +5900,12 @@ def main():
         return
 
     # ---- 3.-16.
-    every = set(range(3, 17))
+    every = set(range(3, 18))
     want = every if not args.phases else {int(p) for p in args.phases.split(",")}
-    require(want <= every, f"--phases {args.phases}: phases 3-16 only")
+    require(want <= every, f"--phases {args.phases}: phases 3-17 only")
     want |= {3} if 6 in want else set()
     want |= {4} if want & {5, 11} else set()
-    want |= {9} if want & set(range(11, 17)) else set()
+    want |= {9} if want & set(range(11, 18)) else set()
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -5455,30 +5943,38 @@ def main():
             if 11 in want:
                 runs["dp"] = timed("11 (data parallel)", dp_phase, dev, kitti_work, kitti_run,
                                    cfg, weights)
-            for phase, label, fn, suffix in (
-                    (12, "PointPillar", pointpillar_phase, ""),
-                    (13, "SECOND", second_phase, "_second"),
-                    (14, "Voxel-RCNN", voxel_rcnn_phase, "_voxel_rcnn"),
-                    (15, "SECOND-IoU", second_iou_phase, "_second_iou"),
-                    (15, "SECOND-multihead", multihead_phase, "_multihead"),
-                    (16, "CenterPoint", centerpoint_phase, "_centerpoint")):
+
+            def voxel(key, label, fn):
+                phase = int(str(key)[:2])
                 if phase in want:
-                    run, run_rows = timed(f"{phase} ({label})", fn, dev, kitti_work, kitti_run,
-                                          parent)
+                    run, run_rows, extra = timed(f"{phase} ({label})", fn, dev, kitti_work,
+                                                 kitti_run, parent)
                     runs[label] = run
-                    voxel_runs.append((phase, suffix, run, run_rows))
+                    voxel_runs.append((phase, VOXEL_SUFFIX[key], run, run_rows, extra))
+
+            for key, label, fn in ((12, "PointPillar", pointpillar_phase),
+                                   (13, "SECOND", second_phase),
+                                   (14, "Voxel-RCNN", voxel_rcnn_phase),
+                                   ("15a", "SECOND-IoU", second_iou_phase),
+                                   ("15b", "SECOND-multihead", multihead_phase),
+                                   (16, "CenterPoint", centerpoint_phase)):
+                voxel(key, label, fn)
             if 16 in want:
                 runs["augmentors"] = timed("16 (the augmentors' yamls)", augmentor_phase, dev,
                                            kitti_work)
+            voxel(17, "PV-RCNN", pv_rcnn_phase)
+            voxel("17b", "PV-RCNN++", pv_rcnn_pp_phase)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
     # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9),
     # the exported programs' requests (phase 10) and the data-parallel runs
     # (phase 11: its CLIs' processes, the one process and the two ranks)
-    # and the voxel detectors' runs (phases 12-16: the requests, the train
+    # and the voxel detectors' runs (phases 12-17: the requests, the train
     # steps, the CLIs and the program's request), each counted from 0; a
-    # row of phases 12-16 counts its own phase's launches at its own K
+    # row of phases 12-17 counts its own phase's launches at its own K (a
+    # PV-RCNN FPS row the phase's FPS launches, a ball-query row those at
+    # its site)
     launches = {name: sum(run.get(name, 0) for run in runs.values()) for name in KERNELS}
     if want == every:
         for name, n in launches.items():
@@ -5488,7 +5984,7 @@ def main():
     rows = [] if stats is None else [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]} for name, (src, rep) in KERNELS.items()]
-    for phase, suffix, run, run_rows in voxel_runs:
+    for phase, suffix, run, run_rows, extra in voxel_runs:
         for K, k_rows in sorted(run_rows.items(), reverse=True):
             for name in VOXEL_KERNELS:
                 n = run.get(f"{name}_k{K}", 0)
@@ -5496,6 +5992,10 @@ def main():
                 rows.append({"name": f"{name}_k{K}{suffix}", "route": "cuda",
                              "source": KERNELS[name][0], "replaces": KERNELS[name][1],
                              "launches": n, **k_rows[name]})
+        for row_name, name, numbers, n in extra:
+            require(n > 0, f"kernel {name} never launched for {row_name} in phase {phase}")
+            rows.append({"name": row_name, "route": "cuda", "source": KERNELS[name][0],
+                         "replaces": KERNELS[name][1], "launches": n, **numbers})
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the argument parse")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -308,6 +308,7 @@ class VoxelBackBone8x(_DenseBackbone8x):
     def __init__(self, model_cfg, input_channels, grid_size):
         super().__init__(model_cfg, grid_size)
         w = [int(c) for c in self.cfg.get("NUM_FILTERS", [16, 16, 32, 64, 64])]
+        self.widths = w  # x_conv<i> has widths[i] channels
         c_out = int(self.cfg.get("NUM_OUTPUT_FEATURES", 128))
         m = self.bn_momentum
         self.conv_input = Conv3DBNReLU(input_channels, w[0], bn_momentum=m)
@@ -364,6 +365,7 @@ class VoxelResBackBone8x(_DenseBackbone8x):
     def __init__(self, model_cfg, input_channels, grid_size):
         super().__init__(model_cfg, grid_size)
         m = self.bn_momentum
+        self.widths = [16, 16, 32, 64, 128]  # x_conv<i> has widths[i] channels
         self.conv_input = Conv3DBNReLU(input_channels, 16, bn_momentum=m)
         for lvl, c in ((1, 16), (2, 32), (3, 64), (4, 128)):
             if lvl > 1:

@@ -1,8 +1,8 @@
 """Detector registry (``pdanet_tpu/models/detectors/__init__.py``).
 
-IASSD (PDA-SSD), PointPillar, SECOND, SECOND-IoU, Voxel-RCNN and
-CenterPoint are ported; the other detectors of the zoo are ROADMAP queue 1
-item 9.
+IASSD (PDA-SSD), PointPillar, SECOND, SECOND-IoU, Voxel-RCNN, CenterPoint,
+PV-RCNN and PV-RCNN++ are ported; the other detectors of the zoo are
+ROADMAP queue 1 item 9.
 """
 
 import torch
@@ -11,6 +11,7 @@ from .centerpoint import CenterPoint
 from .centerpoint import post_processing as center_post_processing
 from .iassd import IASSD, post_processing
 from .pointpillar import PointPillar
+from .pv_rcnn import PVRCNN, PVRCNNPlusPlus
 from .second import SECOND
 from .second_iou import SECONDNetIoU
 from .second_iou import post_processing as iou_post_processing
@@ -18,10 +19,12 @@ from .voxel_rcnn import VoxelRCNN
 from .voxel_rcnn import post_processing as refined_post_processing
 
 __all__ = {"CenterPoint": CenterPoint, "IASSD": IASSD, "PointPillar": PointPillar,
-           "SECOND": SECOND, "SECONDNetIoU": SECONDNetIoU, "VoxelRCNN": VoxelRCNN}
+           "PVRCNN": PVRCNN, "PVRCNNPlusPlus": PVRCNNPlusPlus, "SECOND": SECOND,
+           "SECONDNetIoU": SECONDNetIoU, "VoxelRCNN": VoxelRCNN}
 
 #: voxel-pipeline detectors, which take their grid geometry from the dataset
-VOXEL_DETECTORS = ("PointPillar", "SECOND", "CenterPoint", "SECONDNetIoU", "VoxelRCNN")
+VOXEL_DETECTORS = ("PointPillar", "SECOND", "CenterPoint", "SECONDNetIoU", "VoxelRCNN",
+                   "PVRCNN", "PVRCNNPlusPlus")
 
 
 def get_post_processor(name):
@@ -40,7 +43,7 @@ def get_post_processor(name):
         return lambda out, mcfg: center_post_processing(out, mcfg.DENSE_HEAD.POST_PROCESSING)
     if name == "SECONDNetIoU":
         return iou_post_processing
-    if name == "VoxelRCNN":
+    if name in ("VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus"):
         return refined_post_processing
     return lambda out, mcfg: post_processing(
         out["batch_cls_preds"], out["batch_box_preds"], mcfg.POST_PROCESSING)

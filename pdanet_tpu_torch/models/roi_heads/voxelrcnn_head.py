@@ -45,10 +45,12 @@ def get_dense_grid_points(rois, grid_size):
     g = int(grid_size)
     lead = rois.shape[:-1]
     flat = rois.reshape(-1, rois.shape[-1])
-    # the cell fractions (i + 0.5) / g in float32, as the JAX package rounds
-    # them, divided on the host: CUDA divides by a scalar as a product with
-    # its reciprocal, an ulp off the CPU's quotient
-    frac = torch.from_numpy((np.arange(g, dtype=np.float32) + np.float32(0.5)) / np.float32(g))
+    # the cell fractions (i + 0.5) / g in float32 as XLA compiles the JAX
+    # package's quotient by the constant g: a product with its float32
+    # reciprocal (an ulp off the true quotient for g = 3 and 6), made on the
+    # host so that every device takes the same values
+    frac = torch.from_numpy((np.arange(g, dtype=np.float32) + np.float32(0.5))
+                            * np.float32(1.0 / g))
     fx, fy, fz = torch.meshgrid(frac, frac, frac, indexing="ij")
     dense_frac = torch.stack([fx, fy, fz], dim=-1).reshape(-1, 3).to(rois.device)  # (g^3, 3)
     local_size = flat[:, None, 3:6]

@@ -3,6 +3,8 @@ with a ``"cpu"`` kernel (its plain PyTorch version), a ``"cuda"`` kernel
 (the hand-written kernel's wrapper) and a fake implementation that gives
 the output shapes: PyTorch's dispatcher picks the kernel by the device of
 the inputs, and ``torch.export`` traces the op through its fake.
-Importing this package registers all six ops (see ``cuda_lib.NAMESPACE``)."""
+Importing this package registers all six, and ``interpolate``'s
+``three_nn`` (a plain PyTorch op on every device; see
+``cuda_lib.NAMESPACE``)."""
 
-from . import attention, ball_query, nms, rotated_iou, sampling  # noqa: F401
+from . import attention, ball_query, interpolate, nms, rotated_iou, sampling  # noqa: F401

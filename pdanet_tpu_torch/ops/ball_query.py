@@ -5,7 +5,11 @@ and each (radius, K): the first K support indices in scan order with
 ``d2 < r2`` (strict, ``r2 = float32(radius * radius)``).  Unfilled slots
 repeat the first hit; a centre with no hit gets index 0.  The op
 ``<package>::ball_query`` runs the kernel in ``csrc/ball_query.cu`` for a
-CUDA tensor and :func:`ball_query_multi_plain` for a CPU tensor.
+CUDA tensor and :func:`ball_query_multi_plain` for a CPU tensor.  A caller
+may name its ``site`` (a PV-RCNN feature source, its RoI grid pool): the
+kernel's launches are then counted once more under ``ball_query_<site>``
+(``cuda_lib.launches_by_site``); the op carries the name, so a saved
+program counts the same.
 """
 
 import ctypes
@@ -19,19 +23,21 @@ from . import cuda_lib
 _PLAIN_CHUNK = 1 << 22
 
 
-def ball_query(radius, nsample, xyz, new_xyz):
+def ball_query(radius, nsample, xyz, new_xyz, site=""):
     """(B, N, 3) support x (B, M, 3) centres -> (B, M, nsample) int32."""
-    return ball_query_multi((radius,), (nsample,), xyz, new_xyz)[0]
+    return ball_query_multi((radius,), (nsample,), xyz, new_xyz, site)[0]
 
 
-def ball_query_multi(radii, nsamples, xyz, new_xyz):
+def ball_query_multi(radii, nsamples, xyz, new_xyz, site=""):
     """One shared distance field for all radii.
 
     Returns a tuple of (B, M, nsample_i) int32 index tensors.  The indices
     carry no gradient, so the wrapper takes ``xyz`` and ``new_xyz`` detached.
+    The kernel computes in float32 (a float64 input rounded), the plain
+    version in the inputs' dtype.
     """
     return tuple(ball_query_op([float(r) for r in radii], [int(k) for k in nsamples],
-                               xyz.detach(), new_xyz.detach()))
+                               xyz.detach(), new_xyz.detach(), str(site)))
 
 
 def _r2(radius):
@@ -73,11 +79,12 @@ def ball_query_multi_plain(radii, nsamples, xyz, new_xyz):
 
 
 @cuda_lib.on_tensor_device
-def ball_query_multi_cuda(radii, nsamples, xyz, new_xyz, stats=None):
+def ball_query_multi_cuda(radii, nsamples, xyz, new_xyz, stats=None, site=""):
     """The kernel: one CTA per block of centres, the support staged
     through shared memory, tiles out of reach skipped (``csrc/ball_query.cu``).
     ``stats``, a (3,) int64 CUDA tensor, receives the (tile tests, tiles
-    within reach, tiles scanned) counts of the call added to it."""
+    within reach, tiles scanned) counts of the call added to it; a launch
+    with a ``site`` is also counted under ``ball_query_<site>``."""
     if len(radii) != len(nsamples) or not 1 <= len(radii) <= 4:
         raise ValueError("ball_query_multi: 1 to 4 radii, one K each")
     if xyz.dim() != 3 or xyz.shape[2] != 3 or new_xyz.dim() != 3 \
@@ -104,22 +111,27 @@ def ball_query_multi_cuda(radii, nsamples, xyz, new_xyz, stats=None):
     )
     cuda_lib.check(code, "ball_query")
     cuda_lib.launches["ball_query"] += 1
+    if site:
+        cuda_lib.launches_by_site[f"ball_query_{site}"] += 1
     return outs
 
 
 @torch.library.custom_op(f"{cuda_lib.NAMESPACE}::ball_query", mutates_args=(),
                          device_types="cpu")
 def ball_query_op(radii: list[float], nsamples: list[int], xyz: torch.Tensor,
-                  new_xyz: torch.Tensor) -> list[torch.Tensor]:
+                  new_xyz: torch.Tensor, site: str) -> list[torch.Tensor]:
     return list(ball_query_multi_plain(radii, nsamples, xyz, new_xyz))
 
 
 @ball_query_op.register_kernel("cuda")
-def _(radii, nsamples, xyz, new_xyz):
-    return list(ball_query_multi_cuda(radii, nsamples, xyz, new_xyz))
+def _(radii, nsamples, xyz, new_xyz, site):
+    # the kernel computes in float32: float64 points (a float64 model's) are
+    # rounded first, where the plain version computes in their own dtype
+    return list(ball_query_multi_cuda(radii, nsamples, xyz.float().contiguous(),
+                                      new_xyz.float().contiguous(), site=site))
 
 
 @ball_query_op.register_fake
-def _(radii, nsamples, xyz, new_xyz):
+def _(radii, nsamples, xyz, new_xyz, site):
     B, M = new_xyz.shape[:2]
     return [xyz.new_empty((B, M, k), dtype=torch.int32) for k in nsamples]

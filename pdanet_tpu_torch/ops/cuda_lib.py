@@ -25,6 +25,9 @@ wrappers are the ``"cuda"`` kernels of the ``torch.library`` ops of
 self-IoU's and the NMS walk's launches once more under ``<name>_k<K>``,
 the candidates a frame of the call, since one path runs them at several
 K (a two-stage detector's proposal layer and final NMS).
+``launches_by_site`` counts the ball query's launches once more under
+``ball_query_<site>``, the site its caller names (PV-RCNN runs it on each
+feature source and in its RoI grid pool).
 
 Each wrapper runs under :func:`on_tensor_device`: the device of its
 tensors is the current device while it allocates, takes the stream and
@@ -63,6 +66,7 @@ NVCC_FLAGS = (
 
 launches = collections.Counter()
 launches_by_k = collections.Counter()
+launches_by_site = collections.Counter()
 NAMESPACE = __name__.split(".")[0]
 
 _lib = None

@@ -15,8 +15,9 @@ from . import cuda_lib
 
 
 def farthest_point_sample(xyz, npoint):
-    """(B, N, 3) float32 -> (B, npoint) int32 indices.  The indices carry
-    no gradient, so the wrapper takes ``xyz`` detached."""
+    """(B, N, 3) -> (B, npoint) int32 indices, computed in float32 on every
+    device.  The indices carry no gradient, so the wrapper takes ``xyz``
+    detached."""
     return fps_op(xyz.detach(), int(npoint))
 
 
@@ -83,7 +84,11 @@ def fps_op(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return farthest_point_sample_plain(xyz, npoint)
 
 
-fps_op.register_kernel("cuda")(farthest_point_sample_cuda)
+@fps_op.register_kernel("cuda")
+def _(xyz, npoint):
+    # the kernel computes in float32, as the plain version does: a float64
+    # cloud (a float64 model's) is rounded first
+    return farthest_point_sample_cuda(xyz.float().contiguous(), npoint)
 
 
 @fps_op.register_fake

@@ -9,8 +9,9 @@ pred_counts`` dict.
 
 ``export_serving`` traces the same forward and post-processing with
 ``torch.export`` into one ``ExportedProgram``, the weights inside it, at
-the static shapes of ``serving_input_spec`` (the point cloud of a point
-detector, the voxel triplet of a voxel one); ``save_serving`` writes it
+the static shapes of ``serving_input_spec`` (the model's device batch:
+the point cloud of a point detector, the voxel triplet of a voxel one,
+both for PV-RCNN); ``save_serving`` writes it
 (``.pt2``) with a JSON sidecar (the I/O contract, the test split's
 x-sort and the device), and ``load_serving`` reads it back.  The kernels
 are ``torch.library`` custom ops (``pdanet_tpu_torch.ops``), so the
@@ -51,39 +52,62 @@ def _test_budget(value):
     return int(value["test"]) if isinstance(value, dict) else int(value)
 
 
-def serving_input_spec(cfg, batch_size):
-    """``{key: (shape, dtype)}`` of the device batch (JAX :65-122): the
-    voxel triplet for a voxelizing pipeline, ``voxels`` (B, V, P, C),
-    ``voxel_coords`` (B, V, 3) and ``voxel_num_points`` (B, V), V and P the
-    test split's ``MAX_NUMBER_OF_VOXELS`` and ``MAX_POINTS_PER_VOXEL``;
-    else ``points`` (B, N, C), N the test split's ``sample_points``
-    budget."""
+_EXCLUDED_KEYS = ("gt_boxes",)  # eval-only extras of a device batch
+
+
+def serving_input_spec(cfg, batch_size, model):
+    """``{key: (shape, dtype)}`` of the device batch (JAX :65-122): the keys
+    of ``model``'s ``DEVICE_BATCH_KEYS`` (as ``select_device_batch`` takes
+    them; the model or its class), the gt keys excluded; for a model that
+    declares none, the voxel triplet for a voxelizing pipeline, else
+    ``points``.  ``voxels`` is (B, V, P, C), ``voxel_coords`` (B, V, 3) and
+    ``voxel_num_points`` (B, V), V and P the test split's
+    ``MAX_NUMBER_OF_VOXELS`` and ``MAX_POINTS_PER_VOXEL``; ``points`` is
+    (B, N, C), N the test split's ``sample_points`` budget (PV-RCNN's
+    device batch carries both)."""
     data_cfg = cfg.DATA_CONFIG
     procs = _processor_map(data_cfg)
     num_feats = len(data_cfg.POINT_FEATURE_ENCODING["used_feature_list"])
-    if "transform_points_to_voxels" in procs:
+    keys = getattr(model, "DEVICE_BATCH_KEYS", None)
+    if keys is None:
+        keys = (("voxels", "voxel_coords", "voxel_num_points")
+                if "transform_points_to_voxels" in procs else ("points",))
+    spec = {}
+    for key in (k for k in keys if k not in _EXCLUDED_KEYS):
+        if key == "points":
+            if "sample_points" not in procs:
+                raise ValueError(
+                    "serving export of a model whose device batch carries 'points' requires "
+                    "a `sample_points` DATA_PROCESSOR entry: its NUM_POINTS budget is what "
+                    "fixes the static (B, N, C) point-cloud shape the program is traced at")
+            n = _test_budget(procs["sample_points"]["NUM_POINTS"])
+            spec[key] = ((batch_size, n, num_feats), torch.float32)
+            continue
+        if key not in ("voxels", "voxel_coords", "voxel_num_points"):
+            raise NotImplementedError(f"serving export does not cover device-batch key {key!r}")
         p = procs["transform_points_to_voxels"]
         v = _test_budget(p["MAX_NUMBER_OF_VOXELS"])
-        return {"voxels": ((batch_size, v, int(p["MAX_POINTS_PER_VOXEL"]), num_feats),
-                           torch.float32),
-                "voxel_coords": ((batch_size, v, 3), torch.int32),
-                "voxel_num_points": ((batch_size, v), torch.int32)}
-    if "sample_points" not in procs:
-        raise ValueError(
-            "serving export of a model whose device batch carries 'points' requires a "
-            "`sample_points` DATA_PROCESSOR entry: its NUM_POINTS budget is what fixes "
-            "the static (B, N, C) point-cloud shape the program is traced at")
-    n = _test_budget(procs["sample_points"]["NUM_POINTS"])
-    return {"points": ((batch_size, n, num_feats), torch.float32)}
+        spec[key] = {"voxels": ((batch_size, v, int(p["MAX_POINTS_PER_VOXEL"]), num_feats),
+                                torch.float32),
+                     "voxel_coords": ((batch_size, v, 3), torch.int32),
+                     "voxel_num_points": ((batch_size, v), torch.int32)}[key]
+    return spec
 
 
-def example_device_batch(cfg, batch_size, device, seed=0):
-    """Synthetic device batch at the serving shapes (JAX :125-168):
+def sidecar_input_spec(meta):
+    """The ``serving_input_spec`` a saved program was traced at, from its
+    sidecar ``meta`` (``serving_meta``)."""
+    return {k: (tuple(v["shape"]), getattr(torch, v["dtype"]))
+            for k, v in meta["inputs"].items()}
+
+
+def example_device_batch(cfg, spec, device, seed=0):
+    """Synthetic device batch at the shapes and dtypes of ``spec``
+    (``serving_input_spec`` or ``sidecar_input_spec``; JAX :125-168):
     coordinates uniform over ``POINT_CLOUD_RANGE``, points x-sorted when
     the pipeline sorts; full voxels at distinct random cells of the grid,
     uniform over a pillar grid, in clusters on a 3-D grid
     (:func:`clustered_cells`), whose sparse convs then find neighbours."""
-    spec = serving_input_spec(cfg, batch_size)
     pc_range = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, np.float32)
     rs = np.random.RandomState(seed)
     batch = {}

@@ -21,6 +21,7 @@ Usage:
 """
 
 import argparse
+import json
 from pathlib import Path
 
 import numpy as np
@@ -69,10 +70,12 @@ def main(argv=None):
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs, cfg)
     device = torch.device(args.device)
-    batch = serving.example_device_batch(cfg, args.batch_size, device)
 
     if args.load is not None:
         predict, exported = serving.load_serving(args.load)
+        # the program's own inputs (its sidecar), for the synthetic batch
+        spec = serving.sidecar_input_spec(json.loads(Path(f"{args.load}.json").read_text()))
+        batch = serving.example_device_batch(cfg, spec, device)
         print(f"loaded {args.load}")
         print(f"  in : {exported.call_spec.in_spec}")
         pred = predict(batch)
@@ -94,6 +97,8 @@ def main(argv=None):
         print("WARNING: exporting RANDOM weights (--random_init)")
     else:
         raise SystemExit("provide --ckpt, or --random_init for a shape-only export")
+    batch = serving.example_device_batch(
+        cfg, serving.serving_input_spec(cfg, args.batch_size, model), device)
 
     exported = serving.export_serving(model, cfg.MODEL, batch)
     out = args.out or f"{Path(args.cfg_file).stem}_b{args.batch_size}.pt2"

@@ -9,8 +9,8 @@ with scores at or above ``--score_thresh``.  The preprocessing is the
 sidecar's: each cloud is brought to its point budget and x-sorted when
 the test split sorts (``load_cloud``); a last batch short of frames is
 padded with zero clouds.  A program that takes the voxel triplet (a voxel
-detector's) is refused, as the JAX package's serve CLI takes point clouds
-only.  The frames per second, host I/O included, go to stderr.  No config
+detector's, PV-RCNN's beside its points) is refused, as the JAX package's
+serve CLI takes point clouds only.  The frames per second, host I/O included, go to stderr.  No config
 or model code is read.
 
 Usage:
@@ -84,7 +84,7 @@ def main(argv=None):
     args = parse_args(argv)
     predict, _ = load_serving(args.artifact)  # raises without the sidecar
     meta = json.loads(Path(args.artifact + ".json").read_text())
-    if "points" not in meta["inputs"]:
+    if set(meta["inputs"]) != {"points"}:
         raise SystemExit(f"{args.artifact} takes {sorted(meta['inputs'])}: the serve CLI feeds "
                          f"point clouds to a point detector's program only")
     B, n_points, num_feats = meta["inputs"]["points"]["shape"]

@@ -26,6 +26,9 @@ in, out)                           in both spatial axes (flax applies it
 sparse conv ``kernel``, ``kernel1``  the same name, layout (K, C_in, C_out)
 / ``kernel2``, ``conv2_down_kernel``  kept: the port's sparse convs take
 ... ``conv_out_kernel``             flax's layout (``sparse_backbone.py``)
+VectorPool                         the same name, layout (V, C_in, C_out)
+``separate_local_aggregation``     kept: the per-cell einsum takes flax's
+(V, C_in, C_out)                   layout (``pfe/vector_pool.py``)
 BatchNorm / LayerNorm ``scale``    ``weight``
 BatchNorm ``mean`` / ``var``       ``running_mean`` / ``running_var``
 =================================  =====================================

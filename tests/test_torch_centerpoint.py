@@ -521,7 +521,7 @@ def test_build_network_centerpoint_yaml():
     jds = JDatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                            training=False, root_path=".")
     jmodel = j_build(JEasyDict(cfg.MODEL), num_class=3, dataset=jds)
-    spec = serving.serving_input_spec(cfg, 1)
+    spec = serving.serving_input_spec(cfg, 1, model)
     assert spec["voxels"][0] == (1, 40000, 5, 4)
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), *(jnp.zeros(s, jnp.float32 if d == torch.float32 else jnp.int32)

@@ -24,6 +24,9 @@ the tiny model of ``tests/model_cfg.py``.
 * The shipped ``voxel_rcnn_car.yaml`` cut to size the same way, with its
   second stage (the RoI sampler, the voxel-query pool, the refined
   post-processing and the ``roi_<t>`` recall).
+* The shipped ``pv_rcnn.yaml`` cut to size the same way (the raw points
+  beside the voxels, the VSA, the point head, the ball-query RoI grid
+  pool) through the train, test and export CLIs.
 * A JAX-package checkpoint of the same config, saved by
   ``pdanet_tpu.train.save_checkpoint``, is evaluated by the port's test
   CLI and by JAX's ``eval_one_epoch`` on the same frames: equal detection
@@ -381,6 +384,86 @@ def test_voxel_rcnn_train_then_test_cli(kitti_env, tmp_path, monkeypatch):
     for a in annos:
         assert set(a) >= KITTI_KEYS
         assert len(a["score"]) <= 16
+
+
+PV_RCNN_YAML = REPO / "tools" / "cfgs" / "kitti_models" / "pv_rcnn.yaml"
+PV_RCNN_CFG_REL = "cfgs/tiny/pv_rcnn-tiny.yaml"
+
+
+def _pv_rcnn_tiny_yaml(root):
+    """The shipped pv_rcnn.yaml on the mini-KITTI at ``root``, cut to size
+    as ``_voxel_rcnn_tiny_yaml`` cuts voxel_rcnn_car.yaml, with 2048 raw
+    points a frame, 128 keypoints, 4-channel pools from every source and
+    in the 3 x 3 x 3 RoI grid, 16-wide point head and FC stacks."""
+    cfg = cfg_from_yaml_file(str(PV_RCNN_YAML))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == "transform_points_to_voxels":
+            proc.VOXEL_SIZE = [0.2, 0.2, 0.1]
+            proc.MAX_NUMBER_OF_VOXELS = {"train": 2048, "test": 2048}
+        if proc.NAME == "sample_points":
+            proc.NUM_POINTS = {"train": 2048, "test": 2048}
+    m = cfg.MODEL
+    m.BACKBONE_3D.update(NUM_FILTERS=[4, 4, 8, 8, 8], NUM_OUTPUT_FEATURES=8)
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    m.BACKBONE_2D.update(LAYER_NUMS=[1, 1], LAYER_STRIDES=[1, 2], NUM_FILTERS=[16, 32],
+                         UPSAMPLE_STRIDES=[1, 2], NUM_UPSAMPLE_FILTERS=[16, 16])
+    m.PFE.update(NUM_KEYPOINTS=128, NUM_OUTPUT_FEATURES=16)
+    for layer in m.PFE.SA_LAYER.values():
+        layer.MLPS = [[4, 4], [4, 4]]
+    m.POINT_HEAD.CLS_FC = [16]
+    roi = m.ROI_HEAD
+    roi.update(SHARED_FC=[16, 16], CLS_FC=[16, 16], REG_FC=[16, 16])
+    roi.NMS_CONFIG.TRAIN.update(NMS_PRE_MAXSIZE=256, NMS_POST_MAXSIZE=64)
+    roi.NMS_CONFIG.TEST.update(NMS_PRE_MAXSIZE=128, NMS_POST_MAXSIZE=32)
+    roi.ROI_GRID_POOL.update(GRID_SIZE=3, MLPS=[[4, 4], [4, 4]])
+    roi.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    m.POST_PROCESSING.NMS_CONFIG.update(NMS_PRE_MAXSIZE=32, NMS_POST_MAXSIZE=16)
+    return yaml.safe_dump(_plain(cfg))
+
+
+def test_pv_rcnn_train_test_and_export_cli(kitti_env, tmp_path, monkeypatch):
+    """PV-RCNN through the CLIs: one epoch (two steps at B = 2: the raw
+    points beside the voxels, the RoI sampler and dropout drawing from each
+    frame's generator) with finite RPN, point and RCNN losses; the test
+    CLI on its checkpoint (the refined post-processing, ``roi_<t>`` beside
+    ``rcnn_<t>``, the official evaluation over every val frame); the export
+    CLI on the checkpoint with ``--verify`` (a points-and-voxels program),
+    then ``--load`` of the program on the sidecar's inputs; the serve CLI
+    refuses the program (it takes point clouds alone)."""
+    from pdanet_tpu_torch.tools import export as export_cli
+    from pdanet_tpu_torch.tools import serve as serve_cli
+
+    (tmp_path / PV_RCNN_CFG_REL).parent.mkdir(parents=True)
+    (tmp_path / PV_RCNN_CFG_REL).write_text(_pv_rcnn_tiny_yaml(kitti_env[0]))
+    monkeypatch.chdir(tmp_path)
+    out = train_cli.main(["--cfg_file", PV_RCNN_CFG_REL, "--device", "cpu", "--workers", "0",
+                          "--batch_size", "2", "--epochs", "1", "--num_epochs_to_eval", "0"])
+    lines = [json.loads(line) for line in
+             (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()]
+    for tag in ("train/rpn_loss", "train/point_loss_cls", "train/rcnn_loss_cls",
+                "train/rcnn_loss_reg"):
+        values = [r["value"] for r in lines if r["tag"] == tag]
+        assert len(values) == 2 and all(np.isfinite(values)), (tag, values)
+    ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+    result = test_cli.main(["--cfg_file", PV_RCNN_CFG_REL, "--ckpt", str(ckpt), "--device",
+                            "cpu", "--workers", "0", "--batch_size", "2"])
+    assert {"recall/roi_0.3", "recall/rcnn_0.3", "Car_3d/moderate_R40"} <= set(result)
+    with open(out / "eval" / "epoch_1" / "val" / "default" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    assert [a["frame_id"] for a in annos] == ["000000", "000001", "000002", "000003"]
+    for a in annos:
+        assert set(a) >= KITTI_KEYS and len(a["score"]) <= 16
+    path = export_cli.main(["--cfg_file", PV_RCNN_CFG_REL, "--ckpt", str(ckpt), "--device",
+                            "cpu", "--verify"])
+    meta = json.loads(Path(f"{path}.json").read_text())
+    assert meta["model"] == "PVRCNN" and meta["inputs"]["points"]["shape"] == [1, 2048, 4]
+    assert meta["inputs"]["voxels"]["shape"] == [1, 2048, 5, 4]
+    pred = export_cli.main(["--cfg_file", PV_RCNN_CFG_REL, "--device", "cpu", "--load",
+                            str(path)])
+    assert pred["pred_boxes"].shape == (1, 16, 7)
+    with pytest.raises(SystemExit, match="point clouds to a point detector"):
+        serve_cli.main(["--artifact", str(path), "--inputs", "*.bin"])
 
 
 @pytest.fixture(scope="module")

@@ -453,3 +453,64 @@ def test_voxel_rcnn_two_ranks_step_like_one_process_float64(tmp_path):
     for name, buf in model.state_dict().items():
         if "running" in name:
             torch.testing.assert_close(res["state"][name], buf, rtol=0, atol=1e-12)
+
+
+def test_pvrcnn_two_ranks_step_like_one_process_float64(tmp_path):
+    """Two Gloo processes take one frame each of the tiny PV-RCNN's
+    two-frame batch (``tests/test_torch_pvrcnn.py``, the sparse backbone;
+    140 and 118 valid voxels, 256 raw points a frame) from the same seeded
+    weights, against one process on both frames, in float64: the RoI
+    sample and dropout masks drawn from each frame's generator, the point
+    loss normalized by the global batch's positives.  The loss and tb
+    scalars within 1e-9 relative, every gradient leaf (summed over the
+    ranks) within 1e-9 of its largest |gradient|, the BatchNorm running
+    statistics within 1e-12, the two ranks' state bit-equal."""
+    from test_torch_pvrcnn import GEOMETRY as PV_GEOMETRY
+    from test_torch_pvrcnn import gt_near_train_rois, make_batch, pv_cfg
+
+    cfg = EasyDict(pv_cfg())
+    optim_cfg = EasyDict(dict(OPTIMIZER="adam_onecycle", LR=0.01, WEIGHT_DECAY=0.01,
+                              MOMS=[0.95, 0.85], PCT_START=0.4, DIV_FACTOR=10,
+                              GRAD_NORM_CLIP=10))
+    model = init_random_weights(build_network(cfg, 2, device="cpu", **PV_GEOMETRY),
+                                seed=5).double()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = make_batch()
+    batch["gt_boxes"] = gt_near_train_rois(model, batch)
+    spec = tmp_path / "spec.pkl"
+    with open(spec, "wb") as f:
+        pickle.dump(dict(cfg=cfg, num_class=2, build=dict(PV_GEOMETRY), state=state,
+                         optim_cfg=optim_cfg, schedule=(4, 2), dtype=torch.float64,
+                         ranks=[dict(batch={k: v[r:r + 1] for k, v in batch.items()})
+                                for r in range(2)]), f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(REPO / "tests" / "torch_dist_step.py"),
+                               str(spec), str(r), "2", str(port)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+
+    optimizer, schedule = build_optimizer_and_schedule(model, optim_cfg, 4, 2)
+    loss, tb = make_train_step(model, optimizer, schedule)(
+        {k: torch.from_numpy(v).double() if v.dtype.kind == "f" else torch.from_numpy(v)
+         for k, v in batch.items()})
+    assert tb["rcnn_loss_corner"] > 0 and tb["point_pos_num"] > 0
+    want_grads = {n: p.grad for n, p in model.named_parameters()}
+
+    for r, proc in enumerate(procs):
+        _wait(proc, f"rank {r}", timeout=300)
+    got = [torch.load(f"{spec}.rank{r}.pt", weights_only=False) for r in range(2)]
+    for key, val in got[0]["state"].items():
+        assert torch.equal(got[1]["state"][key], val), key
+    res = got[0]
+    assert abs(res["loss"].item() - loss.item()) <= 1e-9 * abs(loss.item())
+    for k, w in tb.items():
+        assert abs(float(res["tb"][k]) - float(w)) <= 1e-9 * max(abs(float(w)), 1e-6), k
+    worst = max(((res["grads"][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
+                for n, g in want_grads.items())
+    assert worst[0] <= 1e-9, worst
+    for name, buf in model.state_dict().items():
+        if "running" in name:
+            torch.testing.assert_close(res["state"][name], buf, rtol=0, atol=1e-12)

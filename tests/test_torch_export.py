@@ -40,6 +40,7 @@ from pdanet_tpu.utils.easydict import EasyDict as JEasyDict
 from pdanet_tpu_torch import serving
 from pdanet_tpu_torch.config import cfg_from_yaml_file
 from pdanet_tpu_torch.models import build_network
+from pdanet_tpu_torch.models.detectors import __all__ as detectors
 from pdanet_tpu_torch.ops import attention, ball_query, nms, rotated_iou, sampling
 from pdanet_tpu_torch.tools import export as export_cli
 from pdanet_tpu_torch.tools import serve as serve_cli
@@ -81,6 +82,11 @@ def _cfg():
     return cfg
 
 
+def _spec(cfg, batch_size):
+    """The serving spec of ``cfg``'s detector (its class's keys)."""
+    return serving.serving_input_spec(cfg, batch_size, detectors[cfg.MODEL.NAME])
+
+
 def _op_cases():
     rs = np.random.RandomState(0)
     xyz = torch.tensor(rs.rand(2, 64, 3) * 4, dtype=torch.float32)
@@ -94,7 +100,8 @@ def _op_cases():
     valid = torch.tensor(rs.rand(2, 20) > 0.2)
     return {
         "fps": (sampling.fps_op, (xyz, 16)),
-        "ball_query": (ball_query.ball_query_op, ([0.5, 1.5], [4, 8], xyz, xyz[:, :16].clone())),
+        "ball_query": (ball_query.ball_query_op,
+                       ([0.5, 1.5], [4, 8], xyz, xyz[:, :16].clone(), "x_conv1")),
         "neighbor_attention": (attention.attention_op,
                                (*(t.clone().requires_grad_() for t in (q, k, v)), K, H, hd)),
         "neighbor_attention_bwd": (attention.attention_bwd_op, (q, k, v, do, K, H, hd)),
@@ -117,7 +124,7 @@ def program(tmp_path_factory):
     """The tiny model with the flax model's initial weights, exported at
     B = 2 on the CPU and saved with its sidecar; the flax model beside it."""
     cfg = _cfg()
-    batch = serving.example_device_batch(cfg, B, "cpu")
+    batch = serving.example_device_batch(cfg, _spec(cfg, B), "cpu")
     jcfg = JEasyDict(_plain(cfg.MODEL))
     jmodel = j_build(jcfg, num_class=len(cfg.CLASS_NAMES))
     variables = jax.device_get(jax.jit(
@@ -133,7 +140,8 @@ def program(tmp_path_factory):
 
 
 def _frames():
-    return [serving.example_device_batch(_cfg(), B, "cpu", seed=s) for s in (1, 2, 3)]
+    return [serving.example_device_batch(_cfg(), _spec(_cfg(), B), "cpu", seed=s)
+            for s in (1, 2, 3)]
 
 
 def test_exported_program_equals_closure(program):
@@ -206,17 +214,17 @@ def test_export_cli_verify_then_load(tmp_path, monkeypatch):
 
 
 def test_serving_input_spec_and_device_guard(program, tmp_path):
-    assert serving.serving_input_spec(program.cfg, 3) == {
+    assert serving.serving_input_spec(program.cfg, 3, program.model) == {
         "points": ((3, N_POINTS, 4), torch.float32)}
     cfg = _cfg()
     cfg.DATA_CONFIG.DATA_PROCESSOR = [p for p in cfg.DATA_CONFIG.DATA_PROCESSOR
                                       if p.NAME != "sample_points"]
     with pytest.raises(ValueError, match="sample_points"):
-        serving.serving_input_spec(cfg, 1)
+        serving.serving_input_spec(cfg, 1, program.model)
     cfg.DATA_CONFIG.DATA_PROCESSOR.append(EasyDict(
         NAME="transform_points_to_voxels", VOXEL_SIZE=[0.16, 0.16, 4], MAX_POINTS_PER_VOXEL=32,
         MAX_NUMBER_OF_VOXELS={"train": 16000, "test": 40000}))
-    assert serving.serving_input_spec(cfg, 1) == {
+    assert serving.serving_input_spec(cfg, 1, program.model) == {
         "voxels": ((1, 40000, 32, 4), torch.float32),
         "voxel_coords": ((1, 40000, 3), torch.int32),
         "voxel_num_points": ((1, 40000), torch.int32)}

@@ -443,7 +443,7 @@ def test_build_network_second_multihead_yaml():
     jds = JDatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                            training=False, root_path=".")
     jmodel = j_build(JEasyDict(cfg.MODEL), num_class=3, dataset=jds)
-    spec = serving.serving_input_spec(cfg, 1)
+    spec = serving.serving_input_spec(cfg, 1, model)
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), *(jnp.zeros(s, jnp.float32 if d == torch.float32 else jnp.int32)
                                  for s, d in spec.values()), train=False))

@@ -473,15 +473,12 @@ def test_kernel_wrappers_enter_the_device_of_their_tensors(name, monkeypatch):
     cuda_lib.launches.clear()
 
 
-@pytest.mark.parametrize("name", ["rotated_iou", "nms"])
-def test_iou_and_nms_count_launches_by_k(name, monkeypatch):
-    """The rotated self-IoU and the NMS walk count each launch once in
-    ``launches`` and once more in ``launches_by_k`` under ``<name>_k<K>``, K
-    the candidates a frame of the call.  Without a card: fake tensors on
-    ``cuda:0``, the kernel library stubbed."""
+@pytest.fixture
+def stub_kernels(monkeypatch):
+    """The wrappers run without a card: the kernel library, the device
+    guard, the stream and the pointers stubbed, for fake tensors on
+    ``cuda:0``."""
     import contextlib
-
-    from torch._subclasses.fake_tensor import FakeTensorMode
 
     class StubLib:
         def __getattr__(self, symbol):
@@ -493,7 +490,18 @@ def test_iou_and_nms_count_launches_by_k(name, monkeypatch):
     monkeypatch.setattr(cuda_lib, "ptr", lambda t: None)
     monkeypatch.setattr(torch.Tensor, "contiguous", lambda t: t if t.is_contiguous() else
                         t.clone(memory_format=torch.contiguous_format))
-    dev = torch.device("cuda", 0)
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("name", ["rotated_iou", "nms"])
+def test_iou_and_nms_count_launches_by_k(name, stub_kernels):
+    """The rotated self-IoU and the NMS walk count each launch once in
+    ``launches`` and once more in ``launches_by_k`` under ``<name>_k<K>``, K
+    the candidates a frame of the call.  Without a card: fake tensors on
+    ``cuda:0``, the kernel library stubbed."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    dev = stub_kernels
     cuda_lib.launches.clear()
     cuda_lib.launches_by_k.clear()
     with FakeTensorMode():
@@ -508,3 +516,26 @@ def test_iou_and_nms_count_launches_by_k(name, monkeypatch):
     assert dict(cuda_lib.launches_by_k) == {f"{name}_k8": 1, f"{name}_k100": 2}
     cuda_lib.launches.clear()
     cuda_lib.launches_by_k.clear()
+
+
+def test_ball_query_counts_launches_by_site(stub_kernels):
+    """The ball query counts each launch once in ``launches`` and, where its
+    caller names a site, once more in ``launches_by_site`` under
+    ``ball_query_<site>``; the CPU's plain version counts nothing.  Without
+    a card: fake tensors on ``cuda:0``, the kernel library stubbed."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    dev = stub_kernels
+    cuda_lib.launches.clear()
+    cuda_lib.launches_by_site.clear()
+    with FakeTensorMode():
+        for site in ("x_conv1", "", "roi_grid_pool", "x_conv1"):
+            ball_query_multi_cuda((0.4, 0.8), (16, 16), torch.empty(1, 64, 3, device=dev),
+                                  torch.empty(1, 8, 3, device=dev), site=site)
+    xyz = torch.rand(1, 64, 3)
+    ball_query_multi((0.4,), (16,), xyz, xyz[:, :8], "x_conv2")  # the plain version
+    assert dict(cuda_lib.launches) == {"ball_query": 4}
+    assert dict(cuda_lib.launches_by_site) == {"ball_query_x_conv1": 2,
+                                               "ball_query_roi_grid_pool": 1}
+    cuda_lib.launches.clear()
+    cuda_lib.launches_by_site.clear()

@@ -473,7 +473,7 @@ def test_exported_program_equals_eager(pp_run, tmp_path):
         POINT_FEATURE_ENCODING={"used_feature_list": ["x", "y", "z", "intensity"]}))
     meta = serving.serving_meta(full, "tiny.yaml", batch, exported)
     assert meta["batch_size"] == B and set(meta["inputs"]) == set(batch)
-    assert serving.serving_input_spec(full, B) == {
+    assert serving.serving_input_spec(full, B, model) == {
         k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
     serving.save_serving(exported, path, meta)
     predict, _ = serving.load_serving(path)
@@ -502,7 +502,7 @@ def test_build_network_pointpillar_yaml_and_zoo_raises():
     jds = JDatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                            training=False, root_path=".")
     jmodel = j_build(JEasyDict(cfg.MODEL), num_class=3, dataset=jds)
-    spec = serving.serving_input_spec(cfg, 1)
+    spec = serving.serving_input_spec(cfg, 1, model)
     assert spec["voxels"][0] == (1, 40000, 32, 4)
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), *(jnp.zeros(s, jnp.float32 if d == torch.float32 else jnp.int32)
@@ -515,7 +515,7 @@ def test_build_network_pointpillar_yaml_and_zoo_raises():
     tensors = [*model.named_parameters(), *model.named_buffers()]
     assert [n for n, t in tensors if not t.is_contiguous()] == []
 
-    for name in ("PVRCNN", "PartA2Net", "PointRCNN", "CaDDN"):
+    for name in ("PartA2Free", "PartA2Net", "PointRCNN", "CaDDN"):
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             build_network(EasyDict(NAME=name), 3, device="cpu")
     for key, value in (("VFE", {"NAME": "DynamicPillarVFE"}),

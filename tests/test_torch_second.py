@@ -58,6 +58,7 @@ from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
 from pdanet_tpu_torch.models import build_network
 from pdanet_tpu_torch.models.backbones_3d import sparse_backbone as sb
 from pdanet_tpu_torch.models.backbones_3d.vfe.mean_vfe import MeanVFE
+from pdanet_tpu_torch.models.detectors import __all__ as detectors
 from pdanet_tpu_torch.models.detectors import get_post_processor
 from pdanet_tpu_torch.ops import sparse_conv as sc
 from pdanet_tpu_torch.utils.easydict import EasyDict
@@ -473,7 +474,7 @@ def test_second_exported_program_equals_eager(batch, second_run, tmp_path):
         DATA_PROCESSOR=[EasyDict(NAME="transform_points_to_voxels", VOXEL_SIZE=list(VOXEL),
                                  MAX_POINTS_PER_VOXEL=P, MAX_NUMBER_OF_VOXELS=V)],
         POINT_FEATURE_ENCODING={"used_feature_list": ["x", "y", "z", "intensity"]}))
-    assert serving.serving_input_spec(full, B) == {
+    assert serving.serving_input_spec(full, B, model) == {
         k: (tuple(v.shape), v.dtype) for k, v in dev_batch.items()}
     serving.save_serving(exported, path, serving.serving_meta(full, "tiny.yaml", dev_batch,
                                                               exported))
@@ -504,7 +505,7 @@ def test_build_network_second_yaml_and_unported_raise():
     jds = JDatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                            training=False, root_path=".")
     jmodel = j_build(JEasyDict(cfg.MODEL), num_class=3, dataset=jds)
-    spec = serving.serving_input_spec(cfg, 1)
+    spec = serving.serving_input_spec(cfg, 1, model)
     assert spec["voxels"][0] == (1, 40000, 5, 4)
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), *(jnp.zeros(s, jnp.float32 if d == torch.float32 else jnp.int32)
@@ -520,14 +521,15 @@ def test_build_network_second_yaml_and_unported_raise():
     assert [n for n, t in tensors if not t.is_contiguous()] == []
 
     # the serving example on the 90 M-cell grid: distinct, clustered cells
-    example = serving.example_device_batch(cfg, 1, "cpu")
+    example = serving.example_device_batch(cfg, serving.serving_input_spec(cfg, 1, model), "cpu")
     coords = example["voxel_coords"]
     assert len(np.unique(coords[0].numpy(), axis=0)) == 40000 and (coords >= 0).all()
     grids, _ = sc.stage_grids(model.grid_size)
     tab = sc.build_neighbor_table(coords, grids[0])
     assert ((tab >= 0).sum(dim=-1) > 1).float().mean() > 0.5
     pp_cfg = cfg_from_yaml_file(str(REPO / "tools" / "cfgs" / "kitti_models" / "pointpillar.yaml"))
-    pp = serving.example_device_batch(pp_cfg, 2, "cpu", seed=4)["voxel_coords"].numpy()
+    pp_spec = serving.serving_input_spec(pp_cfg, 2, detectors["PointPillar"])  # the class's keys
+    pp = serving.example_device_batch(pp_cfg, pp_spec, "cpu", seed=4)["voxel_coords"].numpy()
     rs = np.random.RandomState(4)
     rs.uniform(size=(2, 40000, 32, 3))  # the voxels' draw comes first
     cells = np.stack([rs.choice(432 * 496, 40000, replace=False) for _ in range(2)])

@@ -678,7 +678,7 @@ def test_build_network_voxel_rcnn_yaml():
     jds = JDatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                            training=False, root_path=".")
     jmodel = j_build(JEasyDict(cfg.MODEL), num_class=1, dataset=jds)
-    spec = serving.serving_input_spec(cfg, 1)
+    spec = serving.serving_input_spec(cfg, 1, model)
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), *(jnp.zeros(s, jnp.float32 if d == torch.float32 else jnp.int32)
                                  for s, d in spec.values()), train=False))
@@ -694,7 +694,7 @@ def test_build_network_voxel_rcnn_yaml():
 
     assert get_post_processor("VoxelRCNN") is voxel_rcnn.post_processing
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        get_post_processor("PVRCNN")
+        get_post_processor("PartA2Net")
     # the dense-grid pool goes with the dense backbone: neither is ported
     dense = EasyDict(vrcnn_cfg())
     dense.BACKBONE_3D = EasyDict(dense.BACKBONE_3D, NAME="VoxelBackBone8x")
