@@ -167,10 +167,10 @@ Phases, each of which raises on failure:
    the evaluation) and ``dist_test.sh`` on its checkpoint: the process
    group's backend NCCL (from the rank-0 log), one checkpoint, finite
    losses, both merged evaluations holding every val frame in order; the
-   NCCL version and the iteration times beside phase 9's; then, in a
-   fresh process, the B = 4 bfloat16 step with the loader idle in three
-   turns -- no process group, NCCL's world 1, none -- with a device split
-   of each mode.  (b) Two ranks sharing the card through Gloo (each a
+   NCCL version and the iteration times beside phase 9's (both scripts in
+   the tail); in a fresh process, the B = 4 bfloat16 step with the loader
+   idle in three turns -- no process group, NCCL's world 1, none -- with a
+   device split of each mode.  (b) Two ranks sharing the card through Gloo (each a
    fresh ``python3``), one LiDAR-like frame each, against one process at
    B = 2 on the same frames: a float32 data-parallel step (the ranks'
    state bit-equal after it), a float64 step with the one process's
@@ -190,8 +190,8 @@ Phases, each of which raises on failure:
    (phase 9's generator) through the yaml's processors and the host
    voxelizer at the test budget; three b1 requests and one b2 through
    ``serving.make_predict_fn``, the IoU and NMS kernels launched at K =
-   NMS_PRE_MAXSIZE = 4096; a b1 request's device split, and its latency
-   with TF32 on in cuDNN and cuBLAS beside it (a report); one frame on the card
+   NMS_PRE_MAXSIZE = 4096; a b1 request's device split (its latency with
+   TF32 on beside it in phase 13 and SECOND-IoU's); one frame on the card
    against the CPU (plain versions): logits within 2e-3, boxes within
    1e-3 of max(1, |value|) with headings compared modulo the direction
    bins' period (an anchor may turn by pi only where its two bin logits,
@@ -205,7 +205,7 @@ Phases, each of which raises on failure:
    1e-8 of their scale, statistics within 1e-10).  (c) The yaml through
    the train CLI (one epoch of the first 8 of phase 9's 32 train frames at
    B = 4, augmentor and all) and the test CLI with the official KITTI
-   evaluation; ``dist_train.sh`` at world 1 over NCCL beside (d).
+   evaluation; ``dist_train.sh`` at world 1 over NCCL (in the tail).
    (d) The b1 program through
    ``serving.export_serving`` and ``save_serving``, reloaded by
    ``load_serving`` in a fresh process (torch and the port's ops and
@@ -266,8 +266,7 @@ Phases, each of which raises on failure:
    512 -> 128 sampled a frame to train; a 7 x 7 BEV pool over 512
    channels, 256-wide FC stacks), seeded weights with the box conv scaled
    by 0.01, float32, TF32 off, on phase 9's frames.  (a) As phase 14, with
-   each request's peak memory, the b1 request in NCDHW against
-   channels-last-3d in turns, the dense ladder alone under CUDA events
+   each request's peak memory, the dense ladder alone under CUDA events
    beside its 3-D convolutions' operations and bound, its device split by
    full kernel name; one frame card vs CPU on ``DENSE_CROP`` (first-stage
    maps within 2e-3), then at full width on the card's inputs: the
@@ -342,9 +341,45 @@ Phases, each of which raises on failure:
    SPC-collapsed cloud and on the raw cloud with all but 1024 points
    collapsed onto its first point, against the plain version.
 
-In phases 12-14, 16 and 17, ``dist_train.sh`` runs in the background while
-(d) exports and reloads the program, and is checked before (e) times the
-kernels.
+18. Part-A2 and Part-A2-free: tools/cfgs/kitti_models/PartA2.yaml at full
+   width (SECOND's grid and voxels, the sparse UNetV2: the sparse ladder,
+   its encoded BEV map of 256 channels, the decoder's UR blocks and inverse
+   convs back to the input voxels; the intra-part head on the 16-channel
+   voxel features; 211200 anchors of three classes; the proposal layer at
+   K 1024 / 9000 into 100 / 512 RoIs, 128 sampled a frame; the RoI-aware
+   pool of the voxels into 12 x 12 x 12 cells, four masked 3-D convs, the
+   256-wide FC stacks; the final NMS at K 100), then
+   tools/cfgs/kitti_models/PartA2_free.yaml (MODEL.NAME PointRCNN, which
+   the port resolves to ``PartA2Free``: the sparse UNet without the BEV
+   map, the intra-part head's per-voxel boxes as the proposals at K 9000
+   to serve and to train, the pool of the voxel centres with
+   ``DISABLE_PART``), seeded weights with the box conv (Part-A2-free: the
+   point head's box layer) scaled as in phase 14, float32, TF32 off.  (a)
+   Serving as phase 13; one frame on the card against the CPU
+   (``parta2_card_vs_cpu``): the UNet's voxel features and the point
+   head's outputs of the CPU's own first stage within
+   ``PARTA2_STAGE_TOL`` of max(1, |value|), Part-A2's anchor logits
+   within 2e-3; then on the card's inputs the proposals equal, the
+   voxels' cells in each RoI equal but for ``PARTA2_CELL_FLIPS`` and the
+   pooled grids within the gate at the cells those leave untouched, the RoI
+   head's outputs on the card's pooled grids (the proposals' and the gt
+   boxes') within the gate (the same stages with TF32 on, the control,
+   must exceed it), the detections paired box for box.  (b) 2 float32
+   steps at the yaml's B = 4 (gt planted on the proposals), then the
+   float64 step at B = 1 card vs CPU on ``DENSE_CROP``.  (c) The train and
+   test CLIs on a root of their own (``PARTA2_CLI_SPLITS``: 2 train and 2
+   val frames) and ``dist_train.sh`` on it; the export CLI is phase 15a's
+   (``VOXEL_DEPTH``).  (d)
+   Export.  (e) The IoU and the NMS at K 9000, 1024 and 100 (Part-A2-free:
+   9000 and 100).
+
+The script ends in a tail, run once every phase has measured, so that
+nothing else runs on the card beside a measurement: phases 12-18's b1
+programs are exported (d) one after the other, and one fresh process
+reloads each as it is saved and holds it bit-equal to the eager closure's
+outputs on the same frame (saved in the phase), while phase 11's
+``dist_train.sh`` and ``dist_test.sh`` and the ``dist_train.sh`` runs of
+phases 12-14 and 16-18 (c, at B = 1) go, five processes at a time.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
@@ -372,7 +407,9 @@ phase's FPS launches) and ball query at each source
 (``ball_query_raw_points_pv_rcnn``, ``ball_query_x_conv1_pv_rcnn`` ...
 ``ball_query_roi_grid_pool_pv_rcnn``: the phase's ball-query launches
 at that site, ``cuda_lib.launches_by_site``) and PV-RCNN++'s FPS on the collapsed cloud
-(``fps_spc_pv_rcnn_pp``).  The line before it gives the script's seconds.
+(``fps_spc_pv_rcnn_pp``), and at phase 18's K 9000, 1024 and 100
+(``rotated_iou_k9000_part_a2`` ... ``nms_k100_part_a2_free``).  The line
+before it gives the script's seconds.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -387,6 +424,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -3177,9 +3215,8 @@ def cli_log(out_dir, kind):
 def dp_cli(work, kitti_run, world=1):
     """Phase 11 (a): the KITTI yaml through ``dist_train.sh`` and
     ``dist_test.sh`` on ``world`` GPUs (one process each, NCCL) on phase
-    9's root; at world 1 also the collectives' cost a step
-    (``dp_step_cost``).  Returns the kernel launches of rank 0's CLI
-    processes."""
+    9's root (at world 1 in the tail, ``run_tail``).  Returns the kernel
+    launches of rank 0's CLI processes."""
     import torch
 
     root, B, val_ids = kitti_run["root"], kitti_run["B"], kitti_run["val_ids"]
@@ -3219,16 +3256,17 @@ def dp_cli(work, kitti_run, world=1):
           f"B={B} a GPU and the evaluation): {train_s:.1f} s; losses "
           f"{[round(x, 4) for x in losses]}; ms per iteration {[round(t, 2) for t in step_ms]}, "
           f"median after the first {statistics.median(step_ms[1:] or step_ms):.2f} ms against "
-          f"{kitti_run['step_ms']:.2f} ms with --launcher none (phase 9, same root); rank 0's "
-          f"kernel launches {train_counts}")
+          f"{kitti_run['step_ms']:.2f} ms with --launcher none (phase 9, same root; at world 1 "
+          f"in the tail, beside other processes); rank 0's kernel launches {train_counts}")
     print(f"KITTI test CLI through dist_test.sh (world {world}, NCCL, B=1 a GPU): {test_s:.1f} "
           f"s, the merged eval covers {len(val_ids)} val frames; rank 0's kernel launches "
           f"{test_counts}")
-    if world > 1:
-        return {k: train_counts.get(k, 0) + test_counts.get(k, 0)
-                for k in set(train_counts) | set(test_counts)}
+    return add_launches(train_counts, test_counts)
 
-    # the collectives' cost a step: the same step with and without the group
+
+def dp_step_report(B):
+    """Phase 11 (a) at world 1: the collectives' cost a KITTI step at B, the
+    same step with and without the group (``DP_STEP``, a fresh process)."""
     res = subprocess.run([sys.executable, "-c", DP_STEP.format(
         root=str(ROOT), reps=DP_STEP_REPS, turns=DP_STEP_TURNS)],
                          cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -3241,8 +3279,6 @@ def dp_cli(work, kitti_run, world=1):
           f"{DP_STEP_REPS}): " + "; ".join(
               f"{kind} {[round(t, 2) for t in times]} (median {statistics.median(times):.2f})"
               for kind, times in turns))
-    return {k: train_counts.get(k, 0) + test_counts.get(k, 0)
-            for k in set(train_counts) | set(test_counts)}
 
 
 def host_ops(fn, top=8):
@@ -3596,12 +3632,15 @@ def check_off_device(dev):
 
 
 def dp_phase(dev, work_dir, kitti_run, cfg, weights, world=1):
-    """Phase 11: data parallel.  (a) the CLIs over NCCL on ``world`` GPUs,
-    (b) ranks of one frame each against one process.  Returns the kernel
-    launches of every run, counted from 0."""
-    cli = dp_cli(work_dir, kitti_run, world)
-    ranks = dp_ranks(dev, cfg, weights, work_dir, world)
-    return {k: cli.get(k, 0) + ranks.get(k, 0) for k in set(cli) | set(ranks)}
+    """Phase 11: data parallel.  (a) at world 1 the collectives' cost a step
+    (the CLIs over NCCL, ``dp_cli``, run in the tail); on ``world`` GPUs
+    the CLIs, (b) ranks of one frame each against one process.  Returns the
+    kernel launches of every run, counted from 0."""
+    if world == 1:
+        dp_step_report(kitti_run["B"])
+        return dp_ranks(dev, cfg, weights, work_dir, world)
+    return add_launches(dp_cli(work_dir, kitti_run, world),
+                        dp_ranks(dev, cfg, weights, work_dir, world))
 
 
 # ---------------------------------------------------------------------------
@@ -3617,6 +3656,12 @@ CENTERPOINT_CFG_REL = "cfgs/kitti_models/centerpoint.yaml"
 PV_CFG_REL = "cfgs/kitti_models/pv_rcnn.yaml"
 PVPP_CFG_REL = "cfgs/kitti_models/pv_rcnn_plusplus.yaml"
 PV_NAMES = ("PVRCNN", "PVRCNNPlusPlus")
+PARTA2_CFG_REL = "cfgs/kitti_models/PartA2.yaml"
+PARTA2_FREE_CFG_REL = "cfgs/kitti_models/PartA2_free.yaml"
+# phase 18's CLIs and dist_train.sh train on a root of their own: a Part-A2
+# step takes ~1 s, phase 9's 8 CLI frames would give 2 steps of B = 4 a run
+PARTA2_CLI_SPLITS = (("train", 2), ("val", 2))
+PARTA2_CLI_BATCH = 2
 AUG_CFG_RELS = ("cfgs/kitti_models/pointpillar_newaugs.yaml",
                 "cfgs/kitti_models/pointpillar_pyramid_aug.yaml")
 # phase 16's augmentor yamls train on a root of their own: 8 train frames,
@@ -3628,10 +3673,13 @@ VOXEL_PHASES = {12: (PP_CFG_REL, "PointPillar", 1200), 13: (SECOND_CFG_REL, "SEC
                 "15a": (SECOND_IOU_CFG_REL, "SECOND-IoU", 1500),
                 "15b": (MULTIHEAD_CFG_REL, "SECOND-multihead", 1500),
                 16: (CENTERPOINT_CFG_REL, "CenterPoint", 1600),
-                17: (PV_CFG_REL, "PV-RCNN", 1700), "17b": (PVPP_CFG_REL, "PV-RCNN++", 1700)}
+                17: (PV_CFG_REL, "PV-RCNN", 1700), "17b": (PVPP_CFG_REL, "PV-RCNN++", 1700),
+                "18a": (PARTA2_CFG_REL, "Part-A2", 1800),
+                "18b": (PARTA2_FREE_CFG_REL, "Part-A2-free", 1800)}
 # the suffix of a phase's rows in the kernels line
 VOXEL_SUFFIX = {12: "", 13: "_second", 14: "_voxel_rcnn", "15a": "_second_iou",
-                "15b": "_multihead", 16: "_centerpoint", 17: "_pv_rcnn", "17b": "_pv_rcnn_pp"}
+                "15b": "_multihead", 16: "_centerpoint", 17: "_pv_rcnn", "17b": "_pv_rcnn_pp",
+                "18a": "_part_a2", "18b": "_part_a2_free"}
 VOXEL_SERVE_FRAMES = 5  # three b1 requests and one b2
 VOXEL_TRAIN_STEPS = 5
 VOXEL_LATENCY_REPS = 10
@@ -3657,25 +3705,43 @@ CLI_TRAIN_FRAMES = 8
 # and 17 have no TF32 turns (phase 13 times the same BEV convolution with
 # TF32 on); phases 13, 14 and 17 take no device split of a train step
 # (both were read on the card: SECOND's is the BEV FFT's backward);
-# phases 12-14, 16 and 17 run dist_train.sh beside (d).  Cut with phase 17:
+# phases 12-14, 16 and 17 run dist_train.sh.  Cut with phase 17:
 # SECOND-IoU and the multi-head take 1 step (were 2), the dense CLI root 1
 # train frame (was 2), and the CLIs and dist_train.sh of phases 12-14, 16
 # and 17 train over ``CLI_TRAIN_FRAMES`` of phase 9's 32 train frames,
 # phases 12-14 and 16 take 2 steps (were 3), the TF32 latency one turn
 # each way (was two), (e) one plain call a median at K 4096 and more;
-# PV-RCNN takes 2 steps, PV-RCNN++ 1 and one b1 request, no CLIs
-VOXEL_DEPTH = {12: dict(latency_reps=3, train_steps=2),
+# PV-RCNN takes 2 steps, PV-RCNN++ 1 and one b1 request, no CLIs.  With
+# phase 18: the programs' fresh processes and dist_train.sh leave (d) for
+# the tail (``run_tail``: one fresh process for every program, dist_train.sh
+# at B = 1, four at a time, beside phase 11's dist_train.sh and
+# dist_test.sh); Part-A2 and Part-A2-free take 2 steps and their float64
+# step on ``DENSE_CROP`` (the CPU's took 19-27 s a yaml at full width),
+# their CLIs a root of 2 + 2 frames at B = 2, without the export CLI
+# (SECOND-IoU's runs it: with it in both the script read 1211.2 s on an
+# H100 host that ran phases 10, 11 and 17 25-53 % slower than another's,
+# where it read 1003.7 s without them); no TF32 turns in 12 and 14 (both
+# read equal to TF32 off), nor SECOND-IoU's layout turn (NCDHW against
+# channels-last-3d: NCDHW was the faster)
+VOXEL_DEPTH = {12: dict(latency_reps=3, train_steps=2, tf32=False),
                13: dict(latency_reps=3, train_steps=2, train_split=False),
-               14: dict(latency_reps=3, train_steps=2, train_split=False),
+               14: dict(latency_reps=3, train_steps=2, train_split=False, tf32=False),
                "15a": dict(latency_reps=3, train_steps=1, batch_size=1, crop=DENSE_CROP,
-                           cli="export", train_split=False),
+                           cli_root=DENSE_CLI_SPLITS, cli_export=True, dist_train=False,
+                           layout=False, train_split=False),
                "15b": dict(latency_reps=3, train_steps=1, batch_size=1, crop=DENSE_CROP,
-                           serve_requests=1, cli=None, layout=False, train_split=False,
+                           serve_requests=1, cli=False, layout=False, train_split=False,
                            tf32=False),
                16: dict(latency_reps=3, train_steps=2, tf32=False),
                17: dict(latency_reps=3, train_steps=2, train_split=False, tf32=False),
-               "17b": dict(latency_reps=3, train_steps=1, serve_requests=1, cli=None,
-                           tf32=False, train_split=False, iou_rows=False)}
+               "17b": dict(latency_reps=3, train_steps=1, serve_requests=1, cli=False,
+                           tf32=False, train_split=False, iou_rows=False),
+               "18a": dict(latency_reps=3, train_steps=2, train_split=False, tf32=False,
+                           crop=DENSE_CROP, cli_root=PARTA2_CLI_SPLITS,
+                           cli_batch=PARTA2_CLI_BATCH),
+               "18b": dict(latency_reps=3, train_steps=2, train_split=False, tf32=False,
+                           crop=DENSE_CROP, cli_root=PARTA2_CLI_SPLITS,
+                           cli_batch=PARTA2_CLI_BATCH)}
 VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
 # PV-RCNN's float32 keypoint features (each source's, fused), point scores
 # and RCNN outputs, card against CPU, the CPU run on the card's inputs, of
@@ -3683,6 +3749,17 @@ VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
 # 1.91e-06, rcnn_reg) with TF32 off; the control, the card's stages with
 # TF32 on, 4.68e-05 to 8.47e-04 (PV-RCNN++ 1.11e-05 to 2.47e-03)
 PV_STAGE_TOL = 1e-5
+# Part-A2's float32 stages, card against CPU, of max(1, |value|): the UNet's
+# voxel features and the point head's outputs of each device's own first
+# stage, the RoI head's outputs on the card's pooled grids; the control, the
+# card's stages with TF32 on, must exceed it
+PARTA2_STAGE_TOL = 1e-5
+# (RoI, voxel) cell assignments of the RoI-aware pool that may differ card
+# against CPU on the card's inputs: a voxel centre within a float32 ulp of
+# a cell's border or of the box's side rounds to either side; the pooled
+# grids are held to PARTA2_STAGE_TOL at every cell that no flipped pair
+# leaves or enters
+PARTA2_CELL_FLIPS = 2
 # a two-stage model's seeded box conv is scaled by this: the seeded weights
 # decode boxes millimetres thin and tens of metres from their anchors,
 # whose IoU with any box is ~0 (no proposal suppressed, no foreground RoI,
@@ -3704,27 +3781,40 @@ PLANTED_GT = 2  # gt boxes planted on each training frame's proposals (two-stage
 SPARSE_LEVELS = ("x_conv1", "x_conv2", "x_conv3", "x_conv4", "conv_out")
 KITTI_MEAN_SIZES = {"Car": (3.9, 1.6, 1.56), "Pedestrian": (0.8, 0.6, 1.73),
                     "Cyclist": (1.76, 0.6, 1.73)}  # phase 9's frames, all three classes
-# the fresh process that reloads a saved voxel program: it imports torch and
-# the port's ops and serving modules only, and computes float32 as this
-# process does (TF32 off); argv: program, batch file, output
+# the fresh process that reloads the saved voxel programs: it imports torch
+# and the port's ops and serving modules only, and computes float32 as this
+# process does (TF32 off); stdin: a JSON line (program, batch file, output)
+# a program, as each is saved; one JSON line a program (its request's
+# launches), then the modules it imported
 RELOAD_VOXELS = """
-import json, sys
+import json, sys, time
 import torch
 torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets them here
 torch.backends.cudnn.allow_tf32 = False
 from pdanet_tpu_torch.ops import cuda_lib
 from pdanet_tpu_torch.serving import load_serving
-predict, _ = load_serving(sys.argv[1])
-batch = torch.load(sys.argv[2])
-cuda_lib.launches.clear()
-cuda_lib.launches_by_k.clear()
-cuda_lib.launches_by_site.clear()
-res = {k: v.cpu() for k, v in predict(batch).items()}
-torch.save(res, sys.argv[3])
-print(json.dumps({"launches": {**cuda_lib.launches, **cuda_lib.launches_by_k,
-                               **cuda_lib.launches_by_site}, "modules": sorted(
-    m for m in sys.modules if m.startswith("pdanet_tpu_torch"))}))
+for line in sys.stdin:
+    program, batch, out = json.loads(line)
+    t0 = time.perf_counter()
+    predict, _ = load_serving(program)
+    batch = torch.load(batch)
+    cuda_lib.launches.clear()
+    cuda_lib.launches_by_k.clear()
+    cuda_lib.launches_by_site.clear()
+    torch.save({k: v.cpu() for k, v in predict(batch).items()}, out)
+    del predict, batch
+    torch.cuda.empty_cache()
+    print(json.dumps({"launches": {**cuda_lib.launches, **cuda_lib.launches_by_k,
+                                   **cuda_lib.launches_by_site},
+                      "seconds": time.perf_counter() - t0}), flush=True)
+print(json.dumps({"modules": sorted(m for m in sys.modules
+                                    if m.startswith("pdanet_tpu_torch"))}))
 """
+# the tail's processes at once (``run_tail``, which prints the card's peak
+# memory in use while they run): the programs' fresh process, phase 11's
+# dist_train.sh / dist_test.sh and four of the voxel phases' dist_train.sh
+# runs at B = 1
+TAIL_WORKERS = 6
 
 
 def clear_launches():
@@ -3958,7 +4048,7 @@ def kernel_candidates(cfg, out, served):
         rows.append((boxes, valid, float(nms_cfg.NMS_THRESH),
                      f"frame 0's {split} proposal candidates of "
                      f"{out['batch_cls_preds'].shape[1]} anchors", False))
-    if cfg.MODEL.NAME in PV_NAMES:  # the final NMS of request 0's refined RoIs
+    if cfg.MODEL.NAME in PV_NAMES or is_parta2(cfg):  # the final NMS of the refined RoIs
         K = min(int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE),
                 int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE))
         i = next(i for i, b in enumerate(served.boxes) if b.shape[:2] == (1, K))
@@ -4641,6 +4731,164 @@ def pv_stage_gaps(source_channels, got, want):
     return gaps
 
 
+def is_parta2(cfg):
+    """Whether the yaml's model is Part-A2 or Part-A2-free (MODEL.NAME
+    PointRCNN over a UNet)."""
+    from pdanet_tpu_torch.models.detectors import resolve_detector_name
+
+    return resolve_detector_name(cfg.MODEL) in ("PartA2Net", "PartA2Free")
+
+
+def parta2_card_vs_cpu(cfg, model, weights, template, requests, results, label, gt):
+    """Phase 18 (a): request 0's frame on the card against the CPU's plain
+    path.  The first stage whole on each device: the UNet's voxel features
+    and the point head's outputs within ``PARTA2_STAGE_TOL`` of max(1,
+    |value|), Part-A2's anchor logits within 2e-3.  Then each stage on the
+    card's own inputs, so that a float32 difference upstream moves no
+    index: the proposal layer on the card's first stage (keep mask and RoIs
+    equal; its plain IoU on the card), the RoI-aware pool's cell of each
+    voxel in each RoI (equal but for ``PARTA2_CELL_FLIPS``) and its pooled
+    grids (within the gate at every cell that no flipped pair touches), the RoI head's convs and FC stacks on the card's pooled grids,
+    on the proposals and on RoIs placed on the frame's gt boxes ``gt`` (1,
+    M, 8) (``rcnn_cls`` / ``rcnn_reg`` within the gate), the refined boxes'
+    post-processing (the detections paired box for box with the card's
+    request).  The control: the card's first stage and RoI head with TF32
+    on, on the same inputs, must exceed the gate.  Returns the card's first
+    stage."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.detectors.voxel_rcnn import post_processing
+    from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
+    from pdanet_tpu_torch.ops.roi_pool import roi_point_cells
+
+    b1 = requests[0]
+    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+    gt_rois = gt[:, gt[0, :, 7] > 0, :7].contiguous()
+    first_keys = ["seg_features", "point_cls_preds", "point_part_preds"]
+    if "POINT_HEAD" in cfg.MODEL and cfg.MODEL.POINT_HEAD.TARGET_CONFIG.get("BOX_CODER"):
+        first_keys.append("point_box_preds")
+
+    def roi_inputs(first):
+        return (first["point_coords"], first["seg_features"],
+                torch.sigmoid(first["point_part_preds"]), first["point_cls_scores"],
+                first["point_valid"])
+
+    def second(head, inputs, rois_list, pooled=None):
+        """The pooled grids of the RoI head's ``inputs`` (or ``pooled``, given)
+        and its outputs on each of ``rois_list``."""
+        pooled = pooled or [head.pool(*inputs, r) for r in rois_list]
+        return pooled, [head.refine_pooled(*p, r.shape[1]) for p, r in zip(pooled, rois_list)]
+
+    def gap(g, w):
+        return ((g.cpu() - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
+
+    def gaps(got, want):
+        out = {k: gap(got[0][k], want[0][k]) for k in first_keys}
+        for what, (g, w) in zip(("proposals", "gt boxes"), zip(got[1], want[1])):
+            out[f"rcnn_cls on the {what}"] = gap(g[0], w[0])
+            out[f"rcnn_reg on the {what}"] = gap(g[1], w[1])
+        return out
+
+    with torch.inference_mode():
+        with RecordIoUShapes() as rec_card:
+            out_card = model.forward_batch(b1)
+        first_card = model.first_stage(b1["voxels"], b1["voxel_coords"], b1["voxel_num_points"])
+        rois = [out_card["rois"], gt_rois]
+        inputs_card = roi_inputs(first_card)
+        pooled_card, rcnn_card = second(model.roi_head, inputs_card, rois)
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device="cpu")
+    cpu_model.load_state_dict(weights)
+    cpu_model.eval()
+    cpu_b1 = {k: v.cpu() for k, v in b1.items()}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        first_cpu = cpu_model.first_stage(cpu_b1["voxels"], cpu_b1["voxel_coords"],
+                                          cpu_b1["voxel_num_points"])
+    cpu_s = time.perf_counter() - t0
+    logit_err = 0.0
+    if "cls_preds" in first_cpu:  # Part-A2's anchor head
+        logit_err = (first_card["cls_preds"].cpu() - first_cpu["cls_preds"]).abs().max().item()
+    require(logit_err <= 2e-3, f"{label} anchor logits card vs CPU {logit_err} > 2e-3")
+    dev = b1["voxels"].device
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        with plain_iou_on(dev), RecordIoUShapes() as rec_fed:
+            props = RHT.proposal_layer(first_card["batch_cls_preds"].cpu(),
+                                       first_card["batch_box_preds"].cpu(), nms_cfg)
+        require(torch.equal(rec_fed.keeps[0], rec_card.keeps[0].cpu()),
+                f"{label} proposal keep mask card vs CPU (the card's first stage fed)")
+        for key in ("rois", "roi_labels", "roi_valid"):
+            require(torch.equal(props[key], out_card[key].cpu()),
+                    f"{label} proposals: {key} card vs CPU (the card's first stage fed)")
+        inputs_cpu = [t.cpu() for t in inputs_card]
+        g = (cpu_model.roi_head.grid,) * 3
+        flips, in_box, untouched = [], [], []
+        for r in rois:
+            cells_card = roi_point_cells(r, inputs_card[0], g, inputs_card[4]).cpu()
+            cells_cpu = roi_point_cells(r.cpu(), inputs_cpu[0], g, inputs_cpu[4])
+            n_cells = r.shape[0] * r.shape[1] * int(np.prod(g))
+            flipped = cells_card != cells_cpu
+            flips.append(int(flipped.sum()))
+            in_box.append(int((cells_cpu < n_cells).sum()))
+            # the cells a flipped (RoI, voxel) pair leaves or enters differ by
+            # right; every other cell is held to the gate
+            keep = torch.ones(n_cells + 1, dtype=torch.bool)
+            keep[torch.cat([cells_card[flipped], cells_cpu[flipped]])] = False
+            untouched.append(keep[:n_cells])
+        pooled_cpu, _ = second(cpu_model.roi_head, inputs_cpu, [r.cpu() for r in rois])
+        cell_rows = lambda p: p.permute(0, 2, 3, 4, 1).reshape(-1, p.shape[1])  # noqa: E731
+        pool_err = max(gap(cell_rows(pg)[keep.to(pg.device)], cell_rows(pc)[keep])
+                       for p_c, p_g, keep in zip(pooled_cpu, pooled_card, untouched)
+                       for pc, pg in zip(p_c, p_g))
+        _, rcnn_cpu = second(cpu_model.roi_head, None, [r.cpu() for r in rois],
+                             [tuple(t.cpu() for t in p) for p in pooled_card])
+        errs = gaps((first_card, rcnn_card), (first_cpu, rcnn_cpu))
+        occupied = [float((p[0] != 0).any(dim=1).float().mean()) for p in pooled_card]
+        fed = {"batch_cls_preds": rcnn_cpu[0][0], "roi_labels": props["roi_labels"],
+               "roi_valid": props["roi_valid"],
+               "batch_box_preds": RHT.decode_roi_boxes(props["rois"], rcnn_cpu[0][1],
+                                                       cpu_model.roi_box_coder)}
+        post_cpu = post_processing(fed, cfg.MODEL)
+    stage_s = time.perf_counter() - t0
+    with torch.inference_mode(), tf32_on():
+        first_tf32 = model.first_stage(b1["voxels"], b1["voxel_coords"], b1["voxel_num_points"])
+        _, rcnn_tf32 = second(model.roi_head, None, rois, pooled_card)
+    control_errs = gaps((first_tf32, rcnn_tf32), (first_cpu, rcnn_cpu))
+    kept = rec_card.keeps[0].sum(dim=1).tolist()
+    pairs, n_g, n_c, gap_c, gap_s = match_detections(results[0][2], post_cpu)
+    print(f"{label} float32 frame, card vs CPU (the first stage {cpu_s:.1f} s, the rest "
+          f"{stage_s:.1f} s on the CPU): anchor logits within {logit_err:.3g}; on the card's "
+          f"inputs: the proposal layer's keep mask (candidates kept {kept} of "
+          f"{rec_card.keeps[0].shape[1]}) and RoIs equal, {out_card['roi_valid'].sum().item()} "
+          f"RoIs; the pool's cells of the voxels in the proposals and in frame 0's "
+          f"{gt_rois.shape[1]} gt boxes: {flips} of {in_box} in-box (RoI, voxel) pairs in "
+          f"another cell, pooled grids within {pool_err:.3g} of max(1, |value|) at the cells "
+          f"no flipped pair touches, occupied "
+          f"cells {occupied}; "
+          f"detections {n_g} vs {n_c}, {pairs} paired (largest centre distance {gap_c:.3g} m, "
+          f"score {gap_s:.3g})")
+    for what, gaps_ in (("TF32 off", errs), ("TF32 on in cuDNN and cuBLAS, the control",
+                                             control_errs)):
+        over = sorted(k for k, v in gaps_.items() if not v <= PARTA2_STAGE_TOL)
+        print(f"{label} stages card vs CPU, {what}: largest differences of max(1, |value|) "
+              f"{ {k: float(f'{v:.3g}') for k, v in gaps_.items()} }; over PARTA2_STAGE_TOL "
+              f"{PARTA2_STAGE_TOL}: {over}")
+    require(max(flips) <= PARTA2_CELL_FLIPS, f"{label}: {flips} (RoI, voxel) pairs in another "
+            f"cell card vs CPU, more than {PARTA2_CELL_FLIPS}")
+    require(pool_err <= PARTA2_STAGE_TOL, f"{label} pooled grids card vs CPU at the cells no "
+            f"flipped pair touches: {pool_err} of max(1, |value|)")
+    require(min(occupied) > 0, f"{label}: a pool held no voxel {occupied}")
+    bad = {k: v for k, v in errs.items() if not v <= PARTA2_STAGE_TOL}
+    require(not bad, f"{label} first stage and RCNN outputs card vs CPU over "
+            f"{PARTA2_STAGE_TOL} of max(1, |value|): {bad}")
+    require(max(control_errs.values()) > PARTA2_STAGE_TOL, f"{label}: PARTA2_STAGE_TOL "
+            f"{PARTA2_STAGE_TOL} passes the control's stages (TF32 on) too: {control_errs}")
+    require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
+            f"{label} float32 detections card vs CPU not paired box for box")
+    return first_card
+
+
 @contextlib.contextmanager
 def tf32_on():
     """TF32 on in cuDNN and cuBLAS inside the block, off after it (as phase
@@ -4898,7 +5146,11 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
                                               device=dev), seed=0)
     if two_stage:
         with torch.no_grad():
-            model.dense_head.conv_box.weight.mul_(BOX_CONV_SCALE)
+            if hasattr(model, "dense_head"):
+                model.dense_head.conv_box.weight.mul_(BOX_CONV_SCALE)
+            else:  # Part-A2-free: the point head's boxes are the proposals
+                model.point_head.box_out.weight.mul_(BOX_CONV_SCALE)
+                model.point_head.box_out.bias.mul_(BOX_CONV_SCALE)
     elif cfg.MODEL.DENSE_HEAD.NAME == "CenterHead":
         seed_center_boxes(model, cfg.CLASS_NAMES)
     weights = copy.deepcopy(model.state_dict())
@@ -4988,6 +5240,9 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
         dense_report(model, predict, b1, label, latency_reps, depth.get("layout", True))
     if cfg.MODEL.NAME in PV_NAMES:
         out = pv_card_vs_cpu(cfg, model, weights, template, requests, results, label, gts[0])
+    elif is_parta2(cfg):
+        out = parta2_card_vs_cpu(cfg, model, weights, template, requests, results, label,
+                                 gts[0])
     elif two_stage and hasattr(model.roi_head, "pool"):
         roi_traffic(cfg, model, requests, rec.keeps, label)
         out = vrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label,
@@ -5012,9 +5267,12 @@ def plant_gt(cfg, model, batch, n):
     from pdanet_tpu_torch.models.detectors.second import SECOND
     from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
 
+    # SECOND's forward, or a Part-A2 model's first stage (Part-A2-free's
+    # proposals are its point head's boxes)
+    model.train()
+    first_stage = getattr(model, "first_stage", lambda *a: SECOND.forward(model, *a))
     with torch.no_grad():
-        first = SECOND.forward(model.train(), batch["voxels"], batch["voxel_coords"],
-                               batch["voxel_num_points"])
+        first = first_stage(batch["voxels"], batch["voxel_coords"], batch["voxel_num_points"])
         props = RHT.proposal_layer(first["batch_cls_preds"], first["batch_box_preds"],
                                    cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN)
     gt = batch["gt_boxes"]
@@ -5251,7 +5509,8 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     keeps_equal = len(k_g) == len(k_c) and all(map(torch.equal, k_g, k_c))
     pv_note = (f", the card's {len(picks['fps'])} FPS picks, {len(picks['ball'])} ball "
                f"queries and {len(picks['nn'])} three-NN searches" if picks["fps"] else "")
-    fed_note = (f", the CPU fed the plain IoU of the card's K {K_train} candidates{pv_note} and "
+    fed_note = (f", the CPU fed the plain IoU of the card's K {fed[0].shape[1]} candidates"
+                f"{pv_note} and "
                 f"the card's 3-D IoUs of the RoIs with the gt; proposal "
                 f"keep mask {'equal' if keeps_equal else 'different'}, foreground RoIs "
                 f"sampled {r_g} / {r_c}" if two_stage else "")
@@ -5351,90 +5610,171 @@ def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, export=False,
     return launches
 
 
-@contextlib.contextmanager
-def background_dist_train(work, kitti_run, cfg_rel, label, batch_size):
-    """Phases 12-14 and 16 (c): the yaml through ``dist_train.sh`` at world
-    1 over NCCL (the BatchNorms' global moments), one epoch of phase 9's
-    root at ``batch_size``, run while the ``with`` block runs and checked
-    when it ends (its losses, NCCL, rank 0's launches)."""
-    root = kitti_run["root"]
-    with DistScript("dist_train.sh", 1, [
-            "--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", str(batch_size),
-            "--num_epochs_to_eval", "0", "--extra_tag", "dp1",
-            "--set", "DATA_CONFIG.DATA_PATH", str(root), *kitti_run.get("set", ())],
-            work) as run:
-        yield
-        train_s = run.wait()
-    dp_out = Path(work) / "output" / "kitti_models" / Path(cfg_rel).stem / "dp1"
-    log, dp_counts = cli_log(dp_out, "train")
-    require("process group: backend nccl, world 1" in log,
-            f"{label} dist_train.sh: not NCCL at world 1")
-    dp_losses, dp_ms = [], []
-    for line in (dp_out / "tensorboard" / "metrics.jsonl").read_text().splitlines():
-        m = json.loads(line)
-        if m["tag"] == "train/loss":
-            dp_losses.append(m["value"])
-        elif m["tag"] == "meta_data/batch_time":
-            dp_ms.append(1e3 * m["value"])
-    steps = kitti_run["steps"] * kitti_run["B"] // batch_size
-    require(len(dp_losses) == steps and all(np.isfinite(dp_losses)),
-            f"{label} dist_train.sh losses {dp_losses}")
-    print(f"{label} train CLI through dist_train.sh (world 1, NCCL, beside (d)): {train_s:.1f} "
-          f"s; losses {[round(x, 4) for x in dp_losses]}; ms per iteration median after the "
-          f"first {statistics.median(dp_ms[1:] or dp_ms):.2f} ms; rank 0's launches {dp_counts}")
+def dist_train_chain(work, kitti_run, cfg_rel, label):
+    """Phases 12-14 and 16-18 (c) as a tail chain (``run_tail``): the yaml
+    through ``dist_train.sh`` at world 1 over NCCL (the BatchNorms' global
+    moments), one epoch of ``kitti_run``'s root at B = 1, so that several
+    such runs share the card; then checked: NCCL at world 1, finite
+    losses, one a step, rank 0's launches."""
+    def run():
+        with DistScript("dist_train.sh", 1, [
+                "--cfg_file", cfg_rel, "--epochs", "1", "--batch_size", "1",
+                "--num_epochs_to_eval", "0", "--extra_tag", "dp1",
+                "--set", "DATA_CONFIG.DATA_PATH", str(kitti_run["root"]),
+                *kitti_run.get("set", ())], work) as script:
+            train_s = script.wait()
+        dp_out = Path(work) / "output" / "kitti_models" / Path(cfg_rel).stem / "dp1"
+        log, dp_counts = cli_log(dp_out, "train")
+        require("process group: backend nccl, world 1" in log,
+                f"{label} dist_train.sh: not NCCL at world 1")
+        dp_losses, dp_ms = [], []
+        for line in (dp_out / "tensorboard" / "metrics.jsonl").read_text().splitlines():
+            m = json.loads(line)
+            if m["tag"] == "train/loss":
+                dp_losses.append(m["value"])
+            elif m["tag"] == "meta_data/batch_time":
+                dp_ms.append(1e3 * m["value"])
+        steps = kitti_run["steps"] * kitti_run["B"]
+        require(len(dp_losses) == steps and all(np.isfinite(dp_losses)),
+                f"{label} dist_train.sh losses {dp_losses}")
+        print(f"{label} train CLI through dist_train.sh (world 1, NCCL, in the tail): "
+              f"{train_s:.1f} s; losses {[round(x, 4) for x in dp_losses]}; ms per iteration "
+              f"median after the first {statistics.median(dp_ms[1:] or dp_ms):.2f} ms; rank "
+              f"0's launches {dp_counts}")
+    return label, run
 
 
-def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, label):
-    """Phases 12-14 (d): the b1 program through
-    ``serving.export_serving`` and ``save_serving``, reloaded by
-    ``load_serving`` in a fresh process (``RELOAD_VOXELS``: torch and the
-    port's ops and serving modules only) on a LiDAR-like frame, bit-equal
-    to the eager closure.  Returns the launches of the program's request
-    there."""
+def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, label,
+                 kernels):
+    """Phases 12-18 (d): the b1 batch and the eager closure's outputs on it
+    saved for the tail (``run_tail``).  Returns the export, run in the
+    tail: the b1 program of ``weights`` through ``serving.export_serving``
+    and ``save_serving``, returning the reload job (``reload_process``;
+    ``kernels``, the path's, must launch in the program)."""
     import torch
 
     from pdanet_tpu_torch import serving
     from pdanet_tpu_torch.models import build_network
 
-    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=dev)
-    model.load_state_dict(weights)
-    t0 = time.perf_counter()
-    exported = serving.export_serving(model, cfg.MODEL, serving.example_device_batch(
-        cfg, serving.serving_input_spec(cfg, 1, model), dev))
     stem = Path(work) / f"{Path(cfg_rel).stem}_b1"
-    path = stem.with_suffix(".pt2")
-    nbytes = serving.save_serving(exported, path, serving.serving_meta(
-        cfg, cfg_rel, b1, exported))
-    export_s = time.perf_counter() - t0
     torch.save(dict(b1), f"{stem}.batch.pt")
-    n_nodes = len(exported.graph.nodes)
-    del exported
-    torch.cuda.empty_cache()  # the fresh process needs the card's memory (a dense model ~25 GB)
+    torch.save({k: v.cpu() for k, v in model_predict(b1).items()}, f"{stem}.want.pt")
+    weights = {k: v.cpu() for k, v in weights.items()}
+
+    def export():
+        model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=dev)
+        model.load_state_dict(weights)
+        t0 = time.perf_counter()
+        exported = serving.export_serving(model, cfg.MODEL, serving.example_device_batch(
+            cfg, serving.serving_input_spec(cfg, 1, model), dev))
+        nbytes = serving.save_serving(exported, stem.with_suffix(".pt2"), serving.serving_meta(
+            cfg, cfg_rel, b1, exported))
+        print(f"{label} b1 export (in the tail): {time.perf_counter() - t0:.1f} s, "
+              f"{nbytes / 1e6:.2f} MB, {len(exported.graph.nodes)} graph nodes")
+        return dict(label=label, stem=str(stem), kernels=kernels)
+
+    return export
+
+
+def reload_process():
+    """The tail's fresh process (``RELOAD_VOXELS``: torch and the port's
+    ops and serving modules only), started before the programs are saved:
+    ``send(job)`` hands it a saved program (``voxel_export``'s job),
+    ``finish(jobs)`` ends its input, checks each program bit-equal to its
+    eager closure and its path's kernels launched, and returns each label's
+    launches.  Returns ``(process, send, finish)``."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", RELOAD_VOXELS, str(path), f"{stem}.batch.pt",
-                           f"{stem}.out.pt"], cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    require(proc.returncode == 0, f"{label} program's fresh process failed:\n"
-            f"{proc.stderr[-6000:]}")
-    reload_s = time.perf_counter() - t0
-    report = json.loads(proc.stdout.splitlines()[-1])
-    require(not any(m.split(".")[1] in ("models", "datasets", "train", "eval", "tools")
-                    for m in report["modules"] if "." in m),
-            f"the fresh process imported model code: {report['modules']}")
-    got = torch.load(f"{stem}.out.pt")
-    want = model_predict(b1)
-    for k in want:
-        require(torch.equal(got[k], want[k].cpu()), f"{label} program: {k} differs from the "
-                f"eager closure's")
-    launches = report["launches"]
-    print(f"{label} b1 export: {export_s:.1f} s, {nbytes / 1e6:.2f} MB, "
-          f"{n_nodes} graph nodes; reloaded in a fresh process "
-          f"({reload_s:.1f} s), bit-equal to the eager closure "
-          f"({int(got['pred_counts'][0])} detections), launches there {launches}")
-    for name in path_kernels(model):
-        require(launches.get(name, 0) > 0, f"kernel {name} never launched in the {label} "
-                f"program")
-    return launches
+    proc = subprocess.Popen([sys.executable, "-c", RELOAD_VOXELS], cwd=ROOT,
+                            stdin=subprocess.PIPE, stdout=out, stderr=err, text=True)
+
+    def send(job):
+        stem = job["stem"]
+        proc.stdin.write(json.dumps((f"{stem}.pt2", f"{stem}.batch.pt", f"{stem}.out.pt")) + "\n")
+        proc.stdin.flush()
+
+    def finish(jobs):
+        import torch
+
+        proc.stdin.close()
+        code = proc.wait(timeout=900)
+        err.seek(0)
+        require(code == 0, f"the programs' fresh process failed:\n{err.read()[-6000:]}")
+        out.seek(0)
+        *reports, modules = [json.loads(line) for line in out.read().splitlines()]
+        require(len(reports) == len(jobs), f"{len(reports)} reports for {len(jobs)} programs")
+        require(not any(m.split(".")[1] in ("models", "datasets", "train", "eval", "tools")
+                        for m in modules["modules"] if "." in m),
+                f"the fresh process imported model code: {modules['modules']}")
+        launches = {}
+        for job, report in zip(jobs, reports):
+            label = job["label"]
+            got, want = torch.load(f"{job['stem']}.out.pt"), torch.load(f"{job['stem']}.want.pt")
+            for k in want:
+                require(torch.equal(got[k], want[k]), f"{label} program: {k} differs from the "
+                        f"eager closure's")
+            launches[label] = report["launches"]
+            print(f"{label} b1 program reloaded in the tail's fresh process ("
+                  f"{report['seconds']:.1f} s), bit-equal to the eager closure "
+                  f"({int(got['pred_counts'][0])} detections), launches there "
+                  f"{report['launches']}")
+            for name in job["kernels"]:
+                require(launches[label].get(name, 0) > 0, f"kernel {name} never launched in the "
+                        f"{label} program")
+        print(f"the tail's fresh process: {len(jobs)} programs in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return launches
+
+    return proc, send, finish
+
+
+def run_tail(exports, chains):
+    """The tail, once every phase has measured, so that its processes run
+    beside no measurement: ``chains`` run in threads, ``TAIL_WORKERS`` - 1
+    at a time, each (label, fn), fn starting processes, checking them and
+    returning their launches (or None); meanwhile this thread runs
+    ``exports`` (``voxel_export``'s) and hands each saved program to one
+    fresh process (``reload_process``).  A thread samples the card's memory
+    in use (every process's, ``mem_get_info``) and the peak is printed.
+    Returns each label's launches (a program's under its phase's label)."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    torch.cuda.empty_cache()
+    launches = {}
+    done, peak = threading.Event(), [0]
+
+    def sample():
+        while not done.wait(0.1):
+            free, total = torch.cuda.mem_get_info()
+            peak[0] = max(peak[0], total - free)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    proc, send, finish = reload_process()
+    try:
+        with ThreadPoolExecutor(TAIL_WORKERS - 1) as pool:
+            futures = [(label, pool.submit(fn)) for label, fn in chains]
+            jobs = []
+            for export in exports:
+                jobs.append(export())
+                send(jobs[-1])
+            for label, future in futures:
+                counts = future.result()
+                if counts is not None:
+                    launches[label] = counts
+        for label, counts in finish(jobs).items():
+            launches[label] = add_launches(launches.get(label, {}), counts)
+        done.set()
+        sampler.join()
+        print(f"the tail's peak device memory in use (every process, sampled every 0.1 s): "
+              f"{peak[0] / 2**30:.2f} GiB of {torch.cuda.mem_get_info()[1] / 2**30:.2f}")
+        return launches
+    finally:
+        done.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def cli_run(kitti_run):
@@ -5453,32 +5793,35 @@ def cli_run(kitti_run):
             "set": ("DATA_CONFIG.INFO_PATH.train", f"['{cut.name}']")}
 
 
-def dense_cli_root(work, cfg):
-    """Phase 15 (c)'s KITTI root, beside phase 9's in its working directory:
-    ``DENSE_CLI_SPLITS`` frames of phase 9's kind, with the yaml's infos
-    and gt database.  Returns the ``kitti_run`` dict the CLIs take (B 1)."""
+def cli_root(work, cfg, splits, name, seed):
+    """A KITTI root of its own for a phase's CLIs, beside phase 9's in its
+    working directory (``name``): ``splits`` frames of phase 9's kind, with
+    the yaml's infos and gt database.  Returns the ``kitti_run`` dict the
+    CLIs take (B 1)."""
     from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
 
-    root = Path(work) / "kitti_dense"
+    root = Path(work) / name
     t0 = time.perf_counter()
     counts = write_kitti_root(root, list(KITTI_MEAN_SIZES), list(KITTI_MEAN_SIZES.values()),
-                              seed=15, splits=DENSE_CLI_SPLITS)
+                              seed=seed, splits=splits)
     create_kitti_infos(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), root, root, workers=4)
-    print(f"phase 15 (c) KITTI root {counts} (frames, boxes, fewest points in the field of "
+    print(f"{name} (c) KITTI root {counts} (frames, boxes, fewest points in the field of "
           f"view) with infos in {time.perf_counter() - t0:.1f} s")
     val_ids = (root / "ImageSets" / "val.txt").read_text().split()
-    return dict(root=root, val_ids=val_ids, B=1, steps=dict(DENSE_CLI_SPLITS)["train"])
+    return dict(root=root, val_ids=val_ids, B=1, steps=dict(splits)["train"])
 
 
 def voxel_phase(dev, work, kitti_run, phase, parent=None):
-    """Phases 12-17, on one yaml of ``VOXEL_PHASES`` at full width: (a)
+    """Phases 12-18, on one yaml of ``VOXEL_PHASES`` at full width: (a)
     serving, (b) training, (c) the CLIs, (d) export, (e) the IoU and NMS
     kernels at each K of the path (with ``parent``, that tree's IoU timed
-    beside), at the phase's ``VOXEL_DEPTH``.  Returns the launches of its main-path
-    runs ((a)'s requests, (b)'s steps, (c)'s CLIs, (d)'s program request,
-    each counted from 0), with the IoU's and the walk's at each K, (e)'s
-    rows by K, and PV-RCNN's FPS and ball-query rows of (e) (row name,
-    kernel, numbers, launches) (``pv_kernels``)."""
+    beside), at the phase's ``VOXEL_DEPTH``.  Returns the launches of its
+    main-path runs ((a)'s requests, (b)'s steps, (c)'s CLIs, each counted
+    from 0), with the IoU's and the walk's at each K, (e)'s rows by K,
+    PV-RCNN's FPS and ball-query rows of (e) (row name, kernel, the key of
+    its launches, numbers) (``pv_kernels``), and its tail: (d)'s export and
+    the ``dist_train.sh`` job of (c) (``run_tail``, which counts the
+    program's request)."""
     import torch
 
     from pdanet_tpu_torch.config import cfg_from_yaml_file
@@ -5500,27 +5843,26 @@ def voxel_phase(dev, work, kitti_run, phase, parent=None):
                           depth.get("crop"), depth.get("train_split", True))
     print(f"phase {phase} (b) training: {time.perf_counter() - t0:.1f} s")
     clis = {}
-    cli = depth.get("cli", "dist_train")
-    if cli is not None:
+    cli = depth.get("cli", True)
+    dist_train = cli and depth.get("dist_train", True)
+    cli_batch = depth.get("cli_batch", batch_size)
+    if cli:
         t0 = time.perf_counter()
-        run = cli_run(kitti_run) if cli == "dist_train" else dense_cli_root(work, cfg)
-        clis = voxel_clis(work, run, cfg_rel, label, batch_size, export=cli == "export",
-                          kernels=kernels)
+        run = (cli_root(work, cfg, depth["cli_root"], f"kitti_{phase}", seed)
+               if "cli_root" in depth else cli_run(kitti_run))
+        clis = voxel_clis(work, run, cfg_rel, label, cli_batch,
+                          export=depth.get("cli_export", False), kernels=kernels)
         print(f"phase {phase} (c) the CLIs: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()  # for the background dist_train.sh and (d)'s fresh process
-    with (background_dist_train(work, cli_run(kitti_run), cfg_rel, label, batch_size)
-          if cli == "dist_train" else contextlib.nullcontext()):
-        program = voxel_export(cfg, predict, weights, dev, template, b1, work, cfg_rel, label)
-        print(f"phase {phase} (d) export: {time.perf_counter() - t0:.1f} s")
-    if cli == "dist_train":
-        print(f"phase {phase} (c) dist_train.sh and (d): {time.perf_counter() - t0:.1f} s")
+    export = voxel_export(cfg, predict, weights, dev, template, b1, work, cfg_rel, label,
+                          kernels)
+    tail = (export, dist_train_chain(work, run, cfg_rel, label) if dist_train else None)
     t0 = time.perf_counter()
     rows, extra = {}, []
     if depth.get("iou_rows", True):
         for boxes, valid, thresh, what, suppress in kernel_candidates(cfg, out, rec):
-            rows.setdefault(boxes.shape[1], voxel_kernels(dev, boxes, valid, thresh, label, what,
-                                                          suppress, parent))
+            if boxes.shape[1] not in rows:  # Part-A2-free proposes at K 9000 both ways
+                rows[boxes.shape[1]] = voxel_kernels(dev, boxes, valid, thresh, label, what,
+                                                     suppress, parent)
     if "pv_picks" in out:
         extra = pv_kernels(dev, out, label, VOXEL_SUFFIX[phase])
     print(f"phase {phase} (e) the kernels at K {sorted(rows)}"
@@ -5528,11 +5870,7 @@ def voxel_phase(dev, work, kitti_run, phase, parent=None):
           f"{time.perf_counter() - t0:.1f} s")
     del predict, out, rec
     torch.cuda.empty_cache()
-    launches = add_launches(served, trained, clis, program)
-    # a row's launches: FPS's, or the ball query's at the row's site
-    extra = [(name, kernel, numbers, launches.get(count, 0))
-             for name, kernel, count, numbers in extra]
-    return launches, rows, extra
+    return add_launches(served, trained, clis), rows, extra, tail
 
 
 def pointpillar_phase(dev, work, kitti_run, parent=None):
@@ -5606,6 +5944,25 @@ def pv_rcnn_pp_phase(dev, work, kitti_run, parent=None):
     ``VOXEL_DEPTH["17b"]``: one b1 request, one train step and the float64
     step, export, and (e) FPS on the collapsed cloud."""
     return voxel_phase(dev, work, kitti_run, "17b", parent)
+
+
+def parta2_phase(dev, work, kitti_run, parent=None):
+    """Phase 18, Part-A2: tools/cfgs/kitti_models/PartA2.yaml at full width
+    (SECOND's grid and voxels; the sparse UNetV2 with its 256-channel
+    encoded BEV map and the decoder back to the voxels; 211200 anchors of
+    three classes; proposals at K 1024 to serve and 9000 to train, 100 /
+    512 RoIs, 128 sampled a frame; the 12^3 RoI-aware pool; the final NMS
+    at K 100), at ``VOXEL_DEPTH["18a"]``."""
+    return voxel_phase(dev, work, kitti_run, "18a", parent)
+
+
+def parta2_free_phase(dev, work, kitti_run, parent=None):
+    """Phase 18, Part-A2-free: tools/cfgs/kitti_models/PartA2_free.yaml at
+    full width (the sparse UNetV2 without the BEV map; the point head's
+    per-voxel boxes of three classes proposed at K 9000, 100 / 512 RoIs;
+    the 12^3 RoI-aware pool of the voxel centres; the final NMS at K 100),
+    at ``VOXEL_DEPTH["18b"]``."""
+    return voxel_phase(dev, work, kitti_run, "18b", parent)
 
 
 @contextlib.contextmanager
@@ -5842,8 +6199,8 @@ def main():
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
                     "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
-    ap.add_argument("--phases", help="comma-separated phases of 3-17 to run, with those they "
-                    "read (3 for 6, 4 for 5 and 11, 9 for 11-17); every phase without it, and "
+    ap.add_argument("--phases", help="comma-separated phases of 3-18 to run, with those they "
+                    "read (3 for 6, 4 for 5 and 11, 9 for 11-18); every phase without it, and "
                     "only then are the launches of every kernel required")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -5899,13 +6256,13 @@ def main():
         multi_gpu(dev, args.world)
         return
 
-    # ---- 3.-16.
-    every = set(range(3, 18))
+    # ---- 3.-18.
+    every = set(range(3, 19))
     want = every if not args.phases else {int(p) for p in args.phases.split(",")}
-    require(want <= every, f"--phases {args.phases}: phases 3-17 only")
+    require(want <= every, f"--phases {args.phases}: phases 3-18 only")
     want |= {3} if 6 in want else set()
     want |= {4} if want & {5, 11} else set()
-    want |= {9} if want & set(range(11, 18)) else set()
+    want |= {9} if want & set(range(11, 19)) else set()
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -5944,13 +6301,18 @@ def main():
                 runs["dp"] = timed("11 (data parallel)", dp_phase, dev, kitti_work, kitti_run,
                                    cfg, weights)
 
+            exports, chains = [], []
+
             def voxel(key, label, fn):
                 phase = int(str(key)[:2])
                 if phase in want:
-                    run, run_rows, extra = timed(f"{phase} ({label})", fn, dev, kitti_work,
-                                                 kitti_run, parent)
+                    run, run_rows, extra, tail = timed(f"{phase} ({label})", fn, dev,
+                                                       kitti_work, kitti_run, parent)
                     runs[label] = run
                     voxel_runs.append((phase, VOXEL_SUFFIX[key], run, run_rows, extra))
+                    exports.append(tail[0])
+                    if tail[1] is not None:
+                        chains.append(tail[1])
 
             for key, label, fn in ((12, "PointPillar", pointpillar_phase),
                                    (13, "SECOND", second_phase),
@@ -5964,15 +6326,24 @@ def main():
                                            kitti_work)
             voxel(17, "PV-RCNN", pv_rcnn_phase)
             voxel("17b", "PV-RCNN++", pv_rcnn_pp_phase)
+            voxel("18a", "Part-A2", parta2_phase)
+            voxel("18b", "Part-A2-free", parta2_free_phase)
+            if 11 in want:
+                chains.insert(0, ("dp", lambda: dp_cli(kitti_work, kitti_run)))
+            if exports or chains:
+                tail = timed("11-18 (the tail: dist_train.sh, dist_test.sh, the programs "
+                             "exported and reloaded)", run_tail, exports, chains)
+                for label, counts in tail.items():
+                    runs[label].update(add_launches(runs[label], counts))
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
     # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9),
     # the exported programs' requests (phase 10) and the data-parallel runs
     # (phase 11: its CLIs' processes, the one process and the two ranks)
-    # and the voxel detectors' runs (phases 12-17: the requests, the train
+    # and the voxel detectors' runs (phases 12-18: the requests, the train
     # steps, the CLIs and the program's request), each counted from 0; a
-    # row of phases 12-17 counts its own phase's launches at its own K (a
+    # row of phases 12-18 counts its own phase's launches at its own K (a
     # PV-RCNN FPS row the phase's FPS launches, a ball-query row those at
     # its site)
     launches = {name: sum(run.get(name, 0) for run in runs.values()) for name in KERNELS}
@@ -5992,7 +6363,9 @@ def main():
                 rows.append({"name": f"{name}_k{K}{suffix}", "route": "cuda",
                              "source": KERNELS[name][0], "replaces": KERNELS[name][1],
                              "launches": n, **k_rows[name]})
-        for row_name, name, numbers, n in extra:
+        for row_name, name, count, numbers in extra:
+            # a row's launches: FPS's, or the ball query's at the row's site
+            n = run.get(count, 0)
             require(n > 0, f"kernel {name} never launched for {row_name} in phase {phase}")
             rows.append({"name": row_name, "route": "cuda", "source": KERNELS[name][0],
                          "replaces": KERNELS[name][1], "launches": n, **numbers})

@@ -122,11 +122,13 @@ class _SparseBackbone8x(nn.Module):
     model_cfg keys: NUM_FILTERS, NUM_OUTPUT_FEATURES (128), ACTIVE_BUDGETS
     (four per-level caps, V each by default; the first is unused, the
     fourth also caps ``conv_out``), SPCONV_ACTIVE_SETS (True: spconv's
-    exact output sets; False: the centre-tap sites)."""
+    exact output sets; False: the centre-tap sites), RETURN_ENCODED_TENSOR
+    (True; False, the sparse UNet of Part-A2-free: no ``conv_out``)."""
 
     def __init__(self, model_cfg, grid_size, default_filters):
         super().__init__()
         cfg = EasyDict(model_cfg)
+        self.encoded = bool(cfg.get("RETURN_ENCODED_TENSOR", True))
         self.widths = list(cfg.get("NUM_FILTERS", default_filters))
         self.c_out = int(cfg.get("NUM_OUTPUT_FEATURES", 128))
         budgets = cfg.get("ACTIVE_BUDGETS")
@@ -136,19 +138,21 @@ class _SparseBackbone8x(nn.Module):
         z4 = self.grids[3][2]
         self.zo_ref = z4 >= 3  # the reference's last_pad 0, or the tiny-grid fallback
         self.Zo = max((z4 - 1) // 2 if self.zo_ref else (z4 + 1) // 2, 1)
-        self.num_bev_features = self.Zo * self.c_out
+        self.num_bev_features = self.Zo * self.c_out if self.encoded else 0
         for lvl in (1, 2, 3):
             self.register_parameter(f"conv{lvl + 1}_down_kernel", sparse_kernel(
                 27, self.widths[lvl], self.widths[lvl + 1]))
             self.add_module(f"conv{lvl + 1}_down_bn", MaskedBatchNorm(self.widths[lvl + 1]))
-        self.conv_out_kernel = sparse_kernel(3, self.widths[4], self.c_out)
-        self.conv_out_bn = MaskedBatchNorm(self.c_out)
+        if self.encoded:
+            self.conv_out_kernel = sparse_kernel(3, self.widths[4], self.c_out)
+            self.conv_out_bn = MaskedBatchNorm(self.c_out)
 
     def geometry(self, voxel_coords):
         """The index work of every level from the (B, V, 3) zyx voxel
         coordinates (-1 padded): a list of five dicts, levels 1-4 and
-        ``conv_out``, each with its active sites ``coords`` (B, n, 3) int32,
-        ``valid`` (B, n), and its neighbour tables (int32, -1 absent):
+        ``conv_out`` (four without the encoded tensor), each with its active
+        sites ``coords`` (B, n, 3) int32, ``valid`` (B, n), and its neighbour
+        tables (int32, -1 absent):
         ``subm`` (B, n, 27), shared by the level's submanifold convs (not
         at ``conv_out``), and ``down`` (B, n, 27 or 3), the strided conv's
         taps into the level below (not at level 1)."""
@@ -166,23 +170,51 @@ class _SparseBackbone8x(nn.Module):
                                         padding=pad)
             levels.append(dict(coords=out, down=down, subm=build_neighbor_table(out, g[lvl])))
             coords = out
+        if self.encoded:
+            levels.append(self._out_level(coords, budgets[3]))
+        for level in levels:
+            level["valid"] = (level["coords"] >= 0).all(dim=-1)
+        return levels
+
+    def _out_level(self, coords, budget):
+        """``conv_out``'s sites (at most ``budget``) and taps into level 4's
+        ``coords``."""
+        g = self.grids
         x4, y4, _ = g[3]
-        out = downsample_coords(coords, budgets[3], stride=(2, 1, 1),
+        out = downsample_coords(coords, budget, stride=(2, 1, 1),
                                 out_grid=(self.Zo, y4, x4), dilate=self.dilate,
                                 kernel=(3, 1, 1),
                                 padding=(0, 0, 0) if self.zo_ref else (1, 0, 0))
         down = build_neighbor_table(coords, g[3], query_coords=out, stride=(2, 1, 1),
                                     kernel=(3, 1, 1),
                                     padding=(0, 0, 0) if self.zo_ref else None)
-        levels.append(dict(coords=out, down=down))
-        for level in levels:
-            level["valid"] = (level["coords"] >= 0).all(dim=-1)
-        return levels
+        return dict(coords=out, down=down)
 
     def _blocks(self, lvl, feats, level):
         for name in self.level_blocks[lvl]:
             feats = getattr(self, name)(feats, level["subm"], level["valid"])
         return feats
+
+    def encode(self, voxel_features, levels):
+        """The ladder over ``geometry``'s ``levels``: the (B, n, C) features of
+        levels 1-4, padding rows zero."""
+        valid = levels[0]["valid"]
+        feats = [self._blocks(0, torch.where(valid[..., None], voxel_features, 0.0),
+                              levels[0])]
+        for lvl in (1, 2, 3):
+            level = levels[lvl]
+            name = f"conv{lvl + 1}_down"
+            h = gather_matmul_conv(feats[-1], level["down"], getattr(self, f"{name}_kernel"))
+            h = torch.relu(getattr(self, f"{name}_bn")(h, level["valid"]))
+            feats.append(self._blocks(lvl, h, level))
+        return feats
+
+    def encoded_bev(self, feats, out):
+        """``conv_out`` over level 4's features onto its sites ``out``
+        (``geometry``'s fifth level), scattered into the BEV map."""
+        h = gather_matmul_conv(feats, out["down"], self.conv_out_kernel)
+        h = torch.relu(self.conv_out_bn(h, out["valid"]))  # padding rows zero
+        return self._scatter(h, out["coords"], out["valid"])
 
     def forward(self, voxel_features, voxel_coords):
         """(B, V, C) voxel features and (B, V, 3) zyx coordinates ->
@@ -190,20 +222,10 @@ class _SparseBackbone8x(nn.Module):
         per level ``x_conv1`` ... ``x_conv4``, its sparse
         ``(coords, feats, valid)``."""
         levels = self.geometry(voxel_coords)
-        valid = levels[0]["valid"]
-        feats = self._blocks(0, torch.where(valid[..., None], voxel_features, 0.0), levels[0])
-        multi_scale = {"x_conv1": (levels[0]["coords"], feats, valid)}
-        for lvl in (1, 2, 3):
-            level = levels[lvl]
-            name = f"conv{lvl + 1}_down"
-            h = gather_matmul_conv(feats, level["down"], getattr(self, f"{name}_kernel"))
-            feats = torch.relu(getattr(self, f"{name}_bn")(h, level["valid"]))
-            feats = self._blocks(lvl, feats, level)
-            multi_scale[f"x_conv{lvl + 1}"] = (level["coords"], feats, level["valid"])
-        out = levels[4]
-        h = gather_matmul_conv(feats, out["down"], self.conv_out_kernel)
-        h = torch.relu(self.conv_out_bn(h, out["valid"]))  # padding rows zero
-        return self._scatter(h, out["coords"], out["valid"]), multi_scale
+        feats = self.encode(voxel_features, levels)
+        multi_scale = {f"x_conv{i + 1}": (levels[i]["coords"], f, levels[i]["valid"])
+                       for i, f in enumerate(feats)}
+        return self.encoded_bev(feats[3], levels[4]), multi_scale
 
     def _scatter(self, h, coords, valid):
         """The last level's sites onto a dense (B, Zo, Y, X, C) canvas, as

@@ -229,6 +229,29 @@ class ConvTranspose(nn.ConvTranspose2d):
         return y.permute(0, 2, 3, 1)
 
 
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """flax ``nn.ConvTranspose`` (``transpose_kernel=False``) over a 3-D
+    grid with explicit (lo, hi) padding a axis, on a (B, C, Z, Y, X)
+    tensor: flax convolves the stride-dilated input, padded (lo, hi), with
+    the kernel unflipped, which is ``F.conv_transpose3d`` with the kernel
+    flipped, ``padding`` k - 1 - lo and ``output_padding`` hi - lo.  So
+    ``weight`` (in, out, kz, ky, kx) is the flax kernel (kz, ky, kx, in,
+    out) flipped in the three spatial axes (``utils/jax_weights.py``)."""
+
+    def __init__(self, in_features, features, kernel_size, stride, padding, bias=False):
+        kernel_size = tuple(int(k) for k in kernel_size)
+        pad = tuple(k - 1 - int(lo) for k, (lo, _) in zip(kernel_size, padding))
+        extra = tuple(int(hi) - int(lo) for lo, hi in padding)
+        super().__init__(in_features, features, kernel_size, stride=stride, padding=pad,
+                         output_padding=extra, bias=bias)
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose3d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.output_padding)
+
+
 class DenseBNReLU(nn.Module):
     """Dense -> BatchNorm -> ReLU over the trailing axis (a 1x1 conv)."""
 
@@ -337,7 +360,7 @@ def init_random_weights(model, seed):
     fan-in K * C_in."""
     g = torch.Generator().manual_seed(int(seed))
     for mod in model.modules():
-        if isinstance(mod, (Dense, Conv, Conv3d, ConvTranspose)):
+        if isinstance(mod, (Dense, Conv, Conv3d, ConvTranspose, ConvTranspose3d)):
             w = torch.randn(mod.weight.shape, generator=g)
             fan_in = (mod.in_features if isinstance(mod, Dense)
                       else mod.in_channels * math.prod(mod.kernel_size))

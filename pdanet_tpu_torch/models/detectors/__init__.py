@@ -1,8 +1,8 @@
 """Detector registry (``pdanet_tpu/models/detectors/__init__.py``).
 
 IASSD (PDA-SSD), PointPillar, SECOND, SECOND-IoU, Voxel-RCNN, CenterPoint,
-PV-RCNN and PV-RCNN++ are ported; the other detectors of the zoo are
-ROADMAP queue 1 item 9.
+PV-RCNN, PV-RCNN++, Part-A2 and Part-A2-free are ported; the other
+detectors of the zoo (PointRCNN, CaDDN) are ROADMAP queue 1 item 9.
 """
 
 import torch
@@ -10,6 +10,8 @@ import torch
 from .centerpoint import CenterPoint
 from .centerpoint import post_processing as center_post_processing
 from .iassd import IASSD, post_processing
+from .part_a2 import PartA2Net
+from .part_a2_free import PartA2Free
 from .pointpillar import PointPillar
 from .pv_rcnn import PVRCNN, PVRCNNPlusPlus
 from .second import SECOND
@@ -18,13 +20,16 @@ from .second_iou import post_processing as iou_post_processing
 from .voxel_rcnn import VoxelRCNN
 from .voxel_rcnn import post_processing as refined_post_processing
 
-__all__ = {"CenterPoint": CenterPoint, "IASSD": IASSD, "PointPillar": PointPillar,
-           "PVRCNN": PVRCNN, "PVRCNNPlusPlus": PVRCNNPlusPlus, "SECOND": SECOND,
-           "SECONDNetIoU": SECONDNetIoU, "VoxelRCNN": VoxelRCNN}
+__all__ = {"CenterPoint": CenterPoint, "IASSD": IASSD, "PartA2Net": PartA2Net,
+           "PartA2Free": PartA2Free, "PointPillar": PointPillar, "PVRCNN": PVRCNN,
+           "PVRCNNPlusPlus": PVRCNNPlusPlus, "SECOND": SECOND, "SECONDNetIoU": SECONDNetIoU,
+           "VoxelRCNN": VoxelRCNN}
 
 #: voxel-pipeline detectors, which take their grid geometry from the dataset
 VOXEL_DETECTORS = ("PointPillar", "SECOND", "CenterPoint", "SECONDNetIoU", "VoxelRCNN",
-                   "PVRCNN", "PVRCNNPlusPlus")
+                   "PVRCNN", "PartA2Net", "PVRCNNPlusPlus", "PartA2Free")
+#: the two-stage detectors, whose post-processing is the refined RoIs' NMS
+REFINED = ("VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus", "PartA2Net", "PartA2Free")
 
 
 def get_post_processor(name):
@@ -33,8 +38,7 @@ def get_post_processor(name):
     ``DENSE_HEAD.POST_PROCESSING`` (JAX :41-43); SECOND-IoU's
     scoring and NMS of its RoIs (``second_iou.post_processing``, JAX
     :45-48); the refined RoIs' NMS (``voxel_rcnn.post_processing``) for
-    Voxel-RCNN, which the JAX registry gives every other two-stage detector
-    (:49-53); else the sigmoid + score sort + rotated NMS of
+    the two-stage detectors (:49-53, ``REFINED``); else the sigmoid + score sort + rotated NMS of
     ``iassd.post_processing`` (detector3d_template.py:179-285), per class
     with ``MULTI_CLASSES_NMS``."""
     if name not in __all__:
@@ -43,18 +47,21 @@ def get_post_processor(name):
         return lambda out, mcfg: center_post_processing(out, mcfg.DENSE_HEAD.POST_PROCESSING)
     if name == "SECONDNetIoU":
         return iou_post_processing
-    if name in ("VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus"):
+    if name in REFINED:
         return refined_post_processing
     return lambda out, mcfg: post_processing(
         out["batch_cls_preds"], out["batch_box_preds"], mcfg.POST_PROCESSING)
 
 
 def resolve_detector_name(model_cfg):
-    """The reference overloads MODEL.NAME 'PointRCNN' for PartA2-free
-    (PartA2_free.yaml wires it with a UNetV2 voxel backbone): the class
-    that name resolves to."""
+    """The reference overloads MODEL.NAME 'PointRCNN' for Part-A2-free
+    (PartA2_free.yaml wires it over a UNetV2 voxel backbone): the class
+    that name resolves to, ``PartA2Free`` over either UNet.  The JAX
+    registry (:72-83) resolves only the dense ``UNetV2`` so, and builds
+    the shipped yaml's ``SparseUNetV2`` as PointRCNN (ROADMAP queue 3)."""
     name = model_cfg.NAME
-    if name == "PointRCNN" and model_cfg.get("BACKBONE_3D", {}).get("NAME") == "UNetV2":
+    if name == "PointRCNN" and (model_cfg.get("BACKBONE_3D") or {}).get("NAME") in (
+            "UNetV2", "SparseUNetV2"):
         return "PartA2Free"
     return name
 

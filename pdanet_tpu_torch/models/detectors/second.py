@@ -4,10 +4,10 @@ backbone with the height compression folded in -> BEV backbone -> the
 single or multi-group anchor head.
 
 The 3-D backbones are the gather-matmul ones (``SparseVoxelBackBone8x``,
-``SparseVoxelResBackBone8x``) that the shipped ``second.yaml`` names, and
-the dense ones (``VoxelBackBone8x``, ``VoxelResBackBone8x``) of
-``second_iou.yaml`` and ``second_multihead.yaml``, all at the 0.05 m
-grid.  The BEV map's channel count is the backbone's own (z sites of the
+``SparseVoxelResBackBone8x``) that the shipped ``second.yaml`` names, the
+dense ones (``VoxelBackBone8x``, ``VoxelResBackBone8x``) of
+``second_iou.yaml`` and ``second_multihead.yaml``, and the UNetV2s of
+Part-A2 (``SparseUNetV2``, ``UNetV2``), all at the 0.05 m grid.  The BEV map's channel count is the backbone's own (z sites of the
 last level times NUM_OUTPUT_FEATURES), which flax infers and
 MAP_TO_BEV.NUM_BEV_FEATURES states.  Post-processing is IASSD's
 (``get_post_processor``), as for PointPillar; with ``MULTI_CLASSES_NMS``
@@ -15,19 +15,21 @@ its per-class NMS.
 """
 
 from ..backbones_3d.sparse_backbone import SparseVoxelBackBone8x, SparseVoxelResBackBone8x
+from ..backbones_3d.sparse_unet import SparseUNetV2
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
 from ..backbones_3d.voxel_backbone import VoxelBackBone8x, VoxelResBackBone8x
+from ..backbones_3d.voxel_unet import UNetV2
 from .anchor_detector import AnchorDetector
 
 BACKBONES_3D = {"VoxelBackBone8x": VoxelBackBone8x, "VoxelResBackBone8x": VoxelResBackBone8x,
                 "SparseVoxelBackBone8x": SparseVoxelBackBone8x,
-                "SparseVoxelResBackBone8x": SparseVoxelResBackBone8x}
+                "SparseVoxelResBackBone8x": SparseVoxelResBackBone8x,
+                "UNetV2": UNetV2, "SparseUNetV2": SparseUNetV2}
 
 
 class SECOND(AnchorDetector):
-    """MODEL.NAME: SECOND, its grid from the dataset.  The dynamic VFE, the
-    UNet 3-D backbones and the ATSS assigner of the JAX package raise
-    (ROADMAP queue 1 item 9)."""
+    """MODEL.NAME: SECOND, its grid from the dataset.  The dynamic VFE and
+    the ATSS assigner of the JAX package raise (ROADMAP queue 1 item 9)."""
 
     def __init__(self, model_cfg, num_class, input_channels=4, grid_size=None,
                  voxel_size=None, point_cloud_range=None, class_names=None):

@@ -104,7 +104,9 @@ def subsample_rois(max_overlaps, sampler_cfg, draws):
     n_fg, n_easy, n_hard = (m.sum(dim=1, keepdim=True) for m in (fg_mask, easy_mask, hard_mask))
     n_bg = n_easy + n_hard
 
-    fg_sorted = _pool_sorted(fg_mask, draws["fg_perm"])  # a random fg permutation
+    # a random fg permutation (draws for more candidates than the frame's
+    # proposals: the first n)
+    fg_sorted = _pool_sorted(fg_mask, draws["fg_perm"][:, :n])
     hard_pool = _pool_sorted(hard_mask)
     easy_pool = _pool_sorted(easy_mask)
 
@@ -272,9 +274,12 @@ def frame_draws(roi_cfg, roi_head, n_anchors, generators, device):
     (:func:`sampler_draws`) drawn first, then the dropout keep masks,
     Bernoulli(1 - ``roi_head.dp``), in the order of
     ``roi_head.dropout_shapes``.  The same generators give the same draws
-    on every device."""
+    on every device.  ``n_anchors`` is the count of first-stage candidates,
+    or None where the batch sets it (Part-A2-free's voxels): then the
+    proposal layer's most."""
     nms_cfg = roi_cfg.NMS_CONFIG.TRAIN
-    pre = min(int(nms_cfg.NMS_PRE_MAXSIZE), n_anchors)
+    pre = int(nms_cfg.NMS_PRE_MAXSIZE)
+    pre = pre if n_anchors is None else min(pre, n_anchors)
     n_rois = min(int(nms_cfg.NMS_POST_MAXSIZE), pre)
     R = int(roi_cfg.TARGET_CONFIG.ROI_PER_IMAGE)
     frames = []
@@ -320,6 +325,69 @@ class FCStack(nn.Module):
             if k == 0 and self.dp > 0 and self.training:
                 x = dropout(x, keep, "fc0", self.dp)
         return x if self.out is None else self.out(x)
+
+
+class RefineStacks(nn.Module):
+    """The shared, cls and reg FC stacks of a RoI head (Dense without bias,
+    BatchNorm over every RoI of the batch, ReLU; ``shared_fc<k>`` /
+    ``shared_bn<k>`` ...) and the ``cls_pred`` / ``reg_pred`` layers, the
+    latter from normal(0.001) with a zero bias, over the flattened pooled
+    RoI features.  Dropout (``DP_RATIO``) follows the JAX package: between
+    the shared stack's layers, after the first cls and reg layer (the
+    reference's ``make_fc_layers``), flax's keep-and-scale form with the
+    keep masks a value the caller gives (:meth:`dropout_shapes`,
+    :func:`frame_draws`).  A subclass builds its pool, then calls
+    :meth:`build_stacks`."""
+
+    def build_stacks(self, cfg, in_features, code_size, num_class):
+        self.dp = float(cfg.get("DP_RATIO", 0.0))
+        self.stacks = {"shared": [int(f) for f in cfg.SHARED_FC],
+                       "cls": [int(f) for f in cfg.CLS_FC], "reg": [int(f) for f in cfg.REG_FC]}
+        c_in = {"shared": int(in_features)}
+        c_in["cls"] = c_in["reg"] = self.stacks["shared"][-1]
+        for prefix, widths in self.stacks.items():
+            c = c_in[prefix]
+            for k, f in enumerate(widths):
+                self.add_module(f"{prefix}_fc{k}", Dense(c, f, bias=False))
+                self.add_module(f"{prefix}_bn{k}", BatchNorm(f))
+                c = f
+        self.cls_pred = Dense(self.stacks["cls"][-1], num_class)
+        self.reg_pred = Dense(self.stacks["reg"][-1], code_size * num_class)
+        with torch.no_grad():  # flax's normal(0.001), zero bias
+            self.reg_pred.weight.normal_(0.0, 0.001)
+            self.reg_pred.bias.zero_()
+
+    def _drops(self, prefix):
+        """The layers of a stack followed by dropout: between the shared
+        stack's layers, after the first of cls and reg."""
+        n = len(self.stacks[prefix])
+        return [k for k in range(n) if (k != n - 1 if prefix == "shared" else k == 0)]
+
+    def dropout_shapes(self, rois_per_frame):
+        """``{name: (R, C)}``: the keep mask a frame that each dropout takes,
+        ``<prefix><k>`` after layer k of a stack; none without ``DP_RATIO``."""
+        if self.dp <= 0:
+            return {}
+        return {f"{prefix}{k}": (rois_per_frame, self.stacks[prefix][k])
+                for prefix in self.stacks for k in self._drops(prefix)}
+
+    def _stack(self, x, prefix, keep):
+        drops = self._drops(prefix)
+        for k in range(len(self.stacks[prefix])):
+            x = torch.relu(getattr(self, f"{prefix}_bn{k}")(getattr(self, f"{prefix}_fc{k}")(x)))
+            if k in drops and self.training and self.dp > 0:
+                x = dropout(x, keep, f"{prefix}{k}", self.dp)
+        return x
+
+    def refine(self, pooled, keep=None):
+        """The (B, R, C) pooled features through the FC stacks ->
+        ``(rcnn_cls, rcnn_reg)``."""
+        if self.training and self.dp > 0 and keep is None:
+            raise ValueError(f"{type(self).__name__}: training with DP_RATIO takes the dropout "
+                             f"keep masks (train.make_train_step draws them)")
+        shared = self._stack(pooled, "shared", keep)
+        return (self.cls_pred(self._stack(shared, "cls", keep)),
+                self.reg_pred(self._stack(shared, "reg", keep)))
 
 
 def _div(a, d):

@@ -1,0 +1,111 @@
+"""RoI-aware voxel pooling: counterpart of ``pdanet_tpu/ops/roi_pool.py``
+(:34-107; the reference's CUDA ``roiaware_pool3d``,
+``roiaware_pool3d_kernel.cu:39-311``).
+
+Each RoI's points are rotated into its frame, tested for being inside it
+(``|z - cz| <= dz / 2`` with no margin, ``|local xy| < d / 2 + 1e-5``,
+``check_pt_in_box3d``), given a cell of the RoI's (out_x, out_y, out_z)
+grid (truncation toward zero, then a clip), and the features are
+pooled into the (R * cells) rows: the max by one ``scatter_reduce`` (a
+last row taking the points outside), the mean by sorted-segment float64
+running sums (``_segment_mean``, no atomics, so that a run gives the same
+bits each time).  As in the JAX package, and unlike the CUDA reference,
+every in-box point is pooled: no cell stops at ``MAX_POINTS_PER_VOXEL``.
+An empty max cell is 0; a mean divides by max(count, 1).
+
+The JAX package computes this in XLA, not in a Pallas kernel, and so does
+the port: plain PyTorch on every device.  ``scatter_reduce``'s ``amax``
+splits a tie's gradient evenly among the tied points, as JAX's
+scatter-max does; ties are common (the UNet's ReLU'd features).  The
+(R, P, C) broadcast of the features is the op's memory: 100 RoIs of a
+40000-voxel frame at 16 channels, ~256 MB float32.
+"""
+
+import math
+
+import torch
+
+_MARGIN = 1e-5
+
+
+def _local_coords(points, rois):
+    """(B, P, 3) points x (B, R, 7) RoIs -> each point's (B, R, P) local x,
+    y, z: frame b's points in the frame of each of its RoIs."""
+    shift = points[:, None, :, :] - rois[:, :, None, 0:3]
+    c = torch.cos(-rois[..., 6])[..., None]
+    s = torch.sin(-rois[..., 6])[..., None]
+    lx = shift[..., 0] * c - shift[..., 1] * s
+    ly = shift[..., 0] * s + shift[..., 1] * c
+    return lx, ly, shift[..., 2]
+
+
+def _in_box(lx, ly, lz, rois):
+    dx, dy, dz = rois[..., 3:4], rois[..., 4:5], rois[..., 5:6]
+    return ((lz.abs() <= dz / 2.0) & (lx.abs() < dx / 2.0 + _MARGIN)
+            & (ly.abs() < dy / 2.0 + _MARGIN))
+
+
+def roi_point_cells(rois, points, out_size, point_valid=None):
+    """rois (B, R, 7), points (B, P, 3), out_size (out_x, out_y, out_z),
+    point_valid optional (B, P) bool -> (B, R, P) int64: each frame's
+    point's flat cell ``r * cells + (x * out_y + y) * out_z + z`` in each of
+    its RoIs, ``B * R * cells`` where outside."""
+    ox, oy, oz = (int(s) for s in out_size)
+    B, R = rois.shape[:2]
+    lx, ly, lz = _local_coords(points, rois)
+    inside = _in_box(lx, ly, lz, rois)
+    if point_valid is not None:
+        inside = inside & point_valid[:, None, :]
+    dx, dy, dz = rois[..., 3:4], rois[..., 4:5], rois[..., 5:6]
+    # a cast truncates toward zero, as JAX's astype(int32)
+    xi = ((lx + dx / 2) / (dx / ox)).to(torch.int32).clamp(0, ox - 1)
+    yi = ((ly + dy / 2) / (dy / oy)).to(torch.int32).clamp(0, oy - 1)
+    zi = ((lz + dz / 2) / (dz / oz)).to(torch.int32).clamp(0, oz - 1)
+    n_vox = ox * oy * oz
+    roi = torch.arange(B * R, device=rois.device).view(B, R, 1)
+    flat = roi * n_vox + (xi * (oy * oz) + yi * oz + zi).long()
+    return torch.where(inside, flat, B * R * n_vox)
+
+
+def _segment_mean(cells, feats, rows):
+    """The mean of the (N, C) ``feats`` over each of the cells ``0 ..
+    rows - 1`` (``cells`` (N,), ``rows`` where outside), 0 where empty,
+    without atomics, so that a run gives the same bits each time (a saved
+    program equals the eager closure): the rows sorted by cell (stable),
+    their float64 running sums, each cell's sum the difference at its
+    ends."""
+    order = torch.sort(cells, stable=True).indices
+    keys = cells[order]
+    # (C, N + 1) channels first: a scan along the innermost axis (CUDA's
+    # scan along an outer axis of a narrow (N, C) tensor is serial, ~1 s)
+    rows_first = feats[order].to(torch.float64).t()
+    sums = torch.cumsum(torch.cat([rows_first.new_zeros((feats.shape[1], 1)), rows_first],
+                                  dim=1), dim=1)
+    ids = torch.arange(rows, device=cells.device)
+    start = torch.searchsorted(keys, ids)
+    end = torch.searchsorted(keys, ids, right=True)
+    count = (end - start).clamp(min=1).to(torch.float64)
+    return ((sums[:, end] - sums[:, start]) / count).t().to(feats.dtype)
+
+
+def roiaware_pool3d(rois, points, point_features, out_size, pool_method="max",
+                    point_valid=None):
+    """rois (B, R, 7) [cx cy cz dx dy dz ry], points (B, P, 3),
+    point_features (B, P, C), out_size (out_x, out_y, out_z), point_valid
+    optional (B, P) bool -> pooled (B, R, out_x, out_y, out_z, C), each
+    frame's RoIs over its own points (the JAX function ``vmap``-ed over
+    the frames), ``pool_method`` "max" or "avg"."""
+    B, R = rois.shape[:2]
+    C = point_features.shape[-1]
+    rows = B * R * math.prod(int(s) for s in out_size)
+    flat = roi_point_cells(rois, points, out_size, point_valid).reshape(-1, 1).expand(-1, C)
+    feats = point_features[:, None].expand(B, R, -1, -1).reshape(-1, C)
+    if pool_method == "max":
+        pooled = point_features.new_full((rows + 1, C), -torch.inf)
+        pooled = pooled.scatter_reduce(0, flat, feats, "amax", include_self=True)
+        pooled = torch.where(torch.isfinite(pooled), pooled, 0.0)
+    elif pool_method == "avg":
+        pooled = _segment_mean(flat[:, 0], feats, rows)
+    else:
+        raise NotImplementedError(pool_method)
+    return pooled[:rows].reshape(B, R, *(int(s) for s in out_size), C)

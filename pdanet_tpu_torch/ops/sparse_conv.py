@@ -9,7 +9,9 @@ the whole path (no ``unique`` or ``nonzero``):
   neighbour is found by binary search: the flat scan keys of a level are
   sorted once (stable), and each of the 27 taps of every query resolves
   with one ``searchsorted`` (left) over them.  With a duplicated cell the
-  first of the equal keys in the stable order wins, as in JAX.
+  first of the equal keys in the stable order wins, as in JAX.  The
+  inverse conv's table (``build_inverse_neighbor_table``, the sparse
+  UNet's decoder) looks its taps up the same way.
 * The convolution is one flat row gather of the (B * V, C_in) table and
   one (B * Q, 27 * C_in) x (27 * C_in, C_out) product.  An absent tap reads
   a zero row past the table, one such row a query, which takes the
@@ -72,6 +74,23 @@ def _kernel_offsets(kernel, padding, device):
     return torch.tensor(offs, dtype=torch.int32, device=device)
 
 
+def _lookup(coords, grid_size, nbr):
+    """The support slot at each of the (B, Q, K, 3) zyx sites ``nbr``: the
+    flat scan keys of ``coords`` (B, V, 3) sorted once (stable), one
+    ``searchsorted`` (left) for every site.  Returns ``(slots, ok)``: the
+    (B, Q, K) slot (undefined where absent), and where the site lies in
+    the grid and holds an active one."""
+    B, V, _ = coords.shape
+    keys, _ = _flat_key(coords, grid_size)
+    sorted_keys, order = torch.sort(keys, dim=-1, stable=True)
+    nbr_keys, nbr_ok = _flat_key(nbr, grid_size)
+    flat = nbr_keys.reshape(B, -1)
+    pos = torch.searchsorted(sorted_keys, flat).clamp(0, V - 1)
+    found = (torch.gather(sorted_keys, 1, pos) == flat).reshape(nbr_keys.shape)
+    slots = torch.gather(order, 1, pos).reshape(nbr_keys.shape)
+    return slots, found & nbr_ok & (nbr_keys != INVALID)
+
+
 def build_neighbor_table(coords, grid_size, kernel=(3, 3, 3), query_coords=None,
                          stride=(1, 1, 1), padding=None):
     """Per-query neighbour slots (JAX :90-138).
@@ -82,22 +101,38 @@ def build_neighbor_table(coords, grid_size, kernel=(3, 3, 3), query_coords=None,
     (a strided conv); by default the support itself at stride 1
     (submanifold).  padding: per-axis zyx conv padding, default k // 2.
     Returns (B, Q, K) int32 slots into the support axis, -1 where absent."""
-    B, V, _ = coords.shape
     offs = _kernel_offsets(kernel, padding, coords.device)
-    keys, _ = _flat_key(coords, grid_size)
-    sorted_keys, order = torch.sort(keys, dim=-1, stable=True)
     if query_coords is None:
         query_coords = coords
     q_valid = (query_coords >= 0).all(dim=-1)
     st = torch.tensor([int(s) for s in stride], dtype=torch.int32, device=coords.device)
     nbr = (query_coords * st)[:, :, None, :] + offs  # (B, Q, K, 3)
-    nbr_keys, nbr_ok = _flat_key(nbr, grid_size)
-    flat = nbr_keys.reshape(B, -1)
-    pos = torch.searchsorted(sorted_keys, flat).clamp(0, V - 1)
-    found = torch.gather(sorted_keys, 1, pos) == flat
-    slots = torch.where(found, torch.gather(order, 1, pos), -1).reshape(nbr_keys.shape)
-    keep = nbr_ok & (nbr_keys != INVALID) & q_valid[:, :, None]
-    return torch.where(keep, slots, -1).to(torch.int32)
+    slots, ok = _lookup(coords, grid_size, nbr)
+    return torch.where(ok & q_valid[:, :, None], slots, -1).to(torch.int32)
+
+
+def build_inverse_neighbor_table(coords, grid_size, query_coords, kernel=(3, 3, 3),
+                                 stride=(2, 2, 2), padding=None):
+    """The transposed (inverse) conv's table, spconv's SparseInverseConv3d
+    (JAX :174-226): for each fine-lattice query site q (the active set the
+    strided conv being inverted consumed), the coarse support slot d whose
+    forward taps covered it, ``d * stride + offset == q``, where the
+    division ``(q - offset) / stride`` is exact.
+
+    coords: (B, V, 3) zyx coarse support sites (-1 padded) on the coarse
+    ``grid_size``; query_coords: (B, Q, 3) fine sites (-1 padded); padding:
+    the forward conv's (default k // 2), whose shifted taps are replayed
+    (conv4's z padding 0).  The remainder and quotient are floor ones, as
+    JAX's ``%`` and ``//``: a negative ``q - offset`` is off the lattice
+    or out of the grid, never a site.  Returns (B, Q, K) int32 slots into
+    the coarse support axis, -1 where absent."""
+    offs = _kernel_offsets(kernel, padding, coords.device)
+    q_valid = (query_coords >= 0).all(dim=-1)
+    st = torch.tensor([int(s) for s in stride], dtype=torch.int32, device=coords.device)
+    t = query_coords[:, :, None, :] - offs  # (B, Q, K, 3)
+    exact = (torch.remainder(t, st) == 0).all(dim=-1)
+    slots, ok = _lookup(coords, grid_size, torch.div(t, st, rounding_mode="floor"))
+    return torch.where(ok & exact & q_valid[:, :, None], slots, -1).to(torch.int32)
 
 
 def gather_matmul_conv(features, nbr_idx, weight):

@@ -166,11 +166,11 @@ class _Predict(nn.Module):
 
     def __init__(self, model, model_cfg):
         super().__init__()
-        from .models.detectors import get_post_processor
+        from .models.detectors import get_post_processor, resolve_detector_name
 
         self.model = model.eval()
         self.model_cfg = model_cfg
-        self.post_fn = get_post_processor(model_cfg.NAME)
+        self.post_fn = get_post_processor(resolve_detector_name(model_cfg))
 
     def forward(self, batch, with_forward=False):
         out = self.model.forward_batch(batch)

@@ -3,7 +3,9 @@
 Counterparts of ``pdanet_tpu/utils/box_coder_utils.py``:
 ``PointResidual_BinOri_Coder`` (:21-110, the point head's: xyz/size
 residuals against per-class mean sizes plus a binned orientation with an
-in-bin residual) and ``ResidualCoder`` (:172-237, the anchor head's).
+in-bin residual), ``PointResidualCoder`` (:112-170, Part-A2-free's point
+head: the same residuals with the heading's cos and sin) and
+``ResidualCoder`` (:172-237, the anchor head's).
 """
 
 import numpy as np
@@ -85,6 +87,65 @@ class PointResidual_BinOri_Coder:
                          dim=-1)
 
 
+class PointResidualCoder:
+    """The 8-code point residual coder with a cos / sin heading (reference
+    :144-221): xy residuals over the class's mean-size BEV diagonal, z over
+    its height, log size ratios (``use_mean_size``), or the plain
+    residuals and log sizes."""
+
+    def __init__(self, code_size=8, use_mean_size=True, mean_size=None, **kwargs):
+        self.code_size = code_size
+        self.use_mean_size = use_mean_size
+        if self.use_mean_size:
+            self.mean_size = torch.from_numpy(np.asarray(mean_size, dtype=np.float32))
+
+    def _anchor_sizes(self, classes):
+        """(...,) classes in 1..C -> (..., 3) float32 mean sizes, an
+        out-of-range class clamped to the ends."""
+        mean_size = self.mean_size.to(classes.device)
+        return mean_size[(classes.long() - 1).clamp(0, mean_size.shape[0] - 1)]
+
+    def encode(self, gt_boxes, points, gt_classes=None):
+        """(..., 7+) gt boxes x (..., 3) points -> (..., 8) codes
+        ``[xt, yt, zt, dxt, dyt, dzt, cos, sin]``; extents clamp to 1e-5."""
+        sizes = torch.clamp(gt_boxes[..., 3:6], min=1e-5)
+        rg = gt_boxes[..., 6]
+        if self.use_mean_size:
+            anchor = self._anchor_sizes(gt_classes)
+            diagonal = torch.sqrt(anchor[..., 0] ** 2 + anchor[..., 1] ** 2)
+            xt = (gt_boxes[..., 0] - points[..., 0]) / diagonal
+            yt = (gt_boxes[..., 1] - points[..., 1]) / diagonal
+            zt = (gt_boxes[..., 2] - points[..., 2]) / anchor[..., 2]
+            dt = torch.log(sizes / anchor)
+        else:
+            xt = gt_boxes[..., 0] - points[..., 0]
+            yt = gt_boxes[..., 1] - points[..., 1]
+            zt = gt_boxes[..., 2] - points[..., 2]
+            dt = torch.log(sizes)
+        return torch.cat([torch.stack([xt, yt, zt], dim=-1), dt, torch.cos(rg)[..., None],
+                          torch.sin(rg)[..., None]], dim=-1)
+
+    def decode(self, box_encodings, points, pred_classes=None):
+        """(..., 8) encodings x (..., 3) points -> (..., 7) boxes, the
+        heading ``atan2(sin, cos)``."""
+        xt, yt, zt = (box_encodings[..., i] for i in range(3))
+        dt = box_encodings[..., 3:6]
+        if self.use_mean_size:
+            anchor = self._anchor_sizes(pred_classes)
+            diagonal = torch.sqrt(anchor[..., 0] ** 2 + anchor[..., 1] ** 2)
+            xg = xt * diagonal + points[..., 0]
+            yg = yt * diagonal + points[..., 1]
+            zg = zt * anchor[..., 2] + points[..., 2]
+            dg = torch.exp(dt) * anchor
+        else:
+            xg = xt + points[..., 0]
+            yg = yt + points[..., 1]
+            zg = zt + points[..., 2]
+            dg = torch.exp(dt)
+        rg = torch.atan2(box_encodings[..., 7], box_encodings[..., 6])
+        return torch.cat([torch.stack([xg, yg, zg], dim=-1), dg, rg[..., None]], dim=-1)
+
+
 class ResidualCoder:
     """Anchor-based 7-dim residual coder (reference :5-76): xy residuals
     normalized by the anchor BEV diagonal, log size ratios, the raw angle
@@ -135,7 +196,7 @@ class ResidualCoder:
 
 
 BOX_CODERS = {"PointResidual_BinOri_Coder": PointResidual_BinOri_Coder,
-              "ResidualCoder": ResidualCoder}
+              "PointResidualCoder": PointResidualCoder, "ResidualCoder": ResidualCoder}
 
 
 def build_box_coder(name, config):

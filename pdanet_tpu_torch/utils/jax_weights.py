@@ -17,15 +17,20 @@ hd), ``bias`` (H, hd)              transposed; ``bias`` (H*hd,)
 attention ``out`` ``kernel`` (H,   ``weight``: reshaped to (H*hd, D),
 hd, D)                             transposed
 Conv ``kernel`` (kh, kw, in, out)  ``weight`` (out, in, kh, kw)
-3-D Conv ``kernel`` (kz, ky, kx,   ``weight`` (out, in, kz, ky, kx)
-in, out)
+3-D Conv ``kernel`` (kz, ky, kx,   ``weight`` (out, in, kz, ky, kx): the
+in, out)                           dense ladders, the UNetV2's convs, the
+                                   Part-A2 RoI head's masked convs
 ConvTranspose ``kernel`` (kh, kw,  ``weight`` (in, out, kh, kw), flipped
 in, out)                           in both spatial axes (flax applies it
                                    unflipped, ``conv_transpose2d``
                                    flipped)
+3-D ConvTranspose ``kernel`` (kz,  ``weight`` (in, out, kz, ky, kx),
+ky, kx, in, out)                   flipped in the three spatial axes (the
+                                   UNetV2's ``inv_conv`` upsampling)
 sparse conv ``kernel``, ``kernel1``  the same name, layout (K, C_in, C_out)
 / ``kernel2``, ``conv2_down_kernel``  kept: the port's sparse convs take
-... ``conv_out_kernel``             flax's layout (``sparse_backbone.py``)
+... ``conv_out_kernel``, the        flax's layout (``sparse_backbone.py``,
+sparse inverse conv's ``kernel``   ``sparse_unet.py``)
 VectorPool                         the same name, layout (V, C_in, C_out)
 ``separate_local_aggregation``     kept: the per-cell einsum takes flax's
 (V, C_in, C_out)                   layout (``pfe/vector_pool.py``)
@@ -55,7 +60,7 @@ import zlib
 import numpy as np
 import torch
 
-from ..models.blocks import ConvTranspose
+from ..models.blocks import ConvTranspose, ConvTranspose3d
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 JAX_CKPT_MARKER = "__pdanet_ckpt_format__"
@@ -136,7 +141,8 @@ def _layouts(model):
     """What the conversion needs to know of ``model``: the dotted names of
     its transposed convolutions, and of its parameters named after their
     flax leaf (the sparse conv kernels), which keep flax's layout."""
-    transposed = {name for name, mod in model.named_modules() if isinstance(mod, ConvTranspose)}
+    transposed = {name for name, mod in model.named_modules()
+                  if isinstance(mod, (ConvTranspose, ConvTranspose3d))}
     kept = {name for name, _ in model.named_parameters()
             if not name.endswith((".weight", ".bias"))}
     return transposed, kept
@@ -157,6 +163,8 @@ def _convert_param(path, arr, layouts):
         return mods, "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()
     if arr.ndim == 4:
         return mods, "weight", arr.transpose(3, 2, 0, 1).copy()
+    if arr.ndim == 5 and ".".join(mods) in transposed:  # (kz, ky, kx, in, out)
+        return mods, "weight", arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2).copy()
     if arr.ndim == 5:  # 3-D Conv (kz, ky, kx, in, out)
         return mods, "weight", arr.transpose(4, 3, 0, 1, 2).copy()
     if arr.ndim == 3 and mods[-1] == "out":  # (H, hd, D)

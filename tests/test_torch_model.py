@@ -272,6 +272,13 @@ def test_port_imports_no_jax():
         "import pdanet_tpu_torch.models.detectors.voxel_rcnn\n"
         "from pdanet_tpu_torch.models.roi_heads import roi_head_template, voxelrcnn_head\n"
         "from pdanet_tpu_torch.models.model_utils import model_nms_utils\n"
+        "import pdanet_tpu_torch.models.detectors.part_a2\n"
+        "import pdanet_tpu_torch.models.detectors.part_a2_free\n"
+        "from pdanet_tpu_torch.models.backbones_3d import sparse_unet, voxel_unet\n"
+        "from pdanet_tpu_torch.models.dense_heads import point_head_box\n"
+        "from pdanet_tpu_torch.models.dense_heads import point_intra_part_head\n"
+        "from pdanet_tpu_torch.models.roi_heads import partA2_head\n"
+        "from pdanet_tpu_torch.ops import roi_pool\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"

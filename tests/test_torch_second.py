@@ -536,8 +536,6 @@ def test_build_network_second_yaml_and_unported_raise():
     np.testing.assert_array_equal(pp[..., 1] * 432 + pp[..., 2], cells)
 
     for key, value in (("VFE", {"NAME": "DynamicMeanVFE"}),
-                       ("BACKBONE_3D", {"NAME": "UNetV2"}),
-                       ("BACKBONE_3D", {"NAME": "SparseUNetV2"}),
                        ("DENSE_HEAD.TARGET_ASSIGNER_CONFIG", {"NAME": "ATSS"})):
         bad = EasyDict(second_cfg())
         node = bad

@@ -693,8 +693,9 @@ def test_build_network_voxel_rcnn_yaml():
     from pdanet_tpu_torch.models.detectors import voxel_rcnn
 
     assert get_post_processor("VoxelRCNN") is voxel_rcnn.post_processing
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        get_post_processor("PartA2Net")
+    for name in ("PointRCNN", "CaDDN"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+            get_post_processor(name)
     # the dense-grid pool goes with the dense backbone: neither is ported
     dense = EasyDict(vrcnn_cfg())
     dense.BACKBONE_3D = EasyDict(dense.BACKBONE_3D, NAME="VoxelBackBone8x")
