@@ -114,12 +114,10 @@ Phases, each of which raises on failure:
    (every key of the ONCE result dict, finite); a b1 request's latency and
    device split; the SA0 ball query at 60000 support points and 16384
    centres equal to its plain version, with its device time and tile
-   skip; one float32 frame on the card against the CPU (D-FPS and ball
-   query equal, ctr-aware picks as in phase 7, centre features 1e-3,
-   logits 2e-3, equal detection counts) and one float64 train step with
-   every index fed (loss within 1e-9 relative, gradients within 1e-3 of
-   each leaf's scale, statistics within 1e-5).  Every kernel must launch
-   on the ONCE path.
+   skip; one float64 train step on the card against the CPU with every
+   index fed (loss within 1e-9 relative, gradients within 1e-3 of each
+   leaf's scale, statistics within 1e-5).  Every kernel must launch on
+   the ONCE path.
 9. KITTI through the CLIs: the shipped tools/cfgs/kitti_models/PDA-SSD.yaml
    at full width (16384 sampled points, bfloat16 as shipped), run as a
    user runs it from tools/ (``cfgs`` linked into a temporary working
@@ -148,19 +146,19 @@ Phases, each of which raises on failure:
    yaml at b1 (full width, bfloat16 as shipped, seeded random weights)
    traced by ``serving.export_serving`` (``torch.export``, every kernel a
    ``torch.library`` op) and saved with their sidecars (export seconds and
-   MB printed); each program reloaded in a fresh ``python3`` that imports
-   torch and the port's ops and serving modules only, answering 3
-   LiDAR-like requests: detection counts and labels equal to the eager
-   closure's, boxes and scores within 1e-5, and FPS, the ball query, the
-   bfloat16 attention, the IoU and the NMS launched inside the program.
-   Beside that process, ``python -m pdanet_tpu_torch.tools.serve`` over 5
-   velodyne files (4 of 120000 points, one of 9000 that wraps) on the
-   KITTI b1 program: one JSON line a file, equal to the closure's on the
-   same preprocessed cloud.  Then each program's request latency and host
-   enqueue time beside the eager closure's (the graph that was saved, run
-   in this process; medians of 20 after warm-up, host clock ending in a
+   MB printed); the KITTI b1 program's request latency and host enqueue
+   time beside the eager closure's (the graph that was saved, run in this
+   process; medians of 20 after warm-up, host clock ending in a
    synchronise, two turns) with the device busy time and the operators
-   each dispatches a request, a report.
+   each dispatches a request, a report.  In the tail: each program reloaded
+   in a fresh ``python3`` that imports torch and the port's ops and
+   serving modules only, answering 3 LiDAR-like requests: detection
+   counts and labels equal to the eager closure's, boxes and scores within
+   1e-5, and FPS, the ball query, the bfloat16 attention, the IoU and the
+   NMS launched inside the program.  Beside that process, ``python -m
+   pdanet_tpu_torch.tools.serve`` over 5 velodyne files (4 of 120000
+   points, one of 9000 that wraps) on the KITTI b1 program: one JSON line
+   a file, equal to the closure's on the same preprocessed cloud.
 11. Data parallel.  (a) Phase 9's root and yaml through the port's
    ``tools/scripts/dist_train.sh`` (torchrun, ``--launcher pytorch``,
    world 1: NCCL refuses two ranks on one GPU; one epoch at B = 4 with
@@ -373,21 +371,60 @@ Phases, each of which raises on failure:
    Export.  (e) The IoU and the NMS at K 9000, 1024 and 100 (Part-A2-free:
    9000 and 100).
 
+19. PointRCNN and PointRCNN-IoU: tools/cfgs/kitti_models/pointrcnn.yaml at
+   full width (16384 sampled points; the PointNet++ MSG backbone 16384 ->
+   4096 -> 1024 -> 256 -> 64, two radii a level, widths up to 512, its FP
+   decoder back to the points at 128 channels; the point-box head's
+   per-point boxes of three classes proposed at K 9000 into 100 / 512
+   RoIs, 128 sampled a frame; 512 points pooled a RoI, the SA stages
+   [128, 32, -1] over the B * R clouds; the final NMS at K 100), seeded
+   weights with the point head's box layer scaled as in phase 14, float32,
+   TF32 off, on phase 9's 16384-point frames.  (a) A b1 and a b2 request;
+   one frame on the card against the CPU (``pointrcnn_card_vs_cpu``): the
+   backbone's FPS, ball-query and three-NN indices equal, its features
+   and the point head's outputs within ``PV_STAGE_TOL`` of max(1,
+   |value|); on the card's inputs the proposals equal, the RoI pool's
+   memberships equal but for ``POINTRCNN_POOL_FLIPS`` and its clouds
+   within the gate at the RoIs those leave untouched, the RoI head's
+   indices equal and its outputs within the gate (the TF32 control must
+   exceed it), the detections paired box for box.  (b) 2 float32 steps at
+   the yaml's B = 2 (gt planted on the proposals), then the float64 step
+   at B = 1 card vs CPU, the CPU fed the card's FPS, ball-query and
+   three-NN picks.  (c) The train and test CLIs on phase 9's root,
+   ``dist_train.sh`` in the tail.  (d) Export.  (e) The IoU and the NMS at
+   K 9000 and 100; FPS over request 0's 100 RoI clouds of 512 points (one
+   launch; the clouds also made degenerate: every third RoI empty, every
+   other third cycling three points) and the RoI head's ball query,
+   against their plain versions.  Then tools/cfgs/kitti_models/
+   pointrcnn_iou.yaml (``CLS_SCORE_TYPE`` roi_iou, B = 3): one b1
+   request, one step whose sampled RoIs' labels are the soft labels of
+   their IoUs, the CLIs (at B = 2) and ``dist_train.sh``, export.
+
+Depth (``VOXEL_DEPTH``; every kernel row, family and phase stays): phases
+12-19 serve one b1 and one b2 request (15b, 17b and 19b one b1), take one
+float32 step (19a two), and their CLIs and ``dist_train.sh`` train over 4
+of phase 9's frames; 15b, 17b and 18b take no float64 step (18b's point-box
+head is 19a's, its RoI head 18a's), CenterPoint's runs on ``DENSE_CROP``.
+Phase 8 takes no float32 frame against the CPU (its float64 step does,
+with the same forward; phases 3 and 8 hold FPS and the ball query at
+ONCE's shapes to their plain versions).
+
 The script ends in a tail, run once every phase has measured, so that
-nothing else runs on the card beside a measurement: phases 12-18's b1
-programs are exported (d) one after the other, and one fresh process
-reloads each as it is saved and holds it bit-equal to the eager closure's
-outputs on the same frame (saved in the phase), while phase 11's
-``dist_train.sh`` and ``dist_test.sh`` and the ``dist_train.sh`` runs of
-phases 12-14 and 16-18 (c, at B = 1) go, five processes at a time.
+nothing else runs on the card beside a measurement: two export processes
+export phases 12-19's b1 programs (d) from their saved weights, and one
+fresh process reloads each as it is saved and holds it bit-equal to the
+eager closure's outputs on the same frame (saved in the phase), while
+phase 10's fresh process and serve CLI, phase 11's ``dist_train.sh`` and
+``dist_test.sh`` and the ``dist_train.sh`` runs of phases 12-14 and 16-19
+(c, at B = 1) go, five chains at a time.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
 (phase 4's requests, phase 7's bfloat16 and float32 train steps, phase
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
 CLIs, phase 10's exported programs, phase 11's CLI processes, one
-process and ranks, and phases 12-15's requests, train steps, CLIs and
-programs, and phase 16's and 17's, each run counted from 0), its
+process and ranks, and phases 12-19's requests, train steps, CLIs and
+programs, each run counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -408,8 +445,12 @@ phase's FPS launches) and ball query at each source
 ``ball_query_roi_grid_pool_pv_rcnn``: the phase's ball-query launches
 at that site, ``cuda_lib.launches_by_site``) and PV-RCNN++'s FPS on the collapsed cloud
 (``fps_spc_pv_rcnn_pp``), and at phase 18's K 9000, 1024 and 100
-(``rotated_iou_k9000_part_a2`` ... ``nms_k100_part_a2_free``).  The line
-before it gives the script's seconds.
+(``rotated_iou_k9000_part_a2`` ... ``nms_k100_part_a2_free``), and at
+phase 19's K 9000 and 100 (``rotated_iou_k9000_pointrcnn`` ...) with the
+RoI head's FPS (``fps_k512_roi_pointrcnn``: the phase's FPS launches on
+512-point clouds, ``fps_n512`` of ``cuda_lib.launches_by_k``) and ball
+query (``ball_query_roi_pointrcnn``).  The line before it gives the
+script's seconds.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -991,6 +1032,16 @@ def skip_pair_boxes(seed, P, gaps, square=60.0, odd=True):
     return out
 
 
+# two pairs of PointRCNN's seeded proposal boxes whose IoU the kernel gave
+# 0.3 % (and half) off its plain version while it took cosf / sinf
+MARGIN_PAIRS = ((4.816701889038086, -3.700716733932495, -0.5751507878303528, 3.881711006164551,
+                 1.6010545492172241, 1.5572998523712158, -1.0846593379974365),
+                (2.2110655307769775, -2.2371928691864014, -1.749772310256958, 3.8819379806518555,
+                 1.601021647453308, 1.5573476552963257, -1.0691578388214111),
+                (41.889862060546875, 13.674456596374512, -1.703295111656189, 3.881639242172241,
+                 1.6010240316390991, 1.5572230815887451, -1.0984846353530884),
+                (42.366661071777344, 12.80897331237793, -1.6941862106323242, 3.8818917274475098,
+                 1.6010488271713257, 1.5572954416275024, -1.0877596139907837))
 NMS_SIZES = (1, 63, 64, 65, 256, 1024, 4096)  # K; from 1024 on a synthetic sparse IoU
 # K beyond 4096 (the walk's five-words-a-lane instantiation), with B: fewer
 # cases each, the plain walk taking about a second at K 10240
@@ -1013,8 +1064,9 @@ def check_iou_nms(dev, stats, parent=None):
     """Phase 3, the rotated self-IoU and the NMS walk beyond their headline
     shapes.  The IoU within rtol 2e-4 / atol 2e-5 of its plain version,
     the diagonal 1 within 1e-5 (boxes of nonzero area), at spread 12 and 3
-    (most pairs meet), B = 1 K = 1024, duplicated boxes, zero-size boxes
-    and pairs within 1e-3 m of the circle skip's distance; with ``parent``
+    (most pairs meet), B = 1 K = 1024, duplicated boxes, zero-size boxes,
+    pairs within 1e-3 m of the circle skip's distance and car-sized boxes
+    whose corners lie at the containment margin (``MARGIN_PAIRS``); with ``parent``
     also against that tree's kernel, bit for bit or the differing pairs
     printed, and timed in turns beside it.  The NMS keep mask equal to the
     plain version at every K of NMS_SIZES, thresh 0.01, 0.1 and 0.7, valid
@@ -1035,12 +1087,23 @@ def check_iou_nms(dev, stats, parent=None):
     zero[0, kind == 3, 3:5] = 0.0
     edge = skip_pair_boxes(43, 128, (rotated_iou.SKIP_SLACK - 1e-3, rotated_iou.SKIP_SLACK + 1e-3),
                            square=24.0, odd=False).reshape(1, 256, 7)
+    # car-sized boxes a few centimetres and ~0.01 rad apart, as PointRCNN's
+    # seeded per-point proposals are: 252 drawn, and two pairs of its
+    # proposals where a corner lies within rounding of the other box's
+    # containment margin, so that an ulp of the corner (cosf against the
+    # plain version's cos rounded from double) moved the IoU by up to 0.3 %
+    cars = np.concatenate([rs.uniform([0, 0, -1], [3, 3, 0], (1, 252, 3)),
+                           rs.normal([3.88, 1.601, 1.557, -1.08], [2e-4, 3e-5, 3e-5, 1e-2],
+                                     (1, 252, 4))], -1)
+    margin = np.array(MARGIN_PAIRS, np.float64)[None]
+    cars = np.concatenate([cars, margin], 1).astype(np.float32)
     cases = (("spread 12 B=2 K=256", random_boxes(44, 2, 256, 12.0)),
              ("spread 3 B=1 K=256", random_boxes(45, 1, 256, 3.0)),
              ("spread 3 B=2 K=256", random_boxes(46, 2, 256, 3.0)),
              ("spread 24 B=1 K=1024", random_boxes(47, 1, 1024, 24.0)),
              ("duplicated boxes K=256", dup), ("zero-size boxes K=256", zero),
-             ("pairs within 1e-3 m of the skip distance K=256", edge))
+             ("pairs within 1e-3 m of the skip distance K=256", edge),
+             ("car-sized boxes 0.01 rad apart, corners at the containment margin K=256", cars))
     for what, arr in cases:
         boxes = torch.from_numpy(arr).to(dev)
         got = rotated_iou.boxes_iou_bev_batched_self_cuda(boxes)
@@ -2445,64 +2508,11 @@ def once_phase(dev, work_dir):
     print_ball_query_work(f"ONCE SA0 B=1 N={sup.shape[1]} M={M}", radii, ks, sup, ctr)
     del got, want
 
-    # ---- one float32 ONCE frame, card against CPU
-    compare_once_f32(cfg, f32_cfg, weights, dev, frame["points"])
     # ---- one float64 ONCE train step (ver2), card against CPU, every index fed
     first = batches[0]
     compare_once_f64(cfg, f32_cfg, weights, dev, first["points"][:1], first["gt_boxes"][:1],
                      len(train_set))
     return launches
-
-
-def compare_once_f32(cfg, mcfg, weights, dev, frame):
-    """One ONCE frame in float32 on the card (kernels) and on the CPU
-    (plain versions): D-FPS and ball-query indices equal; the ctr-aware
-    picks the card's where the CPU's own differ only by scores within
-    1e-5 (``card_ctr_picks``); centre features within 1e-3, logits within
-    2e-3, detection counts equal."""
-    import torch
-
-    from pdanet_tpu_torch.models import build_network
-    from pdanet_tpu_torch.models.detectors import get_post_processor
-
-    def run(device, sampling=None):
-        model = build_network(mcfg, len(cfg.CLASS_NAMES), device=device)
-        model.load_state_dict(weights)
-        model.eval()
-        t0 = time.perf_counter()
-        with fed(sampling=sampling), torch.inference_mode():
-            out = model(torch.as_tensor(frame).to(device))
-            post = get_post_processor(mcfg.NAME)(out, mcfg)
-        print(f"ONCE float32 forward + NMS B=1 N={frame.shape[1]} on the {device.type}: "
-              f"{time.perf_counter() - t0:.2f} s")
-        return out, post, model.backbone_3d.fps_identity
-
-    g_out, g_post, fps_identity = run(dev)
-    queue = [i.cpu() for k, i in enumerate(g_out["sampled_idx"])
-             if i is not None and not fps_identity[k]]
-    checks = []
-    c_out, c_post, _ = run(torch.device("cpu"), card_ctr_picks(queue, checks))
-    require(not queue, "the ONCE CPU run did not sample every layer")
-    for what, n_diff, gap in checks:
-        print(f"ONCE {what} sampling, CPU's own against the card's: {n_diff} indices differ, "
-              f"largest CPU-score difference of the picks {gap:.3g}")
-        require((what == "D-FPS" and n_diff == 0) or (what == "ctr-aware" and gap <= 1e-5),
-                f"ONCE {what} sampling differs card vs CPU beyond near ties")
-    sa_cfg = mcfg.BACKBONE_3D.SA_CONFIG
-    for k in range(len(sa_cfg.NSAMPLE_LIST)):
-        for r, (gb, cb) in enumerate(zip(g_out["ball_query_idx"][k] or (),
-                                         c_out["ball_query_idx"][k] or ())):
-            require(torch.equal(gb.cpu(), cb), f"ONCE SA{k} radius {r} ball query differs")
-    err_f = (g_out["centers_features"].cpu() - c_out["centers_features"]).abs().max().item()
-    err_c = (g_out["batch_cls_preds"].cpu() - c_out["batch_cls_preds"]).abs().max().item()
-    err_b = (g_out["center_box_preds"].cpu() - c_out["center_box_preds"]).abs().max().item()
-    pairs, n_g, n_c, gap_c, gap_s = match_detections(g_post, c_post)
-    print(f"ONCE float32 card vs CPU: indices equal; centers_features {err_f:.3g}, cls logits "
-          f"{err_c:.3g}, box logits {err_b:.3g}; detections {n_g} vs {n_c}, {pairs} paired by "
-          f"mutual nearest centre (largest centre distance {gap_c:.3g} m, score {gap_s:.3g})")
-    require(err_f <= 1e-3, f"ONCE centers_features err {err_f} > 1e-3")
-    require(err_c <= 2e-3 and err_b <= 2e-3, f"ONCE logit errors {err_c}, {err_b} > 2e-3")
-    require(n_g == n_c, "ONCE detection counts differ card vs CPU")
 
 
 def compare_once_f64(cfg, mcfg, weights, dev, pts, gt, train_frames):
@@ -2960,19 +2970,18 @@ def dispatched_ops(fn, batch):
 def export_phase(dev, work_dir):
     """Phase 10: the shipped KITTI yaml at b1 and b2 and the ONCE yaml at b1
     (full width, bfloat16 as shipped, seeded weights) exported by
-    ``serving.export_serving`` and saved; each program reloaded in a fresh
-    process that imports torch and the port's ops and serving modules only,
-    answering 3 LiDAR-like requests there: equal detection counts and
-    labels, boxes and scores within 1e-5 of the eager closure's, and every
-    serving kernel launched inside the program.  Beside it, ``python -m
-    pdanet_tpu_torch.tools.serve`` over 5 velodyne files on the KITTI b1
-    program: one JSON line each, equal to the closure's on the same
-    preprocessed cloud.  Then, with both processes done, each program's
-    request latency beside the eager closure's with their device busy
-    time (a report).  Returns the kernel launches of the programs' runs in
-    the fresh process."""
-    import collections
-
+    ``serving.export_serving`` and saved; the eager closure's outputs on 3
+    LiDAR-like requests a program and on the serve CLI's 5 velodyne files
+    (preprocessed as the CLI does); the KITTI b1 program's request latency
+    beside the eager closure's with their device busy time (a report).
+    Returns no launches of its own and its chain for the tail
+    (``export_check``): each program reloaded in a fresh process that
+    imports torch and the port's ops and serving modules only, answering
+    the 3 requests there (equal detection counts and labels, boxes and
+    scores within 1e-5 of the eager closure's, every serving kernel
+    launched inside the program), and beside it ``python -m
+    pdanet_tpu_torch.tools.serve`` over the velodyne files on the KITTI b1
+    program (one JSON line each, equal to the closure's)."""
     import torch
 
     from pdanet_tpu_torch import serving
@@ -3025,12 +3034,63 @@ def export_phase(dev, work_dir):
     detections = work / "detections.jsonl"
     thresh = cfg.MODEL.POST_PROCESSING.SCORE_THRESH
 
-    # the fresh process and the serve CLI, side by side (both mostly load)
+    # what the fresh process and the serve CLI must give: the eager
+    # closure's outputs on the same frames and preprocessed clouds
+    for r in runs:
+        r["want"] = [{k: v.cpu() for k, v in r["closure"](
+            {"points": torch.load(f).to(dev)}).items()} for f in r["frames"]]
+    files = sorted(bins.glob("*.bin"))
+    meta = json.loads(Path(f"{k1['path']}.json").read_text())
+    _, n_points, num_feats = meta["inputs"]["points"]["shape"]
+    serve_want = []
+    for f in files:
+        pts = load_cloud(str(f), n_points, num_feats, meta["preprocess"]["sort_points"])
+        serve_want += frame_detections(
+            k1["closure"]({"points": torch.from_numpy(pts[None]).to(dev)}), thresh)
+
+    # latency: the KITTI b1 program (the graph that was saved, run as
+    # load_serving runs it) and the eager closure, in turns, in this process
+    r = runs[0]
+    batch = {"points": torch.load(r["frames"][0]).to(dev)}
+    module = r["exported"].module()
+
+    def program(batch):
+        with torch.inference_mode():
+            return module(batch)
+
+    fns = {"exported": program, "eager": r["closure"]}
+    ms = {}
+    for name in [*fns, *reversed(fns)]:  # turns: a, b, b, a
+        ms.setdefault(name, []).append(request_ms(fns[name], batch))
+    for name, fn in fns.items():
+        split = device_split(lambda: fn(batch))
+        busy = f"{split[1]:.3f} ms in {split[0]} kernels" if split else "not traced"
+        (l1, e1), (l2, e2) = ms[name]
+        print(f"{r['label']} request, {name}: median latency {l1:.2f} / {l2:.2f} ms, host "
+              f"enqueue {e1:.2f} / {e2:.2f} ms over 20 after warm-up (two turns), device "
+              f"busy {busy}, {dispatched_ops(fn, batch)} operators dispatched")
+    for r in runs:
+        del r["closure"], r["exported"]
+    return {}, ("exported", lambda: export_check(work, runs, bins, files, serve_want,
+                                                 detections, thresh))
+
+
+def export_check(work, runs, bins, files, serve_want, detections, thresh):
+    """Phase 10's chain of the tail (``run_tail``): the fresh process that
+    reloads the saved programs (``RELOAD``) and the serve CLI on the KITTI
+    b1 program, side by side; each program's requests against the eager
+    closure's outputs (``want``, computed in the phase), the serve CLI's
+    lines against the closure's on the same preprocessed clouds.  Returns
+    the launches of the programs' runs in the fresh process."""
+    import collections
+
+    import torch
+
     t0 = time.perf_counter()
     spec = [(str(r["path"]), [str(f) for f in r["frames"]], str(r["out"])) for r in runs]
     commands = {"reload": [sys.executable, "-c", RELOAD, json.dumps(spec)],
                 "serve": [sys.executable, "-m", "pdanet_tpu_torch.tools.serve", "--artifact",
-                          str(k1["path"]), "--inputs", f"{bins}/*.bin", "--out",
+                          str(runs[0]["path"]), "--inputs", f"{bins}/*.bin", "--out",
                           str(detections), "--score_thresh", str(thresh)]}
     procs = {}
     for name, cmd in commands.items():
@@ -3045,7 +3105,8 @@ def export_phase(dev, work_dir):
                 proc.wait()
         require(proc.returncode == 0, f"{name} process failed:\n"
                 f"{(work / f'{name}.err').read_text()[-6000:]}")
-    print(f"fresh process and serve CLI: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 10's fresh process and serve CLI (in the tail): "
+          f"{time.perf_counter() - t0:.1f} s")
 
     report = json.loads((work / "reload.out").read_text().splitlines()[-1])
     modules = report.pop("modules")
@@ -3058,8 +3119,7 @@ def export_phase(dev, work_dir):
         got = torch.load(r["out"])
         gap_b = gap_s = 0.0
         counts = []
-        for f, g in zip(r["frames"], got):
-            want = {k: v.cpu() for k, v in r["closure"]({"points": torch.load(f).to(dev)}).items()}
+        for g, want in zip(got, r["want"]):
             require(torch.equal(g["pred_counts"], want["pred_counts"])
                     and torch.equal(g["pred_labels"], want["pred_labels"]),
                     f"{r['label']}: the program's counts or labels differ from the closure's")
@@ -3079,44 +3139,15 @@ def export_phase(dev, work_dir):
               f"within {gap_s:.3g}; launches {ran}")
 
     lines = [json.loads(line) for line in detections.read_text().splitlines()]
-    files = sorted(bins.glob("*.bin"))
     require([d.pop("frame") for d in lines] == [f.name for f in files],
             "the serve CLI wrote another line than one per file")
-    meta = json.loads(Path(f"{k1['path']}.json").read_text())
-    _, n_points, num_feats = meta["inputs"]["points"]["shape"]
-    n_dets = 0
-    for f, line in zip(files, lines):
-        pts = load_cloud(str(f), n_points, num_feats, meta["preprocess"]["sort_points"])
-        want, = frame_detections(
-            k1["closure"]({"points": torch.from_numpy(pts[None]).to(dev)}), thresh)
+    for f, line, want in zip(files, lines, serve_want):
         require(line == want, f"the serve CLI's detections of {f.name} differ from the "
                 f"closure's")
-        n_dets += len(line["scores"])
     print(f"serve CLI over {len(files)} velodyne files ({SERVE_POINTS} points; the last "
-          f"wrapped to {n_points}): {n_dets} detections equal to the closure's; "
+          f"wrapped to the program's budget): {sum(len(w['scores']) for w in serve_want)} "
+          f"detections equal to the closure's; "
           f"{(work / 'serve.err').read_text().strip().splitlines()[-1]}")
-
-    # latency: the program (the graph that was saved, run as load_serving
-    # runs it) and the eager closure, in turns, in this process
-    for r in runs:
-        batch = {"points": torch.load(r["frames"][0]).to(dev)}
-        module = r["exported"].module()
-
-        def program(batch):
-            with torch.inference_mode():
-                return module(batch)
-
-        fns = {"exported": program, "eager": r["closure"]}
-        ms = {}
-        for name in [*fns, *reversed(fns)]:  # turns: a, b, b, a
-            ms.setdefault(name, []).append(request_ms(fns[name], batch))
-        for name, fn in fns.items():
-            split = device_split(lambda: fn(batch))
-            busy = f"{split[1]:.3f} ms in {split[0]} kernels" if split else "not traced"
-            (l1, e1), (l2, e2) = ms[name]
-            print(f"{r['label']} request, {name}: median latency {l1:.2f} / {l2:.2f} ms, host "
-                  f"enqueue {e1:.2f} / {e2:.2f} ms over 20 after warm-up (two turns), device "
-                  f"busy {busy}, {dispatched_ops(fn, batch)} operators dispatched")
     return dict(launches)
 
 
@@ -3138,8 +3169,8 @@ sys.path.insert(0, {root!r})
 import chip_smoke
 chip_smoke.dp_step_cost({reps}, {turns!r})
 """
-DP_STEP_TURNS = ("none", "identity", "nccl", "none")
-DP_STEP_REPS = 4  # B = 4 steps a turn (6 before phase 17 came)
+DP_STEP_TURNS = ("none", "identity", "nccl")
+DP_STEP_REPS = 3  # B = 4 steps a turn
 # the six kernel ops, and the kernels that run each
 DP_OPS = {"fps": ("fps",), "ball_query": ("ball_query",),
           "neighbor_attention": ("neighbor_attention", "neighbor_attention_bf16"),
@@ -3468,8 +3499,10 @@ def _free_port():
 def dp_ranks(dev, cfg, weights, work, world=1):
     """Phase 11 (b): ranks of one frame each against one process on the
     same frames -- on one card (``world`` 1) two ranks sharing it through
-    Gloo, on ``world`` cards one rank a card over NCCL.  Returns the
-    kernel launches of the one process and the ranks."""
+    Gloo, on ``world`` cards one rank a card over NCCL.  Runs the one
+    process; returns its kernel launches and ``ranks()``, which starts the
+    ranks, checks them against the one process and returns the ranks'
+    launches (phase 11 at world 1 leaves it to the tail)."""
     import torch
 
     from pdanet_tpu_torch.ops import cuda_lib
@@ -3503,6 +3536,17 @@ def dp_ranks(dev, cfg, weights, work, world=1):
     torch.save(dict(cfg=cfg, device=str(dev), backend=backend,
                     weights={k: v.cpu() for k, v in weights.items()},
                     points=pts, gt_boxes=gt, picks=picks, ball=ball), spec)
+    return one_launches, lambda: dp_ranks_check(cfg, spec, n_ranks, backend, one64, swapped,
+                                                one_detections, one_launches)
+
+
+def dp_ranks_check(cfg, spec, n_ranks, backend, one64, swapped, one_detections, one_launches):
+    """Phase 11 (b), the ranks: ``n_ranks`` processes (``dp_rank``) on the
+    frames of ``spec``, checked against the one process's float64 step
+    (``one64``, ``swapped`` with its frames reversed), detections and
+    launches.  Returns the ranks' launches."""
+    import torch
+
     port = _free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", DP_RANK.format(
@@ -3585,11 +3629,7 @@ def dp_ranks(dev, cfg, weights, work, world=1):
     for who, counts in (("the one process", one_launches),
                         *((f"rank {r}", c) for r, c in enumerate(rank_launches))):
         require(_ops_run(counts) == list(DP_OPS), f"{who} ran the ops {_ops_run(counts)}")
-    total = {}
-    for counts in (one_launches, *rank_launches):
-        for k, n in counts.items():
-            total[k] = total.get(k, 0) + n
-    return total
+    return add_launches(*rank_launches)
 
 
 def check_off_device(dev):
@@ -3634,13 +3674,16 @@ def check_off_device(dev):
 def dp_phase(dev, work_dir, kitti_run, cfg, weights, world=1):
     """Phase 11: data parallel.  (a) at world 1 the collectives' cost a step
     (the CLIs over NCCL, ``dp_cli``, run in the tail); on ``world`` GPUs
-    the CLIs, (b) ranks of one frame each against one process.  Returns the
-    kernel launches of every run, counted from 0."""
+    the CLIs, (b) ranks of one frame each against one process (at world 1
+    the ranks' processes run in the tail).  Returns the kernel launches of
+    every run, counted from 0, and at world 1 the ranks' chain for the
+    tail."""
     if world == 1:
         dp_step_report(kitti_run["B"])
-        return dp_ranks(dev, cfg, weights, work_dir, world)
-    return add_launches(dp_cli(work_dir, kitti_run, world),
-                        dp_ranks(dev, cfg, weights, work_dir, world))
+        one, ranks = dp_ranks(dev, cfg, weights, work_dir, world)
+        return one, ("dp", ranks)
+    one, ranks = dp_ranks(dev, cfg, weights, work_dir, world)
+    return add_launches(dp_cli(work_dir, kitti_run, world), one, ranks())
 
 
 # ---------------------------------------------------------------------------
@@ -3658,15 +3701,17 @@ PVPP_CFG_REL = "cfgs/kitti_models/pv_rcnn_plusplus.yaml"
 PV_NAMES = ("PVRCNN", "PVRCNNPlusPlus")
 PARTA2_CFG_REL = "cfgs/kitti_models/PartA2.yaml"
 PARTA2_FREE_CFG_REL = "cfgs/kitti_models/PartA2_free.yaml"
+POINTRCNN_CFG_REL = "cfgs/kitti_models/pointrcnn.yaml"
+POINTRCNN_IOU_CFG_REL = "cfgs/kitti_models/pointrcnn_iou.yaml"
 # phase 18's CLIs and dist_train.sh train on a root of their own: a Part-A2
 # step takes ~1 s, phase 9's 8 CLI frames would give 2 steps of B = 4 a run
 PARTA2_CLI_SPLITS = (("train", 2), ("val", 2))
 PARTA2_CLI_BATCH = 2
 AUG_CFG_RELS = ("cfgs/kitti_models/pointpillar_newaugs.yaml",
                 "cfgs/kitti_models/pointpillar_pyramid_aug.yaml")
-# phase 16's augmentor yamls train on a root of their own: 8 train frames,
-# two steps at the yaml's B = 4
-AUG_CLI_SPLITS = (("train", 8), ("val", 2))
+# phase 16's augmentor yamls train on a root of their own: 4 train frames,
+# one step at the yaml's B = 4
+AUG_CLI_SPLITS = (("train", 4), ("val", 2))
 # phase: (yaml, label, seed of the served frames; the train frames' is 100 more)
 VOXEL_PHASES = {12: (PP_CFG_REL, "PointPillar", 1200), 13: (SECOND_CFG_REL, "SECOND", 1200),
                 14: (VRCNN_CFG_REL, "Voxel-RCNN", 1400),
@@ -3675,11 +3720,14 @@ VOXEL_PHASES = {12: (PP_CFG_REL, "PointPillar", 1200), 13: (SECOND_CFG_REL, "SEC
                 16: (CENTERPOINT_CFG_REL, "CenterPoint", 1600),
                 17: (PV_CFG_REL, "PV-RCNN", 1700), "17b": (PVPP_CFG_REL, "PV-RCNN++", 1700),
                 "18a": (PARTA2_CFG_REL, "Part-A2", 1800),
-                "18b": (PARTA2_FREE_CFG_REL, "Part-A2-free", 1800)}
+                "18b": (PARTA2_FREE_CFG_REL, "Part-A2-free", 1800),
+                "19a": (POINTRCNN_CFG_REL, "PointRCNN", 1900),
+                "19b": (POINTRCNN_IOU_CFG_REL, "PointRCNN-IoU", 1900)}
 # the suffix of a phase's rows in the kernels line
 VOXEL_SUFFIX = {12: "", 13: "_second", 14: "_voxel_rcnn", "15a": "_second_iou",
                 "15b": "_multihead", 16: "_centerpoint", 17: "_pv_rcnn", "17b": "_pv_rcnn_pp",
-                "18a": "_part_a2", "18b": "_part_a2_free"}
+                "18a": "_part_a2", "18b": "_part_a2_free", "19a": "_pointrcnn",
+                "19b": "_pointrcnn_iou"}
 VOXEL_SERVE_FRAMES = 5  # three b1 requests and one b2
 VOXEL_TRAIN_STEPS = 5
 VOXEL_LATENCY_REPS = 10
@@ -3694,54 +3742,50 @@ DENSE_CLI_SPLITS = (("train", 1), ("val", 2))
 # the train CLIs and dist_train.sh of phases 12-14, 16 and 17 train one
 # epoch over the first frames of phase 9's train split (its infos cut to
 # these, ``cli_run``), its four val frames to test
-CLI_TRAIN_FRAMES = 8
-# the depth of phases 12-17, cut to keep the script inside its limit (their
-# widths and every run stay): fewer latency repeats and train steps;
-# phase 15 trains at B=1 (the yaml's 4 would need four times B=1's ~50
-# GiB) without a device split of the step (a B=1 step takes ~7 s), runs
-# (a), (b), (d) and (e) of the multi-head once (one b1 request, one step,
-# without the layout and TF32 turns that (a) of SECOND-IoU gives for the
-# same ladder), and has the export CLI in place of dist_train.sh; phases 16
-# and 17 have no TF32 turns (phase 13 times the same BEV convolution with
-# TF32 on); phases 13, 14 and 17 take no device split of a train step
-# (both were read on the card: SECOND's is the BEV FFT's backward);
-# phases 12-14, 16 and 17 run dist_train.sh.  Cut with phase 17:
-# SECOND-IoU and the multi-head take 1 step (were 2), the dense CLI root 1
-# train frame (was 2), and the CLIs and dist_train.sh of phases 12-14, 16
-# and 17 train over ``CLI_TRAIN_FRAMES`` of phase 9's 32 train frames,
-# phases 12-14 and 16 take 2 steps (were 3), the TF32 latency one turn
-# each way (was two), (e) one plain call a median at K 4096 and more;
-# PV-RCNN takes 2 steps, PV-RCNN++ 1 and one b1 request, no CLIs.  With
-# phase 18: the programs' fresh processes and dist_train.sh leave (d) for
-# the tail (``run_tail``: one fresh process for every program, dist_train.sh
-# at B = 1, four at a time, beside phase 11's dist_train.sh and
-# dist_test.sh); Part-A2 and Part-A2-free take 2 steps and their float64
-# step on ``DENSE_CROP`` (the CPU's took 19-27 s a yaml at full width),
-# their CLIs a root of 2 + 2 frames at B = 2, without the export CLI
-# (SECOND-IoU's runs it: with it in both the script read 1211.2 s on an
-# H100 host that ran phases 10, 11 and 17 25-53 % slower than another's,
-# where it read 1003.7 s without them); no TF32 turns in 12 and 14 (both
-# read equal to TF32 off), nor SECOND-IoU's layout turn (NCDHW against
-# channels-last-3d: NCDHW was the faster)
-VOXEL_DEPTH = {12: dict(latency_reps=3, train_steps=2, tf32=False),
-               13: dict(latency_reps=3, train_steps=2, train_split=False),
-               14: dict(latency_reps=3, train_steps=2, train_split=False, tf32=False),
-               "15a": dict(latency_reps=3, train_steps=1, batch_size=1, crop=DENSE_CROP,
-                           cli_root=DENSE_CLI_SPLITS, cli_export=True, dist_train=False,
-                           layout=False, train_split=False),
+CLI_TRAIN_FRAMES = 4
+# the depth of phases 12-19, cut to keep the script well inside its limit
+# (their widths, every kernel row and every entry point stay; the module
+# docstring's "Depth" says what each phase runs).  Keys: latency_reps;
+# serve_requests (b1, b2, b1, b1: the first n); train_steps, batch_size;
+# train_split (a device split of a step); tf32 / layout (the latency turns
+# with TF32 on, in channels-last-3d); crop (the CPU side of the dense
+# ladder's checks and the float64 step on DENSE_CROP); float64 (the
+# float64 step card vs CPU); compare (the float32 frame card vs CPU); cli,
+# cli_root / cli_batch (the CLIs on a root of their own), cli_export,
+# dist_train; iou_rows ((e)'s IoU / NMS rows).  The reasons: phase 15
+# trains at B=1 (the yaml's 4 would need four times B=1's ~35 GiB); 16 and
+# 17 have no TF32 turns (13 times the same BEV convolution with TF32 on);
+# 18a and 18b share a root of 2 + 2 frames (a Part-A2 step takes ~1 s);
+# 15b, 17b and 18b take no float64 step (their code is 15a's, 17's, and
+# 18a's and 19a's), 16's and the dense ladder's run on DENSE_CROP (the
+# CPU's float64 step takes 15-27 s a yaml at full width)
+VOXEL_DEPTH = {12: dict(latency_reps=3, serve_requests=2, train_steps=1, tf32=False),
+               13: dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False),
+               14: dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
+                        tf32=False),
+               "15a": dict(latency_reps=3, serve_requests=2, train_steps=1, batch_size=1,
+                           crop=DENSE_CROP, cli_root=DENSE_CLI_SPLITS, cli_export=True,
+                           dist_train=False, layout=False, train_split=False),
                "15b": dict(latency_reps=3, train_steps=1, batch_size=1, crop=DENSE_CROP,
                            serve_requests=1, cli=False, layout=False, train_split=False,
-                           tf32=False),
-               16: dict(latency_reps=3, train_steps=2, tf32=False),
-               17: dict(latency_reps=3, train_steps=2, train_split=False, tf32=False),
+                           tf32=False, float64=False),
+               16: dict(latency_reps=3, serve_requests=2, train_steps=1, tf32=False,
+                        crop=DENSE_CROP),
+               17: dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
+                        tf32=False),
                "17b": dict(latency_reps=3, train_steps=1, serve_requests=1, cli=False,
-                           tf32=False, train_split=False, iou_rows=False),
-               "18a": dict(latency_reps=3, train_steps=2, train_split=False, tf32=False,
-                           crop=DENSE_CROP, cli_root=PARTA2_CLI_SPLITS,
+                           tf32=False, train_split=False, iou_rows=False, float64=False),
+               "18a": dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
+                           tf32=False, crop=DENSE_CROP, cli_root=PARTA2_CLI_SPLITS,
                            cli_batch=PARTA2_CLI_BATCH),
-               "18b": dict(latency_reps=3, train_steps=2, train_split=False, tf32=False,
-                           crop=DENSE_CROP, cli_root=PARTA2_CLI_SPLITS,
-                           cli_batch=PARTA2_CLI_BATCH)}
+               "18b": dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
+                           tf32=False, float64=False, cli_root=PARTA2_CLI_SPLITS,
+                           cli_batch=PARTA2_CLI_BATCH),
+               "19a": dict(latency_reps=3, serve_requests=2, train_steps=2, train_split=False,
+                           tf32=False),
+               "19b": dict(latency_reps=3, serve_requests=1, train_steps=1, train_split=False,
+                           tf32=False, cli_batch=2, compare=False, float64=False,
+                           iou_rows=False)}
 VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
 # PV-RCNN's float32 keypoint features (each source's, fused), point scores
 # and RCNN outputs, card against CPU, the CPU run on the card's inputs, of
@@ -3754,6 +3798,12 @@ PV_STAGE_TOL = 1e-5
 # stage, the RoI head's outputs on the card's pooled grids; the control, the
 # card's stages with TF32 on, must exceed it
 PARTA2_STAGE_TOL = 1e-5
+# (RoI, point) memberships of PointRCNN's RoI point pool that may differ
+# card against CPU on the card's inputs: a point within a float32 ulp of a
+# box's face rounds to either side (the rotation's cos and sin on each
+# device); the pooled clouds are held to PV_STAGE_TOL at every RoI that no
+# flipped pair touches
+POINTRCNN_POOL_FLIPS = 2
 # (RoI, voxel) cell assignments of the RoI-aware pool that may differ card
 # against CPU on the card's inputs: a voxel centre within a float32 ulp of
 # a cell's border or of the box's side rounds to either side; the pooled
@@ -3812,9 +3862,39 @@ print(json.dumps({"modules": sorted(m for m in sys.modules
 """
 # the tail's processes at once (``run_tail``, which prints the card's peak
 # memory in use while they run): the programs' fresh process, phase 11's
-# dist_train.sh / dist_test.sh and four of the voxel phases' dist_train.sh
-# runs at B = 1
+# dist_train.sh / dist_test.sh, phase 10's fresh process and serve CLI and
+# the voxel phases' dist_train.sh runs at B = 1, five chains at a time,
+# beside ``EXPORT_WORKERS`` processes exporting the phases' b1 programs
 TAIL_WORKERS = 6
+EXPORT_WORKERS = 2
+# a tail export process: argv[1] a JSON list of ``voxel_export``'s jobs;
+# each built from its yaml and saved weights, exported at b1 and saved
+# with its sidecar, then one JSON line (its stem, seconds, bytes, nodes)
+EXPORT_PROGRAMS = """
+import json, os, sys, time
+import torch
+from pdanet_tpu_torch import serving
+from pdanet_tpu_torch.config import cfg_from_yaml_file
+from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+from pdanet_tpu_torch.models import build_network
+dev = torch.device("cuda", 0)
+for job in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    cfg = cfg_from_yaml_file(job["cfg_file"])
+    template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
+                               training=False, root_path=job["root"])
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=dev)
+    model.load_state_dict(torch.load(job["stem"] + ".weights.pt"))
+    exported = serving.export_serving(model, cfg.MODEL, serving.example_device_batch(
+        cfg, serving.serving_input_spec(cfg, 1, model), dev))
+    nbytes = serving.save_serving(exported, job["stem"] + ".pt2", serving.serving_meta(
+        cfg, job["cfg_rel"], torch.load(job["stem"] + ".batch.pt"), exported))
+    print(json.dumps({"stem": job["stem"], "seconds": time.perf_counter() - t0,
+                      "bytes": nbytes, "nodes": len(exported.graph.nodes),
+                      "worker": os.getpid()}), flush=True)
+    del model, exported
+    torch.cuda.empty_cache()
+"""
 
 
 def clear_launches():
@@ -3851,12 +3931,39 @@ def ball_query_sites(model):
 def path_kernels(model):
     """The launch counts a voxel model's path must raise: the IoU's and the
     NMS walk's; PV-RCNN's VSA adds FPS's and, with the ball query's, its
-    count at each of ``ball_query_sites`` (``ball_query_<site>``)."""
+    count at each of ``ball_query_sites`` (``ball_query_<site>``);
+    PointRCNN's path adds FPS's (and its count on the RoIs' clouds,
+    ``fps_n<K>``) and the ball query's (and its count in the RoI head)."""
+    if is_pointrcnn_model(model):
+        from pdanet_tpu_torch.models.roi_heads.pointrcnn_head import BALL_QUERY_SITE
+
+        return VOXEL_KERNELS + ("fps", f"fps_n{model.roi_head.num_sampled}", "ball_query",
+                                f"ball_query_{BALL_QUERY_SITE}")
     if not hasattr(model, "pfe"):
         return VOXEL_KERNELS
     sites = ball_query_sites(model)
     return (VOXEL_KERNELS + ("fps",) + (("ball_query",) if sites else ())
             + tuple(f"ball_query_{s}" for s in sites))
+
+
+def is_pointrcnn_model(model):
+    from pdanet_tpu_torch.models.detectors.point_rcnn import PointRCNN
+
+    return isinstance(model, PointRCNN)
+
+
+def batch_frames(batch):
+    """The frames of a device batch."""
+    return next(iter(batch.values())).shape[0]
+
+
+def describe_batch(batch):
+    """What a device batch holds a frame: its points, or its voxels (the
+    budget and the non-empty ones)."""
+    if "voxels" not in batch:
+        return f"{batch['points'].shape[1]} points of {batch['points'].shape[2]} features"
+    return (f"at most {batch['voxels'].shape[1]} voxels of {batch['voxels'].shape[2]}, "
+            f"non-empty {(batch['voxel_num_points'] > 0).sum(dim=1).tolist()}")
 
 
 def voxel_frames(seed, n, classes):
@@ -4048,7 +4155,8 @@ def kernel_candidates(cfg, out, served):
         rows.append((boxes, valid, float(nms_cfg.NMS_THRESH),
                      f"frame 0's {split} proposal candidates of "
                      f"{out['batch_cls_preds'].shape[1]} anchors", False))
-    if cfg.MODEL.NAME in PV_NAMES or is_parta2(cfg):  # the final NMS of the refined RoIs
+    if cfg.MODEL.NAME in PV_NAMES or is_parta2(cfg) or is_pointrcnn(cfg):
+        # the final NMS of the refined RoIs
         K = min(int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE),
                 int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE))
         i = next(i for i, b in enumerate(served.boxes) if b.shape[:2] == (1, K))
@@ -4731,6 +4839,13 @@ def pv_stage_gaps(source_channels, got, want):
     return gaps
 
 
+def is_pointrcnn(cfg):
+    """Whether the yaml's model is PointRCNN (over the PointNet++ backbone)."""
+    from pdanet_tpu_torch.models.detectors import resolve_detector_name
+
+    return resolve_detector_name(cfg.MODEL) == "PointRCNN"
+
+
 def is_parta2(cfg):
     """Whether the yaml's model is Part-A2 or Part-A2-free (MODEL.NAME
     PointRCNN over a UNet)."""
@@ -4887,6 +5002,205 @@ def parta2_card_vs_cpu(cfg, model, weights, template, requests, results, label, 
     require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
             f"{label} float32 detections card vs CPU not paired box for box")
     return first_card
+
+
+def pointrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label):
+    """Phase 19 (a): request 0's frame on the card against the CPU's plain
+    path.  The first stage whole on each device: the backbone's FPS,
+    ball-query and three-NN indices equal, its point features and the point
+    head's logits, box codes and scores within ``PV_STAGE_TOL`` of max(1,
+    |value|).  Then each stage on the card's own inputs, so that a float32
+    difference upstream moves no index: the proposal layer on the card's
+    first stage (keep mask and RoIs equal; its plain IoU on the card), the
+    RoI point pool's (RoI, point) memberships (equal but for
+    ``POINTRCNN_POOL_FLIPS``) and its canonical clouds (within the gate at
+    every RoI that no flip touches), the RoI head on the card's pooled
+    clouds (its SA stages' FPS and ball-query indices equal, ``rcnn_cls`` /
+    ``rcnn_reg`` within the gate), the refined boxes' post-processing (the
+    detections paired box for box with the card's request).  The control:
+    the card's first stage and RoI head with TF32 on, on the same inputs,
+    must exceed the gate.  Returns the card's first stage, request 0's FPS
+    and ball queries as ``rcnn_picks`` (``RecordPicks``) beside it."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.detectors.voxel_rcnn import post_processing
+    from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
+    from pdanet_tpu_torch.ops import roi_pool
+
+    b1 = requests[0]
+    dev = b1["points"].device
+    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+    head = model.roi_head
+    with torch.inference_mode():
+        with RecordPicks() as card:
+            out_card = model.forward_batch(b1)
+        first_card = model.first_stage(b1["points"])
+        scores = first_card["point_cls_scores"]
+        pooled_card = head.pool(first_card["point_coords"], first_card["point_features"], scores,
+                                out_card["rois"])
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device="cpu")
+    cpu_model.load_state_dict(weights)
+    cpu_model.eval()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), RecordPicks() as cpu_first:
+        first_cpu = cpu_model.first_stage(b1["points"].cpu())
+    cpu_s = time.perf_counter() - t0
+    n_fps, n_ball = len(cpu_first.fps), len(cpu_first.ball)
+    for i, (c, g) in enumerate(zip(cpu_first.fps, card.fps)):
+        require(torch.equal(c[2], g[2].cpu()), f"{label} backbone FPS {i} ({c[0].shape[1]} -> "
+                f"{c[1]}) indices card vs CPU")
+    for i, (c, g) in enumerate(zip(cpu_first.ball, card.ball)):
+        for r, (ci, gi) in enumerate(zip(c[4], g[4])):
+            require(torch.equal(ci, gi.cpu()), f"{label} backbone ball query {i} (radius "
+                    f"{c[0][r]}) indices card vs CPU")
+    for i, (c, g) in enumerate(zip(cpu_first.nn, card.nn)):
+        require(torch.equal(c, g.cpu()), f"{label} FP module {i}: three-NN indices card vs CPU")
+
+    def gap(g, w):
+        return ((g.cpu() - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
+
+    stage_keys = ("point_features", "point_cls_preds", "point_box_preds", "point_cls_scores")
+    errs = {k: gap(first_card[k], first_cpu[k]) for k in stage_keys}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        with plain_iou_on(dev):
+            props = RHT.proposal_layer(first_card["batch_cls_preds"].cpu(),
+                                       first_card["batch_box_preds"].cpu(), nms_cfg)
+        for key in ("rois", "roi_labels", "roi_valid"):
+            require(torch.equal(props[key], out_card[key].cpu()),
+                    f"{label} proposals: {key} card vs CPU (the card's first stage fed)")
+        # the pool's memberships on the same inputs, each device's own rotation
+        coords, rois = first_card["point_coords"], out_card["rois"]
+        extra = torch.tensor(head.extra_width, dtype=rois.dtype, device=dev)
+        pool_rois = torch.cat([rois[..., 0:3], rois[..., 3:6] + extra, rois[..., 6:7]], dim=-1)
+        inside = [roi_pool._in_box(*roi_pool._local_coords(c, r), r).cpu()
+                  for c, r in ((coords, pool_rois), (coords.cpu(), pool_rois.cpu()))]
+        flips = inside[0] != inside[1]
+        touched = flips.any(dim=-1)  # (1, R)
+        pooled_cpu = cpu_model.roi_head.pool(coords.cpu(), first_card["point_features"].cpu(),
+                                             scores.cpu(), rois.cpu())
+        errs["pooled clouds"] = gap(pooled_card[~touched], pooled_cpu[~touched])
+        with RecordPicks() as cpu_head:
+            rcnn_cls, rcnn_reg = cpu_model.roi_head.refine_pooled(pooled_card.cpu())
+        for i, (c, g) in enumerate(zip(cpu_head.fps, card.fps[n_fps:])):
+            require(torch.equal(c[2], g[2].cpu()), f"{label} RoI head FPS {i} ({c[0].shape[0]} "
+                    f"clouds of {c[0].shape[1]} -> {c[1]}) indices card vs CPU")
+        for i, (c, g) in enumerate(zip(cpu_head.ball, card.ball[n_ball:])):
+            require(torch.equal(c[4][0], g[4][0].cpu()), f"{label} RoI head ball query {i} "
+                    f"(radius {c[0][0]}) indices card vs CPU")
+        errs["rcnn_cls"] = gap(out_card["rcnn_cls"], rcnn_cls)
+        errs["rcnn_reg"] = gap(out_card["rcnn_reg"], rcnn_reg)
+        fed = {"batch_cls_preds": rcnn_cls, "roi_labels": props["roi_labels"],
+               "roi_valid": props["roi_valid"],
+               "batch_box_preds": RHT.decode_roi_boxes(props["rois"], rcnn_reg,
+                                                       cpu_model.roi_box_coder)}
+        post_cpu = post_processing(fed, cfg.MODEL)
+    stage_s = time.perf_counter() - t0
+    want = {**{k: first_cpu[k] for k in stage_keys}, "pooled clouds": pooled_cpu[~touched],
+            "rcnn_cls": rcnn_cls, "rcnn_reg": rcnn_reg}
+    # the control: the card's stages with TF32 on in cuDNN and cuBLAS, on
+    # the inputs the CPU was given
+    with torch.inference_mode(), tf32_on():
+        control = model.first_stage(b1["points"])
+        control["pooled clouds"] = head.pool(coords, control["point_features"],
+                                             control["point_cls_scores"], rois)[~touched]
+        control["rcnn_cls"], control["rcnn_reg"] = head.refine_pooled(pooled_card)
+    control_errs = {k: gap(control[k], w) for k, w in want.items()}
+    empty = int((pooled_card[..., 3:].abs().sum(dim=(-1, -2)) == 0).sum())
+    counts = inside[0].sum(dim=-1)[0]
+    pairs, n_g, n_c, gap_c, gap_s = match_detections(results[0][2], post_cpu)
+    print(f"{label} float32 frame, card vs CPU (the first stage {cpu_s:.1f} s, the rest "
+          f"{stage_s:.1f} s on the CPU): the backbone's {n_fps} FPS, {n_ball} ball-query and "
+          f"{len(cpu_first.nn)} three-NN indices equal; on the card's inputs: the proposals "
+          f"equal, {int(out_card['roi_valid'].sum())} RoIs; the pool's (RoI, point) "
+          f"memberships {int(flips.sum())} flipped of {flips.numel()} (RoIs touched "
+          f"{int(touched.sum())}), points in a RoI min / median / max {int(counts.min())} / "
+          f"{int(counts.median())} / {int(counts.max())}, {empty} RoIs empty; the RoI head's "
+          f"{len(cpu_head.fps)} FPS and {len(cpu_head.ball)} ball-query indices equal; "
+          f"detections {n_g} vs {n_c}, {pairs} paired (largest centre distance {gap_c:.3g} m, "
+          f"score {gap_s:.3g})")
+    for what, gaps in (("TF32 off", errs),
+                       ("TF32 on in cuDNN and cuBLAS, the control", control_errs)):
+        print(f"{label} stages card vs CPU, {what}: largest differences of max(1, |value|) "
+              f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} }; over PV_STAGE_TOL "
+              f"{PV_STAGE_TOL}: {sorted(k for k, v in gaps.items() if not v <= PV_STAGE_TOL)}")
+    require(int(flips.sum()) <= POINTRCNN_POOL_FLIPS, f"{label} pool: {int(flips.sum())} "
+            f"(RoI, point) memberships card vs CPU, more than {POINTRCNN_POOL_FLIPS}")
+    bad = {k: v for k, v in errs.items() if not v <= PV_STAGE_TOL}
+    require(not bad, f"{label} stages card vs CPU over {PV_STAGE_TOL} of max(1, |value|): {bad}")
+    require(max(control_errs.values()) > PV_STAGE_TOL, f"{label}: PV_STAGE_TOL {PV_STAGE_TOL} "
+            f"passes the control's stages (TF32 on) too: {control_errs}")
+    require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
+            f"{label} float32 detections card vs CPU not paired box for box")
+    first_card.update(rcnn_picks=card, roi_points=head.num_sampled)
+    return first_card
+
+
+def pointrcnn_kernels(dev, first, label, suffix):
+    """Phase 19 (e): the RoI head's first SA stage of request 0 (``first``'s
+    ``rcnn_picks``) on its own inputs: FPS over the RoIs' canonical clouds
+    (one launch of B * R frames of ``NUM_SAMPLED_POINTS`` points), and over
+    the same clouds made degenerate (every third RoI empty: all its points at
+    the origin; every other third cycling its first three points), equal to
+    the plain version, which takes the lowest index among equal distances;
+    its ball query equal; CUDA-event times in turns, device times under the
+    profiler and bounds from these inputs.  Returns ``[(row name, kernel,
+    the key of its launches in ``counted_launches``, numbers)]``."""
+    import torch
+
+    from pdanet_tpu_torch.models.roi_heads.pointrcnn_head import BALL_QUERY_SITE
+    from pdanet_tpu_torch.ops import ball_query, sampling
+
+    picks, N = first["rcnn_picks"], first["roi_points"]
+    xyz, npoint, _ = next(f for f in picks.fps if f[0].shape[1] == N and f[0].shape[0] > 1)
+    xyz = xyz.float().contiguous()
+    B = xyz.shape[0]
+    degenerate = xyz.clone()
+    degenerate[0::3] = 0.0
+    degenerate[1::3] = xyz[1::3, torch.arange(N, device=xyz.device) % 3]
+    for what, cloud in (("request 0's RoI clouds", xyz),
+                        ("the clouds with every third RoI empty and every other third cycling "
+                         "three points", degenerate.contiguous())):
+        got = sampling.farthest_point_sample_cuda(cloud, npoint)
+        want = sampling.farthest_point_sample_plain(cloud, npoint)
+        require(torch.equal(got, want), f"{label} FPS {B} x {N} -> {npoint} on {what}: "
+                f"indices differ from the plain version")
+        print(f"{'fps':27s} {label} {B} x {N}->{npoint} on {what}: indices equal")
+    fps_ms, fps_plain = turns(lambda: sampling.farthest_point_sample_cuda(xyz, npoint),
+                              lambda: sampling.farthest_point_sample_plain(xyz, npoint), 2)
+    fps_dev = kernel_device_ms(lambda: sampling.farthest_point_sample_cuda(xyz, npoint),
+                               "fps_kernel")
+    # per step and point: 3 sub, 3 mul, 2 add, the min and the argmax compare
+    bnd = bound(xyz.numel() * 4 + B * npoint * 4, B * npoint * N * 10, F32_OPS_PER_S)
+    print(f"{'fps':27s} {label} {B} x {N}->{npoint}: kernel {fps_ms:.4f} ms (device "
+          f"{fmt_ms(fps_dev)}, {1e3 * fps_ms / (npoint - 1):.4f} us per serial step, launch "
+          f"shape {sampling.fps_config(N)}), plain {fps_plain:.4f} ms; bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}), kernel at {100 * bnd[0] / fps_ms:.1f} % of it")
+    rows = [(f"fps_k{N}_roi{suffix}", "fps", f"fps_n{N}",
+             dict(max_abs_err=0.0, ms=fps_ms, plain_ms=fps_plain, bound_ms=bnd[0],
+                  bound_by=bnd[1], library_ms=None))]
+    radii, ks, sup, ctr, _, _ = next(b for b in picks.ball
+                                     if b[5] == BALL_QUERY_SITE and b[2].shape[1] == N)
+    sup, ctr = sup.float().contiguous(), ctr.float().contiguous()
+    got = ball_query.ball_query_multi_cuda(radii, ks, sup, ctr)
+    want = ball_query.ball_query_multi_plain(radii, ks, sup, ctr)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"{label} RoI head ball query differs from the plain version")
+    scan, in_reach = ball_query_work(radii, ks, sup, ctr)
+    bq_ms, bq_plain = turns(lambda: ball_query.ball_query_multi_cuda(radii, ks, sup, ctr),
+                            lambda: ball_query.ball_query_multi_plain(radii, ks, sup, ctr), 2)
+    bnd = bound((sup.numel() + ctr.numel() + sum(w.numel() for w in want)) * 4,
+                in_reach * (8 + len(radii)), F32_OPS_PER_S)
+    print(f"{'ball_query':27s} {label} RoI head: {B} clouds, N={N} M={ctr.shape[1]} radii "
+          f"{radii} K {ks}, equal; kernel {bq_ms:.4f} ms, plain {bq_plain:.4f} ms; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}), kernel at {100 * bnd[0] / bq_ms:.1f} % of it")
+    print_ball_query_work(f"{label} RoI head", radii, ks, sup, ctr, (scan, in_reach))
+    rows.append((f"ball_query_{BALL_QUERY_SITE}{suffix}", "ball_query",
+                 f"ball_query_{BALL_QUERY_SITE}",
+                 dict(max_abs_err=0.0, ms=bq_ms, plain_ms=bq_plain, bound_ms=bnd[0],
+                      bound_by=bnd[1], library_ms=None)))
+    return rows
 
 
 @contextlib.contextmanager
@@ -5161,7 +5475,7 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
     dense = isinstance(getattr(model, "backbone_3d", None), _dense_backbone_type())
     frames = voxel_frames(seed, VOXEL_SERVE_FRAMES, cfg.CLASS_NAMES)
     requests, gts, host_ms = [], [], []
-    chunks = ([frames[0]], [frames[1]], [frames[2]], frames[3:5])
+    chunks = ([frames[0]], frames[3:5], [frames[1]], [frames[2]])  # b1, b2, b1, b1
     for chunk in chunks[:depth.get("serve_requests", len(chunks))]:
         batch, ms = voxel_batch(cfg, chunk, False, dev, model)
         gts.append(batch.pop("gt_boxes"))  # a request carries the voxels alone
@@ -5171,11 +5485,9 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
     max_dets = min(int(post_cfg_of(cfg).NMS_CONFIG.NMS_POST_MAXSIZE), min(ks))
     if post_cfg_of(cfg).NMS_CONFIG.get("MULTI_CLASSES_NMS", False):
         max_dets *= len(cfg.CLASS_NAMES)  # one segment of slots a class
-    voxels = [int((r["voxel_num_points"] > 0).sum(dim=1).min()) for r in requests]
-    print(f"{label} frames: {KITTI_FRAME_POINTS} points each, host processors and "
-          f"voxelizer (test split, at most {requests[0]['voxels'].shape[1]} voxels of "
-          f"{requests[0]['voxels'].shape[2]}) {[round(t, 1) for t in host_ms]} ms a frame; "
-          f"non-empty voxels (fewest of each request) {voxels}")
+    print(f"{label} frames: {KITTI_FRAME_POINTS} points each, host processors (test split) "
+          f"{[round(t, 1) for t in host_ms]} ms a frame; the requests "
+          f"{[describe_batch(r) for r in requests]}")
     torch.cuda.synchronize()
 
     clear_launches()
@@ -5186,7 +5498,7 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
             t0 = time.perf_counter()
             res = predict(batch)
             torch.cuda.synchronize()
-            results.append((batch["voxels"].shape[0], (time.perf_counter() - t0) * 1e3, res))
+            results.append((batch_frames(batch), (time.perf_counter() - t0) * 1e3, res))
             peaks.append(round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2))
     launches = counted_launches()
     for i, (B, ms, res) in enumerate(results):
@@ -5238,7 +5550,11 @@ def voxel_serve(cfg, dev, template, label, seed, depth):
               f"warm-up, {len(reads)} turn(s))")
     if dense:
         dense_report(model, predict, b1, label, latency_reps, depth.get("layout", True))
-    if cfg.MODEL.NAME in PV_NAMES:
+    if not depth.get("compare", True):
+        out = {}
+    elif is_pointrcnn_model(model):
+        out = pointrcnn_card_vs_cpu(cfg, model, weights, template, requests, results, label)
+    elif cfg.MODEL.NAME in PV_NAMES:
         out = pv_card_vs_cpu(cfg, model, weights, template, requests, results, label, gts[0])
     elif is_parta2(cfg):
         out = parta2_card_vs_cpu(cfg, model, weights, template, requests, results, label,
@@ -5267,12 +5583,14 @@ def plant_gt(cfg, model, batch, n):
     from pdanet_tpu_torch.models.detectors.second import SECOND
     from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
 
-    # SECOND's forward, or a Part-A2 model's first stage (Part-A2-free's
-    # proposals are its point head's boxes)
+    # SECOND's forward, or a Part-A2 or PointRCNN model's first stage
+    # (Part-A2-free's and PointRCNN's proposals are their point head's boxes)
     model.train()
     first_stage = getattr(model, "first_stage", lambda *a: SECOND.forward(model, *a))
+    inputs = ((batch["points"],) if "voxels" not in batch else
+              (batch["voxels"], batch["voxel_coords"], batch["voxel_num_points"]))
     with torch.no_grad():
-        first = first_stage(batch["voxels"], batch["voxel_coords"], batch["voxel_num_points"])
+        first = first_stage(*inputs)
         props = RHT.proposal_layer(first["batch_cls_preds"], first["batch_box_preds"],
                                    cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN)
     gt = batch["gt_boxes"]
@@ -5288,8 +5606,9 @@ def plant_gt(cfg, model, batch, n):
 class RecordSamples:
     """Counts, in each RoI sample a two-stage training forward draws
     (``roi_head_template.assign_targets``), the sampled RoIs that are
-    foreground (``reg_valid_mask``: IoU above REG_FG_THRESH), and keeps the
-    RoIs' 3-D IoUs with the gt that the sampler computes (``ious``); with
+    foreground (``reg_valid_mask``: IoU above REG_FG_THRESH), keeps each
+    sample's IoUs and classification labels (``targets``) and the RoIs'
+    3-D IoUs with the gt that the sampler computes (``ious``); with
     ``feed`` it returns those in turn instead (their float32 BEV overlap
     rounds in the last place apart on the card and the CPU, and the
     roi_iou soft labels carry it into the loss)."""
@@ -5300,12 +5619,14 @@ class RecordSamples:
     def __enter__(self):
         from pdanet_tpu_torch.models.roi_heads import roi_head_template as RHT
 
-        self.module, self.fg, self.ious = RHT, [], []
+        self.module, self.fg, self.ious, self.targets = RHT, [], [], []
         self.orig = (RHT.assign_targets, RHT.boxes_iou3d)
 
         def assign(*args, **kwargs):
             t = self.orig[0](*args, **kwargs)
             self.fg.append(int((t["reg_valid_mask"] > 0).sum()))
+            self.targets.append({k: t[k].detach() for k in ("gt_iou_of_rois",
+                                                            "rcnn_cls_labels")})
             return t
 
         def iou3d(a, b):
@@ -5323,54 +5644,75 @@ class RecordSamples:
 
 
 class RecordPicks:
-    """Records the indices that PV-RCNN's VSA and RoI head pick (the
-    ``voxel_set_abstraction`` module's ``farthest_point_sample`` and
-    ``ball_query_multi``, the kernels running as ever; ``three_nn`` of
-    ``vector_pool``, PV-RCNN++'s), with the inputs of the first two, in
-    call order.  With ``feed`` (another run's :meth:`picks`, or some of its
-    kinds) it returns those indices in turn instead: the CPU's runs take
-    the card's picks, as phase 7's ``fed`` does for PDA-SSD (a fed
-    ``three_nn`` keeps its distances' arithmetic on this run's inputs)."""
+    """Records the indices that PV-RCNN's VSA and RoI head and PointRCNN's
+    backbone and RoI head pick (their modules' ``farthest_point_sample``,
+    ``ball_query_multi`` and ``ball_query``, the kernels running as ever;
+    ``three_nn`` of ``vector_pool``, PV-RCNN++'s, and of the PointNet++
+    FP modules), with the inputs of the first two, in call order.  With
+    ``feed`` (another run's :meth:`picks`, or some of its kinds) it returns
+    those indices in turn instead: the CPU's runs take the card's picks, as
+    phase 7's ``fed`` does for PDA-SSD (a fed ``three_nn`` keeps its
+    distances' arithmetic on this run's inputs)."""
 
     def __init__(self, feed=None):
         self.feed = {k: list(v) for k, v in (feed or {}).items()}
 
     def __enter__(self):
+        from pdanet_tpu_torch.models.backbones_3d import pointnet2_backbone as pn2
         from pdanet_tpu_torch.models.backbones_3d.pfe import vector_pool as vp
         from pdanet_tpu_torch.models.backbones_3d.pfe import voxel_set_abstraction as vsa
+        from pdanet_tpu_torch.models.roi_heads import pointrcnn_head as prh
         from pdanet_tpu_torch.ops.interpolate import picked_dist2
 
-        self.modules, self.fps, self.ball, self.nn = (vsa, vp), [], [], []
-        self.orig = (vsa.farthest_point_sample, vsa.ball_query_multi, vp.three_nn)
+        self.fps, self.ball, self.nn, self.patched = [], [], [], []
 
-        def fps(xyz, npoint):
-            if "fps" in self.feed:
-                return self.feed["fps"].pop(0).to(xyz.device)
-            idx = self.orig[0](xyz, npoint)
-            self.fps.append((xyz, npoint, idx))
-            return idx
+        def fps(orig):
+            def run(xyz, npoint):
+                if "fps" in self.feed:
+                    return self.feed["fps"].pop(0).to(xyz.device)
+                idx = orig(xyz, npoint)
+                self.fps.append((xyz, npoint, idx))
+                return idx
+            return run
 
-        def ball(radii, nsamples, xyz, new_xyz, site=""):
-            if "ball" in self.feed:
-                return tuple(t.to(xyz.device) for t in self.feed["ball"].pop(0))
-            out = self.orig[1](radii, nsamples, xyz, new_xyz, site)
-            self.ball.append((tuple(radii), tuple(nsamples), xyz, new_xyz, out, site))
-            return out
+        def ball(orig):
+            def run(radii, nsamples, xyz, new_xyz, site=""):
+                if "ball" in self.feed:
+                    return tuple(t.to(xyz.device) for t in self.feed["ball"].pop(0))
+                out = orig(radii, nsamples, xyz, new_xyz, site)
+                self.ball.append((tuple(radii), tuple(nsamples), xyz, new_xyz, out, site))
+                return out
+            return run
 
-        def nn(unknown, known):
-            if "nn" in self.feed:
-                idx = self.feed["nn"].pop(0).to(unknown.device)
-                return picked_dist2(unknown, known, idx), idx
-            d2, idx = self.orig[2](unknown, known)
-            self.nn.append(idx)
-            return d2, idx
+        def ball_one(orig):  # the single-radius form, recorded as one radius of many
+            multi = ball(lambda radii, ks, xyz, new_xyz, site="": (
+                orig(radii[0], ks[0], xyz, new_xyz, site),))
+            return lambda radius, nsample, xyz, new_xyz, site="": multi(
+                (radius,), (nsample,), xyz, new_xyz, site)[0]
 
-        vsa.farthest_point_sample, vsa.ball_query_multi, vp.three_nn = fps, ball, nn
+        def nn(orig):
+            def run(unknown, known):
+                if "nn" in self.feed:
+                    idx = self.feed["nn"].pop(0).to(unknown.device)
+                    return picked_dist2(unknown, known, idx), idx
+                d2, idx = orig(unknown, known)
+                self.nn.append(idx)
+                return d2, idx
+            return run
+
+        for module, name, wrap in ((vsa, "farthest_point_sample", fps),
+                                   (vsa, "ball_query_multi", ball), (vp, "three_nn", nn),
+                                   (pn2, "farthest_point_sample", fps),
+                                   (pn2, "ball_query_multi", ball), (pn2, "three_nn", nn),
+                                   (prh, "farthest_point_sample", fps),
+                                   (prh, "ball_query", ball_one)):
+            self.patched.append((module, name, getattr(module, name)))
+            setattr(module, name, wrap(getattr(module, name)))
         return self
 
     def __exit__(self, *exc):
-        vsa, vp = self.modules
-        vsa.farthest_point_sample, vsa.ball_query_multi, vp.three_nn = self.orig
+        for module, name, orig in reversed(self.patched):
+            setattr(module, name, orig)
 
     def picks(self):
         """The recorded indices on the CPU, another run's ``feed``."""
@@ -5380,7 +5722,7 @@ class RecordPicks:
 
 
 def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAIN_STEPS,
-                batch_size=None, crop=None, split=True):
+                batch_size=None, crop=None, split=True, float64=True):
     """Phases 12-15 (b): ``train_steps`` float32 steps at the yaml's batch
     size (or ``batch_size``) on the train budget (frames through the train split's processors,
     gt on their boxes; for a two-stage model ``PLANTED_GT`` more a frame on
@@ -5393,9 +5735,12 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     two-stage model: gt planted again, the CPU's proposal layer fed the
     plain IoU of the card's candidates, computed on the card, and its keep
     mask equal to the card kernel's, the CPU's sampler fed the card's 3-D
-    IoUs of the RoIs with the gt), on ``crop`` of POINT_CLOUD_RANGE
-    where given (a dense 3-D backbone: the CPU's float64 step at full width
-    would take many minutes).  Returns the steps' launches."""
+    IoUs of the RoIs with the gt; PointRCNN's and PV-RCNN's FPS,
+    ball-query and three-NN picks the card's), on ``crop`` of
+    POINT_CLOUD_RANGE where given (a dense 3-D backbone: the CPU's float64
+    step at full width would take many minutes); not with ``float64``
+    False.  With ``CLS_SCORE_TYPE`` roi_iou every sample's classification
+    labels are the soft labels of its IoUs.  Returns the steps' launches."""
     import torch
 
     from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
@@ -5427,9 +5772,8 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
     plain_batch = batch
     if two_stage:
         batch = plant_gt(cfg, fresh(dev, torch.float32), batch, PLANTED_GT)
-    print(f"{label} train frames: host processors and voxelizer (train split, at most "
-          f"{batch['voxels'].shape[1]} voxels) {[round(t, 1) for t in host_ms]} ms a frame; "
-          f"non-empty voxels {(batch['voxel_num_points'] > 0).sum(dim=1).tolist()}, gt boxes "
+    print(f"{label} train frames: host processors (train split) "
+          f"{[round(t, 1) for t in host_ms]} ms a frame; {describe_batch(batch)}, gt boxes "
           f"{(batch['gt_boxes'][..., 7] > 0).sum(dim=1).tolist()}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5459,6 +5803,20 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
         require(fg[0] > 0, f"{label} step 0: no foreground RoI sampled")
         print(f"{label} training: candidates kept by the walk at K {K_train} a step {kept}; "
               f"foreground RoIs (IoU above REG_FG_THRESH) in each step's sample {fg}")
+        target = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
+        if target.CLS_SCORE_TYPE == "roi_iou":  # the soft labels of the sampled RoIs' IoUs
+            lo, hi = float(target.CLS_BG_THRESH), float(target.CLS_FG_THRESH)
+            soft = 0
+            for t in samples.targets:
+                iou, labels = t["gt_iou_of_rois"], t["rcnn_cls_labels"]
+                want = torch.where(iou > hi, 1.0, torch.where(iou < lo, 0.0, (iou - lo) / (hi - lo)))
+                require(torch.equal(labels, want.to(labels.dtype)),
+                        f"{label}: the roi_iou labels are not the soft labels of the IoUs")
+                soft += int(((labels > 0) & (labels < 1)).sum())
+            print(f"{label} training: CLS_SCORE_TYPE roi_iou, every sampled RoI's label the "
+                  f"soft label of its IoU (between CLS_BG_THRESH {lo} and CLS_FG_THRESH {hi}); "
+                  f"{soft} labels strictly between 0 and 1, "
+                  f"{sum(int((t['rcnn_cls_labels'] == 1).sum()) for t in samples.targets)} at 1")
     else:
         require(not rec.shapes, f"{label} training ran a self-IoU: {rec.shapes}")
     if split:
@@ -5470,6 +5828,8 @@ def voxel_train(cfg, weights, dev, template, label, seed, train_steps=VOXEL_TRAI
           f"{launches}; tb of the last step "
           f"{ {k: round(float(v), 4) for k, v in tb.items()} }")
     del model, step
+    if not float64:
+        return launches
 
     # one float64 step at B = 1, the card against the CPU from the same weights
     geometry, where = (cfg, template), ""
@@ -5646,34 +6006,68 @@ def dist_train_chain(work, kitti_run, cfg_rel, label):
 
 def voxel_export(cfg, model_predict, weights, dev, template, b1, work, cfg_rel, label,
                  kernels):
-    """Phases 12-18 (d): the b1 batch and the eager closure's outputs on it
-    saved for the tail (``run_tail``).  Returns the export, run in the
-    tail: the b1 program of ``weights`` through ``serving.export_serving``
-    and ``save_serving``, returning the reload job (``reload_process``;
-    ``kernels``, the path's, must launch in the program)."""
+    """Phases 12-19 (d): the b1 batch, the eager closure's outputs on it and
+    ``weights`` saved for the tail (``run_tail``).  Returns the export job
+    (``EXPORT_PROGRAMS``, run in the tail's export processes): the b1
+    program of ``weights`` through ``serving.export_serving`` and
+    ``save_serving``, then reloaded (``reload_process``; ``kernels``, the
+    path's, must launch in the program)."""
     import torch
-
-    from pdanet_tpu_torch import serving
-    from pdanet_tpu_torch.models import build_network
 
     stem = Path(work) / f"{Path(cfg_rel).stem}_b1"
     torch.save(dict(b1), f"{stem}.batch.pt")
     torch.save({k: v.cpu() for k, v in model_predict(b1).items()}, f"{stem}.want.pt")
-    weights = {k: v.cpu() for k, v in weights.items()}
+    torch.save({k: v.cpu() for k, v in weights.items()}, f"{stem}.weights.pt")
+    return dict(label=label, stem=str(stem), kernels=kernels, cfg_rel=cfg_rel,
+                cfg_file=str(Path(work) / cfg_rel), root=str(template.root_path))
 
-    def export():
-        model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=dev)
-        model.load_state_dict(weights)
-        t0 = time.perf_counter()
-        exported = serving.export_serving(model, cfg.MODEL, serving.example_device_batch(
-            cfg, serving.serving_input_spec(cfg, 1, model), dev))
-        nbytes = serving.save_serving(exported, stem.with_suffix(".pt2"), serving.serving_meta(
-            cfg, cfg_rel, b1, exported))
-        print(f"{label} b1 export (in the tail): {time.perf_counter() - t0:.1f} s, "
-              f"{nbytes / 1e6:.2f} MB, {len(exported.graph.nodes)} graph nodes")
-        return dict(label=label, stem=str(stem), kernels=kernels)
 
-    return export
+def export_processes(jobs, sent):
+    """The tail's exports: ``jobs`` (``voxel_export``'s) dealt round-robin to
+    ``EXPORT_WORKERS`` fresh processes (``EXPORT_PROGRAMS``), each
+    exporting its own in turn; a thread a process hands each saved program
+    to ``sent`` as it is written.  Returns ``wait()``, which waits for the
+    processes and their threads and checks that every program was saved."""
+    by_stem = {job["stem"]: job for job in jobs}
+    procs, readers, done = [], [], []
+    for w in range(min(EXPORT_WORKERS, len(jobs))):
+        mine = [job for i, job in enumerate(jobs) if i % EXPORT_WORKERS == w]
+        err = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen([sys.executable, "-c", EXPORT_PROGRAMS, json.dumps(mine)],
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+
+        def read(proc=proc):
+            for line in proc.stdout:
+                if not line.startswith("{"):  # what else the process prints
+                    print(line, end="")
+                    continue
+                report = json.loads(line)
+                job = by_stem[report["stem"]]
+                print(f"{job['label']} b1 export (in the tail's export process "
+                      f"{report['worker']}): {report['seconds']:.1f} s with the model's build, "
+                      f"{report['bytes'] / 1e6:.2f} MB, {report['nodes']} graph nodes")
+                done.append(job["stem"])
+                sent(job)
+
+        readers.append(threading.Thread(target=read, daemon=True))
+        readers[-1].start()
+        procs.append((proc, err))
+
+    def wait():
+        for proc, err in procs:
+            try:
+                code = proc.wait(timeout=900)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            err.seek(0)
+            require(code == 0, f"an export process failed:\n{err.read()[-6000:]}")
+        for reader in readers:
+            reader.join()
+        require(sorted(done) == sorted(by_stem), f"programs saved {done} of {sorted(by_stem)}")
+
+    return wait
 
 
 def reload_process():
@@ -5732,11 +6126,13 @@ def run_tail(exports, chains):
     """The tail, once every phase has measured, so that its processes run
     beside no measurement: ``chains`` run in threads, ``TAIL_WORKERS`` - 1
     at a time, each (label, fn), fn starting processes, checking them and
-    returning their launches (or None); meanwhile this thread runs
-    ``exports`` (``voxel_export``'s) and hands each saved program to one
-    fresh process (``reload_process``).  A thread samples the card's memory
-    in use (every process's, ``mem_get_info``) and the peak is printed.
-    Returns each label's launches (a program's under its phase's label)."""
+    returning their launches (or None); meanwhile ``exports``
+    (``voxel_export``'s jobs) go to ``EXPORT_WORKERS`` export processes
+    (``export_processes``), and each saved program to one fresh process
+    (``reload_process``) as it is written.  A thread samples the card's
+    memory in use (every process's, ``mem_get_info``) and the peak is
+    printed.  Returns each label's launches (a program's under its phase's
+    label)."""
     import torch
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5752,17 +6148,22 @@ def run_tail(exports, chains):
     sampler = threading.Thread(target=sample, daemon=True)
     sampler.start()
     proc, send, finish = reload_process()
+    lock, jobs = threading.Lock(), []
+
+    def sent(job):  # the reload process reports in the order it was sent
+        with lock:
+            jobs.append(job)
+            send(job)
+
     try:
+        wait_exports = export_processes(exports, sent)
         with ThreadPoolExecutor(TAIL_WORKERS - 1) as pool:
             futures = [(label, pool.submit(fn)) for label, fn in chains]
-            jobs = []
-            for export in exports:
-                jobs.append(export())
-                send(jobs[-1])
+            wait_exports()
             for label, future in futures:
                 counts = future.result()
                 if counts is not None:
-                    launches[label] = counts
+                    launches[label] = add_launches(launches.get(label, {}), counts)
         for label, counts in finish(jobs).items():
             launches[label] = add_launches(launches.get(label, {}), counts)
         done.set()
@@ -5793,13 +6194,19 @@ def cli_run(kitti_run):
             "set": ("DATA_CONFIG.INFO_PATH.train", f"['{cut.name}']")}
 
 
+_CLI_ROOTS = {}  # cli_root's roots by name: phases that share a seed share the root
+
+
 def cli_root(work, cfg, splits, name, seed):
     """A KITTI root of its own for a phase's CLIs, beside phase 9's in its
     working directory (``name``): ``splits`` frames of phase 9's kind, with
-    the yaml's infos and gt database.  Returns the ``kitti_run`` dict the
-    CLIs take (B 1)."""
+    the yaml's infos and gt database, written once a name (Part-A2 and
+    Part-A2-free share theirs).  Returns the ``kitti_run`` dict the CLIs
+    take (B 1)."""
     from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
 
+    if name in _CLI_ROOTS:
+        return _CLI_ROOTS[name]
     root = Path(work) / name
     t0 = time.perf_counter()
     counts = write_kitti_root(root, list(KITTI_MEAN_SIZES), list(KITTI_MEAN_SIZES.values()),
@@ -5808,7 +6215,8 @@ def cli_root(work, cfg, splits, name, seed):
     print(f"{name} (c) KITTI root {counts} (frames, boxes, fewest points in the field of "
           f"view) with infos in {time.perf_counter() - t0:.1f} s")
     val_ids = (root / "ImageSets" / "val.txt").read_text().split()
-    return dict(root=root, val_ids=val_ids, B=1, steps=dict(splits)["train"])
+    _CLI_ROOTS[name] = dict(root=root, val_ids=val_ids, B=1, steps=dict(splits)["train"])
+    return _CLI_ROOTS[name]
 
 
 def voxel_phase(dev, work, kitti_run, phase, parent=None):
@@ -5840,7 +6248,8 @@ def voxel_phase(dev, work, kitti_run, phase, parent=None):
     t0 = time.perf_counter()
     trained = voxel_train(cfg, weights, dev, template, label, seed + 100,
                           depth.get("train_steps", VOXEL_TRAIN_STEPS), batch_size,
-                          depth.get("crop"), depth.get("train_split", True))
+                          depth.get("crop"), depth.get("train_split", True),
+                          depth.get("float64", True))
     print(f"phase {phase} (b) training: {time.perf_counter() - t0:.1f} s")
     clis = {}
     cli = depth.get("cli", True)
@@ -5848,7 +6257,7 @@ def voxel_phase(dev, work, kitti_run, phase, parent=None):
     cli_batch = depth.get("cli_batch", batch_size)
     if cli:
         t0 = time.perf_counter()
-        run = (cli_root(work, cfg, depth["cli_root"], f"kitti_{phase}", seed)
+        run = (cli_root(work, cfg, depth["cli_root"], f"kitti_cli_{seed}", seed)
                if "cli_root" in depth else cli_run(kitti_run))
         clis = voxel_clis(work, run, cfg_rel, label, cli_batch,
                           export=depth.get("cli_export", False), kernels=kernels)
@@ -5865,6 +6274,8 @@ def voxel_phase(dev, work, kitti_run, phase, parent=None):
                                                      suppress, parent)
     if "pv_picks" in out:
         extra = pv_kernels(dev, out, label, VOXEL_SUFFIX[phase])
+    elif "rcnn_picks" in out:
+        extra = pointrcnn_kernels(dev, out, label, VOXEL_SUFFIX[phase])
     print(f"phase {phase} (e) the kernels at K {sorted(rows)}"
           f"{' and ' + str([r[0] for r in extra]) if extra else ''}: "
           f"{time.perf_counter() - t0:.1f} s")
@@ -5963,6 +6374,25 @@ def parta2_free_phase(dev, work, kitti_run, parent=None):
     the 12^3 RoI-aware pool of the voxel centres; the final NMS at K 100),
     at ``VOXEL_DEPTH["18b"]``."""
     return voxel_phase(dev, work, kitti_run, "18b", parent)
+
+
+def pointrcnn_phase(dev, work, kitti_run, parent=None):
+    """Phase 19, PointRCNN: tools/cfgs/kitti_models/pointrcnn.yaml at full
+    width (16384 sampled points; the PointNet++ MSG backbone 16384 -> 4096 ->
+    1024 -> 256 -> 64 with widths up to 512 and its FP decoder back to the
+    points at 128 channels; the point-box head's per-point boxes of three
+    classes proposed at K 9000, 100 / 512 RoIs, 128 sampled a frame; 512
+    points pooled a RoI through the SA stages [128, 32, -1]; the final NMS
+    at K 100), at ``VOXEL_DEPTH["19a"]``."""
+    return voxel_phase(dev, work, kitti_run, "19a", parent)
+
+
+def pointrcnn_iou_phase(dev, work, kitti_run, parent=None):
+    """Phase 19, PointRCNN-IoU: tools/cfgs/kitti_models/pointrcnn_iou.yaml
+    (PointRCNN with ``CLS_SCORE_TYPE`` roi_iou, its yaml's B = 3), at
+    ``VOXEL_DEPTH["19b"]``: one b1 request, one train step with the roi_iou
+    labels checked, the CLIs and ``dist_train.sh``, export."""
+    return voxel_phase(dev, work, kitti_run, "19b", parent)
 
 
 @contextlib.contextmanager
@@ -6199,8 +6629,8 @@ def main():
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
                     "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
-    ap.add_argument("--phases", help="comma-separated phases of 3-18 to run, with those they "
-                    "read (3 for 6, 4 for 5 and 11, 9 for 11-18); every phase without it, and "
+    ap.add_argument("--phases", help="comma-separated phases of 3-19 to run, with those they "
+                    "read (3 for 6, 4 for 5 and 11, 9 for 11-19); every phase without it, and "
                     "only then are the launches of every kernel required")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -6215,7 +6645,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0])
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; host {os.cpu_count()} CPUs, "
+          f"{len(os.sched_getaffinity(0))} usable, torch on {torch.get_num_threads()} threads")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -6256,13 +6687,13 @@ def main():
         multi_gpu(dev, args.world)
         return
 
-    # ---- 3.-18.
-    every = set(range(3, 19))
+    # ---- 3.-19.
+    every = set(range(3, 20))
     want = every if not args.phases else {int(p) for p in args.phases.split(",")}
-    require(want <= every, f"--phases {args.phases}: phases 3-18 only")
+    require(want <= every, f"--phases {args.phases}: phases 3-19 only")
     want |= {3} if 6 in want else set()
     want |= {4} if want & {5, 11} else set()
-    want |= {9} if want & set(range(11, 19)) else set()
+    want |= {9} if want & set(range(11, 20)) else set()
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -6294,14 +6725,17 @@ def main():
         with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as kitti_work:
             runs["kitti"], kitti_run = timed("9 (KITTI through the CLIs)", kitti_phase, dev,
                                              kitti_work)
-            if 10 in want:
-                with tempfile.TemporaryDirectory(prefix="pdanet_export_") as work:
-                    runs["exported"] = timed("10 (export and serve)", export_phase, dev, work)
-            if 11 in want:
-                runs["dp"] = timed("11 (data parallel)", dp_phase, dev, kitti_work, kitti_run,
-                                   cfg, weights)
-
             exports, chains = [], []
+            if 10 in want:  # its programs' fresh process and the serve CLI run in the tail
+                work = Path(kitti_work) / "export"
+                work.mkdir()
+                runs["exported"], chain = timed("10 (export and serve)", export_phase, dev, work)
+                chains.append(chain)
+            if 11 in want:  # the ranks' processes and the CLIs run in the tail
+                runs["dp"], chain = timed("11 (data parallel)", dp_phase, dev, kitti_work,
+                                          kitti_run, cfg, weights)
+                chains.append(chain)
+
 
             def voxel(key, label, fn):
                 phase = int(str(key)[:2])
@@ -6328,10 +6762,12 @@ def main():
             voxel("17b", "PV-RCNN++", pv_rcnn_pp_phase)
             voxel("18a", "Part-A2", parta2_phase)
             voxel("18b", "Part-A2-free", parta2_free_phase)
+            voxel("19a", "PointRCNN", pointrcnn_phase)
+            voxel("19b", "PointRCNN-IoU", pointrcnn_iou_phase)
             if 11 in want:
                 chains.insert(0, ("dp", lambda: dp_cli(kitti_work, kitti_run)))
             if exports or chains:
-                tail = timed("11-18 (the tail: dist_train.sh, dist_test.sh, the programs "
+                tail = timed("11-19 (the tail: dist_train.sh, dist_test.sh, the programs "
                              "exported and reloaded)", run_tail, exports, chains)
                 for label, counts in tail.items():
                     runs[label].update(add_launches(runs[label], counts))

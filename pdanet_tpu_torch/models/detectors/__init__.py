@@ -1,8 +1,8 @@
 """Detector registry (``pdanet_tpu/models/detectors/__init__.py``).
 
 IASSD (PDA-SSD), PointPillar, SECOND, SECOND-IoU, Voxel-RCNN, CenterPoint,
-PV-RCNN, PV-RCNN++, Part-A2 and Part-A2-free are ported; the other
-detectors of the zoo (PointRCNN, CaDDN) are ROADMAP queue 1 item 9.
+PV-RCNN, PV-RCNN++, Part-A2, Part-A2-free and PointRCNN are ported; the
+zoo's last detector, CaDDN, is ROADMAP queue 1 item 9.
 """
 
 import torch
@@ -12,6 +12,7 @@ from .centerpoint import post_processing as center_post_processing
 from .iassd import IASSD, post_processing
 from .part_a2 import PartA2Net
 from .part_a2_free import PartA2Free
+from .point_rcnn import PointRCNN
 from .pointpillar import PointPillar
 from .pv_rcnn import PVRCNN, PVRCNNPlusPlus
 from .second import SECOND
@@ -21,15 +22,15 @@ from .voxel_rcnn import VoxelRCNN
 from .voxel_rcnn import post_processing as refined_post_processing
 
 __all__ = {"CenterPoint": CenterPoint, "IASSD": IASSD, "PartA2Net": PartA2Net,
-           "PartA2Free": PartA2Free, "PointPillar": PointPillar, "PVRCNN": PVRCNN,
-           "PVRCNNPlusPlus": PVRCNNPlusPlus, "SECOND": SECOND, "SECONDNetIoU": SECONDNetIoU,
-           "VoxelRCNN": VoxelRCNN}
+           "PartA2Free": PartA2Free, "PointPillar": PointPillar, "PointRCNN": PointRCNN,
+           "PVRCNN": PVRCNN, "PVRCNNPlusPlus": PVRCNNPlusPlus, "SECOND": SECOND,
+           "SECONDNetIoU": SECONDNetIoU, "VoxelRCNN": VoxelRCNN}
 
 #: voxel-pipeline detectors, which take their grid geometry from the dataset
 VOXEL_DETECTORS = ("PointPillar", "SECOND", "CenterPoint", "SECONDNetIoU", "VoxelRCNN",
                    "PVRCNN", "PartA2Net", "PVRCNNPlusPlus", "PartA2Free")
 #: the two-stage detectors, whose post-processing is the refined RoIs' NMS
-REFINED = ("VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus", "PartA2Net", "PartA2Free")
+REFINED = ("VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus", "PartA2Net", "PartA2Free", "PointRCNN")
 
 
 def get_post_processor(name):
@@ -42,7 +43,7 @@ def get_post_processor(name):
     ``iassd.post_processing`` (detector3d_template.py:179-285), per class
     with ``MULTI_CLASSES_NMS``."""
     if name not in __all__:
-        raise NotImplementedError(f"{name} is ROADMAP queue 1 item 9")
+        raise NotImplementedError(f"{name} is not in the port: ROADMAP queue 1 item 9 (CaDDN left)")
     if name == "CenterPoint":
         return lambda out, mcfg: center_post_processing(out, mcfg.DENSE_HEAD.POST_PROCESSING)
     if name == "SECONDNetIoU":
@@ -77,7 +78,8 @@ def build_network(model_cfg, num_class, dataset=None, input_channels=4, device=N
     them."""
     name = resolve_detector_name(model_cfg)
     if name not in __all__:
-        raise NotImplementedError(f"{model_cfg.NAME} is ROADMAP queue 1 item 9")
+        raise NotImplementedError(f"{model_cfg.NAME} is not in the port: ROADMAP queue 1 item 9 "
+                                  f"(CaDDN left)")
     if dataset is not None:
         input_channels = dataset.point_feature_encoder.num_point_features
         if name in VOXEL_DETECTORS:

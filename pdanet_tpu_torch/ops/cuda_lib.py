@@ -24,7 +24,9 @@ wrappers are the ``"cuda"`` kernels of the ``torch.library`` ops of
 ``torch.export`` saved and loaded.  ``launches_by_k`` counts the rotated
 self-IoU's and the NMS walk's launches once more under ``<name>_k<K>``,
 the candidates a frame of the call, since one path runs them at several
-K (a two-stage detector's proposal layer and final NMS).
+K (a two-stage detector's proposal layer and final NMS), and FPS's under
+``fps_n<N>``, the points a frame of the call (PointRCNN runs it on the
+cloud and on its RoIs' 512-point clouds).
 ``launches_by_site`` counts the ball query's launches once more under
 ``ball_query_<site>``, the site its caller names (PV-RCNN runs it on each
 feature source and in its RoI grid pool).

@@ -1,14 +1,14 @@
-"""Three nearest neighbours.
+"""Three nearest neighbours and the weighted gather of their features.
 
-Counterpart of ``pdanet_tpu/ops/interpolate.py:15-33``.  No Pallas kernel
-computes this in the JAX package: the plain PyTorch version below is the
-port, on every device.  The JAX form builds the whole (B, N, M) distance
-field; PV-RCNN++'s RoI grid pool asks for 746,496 grid centres x 2048
-keypoints a training frame (gigabytes a field), so this one builds the
-field over chunks of the queries.  The index search is the op
-``<package>::three_nn`` (the same plain version for every device), so
-that ``torch.export`` keeps it as one call instead of unrolling its
-chunk loop into the program.
+Counterparts of ``pdanet_tpu/ops/interpolate.py:15-42`` (``three_nn``,
+``three_interpolate``).  No Pallas kernel computes either in the JAX
+package: the plain PyTorch versions below are the port, on every device.
+The JAX form builds the whole (B, N, M) distance field; PV-RCNN++'s RoI
+grid pool asks for 746,496 grid centres x 2048 keypoints a training frame
+(gigabytes a field), so this one builds the field over chunks of the
+queries.  The index search is the op ``<package>::three_nn`` (the same
+plain version for every device), so that ``torch.export`` keeps it as one
+call instead of unrolling its chunk loop into the program.
 """
 
 import torch
@@ -81,3 +81,14 @@ def picked_dist2(unknown, known, idx):
     near = torch.gather(known, 1, idx.long().reshape(B, N * 3, 1).expand(B, N * 3, 3))
     d = unknown[:, :, None, :] - near.reshape(B, N, 3, 3)
     return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
+def three_interpolate(features, idx, weight):
+    """(B, M, C) features x (B, N, 3) indices x (B, N, 3) weights -> (B, N,
+    C): each point's three gathered feature rows, weighted and summed
+    (``pdanet_tpu/ops/interpolate.py:35-42``); differentiable in the
+    features and the weights."""
+    B, M, C = features.shape
+    N = idx.shape[1]
+    gathered = torch.gather(features, 1, idx.long().reshape(B, N * 3, 1).expand(B, N * 3, C))
+    return (gathered.reshape(B, N, 3, C) * weight[..., None]).sum(dim=2)

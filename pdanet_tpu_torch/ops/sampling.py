@@ -76,6 +76,7 @@ def farthest_point_sample_cuda(xyz, npoint):
     )
     cuda_lib.check(code, "fps")
     cuda_lib.launches["fps"] += 1
+    cuda_lib.launches_by_k[f"fps_n{N}"] += 1
     return out
 
 

@@ -466,6 +466,81 @@ def test_pv_rcnn_train_test_and_export_cli(kitti_env, tmp_path, monkeypatch):
         serve_cli.main(["--artifact", str(path), "--inputs", "*.bin"])
 
 
+POINTRCNN_YAML = REPO / "tools" / "cfgs" / "kitti_models" / "pointrcnn.yaml"
+POINTRCNN_CFG_REL = "cfgs/tiny/pointrcnn-tiny.yaml"
+
+
+def _pointrcnn_tiny_yaml(root):
+    """The shipped pointrcnn.yaml on the mini-KITTI at ``root``, cut to 512
+    points a frame, a two-level MSG backbone of 4-8 channels, 16-wide point
+    head and FC stacks, 32 pooled points a RoI through SA stages [16, -1],
+    proposals at 256 / 128 into 64 / 32 RoIs, 16 sampled."""
+    cfg = cfg_from_yaml_file(str(POINTRCNN_YAML))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == "sample_points":
+            proc.NUM_POINTS = {"train": N_POINTS, "test": N_POINTS}
+    m = cfg.MODEL
+    m.BACKBONE_3D.SA_CONFIG.update(NPOINTS=[64, 16], RADIUS=[[0.5, 1.0], [1.0, 2.0]],
+                                   NSAMPLE=[[8, 8], [8, 8]],
+                                   MLPS=[[[4, 8], [4, 8]], [[8, 8], [8, 8]]])
+    m.BACKBONE_3D.FP_MLPS = [[16, 16], [16, 16]]
+    m.POINT_HEAD.update(CLS_FC=[16], REG_FC=[16])
+    roi = m.ROI_HEAD
+    roi.update(XYZ_UP_LAYER=[16, 16], CLS_FC=[16], REG_FC=[16])
+    roi.ROI_POINT_POOL.NUM_SAMPLED_POINTS = 32
+    roi.SA_CONFIG.update(NPOINTS=[16, -1], RADIUS=[0.4, 100], NSAMPLE=[8, 8],
+                         MLPS=[[16, 16], [16, 32]])
+    roi.NMS_CONFIG.TRAIN.update(NMS_PRE_MAXSIZE=256, NMS_POST_MAXSIZE=64)
+    roi.NMS_CONFIG.TEST.update(NMS_PRE_MAXSIZE=128, NMS_POST_MAXSIZE=32)
+    roi.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    m.POST_PROCESSING.NMS_CONFIG.update(NMS_PRE_MAXSIZE=32, NMS_POST_MAXSIZE=16)
+    return yaml.safe_dump(_plain(cfg))
+
+
+def test_pointrcnn_train_test_export_and_serve_cli(kitti_env, tmp_path, monkeypatch):
+    """PointRCNN through the CLIs: one epoch (two steps at B = 2: the RoI
+    sampler drawing from each frame's generator) with finite point and RCNN
+    losses; the test CLI on its checkpoint (the refined post-processing,
+    ``roi_<t>`` beside ``rcnn_<t>``, the official evaluation over every val
+    frame); the export CLI on the checkpoint with ``--verify`` (a points
+    program); the serve CLI over the mini-KITTI's velodyne files on it, one
+    JSON line a file."""
+    from pdanet_tpu_torch.tools import export as export_cli
+    from pdanet_tpu_torch.tools import serve as serve_cli
+
+    (tmp_path / POINTRCNN_CFG_REL).parent.mkdir(parents=True)
+    (tmp_path / POINTRCNN_CFG_REL).write_text(_pointrcnn_tiny_yaml(kitti_env[0]))
+    monkeypatch.chdir(tmp_path)
+    out = train_cli.main(["--cfg_file", POINTRCNN_CFG_REL, "--device", "cpu", "--workers", "0",
+                          "--batch_size", "2", "--epochs", "1", "--num_epochs_to_eval", "0"])
+    lines = [json.loads(line) for line in
+             (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()]
+    for tag in ("train/point_loss_cls", "train/point_loss_box", "train/rcnn_loss_cls",
+                "train/rcnn_loss_reg"):
+        values = [r["value"] for r in lines if r["tag"] == tag]
+        assert len(values) == 2 and all(np.isfinite(values)), (tag, values)
+    ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+    result = test_cli.main(["--cfg_file", POINTRCNN_CFG_REL, "--ckpt", str(ckpt), "--device",
+                            "cpu", "--workers", "0", "--batch_size", "2"])
+    assert {"recall/roi_0.3", "recall/rcnn_0.3", "Car_3d/moderate_R40"} <= set(result)
+    with open(out / "eval" / "epoch_1" / "val" / "default" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    assert [a["frame_id"] for a in annos] == ["000000", "000001", "000002", "000003"]
+    path = export_cli.main(["--cfg_file", POINTRCNN_CFG_REL, "--ckpt", str(ckpt), "--device",
+                            "cpu", "--verify"])
+    meta = json.loads(Path(f"{path}.json").read_text())
+    assert meta["model"] == "PointRCNN" and list(meta["inputs"]) == ["points"]
+    assert meta["inputs"]["points"]["shape"] == [1, N_POINTS, 4]
+    bins = sorted((kitti_env[0] / "training" / "velodyne").glob("*.bin"))
+    jsonl = tmp_path / "detections.jsonl"
+    serve_cli.main(["--artifact", str(path), "--inputs",
+                    str(kitti_env[0] / "training" / "velodyne" / "*.bin"), "--out", str(jsonl),
+                    "--score_thresh", "0.0"])
+    rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    assert len(rows) == len(bins) > 0
+
+
 @pytest.fixture(scope="module")
 def jax_checkpoint(kitti_env, tmp_path_factory):
     """The tiny model in the JAX package, flax's initial weights with the

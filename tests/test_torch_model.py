@@ -279,6 +279,10 @@ def test_port_imports_no_jax():
         "from pdanet_tpu_torch.models.dense_heads import point_intra_part_head\n"
         "from pdanet_tpu_torch.models.roi_heads import partA2_head\n"
         "from pdanet_tpu_torch.ops import roi_pool\n"
+        "import pdanet_tpu_torch.models.detectors.point_rcnn\n"
+        "from pdanet_tpu_torch.models.backbones_3d import pointnet2_backbone\n"
+        "from pdanet_tpu_torch.models.roi_heads import pointrcnn_head\n"
+        "from pdanet_tpu_torch.ops import interpolate\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"

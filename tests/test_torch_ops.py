@@ -518,6 +518,25 @@ def test_iou_and_nms_count_launches_by_k(name, stub_kernels):
     cuda_lib.launches_by_k.clear()
 
 
+def test_fps_counts_launches_by_points(stub_kernels):
+    """FPS counts each launch once in ``launches`` and once more in
+    ``launches_by_k`` under ``fps_n<N>``, N the points a frame of the call
+    (PointRCNN's cloud and its RoIs' clouds).  Without a card: fake tensors
+    on ``cuda:0``, the kernel library stubbed."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    dev = stub_kernels
+    cuda_lib.launches.clear()
+    cuda_lib.launches_by_k.clear()
+    with FakeTensorMode():
+        for B, N in ((1, 512), (64, 512), (1, 16384)):
+            farthest_point_sample_cuda(torch.empty(B, N, 3, device=dev), 8)
+    assert dict(cuda_lib.launches) == {"fps": 3}
+    assert dict(cuda_lib.launches_by_k) == {"fps_n512": 2, "fps_n16384": 1}
+    cuda_lib.launches.clear()
+    cuda_lib.launches_by_k.clear()
+
+
 def test_ball_query_counts_launches_by_site(stub_kernels):
     """The ball query counts each launch once in ``launches`` and, where its
     caller names a site, once more in ``launches_by_site`` under

@@ -515,7 +515,7 @@ def test_build_network_pointpillar_yaml_and_zoo_raises():
     tensors = [*model.named_parameters(), *model.named_buffers()]
     assert [n for n, t in tensors if not t.is_contiguous()] == []
 
-    for name in ("PointRCNN", "CaDDN"):
+    for name in ("CaDDN",):
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             build_network(EasyDict(NAME=name), 3, device="cpu")
     for key, value in (("VFE", {"NAME": "DynamicPillarVFE"}),

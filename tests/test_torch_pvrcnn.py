@@ -624,7 +624,7 @@ def test_build_network_pv_rcnn_yaml():
 
 @pytest.mark.parametrize("yaml_name", ["PDA-SSD", "pointpillar", "second", "voxel_rcnn_car",
                                        "second_iou", "centerpoint", "pv_rcnn",
-                                       "pv_rcnn_plusplus", "PartA2"])
+                                       "pv_rcnn_plusplus", "PartA2", "pointrcnn"])
 def test_serving_input_spec_follows_device_batch_keys(yaml_name):
     """``serving_input_spec(cfg, 1, model)`` takes the detector's
     ``DEVICE_BATCH_KEYS`` (the gt keys excluded), as the JAX function

@@ -693,7 +693,7 @@ def test_build_network_voxel_rcnn_yaml():
     from pdanet_tpu_torch.models.detectors import voxel_rcnn
 
     assert get_post_processor("VoxelRCNN") is voxel_rcnn.post_processing
-    for name in ("PointRCNN", "CaDDN"):
+    for name in ("CaDDN",):
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             get_post_processor(name)
     # the dense-grid pool goes with the dense backbone: neither is ported
