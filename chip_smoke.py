@@ -125,8 +125,8 @@ Phases, each of which raises on failure:
    train and 4 val frames of 120000 LiDAR-like 360-degree points, 10-20
    Car / Pedestrian / Cyclist boxes a frame with returns on them, the
    calib, road-plane and label files of ``tests/kitti_fixture.py``'s form,
-   1242 x 375 PNGs written with zlib and struct); ``create_kitti_infos``
-   and the gt database; the loader alone over one epoch (host ms per
+   black 1242 x 375 PNGs written by ``utils/png.encode_png``);
+   ``create_kitti_infos`` and the gt database; the loader alone over one epoch (host ms per
    batch); ``python -m pdanet_tpu_torch.tools.train`` in process for one
    epoch at B = 4 with the evaluation of its checkpoint (losses finite,
    ms per iteration and the wait for the loader from its metrics);
@@ -400,6 +400,40 @@ Phases, each of which raises on failure:
    request, one step whose sampled RoIs' labels are the soft labels of
    their IoUs, the CLIs (at B = 2) and ``dist_train.sh``, export.
 
+20. CaDDN: tools/cfgs/kitti_models/CaDDN.yaml at full width (375 x 1242
+   images; the DDN at width 256 with 80 LID depth bins, its stride-4
+   features reduced to 64 channels; the 80 x 94 x 311 x 64 frustum sampled
+   into a 25 x 376 x 280 x 64 voxel grid; Conv2DCollapse to 64 BEV
+   channels; the BEV backbone's [10, 10, 10] layers; 157920 anchors; the
+   single-class NMS at K 4096), seeded weights, float32, TF32 off, on a
+   camera root of its own beside phase 9's (``camera_root``: 4 train and 2
+   val frames of phase 9's kind with textured images of 375 x 1242 and 370
+   x 1224 in turn and 16-bit depth maps of their returns, written with
+   zlib).  (a) A b1 and a b2 request (the two sizes padded by the collate)
+   through the serving closure, the IoU and NMS kernels launched at K
+   4096; the b1 latency and device split; frame 0 on the card against the
+   CPU (``caddn_card_vs_cpu``): the depth logits, the voxel features, the
+   BEV map and the head's maps within ``CADDN_STAGE_TOL`` of max(1,
+   |value|), the TF32 control beyond it, the detections paired box for
+   box.  (b) One float32 step at the yaml's B = 4 with its peak memory,
+   then one float64 step on ``CADDN_CROP`` card vs CPU.  (c) The train and
+   test CLIs on the camera root, ``dist_train.sh`` in the tail; the
+   serving spec and the export CLI refuse the camera inputs, as the JAX
+   package's serving does (no program, no serve CLI).  (e) The IoU and the
+   NMS at K 4096 on frame 0's candidates.
+20b. The variants the JAX package builds and no shipped yaml names
+   (``VARIANTS``), each in memory from a shipped yaml at full width:
+   PointPillar over ``DynamicPillarVFE``, SECOND over ``DynamicMeanVFE``
+   and the dense ladder, SECOND with the ATSS assigner, Voxel-RCNN over the
+   dense ladder (the dense-grid ``NeighborGridPool``).  Each serves one b1
+   request, the IoU and NMS kernels launched at every K of its path; card
+   vs CPU: the dynamic PointPillar's frame at full width, the dynamic
+   SECOND's on ``DENSE_CROP``, Voxel-RCNN's first stage and RoI head on
+   ``DENSE_CROP`` on the card's RoIs, SECOND-ATSS's targets after one
+   B = 4 step (its request is SECOND's forward, phase 13's); (e) the IoU
+   and the NMS on the candidates of the dynamic variants' and Voxel-RCNN's
+   request.
+
 Depth (``VOXEL_DEPTH``; every kernel row, family and phase stays): phases
 12-19 serve one b1 and one b2 request (15b, 17b and 19b one b1), take one
 float32 step (19a two), and their CLIs and ``dist_train.sh`` train over 4
@@ -410,13 +444,13 @@ with the same forward; phases 3 and 8 hold FPS and the ball query at
 ONCE's shapes to their plain versions).
 
 The script ends in a tail, run once every phase has measured, so that
-nothing else runs on the card beside a measurement: two export processes
-export phases 12-19's b1 programs (d) from their saved weights, and one
-fresh process reloads each as it is saved and holds it bit-equal to the
-eager closure's outputs on the same frame (saved in the phase), while
-phase 10's fresh process and serve CLI, phase 11's ``dist_train.sh`` and
-``dist_test.sh`` and the ``dist_train.sh`` runs of phases 12-14 and 16-19
-(c, at B = 1) go, five chains at a time.
+nothing else runs on the card beside a measurement: three export
+processes export phases 12-19's b1 programs (d) from their saved weights,
+and one fresh process reloads each as it is saved and holds it bit-equal
+to the eager closure's outputs on the same frame (saved in the phase),
+while phase 10's fresh process and serve CLI, phase 11's
+``dist_train.sh`` and ``dist_test.sh`` and the ``dist_train.sh`` runs of
+phases 12-14 and 16-20 (c, at B = 1) go, seven chains at a time.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
@@ -449,8 +483,11 @@ at that site, ``cuda_lib.launches_by_site``) and PV-RCNN++'s FPS on the collapse
 phase 19's K 9000 and 100 (``rotated_iou_k9000_pointrcnn`` ...) with the
 RoI head's FPS (``fps_k512_roi_pointrcnn``: the phase's FPS launches on
 512-point clouds, ``fps_n512`` of ``cuda_lib.launches_by_k``) and ball
-query (``ball_query_roi_pointrcnn``).  The line before it gives the
-script's seconds.
+query (``ball_query_roi_pointrcnn``), and at phase 20's K 4096
+(``rotated_iou_k4096_caddn``, ``nms_k4096_caddn``) and phase 20b's
+(``rotated_iou_k4096_pointpillar_dynamic``, ``..._second_dynamic``,
+``rotated_iou_k2048_voxel_rcnn_dense``, ``..._k100_voxel_rcnn_dense``).
+The line before it gives the script's seconds.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2576,22 +2613,6 @@ Height 1
 KITTI_DONTCARE = "DontCare -1 -1 -10 500.00 170.00 590.00 190.00 -1 -1 -1 -1000 -1000 -1000 -10"
 
 
-def png_bytes(width, height):
-    """A black 8-bit RGB PNG, written with zlib and struct: the signature,
-    then the IHDR, IDAT and IEND chunks, each with its CRC-32."""
-    import struct
-    import zlib
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data)))
-
-    rows = (b"\x00" + bytes(3 * width)) * height  # filter byte 0, then the row
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows, 1)) + chunk(b"IEND", b""))
-
-
 def kitti_like_frame(rs, class_names, mean_sizes, n_points=KITTI_FRAME_POINTS, extent=80.0):
     """One 360-degree LiDAR-like frame with the sensor 1.73 m above the
     ground: 10-20 boxes of the three classes at the yaml's mean sizes (10 %
@@ -2648,6 +2669,7 @@ def write_kitti_root(root, class_names, mean_sizes, seed=0, n_points=KITTI_FRAME
     camera's field of view)."""
     from pdanet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
     from pdanet_tpu_torch.utils import box_utils, calibration_kitti
+    from pdanet_tpu_torch.utils.png import encode_png
 
     rs = np.random.RandomState(seed)
     training = root / "training"
@@ -2658,7 +2680,7 @@ def write_kitti_root(root, class_names, mean_sizes, seed=0, n_points=KITTI_FRAME
     calib = calibration_kitti.Calibration(str(training / "calib" / "tmp.txt"))
     (training / "calib" / "tmp.txt").unlink()
     shape = np.array([KITTI_IMAGE[1], KITTI_IMAGE[0]])
-    png = png_bytes(*KITTI_IMAGE)
+    png = encode_png(np.zeros((KITTI_IMAGE[1], KITTI_IMAGE[0], 3), np.uint8))  # black
     counts, frame = {}, 0
     for split, n_frames in splits:
         ids, n_boxes, fov_min = [], 0, None
@@ -3095,7 +3117,8 @@ def export_check(work, runs, bins, files, serve_want, detections, thresh):
     procs = {}
     for name, cmd in commands.items():
         with open(work / f"{name}.out", "w") as out, open(work / f"{name}.err", "w") as err:
-            procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err)
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err,
+                                           env=tail_env())
     for name, proc in procs.items():
         try:
             proc.wait(timeout=600)
@@ -3193,7 +3216,7 @@ class DistScript:
     seconds.  Leaving the ``with`` block kills it if it still runs."""
 
     def __init__(self, script, nproc, args, cwd, timeout=900):
-        env = {k: v for k, v in os.environ.items() if k not in LAUNCH_ENV}
+        env = tail_env({k: v for k, v in os.environ.items() if k not in LAUNCH_ENV})
         self.script, self.timeout, self.t0 = script, timeout, time.perf_counter()
         stem = Path(cwd) / f"{script}.{os.getpid()}.{id(self)}"
         self.out, self.err = open(f"{stem}.out", "w+"), open(f"{stem}.err", "w+")
@@ -3727,7 +3750,7 @@ VOXEL_PHASES = {12: (PP_CFG_REL, "PointPillar", 1200), 13: (SECOND_CFG_REL, "SEC
 VOXEL_SUFFIX = {12: "", 13: "_second", 14: "_voxel_rcnn", "15a": "_second_iou",
                 "15b": "_multihead", 16: "_centerpoint", 17: "_pv_rcnn", "17b": "_pv_rcnn_pp",
                 "18a": "_part_a2", "18b": "_part_a2_free", "19a": "_pointrcnn",
-                "19b": "_pointrcnn_iou"}
+                "19b": "_pointrcnn_iou", 20: "_caddn"}
 VOXEL_SERVE_FRAMES = 5  # three b1 requests and one b2
 VOXEL_TRAIN_STEPS = 5
 VOXEL_LATENCY_REPS = 10
@@ -3863,10 +3886,22 @@ print(json.dumps({"modules": sorted(m for m in sys.modules
 # the tail's processes at once (``run_tail``, which prints the card's peak
 # memory in use while they run): the programs' fresh process, phase 11's
 # dist_train.sh / dist_test.sh, phase 10's fresh process and serve CLI and
-# the voxel phases' dist_train.sh runs at B = 1, five chains at a time,
-# beside ``EXPORT_WORKERS`` processes exporting the phases' b1 programs
-TAIL_WORKERS = 6
-EXPORT_WORKERS = 2
+# the voxel phases' dist_train.sh runs at B = 1, seven chains at a time (13
+# chains in two waves of ~50 s), beside ``EXPORT_WORKERS`` processes
+# exporting the phases' b1 programs (12 programs of 8-39 s: ~100 s in
+# three processes, ~150 s in two)
+TAIL_WORKERS = 8
+EXPORT_WORKERS = 3
+# torch's CPU threads in each of the tail's processes (its default, a thread
+# a core, gives every one of the ~16 processes at once all 8 cores): the
+# processes' work is on the card, their CPU side reads files and enqueues
+TAIL_THREADS = 2
+
+
+def tail_env(env=None):
+    """``env`` (this process's environment by default) with the tail's
+    processes' CPU threads (``TAIL_THREADS``)."""
+    return {**(os.environ if env is None else env), "OMP_NUM_THREADS": str(TAIL_THREADS)}
 # a tail export process: argv[1] a JSON list of ``voxel_export``'s jobs;
 # each built from its yaml and saved weights, exported at b1 and saved
 # with its sidecar, then one JSON line (its stem, seconds, bytes, nodes)
@@ -4178,14 +4213,15 @@ def kernel_candidates(cfg, out, served):
     return rows
 def turns(kern, plain, plain_reps):
     """A kernel and its plain version timed in turns (kernel, plain, plain,
-    kernel) under CUDA events, the kernel's medians of 20 runs, the plain
-    version's of ``plain_reps``: (kernel ms, plain ms), each the mean of
-    its two medians."""
+    kernel; with ``plain_reps`` 1, where a plain call takes up to a second,
+    kernel, plain, kernel) under CUDA events, the kernel's medians of 20
+    runs, the plain version's of ``plain_reps`` with no warm-up of its own
+    (every caller has run the plain version on these inputs for its
+    check): (kernel ms, plain ms), each the mean of its medians."""
     k1 = cuda_ms(kern, reps=20)
-    p1 = cuda_ms(plain, reps=plain_reps, warmup=1)
-    p2 = cuda_ms(plain, reps=plain_reps, warmup=1)
+    plains = [cuda_ms(plain, reps=plain_reps, warmup=0) for _ in range(min(plain_reps, 2))]
     k2 = cuda_ms(kern, reps=20)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, statistics.mean(plains)
 
 
 def voxel_kernels(dev, boxes, valid, thresh, label, what, suppress=False, parent=None):
@@ -4359,7 +4395,7 @@ def sparse_levels(model, cpu_model, requests, label="SECOND"):
 
 
 def anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label):
-    """Phases 12 and 13 (a): request 0's frame in float32 on the card
+    """Phases 12, 13 and 20b (a): request 0's frame in float32 on the card
     (kernels) against the CPU (plain versions; the CPU's self-IoU by the
     plain version on the card, ``plain_iou_on``): logits within 2e-3, boxes
     and headings within 1e-3 (a heading pi apart only where the direction
@@ -4378,7 +4414,7 @@ def anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label)
     cpu_model.load_state_dict(weights)
     cpu_batch = {k: v.cpu() for k, v in b1.items()}
     t0 = time.perf_counter()
-    with torch.inference_mode(), plain_iou_on(b1["voxels"].device):
+    with torch.inference_mode(), plain_iou_on(next(iter(b1.values())).device):
         out_cpu = cpu_model.eval().forward_batch(cpu_batch)
         post_cpu = get_post_processor(cfg.MODEL.NAME)(out_cpu, cfg.MODEL)
     cpu_s = time.perf_counter() - t0
@@ -4415,7 +4451,7 @@ def anchors_card_vs_cpu(cfg, model, weights, template, requests, results, label)
             "or the period's fold within 1e-4)")
     require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
             f"{label} float32 detections card vs CPU not paired box for box")
-    if hasattr(model, "backbone_3d"):
+    if hasattr(getattr(model, "backbone_3d", None), "geometry"):  # a sparse backbone
         sparse_levels(model, cpu_model, requests)
     return out_card
 
@@ -5906,10 +5942,11 @@ def voxel_clis(work, kitti_run, cfg_rel, label, batch_size, export=False,
                               str(batch_size), "--num_epochs_to_eval", "0", *set_data])
         train_s = time.perf_counter() - t0
         train_counts = counted_launches()
-        series = {}
+        by_step = {}  # a tag's value a step (CaDDN's tb holds "loss" beside the loop's own)
         for line in (out / "tensorboard" / "metrics.jsonl").read_text().splitlines():
             m = json.loads(line)
-            series.setdefault(m["tag"], []).append(m["value"])
+            by_step.setdefault(m["tag"], {})[m["step"]] = m["value"]
+        series = {tag: [v for _, v in sorted(steps.items())] for tag, steps in by_step.items()}
         losses = series["train/loss"]
         step_ms = [1e3 * t for t in series["meta_data/batch_time"]]
         wait_ms = [1e3 * t for t in series["meta_data/data_time"]]
@@ -5987,13 +6024,13 @@ def dist_train_chain(work, kitti_run, cfg_rel, label):
         log, dp_counts = cli_log(dp_out, "train")
         require("process group: backend nccl, world 1" in log,
                 f"{label} dist_train.sh: not NCCL at world 1")
-        dp_losses, dp_ms = [], []
+        by_step = {"train/loss": {}, "meta_data/batch_time": {}}  # a value a step
         for line in (dp_out / "tensorboard" / "metrics.jsonl").read_text().splitlines():
             m = json.loads(line)
-            if m["tag"] == "train/loss":
-                dp_losses.append(m["value"])
-            elif m["tag"] == "meta_data/batch_time":
-                dp_ms.append(1e3 * m["value"])
+            if m["tag"] in by_step:
+                by_step[m["tag"]][m["step"]] = m["value"]
+        dp_losses = [v for _, v in sorted(by_step["train/loss"].items())]
+        dp_ms = [1e3 * v for _, v in sorted(by_step["meta_data/batch_time"].items())]
         steps = kitti_run["steps"] * kitti_run["B"]
         require(len(dp_losses) == steps and all(np.isfinite(dp_losses)),
                 f"{label} dist_train.sh losses {dp_losses}")
@@ -6034,7 +6071,8 @@ def export_processes(jobs, sent):
         mine = [job for i, job in enumerate(jobs) if i % EXPORT_WORKERS == w]
         err = tempfile.TemporaryFile("w+")
         proc = subprocess.Popen([sys.executable, "-c", EXPORT_PROGRAMS, json.dumps(mine)],
-                                cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True,
+                                env=tail_env())
 
         def read(proc=proc):
             for line in proc.stdout:
@@ -6080,7 +6118,8 @@ def reload_process():
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-c", RELOAD_VOXELS], cwd=ROOT,
-                            stdin=subprocess.PIPE, stdout=out, stderr=err, text=True)
+                            stdin=subprocess.PIPE, stdout=out, stderr=err, text=True,
+                            env=tail_env())
 
     def send(job):
         stem = job["stem"]
@@ -6395,6 +6434,631 @@ def pointrcnn_iou_phase(dev, work, kitti_run, parent=None):
     return voxel_phase(dev, work, kitti_run, "19b", parent)
 
 
+CADDN_CFG_REL = "cfgs/kitti_models/CaDDN.yaml"
+# phase 20's camera root: its splits, and the (H, W) of its images, frame
+# after frame in turn (KITTI's 1242 x 375, and 1224 x 370 as a few of its
+# frames are), so that a batch of two pads the smaller
+CADDN_SPLITS = (("train", 4), ("val", 2))
+CADDN_IMAGES = ((375, 1242), (370, 1224))
+# CaDDN's float32 stages card against CPU (the depth logits, the voxel
+# features, the BEV map, the head's maps), of max(1, |value|): on an H100
+# with TF32 off they read 6.38e-06 at most (the depth logits, after the
+# DDN's 24 convolutions); the control, the card's stages with TF32 on, read
+# 2.21e-04 to 4.83e-02 and must exceed the gate
+CADDN_STAGE_TOL = 5e-5
+# the float64 step's crop: the image's rows and columns (multiples of the
+# depth maps' factor 4; the calibration shifted by them) and the range of
+# the voxel grid (the yaml's z range and voxel size: 80 x 80 x 25 voxels)
+CADDN_CROP = ((0, 192), (284, 924), (2.0, -6.4, -3.0, 14.8, 6.4, 1.0))
+CADDN_CAMERA_KEYS = ("images", "trans_lidar_to_cam", "trans_cam_to_img")
+
+
+def write_camera_inputs(root, seed=0):
+    """CaDDN's camera inputs for every frame of a root ``write_kitti_root``
+    wrote: the image at its ``CADDN_IMAGES`` size, a texture on which the
+    frame's returns show (brighter the nearer), and the 16-bit depth map
+    (metres x 256) of the returns projected into the image, the nearest a
+    pixel, 0 elsewhere, both written with zlib (``utils/png.encode_png``)."""
+    from pdanet_tpu_torch.utils import calibration_kitti
+    from pdanet_tpu_torch.utils.png import encode_png
+
+    training = Path(root) / "training"
+    (training / "depth_2").mkdir()
+    rs = np.random.RandomState(seed)
+    for i, path in enumerate(sorted((training / "velodyne").glob("*.bin"))):
+        h, w = CADDN_IMAGES[i % len(CADDN_IMAGES)]
+        calib = calibration_kitti.Calibration(str(training / "calib" / f"{path.stem}.txt"))
+        uv, depth = calib.lidar_to_img(np.fromfile(path, np.float32).reshape(-1, 4)[:, :3])
+        u, v = np.floor(uv[:, 0]).astype(np.int64), np.floor(uv[:, 1]).astype(np.int64)
+        seen = (depth > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        dmap = np.full((h, w), np.inf)
+        np.minimum.at(dmap, (v[seen], u[seen]), depth[seen])
+        dmap[~np.isfinite(dmap)] = 0.0
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = np.stack([(xx * 7 + yy * 3) % 256, (yy * 5 + xx) % 256,
+                        rs.randint(0, 256, (h, w))], axis=-1)
+        img[dmap > 0] = np.clip(255.0 - 4.0 * dmap[dmap > 0], 0, 255)[:, None]
+        (training / "image_2" / f"{path.stem}.png").write_bytes(encode_png(img.astype(np.uint8)))
+        (training / "depth_2" / f"{path.stem}.png").write_bytes(
+            encode_png(np.round(dmap * 256.0).astype(np.uint16)))
+
+
+def camera_root(work, cfg, seed):
+    """Phase 20's KITTI root beside phase 9's (``CADDN_SPLITS`` frames of
+    phase 9's kind with their camera inputs, ``write_camera_inputs``), with
+    CaDDN's infos and gt database: the ``kitti_run`` its CLIs take (B 1)."""
+    from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+
+    root = Path(work) / "kitti_camera"
+    t0 = time.perf_counter()
+    counts = write_kitti_root(root, list(KITTI_MEAN_SIZES), list(KITTI_MEAN_SIZES.values()),
+                              seed=seed, splits=CADDN_SPLITS)
+    write_camera_inputs(root, seed)
+    create_kitti_infos(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), root, root, workers=4)
+    print(f"CaDDN camera KITTI root {counts} (frames, boxes, fewest points in the field of "
+          f"view), images {CADDN_IMAGES} in turn, with infos in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(root=root, val_ids=(root / "ImageSets" / "val.txt").read_text().split(), B=1,
+                steps=dict(CADDN_SPLITS)["train"])
+
+
+def camera_batch(cfg, root, indices, training, dev, model, seed=0):
+    """Frames ``indices`` of the camera root's split through the port's
+    ``KittiDataset`` (the yaml's augmentor on the train split, its
+    processors) and collate (images and depth maps padded to the largest):
+    the device batch and the host milliseconds a frame."""
+    from pdanet_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
+    from pdanet_tpu_torch.train import select_device_batch
+
+    ds = KittiDataset(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), training=training,
+                      root_path=root)
+    np.random.seed(seed)  # the image flip's coins
+    frames, host_ms = [], []
+    for i in indices:
+        t0 = time.perf_counter()
+        frames.append(ds[i])
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    return select_device_batch(ds.collate_batch(frames), dev, model), host_ms
+
+
+def caddn_stages(model, batch):
+    """CaDDN's stages of a forward at eval: the depth logits, the voxel
+    features, the BEV map and the head's maps; and the forward dict."""
+    import torch
+
+    with torch.inference_mode():
+        vfe = model.vfe(*(batch[k] for k in CADDN_CAMERA_KEYS))
+        bev = model.map_to_bev(vfe["voxel_features"])
+        out = model.head_forward(bev)
+        out["depth_logits"] = vfe["depth_logits"]
+    stages = {"depth_logits": vfe["depth_logits"], "voxel_features": vfe["voxel_features"],
+              "bev": bev, "cls_preds": out["cls_preds"], "box_preds": out["box_preds"],
+              "dir_cls_preds": out["dir_cls_preds"]}
+    return stages, out
+
+
+def stage_gaps(got, want):
+    """Each stage's largest |got - want| over max(1, |want|)."""
+    return {k: ((got[k].cpu().double() - w.double()).abs()
+                / w.double().abs().clamp(min=1.0)).max().item() for k, w in want.items()}
+
+
+def caddn_card_vs_cpu(cfg, model, weights, template, b1, result, label):
+    """Phase 20 (a): request 0's frame in float32 on the card against the
+    CPU (plain versions; the CPU's self-IoU the plain version on the card,
+    ``plain_iou_on``): every stage (``caddn_stages``) within
+    ``CADDN_STAGE_TOL`` of max(1, |value|), the card's stages with TF32 on
+    (the control) beyond it, and the detections of the CPU's
+    post-processing on the card's forward paired box for box with the
+    card's (those of the CPU's own forward reported beside them).  Returns
+    the card's forward."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.detectors import get_post_processor
+
+    card, out_card = caddn_stages(model, b1)
+    with tf32_on():
+        control, _ = caddn_stages(model, b1)
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device="cpu")
+    cpu_model.load_state_dict(weights)
+    t0 = time.perf_counter()
+    cpu, out_cpu = caddn_stages(cpu_model.eval(), {k: v.cpu() for k, v in b1.items()})
+    with torch.inference_mode(), plain_iou_on(b1["images"].device):
+        post_cpu = get_post_processor(cfg.MODEL.NAME)(out_cpu, cfg.MODEL)
+        # the CPU's post-processing on the card's forward: the seeded head's
+        # scores lie so close that the NMS_POST_MAXSIZE cut of the CPU's own
+        # forward, ~1e-7 apart, keeps other boxes near its end
+        on_card = get_post_processor(cfg.MODEL.NAME)(
+            {k: v.cpu() for k, v in out_card.items()}, cfg.MODEL)
+    cpu_s = time.perf_counter() - t0
+    gaps, control_gaps = stage_gaps(card, cpu), stage_gaps(control, cpu)
+    pairs, n_g, n_c, gap_c, gap_s = match_detections(result, on_card)
+    own = match_detections(result, post_cpu)
+    print(f"{label} float32 frame, card vs CPU ({cpu_s:.1f} s on the CPU), of max(1, |value|): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()) + "; the control (TF32 on): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in control_gaps.items())
+          + f"; detections {n_g} vs {n_c} of the CPU's post-processing on the card's forward, "
+          f"{pairs} paired by mutual nearest centre (largest centre distance {gap_c:.3g} m, "
+          f"score {gap_s:.3g}); of the CPU's own forward {own[2]}, {own[0]} paired (largest "
+          f"centre distance {own[3]:.3g} m, score {own[4]:.3g})")
+    require(max(gaps.values()) <= CADDN_STAGE_TOL,
+            f"{label} stages card vs CPU beyond {CADDN_STAGE_TOL}: {gaps}")
+    require(max(control_gaps.values()) > CADDN_STAGE_TOL,
+            f"{label}: the TF32 control within the gate {CADDN_STAGE_TOL}: {control_gaps}")
+    require(n_g == n_c == pairs and gap_c <= 1e-3 and gap_s <= 1e-4,
+            f"{label} float32 detections card vs CPU not paired box for box")
+    return out_card
+
+
+def caddn_crop(cfg, batch):
+    """Frame 0 of a device batch cut to ``CADDN_CROP``: its image rows and
+    columns, the depth map's at a quarter, the camera matrix's pixels
+    shifted, the 2-D boxes shifted (padding rows stay zero); and the yaml
+    with the crop's range."""
+    (r0, r1), (c0, c1), pcr = CADDN_CROP
+    one = {k: v[:1].clone() for k, v in batch.items()}
+    one["images"] = one["images"][:, r0:r1, c0:c1].contiguous()
+    one["depth_maps"] = one["depth_maps"][:, r0 // 4:r1 // 4, c0 // 4:c1 // 4].contiguous()
+    c2i = one["trans_cam_to_img"]
+    c2i[:, 0] -= c0 * c2i[:, 2]
+    c2i[:, 1] -= r0 * c2i[:, 2]
+    boxes = one["gt_boxes2d"]
+    valid = (boxes != 0).any(dim=-1, keepdim=True)
+    shift = boxes.new_tensor([c0, r0, c0, r0])
+    one["gt_boxes2d"] = boxes.where(~valid, boxes - shift)
+    crop_cfg = copy.deepcopy(cfg)
+    crop_cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(pcr)
+    return one, crop_cfg
+
+
+def caddn_train(cfg, weights, dev, run, label):
+    """Phase 20 (b): one float32 step at the yaml's B = 4 on the camera
+    root's train frames (two image sizes, padded; the image flip drawn),
+    its time and peak memory, no self-IoU run; then one float64 step on
+    ``CADDN_CROP`` of frame 0 on the card against the CPU (the sampler's
+    backward on the card adds by atomics: rounding, not bits): loss within
+    1e-10 relative, gradient leaves within 1e-8 of their scale, statistics
+    within 1e-10.  Returns the step's launches."""
+    import torch
+
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.train import build_optimizer_and_schedule, make_train_step
+
+    ocfg = cfg.OPTIMIZATION
+    B = int(ocfg.BATCH_SIZE_PER_GPU)
+
+    def train_model(device, dtype, model_cfg):
+        template = DatasetTemplate(dataset_cfg=model_cfg.DATA_CONFIG,
+                                   class_names=cfg.CLASS_NAMES, training=False,
+                                   root_path=str(run["root"]))
+        model = build_network(model_cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template,
+                              device=device)
+        model.load_state_dict(weights)
+        model = model.to(dtype)
+        optimizer, schedule = build_optimizer_and_schedule(
+            model, ocfg, total_iters_each_epoch=3712 // B, total_epochs=ocfg.NUM_EPOCHS)
+        return model, make_train_step(model, optimizer, schedule)
+
+    model, step = train_model(dev, torch.float32, cfg)
+    batch, host_ms = camera_batch(cfg, run["root"], range(B), True, dev, model, seed=20)
+    print(f"{label} train frames: host dataset and processors {[round(t, 1) for t in host_ms]} "
+          f"ms a frame; images {tuple(batch['images'].shape)}, depth maps "
+          f"{tuple(batch['depth_maps'].shape)}, gt boxes "
+          f"{(batch['gt_boxes'][..., 7] > 0).sum(dim=1).tolist()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    clear_launches()
+    with RecordIoUShapes() as rec:
+        t0 = time.perf_counter()
+        loss, tb = step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = counted_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    require(np.isfinite(loss.item()) and _grads_finite(model), f"{label} step: not finite")
+    require(not rec.shapes, f"{label} training ran a self-IoU: {rec.shapes}")
+    print(f"{label} train float32 B={B}: loss {loss.item():.4f} (ddn_loss "
+          f"{float(tb['ddn_loss']):.4f}); {ms:.2f} ms (the first step of a process); peak "
+          f"memory {peak:.2f} GiB; launches {launches}")
+    del model, step
+    torch.cuda.empty_cache()
+
+    one, crop_cfg = caddn_crop(cfg, batch)
+    one = {k: v.double() if v.is_floating_point() else v for k, v in one.items()}
+    res = []
+    for device in (dev, torch.device("cpu")):
+        model, step = train_model(device, torch.float64, crop_cfg)
+        t0 = time.perf_counter()
+        loss, _ = step({k: v.to(device) for k, v in one.items()})
+        res.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    {n: b.cpu() for n, b in model.named_buffers() if "running" in n},
+                    time.perf_counter() - t0))
+        del model, step
+    (l_g, g_g, s_g, t_g), (l_c, g_c, s_c, t_c) = res
+    rel = abs(l_g - l_c) / abs(l_c)
+    errs = _leaf_errors(g_g, g_c, floor=1e-6)
+    stat_err = max((s_g[n] - s_c[n]).abs().max().item() for n in s_c)
+    print(f"{label} float64 step B=1 on the crop {CADDN_CROP} (images "
+          f"{tuple(one['images'].shape)}), card vs CPU ({t_g:.1f} s / {t_c:.1f} s): loss "
+          f"{l_g:.17g} vs {l_c:.17g} (rel {rel:.3g}); gradient leaves within {errs[0][0]:.3g} "
+          f"of their scale at worst ({errs[0][1]}), deciles {_deciles(errs)}; statistics "
+          f"within {stat_err:.3g}")
+    require(rel <= 1e-10, f"{label} float64 loss card vs CPU rel {rel}")
+    require(errs[0][0] <= 1e-8, f"{label} float64 gradients card vs CPU: {errs[:3]}")
+    require(stat_err <= 1e-10, f"{label} float64 statistics card vs CPU {stat_err}")
+    return launches
+
+
+def caddn_phase(dev, work, kitti_run, parent=None):
+    """Phase 20: tools/cfgs/kitti_models/CaDDN.yaml at full width (375 x
+    1242 images; the DDN at width 256, 80 LID bins; the frustum 80 x 94 x
+    311 x 64 sampled into a 25 x 376 x 280 x 64 voxel grid; Conv2DCollapse
+    to 64 channels; the BEV backbone's [10, 10, 10] layers; 157920 anchors;
+    the single-class NMS at K 4096), seeded weights, float32, TF32 off, on
+    a camera root of its own (``camera_root``).  (a) A b1 and a b2 request
+    (two image sizes, padded), card vs CPU (``caddn_card_vs_cpu``); (b) a
+    B = 4 step and the float64 step on a crop (``caddn_train``); (c) the
+    train and test CLIs, ``dist_train.sh`` in the tail; the export CLI and
+    the serving spec refuse CaDDN as the JAX package does; (e) the IoU and
+    the NMS at K 4096 on frame 0's candidates.  Returns what ``voxel_phase``
+    returns, with no export job."""
+    import torch
+
+    from pdanet_tpu_torch.config import cfg_from_yaml_file
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.models.detectors import CaDDN
+    from pdanet_tpu_torch.serving import make_predict_fn, serving_input_spec
+    from pdanet_tpu_torch.tools import export as export_cli
+
+    label = "CaDDN"
+    cfg = cfg_from_yaml_file(str(Path(work) / CADDN_CFG_REL))
+    run = camera_root(work, cfg, seed=2000)
+    template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
+                               training=False, root_path=str(run["root"]))
+    t0 = time.perf_counter()
+    model = init_random_weights(build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template,
+                                              device=dev), seed=0)
+    weights = copy.deepcopy(model.state_dict())
+    predict = make_predict_fn(model, cfg.MODEL)
+    requests, host_ms = [], []
+    for indices in ((0,), (0, 1)):
+        batch, ms = camera_batch(cfg, run["root"], indices, False, dev, model)
+        batch.pop("gt_boxes"), batch.pop("gt_boxes2d"), batch.pop("depth_maps")
+        requests.append(batch)
+        host_ms += ms
+    for batch in requests:  # warm-up: cuDNN's algorithms at each shape
+        predict(batch)
+    torch.cuda.synchronize()
+    print(f"{label} frames: host dataset and processors (test split) "
+          f"{[round(t, 1) for t in host_ms]} ms a frame; the requests' images "
+          f"{[tuple(r['images'].shape) for r in requests]}")
+    clear_launches()
+    results, peaks = [], []
+    with RecordIoUShapes(keep_boxes=True) as rec:
+        for batch in requests:
+            torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            res = predict(batch)
+            torch.cuda.synchronize()
+            results.append((batch_frames(batch), (time.perf_counter() - t1) * 1e3, res))
+            peaks.append(round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2))
+    served = counted_launches()
+    K = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE)
+    for i, (B, ms, res) in enumerate(results):
+        for key, val in res.items():
+            require(tuple(val.shape[:1]) == (B,) and bool(torch.isfinite(val.float()).all()),
+                    f"{label} request {i}: {key}")
+        print(f"{label} request {i}: B={B} latency {ms:.2f} ms (float32, TF32 off), "
+              f"detections {res['pred_counts'].tolist()}")
+    kept = [k.sum(dim=1).tolist() for k in rec.keeps]
+    print(f"{label} kernel launches in the served requests: {served}; the self-IoU's inputs "
+          f"{rec.shapes}, candidates kept by the walks {kept} of the valid "
+          f"{[v.sum(dim=1).tolist() for v, _ in rec.walks]}; peak memory a request {peaks} GiB")
+    require({s[1] for s in rec.shapes} == {K}, f"{label} self-IoU at {rec.shapes}, not K {K}")
+    for name in VOXEL_KERNELS:
+        require(served.get(f"{name}_k{K}", 0) > 0, f"kernel {name} never launched at K {K} on "
+                f"the {label} path")
+    b1 = requests[0]
+    lat, enq = request_ms(predict, b1, reps=3)
+    print(f"{label} b1 request: median latency {lat:.2f} ms, host enqueue {enq:.2f} ms (3 "
+          f"after warm-up, TF32 off)")
+    print_split(f"a {label} b1 request under torch.profiler (TF32 off)",
+                device_split(lambda: predict(b1)))
+    out = caddn_card_vs_cpu(cfg, model, weights, template, b1, results[0][2], label)
+    del model, predict
+    torch.cuda.empty_cache()
+    print(f"phase 20 (a) serving: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trained = caddn_train(cfg, weights, dev, run, label)
+    print(f"phase 20 (b) training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    clis = voxel_clis(work, run, CADDN_CFG_REL, label, int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU))
+    for refuse in (lambda: serving_input_spec(cfg, 1, CaDDN),
+                   lambda: export_cli.main(["--cfg_file", str(Path(work) / CADDN_CFG_REL),
+                                            "--random_init"])):
+        try:
+            refuse()
+        except NotImplementedError as e:
+            require("camera-family CaDDN" in str(e), f"{label}: refused for another reason: {e}")
+        else:
+            raise AssertionError(f"{label}: the serving export did not refuse the camera inputs")
+    print(f"{label}: the serving spec and the export CLI refuse the camera inputs, as the JAX "
+          f"package's serving does")
+    print(f"phase 20 (c) the CLIs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows = {}
+    for boxes, valid, thresh, what, suppress in kernel_candidates(cfg, out, rec):
+        rows[boxes.shape[1]] = voxel_kernels(dev, boxes, valid, thresh, label, what, suppress,
+                                             parent)
+    print(f"phase 20 (e) the kernels at K {sorted(rows)}: {time.perf_counter() - t0:.1f} s")
+    del out, rec
+    torch.cuda.empty_cache()
+    chain = dist_train_chain(work, run, CADDN_CFG_REL, label)
+    return add_launches(served, trained, clis), rows, [], (None, chain)
+
+
+# phase 20b: variants of shipped yamls that the JAX package builds and no
+# shipped yaml names, each built in memory: label -> (yaml, variant, seed of
+# its frames).  ``dynamic_pillar``: pointpillar.yaml's VFE DynamicPillarVFE;
+# ``dynamic_mean``: second.yaml over DynamicMeanVFE and the dense
+# VoxelBackBone8x; the two dynamic ones with the voxelizer's placeholder
+# (the grid alone), as the reference's dynamic yamls have it; ``atss``:
+# second.yaml with TARGET_ASSIGNER_CONFIG.NAME ATSS (TOPK 9);
+# ``dense_pool``: voxel_rcnn_car.yaml over the dense VoxelBackBone8x, whose
+# RoI grid pool is the dense-grid NeighborGridPool
+VARIANTS = {"PointPillar-dynamic": (PP_CFG_REL, "dynamic_pillar", 2010),
+            "SECOND-dynamic": (SECOND_CFG_REL, "dynamic_mean", 2020),
+            "SECOND-ATSS": (SECOND_CFG_REL, "atss", 2030),
+            "Voxel-RCNN-dense": (VRCNN_CFG_REL, "dense_pool", 2040)}
+VARIANT_SUFFIX = {"PointPillar-dynamic": "_pointpillar_dynamic",
+                  "SECOND-dynamic": "_second_dynamic", "Voxel-RCNN-dense": "_voxel_rcnn_dense"}
+ATSS_TOPK = 9
+
+
+def variant_cfg(work, cfg_rel, variant):
+    """The yaml of ``cfg_rel`` changed into ``variant`` (``VARIANTS``)."""
+    from pdanet_tpu_torch.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(Path(work) / cfg_rel))
+    model = cfg.MODEL
+    if variant.startswith("dynamic"):
+        for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+            if proc.NAME == "transform_points_to_voxels":
+                proc.NAME = "transform_points_to_voxels_placeholder"
+    if variant == "dynamic_pillar":
+        model.VFE.NAME = "DynamicPillarVFE"
+    elif variant == "dynamic_mean":
+        model.VFE.NAME = "DynamicMeanVFE"
+    if variant in ("dynamic_mean", "dense_pool"):
+        model.BACKBONE_3D.NAME = "VoxelBackBone8x"
+    if variant == "atss":
+        model.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.update(NAME="ATSS", TOPK=ATSS_TOPK)
+    return cfg
+
+
+def crop_of(cfg, root):
+    """``cfg`` on ``DENSE_CROP`` and its dataset template."""
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+
+    crop_cfg = copy.deepcopy(cfg)
+    crop_cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(DENSE_CROP)
+    return crop_cfg, DatasetTemplate(dataset_cfg=crop_cfg.DATA_CONFIG,
+                                     class_names=cfg.CLASS_NAMES, training=False,
+                                     root_path=str(root))
+
+
+def dense_pool_card_vs_cpu(cfg, weights, dev, root, frames, label):
+    """Voxel-RCNN over the dense ladder, frame 0 on ``DENSE_CROP`` in float32
+    on the card against the CPU: the first stage's logits within 2e-3;
+    then on the card's RoIs and their grid points (``get_dense_grid_points``
+    on the card), each device's dense levels pooled by the dense-grid
+    ``NeighborGridPool`` and refined: the pooled features and ``rcnn_cls``
+    / ``rcnn_reg`` within 2e-3 of max(1, |value|)."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.detectors.second import SECOND
+    from pdanet_tpu_torch.models.roi_heads.voxelrcnn_head import get_dense_grid_points
+
+    crop_cfg, template = crop_of(cfg, root)
+    models = []
+    for device in (dev, torch.device("cpu")):
+        model = build_network(crop_cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template,
+                              device=device)
+        model.load_state_dict(weights)
+        models.append(model.eval())
+    b1, _ = voxel_batch(crop_cfg, frames[:1], False, dev, models[0])
+    b1.pop("gt_boxes")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = models[0].forward_batch(b1)
+        rois = out["rois"]
+        grid = models[0].roi_head.grid
+        grid_xyz = get_dense_grid_points(rois, grid).reshape(1, -1, 3)
+        firsts, pooled, refined = [], [], []
+        for model, device in zip(models, (dev, torch.device("cpu"))):
+            batch = {k: v.to(device) for k, v in b1.items()}
+            first = SECOND.forward(model, batch["voxels"], batch["voxel_coords"],
+                                   batch["voxel_num_points"])
+            firsts.append(first["batch_cls_preds"].cpu())
+            p = model.roi_head.pool(first["multi_scale_3d_features"], grid_xyz.to(device))
+            pooled.append(p.cpu())
+            refined.append([t.cpu() for t in model.roi_head.refine(
+                p.reshape(1, rois.shape[1], -1))])
+
+    def gap(a, b):
+        return ((a.double() - b.double()).abs() / b.double().abs().clamp(min=1.0)).max().item()
+
+    gaps = {"first-stage logits": gap(*firsts), "pooled": gap(*pooled),
+            "rcnn_cls": gap(refined[0][0], refined[1][0]),
+            "rcnn_reg": gap(refined[0][1], refined[1][1])}
+    print(f"{label} float32 frame on the crop {list(DENSE_CROP)}, card vs CPU "
+          f"({time.perf_counter() - t0:.1f} s), on the card's {rois.shape[1]} RoIs and their "
+          f"{grid_xyz.shape[1]} grid points: " + ", ".join(f"{k} {v:.3g}"
+                                                          for k, v in gaps.items()))
+    require(max(gaps.values()) <= 2e-3, f"{label} card vs CPU on the crop: {gaps}")
+
+
+def atss_card_vs_cpu(cfg, weights, dev, template, frames, label):
+    """SECOND with the ATSS assigner: one float32 step at the yaml's B = 4
+    (finite loss and gradients); then the ATSS targets of those frames'
+    gt on the card against the CPU, the CPU fed the card's anchor x gt IoU
+    (the two devices' float32 rotated overlaps round apart, and a forced
+    claim's argmax may tie within that): labels and weights equal,
+    regression targets within 1e-5.  Returns the step's launches."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.dense_heads import atss_assigner
+    from pdanet_tpu_torch.train import build_optimizer_and_schedule, make_train_step
+
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template, device=dev)
+    model.load_state_dict(weights)
+    ocfg = cfg.OPTIMIZATION
+    B = int(ocfg.BATCH_SIZE_PER_GPU)
+    optimizer, schedule = build_optimizer_and_schedule(
+        model, ocfg, total_iters_each_epoch=3712 // B, total_epochs=ocfg.NUM_EPOCHS)
+    step = make_train_step(model, optimizer, schedule)
+    np.random.seed(2031)  # shuffle_points
+    batch, _ = voxel_batch(cfg, frames[:B], True, dev, model)
+    clear_launches()
+    t0 = time.perf_counter()
+    loss, tb = step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counted_launches()
+    require(np.isfinite(loss.item()) and _grads_finite(model), f"{label} step: not finite")
+    anchors, gt = model._anchors(), batch["gt_boxes"]
+    fed = [atss_assigner._anchor_gt_iou(anchors, g[:, :7], False) for g in gt]
+    t1 = time.perf_counter()
+    card = atss_assigner.atss_assign_targets(anchors, gt, ATSS_TOPK, model.box_coder)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t1) * 1e3
+    own = atss_assigner._anchor_gt_iou
+    queue = [f.cpu() for f in fed]
+    atss_assigner._anchor_gt_iou = lambda a, g, mh: queue.pop(0)
+    try:
+        cpu = atss_assigner.atss_assign_targets(anchors.cpu(), gt.cpu(), ATSS_TOPK,
+                                                model.box_coder)
+    finally:
+        atss_assigner._anchor_gt_iou = own
+    for key in ("box_cls_labels", "reg_weights"):
+        require(torch.equal(card[key].cpu(), cpu[key]), f"{label} ATSS {key} card vs CPU")
+    err = (card["box_reg_targets"].cpu() - cpu["box_reg_targets"]).abs().max().item()
+    require(err <= 1e-5, f"{label} ATSS regression targets card vs CPU {err}")
+    pos = (card["box_cls_labels"] > 0).sum(dim=1).tolist()
+    require(min(pos) > 0, f"{label}: a frame with no ATSS positive {pos}")
+    print(f"{label} train float32 B={B}: loss {loss.item():.4f}, {ms:.2f} ms (the first step "
+          f"of its model); ATSS (TOPK {ATSS_TOPK}) over {anchors.shape[0]} anchors x "
+          f"{gt.shape[1]} gt rows a frame, {card_ms:.1f} ms on the card: positives a frame "
+          f"{pos}, labels and weights equal card vs CPU (the CPU fed the card's IoU), "
+          f"targets within {err:.3g}; launches {launches}")
+    return launches
+
+
+def variants_phase(dev, work, kitti_run, parent=None):
+    """Phase 20b: the ``VARIANTS`` at full width, seeded weights (a
+    two-stage model's box conv scaled by ``BOX_CONV_SCALE``), float32, TF32
+    off, on phase 9's kind of frames: each one b1 request through the
+    serving closure, the IoU and NMS kernels launched at every K of its
+    path; card vs CPU: PointPillar-dynamic's frame at full width
+    (``anchors_card_vs_cpu``), SECOND-dynamic's on ``DENSE_CROP``, Voxel-RCNN-
+    dense's first stage and RoI head on ``DENSE_CROP``
+    (``dense_pool_card_vs_cpu``), SECOND-ATSS's one step and its targets
+    (``atss_card_vs_cpu``; its request is SECOND's forward, phase 13's);
+    (e) the IoU and the NMS on the dynamic variants' and Voxel-RCNN-dense's
+    request candidates.  Returns each variant's launches and rows."""
+    import torch
+
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.serving import make_predict_fn
+
+    out_runs = []
+    for label, (cfg_rel, variant, seed) in VARIANTS.items():
+        t0 = time.perf_counter()
+        cfg = variant_cfg(work, cfg_rel, variant)
+        template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
+                                   training=False, root_path=str(kitti_run["root"]))
+        model = init_random_weights(build_network(cfg.MODEL, len(cfg.CLASS_NAMES),
+                                                  dataset=template, device=dev), seed=0)
+        if "ROI_HEAD" in cfg.MODEL:
+            with torch.no_grad():
+                model.dense_head.conv_box.weight.mul_(BOX_CONV_SCALE)
+        weights = copy.deepcopy(model.state_dict())
+        predict = make_predict_fn(model, cfg.MODEL)
+        frames = voxel_frames(seed, 4, cfg.CLASS_NAMES)
+        b1, host_ms = voxel_batch(cfg, frames[:1], False, dev, model)
+        b1.pop("gt_boxes")
+        predict(b1)  # warm-up
+        torch.cuda.synchronize()
+        clear_launches()
+        with RecordIoUShapes(keep_boxes=True) as rec:
+            t1 = time.perf_counter()
+            res = predict(b1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        launches = counted_launches()
+        for key, val in res.items():
+            require(bool(torch.isfinite(val.float()).all()), f"{label}: {key} not finite")
+        ks = serve_ks(cfg)
+        require({s[1] for s in rec.shapes} == ks, f"{label} self-IoU at {rec.shapes}, not K "
+                f"{sorted(ks)}")
+        for K in ks:
+            for name in VOXEL_KERNELS:
+                require(launches.get(f"{name}_k{K}", 0) > 0,
+                        f"kernel {name} never launched at K {K} on the {label} path")
+        lat, enq = request_ms(predict, b1, reps=3)
+        print(f"{label} ({cfg_rel}, {variant}): host processors {host_ms[0]:.1f} ms, the "
+              f"request {describe_batch(b1)}; b1 latency {ms:.2f} ms, then median {lat:.2f} "
+              f"ms (enqueue {enq:.2f}), detections {res['pred_counts'].tolist()}; launches "
+              f"{launches}")
+        with torch.inference_mode():
+            first = model.forward_batch(b1) if "ROI_HEAD" not in cfg.MODEL else None
+        del predict
+        torch.cuda.empty_cache()
+        if variant == "dynamic_pillar":
+            anchors_card_vs_cpu(cfg, model, weights, template, [b1], [(1, ms, res)], label)
+        elif variant == "dynamic_mean":
+            crop_cfg, crop_template = crop_of(cfg, kitti_run["root"])
+            crop_model = build_network(crop_cfg.MODEL, len(cfg.CLASS_NAMES),
+                                       dataset=crop_template, device=dev)
+            crop_model.load_state_dict(weights)
+            crop_b1, _ = voxel_batch(crop_cfg, frames[:1], False, dev, crop_model)
+            crop_b1.pop("gt_boxes")
+            crop_res = make_predict_fn(crop_model, cfg.MODEL)(crop_b1)
+            anchors_card_vs_cpu(crop_cfg, crop_model, weights, crop_template, [crop_b1],
+                                [(1, 0.0, crop_res)], f"{label} on the crop {list(DENSE_CROP)}")
+            del crop_model
+        elif variant == "atss":
+            del model
+            torch.cuda.empty_cache()
+            launches = add_launches(launches, atss_card_vs_cpu(cfg, weights, dev, template,
+                                                               frames, label))
+        else:
+            dense_pool_card_vs_cpu(cfg, weights, dev, kitti_run["root"], frames, label)
+        rows = {}
+        if label in VARIANT_SUFFIX:
+            if first is None:  # a two-stage model: its request's walks as it gave them
+                cands = [(rec.boxes[i], *rec.walks[i], f"request 0's candidates at K "
+                          f"{rec.boxes[i].shape[1]}", False) for i in range(len(rec.boxes))]
+            else:
+                cands = kernel_candidates(cfg, first, rec)
+            for boxes, valid, thresh, what, suppress in cands:
+                rows[boxes.shape[1]] = voxel_kernels(dev, boxes, valid, float(thresh), label,
+                                                     what, suppress, parent)
+        out_runs.append((label, VARIANT_SUFFIX.get(label), launches, rows))
+        del first, rec
+        torch.cuda.empty_cache()
+        print(f"phase 20b {label}: {time.perf_counter() - t0:.1f} s")
+    return out_runs
+
+
 @contextlib.contextmanager
 def count_augmentor_changes():
     """Wrap every augmentor of the port's ``DataAugmentor`` but the gt
@@ -6629,8 +7293,8 @@ def main():
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
                     "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
-    ap.add_argument("--phases", help="comma-separated phases of 3-19 to run, with those they "
-                    "read (3 for 6, 4 for 5 and 11, 9 for 11-19); every phase without it, and "
+    ap.add_argument("--phases", help="comma-separated phases of 3-20 to run, with those they "
+                    "read (3 for 6, 4 for 5 and 11, 9 for 11-20); every phase without it, and "
                     "only then are the launches of every kernel required")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -6687,13 +7351,13 @@ def main():
         multi_gpu(dev, args.world)
         return
 
-    # ---- 3.-19.
-    every = set(range(3, 20))
+    # ---- 3.-20.
+    every = set(range(3, 21))
     want = every if not args.phases else {int(p) for p in args.phases.split(",")}
-    require(want <= every, f"--phases {args.phases}: phases 3-19 only")
+    require(want <= every, f"--phases {args.phases}: phases 3-20 only")
     want |= {3} if 6 in want else set()
     want |= {4} if want & {5, 11} else set()
-    want |= {9} if want & set(range(11, 20)) else set()
+    want |= {9} if want & set(range(11, 21)) else set()
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -6744,7 +7408,8 @@ def main():
                                                        kitti_work, kitti_run, parent)
                     runs[label] = run
                     voxel_runs.append((phase, VOXEL_SUFFIX[key], run, run_rows, extra))
-                    exports.append(tail[0])
+                    if tail[0] is not None:  # CaDDN's export is refused
+                        exports.append(tail[0])
                     if tail[1] is not None:
                         chains.append(tail[1])
 
@@ -6764,10 +7429,18 @@ def main():
             voxel("18b", "Part-A2-free", parta2_free_phase)
             voxel("19a", "PointRCNN", pointrcnn_phase)
             voxel("19b", "PointRCNN-IoU", pointrcnn_iou_phase)
+            voxel(20, "CaDDN", caddn_phase)
+            if 20 in want:
+                for label, suffix, run, run_rows in timed(
+                        "20b (the dynamic VFEs, ATSS, the dense-grid pool)", variants_phase, dev,
+                        kitti_work, kitti_run, parent):
+                    runs[label] = run
+                    if suffix:
+                        voxel_runs.append(("20b", suffix, run, run_rows, []))
             if 11 in want:
                 chains.insert(0, ("dp", lambda: dp_cli(kitti_work, kitti_run)))
             if exports or chains:
-                tail = timed("11-19 (the tail: dist_train.sh, dist_test.sh, the programs "
+                tail = timed("11-20 (the tail: dist_train.sh, dist_test.sh, the programs "
                              "exported and reloaded)", run_tail, exports, chains)
                 for label, counts in tail.items():
                     runs[label].update(add_launches(runs[label], counts))

@@ -5,8 +5,9 @@ the same order, from ``random_draws.rng()`` (numpy's global RNG unless the
 loader set the sample's own generator): the world flips, rotation and
 scaling (each rolls an ``enable`` Bernoulli first, ENABLE_PROB, like the
 reference's np.random.choice gate), the world and local translations, the
-local rotation and scaling, the world and local frustum dropouts, and the
-SE-SSD pyramid dropout, sparsify and swap.
+local rotation and scaling, the world and local frustum dropouts, the
+SE-SSD pyramid dropout, sparsify and swap, and CaDDN's horizontal image
+flip.
 
 ``global_frustum_dropout`` also returns which boxes it keeps, so that the
 augmentor drops the same rows of the boxes' names and masks (the JAX
@@ -343,3 +344,22 @@ def local_pyramid_swap(gt_boxes, points, prob, max_num_pts, pyramids=None):
     if extra:
         points = np.concatenate([points] + extra, axis=0)
     return gt_boxes, points
+
+
+def random_image_flip_horizontal(image, depth_map, gt_boxes, calib):
+    """CaDDN's horizontal flip (reference augmentor_utils.py:160-196): on a
+    fair coin, the image and the depth map flipped left-right, each box
+    centre mirrored through the image (u -> W - u at its depth) and its
+    heading negated."""
+    if not _enabled(0.5):
+        return image, depth_map, gt_boxes
+    image = np.ascontiguousarray(np.fliplr(image))
+    depth_map = np.ascontiguousarray(np.fliplr(depth_map))
+    gt_boxes = gt_boxes.copy()
+    if gt_boxes.shape[0] > 0:
+        img_pts, img_depth = calib.lidar_to_img(gt_boxes[:, 0:3])
+        img_pts[:, 0] = image.shape[1] - img_pts[:, 0]
+        pts_rect = calib.img_to_rect(u=img_pts[:, 0], v=img_pts[:, 1], depth_rect=img_depth)
+        gt_boxes[:, 0:3] = calib.rect_to_lidar(pts_rect)
+        gt_boxes[:, 6] = -gt_boxes[:, 6]
+    return image, depth_map, gt_boxes

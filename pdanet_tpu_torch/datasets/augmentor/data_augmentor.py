@@ -3,8 +3,8 @@
 (``pcdet/datasets/augmentor/data_augmentor.py``): gt_sampling, the world
 flip / rotation / scaling with their ENABLE_PROB gates, the world and local
 translations, the local rotation and scaling, the world and local frustum
-dropouts and the SE-SSD pyramid augmentation.  CaDDN's image flip raises
-(ROADMAP queue 1 item 9f).
+dropouts, the SE-SSD pyramid augmentation and CaDDN's horizontal image
+flip.
 
 ``random_world_frustum_dropout`` drops the names, the gt-sampling mask and
 the 2-D boxes of the boxes it drops, with them: the JAX package drops the
@@ -21,7 +21,7 @@ from . import augmentor_utils, database_sampler
 AUGMENTORS = ("gt_sampling", "random_world_flip", "random_world_rotation",
               "random_world_scaling", "random_world_translation", "random_local_translation",
               "random_local_rotation", "random_local_scaling", "random_world_frustum_dropout",
-              "random_local_frustum_dropout", "random_local_pyramid_aug")
+              "random_local_frustum_dropout", "random_local_pyramid_aug", "random_image_flip")
 PER_BOX_KEYS = ("gt_names", "gt_boxes_mask", "gt_boxes2d")  # rows that go with gt_boxes
 
 
@@ -41,8 +41,8 @@ class DataAugmentor:
                 if cur_cfg.NAME in augmentor_configs.DISABLE_AUG_LIST:
                     continue
             if cur_cfg.NAME not in AUGMENTORS:
-                raise NotImplementedError(
-                    f"augmentor {cur_cfg.NAME} is ROADMAP queue 1 item 9f")
+                raise ValueError(f"augmentor {cur_cfg.NAME}: the JAX package has "
+                                 f"{', '.join(AUGMENTORS)}")
             cur_augmentor = getattr(self, cur_cfg.NAME)(config=cur_cfg)
             self.data_augmentor_queue.append(cur_augmentor)
 
@@ -101,6 +101,22 @@ class DataAugmentor:
         )
         data_dict["gt_boxes"] = gt_boxes
         data_dict["points"] = points
+        return data_dict
+
+    def random_image_flip(self, data_dict=None, config=None):
+        """CaDDN's camera-input flip (reference data_augmentor.py:123-140):
+        the image, the depth map and the 3-D boxes, mirrored through the
+        image, on one coin a frame."""
+        if data_dict is None:
+            return partial(self.random_image_flip, config=config)
+        for cur_axis in config["ALONG_AXIS_LIST"]:
+            assert cur_axis in ["horizontal"]
+            images, depth_maps, gt_boxes = augmentor_utils.random_image_flip_horizontal(
+                data_dict["images"], data_dict["depth_maps"], data_dict["gt_boxes"],
+                data_dict["calib"])
+        data_dict["images"] = images
+        data_dict["depth_maps"] = depth_maps
+        data_dict["gt_boxes"] = gt_boxes
         return data_dict
 
     def random_world_translation(self, data_dict=None, config=None):

@@ -13,9 +13,10 @@ the point models) and otherwise zero-padded to the batch's largest, with
 ``num_points``; the voxel triplet padded to the largest
 ``max_number_of_voxels`` of the batch (coords with -1, voxels and counts
 with 0); gt boxes zero-padded to ``(B, MAX_GT_BOXES, 8)``, the static cap
-of the dataset config.  KITTI's per-frame ``calib`` and ``image_shape``
-stay lists.  The camera keys of the zoo's other families are not produced
-by the port's processors.
+of the dataset config; CaDDN's 2-D boxes to ``(B, MAX_GT_BOXES, 4)`` and
+its ``images`` / ``depth_maps`` zero-padded at the bottom and the right to
+the batch's largest frame (JAX :198-215).  KITTI's per-frame ``calib``
+and ``image_shape`` stay lists.
 """
 
 from collections import defaultdict
@@ -179,6 +180,21 @@ class DatasetTemplate:
                     m = min(len(val[k]), max_gt)
                     batch_gt[k, :m, :] = val[k][:m]
                 ret[key] = batch_gt
+            elif key == "gt_boxes2d":
+                max_gt = max([len(x) for x in val] + [1])
+                if max_gt_cap is not None:
+                    max_gt = int(max_gt_cap)
+                batch_gt = np.zeros((batch_size, max_gt, 4), np.float32)
+                for k in range(batch_size):
+                    m = min(len(val[k]), max_gt)
+                    batch_gt[k, :m, :] = val[k][:m]
+                ret[key] = batch_gt
+            elif key in ("images", "depth_maps"):
+                h_max = max(v.shape[0] for v in val)
+                w_max = max(v.shape[1] for v in val)
+                ret[key] = np.stack([
+                    np.pad(v, [(0, h_max - v.shape[0]), (0, w_max - v.shape[1])]
+                           + [(0, 0)] * (v.ndim - 2)) for v in val], axis=0).astype(np.float32)
             elif key in ["frame_id", "metadata", "calib", "image_shape"]:
                 ret[key] = val
             else:

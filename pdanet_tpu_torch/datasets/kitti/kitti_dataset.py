@@ -8,10 +8,12 @@ Infos and db infos stay plain dicts of numpy arrays, so the two packages
 read each other's pickles.
 
 The image shape, all that the point models need of a frame's PNG, is read
-from the PNG's IHDR chunk; PIL is imported only by ``get_image`` and
-``get_depth_map``.  ``GET_ITEM_LIST`` takes ``points`` only: the camera
-inputs (images, depth maps, calibration matrices, 2-D gt boxes) serve the
-zoo's CaDDN, ROADMAP queue 1 item 9.
+from the PNG's IHDR chunk.  ``GET_ITEM_LIST`` (JAX :403-425) also takes
+CaDDN's camera inputs: ``images`` (``image_2``, RGB in [0, 1]),
+``depth_maps`` (``depth_2``, 16-bit PNGs / 256 m), ``calib_matricies``
+(``trans_lidar_to_cam`` (4, 4) and ``trans_cam_to_img`` (3, 4)) and
+``gt_boxes2d``; the PNGs are read by ``utils/png.py`` (zlib and numpy, no
+Pillow).
 """
 
 import copy
@@ -22,6 +24,7 @@ from pathlib import Path
 import numpy as np
 
 from ...utils import box_utils, calibration_kitti, common_utils, object3d_kitti
+from ...utils.png import read_png
 from ..dataset import DatasetTemplate
 
 
@@ -57,11 +60,6 @@ class KittiDataset(DatasetTemplate):
             if split_dir.exists()
             else None
         )
-        unsupported = set(self.dataset_cfg.get("GET_ITEM_LIST", ["points"])) - {"points"}
-        if unsupported:
-            raise NotImplementedError(
-                f"GET_ITEM_LIST {sorted(unsupported)}: the camera inputs are ROADMAP "
-                f"queue 1 item 9")
         self.kitti_infos = []
         self.include_kitti_data(self.mode)
 
@@ -113,24 +111,31 @@ class KittiDataset(DatasetTemplate):
         return object3d_kitti.get_objects_from_label(label_file)
 
     def get_image(self, idx):
-        """(H, W, 3) float32 in [0, 1] (reference kitti_dataset.py:68-80)."""
-        from PIL import Image
-
+        """(H, W, 3) float32 in [0, 1] (reference kitti_dataset.py:68-80):
+        gray replicated, alpha dropped, as PIL's ``convert("RGB")``."""
         img_file = self.root_split_path / "image_2" / ("%s.png" % idx)
         assert img_file.exists()
-        return (
-            np.asarray(Image.open(img_file).convert("RGB"), np.float32)
-            / 255.0
-        )
+        pix = read_png(img_file)
+        if pix.ndim == 2:
+            pix = pix[..., None]
+        rgb = pix[..., :3] if pix.shape[-1] >= 3 else np.repeat(pix[..., :1], 3, axis=-1)
+        return rgb.astype(np.float32) / 255.0
 
     def get_depth_map(self, idx):
-        """(H, W) float32 meters: uint16 png / 256
-        (reference kitti_dataset.py:131-143)."""
-        from PIL import Image
-
+        """(H, W) float32 metres: the 16-bit PNG / 256 (reference
+        kitti_dataset.py:131-143)."""
         depth_file = self.root_split_path / "depth_2" / ("%s.png" % idx)
         assert depth_file.exists()
-        return np.asarray(Image.open(depth_file), np.float32) / 256.0
+        return read_png(depth_file).astype(np.float32) / 256.0
+
+    @staticmethod
+    def calib_to_matricies(calib):
+        """The (4, 4) lidar -> rectified camera and (3, 4) camera -> image
+        matrices (reference ``kitti_utils.calib_to_matricies``)."""
+        V2C = np.vstack([calib.V2C, np.array([[0, 0, 0, 1]], np.float32)])
+        R0 = np.vstack([np.hstack([calib.R0, np.zeros((3, 1), np.float32)]),
+                        np.array([[0, 0, 0, 1]], np.float32)])
+        return (R0 @ V2C).astype(np.float32), calib.P2.astype(np.float32)
 
     def get_calib(self, idx):
         calib_file = self.root_split_path / "calib" / ("%s.txt" % idx)
@@ -391,6 +396,7 @@ class KittiDataset(DatasetTemplate):
         sample_idx = info["point_cloud"]["lidar_idx"]
         img_shape = info["image"]["image_shape"]
         calib = self.get_calib(sample_idx)
+        get_item_list = self.dataset_cfg.get("GET_ITEM_LIST", ["points"])
 
         input_dict = {"frame_id": sample_idx, "calib": calib}
 
@@ -407,16 +413,26 @@ class KittiDataset(DatasetTemplate):
                 gt_boxes_camera, calib
             )
             input_dict.update({"gt_names": gt_names, "gt_boxes": gt_boxes_lidar})
+            if "gt_boxes2d" in get_item_list:
+                input_dict["gt_boxes2d"] = annos["bbox"].astype(np.float32)
             road_plane = self.get_road_plane(sample_idx)
             if road_plane is not None:
                 input_dict["road_plane"] = road_plane
 
-        points = self.get_lidar(sample_idx)
-        if self.dataset_cfg.FOV_POINTS_ONLY:
-            pts_rect = calib.lidar_to_rect(points[:, 0:3])
-            fov_flag = self.get_fov_flag(pts_rect, img_shape, calib)
-            points = points[fov_flag]
-        input_dict["points"] = points
+        if "points" in get_item_list:
+            points = self.get_lidar(sample_idx)
+            if self.dataset_cfg.FOV_POINTS_ONLY:
+                pts_rect = calib.lidar_to_rect(points[:, 0:3])
+                fov_flag = self.get_fov_flag(pts_rect, img_shape, calib)
+                points = points[fov_flag]
+            input_dict["points"] = points
+        if "images" in get_item_list:
+            input_dict["images"] = self.get_image(sample_idx)
+        if "depth_maps" in get_item_list:
+            input_dict["depth_maps"] = self.get_depth_map(sample_idx)
+        if "calib_matricies" in get_item_list:
+            (input_dict["trans_lidar_to_cam"],
+             input_dict["trans_cam_to_img"]) = self.calib_to_matricies(calib)
 
         data_dict = self.prepare_data(data_dict=input_dict)
         data_dict["image_shape"] = img_shape

@@ -4,8 +4,8 @@
 Sequence+json infos, roof-lidar .bin reads, gt-database creation, ONCE
 prediction dicts, the official ONCE evaluation, and point painting
 (``POINT_PAINTING`` + ``SEMSEG_DIR``: camera-semseg scores appended to each
-point via numpy bilinear sampling, reference :86-122; PIL is imported only
-there).  Infos and db infos stay plain dicts of numpy arrays, so the two
+point via numpy bilinear sampling, reference :86-122; the label PNGs read
+by ``utils/png.py``, no Pillow).  Infos and db infos stay plain dicts of numpy arrays, so the two
 packages read each other's pickles."""
 
 import copy
@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 
 from ...utils import box_utils
+from ...utils.png import read_png
 from ..dataset import DatasetTemplate
 
 
@@ -94,8 +95,6 @@ class ONCEDataset(DatasetTemplate):
         ``SEMSEG_DIR`` replaces the reference's hard-coded ``'./'``; classes
         are the reference's fixed [0..5].
         """
-        from PIL import Image
-
         semseg_dir = Path(self.dataset_cfg.get("SEMSEG_DIR", "./"))
         num_classes = 6  # reference used_classes = [0,1,2,3,4,5]
         frame_id, seq_id = str(info["frame_id"]), str(info["sequence_id"])
@@ -115,7 +114,7 @@ class ONCEDataset(DatasetTemplate):
             img_pts = img_pts / img_pts[:, [2]]
             u, v = img_pts[:, 0], img_pts[:, 1]
 
-            seg_map = np.array(Image.open(img_path))
+            seg_map = read_png(img_path)
             H, W = seg_map.shape[:2]
             one_hot = np.zeros((H, W, num_classes), dtype=np.float32)
             for cls_i in range(num_classes):

@@ -1,14 +1,15 @@
-"""Host data processor (numpy): the processors of
-``pdanet_tpu/datasets/processor/data_processor.py`` that the PDA-SSD and
-PointPillar yamls name -- ``mask_points_and_boxes_outside_range``
-(reference :78-91), ``shuffle_points`` (:93-103), ``sample_points``
-(:187-217, the near/far fixed budget that gives a point model its static
-point count), ``sort_points`` (an x-sort with no reference counterpart),
-and the voxel grid: ``transform_points_to_voxels`` (JAX :156-235, its
-numpy grid-hash path; the JAX package's g++ voxelizer, which
-``tests/test_native.py`` holds equal to it, is ROADMAP queue 1 item 9),
-``calculate_grid_size`` and ``transform_points_to_voxels_placeholder``.
-The other processors belong to the zoo's other families and raise.
+"""Host data processor (numpy), copied from
+``pdanet_tpu/datasets/processor/data_processor.py``:
+``mask_points_and_boxes_outside_range`` (reference :78-91),
+``shuffle_points`` (:93-103), ``sample_points`` (:187-217, the near/far
+fixed budget that gives a point model its static point count),
+``sort_points`` (an x-sort with no reference counterpart), the voxel grid:
+``transform_points_to_voxels`` (JAX :156-235, its numpy grid-hash path;
+the JAX package's g++ voxelizer, which ``tests/test_native.py`` holds
+equal to it, is ROADMAP queue 1 item 10), ``calculate_grid_size`` and
+``transform_points_to_voxels_placeholder``; ``sample_points_by_voxels``
+(JAX :237-266: one point a voxel, then the budget) and CaDDN's
+``downsample_depth_map`` (JAX :129-144: a block mean).
 """
 
 from functools import partial
@@ -20,7 +21,7 @@ from ..random_draws import rng
 
 PROCESSORS = ("mask_points_and_boxes_outside_range", "shuffle_points", "sort_points",
               "sample_points", "calculate_grid_size", "transform_points_to_voxels_placeholder",
-              "transform_points_to_voxels")
+              "transform_points_to_voxels", "sample_points_by_voxels", "downsample_depth_map")
 
 
 class DataProcessor:
@@ -34,8 +35,8 @@ class DataProcessor:
         self.data_processor_queue = []
         for cur_cfg in processor_configs:
             if cur_cfg.NAME not in PROCESSORS:
-                raise NotImplementedError(
-                    f"data processor {cur_cfg.NAME} is ROADMAP queue 1 item 9")
+                raise ValueError(f"data processor {cur_cfg.NAME}: the JAX package has "
+                                 f"{', '.join(PROCESSORS)}")
             self.data_processor_queue.append(
                 getattr(self, cur_cfg.NAME)(config=cur_cfg)
             )
@@ -191,6 +192,46 @@ class DataProcessor:
         data_dict["voxel_coords"] = voxel_coords.astype(np.int32)
         data_dict["voxel_num_points"] = np.minimum(counts, max_pts).astype(np.int32)
         data_dict["max_number_of_voxels"] = max_voxels
+        return data_dict
+
+    def sample_points_by_voxels(self, data_dict=None, config=None):
+        """Voxelize, keep one point a voxel (``SAMPLE_TYPE`` ``raw``: its
+        first in scan order; ``mean_vfe``: the mean of its kept points),
+        then the fixed budget of ``sample_points`` (reference :145-185, the
+        Waymo / nuScenes IA-SSD entry).  ``NUM_POINTS`` -1 keeps the cloud
+        as it is (dynamic voxelization)."""
+        if data_dict is None:
+            self._set_grid(config)
+            return partial(self.sample_points_by_voxels, config=config)
+        if config.NUM_POINTS[self.mode] == -1:
+            return data_dict
+        data_dict = self.transform_points_to_voxels(data_dict, config=config)
+        voxels = data_dict.pop("voxels")
+        voxel_num_points = data_dict.pop("voxel_num_points")
+        data_dict.pop("voxel_coords")
+        data_dict.pop("max_number_of_voxels", None)
+        if config.get("SAMPLE_TYPE", "raw") == "mean_vfe":
+            data_dict["points"] = (voxels.sum(axis=1)
+                                   / voxel_num_points[:, None]).astype(np.float32)
+        else:
+            data_dict["points"] = voxels[:, 0]
+        return self.sample_points(data_dict, config=config)
+
+    def downsample_depth_map(self, data_dict=None, config=None):
+        """The depth map's block mean over ``DOWNSAMPLE_FACTOR`` squares,
+        zero-padded to a multiple first (reference :227-236, skimage's
+        ``downscale_local_mean`` with cval 0)."""
+        if data_dict is None:
+            self.depth_downsample_factor = config.DOWNSAMPLE_FACTOR
+            return partial(self.downsample_depth_map, config=config)
+        f = int(self.depth_downsample_factor)
+        dm = data_dict["depth_maps"]
+        H, W = dm.shape
+        ph, pw = (-H) % f, (-W) % f
+        if ph or pw:
+            dm = np.pad(dm, ((0, ph), (0, pw)))
+        data_dict["depth_maps"] = dm.reshape(
+            (H + ph) // f, f, (W + pw) // f, f).mean(axis=(1, 3)).astype(np.float32)
         return data_dict
 
     def forward(self, data_dict):

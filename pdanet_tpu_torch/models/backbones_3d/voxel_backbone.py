@@ -126,16 +126,20 @@ def occupancy_levels(occ0):
 
 def grid_occupancies(grid, voxel_coords, model_cfg):
     """Every level's active cells (JAX :99-113), from the voxel coordinates
-    on the (B, C, Z, Y, X) ``grid`` (``SUBMANIFOLD_MASKING`` on), or ``[None]
-    * 5`` (off)."""
+    on the (B, C, Z, Y, X) ``grid``, or, for a dynamic VFE's pre-scattered
+    grid (``voxel_coords`` None), its cells with a nonzero channel
+    (``SUBMANIFOLD_MASKING`` on); ``[None] * 5`` (off)."""
     if not bool(EasyDict(model_cfg or {}).get("SUBMANIFOLD_MASKING", True)):
         return [None] * 5
     B, _, Z, Y, X = grid.shape
-    flat, valid = _flat_cells(voxel_coords, (Z, Y, X))
-    hits = torch.zeros((B, Z * Y * X), dtype=torch.float32, device=grid.device)
-    hits.scatter_add_(1, flat, valid.to(torch.float32))
-    occ0 = hits > 0
-    return [Occupancy(o) for o in occupancy_levels(occ0.view(B, Z, Y, X))]
+    if voxel_coords is None:
+        occ0 = (grid != 0).any(dim=1)
+    else:
+        flat, valid = _flat_cells(voxel_coords, (Z, Y, X))
+        hits = torch.zeros((B, Z * Y * X), dtype=torch.float32, device=grid.device)
+        hits.scatter_add_(1, flat, valid.to(torch.float32))
+        occ0 = (hits > 0).view(B, Z, Y, X)
+    return [Occupancy(o) for o in occupancy_levels(occ0)]
 
 
 class Occupancy:
@@ -281,9 +285,15 @@ class _DenseBackbone8x(nn.Module):
         self.memory_format = torch.contiguous_format
 
     def grid(self, voxel_features, voxel_coords):
-        """The dense level-0 grid and every level's occupancy."""
-        x = scatter_to_dense(voxel_features, voxel_coords, self.grid_size,
-                             memory_format=self.memory_format)
+        """The dense level-0 grid and every level's occupancy: the (B, V, C)
+        voxel list scattered, or a dynamic VFE's (B, Z, Y, X, C) grid
+        (``voxel_coords`` None) with the top z plane appended."""
+        if voxel_coords is None:
+            x = pad_top_z(voxel_features.permute(0, 4, 1, 2, 3)).contiguous(
+                memory_format=self.memory_format)
+        else:
+            x = scatter_to_dense(voxel_features, voxel_coords, self.grid_size,
+                                 memory_format=self.memory_format)
         return x, grid_occupancies(x, voxel_coords, self.cfg)
 
     @staticmethod
@@ -325,7 +335,8 @@ class VoxelBackBone8x(_DenseBackbone8x):
         self.num_bev_features = self.z_chain[4] * c_out
 
     def forward(self, voxel_features, voxel_coords):
-        """(B, V, C) voxel features and (B, V, 3) zyx coordinates ->
+        """(B, V, C) voxel features and (B, V, 3) zyx coordinates, or a
+        dynamic VFE's (B, Z, Y, X, C) grid and None ->
         ``(bev, multi_scale)``: the (B, Y/8, X/8, Zo * C_out) BEV map and
         ``x_conv1`` ... ``x_conv4`` as (B, Z, Y, X, C) views."""
         x, occs = self.grid(voxel_features, voxel_coords)

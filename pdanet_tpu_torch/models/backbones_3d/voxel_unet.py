@@ -12,14 +12,16 @@ sum (``channel_reduction``), then a transposed 3x3x3 stride-2 conv
 masked one at eps 1e-3 and flax momentum 0.99, every level's active cells
 the encoder's (an inverse conv outputs the set its downsample consumed).
 The decoder's stride-1 output is read back at the input voxels
-(``gather_from_dense``): ``point_features`` (B, V, 16).
+(``gather_from_dense``): ``point_features`` (B, V, 16).  Over a dynamic
+VFE's pre-scattered grid there is no voxel list: ``point_features`` is then
+the whole (B, Z, Y, X, 16) stride-1 grid and ``point_valid`` its active
+cells (the JAX package's read-back fails there; ROADMAP queue 3).
 
 The transposed convs are flax's ``ConvTranspose`` (``transpose_kernel``
 False) with (lo, hi) padding (1, 2), or (2, 3) on conv4's z, which
 inverts its z padding 0 (``blocks.ConvTranspose3d``).  Parameter names
 are the flax ones (``inv_conv4.ConvTranspose_0``, ``ur3.conv_up_t.conv1``,
-``ur3.conv_up_m.Conv_0`` ...).  The dynamic VFE's pre-scattered grid (no
-voxel list) is ROADMAP queue 1 item 9.
+``ur3.conv_up_m.Conv_0`` ...).
 """
 
 import torch
@@ -122,10 +124,8 @@ class UNetV2(_DenseBackbone8x):
         self.conv5 = Conv3DBNReLU(16, 16)
 
     def forward(self, voxel_features, voxel_coords):
-        if voxel_coords is None:
-            raise NotImplementedError("UNetV2 over a dynamic VFE's grid is ROADMAP queue 1 "
-                                      "item 9")
         x, occs = self.grid(voxel_features, voxel_coords)
+        active = None if voxel_coords is not None else (x != 0).any(dim=1)
         x1 = self.conv1(self.conv_input(x, occs[0]), occs[0])
         levels = [x1]
         for lvl in (2, 3, 4):
@@ -140,6 +140,8 @@ class UNetV2(_DenseBackbone8x):
         u = self.ur2(x2, self.inv_conv3(u, x2.shape[2:], occs[1]), occs[1])
         u = self.ur1(x1, self.inv_conv2(u, x1.shape[2:], occs[0]), occs[0])
         x_up1 = self.conv5(u, occs[0])
+        if voxel_coords is None:
+            return bev, {"point_features": x_up1.permute(0, 2, 3, 4, 1), "point_valid": active}
         aux = {"point_features": gather_from_dense(x_up1, voxel_coords),
                "point_valid": voxel_coords[..., 0] >= 0}
         return bev, aux

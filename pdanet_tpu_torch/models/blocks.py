@@ -157,31 +157,36 @@ class LayerNorm(nn.Module):
         return y.to(norm_dtype(self.compute_dtype, self.training) or ct)
 
 
-def _same_padding(size, k, s):
-    """flax's 'SAME' padding of one axis: (before, after)."""
-    total = max((-(-size // s) - 1) * s + k - size, 0)
+def _same_padding(size, k, s, d=1):
+    """flax's 'SAME' padding of one axis: (before, after), the odd unit
+    after; ``d`` the kernel's dilation."""
+    total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
     return total // 2, total - total // 2
 
 
 class Conv(nn.Conv2d):
     """flax ``nn.Conv`` over a channels-last (B, H, W, C) map: the kernel
     (kh, kw, in, out) is ``weight`` (out, in, kh, kw).  ``padding`` is
-    flax's: ``"SAME"`` or one (before, after) pair for both axes.  The map
-    reaches ``F.conv2d`` as a permuted view, NCHW in shape and channels-last
-    in memory, and comes back the same way, so no copy is made on either
-    side.  Computes in the input's and weight's promoted dtype."""
+    flax's: ``"SAME"`` (XLA's, the odd unit after: a 7 x 7 stride-2 conv
+    on an even side pads (2, 3), not torch's symmetric 3) or one (before,
+    after) pair for both axes; ``dilation`` flax's ``kernel_dilation``.
+    The map reaches ``F.conv2d`` as a permuted view, NCHW in shape and
+    channels-last in memory, and comes back the same way, so no copy is
+    made on either side.  Computes in the input's and weight's promoted
+    dtype."""
 
     def __init__(self, in_features, features, kernel_size, stride=1, padding="SAME",
-                 bias=True):
-        super().__init__(in_features, features, kernel_size, stride=stride, bias=bias)
+                 bias=True, dilation=1):
+        super().__init__(in_features, features, kernel_size, stride=stride, bias=bias,
+                         dilation=dilation)
         self.flax_padding = padding
 
     def forward(self, x):
         dt = torch.promote_types(x.dtype, self.weight.dtype)
         x = x.to(dt).permute(0, 3, 1, 2)
-        k, s = self.kernel_size[0], self.stride[0]
+        k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
         if self.flax_padding == "SAME":
-            (t, b), (l, r) = (_same_padding(n, k, s) for n in x.shape[2:])
+            (t, b), (l, r) = (_same_padding(n, k, s, d) for n in x.shape[2:])
         else:
             (t, b), (l, r) = (self.flax_padding,) * 2
         if t == b and l == r:
@@ -189,7 +194,7 @@ class Conv(nn.Conv2d):
         else:
             x, pad = F.pad(x, (l, r, t, b)), 0
         bias = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x, self.weight.to(dt), bias, self.stride, pad)
+        y = F.conv2d(x, self.weight.to(dt), bias, self.stride, pad, self.dilation)
         return y.permute(0, 2, 3, 1)
 
 

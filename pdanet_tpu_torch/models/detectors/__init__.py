@@ -1,12 +1,13 @@
 """Detector registry (``pdanet_tpu/models/detectors/__init__.py``).
 
-IASSD (PDA-SSD), PointPillar, SECOND, SECOND-IoU, Voxel-RCNN, CenterPoint,
-PV-RCNN, PV-RCNN++, Part-A2, Part-A2-free and PointRCNN are ported; the
-zoo's last detector, CaDDN, is ROADMAP queue 1 item 9.
+All twelve detectors of the JAX package: IASSD (PDA-SSD), PointPillar,
+SECOND, SECOND-IoU, Voxel-RCNN, CenterPoint, PV-RCNN, PV-RCNN++, Part-A2,
+Part-A2-free, PointRCNN and CaDDN.
 """
 
 import torch
 
+from .caddn import CaDDN
 from .centerpoint import CenterPoint
 from .centerpoint import post_processing as center_post_processing
 from .iassd import IASSD, post_processing
@@ -21,14 +22,14 @@ from .second_iou import post_processing as iou_post_processing
 from .voxel_rcnn import VoxelRCNN
 from .voxel_rcnn import post_processing as refined_post_processing
 
-__all__ = {"CenterPoint": CenterPoint, "IASSD": IASSD, "PartA2Net": PartA2Net,
+__all__ = {"CaDDN": CaDDN, "CenterPoint": CenterPoint, "IASSD": IASSD, "PartA2Net": PartA2Net,
            "PartA2Free": PartA2Free, "PointPillar": PointPillar, "PointRCNN": PointRCNN,
            "PVRCNN": PVRCNN, "PVRCNNPlusPlus": PVRCNNPlusPlus, "SECOND": SECOND,
            "SECONDNetIoU": SECONDNetIoU, "VoxelRCNN": VoxelRCNN}
 
 #: voxel-pipeline detectors, which take their grid geometry from the dataset
 VOXEL_DETECTORS = ("PointPillar", "SECOND", "CenterPoint", "SECONDNetIoU", "VoxelRCNN",
-                   "PVRCNN", "PartA2Net", "PVRCNNPlusPlus", "PartA2Free")
+                   "PVRCNN", "PartA2Net", "PVRCNNPlusPlus", "PartA2Free", "CaDDN")
 #: the two-stage detectors, whose post-processing is the refined RoIs' NMS
 REFINED = ("VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus", "PartA2Net", "PartA2Free", "PointRCNN")
 
@@ -43,7 +44,7 @@ def get_post_processor(name):
     ``iassd.post_processing`` (detector3d_template.py:179-285), per class
     with ``MULTI_CLASSES_NMS``."""
     if name not in __all__:
-        raise NotImplementedError(f"{name} is not in the port: ROADMAP queue 1 item 9 (CaDDN left)")
+        raise KeyError(f"{name}: no such detector in the JAX package's registry")
     if name == "CenterPoint":
         return lambda out, mcfg: center_post_processing(out, mcfg.DENSE_HEAD.POST_PROCESSING)
     if name == "SECONDNetIoU":
@@ -78,8 +79,7 @@ def build_network(model_cfg, num_class, dataset=None, input_channels=4, device=N
     them."""
     name = resolve_detector_name(model_cfg)
     if name not in __all__:
-        raise NotImplementedError(f"{model_cfg.NAME} is not in the port: ROADMAP queue 1 item 9 "
-                                  f"(CaDDN left)")
+        raise KeyError(f"{model_cfg.NAME}: no such detector in the JAX package's registry")
     if dataset is not None:
         input_channels = dataset.point_feature_encoder.num_point_features
         if name in VOXEL_DETECTORS:

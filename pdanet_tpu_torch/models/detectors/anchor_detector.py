@@ -1,8 +1,8 @@
 """What the port's anchor-head detectors share (PointPillar, SECOND): the
 anchors of the static grid, the single or multi-group anchor head over the
-BEV map, the box decode, and the axis-aligned assigner and loss (JAX
-``detectors/pointpillar.py`` and ``detectors/second.py``, which each hold
-a copy).
+BEV map, the box decode, the axis-aligned or ATSS assigner and the loss
+(JAX ``detectors/pointpillar.py`` and ``detectors/second.py``, which each
+hold a copy).
 
 A subclass builds its feature extractor, then calls :meth:`build_head`
 with the BEV map's channel count, and its ``forward`` ends in
@@ -18,6 +18,9 @@ from ...utils.easydict import EasyDict
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..dense_heads import anchor_head as AH
 from ..dense_heads import anchor_head_multi as AHM
+from ..dense_heads.atss_assigner import atss_assign_targets
+
+ASSIGNERS = ("AxisAlignedTargetAssigner", "ATSS")
 
 
 class AnchorDetector(nn.Module):
@@ -40,8 +43,9 @@ class AnchorDetector(nn.Module):
         self.point_cloud_range = point_cloud_range
         self.class_names = list(class_names)
         ta_cfg = self.cfg.DENSE_HEAD.TARGET_ASSIGNER_CONFIG
-        if ta_cfg.get("NAME", "AxisAlignedTargetAssigner") != "AxisAlignedTargetAssigner":
-            raise NotImplementedError(f"target assigner {ta_cfg.NAME} is ROADMAP queue 1 item 9")
+        if ta_cfg.get("NAME", "AxisAlignedTargetAssigner") not in ASSIGNERS:
+            raise ValueError(f"target assigner {ta_cfg.NAME}: the JAX package has "
+                             f"{' and '.join(ASSIGNERS)}")
 
     def build_head(self, bev_channels):
         """The BEV backbone over ``bev_channels`` and the anchor head: the
@@ -50,7 +54,8 @@ class AnchorDetector(nn.Module):
         head_cfg = self.cfg.DENSE_HEAD
         head_name = head_cfg.get("NAME", "AnchorHeadSingle")
         if head_name not in ("AnchorHeadSingle", "AnchorHeadMulti"):
-            raise NotImplementedError(f"dense head {head_name} is ROADMAP queue 1 item 9")
+            raise ValueError(f"dense head {head_name}: the JAX package's anchor detectors "
+                             f"have AnchorHeadSingle and AnchorHeadMulti")
         self.backbone_2d = BaseBEVBackbone(self.cfg.BACKBONE_2D, bev_channels)
         anchors, num_per_loc = AH.generate_anchors(head_cfg.ANCHOR_GENERATOR_CONFIG,
                                                    self.grid_size, self.point_cloud_range)
@@ -131,8 +136,15 @@ class AnchorDetector(nn.Module):
                 forward_out["head_outs"], self.head_groups, self.head_anchor_counts, targets,
                 self._anchors(), self.num_class, weights, self.box_coder.code_size,
                 separate=head_cfg.get("SEPARATE_MULTIHEAD", False), **dir_kw)
-        targets = AH.assign_targets(per_class, gt_boxes, class_ids, thresholds,
-                                    self.box_coder)
+        ta_cfg = head_cfg.TARGET_ASSIGNER_CONFIG
+        if ta_cfg.get("NAME", "AxisAlignedTargetAssigner") == "ATSS":
+            # every class's anchors at once, in the head's order (JAX
+            # second.py:211-218, pointpillar.py:140-147)
+            targets = atss_assign_targets(self._anchors(), gt_boxes, int(ta_cfg.TOPK),
+                                          self.box_coder, ta_cfg.get("MATCH_HEIGHT", False))
+        else:
+            targets = AH.assign_targets(per_class, gt_boxes, class_ids, thresholds,
+                                        self.box_coder)
         return AH.anchor_head_loss(
             forward_out["cls_preds"], forward_out["box_preds"], forward_out["dir_cls_preds"],
             targets, self._anchors(), self.num_class, weights, **dir_kw)

@@ -42,11 +42,12 @@ class CenterPoint(nn.Module):
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
         vfe_name = (cfg.get("VFE") or {}).get("NAME", "MeanVFE")
         if vfe_name != "MeanVFE":
-            raise NotImplementedError(f"VFE {vfe_name} is ROADMAP queue 1 item 9")
+            raise ValueError(f"VFE {vfe_name}: the JAX package's CenterPoint builds MeanVFE")
         b3d_cfg = cfg.get("BACKBONE_3D", {})
         b3d_name = b3d_cfg.get("NAME", "VoxelResBackBone8x")
         if b3d_name not in BACKBONES_3D:
-            raise NotImplementedError(f"3-D backbone {b3d_name} is ROADMAP queue 1 item 9")
+            raise ValueError(f"3-D backbone {b3d_name}: the JAX package's CenterPoint has "
+                             f"{', '.join(BACKBONES_3D)}")
         self.vfe = MeanVFE(cfg.get("VFE"), input_channels)
         self.backbone_3d = BACKBONES_3D[b3d_name](b3d_cfg, input_channels, self.grid_size)
         self.backbone_2d = BaseBEVBackbone(cfg.BACKBONE_2D, self.backbone_3d.num_bev_features)

@@ -23,7 +23,7 @@ from ...utils.box_coder_utils import build_box_coder
 from ..model_utils.model_nms_utils import batched_nms_candidates
 from ..roi_heads import roi_head_template as RHT
 from ..backbones_3d.voxel_backbone import _DenseBackbone8x
-from ..roi_heads.voxelrcnn_head import NeighborGridPool, VoxelRCNNHeadNet
+from ..roi_heads.voxelrcnn_head import VoxelRCNNHeadNet
 from .second import SECOND
 
 STRIDES = {"x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
@@ -31,8 +31,8 @@ STRIDES = {"x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
 
 class VoxelRCNN(SECOND):
     """MODEL.NAME: VoxelRCNN, its grid from the dataset (``build_network(...,
-    dataset=...)``), over the sparse 3-D backbones of SECOND; over a dense
-    one it raises (its pool, ``NeighborGridPool``, is not ported)."""
+    dataset=...)``), over SECOND's sparse 3-D backbones (the voxel-query
+    pool) or its dense ones (the fixed-window ``NeighborGridPool``)."""
 
     def __init__(self, model_cfg, num_class, input_channels=4, grid_size=None,
                  voxel_size=None, point_cloud_range=None, class_names=None):
@@ -42,14 +42,13 @@ class VoxelRCNN(SECOND):
         target_cfg = self.roi_cfg.TARGET_CONFIG
         self.roi_box_coder = build_box_coder(target_cfg.BOX_CODER,
                                              target_cfg.get("BOX_CODER_CONFIG", {}))
-        if isinstance(self.backbone_3d, _DenseBackbone8x):
-            NeighborGridPool()  # the dense grid's pool: raises (ROADMAP queue 1 item 9)
         n_cls = 1 if self.roi_cfg.get("CLASS_AGNOSTIC", True) else num_class
         widths = self.backbone_3d.widths
         channels = {f"x_conv{i}": widths[i] for i in range(1, 5)}
         self.roi_head = VoxelRCNNHeadNet(self.roi_cfg, self.roi_box_coder.code_size, n_cls,
                                          channels, STRIDES, self.grid_size, voxel_size,
-                                         point_cloud_range)
+                                         point_cloud_range,
+                                         dense=isinstance(self.backbone_3d, _DenseBackbone8x))
 
     def forward(self, voxels, voxel_coords, voxel_num_points, gt_boxes=None, draws=None):
         """The voxel triplet -> the forward dict; in training mode with
@@ -72,7 +71,7 @@ class VoxelRCNN(SECOND):
             out["rois"] = rois
             out["roi_labels"] = proposals["roi_labels"]
             out["roi_valid"] = proposals["roi_valid"]
-        ms = {k: tuple(t.detach() for t in v)
+        ms = {k: v.detach() if torch.is_tensor(v) else tuple(t.detach() for t in v)
               for k, v in out["multi_scale_3d_features"].items()}
         rcnn_cls, rcnn_reg = self.roi_head(ms, rois.detach(), keep)
         out["rcnn_cls"] = rcnn_cls

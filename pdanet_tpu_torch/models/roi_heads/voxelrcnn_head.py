@@ -15,9 +15,9 @@ pooled grid of every RoI goes through the shared, cls and reg FC stacks
 
 Module and parameter names are the flax ones (``pool_x_conv2.mlp_in``,
 ``shared_fc0``, ``shared_bn0``, ``cls_pred`` ...), so the weight bridge
-maps a JAX tree onto the state dict.  The dense-grid pool of the JAX
-package (``NeighborGridPool``), Voxel-RCNN's over the dense
-``VoxelBackBone8x``, raises.
+maps a JAX tree onto the state dict.  Over a dense backbone
+(``VoxelBackBone8x``) each level is a (B, Z, Y, X, C) grid and the pool is
+the JAX package's fixed-window ``NeighborGridPool``.
 """
 
 import math
@@ -60,13 +60,63 @@ def get_dense_grid_points(rois, grid_size):
 
 
 class NeighborGridPool(nn.Module):
-    """The JAX package's fixed 3 x 3 x 3 window pool over a dense level
-    (JAX :58-119), Voxel-RCNN's over the dense ``VoxelBackBone8x``: not
-    ported."""
+    """The JAX package's pool over a dense level (JAX :58-119), Voxel-RCNN's
+    over the dense ``VoxelBackBone8x``: a fixed 3 x 3 x 3 window of cells
+    around each grid point's own cell, x-major (the offsets of one x
+    first); a neighbour out of the grid or with its centre at distance >=
+    ``radius`` adds nothing (an empty window pools zeros).  A dense level
+    has no active set, so the sparse pool's first-K-active order does not
+    apply.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the dense-grid NeighborGridPool (Voxel-RCNN over the "
-                                  "dense VoxelBackBone8x) is ROADMAP queue 1 item 9")
+    ``bn_in`` normalizes every cell of the level, ``bn_pos`` every (grid
+    point, neighbour), masked ones included, as the JAX package does; the
+    max over the window sends its gradient to the first maximum
+    (``max_first``, ``Tensor.max(dim)``).  The cell of a grid point is
+    ``floor((x - origin) * (1 / (voxel * stride)))`` and the neighbours'
+    centres ``(n + 0.5) * vs + origin`` rounded once, as the JAX package's
+    jitted XLA computes them (a product with the folded reciprocal; a
+    fused multiply-add)."""
+
+    def __init__(self, mlp, radius):
+        super().__init__()
+        c_in, c_mid, c_out = (int(c) for c in mlp)
+        self.radius = float(radius)
+        self.mlp_in = Dense(c_in, c_mid, bias=False)
+        self.bn_in = BatchNorm(c_mid)
+        self.mlp_pos = Dense(3, c_mid, bias=False)
+        self.bn_pos = BatchNorm(c_mid)
+        self.mlp_out = Dense(c_mid, c_out, bias=False)
+        self.bn_out = BatchNorm(c_out)
+
+    def forward(self, dense, stride, query_xyz, voxel_size, pc_range, grid_size=None):
+        """dense: the level's (B, Z, Y, X, C_in) grid; query_xyz (B, G, 3)
+        lidar-frame grid points -> (B, G, C_out)."""
+        B, Z, Y, X, _ = dense.shape
+        dev = dense.device
+        f = self.bn_in(self.mlp_in(dense))
+        f = f.reshape(B, Z * Y * X, f.shape[-1])
+        vs = torch.tensor(voxel_size, dtype=torch.float32) * float(stride)
+        dt = query_xyz.dtype
+        inv = torch.reciprocal(vs.to(dt)).to(dev)
+        origin = torch.tensor(pc_range[:3], dtype=torch.float32)
+        cellf = torch.floor((query_xyz - origin.to(dev, dt)) * inv)
+        cell = cellf.clamp(-_CELL_LIMIT, _CELL_LIMIT).to(torch.int64)
+        r = torch.arange(-1, 2, device=dev)
+        offs = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
+        nb = cell[:, :, None, :] + offs  # (B, G, 27, 3) xyz
+        size = torch.tensor([X, Y, Z], device=dev)
+        inb = ((nb >= 0) & (nb < size)).all(dim=-1)
+        nbc = torch.minimum(nb.clamp(min=0), size - 1)
+        flat = (nbc[..., 2] * Y + nbc[..., 1]) * X + nbc[..., 0]  # (B, G, 27)
+        G = flat.shape[1]
+        gathered = torch.gather(f, 1, flat.reshape(B, G * 27, 1).expand(-1, -1, f.shape[-1]))
+        gathered = gathered.reshape(B, G, 27, -1)
+        centers = ((nb.double() + 0.5) * vs.double().to(dev) + origin.double().to(dev)).float()
+        rel = centers.to(dt) - query_xyz[:, :, None, :]
+        valid = inb & ((rel * rel).sum(dim=-1) < self.radius ** 2)
+        h = torch.relu(gathered + self.bn_pos(self.mlp_pos(rel)))
+        h = torch.where(valid[..., None], h, 0.0).max(dim=2).values
+        return torch.relu(self.bn_out(self.mlp_out(h)))
 
 
 class SparseNeighborGridPool(nn.Module):
@@ -168,7 +218,7 @@ class VoxelRCNNHeadNet(nn.Module):
     (:meth:`dropout_shapes`)."""
 
     def __init__(self, model_cfg, code_size, num_class, level_channels, strides, grid_size,
-                 voxel_size, point_cloud_range):
+                 voxel_size, point_cloud_range, dense=False):
         super().__init__()
         cfg = EasyDict(model_cfg)
         pool_cfg = cfg.ROI_GRID_POOL
@@ -180,9 +230,13 @@ class VoxelRCNNHeadNet(nn.Module):
         for src in self.sources:
             lcfg = EasyDict(pool_cfg.POOL_LAYERS[src])
             mlp = [int(level_channels[src])] + [int(c) for c in lcfg.MLPS[0]]
-            self.add_module(f"pool_{src}", SparseNeighborGridPool(
-                mlp, lcfg.POOL_RADIUS[0], lcfg.get("QUERY_RANGES", [[1, 1, 1]])[0],
-                lcfg.get("NSAMPLE", [16])[0]))
+            if dense:
+                pool = NeighborGridPool(mlp, lcfg.POOL_RADIUS[0])
+            else:
+                pool = SparseNeighborGridPool(mlp, lcfg.POOL_RADIUS[0],
+                                              lcfg.get("QUERY_RANGES", [[1, 1, 1]])[0],
+                                              lcfg.get("NSAMPLE", [16])[0])
+            self.add_module(f"pool_{src}", pool)
             c_pool += mlp[-1]
         self.dp = float(cfg.get("DP_RATIO", 0.0))
         self.stacks = {"shared": list(cfg.SHARED_FC), "cls": list(cfg.CLS_FC),
@@ -239,8 +293,9 @@ class VoxelRCNNHeadNet(nn.Module):
                 self.reg_pred(self._stack(shared, "reg", keep)))
 
     def forward(self, multi_scale, rois, keep=None):
-        """multi_scale: ``{level: (coords, feats, valid)}`` of the sparse
-        backbone; rois (B, R, 7); ``keep``: in training with ``DP_RATIO``,
+        """multi_scale: ``{level: (coords, feats, valid)}`` of a sparse
+        backbone or ``{level: (B, Z, Y, X, C)}`` of a dense one; rois (B,
+        R, 7); ``keep``: in training with ``DP_RATIO``,
         ``{name: (B, R, C) bool}`` (:meth:`dropout_shapes`) -> ``rcnn_cls``
         (B, R, num_class), ``rcnn_reg`` (B, R, code_size * num_class)."""
         B, R = rois.shape[:2]

@@ -11,8 +11,8 @@ it (``|z - cz| <= dz / 2`` with no margin, ``|local xy| < d / 2 + 1e-5``,
   RoI's (out_x, out_y, out_z) grid (truncation toward zero, then a clip),
   and the features are pooled into the (R * cells) rows: the max by one
   ``scatter_reduce`` (a last row taking the points outside), the mean by
-  sorted-segment float64 running sums (``_segment_mean``, no atomics, so
-  that a run gives the same bits each time).  As in the JAX package, and
+  sorted-segment float64 running sums (``segment_mean``, no atomics, so
+  that a run gives the same bits each time; the dynamic VFEs' means too).  As in the JAX package, and
   unlike the CUDA reference, every in-box point is pooled: no cell stops
   at ``MAX_POINTS_PER_VOXEL``.  An empty max cell is 0; a mean divides by
   max(count, 1).  ``scatter_reduce``'s ``amax`` splits a tie's gradient
@@ -75,25 +75,33 @@ def roi_point_cells(rois, points, out_size, point_valid=None):
     return torch.where(inside, flat, B * R * n_vox)
 
 
-def _segment_mean(cells, feats, rows):
-    """The mean of the (N, C) ``feats`` over each of the cells ``0 ..
-    rows - 1`` (``cells`` (N,), ``rows`` where outside), 0 where empty,
-    without atomics, so that a run gives the same bits each time (a saved
-    program equals the eager closure): the rows sorted by cell (stable),
-    their float64 running sums, each cell's sum the difference at its
-    ends."""
-    order = torch.sort(cells, stable=True).indices
-    keys = cells[order]
-    # (C, N + 1) channels first: a scan along the innermost axis (CUDA's
-    # scan along an outer axis of a narrow (N, C) tensor is serial, ~1 s)
-    rows_first = feats[order].to(torch.float64).t()
-    sums = torch.cumsum(torch.cat([rows_first.new_zeros((feats.shape[1], 1)), rows_first],
-                                  dim=1), dim=1)
-    ids = torch.arange(rows, device=cells.device)
-    start = torch.searchsorted(keys, ids)
-    end = torch.searchsorted(keys, ids, right=True)
-    count = (end - start).clamp(min=1).to(torch.float64)
-    return ((sums[:, end] - sums[:, start]) / count).t().to(feats.dtype)
+def segment_mean(flat, feats, n_cells):
+    """The mean of each frame's (B, N, C) ``feats`` over the rows of each
+    cell ``0 .. n_cells - 1`` (``flat`` (B, N); ``n_cells`` the drop slot)
+    -> (B, n_cells + 1, C), 0 where a cell holds no row, without atomics,
+    so that a run gives the same bits each time (a saved program equals
+    the eager closure): each frame's rows sorted by cell (stable), their
+    float64 running sums (channels first: CUDA's scan along an outer axis
+    of a narrow (N, C) tensor is serial, ~1 s), each row's cell sum the
+    difference at its segment's ends, written to its cell by the
+    segment's first row alone (so that the gradient reaches each row
+    once; the others write to a spare slot past the drop slot).  Every
+    shape is static."""
+    B, N, C = feats.shape
+    order = torch.sort(flat, dim=1, stable=True).indices
+    keys = torch.gather(flat, 1, order)
+    rows = torch.gather(feats, 1, order[..., None].expand(B, N, C)).to(torch.float64)
+    sums = torch.cumsum(torch.cat([rows.new_zeros((B, C, 1)), rows.transpose(1, 2)], dim=2),
+                        dim=2)
+    start = torch.searchsorted(keys, keys)
+    end = torch.searchsorted(keys, keys, right=True)
+    gather = lambda at: torch.gather(sums, 2, at[:, None, :].expand(B, C, N))  # noqa: E731
+    count = (end - start).to(torch.float64)[:, None, :]
+    mean = ((gather(end) - gather(start)) / count).transpose(1, 2).to(feats.dtype)
+    first = start == torch.arange(N, device=flat.device)
+    batch = torch.arange(B, device=flat.device)[:, None].expand(B, N)
+    canvas = feats.new_zeros((B, n_cells + 2, C))
+    return canvas.index_put((batch, torch.where(first, keys, n_cells + 1)), mean)[:, :-1]
 
 
 def roiaware_pool3d(rois, points, point_features, out_size, pool_method="max",
@@ -113,7 +121,7 @@ def roiaware_pool3d(rois, points, point_features, out_size, pool_method="max",
         pooled = pooled.scatter_reduce(0, flat, feats, "amax", include_self=True)
         pooled = torch.where(torch.isfinite(pooled), pooled, 0.0)
     elif pool_method == "avg":
-        pooled = _segment_mean(flat[:, 0], feats, rows)
+        pooled = segment_mean(flat[None, :, 0], feats[None], rows)[0]
     else:
         raise NotImplementedError(pool_method)
     return pooled[:rows].reshape(B, R, *(int(s) for s in out_size), C)

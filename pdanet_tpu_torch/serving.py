@@ -84,7 +84,10 @@ def serving_input_spec(cfg, batch_size, model):
             spec[key] = ((batch_size, n, num_feats), torch.float32)
             continue
         if key not in ("voxels", "voxel_coords", "voxel_num_points"):
-            raise NotImplementedError(f"serving export does not cover device-batch key {key!r}")
+            raise NotImplementedError(
+                f"serving export does not cover device-batch key {key!r} (the camera-family "
+                f"CaDDN pipeline carries per-frame image/calibration tensors whose shapes live "
+                f"in the data, not the config)")
         p = procs["transform_points_to_voxels"]
         v = _test_budget(p["MAX_NUMBER_OF_VOXELS"])
         spec[key] = {"voxels": ((batch_size, v, int(p["MAX_POINTS_PER_VOXEL"]), num_feats),

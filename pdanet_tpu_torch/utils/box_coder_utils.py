@@ -201,6 +201,5 @@ BOX_CODERS = {"PointResidual_BinOri_Coder": PointResidual_BinOri_Coder,
 
 def build_box_coder(name, config):
     if name not in BOX_CODERS:
-        raise NotImplementedError(
-            f"box coder {name} comes with the rest of the zoo (ROADMAP queue 1 item 9)")
+        raise KeyError(f"box coder {name}: the JAX package has {', '.join(BOX_CODERS)}")
     return BOX_CODERS[name](**config)

@@ -2,10 +2,8 @@
 
 Counterpart of ``pdanet_tpu/utils/loss_utils.py:15-116`` (behaviour of
 ``pcdet/utils/loss_utils.py``): sigmoid and softmax cross entropy, the
-sigmoid focal loss, smooth L1 in its weighted and masked-mean forms, and
-the corner loss.  The
-centernet losses come with the detectors that use them (ROADMAP queue 1
-item 9).
+sigmoid focal loss, smooth L1 in its weighted and masked-mean forms, the
+corner loss and CenterPoint's focal and regression losses.
 """
 
 import numpy as np

@@ -27,6 +27,11 @@ the tiny model of ``tests/model_cfg.py``.
 * The shipped ``pv_rcnn.yaml`` cut to size the same way (the raw points
   beside the voxels, the VSA, the point head, the ball-query RoI grid
   pool) through the train, test and export CLIs.
+* The shipped ``CaDDN.yaml`` cut to size (a DDN of width 16, 16 depth
+  bins, an 80 x 128 x 8 grid, a 16 / 32-filter BEV backbone) on a
+  mini-KITTI of its own with camera inputs (textured 375 x 1242 and 370 x
+  1224 images, 16-bit depth maps) through the train and test CLIs; the
+  export CLI refuses it as the JAX package's serving spec does.
 * A JAX-package checkpoint of the same config, saved by
   ``pdanet_tpu.train.save_checkpoint``, is evaluated by the port's test
   CLI and by JAX's ``eval_one_epoch`` on the same frames: equal detection
@@ -384,6 +389,68 @@ def test_voxel_rcnn_train_then_test_cli(kitti_env, tmp_path, monkeypatch):
     for a in annos:
         assert set(a) >= KITTI_KEYS
         assert len(a["score"]) <= 16
+
+
+CADDN_CFG_REL = "cfgs/tiny/CaDDN-tiny.yaml"
+
+
+def _caddn_tiny_yaml(root):
+    """The shipped CaDDN.yaml on the camera mini-KITTI at ``root``, cut to
+    size."""
+    from test_torch_caddn import CADDN_YAML
+
+    cfg = cfg_from_yaml_file(str(CADDN_YAML))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == "calculate_grid_size":
+            proc.VOXEL_SIZE = [0.56, 0.47, 0.5]  # an 80 x 128 x 8 grid
+    m = cfg.MODEL
+    m.VFE.FFN.DDN.WIDTH = 16
+    m.VFE.FFN.CHANNEL_REDUCE.update(in_channels=16, out_channels=8)
+    m.VFE.FFN.DISCRETIZE.num_bins = 16
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    m.BACKBONE_2D.update(LAYER_NUMS=[1, 1], LAYER_STRIDES=[2, 2], NUM_FILTERS=[16, 32],
+                         UPSAMPLE_STRIDES=[1, 2], NUM_UPSAMPLE_FILTERS=[16, 16])
+    m.POST_PROCESSING.NMS_CONFIG.update(NMS_PRE_MAXSIZE=256, NMS_POST_MAXSIZE=32)
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 2
+    return yaml.safe_dump(_plain(cfg))
+
+
+def test_caddn_train_then_test_cli(tmp_path, monkeypatch):
+    """CaDDN through both CLIs on two camera frames: one epoch (one step at
+    B = 2, the collate padding the smaller frame) with finite anchor and
+    depth losses, then the test CLI on its checkpoint with the official
+    evaluation over both val frames; the export CLI refuses the camera
+    inputs."""
+    from pdanet_tpu_torch.tools import export as export_cli
+    from test_torch_caddn import add_camera_inputs
+
+    root = tmp_path / "kitti"
+    ids = build_mini_kitti(root, num_frames=2, n_bg=500)
+    add_camera_inputs(root, ids, [(375, 1242), (370, 1224)])
+    (tmp_path / CADDN_CFG_REL).parent.mkdir(parents=True)
+    (tmp_path / CADDN_CFG_REL).write_text(_caddn_tiny_yaml(root))
+    monkeypatch.chdir(tmp_path)
+    cfg = cfg_from_yaml_file(CADDN_CFG_REL)
+    create_kitti_infos(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), root, root, workers=1)
+    out = train_cli.main(["--cfg_file", CADDN_CFG_REL, "--device", "cpu", "--workers", "0",
+                          "--batch_size", "2", "--epochs", "1", "--num_epochs_to_eval", "0"])
+    lines = [json.loads(line) for line in
+             (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()]
+    for tag in ("train/rpn_loss", "train/ddn_loss"):
+        values = [r["value"] for r in lines if r["tag"] == tag]
+        assert len(values) == 1 and all(np.isfinite(values)) and values[0] > 0, (tag, values)
+    ckpt = out / "ckpt" / "checkpoint_epoch_1.pth"
+    result = test_cli.main(["--cfg_file", CADDN_CFG_REL, "--ckpt", str(ckpt), "--device",
+                            "cpu", "--workers", "0", "--batch_size", "2"])
+    assert {"recall/rcnn_0.3", "Car_3d/moderate_R40"} <= set(result)
+    with open(out / "eval" / "epoch_1" / "val" / "default" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    assert [a["frame_id"] for a in annos] == ids
+    for a in annos:
+        assert set(a) >= KITTI_KEYS
+    with pytest.raises(NotImplementedError, match="camera-family CaDDN"):
+        export_cli.main(["--cfg_file", CADDN_CFG_REL, "--random_init", "--device", "cpu"])
 
 
 PV_RCNN_YAML = REPO / "tools" / "cfgs" / "kitti_models" / "pv_rcnn.yaml"

@@ -258,20 +258,66 @@ def test_point_processor_equals_jax(proc, training):
 
 @pytest.mark.parametrize("name", ["sample_points_by_voxels", "downsample_depth_map"])
 def test_unported_processors_raise(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        DataProcessor([EasyDict({"NAME": name, "VOXEL_SIZE": [0.1, 0.1, 0.1]})],
-                      point_cloud_range=[0, 0, 0, 1, 1, 1], training=True,
-                      num_point_features=4)
+    """The two processors the port once refused, now bit for bit the JAX
+    package's: ``sample_points_by_voxels`` (``raw`` and ``mean_vfe``, a
+    budget under and over the voxel count, and -1) and
+    ``downsample_depth_map`` (sides that are and are not multiples of 4)."""
+    cases = ([{"NAME": name, "VOXEL_SIZE": [0.8, 0.8, 0.4], "MAX_POINTS_PER_VOXEL": 5,
+               "MAX_NUMBER_OF_VOXELS": {"train": 4000, "test": 4000}, "SAMPLE_TYPE": kind,
+               "NUM_POINTS": {"train": n, "test": n}}
+              for kind in ("raw", "mean_vfe") for n in (1500, 6000, -1)]
+             if name == "sample_points_by_voxels" else [{"NAME": name, "DOWNSAMPLE_FACTOR": 4}])
+    for training in (False, True):
+        for proc in cases:
+            outs = []
+            for cls, ed in ((DataProcessor, EasyDict), (JDataProcessor, JEasyDict)):
+                pts, boxes = _frame(22)
+                rs = np.random.RandomState(5)
+                frame = {"points": pts, "gt_boxes": boxes,
+                         "depth_maps": rs.uniform(0, 80, (375, 1242)).astype(np.float32)}
+                np.random.seed(4)
+                dp = cls([ed(proc)], point_cloud_range=[-75.2, -75.2, -5.0, 75.2, 75.2, 3.0],
+                         training=training, num_point_features=4)
+                outs.append(dp.forward(frame))
+            assert_same(outs[0], outs[1], str(proc))
+    if name == "downsample_depth_map":
+        assert outs[0]["depth_maps"].shape == (94, 311)
 
 
 def test_unported_dataset_and_augmentor_raise(tmp_path):
+    """The dataset registry; CaDDN's ``random_image_flip``, the port once
+    refused, now bit for bit the JAX package's over seeds that flip and
+    seeds that do not (the image, the depth map and the boxes)."""
+    from kitti_fixture import CALIB_TXT
+    from pdanet_tpu.datasets.augmentor.data_augmentor import DataAugmentor as JDataAugmentor
+    from pdanet_tpu.utils.calibration_kitti import Calibration as JCalibration
+    from pdanet_tpu_torch.utils.calibration_kitti import Calibration
+
     assert get_dataset_class("KittiDataset") is KittiDataset
     assert get_dataset_class("ONCEDataset") is ONCEDataset
     with pytest.raises(KeyError):
         get_dataset_class("NuScenesDataset")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9f"):
-        DataAugmentor(tmp_path, EasyDict({"DISABLE_AUG_LIST": [], "AUG_CONFIG_LIST": [
-            {"NAME": "random_image_flip", "ALONG_AXIS_LIST": ["horizontal"]}]}), CLASSES)
+    (tmp_path / "calib.txt").write_text(CALIB_TXT)
+    cfg = {"DISABLE_AUG_LIST": ["placeholder"], "AUG_CONFIG_LIST": [
+        {"NAME": "random_image_flip", "ALONG_AXIS_LIST": ["horizontal"]}]}
+    flipped = set()
+    for seed in range(6):
+        outs = []
+        for aug_cls, calib_cls, ed in ((DataAugmentor, Calibration, EasyDict),
+                                       (JDataAugmentor, JCalibration, JEasyDict)):
+            rs = np.random.RandomState(seed)
+            pts, boxes = _frame(40 + seed)
+            boxes[:, 0] = np.abs(boxes[:, 0]) + 5.0  # in front of the camera
+            frame = {"images": rs.rand(375, 1242, 3).astype(np.float32),
+                     "depth_maps": rs.rand(94, 311).astype(np.float32),
+                     "gt_boxes": boxes, "gt_names": np.array(["Car"] * len(boxes)),
+                     "calib": calib_cls(str(tmp_path / "calib.txt"))}
+            np.random.seed(seed)
+            outs.append(aug_cls(tmp_path, ed(cfg), CLASSES).forward(frame))
+            outs[-1]["draw"] = np.random.randint(1 << 30)  # the same draws consumed
+        assert_same(outs[0], outs[1], f"seed {seed}")
+        flipped.add(bool((outs[0]["gt_boxes"][:, 6] != _frame(40 + seed)[1][:, 6]).any()))
+    assert flipped == {False, True}
 
 
 @pytest.mark.parametrize("fn,args", [

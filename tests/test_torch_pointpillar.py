@@ -491,8 +491,10 @@ def test_exported_program_equals_eager(pp_run, tmp_path):
 def test_build_network_pointpillar_yaml_and_zoo_raises():
     """The shipped yaml at full width, its grid from the dataset: 321408
     anchors a frame, every leaf of a JAX tree of the same config consumed,
-    every parameter and buffer contiguous; the detectors not yet ported
-    raise with their ROADMAP item."""
+    every parameter and buffer contiguous; every name of the JAX registry
+    builds (CaDDN the last), a name it lacks raises KeyError; the dynamic
+    VFE and ATSS variants build with the JAX package's device batch (their
+    parity: ``tests/test_torch_dynamic_vfe.py``, ``tests/test_torch_atss.py``)."""
     cfg = cfg_from_yaml_file(str(PP_YAML))
     ds = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                          training=False, root_path=".")
@@ -515,15 +517,21 @@ def test_build_network_pointpillar_yaml_and_zoo_raises():
     tensors = [*model.named_parameters(), *model.named_buffers()]
     assert [n for n, t in tensors if not t.is_contiguous()] == []
 
-    for name in ("CaDDN",):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            build_network(EasyDict(NAME=name), 3, device="cpu")
-    for key, value in (("VFE", {"NAME": "DynamicPillarVFE"}),
-                       ("DENSE_HEAD.TARGET_ASSIGNER_CONFIG", {"NAME": "ATSS"})):
-        bad = EasyDict(PP_MODEL_CFG)
-        node = bad
+    from pdanet_tpu.models.detectors import __all__ as j_detectors
+    from pdanet_tpu_torch.models.detectors import __all__ as detectors
+
+    assert sorted(detectors) == sorted(j_detectors) and "CaDDN" in detectors
+    with pytest.raises(KeyError):
+        build_network(EasyDict(NAME="CenterNet"), 3, device="cpu")
+    for key, value, keys in (
+            ("VFE", {"NAME": "DynamicPillarVFE", "NUM_FILTERS": [16]}, ("points", "gt_boxes")),
+            ("DENSE_HEAD.TARGET_ASSIGNER_CONFIG", {"NAME": "ATSS", "TOPK": 9},
+             ("voxels", "voxel_coords", "voxel_num_points", "gt_boxes"))):
+        variant = EasyDict(PP_MODEL_CFG)
+        node = variant
         for part in key.split(".")[:-1]:
             node = node[part]
         node[key.split(".")[-1]] = EasyDict({**node[key.split(".")[-1]], **value})
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            build_network(bad, 2, class_names=CLASSES, device="cpu", **GEOMETRY)
+        port = build_network(variant, 2, class_names=CLASSES, device="cpu", **GEOMETRY)
+        jport = j_build(JEasyDict(variant), num_class=2, class_names=CLASSES, **GEOMETRY)
+        assert port.DEVICE_BATCH_KEYS == jport.DEVICE_BATCH_KEYS == keys

@@ -24,8 +24,9 @@ on the CPU; its sparse engine has no Pallas kernel.
   float32).
 * The tiny exported program equal to the eager closure; the shipped
   ``second.yaml`` built through the dataset's geometry and filled by a
-  JAX tree of the same config (every leaf consumed); the parts of the
-  JAX package's SECOND the port does not build raise.
+  JAX tree of the same config (every leaf consumed); SECOND over the
+  dynamic mean VFE and the dense ladder runs on the raw cloud, over a
+  sparse backbone it raises.
 
 Float64 on the JAX side: the JAX package's sparse conv asks XLA for a
 float32 product (``preferred_element_type``), which under x64 rounds
@@ -494,8 +495,10 @@ def test_build_network_second_yaml_and_unported_raise():
     """The shipped yaml at full width, its grid from the dataset (1408 x
     1600 x 40 cells, 211200 anchors, a 256-channel BEV map), every leaf of
     a JAX tree of the same config consumed; the serving example's voxels
-    are distinct cells in clusters, PointPillar's drawn as before; the
-    parts of the JAX package's SECOND not ported raise."""
+    are distinct cells in clusters, PointPillar's drawn as before; SECOND
+    over the dynamic mean VFE builds and runs on the dense ladder, its grid
+    equal to JAX's (occupied cells equal, means within 1e-6), and raises
+    over the sparse one."""
     cfg = cfg_from_yaml_file(str(SECOND_YAML))
     ds = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                          training=False, root_path=".")
@@ -535,16 +538,32 @@ def test_build_network_second_yaml_and_unported_raise():
     cells = np.stack([rs.choice(432 * 496, 40000, replace=False) for _ in range(2)])
     np.testing.assert_array_equal(pp[..., 1] * 432 + pp[..., 2], cells)
 
-    for key, value in (("VFE", {"NAME": "DynamicMeanVFE"}),
-                       ("DENSE_HEAD.TARGET_ASSIGNER_CONFIG", {"NAME": "ATSS"})):
-        bad = EasyDict(second_cfg())
-        node = bad
-        for part in key.split(".")[:-1]:
-            node = node[part]
-        last = key.split(".")[-1]
-        node[last] = EasyDict({**node[last], **value})
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            build_network(bad, 2, device="cpu", **GEOMETRY)
+    # the dynamic VFE over the dense ladder, as the JAX package builds it,
+    # equals JAX's on the CPU (tests/test_torch_dynamic_vfe.py); the sparse
+    # engine takes a voxel list, which the dynamic VFE does not give
+    dense = EasyDict(second_cfg("VoxelBackBone8x"))
+    dense.VFE = EasyDict({"NAME": "DynamicMeanVFE"})
+    model = build_network(dense, 2, device="cpu", **GEOMETRY)
+    assert model.DEVICE_BATCH_KEYS == ("points", "gt_boxes")
+    from pdanet_tpu.models.backbones_3d.vfe.dynamic_mean_vfe import DynamicMeanVFE as JVFE
+
+    rs = np.random.RandomState(1)
+    pts = np.concatenate([rs.uniform(PCR[:3], PCR[3:], (2, 500, 3)), rs.rand(2, 500, 1)],
+                         -1).astype(np.float32)
+    with torch.no_grad():
+        grid = model.vfe(torch.from_numpy(pts)).numpy()
+        out = model.eval().forward_batch({"points": torch.from_numpy(pts)})
+    jvfe = JVFE(model_cfg={}, num_point_features=4, **{k: GEOMETRY[k] for k in (
+        "grid_size", "voxel_size", "point_cloud_range")})
+    want = np.asarray(jax.jit(lambda p: jvfe.apply({}, p))(pts))
+    np.testing.assert_array_equal((grid != 0).any(-1), (want != 0).any(-1))
+    np.testing.assert_allclose(grid, want, rtol=1e-6, atol=1e-6)
+    assert out["batch_box_preds"].shape == (2, model.anchors_flat.shape[0], 7)
+    assert torch.isfinite(out["batch_box_preds"]).all()
+    sparse = EasyDict(second_cfg())
+    sparse.VFE = EasyDict({"NAME": "DynamicMeanVFE"})
+    with pytest.raises(ValueError, match="dense grid"):
+        build_network(sparse, 2, device="cpu", **GEOMETRY)
 
 
 def test_jax_tree_and_port_state_flat_names(second_run):

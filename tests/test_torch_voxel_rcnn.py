@@ -693,13 +693,56 @@ def test_build_network_voxel_rcnn_yaml():
     from pdanet_tpu_torch.models.detectors import voxel_rcnn
 
     assert get_post_processor("VoxelRCNN") is voxel_rcnn.post_processing
-    for name in ("CaDDN",):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            get_post_processor(name)
-    # the dense-grid pool goes with the dense backbone: neither is ported
+    assert get_post_processor("CaDDN") is not voxel_rcnn.post_processing  # the single NMS
+    # over the dense backbone, the dense-grid pool (its parity below)
     dense = EasyDict(vrcnn_cfg())
     dense.BACKBONE_3D = EasyDict(dense.BACKBONE_3D, NAME="VoxelBackBone8x")
-    for build in (lambda: build_network(dense, len(CLASSES), device="cpu", **GEOMETRY),
-                  lambda: head.NeighborGridPool((8, 8, 8), 0.8)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            build()
+    model = build_network(dense, len(CLASSES), device="cpu", **GEOMETRY)
+    assert all(isinstance(getattr(model.roi_head, f"pool_{s}"), head.NeighborGridPool)
+               for s in model.roi_head.sources)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_dense_neighbor_grid_pool_equals_jax(train):
+    """The JAX package's dense-grid ``NeighborGridPool`` (Voxel-RCNN over
+    ``VoxelBackBone8x``) in float64 on a stride-2 level of 4 x 16 x 16
+    cells: grid points inside, at the edges and outside the grid; the
+    output within 1e-12 of max(1, |value|), the gradients of the weights
+    and the level within 1e-11 of their largest |gradient| (the window's
+    max sends its gradient to the first maximum, ties of zeros included),
+    the running statistics within 1e-12."""
+    rs = np.random.RandomState(3 + train)
+    dense = rs.randn(2, 4, 16, 16, 6)
+    dense[:, :, :4] = 0.0  # empty cells: ties in the window's max
+    query = rs.uniform((-0.6, -3.8, -3.6), (7.0, 3.8, 1.6), (2, 60, 3))
+    mlp, radius = (6, 8, 12), 0.7
+    jpool = j_head.NeighborGridPool(mlp=mlp, radius=radius)
+    variables = _perturb(jax.device_get(jax.jit(lambda d, q: jpool.init(
+        jax.random.PRNGKey(0), d, 2, q, VOXEL, PCR))(dense.astype(np.float32),
+                                                     query.astype(np.float32))), 9, np.float64)
+    cot = rs.randn(2, 60, 12)
+    with _exact_f64():
+        def fn(params, d):
+            out, mut = jpool.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                                   d, 2, query, VOXEL, PCR, train=train,
+                                   mutable=["batch_stats"])
+            return jnp.sum(out * cot), (out, mut["batch_stats"])
+
+        (_, (want, stats)), (g_params, g_dense) = jax.jit(
+            jax.value_and_grad(fn, argnums=(0, 1), has_aux=True))(variables["params"], dense)
+        want, stats, g_params, g_dense = jax.device_get((want, stats, g_params, g_dense))
+    pool = head.NeighborGridPool(mlp, radius).double().train(train)
+    load_jax_variables(pool, variables)
+    d = torch.from_numpy(dense).requires_grad_()
+    got = pool(d, 2, torch.from_numpy(query), VOXEL, PCR)
+    (got * torch.from_numpy(cot)).sum().backward()
+    err = (got.detach().numpy() - want) / np.maximum(1.0, np.abs(want))
+    assert np.abs(err).max() <= 1e-12 and np.abs(want).max() > 0.1
+    assert np.abs(d.grad.numpy() - g_dense).max() <= 1e-11 * np.abs(g_dense).max()
+    ref = head.NeighborGridPool(mlp, radius).double()
+    load_jax_variables(ref, {"params": g_params, "batch_stats": variables["batch_stats"]})
+    for name, p in pool.named_parameters():
+        w = dict(ref.named_parameters())[name]
+        assert (p.grad - w).abs().max() <= 1e-11 * w.abs().max(), name
+    if train:
+        _stats_close(pool, stats, atol=1e-12)
