@@ -300,7 +300,7 @@ Phases, each of which raises on failure:
    top-K indices, the decoded candidates and the NMS keep mask equal to
    the CPU's and the detections paired box for box.  (b) 2 float32 steps
    at the yaml's B = 4, then the float64 step at B = 1 card vs CPU.  (c)
-   The CLIs and ``dist_train.sh`` on phase 9's root.  (d) Export as phase
+   The CLIs on phase 9's root.  (d) Export as phase
    12.  (e) The IoU and NMS on the candidates that request 0's NMS was
    given (recorded by ``RecordIoUShapes``) at K 500, some suppressed.
    Then
@@ -366,7 +366,7 @@ Phases, each of which raises on failure:
    steps at the yaml's B = 4 (gt planted on the proposals), then the
    float64 step at B = 1 card vs CPU on ``DENSE_CROP``.  (c) The train and
    test CLIs on a root of their own (``PARTA2_CLI_SPLITS``: 2 train and 2
-   val frames) and ``dist_train.sh`` on it; the export CLI is phase 15a's
+   val frames); the export CLI is phase 15a's, ``dist_train.sh`` PointRCNN's
    (``VOXEL_DEPTH``).  (d)
    Export.  (e) The IoU and the NMS at K 9000, 1024 and 100 (Part-A2-free:
    9000 and 100).
@@ -398,7 +398,7 @@ Phases, each of which raises on failure:
    against their plain versions.  Then tools/cfgs/kitti_models/
    pointrcnn_iou.yaml (``CLS_SCORE_TYPE`` roi_iou, B = 3): one b1
    request, one step whose sampled RoIs' labels are the soft labels of
-   their IoUs, the CLIs (at B = 2) and ``dist_train.sh``, export.
+   their IoUs, the CLIs (at B = 2), export.
 
 20. CaDDN: tools/cfgs/kitti_models/CaDDN.yaml at full width (375 x 1242
    images; the DDN at width 256 with 80 LID depth bins, its stride-4
@@ -433,11 +433,32 @@ Phases, each of which raises on failure:
    B = 4 step (its request is SECOND's forward, phase 13's); (e) the IoU
    and the NMS on the candidates of the dynamic variants' and Voxel-RCNN's
    request.
+21. The rest of the IASSD surface (``iassd_phase``; alone with
+   ``--phases 21``).  The F-FPS kernel (``csrc/fps_features.cu``) equal to
+   its plain version at SA1's shape (B 1 and 2, N 4096, C 67, 512 picks;
+   duplicated rows; rows read from global memory at N 20000, C 300), with
+   its time, the plain version's and its bound; the attention kernels at
+   no_global's head widths (hd 48 and 96, K 16 and 32, float32 and
+   bfloat16, forward at b1 and backward at B = 4) against the plain
+   versions, timed beside SDPA.  Two variants of PDA-SSD.yaml at full
+   width, built by the CLIs' ``--set`` (``IASSD_VARIANTS``), seeded
+   weights, TF32 off: V1 (SA1 by FS 512 + 512, ``PDA_VARIANT: no_global``,
+   ``PROPOSAL_AWARE_CBAM``, ``IOU_FC``) serves a float32 b1 and b2 request
+   and V2 (SA0 by ``ds_FPS``, ``POINTFORMER_IMPL: encoder_layer``,
+   ``IOU_FC``) a b1, each against the CPU with the card's picks fed (the
+   CPU's own D-FPS and sector picks equal, ball-query indices equal,
+   features within 1e-3, cls / box / IoU logits within 2e-3, equal
+   detection counts), the F-FPS calls held to the plain version on their
+   own rows; a bfloat16 b1 request of each (a report); V1's b1 program
+   bit-equal to its eager closure; one float32 train step at B = 2 of each
+   (``iou3d_loss_reg`` finite).  Then ``ry_fps``, the ellipsoid query, the
+   dilated query and ``nms_rotated`` once each, card against CPU.
 
 Depth (``VOXEL_DEPTH``; every kernel row, family and phase stays): phases
 12-19 serve one b1 and one b2 request (15b, 17b and 19b one b1), take one
-float32 step (19a two), and their CLIs and ``dist_train.sh`` train over 4
-of phase 9's frames; 15b, 17b and 18b take no float64 step (18b's point-box
+float32 step (19a two), and their CLIs train over 4 of phase 9's frames,
+``dist_train.sh`` too in 12, 14, 17 and 19a (one model a family, and 20's
+CaDDN: 13, 16, 18a, 18b and 19b do not); 15b, 17b and 18b take no float64 step (18b's point-box
 head is 19a's, its RoI head 18a's), CenterPoint's runs on ``DENSE_CROP``.
 Phase 8 takes no float32 frame against the CPU (its float64 step does,
 with the same forward; phases 3 and 8 hold FPS and the ball query at
@@ -450,7 +471,7 @@ and one fresh process reloads each as it is saved and holds it bit-equal
 to the eager closure's outputs on the same frame (saved in the phase),
 while phase 10's fresh process and serve CLI, phase 11's
 ``dist_train.sh`` and ``dist_test.sh`` and the ``dist_train.sh`` runs of
-phases 12-14 and 16-20 (c, at B = 1) go, seven chains at a time.
+phases 12, 14, 17, 19a and 20 (c, at B = 1) go, seven chains at a time.
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
@@ -487,7 +508,9 @@ query (``ball_query_roi_pointrcnn``), and at phase 20's K 4096
 (``rotated_iou_k4096_caddn``, ``nms_k4096_caddn``) and phase 20b's
 (``rotated_iou_k4096_pointpillar_dynamic``, ``..._second_dynamic``,
 ``rotated_iou_k2048_voxel_rcnn_dense``, ``..._k100_voxel_rcnn_dense``).
-The line before it gives the script's seconds.
+And F-FPS's row (``fps_features``: phase 21's launches, its numbers at
+SA1's shape; it replaces no Pallas kernel, the JAX package runs F-FPS in
+XLA).  The line before it gives the script's seconds.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -529,6 +552,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                     "pdanet_tpu/ops/pallas/rotated_iou.py:244"),
     "nms": ("pdanet_tpu_torch/csrc/nms.cu", "pdanet_tpu/ops/pallas/nms.py:70"),
 }
+# F-FPS: a kernel of the port where the JAX package runs XLA (phase 21)
+FFPS_KERNEL = ("pdanet_tpu_torch/csrc/fps_features.cu", "pdanet_tpu/ops/sampling.py:108")
 # the kernels each main-path run must launch
 SERVE_KERNELS = ("fps", "ball_query", "neighbor_attention_bf16", "rotated_iou", "nms")
 TRAIN_KERNELS = {"bf16": ("fps", "ball_query", "neighbor_attention_bf16",
@@ -723,7 +748,8 @@ def sdpa_backward(q, k, v, do, K, H, hd):
 
 
 # the device functions of csrc/, as the profiler names them
-PORT_KERNELS = ("fps_kernel", "ball_query_kernel", "attn_kernel", "attn_bwd_kernel",
+PORT_KERNELS = ("fps_kernel", "fps_features_kernel", "ball_query_kernel", "attn_kernel",
+                "attn_bwd_kernel",
                 "attn_fwd_mma", "attn_bwd_mma", "iou_self_kernel", "nms_mask_kernel",
                 "nms_walk_kernel")
 
@@ -3781,9 +3807,14 @@ CLI_TRAIN_FRAMES = 4
 # 18a and 18b share a root of 2 + 2 frames (a Part-A2 step takes ~1 s);
 # 15b, 17b and 18b take no float64 step (their code is 15a's, 17's, and
 # 18a's and 19a's), 16's and the dense ladder's run on DENSE_CROP (the
-# CPU's float64 step takes 15-27 s a yaml at full width)
+# CPU's float64 step takes 15-27 s a yaml at full width); dist_train.sh
+# runs for one model of each family, PointPillar, Voxel-RCNN (the sparse
+# backbone and a second stage), PV-RCNN, PointRCNN and CaDDN (phase 20),
+# so that the tail's chains run in one wave (with phase 21, 13 chains took
+# two waves, 180.2 s on a slow host)
 VOXEL_DEPTH = {12: dict(latency_reps=3, serve_requests=2, train_steps=1, tf32=False),
-               13: dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False),
+               13: dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
+                        dist_train=False),
                14: dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
                         tf32=False),
                "15a": dict(latency_reps=3, serve_requests=2, train_steps=1, batch_size=1,
@@ -3793,22 +3824,22 @@ VOXEL_DEPTH = {12: dict(latency_reps=3, serve_requests=2, train_steps=1, tf32=Fa
                            serve_requests=1, cli=False, layout=False, train_split=False,
                            tf32=False, float64=False),
                16: dict(latency_reps=3, serve_requests=2, train_steps=1, tf32=False,
-                        crop=DENSE_CROP),
+                        crop=DENSE_CROP, dist_train=False),
                17: dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
                         tf32=False),
                "17b": dict(latency_reps=3, train_steps=1, serve_requests=1, cli=False,
                            tf32=False, train_split=False, iou_rows=False, float64=False),
                "18a": dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
                            tf32=False, crop=DENSE_CROP, cli_root=PARTA2_CLI_SPLITS,
-                           cli_batch=PARTA2_CLI_BATCH),
+                           cli_batch=PARTA2_CLI_BATCH, dist_train=False),
                "18b": dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
                            tf32=False, float64=False, cli_root=PARTA2_CLI_SPLITS,
-                           cli_batch=PARTA2_CLI_BATCH),
+                           cli_batch=PARTA2_CLI_BATCH, dist_train=False),
                "19a": dict(latency_reps=3, serve_requests=2, train_steps=2, train_split=False,
                            tf32=False),
                "19b": dict(latency_reps=3, serve_requests=1, train_steps=1, train_split=False,
                            tf32=False, cli_batch=2, compare=False, float64=False,
-                           iou_rows=False)}
+                           iou_rows=False, dist_train=False)}
 VOXEL_KERNELS = ("rotated_iou", "nms")  # the kernels of their path
 # PV-RCNN's float32 keypoint features (each source's, fused), point scores
 # and RCNN outputs, card against CPU, the CPU run on the card's inputs, of
@@ -3886,8 +3917,8 @@ print(json.dumps({"modules": sorted(m for m in sys.modules
 # the tail's processes at once (``run_tail``, which prints the card's peak
 # memory in use while they run): the programs' fresh process, phase 11's
 # dist_train.sh / dist_test.sh, phase 10's fresh process and serve CLI and
-# the voxel phases' dist_train.sh runs at B = 1, seven chains at a time (13
-# chains in two waves of ~50 s), beside ``EXPORT_WORKERS`` processes
+# the voxel phases' dist_train.sh runs at B = 1, seven chains at a time (7
+# chains, one wave of 77-98 s), beside ``EXPORT_WORKERS`` processes
 # exporting the phases' b1 programs (12 programs of 8-39 s: ~100 s in
 # three processes, ~150 s in two)
 TAIL_WORKERS = 8
@@ -7058,6 +7089,386 @@ def variants_phase(dev, work, kitti_run, parent=None):
         print(f"phase 20b {label}: {time.perf_counter() - t0:.1f} s")
     return out_runs
 
+# Phase 21: the rest of the IASSD surface.  label -> the CLIs' --set pairs
+# on PDA-SSD.yaml (key-wise dict overrides: the yaml has none of the keys)
+IASSD_VARIANTS = {
+    # SA1 by FS, 512 F-FPS + 512 D-FPS picks: the shipped 1024 centres
+    "V1": ("MODEL.BACKBONE_3D.SA_CONFIG",
+           "{'SAMPLE_METHOD_LIST': [['D-FPS'], ['FS'], ['ctr_aware'], ['ctr_aware'], [], []], "
+           "'NPOINT_LIST': [[4096], [512], [512], [256], [-1], [256]], "
+           "'PDA_VARIANT': 'no_global', 'PROPOSAL_AWARE_CBAM': True}",
+           "MODEL.POINT_HEAD", "{'IOU_FC': [256, 256]}"),
+    # SA0 by the radial-sector FPS, 16384 -> 4096 over four sectors
+    "V2": ("MODEL.BACKBONE_3D.SA_CONFIG",
+           "{'SAMPLE_METHOD_LIST': [['ds_FPS'], ['D-FPS'], ['ctr_aware'], ['ctr_aware'], [], []], "
+           "'POINTFORMER_IMPL': 'encoder_layer'}",
+           "MODEL.POINT_HEAD", "{'IOU_FC': [256, 256]}"),
+}
+IASSD_REQUESTS = {"V1": (1, 2), "V2": (1,)}  # the batch sizes served card vs CPU
+IASSD_KERNELS = {"V1": ("fps", "fps_features", "ball_query", "neighbor_attention",
+                        "neighbor_attention_bwd", "neighbor_attention_bf16"),
+                 "V2": ("fps", "ball_query", "neighbor_attention", "neighbor_attention_bwd",
+                        "neighbor_attention_bf16")}
+# SA1's F-FPS: B, N, C (xyz and SA0's 64 channels), npoint; then duplicated
+# rows, and rows too wide for shared memory (read from global memory)
+FFPS_SHAPES = ((1, 4096, 67, 512, False), (2, 4096, 67, 512, False),
+               (2, 4096, 67, 512, True), (1, 20000, 300, 64, False))
+NO_GLOBAL_ATTN = (("SA1 no_global", 1024, 48), ("SA2 no_global", 512, 96))
+
+
+def ffps_rows(seed, B, N, C, dup=False):
+    """F-FPS rows like SA1's: the xyz of a LiDAR-like cloud and C - 3
+    ReLU'd channels; ``dup`` repeats the first half of the rows."""
+    rs = np.random.RandomState(seed)
+    xyz = lidar_like_cloud(seed, B, N)[..., :3]
+    rows = np.concatenate([xyz, np.maximum(rs.randn(B, N, C - 3), 0)], -1).astype(np.float32)
+    if dup:
+        rows[:, N // 2:] = rows[:, :N - N // 2]
+    return rows
+
+
+def check_ffps(dev):
+    """The F-FPS kernel against its plain version on the card at
+    ``FFPS_SHAPES``: equal indices, its time per serial step, and at SA1's
+    shape its time, the plain version's and its bound (3 C operations a
+    point and step, the plain version timed at B = 1 only: ~0.65 s a
+    call).  Returns the kernel's row of numbers."""
+    import torch
+
+    from pdanet_tpu_torch.ops import sampling
+
+    st = {"max_abs_err": 0.0, "library_ms": None}
+    for B, N, C, m, dup in FFPS_SHAPES:
+        rows = torch.from_numpy(ffps_rows(2100 + B, B, N, C, dup)).to(dev)
+        got = sampling.farthest_point_sample_features_cuda(rows, m)
+        want = sampling.farthest_point_sample_features_plain(rows, m)
+        require(torch.equal(got, want), f"F-FPS B={B} N={N} C={C} npoint={m}: indices differ "
+                f"from the plain version")
+        kern = cuda_ms(lambda: sampling.farthest_point_sample_features_cuda(rows, m))
+        line = (f"fps_features B={B} N={N} C={C} npoint={m}{' duplicated rows' if dup else ''}: "
+                f"equal; launch shape {sampling.fps_features_config(N, C)}; kernel {kern:.4f} ms, "
+                f"{1e3 * kern / m:.2f} us a step")
+        if B == 1 and N == 4096:
+            plain = cuda_ms(lambda: sampling.farthest_point_sample_features_plain(rows, m),
+                            reps=PLAIN_REPS, warmup=1)
+            bnd = bound(rows.numel() * 4 + B * m * 4, 3 * C * N * m * B, F32_OPS_PER_S)
+            line += (f", plain {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at "
+                     f"{100 * bnd[0] / kern:.2f} % of it")
+            st.update(ms=kern, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1])
+        print(line)
+    return st
+
+
+def check_no_global_attention(dev):
+    """The attention kernels at no_global's head widths (d_model 3d: hd 48
+    at SA1, 96 at SA2), K 16 and 32, float32 and bfloat16, against the
+    plain versions on the card: the forward at b1 and the backward at B =
+    4, each timed at K 32 beside SDPA, with its bound."""
+    import torch
+
+    from pdanet_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+    for label, M, hd in NO_GLOBAL_ATTN:
+        for K in (16, 32):
+            for dt in (torch.float32, torch.bfloat16):
+                name = "bf16" if dt == torch.bfloat16 else "f32"
+                for B, bwd in ((1, False), (4, True)):
+                    R, D = B * M * K, 4 * hd
+                    t = [torch.randn(R, D, generator=gen, device=dev).to(dt) for _ in range(4)]
+                    if bwd:
+                        def kern():
+                            return attention.neighbor_attention_flat_bwd_cuda(*t, K, 4, hd)
+
+                        def plain():
+                            return attention.neighbor_attention_flat_bwd_plain(*t, K, 4, hd)
+                        lib = sdpa_backward(*t, K, 4, hd)
+                        err = grad_err(kern(), plain(), dt)
+                    else:
+                        def kern():
+                            return attention.neighbor_attention_flat_cuda(*t[:3], K, 4, hd)
+
+                        def plain():
+                            return attention.neighbor_attention_flat_plain(*t[:3], K, 4, hd)
+                        lib = sdpa_forward(*t[:3], K, 4, hd)[0]
+                        err = (kern().float() - plain().float()).abs().max().item()
+                    what = (f"attention{' backward' if bwd else ''} {label} B={B} K={K} hd={hd} "
+                            f"{name}")
+                    require(err <= tols[dt], f"{what}: err {err} > {tols[dt]}")
+                    metric = "max err / max |grad|" if bwd and name == "bf16" else "max abs err"
+                    line = f"{what}: {metric} {err:.3g}"
+                    if K == 32:
+                        kern_ms, lib_ms = in_turns(kern, lib)
+                        plain_ms = cuda_ms(plain, reps=PLAIN_REPS, warmup=1)
+                        bnd = attention_bound(R, K, 4, hd, dt, bwd=bwd)
+                        line += (f"; kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                                 f"{lib_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at "
+                                 f"{100 * bnd[0] / kern_ms:.1f} % of it")
+                    print(line)
+                    del t, lib
+
+
+def ellipsoid_margin(xyz, centers, radius, nsample):
+    """Per centre, the least distance from a surface of the ellipsoid
+    query over the points, in float64 on the CPU: min |d^2 / r^2 - 1| and
+    |val - 1| (a float32 covariance or eigenvector an ulp apart moves a
+    point that near across)."""
+    from pdanet_tpu_torch.ops.ellipsoid_query import query_frame
+
+    _, val, d2 = query_frame(radius, nsample, xyz.double().cpu(), centers.double().cpu())
+    return (d2 / (radius * radius) - 1).abs().minimum((val - 1).abs()).amin(-1)
+
+
+def check_iassd_ops(dev):
+    """``ry_fps`` (with y = 0 and x = y = 0 points), the ellipsoid query,
+    the dilated query and ``nms_rotated`` once each on the card against the
+    CPU: indices equal (an ellipsoid-query row apart must have a point
+    within 1e-4 of a surface, in float64)."""
+    import torch
+
+    from pdanet_tpu_torch.ops import ball_query, nms, sampling
+    from pdanet_tpu_torch.ops.ellipsoid_query import ellipsoid_query
+
+    t0 = time.perf_counter()
+    pts = lidar_like_cloud(2110, 2, N_POINTS)[..., :3].copy()
+    pts[0, :5, 1] = 0.0
+    pts[0, 5:7, :2] = 0.0
+    xyz = torch.from_numpy(pts)
+    got = sampling.ry_fps(xyz.to(dev), 4096).cpu()
+    require(torch.equal(got, sampling.ry_fps(xyz, 4096)), "ry_fps differs card vs CPU")
+    sup, ctr = xyz[:1, :4096].contiguous(), xyz[:1, :4096:16].contiguous()
+    rows = (ellipsoid_query(0.8, 32, sup.to(dev), ctr.to(dev)).cpu()
+            != ellipsoid_query(0.8, 32, sup, ctr)).any(-1)[0]
+    if rows.any():
+        near = ellipsoid_margin(sup[0], ctr[0], 0.8, 32)[rows]
+        require(bool((near < 1e-4).all()), f"the ellipsoid query differs card vs CPU on "
+                f"{int(rows.sum())} of {ctr.shape[1]} centres, margins {near.tolist()}")
+    dil = ball_query.ball_query_dilated(1.6, 0.8, 32, xyz.to(dev), xyz[:, ::16].to(dev)).cpu()
+    require(torch.equal(dil, ball_query.ball_query_dilated(1.6, 0.8, 32, xyz, xyz[:, ::16])),
+            "ball_query_dilated differs card vs CPU")
+    boxes = torch.from_numpy(random_boxes(2111, 1, 1024)[0])
+    scores = torch.from_numpy(np.random.RandomState(2112).rand(1024).astype(np.float32))
+    outs = [nms.nms_rotated(boxes.to(d), scores.to(d), 0.1, pre_maxsize=1024, post_maxsize=256)
+            for d in (dev, torch.device("cpu"))]
+    require(torch.equal(outs[0][0].cpu(), outs[1][0]) and int(outs[0][1]) == int(outs[1][1]),
+            "nms_rotated's selection differs card vs CPU")
+    print(f"ry_fps B=2 16384 -> 4096 (5 points on y = 0, 2 at x = y = 0), the ellipsoid query "
+          f"(4096 points, {ctr.shape[1]} centres, r 0.8, K 32; {int(rows.sum())} rows apart, "
+          f"each at a surface), the dilated query (B=2, 1024 centres, 0.8-1.6 m, K 32) and "
+          f"nms_rotated (K 1024, {int(outs[0][1])} kept): card equal to the CPU "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+class RecordFFPS:
+    """Records the rows and picks of the backbone's F-FPS calls."""
+
+    def __enter__(self):
+        from pdanet_tpu_torch.models.backbones_3d import iassd_backbone
+
+        self.module, self.own = iassd_backbone, iassd_backbone.farthest_point_sample_features
+        self.calls = []
+
+        def run(rows, npoint):
+            idx = self.own(rows, npoint)
+            self.calls.append((rows.detach().float().contiguous(), npoint, idx))
+            return idx
+
+        iassd_backbone.farthest_point_sample_features = run
+        return self
+
+    def __exit__(self, *exc):
+        self.module.farthest_point_sample_features = self.own
+
+
+def replay_card_picks(queue, checks):
+    """A sampling function for the CPU run that replays the card's picks
+    (``queue``, in call order) and notes, per layer, how many of the
+    CPU's own picks differ: D-FPS and the sector FPS run on the raw
+    coordinates and must agree; F-FPS (FS's first half) and the ctr-aware
+    top-k run on computed features, which round apart on the two devices."""
+    from pdanet_tpu_torch.models.backbones_3d import iassd_backbone
+
+    own_sampling = iassd_backbone.run_sampling
+
+    def pick(types, ranges, npoints, xyz, features, cls_features):
+        own = own_sampling(types, ranges, npoints, xyz, features, cls_features)
+        card = queue.pop(0)
+        kind = "/".join(types)
+        if kind == "FS":  # the F-FPS half, then the D-FPS half
+            half = own.shape[1] // 2
+            checks.append(("F-FPS (FS)", int((own[:, :half] != card[:, :half]).sum())))
+            checks.append(("D-FPS (FS)", int((own[:, half:] != card[:, half:]).sum())))
+        else:
+            checks.append((kind, int((own != card).sum())))
+        return card
+
+    return pick
+
+
+def iassd_card_vs_cpu(name, cfg, mcfg, model, weights, B, pts, out, post):
+    """One float32 request of a variant on the card against the CPU, the
+    CPU fed the card's picks: the CPU's own D-FPS / sector FPS picks equal,
+    the ball-query indices equal, centre features within 1e-3, cls, box
+    and IoU logits within 2e-3, equal detection counts."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.detectors import get_post_processor
+
+    cpu_model = build_network(mcfg, len(cfg.CLASS_NAMES), device="cpu").eval()
+    cpu_model.load_state_dict(weights)
+    flags = model.backbone_3d.fps_identity
+    queue = [s.cpu() for s, f in zip(out["sampled_idx"], flags) if s is not None and not f]
+    checks = []
+    t0 = time.perf_counter()
+    with fed(sampling=replay_card_picks(queue, checks)), torch.inference_mode():
+        c_out = cpu_model(pts)
+        c_post = get_post_processor(mcfg.NAME)(c_out, mcfg)
+    for kind, n in checks:
+        if kind in ("D-FPS", "ds_FPS", "ry_FPS", "D-FPS (FS)"):
+            require(n == 0, f"{name} b{B}: the CPU's {kind} picks differ from the card's ({n})")
+    for k in range(len(c_out["ball_query_idx"])):
+        for r, (gb, cb) in enumerate(zip(out["ball_query_idx"][k] or (),
+                                         c_out["ball_query_idx"][k] or ())):
+            require(torch.equal(gb.cpu(), cb), f"{name} b{B} SA{k} radius {r} ball query "
+                    f"differs card vs CPU")
+    errs = {key: (out[key].float().cpu() - c_out[key]).abs().max().item()
+            for key in ("centers_features", "batch_cls_preds", "center_box_preds",
+                        "box_iou3d_preds")}
+    print(f"{name} b{B} float32 card vs CPU ({time.perf_counter() - t0:.1f} s on the CPU, the "
+          f"card's picks fed; the CPU's own picks apart: {checks}): ball query equal; "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; detections {post['pred_counts'].tolist()} vs {c_post['pred_counts'].tolist()}")
+    require(errs["centers_features"] <= 1e-3, f"{name} b{B} centre features {errs}")
+    require(max(errs[k] for k in ("batch_cls_preds", "center_box_preds",
+                                  "box_iou3d_preds")) <= 2e-3, f"{name} b{B} logits {errs}")
+    require(torch.equal(post["pred_counts"].cpu(), c_post["pred_counts"]),
+            f"{name} b{B}: detection counts differ card vs CPU")
+
+
+def iassd_variant(name, dev):
+    """One variant of phase 21 at full width, seeded weights, TF32 off:
+    the float32 requests of ``IASSD_REQUESTS`` on the card against the
+    CPU (``iassd_card_vs_cpu``), the F-FPS kernel's calls held against its
+    plain version on their own rows; the shipped bfloat16 closure's b1
+    request against the float32 card detections (a report); for V1, the
+    b1 program of the bfloat16 closure through ``serving.export_serving``,
+    bit-equal to the eager closure; one float32 train step at B = 2
+    (finite loss and gradients, ``iou3d_loss_reg`` present).  Returns the
+    launches of its requests, program and step, counted from 0."""
+    import torch
+
+    from pdanet_tpu_torch.config import cfg_from_list
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.models.detectors import get_post_processor
+    from pdanet_tpu_torch.ops import sampling
+    from pdanet_tpu_torch.serving import export_serving, make_predict_fn
+
+    t_all = time.perf_counter()
+    cfg = cfg_from_list(list(IASSD_VARIANTS[name]), load_config())
+    mcfg = _f32_model_cfg(cfg)
+    model = init_random_weights(build_network(mcfg, len(cfg.CLASS_NAMES), device=dev),
+                                seed=21).eval()
+    weights = copy.deepcopy(model.state_dict())
+    runs, f32_first = [], None
+    for B in IASSD_REQUESTS[name]:
+        pts = torch.from_numpy(lidar_like_cloud(2120 + B, B, N_POINTS))
+        with torch.inference_mode():  # warm-up
+            model(pts.to(dev))
+        torch.cuda.synchronize()
+        clear_launches()
+        with RecordFFPS() as rec, torch.inference_mode():
+            t0 = time.perf_counter()
+            out = model(pts.to(dev))
+            post = get_post_processor(mcfg.NAME)(out, mcfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        runs.append(counted_launches())
+        for rows, m, idx in rec.calls:
+            require(torch.equal(idx, sampling.farthest_point_sample_features_plain(rows, m)),
+                    f"{name} b{B}: F-FPS on SA1's rows differs from the plain version")
+        print(f"{name} b{B} float32 request: {ms:.2f} ms (after one warm-up), detections "
+              f"{post['pred_counts'].tolist()}; F-FPS calls "
+              f"{[tuple(r.shape) + (m,) for r, m, _ in rec.calls]} equal to the plain version "
+              f"on the card's rows; launches {runs[-1]}")
+        iassd_card_vs_cpu(name, cfg, mcfg, model, weights, B, pts, out, post)
+        if B == 1:
+            f32_first = (pts, post)
+
+    bf16 = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev)
+    bf16.load_state_dict(weights)
+    predict = make_predict_fn(bf16, cfg.MODEL)
+    b1 = {"points": f32_first[0].to(dev)}
+    predict(b1)  # warm-up
+    torch.cuda.synchronize()
+    clear_launches()
+    res = predict(b1)
+    torch.cuda.synchronize()
+    runs.append(counted_launches())
+    pairs, n_bf, n_f32, gap_c, gap_s = match_detections(res, f32_first[1])
+    lat, enq = request_ms(predict, b1, reps=5, warmup=1)
+    print(f"{name} bfloat16 b1 request (report, no gate): {lat:.2f} ms (enqueue {enq:.2f}); "
+          f"{n_bf} and {n_f32} detections against float32, {pairs} paired, largest centre "
+          f"distance {gap_c:.4g} m, score difference {gap_s:.4g}")
+    if name == "V1":
+        t0 = time.perf_counter()
+        prog = export_serving(bf16, cfg.MODEL, b1).module()
+        export_s = time.perf_counter() - t0
+        want = predict(b1)
+        clear_launches()
+        got = prog(dict(b1))
+        torch.cuda.synchronize()
+        runs.append(counted_launches())
+        for key in want:
+            require(torch.equal(got[key], want[key]), f"{name} program: {key} differs from "
+                    f"the eager closure")
+        print(f"{name} b1 program: exported in {export_s:.1f} s, bit-equal to the eager "
+              f"closure; launches {runs[-1]}")
+        del prog
+    del bf16, predict
+
+    mean_size = np.asarray(cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER_CONFIG.mean_size,
+                           np.float32)
+    tpts, tgt = lidar_like_batch(2130, 2, N_POINTS, mean_size)
+    batch = {"points": torch.from_numpy(tpts).to(dev), "gt_boxes": torch.from_numpy(tgt).to(dev)}
+    tmodel, step = _train_model(cfg, mcfg, weights, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    clear_launches()
+    t0 = time.perf_counter()
+    loss, tb = step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    runs.append(counted_launches())
+    require(np.isfinite(loss.item()) and _grads_finite(tmodel), f"{name} step: not finite")
+    require("iou3d_loss_reg" in tb and np.isfinite(float(tb["iou3d_loss_reg"])),
+            f"{name} step: iou3d_loss_reg {tb.get('iou3d_loss_reg')}")
+    print(f"{name} train float32 B=2: loss {loss.item():.4f}, iou3d_loss_reg "
+          f"{float(tb['iou3d_loss_reg']):.4f}, center_pos_num {float(tb['center_pos_num']):.0f}; "
+          f"{step_ms:.2f} ms (its first step), peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB; launches {runs[-1]}")
+    launches = add_launches(*runs)
+    for kname in IASSD_KERNELS[name]:
+        require(launches.get(kname, 0) > 0, f"kernel {kname} never launched on {name}'s path")
+    print(f"phase 21 {name}: {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
+def iassd_phase(dev):
+    """Phase 21: the rest of the IASSD surface.  The F-FPS kernel against
+    its plain version (``check_ffps``), the attention at no_global's head
+    widths (``check_no_global_attention``), V1 and V2 of
+    ``IASSD_VARIANTS`` (``iassd_variant``) and the stand-alone ops
+    (``check_iassd_ops``).  Returns the launches of V1's and V2's runs and
+    F-FPS's row."""
+    ffps = check_ffps(dev)
+    check_no_global_attention(dev)
+    runs = {name: iassd_variant(name, dev) for name in IASSD_VARIANTS}
+    check_iassd_ops(dev)
+    return runs, ffps
+
+
 
 @contextlib.contextmanager
 def count_augmentor_changes():
@@ -7293,7 +7704,7 @@ def main():
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
                     "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
-    ap.add_argument("--phases", help="comma-separated phases of 3-20 to run, with those they "
+    ap.add_argument("--phases", help="comma-separated phases of 3-21 to run, with those they "
                     "read (3 for 6, 4 for 5 and 11, 9 for 11-20); every phase without it, and "
                     "only then are the launches of every kernel required")
     args = ap.parse_args()
@@ -7351,10 +7762,10 @@ def main():
         multi_gpu(dev, args.world)
         return
 
-    # ---- 3.-20.
-    every = set(range(3, 21))
+    # ---- 3.-21.
+    every = set(range(3, 22))
     want = every if not args.phases else {int(p) for p in args.phases.split(",")}
-    require(want <= every, f"--phases {args.phases}: phases 3-20 only")
+    require(want <= every, f"--phases {args.phases}: phases 3-21 only")
     want |= {3} if 6 in want else set()
     want |= {4} if want & {5, 11} else set()
     want |= {9} if want & set(range(11, 21)) else set()
@@ -7385,6 +7796,11 @@ def main():
     if 8 in want:
         with tempfile.TemporaryDirectory(prefix="pdanet_once_") as work:
             runs["once"] = timed("8 (ONCE)", once_phase, dev, work)
+    ffps = None
+    if 21 in want:
+        iassd_runs, ffps = timed("21 (the IASSD surface: F-FPS, FS, the sector FPS, the SA "
+                                 "ablations, IOU_FC, the stand-alone ops)", iassd_phase, dev)
+        runs.update({f"iassd_{name}": run for name, run in iassd_runs.items()})
     if 9 in want:
         with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as kitti_work:
             runs["kitti"], kitti_run = timed("9 (KITTI through the CLIs)", kitti_phase, dev,
@@ -7478,6 +7894,11 @@ def main():
             require(n > 0, f"kernel {name} never launched for {row_name} in phase {phase}")
             rows.append({"name": row_name, "route": "cuda", "source": KERNELS[name][0],
                          "replaces": KERNELS[name][1], "launches": n, **numbers})
+    if ffps is not None:
+        n = sum(run.get("fps_features", 0) for run in runs.values())
+        require(n > 0, "kernel fps_features never launched on phase 21's path")
+        rows.append({"name": "fps_features", "route": "cuda", "source": FFPS_KERNEL[0],
+                     "replaces": FFPS_KERNEL[1], "launches": n, **ffps})
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the argument parse")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

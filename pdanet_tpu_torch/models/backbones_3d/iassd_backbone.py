@@ -1,11 +1,15 @@
 """IA-SSD / PDA-SSD backbone (channels-last).
 
 Counterpart of ``pdanet_tpu/models/backbones_3d/iassd_backbone.py``: the
-SA stack with D-FPS and ctr-aware sampling, the PDA (ellipsoid) module with
-its density, position, global and raw branches fused by a K-neighbour
-pre-norm transformer, the vote layer, and the stacked-D-FPS identity
-shortcut.  Module and attribute names follow the flax names
-(``SA_modules_{k}``, ``mlps_{i}``, ``Local_pointformer_{i}`` ...).
+SA stack with every sampling method (D-FPS, F-FPS, FS, the sector FPS and
+ctr-aware), the PDA (ellipsoid) module with its density, position, global
+and raw branches fused by a K-neighbour transformer, the vote layer, and
+the stacked-D-FPS identity shortcut.  The SA ablations the JAX package
+takes from ``SA_CONFIG``: ``PDA_VARIANT: no_global`` (no global branch,
+three tokens), ``POINTFORMER_IMPL: encoder_layer`` (``EncoderLayer`` as
+the fuser) and ``PROPOSAL_AWARE_CBAM`` (CBAM on the WithSampling layers).
+Module and attribute names follow the flax names (``SA_modules_{k}``,
+``mlps_{i}``, ``Local_pointformer_{i}``, ``cbam`` ...).
 
 Beyond the JAX package's output dict, the backbone returns each layer's
 sampling indices (``sampled_idx``) and ball-query indices
@@ -24,18 +28,19 @@ import torch
 from torch import nn
 
 from ...ops.ball_query import ball_query_multi
-from ...ops.grouping import gather_points, group_points
-from ...ops.sampling import farthest_point_sample
+from ...ops.grouping import gather_points, gaussian_density, group_points
+from ...ops.sampling import (ds_fps, farthest_point_sample, farthest_point_sample_features,
+                             ry_fps)
 from ...utils.easydict import EasyDict
-from ..blocks import (Dense, DensityNet, MLPStack, TrainEvalDtype,
+from ..blocks import (CBAM, Dense, DensityNet, EncoderLayer, MLPStack, TrainEvalDtype,
                       TransformerEncoderLayerPreNorm)
-
-_LATER = "ROADMAP queue 1 item 4"
 
 
 def sample_indices(sample_type, npoint, xyz, features, cls_features):
-    """Sampling dispatch (pointnet2_modules.py:1556-1644), D-FPS and
-    ctr-aware only.  Returns (B, npoint) int32 indices."""
+    """Sampling dispatch (pointnet2_modules.py:1556-1644; JAX
+    ``iassd_backbone.py:48-84``), tested in the JAX package's order.
+    Returns (B, npoint) int32 indices; ``FS`` returns 2 * npoint: the
+    F-FPS picks over ``[xyz | features]``, then the D-FPS picks."""
     B, N, _ = xyz.shape
     if N <= npoint:  # no-downsample passthrough
         return torch.arange(N, dtype=torch.int32, device=xyz.device).expand(B, N)
@@ -47,7 +52,17 @@ def sample_indices(sample_type, npoint, xyz, features, cls_features):
         return idx[:, :npoint].to(torch.int32)
     if "D-FPS" in sample_type or "DFS" in sample_type:
         return farthest_point_sample(xyz.contiguous(), npoint)
-    raise NotImplementedError(f"sample_type={sample_type} is {_LATER}")
+    if "F-FPS" in sample_type or "FFS" in sample_type:
+        return farthest_point_sample_features(torch.cat([xyz, features], dim=-1), npoint)
+    if sample_type == "FS":
+        idx1 = farthest_point_sample_features(torch.cat([xyz, features], dim=-1), npoint)
+        idx2 = farthest_point_sample(xyz.contiguous(), npoint)
+        return torch.cat([idx1, idx2], dim=-1)
+    if sample_type in ("ds_FPS", "ds-FPS"):
+        return ds_fps(xyz, npoint)
+    if sample_type in ("ry_FPS", "ry-FPS"):
+        return ry_fps(xyz, npoint)
+    raise NotImplementedError(f"sample_type={sample_type}")
 
 
 def run_sampling(sample_type_list, sample_range_list, npoint_list, xyz,
@@ -78,19 +93,19 @@ def query_group_density_directional(radius, xyz, new_xyz, features, idx):
     [abs xyz (3) | gaussian density (1) | unit direction (3) | features]."""
     g = group_points(torch.cat([xyz, features], dim=-1), idx)
     grouped_xyz = g[..., 0:3]  # (B, M, K, 3)
-    rel = grouped_xyz - new_xyz[:, :, None, :]
-    d2 = torch.sum(rel * rel, dim=-1)
-    density = torch.exp(-d2 / (2.0 * radius ** 2)) / (2.5 * radius)
-    return grouped_xyz, density[..., None], rel / radius, g[..., 3:]
+    density = gaussian_density(grouped_xyz, new_xyz, radius)
+    direction = (grouped_xyz - new_xyz[:, :, None, :]) / radius
+    return grouped_xyz, density[..., None], direction, g[..., 3:]
 
 
 class _SAModule(nn.Module):
     """What both SA modules share: sampling, the multi-radius query, and
-    the aggregation and confidence layers after the per-radius branches."""
+    the aggregation, CBAM (``use_cbam``) and confidence layers after the
+    per-radius branches."""
 
     def __init__(self, channel_in, npoint_list, sample_range_list,
                  sample_type_list, radii, nsamples, mlps, aggregation_mlp,
-                 confidence_mlp, num_class, compute_dtype):
+                 confidence_mlp, num_class, compute_dtype, use_cbam=False):
         super().__init__()
         self.npoint_list = tuple(npoint_list)
         self.sample_range_list = tuple(sample_range_list)
@@ -106,6 +121,9 @@ class _SAModule(nn.Module):
             self.aggregation_layer = MLPStack(out, aggregation_mlp,
                                               dtype=compute_dtype)
             out = aggregation_mlp[-1]
+        self.use_cbam = use_cbam
+        if use_cbam:
+            self.cbam = CBAM()
         if self.has_confidence:
             self.confidence_mlp = MLPStack(out, confidence_mlp,
                                            dtype=compute_dtype)
@@ -125,8 +143,10 @@ class _SAModule(nn.Module):
                                 new_xyz.contiguous())
 
     def finish(self, scale_feats, xyz, features, sampled_idx):
-        """Aggregate the per-radius features (or gather, without radii)
-        and run the confidence layers: (new_features, cls_preds)."""
+        """Aggregate the per-radius features (or gather, without radii),
+        apply CBAM (the Proposal_Aware ablation, pointnet2_modules.py:
+        1318-1321) and run the confidence layers: (new_features,
+        cls_preds)."""
         if self.radii:
             new_features = torch.cat(scale_feats, dim=-1)
             if self.has_aggregation:
@@ -134,6 +154,8 @@ class _SAModule(nn.Module):
             new_features = new_features.to(xyz.dtype)  # leave bf16 compute
         else:
             new_features = gather_points(features, sampled_idx)
+        if self.use_cbam:
+            new_features = self.cbam(new_features)
         cls_preds = None
         if self.has_confidence:
             cls_preds = self.confidence_out(
@@ -143,16 +165,17 @@ class _SAModule(nn.Module):
 
 class SAModuleWithSampling(_SAModule):
     """IA-SSD SA layer (pointnet2_modules.py:1417-1686): MLP over
-    [relative xyz | features] per radius, max-pool over K, aggregation.
-    ``mlps``: each [channel_in + 3, ...] (the use_xyz concat)."""
+    [relative xyz | features] per radius, max-pool over K, aggregation,
+    and with ``use_cbam`` CBAM before the confidence layers.  ``mlps``:
+    each [channel_in + 3, ...] (the use_xyz concat)."""
 
     def __init__(self, channel_in, npoint_list, sample_range_list,
                  sample_type_list, radii, nsamples, mlps, aggregation_mlp,
-                 confidence_mlp, num_class, compute_dtype=None):
+                 confidence_mlp, num_class, compute_dtype=None, use_cbam=False):
         super().__init__(channel_in, npoint_list, sample_range_list,
                          sample_type_list, radii, nsamples, mlps,
                          aggregation_mlp, confidence_mlp, num_class,
-                         compute_dtype)
+                         compute_dtype, use_cbam)
         for i in range(len(self.radii)):
             self.add_module(f"mlps_{i}", MLPStack(
                 mlps[i][0], mlps[i][1:], dtype=compute_dtype))
@@ -182,34 +205,46 @@ class SAModuleWithSampling(_SAModule):
 
 
 class SAModuleEllipsoid(_SAModule):
-    """The PDA SA layer (pointnet2_modules.py:541-954), pre-norm variant.
+    """The PDA SA layer (pointnet2_modules.py:541-954).
 
     Per radius, four branches over the grouped neighbourhood -- density
     scaled features (DensityNet), the RPPE position encoding, a per-centre
     global MLP broadcast over K, and the raw grouped features -- are
-    concatenated to 4d channels, fused by a pre-norm transformer over the K
-    neighbours, max-pooled and projected by fin_conv.  ``mlps``: each
-    [channel_in, ...] (no +3).
+    concatenated to 4d channels, fused by a transformer over the K
+    neighbours, max-pooled and projected by fin_conv.  ``use_global``
+    False is the No_Global ablation (pointnet2_modules.py:130-539): three
+    tokens, d_model 3d.  ``pointformer_impl`` "encoder_layer" fuses with
+    ``EncoderLayer`` (:1325-1414), anything else with the pre-norm
+    transformer, as in the JAX package.  ``mlps``: each [channel_in, ...]
+    (no +3).
     """
 
     def __init__(self, channel_in, npoint_list, sample_range_list,
                  sample_type_list, radii, nsamples, mlps, aggregation_mlp,
-                 confidence_mlp, num_class, compute_dtype=None):
+                 confidence_mlp, num_class, compute_dtype=None, use_global=True,
+                 pointformer_impl="pre_norm"):
         super().__init__(channel_in, npoint_list, sample_range_list,
                          sample_type_list, radii, nsamples, mlps,
                          aggregation_mlp, confidence_mlp, num_class,
                          compute_dtype)
+        self.use_global = use_global
+        n_tokens = 4 if use_global else 3
         for i in range(len(self.radii)):
             d = mlps[i][0]
             self.add_module(f"point_density_{i}", DensityNet())
             self.add_module(f"position_mlp_{i}", MLPStack(
                 12, (d // 2, d), dtype=compute_dtype))
-            self.add_module(f"global_mlps_{i}", MLPStack(
-                3 + channel_in, (d, d), dtype=compute_dtype))
-            self.add_module(f"Local_pointformer_{i}", TransformerEncoderLayerPreNorm(
-                4 * d, 4, 2 * d, dtype=compute_dtype))
+            if use_global:
+                self.add_module(f"global_mlps_{i}", MLPStack(
+                    3 + channel_in, (d, d), dtype=compute_dtype))
+            if pointformer_impl == "encoder_layer":
+                fuser = EncoderLayer(n_tokens * d, 4, dtype=compute_dtype)
+            else:
+                fuser = TransformerEncoderLayerPreNorm(n_tokens * d, 4, 2 * d,
+                                                       dtype=compute_dtype)
+            self.add_module(f"Local_pointformer_{i}", fuser)
             self.add_module(f"fin_conv_{i}", MLPStack(
-                4 * d, (2 * d, mlps[i][-1]), dtype=compute_dtype))
+                n_tokens * d, (2 * d, mlps[i][-1]), dtype=compute_dtype))
 
     def forward(self, xyz, features, cls_features=None, ctr_xyz=None,
                 fps_identity=False):
@@ -225,7 +260,7 @@ class SAModuleEllipsoid(_SAModule):
         else:
             new_xyz, new_xyz_feature = ctr_xyz, None
         idx_list = self.query(xyz, new_xyz) if self.radii else None
-        if self.radii:
+        if self.radii and self.use_global:
             global_input = torch.cat([new_xyz, new_xyz_feature], dim=-1)
         scale_feats = []
         for i, radius in enumerate(self.radii):
@@ -239,10 +274,12 @@ class SAModuleEllipsoid(_SAModule):
             rppe = torch.cat([centers_k, grouped_xyz,
                               centers_k - grouped_xyz, direction], dim=-1)
             rppe = getattr(self, f"position_mlp_{i}")(rppe)
-            g = getattr(self, f"global_mlps_{i}")(global_input)
-            g_k = g[:, :, None, :].expand(rppe.shape[:3] + (g.shape[-1],))
+            branches = [rppe, feat_density, grouped_feats]
+            if self.use_global:
+                g = getattr(self, f"global_mlps_{i}")(global_input)
+                branches.append(g[:, :, None, :].expand(rppe.shape[:3] + (g.shape[-1],)))
             # mixed bf16/f32 branches concatenate to f32, as in JAX
-            fused = torch.cat([rppe, feat_density, grouped_feats, g_k], dim=-1)
+            fused = torch.cat(branches, dim=-1)
             fused = getattr(self, f"Local_pointformer_{i}")(fused)
             pooled = fused.max(dim=2).values
             scale_feats.append(getattr(self, f"fin_conv_{i}")(pooled))
@@ -307,10 +344,6 @@ class IASSDBackbone(nn.Module):
         confidence_mlps = sa_cfg.get("CONFIDENCE_MLPS", None)
         compute_dtype = compute_dtype_of(mcfg)
         max_translate = sa_cfg.get("MAX_TRANSLATE_RANGE", None)
-        if str(sa_cfg.get("PDA_VARIANT", "ellipsoid")) != "ellipsoid" or \
-                str(sa_cfg.get("POINTFORMER_IMPL", "pre_norm")) != "pre_norm" or \
-                sa_cfg.get("PROPOSAL_AWARE_CBAM", False):
-            raise NotImplementedError(f"the SA ablation variants are {_LATER}")
 
         # stacked-D-FPS identity shortcut: FPS over a selection-ordered
         # point set is the identity prefix (proof in the JAX package,
@@ -349,11 +382,19 @@ class IASSDBackbone(nn.Module):
                     conf = list(confidence_mlps[k])
                 # PDA placement rule (IASSD_backbone.py:62-94): layers 1-4
                 # use the PDA module, the others plain WithSampling
+                # and the ablation switches (JAX :537-548)
                 if k < 1 or k > 4:
                     cls = SAModuleWithSampling
                     mlps = [[m[0] + 3] + m[1:] for m in mlps]
+                    variant_kw = dict(use_cbam=bool(sa_cfg.get("PROPOSAL_AWARE_CBAM", False)))
                 else:
                     cls = SAModuleEllipsoid
+                    pda_variant = str(sa_cfg.get("PDA_VARIANT", "ellipsoid"))
+                    if pda_variant not in ("ellipsoid", "no_global"):
+                        raise NotImplementedError(f"PDA_VARIANT={pda_variant}")
+                    variant_kw = dict(
+                        use_global=pda_variant != "no_global",
+                        pointformer_impl=str(sa_cfg.get("POINTFORMER_IMPL", "pre_norm")))
                 module = cls(
                     channel_in,
                     npoint_list=sa_cfg.NPOINT_LIST[k],
@@ -366,6 +407,7 @@ class IASSDBackbone(nn.Module):
                     confidence_mlp=conf,
                     num_class=num_class,
                     compute_dtype=compute_dtype,
+                    **variant_kw,
                 )
             elif self.layer_types[k] == "Vote_Layer":
                 module = VoteLayer(channel_in, list(sa_cfg.MLPS[k]),

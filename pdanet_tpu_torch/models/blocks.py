@@ -354,6 +354,55 @@ class TransformerEncoderLayerPreNorm(nn.Module):
         return x + self.linear2(torch.relu(self.linear1(x)))
 
 
+class CBAM(nn.Module):
+    """Spatial attention of the Proposal_Aware SA ablation
+    (``pdanet_tpu/models/blocks.py:214-232``; pointnet2_modules.py:
+    1010-1046): the spatial half only, as the reference executes it.  Per
+    point, the max and the mean over the channels, a bias-free 2 -> 1
+    Dense, a sigmoid that scales the input.  The max's gradient is shared
+    by tied channels (``amax``), as JAX's ``max`` shares it."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv_layer = Dense(2, 1, bias=False)
+
+    def forward(self, x):
+        mp = torch.amax(x, dim=-1, keepdim=True)
+        ap = x.mean(dim=-1, keepdim=True)
+        return x * torch.sigmoid(self.conv_layer(torch.cat([mp, ap], dim=-1)))
+
+
+class EncoderLayer(nn.Module):
+    """The FullAttention encoder-layer ablation as the K-neighbour fuser
+    (``pdanet_tpu/models/blocks.py:235-278``; pointnet2_modules.py:
+    1325-1414): bias-free q / k / v / merge projections, softmax(q k^T /
+    sqrt(hd)) v per head, a bias-free d -> 2d -> d feed-forward, and the
+    conventional pre-norm residual (the un-normalized input is the
+    residual base).  The attention core is the kernel of
+    ``ops/attention.py`` on the flat (rows, H*hd) layout, forward and
+    backward."""
+
+    def __init__(self, d_model, nhead, dtype=None):
+        super().__init__()
+        self.nhead = nhead
+        self.compute_dtype = dtype
+        self.norm1 = LayerNorm(d_model, dtype=dtype)
+        for name in ("q_proj", "k_proj", "v_proj", "merge"):
+            self.add_module(name, Dense(d_model, d_model, bias=False, dtype=dtype))
+        self.norm2 = LayerNorm(d_model, dtype=dtype)
+        self.mlp_0 = Dense(d_model, 2 * d_model, bias=False, dtype=dtype)
+        self.mlp_1 = Dense(2 * d_model, d_model, bias=False, dtype=dtype)
+
+    def forward(self, x):
+        *batch, K, D = x.shape
+        H = self.nhead
+        h = self.norm1(x).reshape(-1, D)
+        q, k, v = (getattr(self, n)(h) for n in ("q_proj", "k_proj", "v_proj"))
+        att = neighbor_attention_flat(q, k, v, K, H, D // H)
+        message = self.merge(att).reshape(*batch, K, D) + x
+        return message + self.mlp_1(torch.relu(self.mlp_0(self.norm2(message))))
+
+
 @torch.no_grad()
 def init_random_weights(model, seed):
     """Seeded random weights in the flax initializers' spirit: Dense and

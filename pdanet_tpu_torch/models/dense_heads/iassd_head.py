@@ -2,7 +2,8 @@
 the loss stack.
 
 Counterpart of ``pdanet_tpu/models/dense_heads/iassd_head.py``: the
-prediction MLPs (``IASSDHeadNet``, :31-50), ``assign_stack_targets`` and
+prediction MLPs (``IASSDHeadNet``, :31-50, with the ``IOU_FC`` branch),
+``assign_stack_targets`` and
 ``assign_targets`` (:58-218), the loss stack (:226-630) and the box decode
 (``generate_predicted_boxes``, :633-643).  Every per-point tensor is dense
 (B, N, ...), and every loss is a masked fixed-shape reduction.
@@ -33,24 +34,33 @@ from torch import nn
 from ... import parallel
 from ...ops.chamfer import cd_loss_l1
 from ...ops.geometry import enlarge_box3d, points_in_boxes, rotate_points_along_z
+from ...ops.rotated_iou import paired_boxes_iou3d
 from ...utils import loss_utils
 from ..blocks import Dense, MLPStack
 
 
 class IASSDHeadNet(nn.Module):
-    """Prediction MLPs (IASSD_head.py:28-43)."""
+    """Prediction MLPs (IASSD_head.py:28-43).  With ``iou_fc`` (the yaml's
+    ``IOU_FC``) a third stack, ``box_iou3d_layers`` and a Dense to one
+    channel, predicts each centre's 3-D IoU; else its output is None."""
 
-    def __init__(self, channel_in, cls_fc, reg_fc, num_class, code_size):
+    def __init__(self, channel_in, cls_fc, reg_fc, num_class, code_size, iou_fc=None):
         super().__init__()
         self.cls_center_layers = MLPStack(channel_in, cls_fc)
         self.cls_center_out = Dense(cls_fc[-1], num_class)
         self.box_center_layers = MLPStack(channel_in, reg_fc)
         self.box_center_out = Dense(reg_fc[-1], code_size)
+        self.has_iou = iou_fc is not None
+        if self.has_iou:
+            self.box_iou3d_layers = MLPStack(channel_in, iou_fc)
+            self.box_iou3d_out = Dense(iou_fc[-1], 1)
 
     def forward(self, center_features):
         cls_preds = self.cls_center_out(self.cls_center_layers(center_features))
         box_preds = self.box_center_out(self.box_center_layers(center_features))
-        return cls_preds, box_preds
+        iou_preds = (self.box_iou3d_out(self.box_iou3d_layers(center_features))
+                     if self.has_iou else None)
+        return cls_preds, box_preds, iou_preds
 
 
 def generate_predicted_boxes(points, cls_preds, box_preds, box_coder):
@@ -409,6 +419,25 @@ def corner_layer_loss(forward_ret, loss_cfg):
     return loss, {"corner_loss_reg": loss}
 
 
+def iou3d_layer_loss(forward_ret, loss_cfg):
+    """IoU-quality regression (IASSD_head.py:1324-1340; JAX :505-529), with
+    ``IOU_FC``: smooth L1 (beta 1) of the IoU head's output against the
+    3-D IoU of each positive centre's decoded box (detached) and its gt
+    box, meaned over the positives, times ``iou3d_weight``."""
+    pos = forward_ret["center_pos_mask"]
+    gt = forward_ret["center_gt_box_of_points"][..., 0:7]
+    pred = forward_ret["point_box_preds"].detach()
+    B, N = pos.shape
+    targets = paired_boxes_iou3d(pred.reshape(B * N, 7), gt.reshape(B * N, 7)).reshape(B, N)
+    preds = forward_ret["box_iou3d_preds"][..., 0]
+    m = pos.to(preds.dtype)
+    per = loss_utils.smooth_l1(preds - targets.detach(), beta=1.0)
+    loss = (per * m).sum() / torch.clamp(parallel.all_reduce_detached(m.sum()), min=1.0)
+    loss = loss * forward_ret.get(
+        "iou3d_weight", loss_cfg.LOSS_WEIGHTS.get("iou3d_weight", 1.0))
+    return loss, {"iou3d_loss_reg": loss}
+
+
 @torch.no_grad()
 def cd_loss_metric(forward_ret, loss_cfg):
     """The ``CD_loss`` scalar (IASSD_head.py:700-731): for every SA layer
@@ -489,9 +518,12 @@ def get_loss(forward_ret, model_cfg, box_coder, num_class, num_boxes):
     if loss_cfg.get("CORNER_LOSS_REGULARIZATION", False):
         corner_loss, tb_c = corner_layer_loss(forward_ret, loss_cfg)
         tb.update(tb_c)
-    if model_cfg.get("IOU_FC", None) is not None:
-        raise NotImplementedError("iou3d_layer_loss (IOU_FC) is ROADMAP queue 1 item 4")
+    iou3d_loss = 0.0
+    if model_cfg.get("IOU_FC", None) is not None and \
+            forward_ret.get("box_iou3d_preds") is not None:
+        iou3d_loss, tb_iou = iou3d_layer_loss(forward_ret, loss_cfg)
+        tb.update(tb_iou)
 
-    total = vote_loss + sa_loss + cls_loss + box_loss + corner_loss
+    total = vote_loss + sa_loss + cls_loss + box_loss + corner_loss + iou3d_loss
     tb["point_loss"] = total
     return total, tb

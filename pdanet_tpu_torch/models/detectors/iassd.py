@@ -32,19 +32,20 @@ class IASSD(nn.Module):
         self.box_coder = build_box_coder(
             head_cfg.TARGET_CONFIG.BOX_CODER,
             head_cfg.TARGET_CONFIG.BOX_CODER_CONFIG)
-        if head_cfg.get("IOU_FC"):
-            raise NotImplementedError(
-                "IOU_FC is ROADMAP queue 1 item 4")
         self.point_head = iassd_head.IASSDHeadNet(
             self.backbone_3d.num_point_features, list(head_cfg.CLS_FC),
-            list(head_cfg.REG_FC), num_class, self.box_coder.code_size)
+            list(head_cfg.REG_FC), num_class, self.box_coder.code_size,
+            iou_fc=list(head_cfg.IOU_FC) if head_cfg.get("IOU_FC") else None)
 
     def forward(self, points):
-        """points: (B, N, 3 + C). Returns the forward dict."""
+        """points: (B, N, 3 + C). Returns the forward dict; with ``IOU_FC``
+        it holds the IoU head's ``box_iou3d_preds`` (B, N, 1)."""
         out = self.backbone_3d(points)
-        cls_preds, box_preds = self.point_head(out["centers_features"])
+        cls_preds, box_preds, iou_preds = self.point_head(out["centers_features"])
         out["center_cls_preds"] = cls_preds
         out["center_box_preds"] = box_preds
+        if iou_preds is not None:
+            out["box_iou3d_preds"] = iou_preds
         _, decoded = iassd_head.generate_predicted_boxes(
             out["centers"], cls_preds, box_preds, self.box_coder)
         out["point_box_preds"] = decoded

@@ -1,6 +1,7 @@
 """Post-processing NMS over fixed-size candidates: counterpart of
-``pdanet_tpu/models/model_utils/model_nms_utils.py:38-153``
-(``batched_nms_candidates``, the one copy every ported detector's
+``pdanet_tpu/models/model_utils/model_nms_utils.py:18-153``
+(``class_agnostic_nms``, one frame's NMS by the yaml's ``NMS_CONFIG``;
+``batched_nms_candidates``, the one copy every ported detector's
 post-processing and the two-stage proposal layer call, and
 ``batched_multi_classes_nms``, one such NMS a class).
 
@@ -13,9 +14,19 @@ in score order, into ``NMS_POST_MAXSIZE`` slots.
 
 import torch
 
-from ...ops.nms import greedy_nms_mask_batched
+from ...ops.nms import greedy_nms_mask_batched, nms_rotated
 from ...ops.rotated_iou import boxes_iou_bev_batched_self
 from ...utils.easydict import EasyDict
+
+
+def class_agnostic_nms(box_scores, box_preds, nms_config, score_thresh=None):
+    """One frame: box_scores (N,) sigmoid scores, box_preds (N, 7) ->
+    (selected (POST,) int32 indices, -1 padded; count; their scores), by
+    ``ops.nms.nms_rotated`` with the config's threshold and sizes."""
+    return nms_rotated(box_preds, box_scores, thresh=float(nms_config.NMS_THRESH),
+                       pre_maxsize=int(nms_config.NMS_PRE_MAXSIZE),
+                       post_maxsize=int(nms_config.NMS_POST_MAXSIZE),
+                       score_thresh=score_thresh)
 
 
 def batched_nms_candidates(boxes, scores, labels, valid, nms_cfg, score_thresh=None):

@@ -1,6 +1,7 @@
-"""Multi-radius first-K ball query with the CUDA first-hit padding.
+"""Multi-radius first-K ball query with the CUDA first-hit padding, and
+the dilated (annulus) query.
 
-Counterpart of ``pdanet_tpu/ops/ball_query.py:109-188``.  For each centre
+Counterpart of ``pdanet_tpu/ops/ball_query.py:109-224``.  For each centre
 and each (radius, K): the first K support indices in scan order with
 ``d2 < r2`` (strict, ``r2 = float32(radius * radius)``).  Unfilled slots
 repeat the first hit; a centre with no hit gets index 0.  The op
@@ -44,38 +45,69 @@ def _r2(radius):
     return float(np.float32(radius * radius))
 
 
+def first_hits(hit, k):
+    """(m, n) bool -> (m, k) int64: the positions of each row's first k
+    hits in scan order, unfilled slots repeating the first hit, a row with
+    no hit all 0 (the CUDA kernels' padding)."""
+    rank = torch.cumsum(hit, dim=-1)  # 1-based rank of each hit
+    take = hit & (rank <= k)
+    slot = torch.where(take, rank - 1, torch.full_like(rank, k))
+    sel = torch.zeros((hit.shape[0], k + 1), dtype=torch.int64, device=hit.device)
+    iota = torch.arange(hit.shape[-1], device=hit.device)
+    sel.scatter_(1, slot, iota.expand_as(slot))  # slot k: discard
+    sel = sel[:, :k]
+    total = rank[:, -1:]
+    fill = torch.where(total > 0, sel[:, 0:1], 0)
+    slots = torch.arange(k, device=hit.device)[None]
+    return torch.where(slots < total, sel, fill)
+
+
+def _center_d2(c, pts):
+    """(m, 3) centres x (N, 3) points -> (m, N) squared distances, the
+    centre minus the point, summed x, y, z."""
+    dx = c[:, 0:1] - pts[None, :, 0]
+    dy = c[:, 1:2] - pts[None, :, 1]
+    dz = c[:, 2:3] - pts[None, :, 2]
+    return dx * dx + dy * dy + dz * dz
+
+
 def ball_query_multi_plain(radii, nsamples, xyz, new_xyz):
     """The plain PyTorch version: hit masks, cumsum ranks and a scatter,
     over chunks of centres."""
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
-    dev = xyz.device
-    outs = [torch.zeros((B, M, k), dtype=torch.int32, device=dev)
+    outs = [torch.zeros((B, M, k), dtype=torch.int32, device=xyz.device)
             for k in nsamples]
-    iota = torch.arange(N, device=dev)
     chunk = max(1, _PLAIN_CHUNK // max(N, 1))
     for b in range(B):
         for m0 in range(0, M, chunk):
-            c = new_xyz[b, m0:m0 + chunk]  # (m, 3)
-            dx = c[:, 0:1] - xyz[b, None, :, 0]
-            dy = c[:, 1:2] - xyz[b, None, :, 1]
-            dz = c[:, 2:3] - xyz[b, None, :, 2]
-            d2 = dx * dx + dy * dy + dz * dz  # (m, N)
+            d2 = _center_d2(new_xyz[b, m0:m0 + chunk], xyz[b])  # (m, N)
             for r, (radius, k) in enumerate(zip(radii, nsamples)):
-                hit = d2 < _r2(radius)
-                rank = torch.cumsum(hit, dim=-1)  # 1-based rank of each hit
-                take = hit & (rank <= k)
-                slot = torch.where(take, rank - 1, torch.full_like(rank, k))
-                sel = torch.zeros((c.shape[0], k + 1), dtype=torch.int64,
-                                  device=dev)
-                sel.scatter_(1, slot, iota.expand_as(slot))  # slot k: discard
-                sel = sel[:, :k]
-                total = rank[:, -1:]
-                fill = torch.where(total > 0, sel[:, 0:1], 0)
-                slots = torch.arange(k, device=dev)[None]
-                outs[r][b, m0:m0 + chunk] = torch.where(
-                    slots < total, sel, fill).to(torch.int32)
+                outs[r][b, m0:m0 + chunk] = first_hits(d2 < _r2(radius), k).to(torch.int32)
     return tuple(outs)
+
+
+def ball_query_dilated(max_radius, min_radius, nsample, xyz, new_xyz):
+    """The annulus query (``ball_query_dilated_kernel_fast``,
+    ball_query_gpu.cu:70-117; JAX ``ball_query.py:192-224``): (B, N, 3) x
+    (B, M, 3) -> (B, M, nsample) int32, the first hits in scan order with
+    ``min_radius^2 <= d^2 < max_radius^2``, first-hit padding.  As in the
+    CUDA kernel, a point at d = 0 is admitted once for ``d == 0`` and once
+    more when the annulus admits it too (``min_radius == 0``): each point
+    holds two slots of the scan, (2n, d == 0) and (2n + 1, annulus).
+    Plain PyTorch on every device, over chunks of centres."""
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    out = torch.zeros((B, M, nsample), dtype=torch.int32, device=xyz.device)
+    rmax2, rmin2 = _r2(max_radius), _r2(min_radius)
+    chunk = max(1, _PLAIN_CHUNK // max(2 * N, 1))
+    for b in range(B):
+        for m0 in range(0, M, chunk):
+            d2 = _center_d2(new_xyz[b, m0:m0 + chunk], xyz[b])
+            hit = torch.stack([d2 == 0, (d2 >= rmin2) & (d2 < rmax2)], dim=-1)
+            pos = first_hits(hit.reshape(d2.shape[0], 2 * N), nsample)
+            out[b, m0:m0 + chunk] = (pos // 2).to(torch.int32)
+    return out
 
 
 @cuda_lib.on_tensor_device

@@ -1,6 +1,6 @@
 """Chamfer distance (bidirectional nearest neighbour) as plain tensor code.
 
-Counterpart of ``pdanet_tpu/ops/chamfer.py:14-41``.  On the PDA-SSD path
+Counterpart of ``pdanet_tpu/ops/chamfer.py:14-47``.  On the PDA-SSD path
 it feeds the ``CD_loss`` scalar, logged with no gradient and weighted out
 of the total loss (IASSD_head.py:730).
 """
@@ -24,3 +24,10 @@ def cd_loss_l1(pcs1, pcs2):
     ``(mean(sqrt d1) + mean(d2)) / 2``."""
     d1, d2 = chamfer_distance(pcs1, pcs2)
     return (torch.sqrt(torch.clamp(d1, min=0.0)).mean() + d2.mean()) / 2.0
+
+
+def cd_loss_l2(pcs1, pcs2):
+    """The L2 chamfer loss: the sum of the two mean squared nearest-
+    neighbour distances (JAX ``chamfer.py:42-47``)."""
+    d1, d2 = chamfer_distance(pcs1, pcs2)
+    return d1.mean() + d2.mean()

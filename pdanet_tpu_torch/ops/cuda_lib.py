@@ -9,7 +9,7 @@ while the sources stay the same.  ``build_log`` keeps each file's
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel) of
 the last build used, also kept beside the library as ``build.log``.
 
-The build uses ``--fmad=false``: FPS, the ball query and the rotated IoU
+The build uses ``--fmad=false``: FPS, F-FPS, the ball query and the rotated IoU
 must not contract products into FMAs (a contracted distance or cross
 product flips ties and exact-zero predicates, and with them indices).  The
 float32/float64 attention kernels ask for their FMAs explicitly with
@@ -57,7 +57,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
-    "fps.cu", "ball_query.cu", "neighbor_attention.cu",
+    "fps.cu", "fps_features.cu", "ball_query.cu", "neighbor_attention.cu",
     "neighbor_attention_bwd.cu", "neighbor_attention_mma.cu",
     "neighbor_attention_bwd_mma.cu", "rotated_iou.cu", "nms.cu",
 )
@@ -156,6 +156,8 @@ def _bind(lib):
     sigs = {
         "pdanet_fps": [vp, i32, i32, i32, vp, vp, vp],
         "pdanet_fps_config": [i32, vp],
+        "pdanet_fps_features": [vp, i32, i32, i32, i32, vp, vp, vp],
+        "pdanet_fps_features_config": [i32, i32, vp],
         "pdanet_ball_query": [vp, vp, i32, i32, i32, i32, vp, vp, vp, vp, vp],
         "pdanet_neighbor_attention": [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp],
         "pdanet_neighbor_attention_bwd": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,

@@ -1,13 +1,20 @@
 """Rotated-box geometry on batched dense tensors.
 
-Counterpart of ``pdanet_tpu/ops/geometry.py:33-121``:
-``rotate_points_along_z``, ``boxes_to_corners_3d``, ``enlarge_box3d``,
-``in_box_mask`` and ``points_in_boxes`` (the reference kernel's first-hit
-semantics, -1 for background).  Plain tensor code, differentiable where
-the JAX functions are.
+Counterpart of ``pdanet_tpu/ops/geometry.py:33-130``:
+``rotate_points_along_z``, ``boxes_to_corners_3d``, ``enlarge_box3d`` (and
+its numpy twin ``enlarge_box3d_np``), ``in_box_mask``, ``points_in_boxes``
+(the reference kernel's first-hit semantics, -1 for background) and
+``mask_points_by_range`` (the last and ``enlarge_box3d_np`` are
+``utils/box_utils.py``'s).  Plain tensor code, differentiable where the
+JAX functions are.
 """
 
 import torch
+
+# the numpy ``enlarge_box3d`` of the data pipeline, and its x / y range
+# mask, which takes a tensor on any device as well as a numpy array
+from ..utils.box_utils import enlarge_box3d as enlarge_box3d_np  # noqa: F401
+from ..utils.box_utils import mask_points_by_range  # noqa: F401
 
 # corner order of pcdet/utils/box_utils.py:44-47
 _CORNER_TEMPLATE = torch.tensor([

@@ -168,6 +168,13 @@ def _pair_overlap(boxes_a, boxes_b):
     return torch.where(cnt > 0, torch.minimum(area, cap), 0.0)
 
 
+def boxes_overlap_bev(boxes_a, boxes_b):
+    """(..., N, 7) x (..., M, 7) -> (..., N, M) rotated BEV overlap areas in
+    float32 (``pdanet_tpu/ops/rotated_iou.py:300-318``).  Plain PyTorch on
+    any device."""
+    return _pair_overlap(boxes_a.float(), boxes_b.float())
+
+
 def boxes_iou_bev(boxes_a, boxes_b):
     """(..., N, 7) x (..., M, 7) -> (..., N, M) rotated BEV IoU (plain)."""
     boxes_a = boxes_a.float()
@@ -194,6 +201,14 @@ def boxes_iou3d(boxes_a, boxes_b):
     vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]).unsqueeze(-1)
     vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]).unsqueeze(-2)
     return overlaps_3d / torch.clamp(vol_a + vol_b - overlaps_3d, min=1e-6)
+
+
+def paired_boxes_iou3d(boxes_a, boxes_b):
+    """Row-aligned 3-D IoU: (N, 7) x (N, 7) -> (N,), row i of ``boxes_a``
+    against row i of ``boxes_b`` (``pdanet_tpu/ops/rotated_iou.py:369-376``,
+    the reference's ``loss_utils.generate_iou3d``), each pair its own 1 x 1
+    problem: no N x N matrix is built."""
+    return boxes_iou3d(boxes_a[..., None, :], boxes_b[..., None, :])[..., 0, 0]
 
 
 def boxes_iou_bev_batched_self(boxes):

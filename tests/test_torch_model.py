@@ -283,6 +283,10 @@ def test_port_imports_no_jax():
         "from pdanet_tpu_torch.models.backbones_3d import pointnet2_backbone\n"
         "from pdanet_tpu_torch.models.roi_heads import pointrcnn_head\n"
         "from pdanet_tpu_torch.ops import interpolate\n"
+        "from pdanet_tpu_torch.ops import ellipsoid_query, chamfer, grouping, geometry, nms\n"
+        "from pdanet_tpu_torch.ops.sampling import farthest_point_sample_features, ry_fps\n"
+        "from pdanet_tpu_torch.models.blocks import CBAM, EncoderLayer\n"
+        "from pdanet_tpu_torch.models.model_utils.model_nms_utils import class_agnostic_nms\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"
