@@ -453,6 +453,26 @@ Phases, each of which raises on failure:
    bit-equal to its eager closure; one float32 train step at B = 2 of each
    (``iou3d_loss_reg`` finite).  Then ``ry_fps``, the ellipsoid query, the
    dilated query and ``nms_rotated`` once each, card against CPU.
+22. The reference checkpoint surface and the profiler CLI
+   (``checkpoint_phase``; ``--phases 22`` runs phases 4 and 9 with it).
+   (a) The shipped PDA-SSD.yaml and voxel_rcnn_car.yaml at full width,
+   seeded weights (Voxel-RCNN's box conv scaled as in phase 14), written
+   by ``reference_state_dict`` (the converter's inverse, no JAX) into
+   reference ``.pth`` files in OpenPCDet's wrapper with
+   ``num_batches_tracked`` and ``global_step`` beside (PDA-SSD in torch's
+   zip format, Voxel-RCNN in the legacy one); ``python -m
+   pdanet_tpu_torch.tools.ckpt_converter`` on each in a fresh process; the
+   converted ``state_dict`` bit-equal to the seeded one (epoch, it and
+   version carried, no optimizer state); a float32 b1 request from each
+   converted checkpoint, loaded as the test CLI loads it, equal to the
+   seeded model's on the same frame (counts and labels equal, boxes and
+   scores within ``CONVERT_TOL``), PDA-SSD's launching FPS, the ball
+   query, the attention, the IoU and the NMS; the test CLI ``--ckpt`` on
+   the converted PDA-SSD over phase 9's root, in the tail.  (b) ``python
+   -m pdanet_tpu_torch.tools.profiler --mode e2e --batch_size 1`` on
+   PDA-SSD (in process, beside the converters): its table of families
+   names each kernel of ``PROFILE_KERNELS``; its busy time beside phase
+   4's closure's split on the same frame.
 
 Depth (``VOXEL_DEPTH``; every kernel row, family and phase stays): phases
 12-19 serve one b1 and one b2 request (15b, 17b and 19b one b1), take one
@@ -478,8 +498,9 @@ Each phase prints its wall time.  The line before the last is
 (phase 4's requests, phase 7's bfloat16 and float32 train steps, phase
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
 CLIs, phase 10's exported programs, phase 11's CLI processes, one
-process and ranks, and phases 12-19's requests, train steps, CLIs and
-programs, each run counted from 0), its
+process and ranks, phases 12-19's requests, train steps, CLIs and
+programs, and phase 22's converted requests and test CLI, each run
+counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -532,6 +553,8 @@ from pathlib import Path
 
 import numpy as np
 
+from pdanet_tpu_torch.tools.profiler import device_split, lidar_like_cloud
+
 ROOT = Path(__file__).resolve().parent
 YAML = ROOT / "tools" / "cfgs" / "kitti_models" / "PDA-SSD.yaml"
 N_POINTS = 16384
@@ -581,38 +604,6 @@ PLAIN_REPS = 3
 def require(cond, msg):
     if not cond:
         raise RuntimeError(f"FAILED: {msg}")
-
-
-def lidar_like_cloud(seed, B, N, x_range=(0.0, 70.4), y_range=(-40.0, 40.0),
-                     with_centers=False):
-    """LiDAR-like frames (B, N, 4): a ground plane with 1/r density
-    falloff, car-sized clusters and sparse mid-air returns, x-sorted like
-    the pipeline's ``sort_points`` step (a numpy copy of bench.py's).
-    ``with_centers`` also returns the (12, 3) cluster centres."""
-    rs = np.random.RandomState(seed)
-    n_ground = int(N * 0.72)
-    n_obj = int(N * 0.2)
-    n_air = N - n_ground - n_obj
-    r = x_range[1] * np.sqrt(rs.rand(n_ground)) ** 1.4
-    th = rs.uniform(-0.8, 0.8, n_ground)
-    ground = np.stack([np.clip(r * np.cos(th), *x_range),
-                       np.clip(r * np.sin(th), *y_range),
-                       rs.normal(-1.7, 0.05, n_ground)], -1)
-    n_clusters = 12
-    centers = np.stack([rs.uniform(5, 60, n_clusters),
-                        rs.uniform(-20, 20, n_clusters),
-                        rs.uniform(-1.2, -0.4, n_clusters)], -1)
-    member = rs.randint(0, n_clusters, n_obj)
-    obj = centers[member] + rs.randn(n_obj, 3) * np.array([2.0, 0.9, 0.7]) * 0.5
-    air = np.stack([rs.uniform(*x_range, n_air), rs.uniform(*y_range, n_air),
-                    rs.uniform(-1.0, 2.5, n_air)], -1)
-    pts = np.concatenate([ground, obj, air], 0).astype(np.float32)
-    cloud = np.concatenate([pts, rs.rand(N, 1).astype(np.float32)], -1)
-    out = np.stack([cloud] * B)
-    out[:, :, :3] += rs.randn(B, N, 3).astype(np.float32) * 0.05
-    for b in range(B):
-        out[b] = out[b][np.argsort(out[b, :, 0], kind="stable")]
-    return (out, centers) if with_centers else out
 
 
 def lidar_like_batch(seed, B, N, mean_size, M=16):
@@ -745,66 +736,6 @@ def sdpa_backward(q, k, v, do, K, H, hd):
     o = F.scaled_dot_product_attention(*(sdpa_heads(t, K, H, hd) for t in leaves))
     do4 = sdpa_heads(do, K, H, hd)
     return lambda: torch.autograd.grad(o, leaves, do4, retain_graph=True)
-
-
-# the device functions of csrc/, as the profiler names them
-PORT_KERNELS = ("fps_kernel", "fps_features_kernel", "ball_query_kernel", "attn_kernel",
-                "attn_bwd_kernel",
-                "attn_fwd_mma", "attn_bwd_mma", "iou_self_kernel", "nms_mask_kernel",
-                "nms_walk_kernel")
-
-
-def short_name(name):
-    """A profiler kernel name without its arguments and namespaces, and
-    with only the first of long template arguments."""
-    base = name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
-    head, _, tmpl = base.strip().partition("<")
-    head = head.split("::")[-1]
-    tmpl = tmpl.rstrip(">")
-    if len(tmpl) > 12:
-        tmpl = tmpl.split(",")[0].split("::")[-1]
-    return (f"{head}<{tmpl}>" if tmpl else head)[:60]
-
-
-def device_split(fn, top=5, full=False):
-    """The second of two runs of ``fn`` under torch.profiler (the first
-    warms the tracer up, which can drop the first kernel of a cold start):
-    its device activity (kernels and memsets) as (count, busy milliseconds
-    -- the union of their intervals --, the ``top`` names by summed
-    milliseconds, and the port's own kernels with their milliseconds and
-    launches); None when the profiler cannot trace the card.  With ``full``
-    the names are the kernels' own (their first 160 characters)."""
-    import collections
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    events = []
-    try:
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                     on_trace_ready=lambda p: events.extend(p.events())) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-    except RuntimeError:
-        return None
-    spans = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        return None
-    by_name, own, busy, end = collections.Counter(), {}, 0.0, float("-inf")
-    for e in sorted(spans, key=lambda e: e.time_range.start):
-        ms = e.time_range.elapsed_us() / 1e3
-        name = short_name(e.name)
-        by_name[e.name[:160] if full else name] += ms
-        if name.split("<")[0] in PORT_KERNELS:
-            t, n = own.get(name, (0.0, 0))
-            own[name] = (t + ms, n + 1)
-        start = max(e.time_range.start, end)
-        end = max(end, e.time_range.end)
-        busy += max(0.0, end - start) / 1e3
-    return len(spans), busy, by_name.most_common(top), own
 
 
 def kernel_names(fn):
@@ -7470,6 +7401,366 @@ def iassd_phase(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the reference checkpoint surface and the profiler CLI
+
+
+CONVERT_JOBS = (("PDA-SSD", KITTI_CFG_REL, False), ("Voxel-RCNN", VRCNN_CFG_REL, True))
+CONVERT_SEED = 22
+REFERENCE_WRAPPER = {"epoch": 80, "it": 74240, "version": "pcdet+0.5.2"}  # 80 x 928 steps
+CONVERT_TOL = 1e-5  # the converted model's request against the seeded one's
+PROFILE_KERNELS = ("fps", "ball_query", "neighbor_attention", "rotated_iou", "nms")
+
+
+def _ref_linear(sd, key, p, conv_dim=2):
+    """A flax Dense as the reference's Linear (``conv_dim`` 2) or 1 x 1
+    Conv1d (3) / Conv2d (4)."""
+    w = np.asarray(p["kernel"]).T
+    sd[f"{key}.weight"] = w.reshape(w.shape + (1,) * (conv_dim - 2))
+    if "bias" in p:
+        sd[f"{key}.bias"] = np.asarray(p["bias"])
+
+
+def _ref_conv2d(sd, key, p, transposed=False):
+    """A flax Conv (kh, kw, in, out) as Conv2d (out, in, kh, kw); a
+    ConvTranspose as ConvTranspose2d (in, out, kh, kw), its taps mirrored
+    (the converter's ``_deconv2d_kernel`` mirrors them back)."""
+    k = np.asarray(p["kernel"])
+    w = k[::-1, ::-1].transpose(2, 3, 0, 1) if transposed else k.transpose(3, 2, 0, 1)
+    sd[f"{key}.weight"] = np.ascontiguousarray(w)
+    if "bias" in p:
+        sd[f"{key}.bias"] = np.asarray(p["bias"])
+
+
+def _ref_bn(sd, key, p, s):
+    sd[f"{key}.weight"], sd[f"{key}.bias"] = np.asarray(p["scale"]), np.asarray(p["bias"])
+    sd[f"{key}.running_mean"] = np.asarray(s["mean"])
+    sd[f"{key}.running_var"] = np.asarray(s["var"])
+
+
+def _ref_stack(sd, prefix, params, stats, conv_dim):
+    """An MLPStack (``layer{j}``: Dense, BatchNorm) as the reference's
+    [Conv, BN, ReLU] x n Sequential."""
+    for name, lp in params.items():
+        j = int(name[len("layer"):])
+        _ref_linear(sd, f"{prefix}.{3 * j}", lp["dense"], conv_dim)
+        _ref_bn(sd, f"{prefix}.{3 * j + 1}", lp["bn"], stats[name]["bn"])
+
+
+def _ref_fc_bn(sd, prefix, params, stats, flax_prefix, n, drop_after):
+    """Flat ``{flax_prefix}_fc{k}`` / ``_bn{k}`` as a [Linear, BN, ReLU (,
+    Dropout)] x n Sequential; returns the slot after it."""
+    idx = 0
+    for k in range(n):
+        _ref_linear(sd, f"{prefix}.{idx}", params[f"{flax_prefix}_fc{k}"])
+        _ref_bn(sd, f"{prefix}.{idx + 1}", params[f"{flax_prefix}_bn{k}"],
+                stats[f"{flax_prefix}_bn{k}"])
+        idx += 3 + (1 if drop_after(k) else 0)
+    return idx
+
+
+def _ref_transformer(sd, prefix, p):
+    """The pre-norm layer as the reference's, its attention an
+    ``nn.MultiheadAttention`` (in_proj (3 D, D))."""
+    d = np.asarray(p["norm1"]["scale"]).shape[0]
+    attn = p["self_attn"]
+    qkv = ("query", "key", "value")
+    sd[f"{prefix}.self_attn.in_proj_weight"] = np.concatenate(
+        [np.asarray(attn[n]["kernel"]).reshape(d, d).T for n in qkv])
+    sd[f"{prefix}.self_attn.in_proj_bias"] = np.concatenate(
+        [np.asarray(attn[n]["bias"]).reshape(d) for n in qkv])
+    sd[f"{prefix}.self_attn.out_proj.weight"] = np.asarray(attn["out"]["kernel"]).reshape(d, d).T
+    sd[f"{prefix}.self_attn.out_proj.bias"] = np.asarray(attn["out"]["bias"])
+    for name in ("norm1", "norm2"):
+        sd[f"{prefix}.{name}.weight"] = np.asarray(p[name]["scale"])
+        sd[f"{prefix}.{name}.bias"] = np.asarray(p[name]["bias"])
+    for name in ("linear1", "linear2"):
+        _ref_linear(sd, f"{prefix}.{name}", p[name])
+
+
+# flax submodule of an IASSD SA layer -> (the reference's attribute, conv dim)
+IASSD_STACKS = {"mlps": ("mlps", 4), "position_mlp": ("position_mlp", 4),
+                "global_mlps": ("global_mlps", 4), "fin_conv": ("fin_conv", 4),
+                "aggregation_layer": ("aggregation_layer", 3),
+                "confidence_mlp": ("confidence_layers", 3), "mlp_modules": ("mlp_modules", 3)}
+
+
+def _ref_iassd(sd, params, stats, mcfg):
+    for mod, mp in params["backbone_3d"].items():
+        tp = f"backbone_3d.SA_modules.{int(mod[len('SA_modules_'):])}"
+        ms = stats["backbone_3d"].get(mod, {})
+        for sub, sp in mp.items():
+            stem, _, i = sub.rpartition("_")
+            if not i.isdigit():
+                stem, i = sub, None
+            if stem in IASSD_STACKS:
+                attr, conv_dim = IASSD_STACKS[stem]
+                _ref_stack(sd, f"{tp}.{attr}" + (f".{i}" if i else ""), sp, ms[sub], conv_dim)
+            elif stem == "point_density":
+                for j in range(3):
+                    base = f"{tp}.point_density.{i}.densitynet"
+                    _ref_linear(sd, f"{base}.mlp_convs.{j}", sp[f"conv{j}"], 4)
+                    _ref_bn(sd, f"{base}.mlp_bns.{j}", sp[f"bn{j}"], ms[sub][f"bn{j}"])
+            elif stem == "Local_pointformer":
+                _ref_transformer(sd, f"{tp}.Local_pointformer.{i}", sp)
+            elif sub == "confidence_out":
+                n = len(mp["confidence_mlp"])
+                _ref_linear(sd, f"{tp}.confidence_layers.{3 * n}", sp, 3)
+            elif sub == "ctr_reg":
+                _ref_linear(sd, f"{tp}.ctr_reg", sp, 3)
+            else:
+                raise KeyError(f"no reference name for backbone_3d/{mod}/{sub}")
+    hp, hs = params["point_head"], stats["point_head"]
+    for stack, out, fc in (("cls_center_layers", "cls_center_out", "CLS_FC"),
+                           ("box_center_layers", "box_center_out", "REG_FC")):
+        _ref_stack(sd, f"point_head.{stack}", hp[stack], hs[stack], 2)
+        _ref_linear(sd, f"point_head.{stack}.{3 * len(mcfg.POINT_HEAD[fc])}", hp[out])
+
+
+def _ref_spconv(w):
+    """A sparse conv's (K, in, out) taps as spconv 1.x's (kz, ky, kx, in, out)."""
+    w = np.asarray(w)
+    return w.reshape({27: (3, 3, 3), 3: (3, 1, 1)}[w.shape[0]] + w.shape[1:])
+
+
+def _ref_voxel_rcnn(sd, params, stats, mcfg):
+    bp, bs = params["backbone_3d"], stats["backbone_3d"]
+
+    def block(name, tp):  # SubM conv, BN
+        sd[f"{tp}.0.weight"] = _ref_spconv(bp[name]["kernel"])
+        _ref_bn(sd, f"{tp}.1", bp[name]["bn"], bs[name]["bn"])
+
+    def down(name, tp):  # strided sparse conv, BN
+        sd[f"{tp}.0.weight"] = _ref_spconv(bp[f"{name}_kernel"])
+        _ref_bn(sd, f"{tp}.1", bp[f"{name}_bn"], bs[f"{name}_bn"])
+
+    block("conv_input", "backbone_3d.conv_input")
+    block("conv1", "backbone_3d.conv1.0")
+    for lvl in (2, 3, 4):
+        down(f"conv{lvl}_down", f"backbone_3d.conv{lvl}.0")
+        block(f"conv{lvl}_a", f"backbone_3d.conv{lvl}.1")
+        block(f"conv{lvl}_b", f"backbone_3d.conv{lvl}.2")
+    down("conv_out", "backbone_3d.conv_out")
+    p2, s2 = params["backbone_2d"], stats["backbone_2d"]
+    for idx in range(len(mcfg.BACKBONE_2D.LAYER_NUMS)):
+        _ref_conv2d(sd, f"backbone_2d.blocks.{idx}.1", p2[f"blocks_{idx}_down"]["conv"])
+        _ref_bn(sd, f"backbone_2d.blocks.{idx}.2", p2[f"blocks_{idx}_down"]["bn"],
+                s2[f"blocks_{idx}_down"]["bn"])
+        for k in range(mcfg.BACKBONE_2D.LAYER_NUMS[idx]):
+            _ref_conv2d(sd, f"backbone_2d.blocks.{idx}.{4 + 3 * k}", p2[f"blocks_{idx}_{k}"]["conv"])
+            _ref_bn(sd, f"backbone_2d.blocks.{idx}.{5 + 3 * k}", p2[f"blocks_{idx}_{k}"]["bn"],
+                    s2[f"blocks_{idx}_{k}"]["bn"])
+        _ref_conv2d(sd, f"backbone_2d.deblocks.{idx}.0", p2[f"deblocks_{idx}_deconv"],
+                    transposed=True)
+        _ref_bn(sd, f"backbone_2d.deblocks.{idx}.1", p2[f"deblocks_{idx}_bn"],
+                s2[f"deblocks_{idx}_bn"])
+    for name, p in params["dense_head"].items():
+        _ref_conv2d(sd, f"dense_head.{name}", p)
+    rp, rs, roi = params["roi_head"], stats["roi_head"], mcfg.ROI_HEAD
+    for k, src in enumerate(roi.ROI_GRID_POOL.FEATURES_SOURCE):
+        base = f"roi_head.roi_grid_pool_layers.{k}"
+        for tname, fname in (("mlps_in", "in"), ("mlps_pos", "pos"), ("mlps_out", "out")):
+            _ref_linear(sd, f"{base}.{tname}.0.0", rp[f"pool_{src}"][f"mlp_{fname}"], 3)
+            _ref_bn(sd, f"{base}.{tname}.0.1", rp[f"pool_{src}"][f"bn_{fname}"],
+                    rs[f"pool_{src}"][f"bn_{fname}"])
+    dp = float(roi.DP_RATIO)
+    for torch_name, prefix, fcs in (("shared_fc_layer", "shared", roi.SHARED_FC),
+                                    ("cls_fc_layers", "cls", roi.CLS_FC),
+                                    ("reg_fc_layers", "reg", roi.REG_FC)):
+        n = len(fcs)
+        _ref_fc_bn(sd, f"roi_head.{torch_name}", rp, rs, prefix, n,
+                   lambda k, n=n: k != n - 1 and dp > 0)
+    _ref_linear(sd, "roi_head.cls_pred_layer", rp["cls_pred"])
+    _ref_linear(sd, "roi_head.reg_pred_layer", rp["reg_pred"])
+
+
+def reference_state_dict(variables, mcfg):
+    """The reference's ``state_dict`` (names, layouts; numpy) of a flax
+    variable tree of PDA-SSD (IASSD) or Voxel-RCNN over the sparse
+    backbone: the inverse of the converter
+    (``pdanet_tpu_torch/tools/ckpt_converter.py``), written without JAX."""
+    emit = {"IASSD": _ref_iassd, "VoxelRCNN": _ref_voxel_rcnn}[mcfg.NAME]
+    sd = {}
+    emit(sd, variables["params"], variables["batch_stats"], mcfg)
+    return sd
+
+
+def write_reference_pth(path, sd, legacy=False):
+    """``sd`` saved in OpenPCDet's wrapper (``epoch``, ``it``,
+    ``model_state``, ``optimizer_state``, ``version``), with the keys no
+    converter reads: each BatchNorm's ``num_batches_tracked`` and the
+    detector's ``global_step``; in torch's zip format or, with ``legacy``,
+    the format before it."""
+    import torch
+
+    it = REFERENCE_WRAPPER["it"]
+    state = {}
+    for key, arr in sd.items():
+        state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        if key.endswith(".running_var"):
+            state[key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(it)
+    state["global_step"] = torch.tensor([it])
+    opt = {"state": {}, "param_groups": [{"lr": 0.01, "betas": (0.95, 0.99), "weight_decay": 0.01,
+                                          "params": list(range(len(sd)))}]}
+    torch.save({**REFERENCE_WRAPPER, "model_state": state, "optimizer_state": opt}, path,
+               _use_new_zipfile_serialization=not legacy)
+    return len(state)
+
+
+def _detections_gap(a, b):
+    """(equal counts and labels, the largest |difference| of boxes and
+    scores, bit-equal) of two prediction dicts."""
+    import torch
+
+    same = all(torch.equal(a[k], b[k]) for k in ("pred_counts", "pred_labels"))
+    gap = max(float((a[k].float() - b[k].float()).abs().max()) if a[k].numel() else 0.0
+              for k in ("pred_boxes", "pred_scores"))
+    return same, gap, all(torch.equal(a[k], b[k]) for k in a)
+
+
+def converted_test_cli_chain(work, kitti_run, ckpt):
+    """Phase 22 (a) as a tail chain: ``python -m pdanet_tpu_torch.tools.test
+    --ckpt <converted PDA-SSD>`` over phase 9's root at B = 1 (bfloat16 as
+    shipped); every val frame in ``result.pkl``, finite; the process's
+    launches from its log."""
+    def run():
+        out_dir = Path(work) / "output" / Path(KITTI_CFG_REL).parent.name / Path(
+            KITTI_CFG_REL).stem / "converted"
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "pdanet_tpu_torch.tools.test", "--cfg_file", KITTI_CFG_REL,
+             "--ckpt", str(ckpt), "--batch_size", "1", "--extra_tag", "converted",
+             "--set", "DATA_CONFIG.DATA_PATH", str(kitti_run["root"])],
+            cwd=work, env=tail_env({**os.environ, "PYTHONPATH": str(ROOT)}),
+            capture_output=True, text=True, timeout=600)
+        require(res.returncode == 0, f"the test CLI on the converted checkpoint failed:\n"
+                f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        res_dir = next(out_dir.glob("eval/epoch_*/val/default"))
+        _, counts = cli_log(res_dir, "eval")
+        with open(res_dir / "result.pkl", "rb") as f:
+            annos = pickle.load(f)
+        require([a["frame_id"] for a in annos] == kitti_run["val_ids"],
+                 "test CLI on the converted checkpoint: frames")
+        require(all(np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+                    for a in annos), "test CLI on the converted checkpoint: not finite")
+        print(f"PDA-SSD test CLI --ckpt <converted .pth> over phase 9's root (in the tail): "
+              f"{time.perf_counter() - t0:.1f} s, detections per val frame "
+              f"{[len(a['score']) for a in annos]}; launches {counts}")
+        return counts
+    return "checkpoint", run
+
+
+def checkpoint_phase(dev, work, kitti_run, predict):
+    """Phase 22: (a) PDA-SSD (bfloat16 as shipped, float32 for the
+    requests) and Voxel-RCNN at full width with seeded weights, through
+    ``reference_state_dict`` into reference ``.pth`` files (zip; legacy),
+    the converter CLI in fresh processes, the converted ``state_dict``
+    bit-equal to the seeded one, a float32 b1 request from each converted
+    checkpoint (the test CLI's loader) equal to the seeded model's within
+    ``CONVERT_TOL``, counts and labels equal; (b) the profiler CLI's e2e b1
+    on PDA-SSD, every kernel of ``PROFILE_KERNELS`` a family of its table,
+    its busy time beside phase 4's closure's split.  Returns the requests'
+    launches and the tail chain of the test CLI on the converted PDA-SSD."""
+    import torch
+
+    from pdanet_tpu_torch.config import cfg_from_yaml_file
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.serving import make_predict_fn
+    from pdanet_tpu_torch.tools import profiler
+    from pdanet_tpu_torch.train import load_checkpoint, load_model_state
+    from pdanet_tpu_torch.utils.jax_weights import port_variables
+
+    work = Path(work)
+    jobs = []
+    for label, cfg_rel, legacy in CONVERT_JOBS:
+        cfg = cfg_from_yaml_file(str(work / cfg_rel))
+        mcfg = _f32_model_cfg(cfg) if cfg.MODEL.NAME == "IASSD" else cfg.MODEL
+        template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
+                                   training=False, root_path=str(kitti_run["root"]))
+        def build(mcfg=mcfg, n=len(cfg.CLASS_NAMES), template=template):
+            return build_network(mcfg, n, dataset=template, device=dev).eval()
+
+        model = init_random_weights(build(), seed=CONVERT_SEED)
+        if hasattr(model, "roi_head"):
+            with torch.no_grad():
+                model.dense_head.conv_box.weight.mul_(BOX_CONV_SCALE)
+        t0 = time.perf_counter()
+        sd = reference_state_dict(port_variables(model), cfg.MODEL)
+        stem = work / f"reference_{Path(cfg_rel).stem}"
+        n_keys = write_reference_pth(f"{stem}.pth", sd, legacy)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pdanet_tpu_torch.tools.ckpt_converter", "--torch_ckpt",
+             f"{stem}.pth", "--cfg_file", cfg_rel, "--output", f"{stem}.converted.pth"],
+            cwd=work, env=tail_env({**os.environ, "PYTHONPATH": str(ROOT)}),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        mb = Path(f"{stem}.pth").stat().st_size / 1e6
+        print(f"{label}: reference .pth ({'legacy' if legacy else 'zip'} format) of {len(sd)} "
+              f"tensors and {n_keys - len(sd)} unread keys, {mb:.1f} MB, in "
+              f"{time.perf_counter() - t0:.1f} s; the converter CLI started")
+        jobs.append((label, cfg, mcfg, template, build, model, stem, proc, time.perf_counter()))
+
+    # (b) the profiler CLI while the converters run on the host's CPU
+    pts = torch.from_numpy(lidar_like_cloud(7, 1, N_POINTS)).to(dev)
+    report = profiler.main(["--cfg_file", str(YAML), "--mode", "e2e", "--batch_size", "1",
+                            "--repeats", "3", "--top", "8"])
+    missing = [k for k in PROFILE_KERNELS if k not in report["families"]]
+    require(not missing, f"the profiler's families lack the kernels {missing}")
+    split = device_split(lambda: predict({"points": pts}))
+    print(f"profiler CLI e2e b1 PDA-SSD: busy {report['busy_ms']:.3f} ms a call, device time "
+          f"{report['per_call_ms']:.3f} ms; the port's kernels "
+          + ", ".join(f"{k} {report['families'][k]:.3f} ms" for k in PROFILE_KERNELS)
+          + (f"; phase 4's closure on the same frame: busy {split[1]:.3f} ms" if split else ""))
+
+    launches = {}
+    for label, cfg, mcfg, template, build, model, stem, proc, t0 in jobs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        require(proc.returncode == 0, f"{label} converter CLI failed:\n{out[-2000:]}\n"
+                f"{err[-4000:]}")
+        print(f"{label} converter CLI: {time.perf_counter() - t0:.1f} s to its exit")
+        ck = load_checkpoint(f"{stem}.converted.pth")
+        want = model.state_dict()
+        require(ck["optimizer_state"] is None and ck["version"] == "converted+"
+                + REFERENCE_WRAPPER["version"] and (ck["epoch"], ck["it"]) == (
+                    REFERENCE_WRAPPER["epoch"], REFERENCE_WRAPPER["it"]),
+                f"{label} converted wrapper {({k: ck[k] for k in ('epoch', 'it', 'version')})}")
+        require(set(ck["model_state"]) == set(want), f"{label} converted keys")
+        unequal = [k for k, v in want.items() if not torch.equal(ck["model_state"][k], v.cpu())]
+        require(not unequal, f"{label} converted state differs from the seeded: {unequal[:5]}")
+        converted = build()
+        load_model_state(converted, f"{stem}.converted.pth")
+        if label == "PDA-SSD":
+            batch = {"points": torch.from_numpy(lidar_like_cloud(300, 1, N_POINTS)).to(dev)}
+        else:
+            batch, _ = voxel_batch(cfg, voxel_frames(CONVERT_SEED, 1, cfg.CLASS_NAMES), False,
+                                   dev, model)
+            batch.pop("gt_boxes")
+        want_pred = make_predict_fn(model, mcfg)(batch)
+        clear_launches()
+        got_pred = make_predict_fn(converted, mcfg)(batch)
+        torch.cuda.synchronize()
+        counts = counted_launches()
+        same, gap, bits = _detections_gap(got_pred, want_pred)
+        print(f"{label} float32 b1 request from the converted checkpoint against the seeded "
+              f"model: {int(got_pred['pred_counts'].sum())} detections, counts and labels "
+              f"equal {same}, largest box / score difference {gap:.3g}, bit-equal {bits}; "
+              f"launches {counts}")
+        require(same and gap <= CONVERT_TOL, f"{label}: the converted model's request differs")
+        if label == "PDA-SSD":
+            for name in PROFILE_KERNELS:
+                require(counts.get(name, 0) > 0, f"kernel {name} never launched by the "
+                        "converted PDA-SSD's request")
+            chain = converted_test_cli_chain(work, kitti_run, f"{stem}.converted.pth")
+        launches = add_launches(launches, counts)
+        del model, converted
+    return launches, chain
+
+
 @contextlib.contextmanager
 def count_augmentor_changes():
     """Wrap every augmentor of the port's ``DataAugmentor`` but the gt
@@ -7704,9 +7995,9 @@ def main():
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
                     "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
-    ap.add_argument("--phases", help="comma-separated phases of 3-21 to run, with those they "
-                    "read (3 for 6, 4 for 5 and 11, 9 for 11-20); every phase without it, and "
-                    "only then are the launches of every kernel required")
+    ap.add_argument("--phases", help="comma-separated phases of 3-22 to run, with those they "
+                    "read (3 for 6, 4 for 5, 11 and 22, 9 for 11-20 and 22); every phase "
+                    "without it, and only then are the launches of every kernel required")
     args = ap.parse_args()
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7762,13 +8053,13 @@ def main():
         multi_gpu(dev, args.world)
         return
 
-    # ---- 3.-21.
-    every = set(range(3, 22))
+    # ---- 3.-22.
+    every = set(range(3, 23))
     want = every if not args.phases else {int(p) for p in args.phases.split(",")}
-    require(want <= every, f"--phases {args.phases}: phases 3-21 only")
+    require(want <= every, f"--phases {args.phases}: phases 3-22 only")
     want |= {3} if 6 in want else set()
-    want |= {4} if want & {5, 11} else set()
-    want |= {9} if want & set(range(11, 21)) else set()
+    want |= {4} if want & {5, 11, 22} else set()
+    want |= {9} if want & (set(range(11, 21)) | {22}) else set()
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -7853,11 +8144,17 @@ def main():
                     runs[label] = run
                     if suffix:
                         voxel_runs.append(("20b", suffix, run, run_rows, []))
+            if 22 in want:
+                runs["checkpoint"], chain = timed(
+                    "22 (the reference checkpoint converter, the profiler CLI)",
+                    checkpoint_phase, dev, kitti_work, kitti_run, predict)
+                chains.append(chain)
             if 11 in want:
                 chains.insert(0, ("dp", lambda: dp_cli(kitti_work, kitti_run)))
             if exports or chains:
-                tail = timed("11-20 (the tail: dist_train.sh, dist_test.sh, the programs "
-                             "exported and reloaded)", run_tail, exports, chains)
+                tail = timed("11-22 (the tail: dist_train.sh, dist_test.sh, the programs "
+                             "exported and reloaded, the test CLI on the converted "
+                             "checkpoint)", run_tail, exports, chains)
                 for label, counts in tail.items():
                     runs[label].update(add_launches(runs[label], counts))
 

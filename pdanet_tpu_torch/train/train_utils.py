@@ -266,8 +266,11 @@ def load_model_state(model, path):
 
 
 def restore_from_checkpoint(ckpt, model, optimizer=None):
-    """Load a checkpoint's model and optimizer state; returns (epoch, it)."""
+    """Load a checkpoint's model and optimizer state; returns (epoch, it).
+    A checkpoint without optimizer state (a converted reference ``.pth``)
+    leaves the optimizer as it is, as the JAX package's
+    ``restore_train_state`` does."""
     model.load_state_dict(ckpt["model_state"])
-    if optimizer is not None:
+    if optimizer is not None and ckpt.get("optimizer_state") is not None:
         optimizer.load_state_dict(ckpt["optimizer_state"])
     return ckpt["epoch"], ckpt["it"]

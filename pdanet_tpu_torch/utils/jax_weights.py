@@ -43,6 +43,9 @@ persistent buffer must be filled; anything left over on either side raises.
 The arrays keep their float dtype (a float64 tree fills a model made
 ``.double()`` without rounding through float32).
 
+``port_variables(model)`` is the inverse: the flax tree of a port model's
+state.
+
 ``load_jax_checkpoint(path)`` reads a checkpoint file the JAX package
 wrote (``pdanet_tpu/train/train_utils.py:147-214``) without jax and returns
 its ``{"params", "batch_stats"}`` for ``load_jax_variables``.
@@ -60,7 +63,7 @@ import zlib
 import numpy as np
 import torch
 
-from ..models.blocks import ConvTranspose, ConvTranspose3d
+from ..models.blocks import ConvTranspose, ConvTranspose3d, NeighborMHA
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 JAX_CKPT_MARKER = "__pdanet_ckpt_format__"
@@ -210,6 +213,56 @@ def load_jax_variables(model, variables):
         raise KeyError(f"port tensors not filled by the flax tree: {missing}")
     model.load_state_dict(filled, strict=True)
     return model
+
+
+def port_variables(model):
+    """The flax variable tree of ``model``'s state (nested dicts of numpy
+    arrays): the inverse of :func:`load_jax_variables`, which fills a model
+    of the same config from it bit for bit."""
+    kept = _layouts(model)[1]
+    tree = {"params": {}, "batch_stats": {}}
+
+    def put(col, path, arr):
+        node = tree[col]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = arr
+
+    stat_leaves = {v: k for k, v in _STAT_NAMES.items()}
+    for key, t in model.state_dict().items():
+        *mods, leaf = key.split(".")
+        arr = t.detach().cpu().numpy()
+        if leaf in stat_leaves:
+            put("batch_stats", mods + [stat_leaves[leaf]], arr)
+            continue
+        owner = model.get_submodule(".".join(mods))
+        parent = model.get_submodule(".".join(mods[:-1]))
+        heads = parent.num_heads if isinstance(parent, NeighborMHA) else None
+        if key in kept:
+            put("params", key.split("."), arr)
+        elif leaf == "bias":
+            if heads and mods[-1] != "out":  # q / k / v bias (H, hd)
+                arr = arr.reshape(heads, -1)
+            put("params", mods + ["bias"], arr)
+        elif arr.ndim == 1:
+            put("params", mods + ["scale"], arr)
+        else:
+            if arr.ndim == 2:
+                arr = arr.T
+                if heads and mods[-1] == "out":  # (H, hd, D)
+                    arr = arr.reshape(heads, -1, arr.shape[-1])
+                elif heads:  # query / key / value (D, H, hd)
+                    arr = arr.reshape(arr.shape[0], heads, -1)
+            elif arr.ndim == 4 and isinstance(owner, ConvTranspose):
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            elif isinstance(owner, ConvTranspose3d):
+                arr = arr.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
+            else:
+                arr = arr.transpose(2, 3, 4, 1, 0)
+            put("params", mods + ["kernel"], np.ascontiguousarray(arr))
+    return tree
 
 
 def load_jax_optimizer_state(optimizer, model, mu, nu, count):

@@ -287,6 +287,7 @@ def test_port_imports_no_jax():
         "from pdanet_tpu_torch.ops.sampling import farthest_point_sample_features, ry_fps\n"
         "from pdanet_tpu_torch.models.blocks import CBAM, EncoderLayer\n"
         "from pdanet_tpu_torch.models.model_utils.model_nms_utils import class_agnostic_nms\n"
+        "from pdanet_tpu_torch.tools import ckpt_converter, once_submit_result, profiler\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"
