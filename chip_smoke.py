@@ -473,6 +473,22 @@ Phases, each of which raises on failure:
    PDA-SSD (in process, beside the converters): its table of families
    names each kernel of ``PROFILE_KERNELS``; its busy time beside phase
    4's closure's split on the same frame.
+23. The host library (``host_library_phase``; ``--phases 23`` runs phase 9
+   with it), on the host before the tail: the port's g++ library
+   (``pdanet_tpu_torch/native``) at the four sites where the JAX package
+   runs its own, each against its numpy plain version on the same inputs,
+   host milliseconds of both.  (a) A fresh build (its seconds, the
+   compiler, the loaded library's path).  (b) The voxelizer through
+   pointpillar.yaml's and second.yaml's processors at both budgets on five
+   120000-point ``kitti_like_frame`` frames, equal.  (c)
+   ``points_in_boxes_cpu`` on those frames and their boxes, equal but for
+   points within ``HOST_FACE_ULPS`` of a face (each printed).  (d) The gt
+   sampler's collision test (50 sampled boxes against a frame's and each
+   other), (e) ``rotate_iou_eval`` with its four criteria on the inputs
+   phase 9's official evaluation passed it, both within
+   ``HOST_OVERLAP_TOL``.  (f) PointPillar's b1 request from points to
+   detections (processors, collate, request) with the library's voxelizer
+   and the plain one in turns, the detections equal.
 
 Depth (``VOXEL_DEPTH``; every kernel row, family and phase stays): phases
 12-19 serve one b1 and one b2 request (15b, 17b and 19b one b1), take one
@@ -2813,7 +2829,8 @@ def kitti_phase(dev, work_dir):
         require(len(infer) == 1, "the test CLI's --infer_time meter")
         val_set = build_dataloader(cfg.DATA_CONFIG, names, 1, workers=0, training=False)[0]
         t0 = time.perf_counter()
-        val_set.evaluation(annos, names)
+        with recorded_rotate_iou() as eval_iou_calls:  # phase 23 replays them
+            val_set.evaluation(annos, names)
         eval_s = time.perf_counter() - t0
         print(f"KITTI eval per frame (test CLI --infer_time: forward, recall, read-back): "
               f"{infer[0]} ms; the official evaluation of {len(annos)} frames "
@@ -2880,7 +2897,7 @@ def kitti_phase(dev, work_dir):
         require(n_g == n_c == pairs, "KITTI float32 detections differ card vs CPU")
         require(gap_c <= 1e-3, f"KITTI float32 boxes card vs CPU {gap_c} m apart > 1e-3")
     return launches, dict(root=root, val_ids=val_ids, B=B, steps=len(batches),
-                          step_ms=statistics.median(step_ms[1:]))
+                          step_ms=statistics.median(step_ms[1:]), eval_iou_calls=eval_iou_calls)
 
 
 EXPORTS = ((YAML, (1, 2)), (ONCE_YAML, (1,)))  # the yamls exported, and their batch sizes
@@ -7892,6 +7909,251 @@ def augmentor_phase(dev, work):
     return add_launches(*launches)
 
 
+# phase 23: the host library (pdanet_tpu_torch/native), each site against
+# its numpy plain version on the card's host
+HOST_FRAMES = 5  # 120000-point LiDAR-like frames a site runs on
+HOST_VOXEL_CFG_RELS = (PP_CFG_REL, SECOND_CFG_REL)  # the voxelizer's processors
+HOST_SAMPLED = {"Car": 20, "Pedestrian": 15, "Cyclist": 15}  # kitti_dataset.yaml's gt sampling
+HOST_OVERLAP_TOL = 1e-4  # the overlaps' gate against the plain versions (tests/test_native.py)
+HOST_FACE_ULPS = 4  # a mask may differ from the plain version's only this near a face
+
+
+@contextlib.contextmanager
+def recorded_rotate_iou():
+    """Records each (boxes, qboxes, criterion) that the KITTI evaluation
+    passes ``rotate_iou_eval``, which runs as ever."""
+    from pdanet_tpu_torch.datasets.kitti.kitti_object_eval_python import eval as kitti_eval
+
+    calls, orig = [], kitti_eval.rotate_iou_eval
+
+    def record(boxes, qboxes, criterion=-1):
+        calls.append((np.array(boxes), np.array(qboxes), criterion))
+        return orig(boxes, qboxes, criterion)
+
+    kitti_eval.rotate_iou_eval = record
+    try:
+        yield calls
+    finally:
+        kitti_eval.rotate_iou_eval = orig
+
+
+def host_ms(fn, *args):
+    """(milliseconds on the host clock, result) of one call."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def face_ulps(point, box):
+    """How near ``point`` lies to a face of ``box`` (x y z dx dy dz heading),
+    in ulps of the face's float32 half-extent as the host library computes
+    it: the local coordinates in float64, the half-extents in float32."""
+    half = np.array([np.float32(box[3]) * np.float32(0.5) + np.float32(1e-5),
+                     np.float32(box[4]) * np.float32(0.5) + np.float32(1e-5),
+                     np.float32(box[5]) * np.float32(0.5)], np.float32)
+    d = np.asarray(point[:3], np.float64) - np.asarray(box[:3], np.float64)
+    c, s = np.cos(np.float64(box[6])), np.sin(np.float64(box[6]))
+    local = np.abs([d[0] * c + d[1] * s, -d[0] * s + d[1] * c, d[2]])
+    return float(np.min(np.abs(half.astype(np.float64) - local) / np.spacing(half)))
+
+
+def collision_boxes(rs, frame_boxes):
+    """The gt sampler's draw at kitti_dataset.yaml's ``SAMPLE_GROUPS``: 50
+    database boxes of the three classes at the yaml's mean sizes (10 %
+    jitter), each where its own frame held it (in the camera's field of
+    view, 5-55 m out, on the ground), so some meet the frame's boxes and
+    each other."""
+    boxes = []
+    for cls, n in HOST_SAMPLED.items():
+        dims = np.asarray(KITTI_MEAN_SIZES[cls]) * rs.uniform(0.9, 1.1, (n, 3))
+        r, th = rs.uniform(5.0, 55.0, n), rs.uniform(-0.61, 0.61, n)
+        boxes.append(np.column_stack([r * np.cos(th), r * np.sin(th), -1.73 + dims[:, 2] / 2,
+                                      dims, rs.uniform(-np.pi, np.pi, n)]))
+    return np.concatenate(boxes).astype(np.float32), frame_boxes.astype(np.float32)
+
+
+def host_library_phase(dev, kitti_run):
+    """Phase 23: the port's g++ host library (``pdanet_tpu_torch/native``)
+    at the four host sites where the JAX package runs its own, each against
+    its numpy plain version on the same inputs; any mismatch raises."""
+    import torch
+    from unittest import mock
+
+    from pdanet_tpu_torch import native
+    from pdanet_tpu_torch.config import cfg_from_yaml_file
+    from pdanet_tpu_torch.datasets.dataset import DatasetTemplate
+    from pdanet_tpu_torch.datasets.kitti.kitti_object_eval_python import rotate_iou
+    from pdanet_tpu_torch.datasets.processor import data_processor
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.serving import make_predict_fn
+    from pdanet_tpu_torch.utils import box_utils, iou3d_np
+
+    med = statistics.median
+    # ---- (a) the build: a fresh compile beside the library the phases loaded
+    compiler = subprocess.run([native.CXX, "--version"], capture_output=True, text=True,
+                              check=True, timeout=60).stdout.splitlines()[0]
+    with tempfile.TemporaryDirectory(prefix="pdanet_host_") as fresh, \
+            mock.patch.object(native, "BUILD_ROOT", Path(fresh)):
+        build_s, _ = host_ms(native.build)
+    native.lib()
+    print(f"host library: {compiler}; a fresh build {build_s / 1e3:.2f} s "
+          f"({' '.join(native.CXX_FLAGS)}); loaded {native.build()}")
+
+    rs = np.random.RandomState(23)
+    frames = [kitti_like_frame(rs, list(KITTI_MEAN_SIZES), list(KITTI_MEAN_SIZES.values()))
+              for _ in range(HOST_FRAMES)]
+
+    # ---- (b) the voxelizer, through the yamls' processors at both budgets
+    for cfg_rel in HOST_VOXEL_CFG_RELS:
+        cfg = cfg_from_yaml_file(str(ROOT / "tools" / cfg_rel))
+        (vox,) = [c for c in cfg.DATA_CONFIG.DATA_PROCESSOR
+                  if c.NAME == "transform_points_to_voxels"]
+        dp = data_processor.DataProcessor(cfg.DATA_CONFIG.DATA_PROCESSOR,
+                                          cfg.DATA_CONFIG.POINT_CLOUD_RANGE, training=False,
+                                          num_point_features=4)
+        pcr, vsz = dp.point_cloud_range, np.asarray(vox.VOXEL_SIZE, np.float32)
+        for split, budget in vox.MAX_NUMBER_OF_VOXELS.items():
+            lib_ms, plain_ms, filled = [], [], []
+            for pts, _, _ in frames:
+                pts = pts[box_utils.mask_points_by_range(pts, pcr)]
+                args = (pts, pcr, vsz, dp.grid_size, vox.MAX_POINTS_PER_VOXEL, budget)
+                t, got = host_ms(native.voxelize, *args)
+                lib_ms.append(t)
+                t, want = host_ms(data_processor.voxelize_plain, *args)
+                plain_ms.append(t)
+                for g, w, what in zip(got, want, ("voxels", "coords", "num_points")):
+                    require(g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w),
+                            f"{cfg_rel} {split}: the library's {what} differ from the plain "
+                            f"version's")
+                filled.append(len(got[0]))
+            # the hash alone: the library into buffers whose pages are already
+            # mapped (the wrapper's fresh budget takes its page faults)
+            warm = [np.ones((budget, vox.MAX_POINTS_PER_VOXEL, 4), np.float32),
+                    np.ones((budget, 3), np.int32), np.ones(budget, np.int32)]
+            hash_ms = [host_ms(native.lib().voxelize_f32, pts, len(pts), 4, pcr, vsz,
+                               dp.grid_size, vox.MAX_POINTS_PER_VOXEL, budget, *warm)[0]
+                       for _ in range(3)]
+            print(f"  (b) voxelizer, {Path(cfg_rel).stem} ({list(vox.VOXEL_SIZE)} m, "
+                  f"{vox.MAX_POINTS_PER_VOXEL} points, {split} budget {budget}): voxels "
+                  f"{filled}, equal to the plain version; host ms a frame, library "
+                  f"{[round(t, 2) for t in lib_ms]} (median {med(lib_ms):.2f}; the hash alone "
+                  f"into mapped buffers {med(hash_ms):.2f}), plain "
+                  f"{[round(t, 2) for t in plain_ms]} (median {med(plain_ms):.2f})")
+
+    # ---- (c) points in boxes: each frame's points in its gt boxes
+    lib_ms, plain_ms, flips = [], [], []
+    for pts, boxes, _ in frames:
+        boxes = boxes.astype(np.float32)
+        t, got = host_ms(box_utils.points_in_boxes_cpu, pts[:, :3], boxes)
+        lib_ms.append(t)
+        t, want = host_ms(box_utils.points_in_boxes_plain, pts[:, :3], boxes)
+        plain_ms.append(t)
+        require(got.dtype == want.dtype == np.int32 and got.shape == want.shape,
+                "points_in_boxes_cpu: dtype or shape")
+        for b, p in zip(*np.nonzero(got != want)):
+            ulps = face_ulps(pts[p], boxes[b])
+            print(f"  (c) mask flip: point {pts[p, :3].tolist()} in box {boxes[b].tolist()}: "
+                  f"library {got[b, p]}, plain {want[b, p]}, {ulps:.2f} ulps from a face")
+            require(ulps <= HOST_FACE_ULPS, f"points_in_boxes_cpu differs from the plain "
+                    f"version {ulps:.2f} ulps from a face (> {HOST_FACE_ULPS})")
+            flips.append(ulps)
+    print(f"  (c) points_in_boxes_cpu, {pts.shape[0]} points x "
+          f"{[len(f[1]) for f in frames]} boxes: {len(flips)} points flipped against the plain "
+          f"version (all within {HOST_FACE_ULPS} ulps of a face); host ms, library "
+          f"{[round(t, 2) for t in lib_ms]} (median {med(lib_ms):.2f}), plain "
+          f"{[round(t, 2) for t in plain_ms]} (median {med(plain_ms):.2f})")
+
+    # ---- (d) the gt sampler's collision test
+    lib_ms, plain_ms, gap, met = [], [], 0.0, 0
+    for _, boxes, _ in frames:
+        sampled, existed = collision_boxes(rs, boxes)
+        pairs = ((sampled, existed), (sampled, sampled))
+        t, got = host_ms(lambda: [iou3d_np.boxes_bev_iou_cpu(a, b) for a, b in pairs])
+        lib_ms.append(t)
+        with mock.patch.object(iou3d_np, "boxes_bev_overlap_cpu",
+                               iou3d_np.boxes_bev_overlap_plain):
+            t, want = host_ms(lambda: [iou3d_np.boxes_bev_iou_cpu(a, b) for a, b in pairs])
+        plain_ms.append(t)
+        for g, w in zip(got, want):
+            require(g.dtype == w.dtype == np.float32 and g.shape == w.shape,
+                    "boxes_bev_iou_cpu: dtype or shape")
+            gap = max(gap, float(np.abs(g - w).max()))
+            met += int((g > 0).sum())
+    require(gap <= HOST_OVERLAP_TOL, f"the collision test's IoU {gap} from the plain version's")
+    print(f"  (d) gt sampler collision test, {len(sampled)} sampled boxes against each frame's "
+          f"{[len(f[1]) for f in frames]} and against each other: {met} pairs meet, largest "
+          f"IoU gap to the plain version {gap:.3g}; host ms a frame, library "
+          f"{[round(t, 3) for t in lib_ms]} (median {med(lib_ms):.3f}), plain "
+          f"{[round(t, 2) for t in plain_ms]} (median {med(plain_ms):.2f})")
+
+    # ---- (e) the evaluation's rotated IoU at the shapes phase 9's evaluation passed it
+    calls = kitti_run["eval_iou_calls"]
+    require(calls, "phase 9's evaluation passed rotate_iou_eval nothing")
+    lib_ms, plain_ms, gap = [], [], 0.0
+    for boxes, qboxes, _ in calls:
+        t, got = host_ms(lambda: [rotate_iou.rotate_iou_eval(boxes, qboxes, c)
+                                  for c in (-1, 0, 1, 2)])
+        lib_ms.append(t)
+        with mock.patch.object(rotate_iou, "rotate_overlap", rotate_iou.rotate_overlap_plain):
+            t, want = host_ms(lambda: [rotate_iou.rotate_iou_eval(boxes, qboxes, c)
+                                       for c in (-1, 0, 1, 2)])
+        plain_ms.append(t)
+        for g, w in zip(got, want):
+            require(g.dtype == w.dtype and g.shape == w.shape, "rotate_iou_eval: dtype or shape")
+            gap = max(gap, float(np.abs(g - w).max()))
+    require(gap <= HOST_OVERLAP_TOL, f"rotate_iou_eval {gap} from the plain version's")
+    print(f"  (e) rotate_iou_eval, criteria -1, 0, 1 and 2 at phase 9's shapes "
+          f"{[(len(b), len(q), c) for b, q, c in calls]} (rows, columns, criterion there): "
+          f"largest gap to the plain version {gap:.3g}; host ms for the four, library "
+          f"{[round(t, 2) for t in lib_ms]}, plain {[round(t, 2) for t in plain_ms]}")
+
+    # ---- (f) PointPillar b1, points to detections: the host processors, the
+    # collate and the request, with the library's voxelizer and the plain one
+    cfg = cfg_from_yaml_file(str(ROOT / "tools" / PP_CFG_REL))
+    template = DatasetTemplate(dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
+                               training=False, root_path=str(kitti_run["root"]))
+    model = init_random_weights(build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=template,
+                                              device=dev), seed=0)
+    predict = make_predict_fn(model, cfg.MODEL)
+    pp_frames = voxel_frames(123, HOST_FRAMES, cfg.CLASS_NAMES)
+
+    def points_to_detections(frame, plain):
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(mock.patch.object(data_processor.native, "voxelize",
+                                                      data_processor.voxelize_plain))
+            t0 = time.perf_counter()
+            batch, _ = voxel_batch(cfg, [frame], False, dev, model)
+            batch.pop("gt_boxes")  # a request carries the voxels alone
+            res = predict(batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, res
+
+    for plain in (False, True):  # warm-up
+        points_to_detections(pp_frames[0], plain)
+    clear_launches()
+    ms = {False: [], True: []}
+    for frame in pp_frames:  # in turns: library, plain, plain, library
+        outs = {}
+        for plain in (False, True, True, False):
+            t, outs[plain] = points_to_detections(frame, plain)
+            ms[plain].append(t)
+        for k, v in outs[False].items():
+            require(torch.equal(v, outs[True][k]), f"PointPillar's {k} differ with the plain "
+                    f"voxelizer")
+    counts = counted_launches()
+    for name in ("rotated_iou", "nms"):
+        require(counts.get(name, 0) > 0, f"kernel {name} never launched in (f)")
+    print(f"  (f) PointPillar b1, points to detections ({KITTI_FRAME_POINTS} points, float32; "
+          f"the processors, the collate, the request; detections equal): library voxelizer "
+          f"{[round(t, 2) for t in ms[False]]} ms (median {med(ms[False]):.2f}), plain "
+          f"{[round(t, 2) for t in ms[True]]} ms (median {med(ms[True]):.2f}); launches "
+          f"{ {k: v for k, v in counts.items() if k.startswith(('rotated_iou', 'nms'))} }")
+    del predict, model
+    torch.cuda.empty_cache()
+
+
 def ptxas_report(log):
     """(kernel, registers, shared-memory bytes, spill bytes) per kernel of
     an ``nvcc -Xptxas -v`` log, names shortened from their mangled form
@@ -7995,8 +8257,8 @@ def main():
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
                     "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
-    ap.add_argument("--phases", help="comma-separated phases of 3-22 to run, with those they "
-                    "read (3 for 6, 4 for 5, 11 and 22, 9 for 11-20 and 22); every phase "
+    ap.add_argument("--phases", help="comma-separated phases of 3-23 to run, with those they "
+                    "read (3 for 6, 4 for 5, 11 and 22, 9 for 11-20, 22 and 23); every phase "
                     "without it, and only then are the launches of every kernel required")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -8053,13 +8315,13 @@ def main():
         multi_gpu(dev, args.world)
         return
 
-    # ---- 3.-22.
-    every = set(range(3, 23))
+    # ---- 3.-23.
+    every = set(range(3, 24))
     want = every if not args.phases else {int(p) for p in args.phases.split(",")}
-    require(want <= every, f"--phases {args.phases}: phases 3-22 only")
+    require(want <= every, f"--phases {args.phases}: phases 3-23 only")
     want |= {3} if 6 in want else set()
     want |= {4} if want & {5, 11, 22} else set()
-    want |= {9} if want & (set(range(11, 21)) | {22}) else set()
+    want |= {9} if want & (set(range(11, 21)) | {22, 23}) else set()
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -8149,6 +8411,8 @@ def main():
                     "22 (the reference checkpoint converter, the profiler CLI)",
                     checkpoint_phase, dev, kitti_work, kitti_run, predict)
                 chains.append(chain)
+            if 23 in want:  # on the host before the tail's processes load it
+                timed("23 (the host library)", host_library_phase, dev, kitti_run)
             if 11 in want:
                 chains.insert(0, ("dp", lambda: dp_cli(kitti_work, kitti_run)))
             if exports or chains:

@@ -4,7 +4,7 @@
 kitti-object-eval-python protocol): class and difficulty cleaning, 41-point
 and R40 interpolated AP over the bbox / BEV / 3D / AOS metrics, IoU
 thresholds 0.7 / 0.5 / 0.5 (Car / Pedestrian / Cyclist) and the 0.5 / 0.25
-table.  The rotated IoU is the numpy one of ``rotate_iou.py``.
+table.  The rotated IoU is ``rotate_iou.py``'s, on the g++ host library.
 """
 
 import numpy as np

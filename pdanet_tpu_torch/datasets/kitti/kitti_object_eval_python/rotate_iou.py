@@ -1,16 +1,20 @@
-"""Vectorized numpy rotated IoU for offline evaluation.
+"""Rotated IoU for offline evaluation.
 
 Counterpart of ``pcdet/datasets/kitti/kitti_object_eval_python/rotate_iou.py``
-(numba.cuda there), copied from the JAX package's numpy path.  Same
-geometry as the on-device rotated IoU: enumerate 16
-edge intersections + 8 contained corners per pair, sort by angle, shoelace.
-Fully vectorized over the (N, K) pair grid — no per-pair python loop.
+(numba.cuda there), copied from the JAX package's.  ``rotate_overlap`` runs
+the port's g++ host library (``native.rotated_overlap``, a convex clip a
+pair), as the JAX package runs its own.  Its numpy plain version,
+``rotate_overlap_plain``, has the geometry of the on-device rotated IoU:
+enumerate 16 edge intersections + 8 contained corners per pair, sort by
+angle, shoelace, vectorized over the (N, K) pair grid.
 
 Boxes here are BEV rectangles ``[cx, cy, w, h, angle]`` (the KITTI eval
 passes camera-frame (x, z, l, w, ry)).
 """
 
 import numpy as np
+
+from .... import native
 
 EPS = 1e-8
 
@@ -67,7 +71,18 @@ def _corners_in_quad(quad, pts):
 
 
 def rotate_overlap(boxes, qboxes):
-    """(N, 5) x (K, 5) -> (N, K) rotated intersection areas."""
+    """(N, 5) x (K, 5) -> (N, K) float32 rotated intersection areas, by the
+    host library (in float64, rounded once)."""
+    N, K = len(boxes), len(qboxes)
+    if N == 0 or K == 0:
+        return np.zeros((N, K), dtype=np.float32)
+    return native.rotated_overlap(boxes, qboxes).astype(np.float32)
+
+
+def rotate_overlap_plain(boxes, qboxes):
+    """The numpy plain version of ``rotate_overlap``.  On edges that are
+    collinear to ~1e-12 m it can drop a corner (the JAX package's numpy path
+    does the same; ROADMAP queue 3)."""
     N, K = len(boxes), len(qboxes)
     if N == 0 or K == 0:
         return np.zeros((N, K), dtype=np.float32)

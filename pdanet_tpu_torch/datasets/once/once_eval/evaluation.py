@@ -4,7 +4,8 @@ Counterpart of ``pcdet/datasets/once/once_eval/evaluation.py``: superclass
 Vehicle/Pedestrian/Cyclist with IoU thresholds 0.7/0.3/0.5, 50-point PR
 sampling, difficulties overall + 0-30 / 30-50 / 50-inf m, heading-aware 3D
 IoU (pairs with >90 deg heading difference are unmatched).  The numba.cuda
-rotated IoU becomes the vectorized numpy kernel shared with the KITTI eval.
+rotated IoU becomes the KITTI eval's ``rotate_iou_eval`` (the g++ host
+library's rotated overlap).
 """
 
 import numpy as np

@@ -4,10 +4,10 @@
 ``shuffle_points`` (:93-103), ``sample_points`` (:187-217, the near/far
 fixed budget that gives a point model its static point count),
 ``sort_points`` (an x-sort with no reference counterpart), the voxel grid:
-``transform_points_to_voxels`` (JAX :156-235, its numpy grid-hash path;
-the JAX package's g++ voxelizer, which ``tests/test_native.py`` holds
-equal to it, is ROADMAP queue 1 item 10), ``calculate_grid_size`` and
-``transform_points_to_voxels_placeholder``; ``sample_points_by_voxels``
+``transform_points_to_voxels`` (JAX :156-235) through the port's g++ host
+library (``native.voxelize``), as the JAX package runs its own, with the
+numpy grid hash beside it as ``voxelize_plain``, ``calculate_grid_size``
+and ``transform_points_to_voxels_placeholder``; ``sample_points_by_voxels``
 (JAX :237-266: one point a voxel, then the budget) and CaDDN's
 ``downsample_depth_map`` (JAX :129-144: a block mean).
 """
@@ -16,6 +16,7 @@ from functools import partial
 
 import numpy as np
 
+from ... import native
 from ...utils import box_utils
 from ..random_draws import rng
 
@@ -143,8 +144,8 @@ class DataProcessor:
         return data_dict
 
     def transform_points_to_voxels(self, data_dict=None, config=None):
-        """Voxelization by a numpy grid hash: voxels in order of their first
-        point, points in scan order within a voxel, at most
+        """Voxelization by the host library's grid hash: voxels in order of
+        their first point, points in scan order within a voxel, at most
         ``MAX_POINTS_PER_VOXEL`` points a voxel and ``MAX_NUMBER_OF_VOXELS``
         voxels (of this split) a frame -- what the reference's spconv CPU
         voxelizer gives (data_processor.py:115-143).  Adds ``voxels``
@@ -155,42 +156,14 @@ class DataProcessor:
             self._set_grid(config)
             return partial(self.transform_points_to_voxels, config=config)
 
-        points = data_dict["points"]
-        voxel_size = np.asarray(config.VOXEL_SIZE, dtype=np.float32)
-        max_pts = int(config.MAX_POINTS_PER_VOXEL)
         max_voxels = int(config.MAX_NUMBER_OF_VOXELS[self.mode])
-        pcr = self.point_cloud_range
-
-        coords = np.floor((points[:, 0:3] - pcr[0:3]) / voxel_size).astype(np.int64)
-        grid = self.grid_size
-        inside = ((coords >= 0).all(axis=1) & (coords[:, 0] < grid[0])
-                  & (coords[:, 1] < grid[1]) & (coords[:, 2] < grid[2]))
-        points = points[inside]
-        coords = coords[inside]
-        # voxel id in zyx scan order (reference coords are (z, y, x))
-        vid = (coords[:, 2] * grid[1] + coords[:, 1]) * grid[0] + coords[:, 0]
-        _, first_idx, inverse = np.unique(vid, return_index=True, return_inverse=True)
-        order = np.argsort(np.argsort(first_idx))  # rank by first appearance
-        slot = order[inverse]
-        num_voxels = min(len(first_idx), max_voxels)
-
-        # rank of each point within its voxel, in scan order
-        order_pts = np.argsort(slot, kind="stable")
-        sorted_slot = slot[order_pts]
-        boundaries = np.concatenate([[0], np.cumsum(np.bincount(sorted_slot))])
-        rank = np.empty(len(points), dtype=np.int64)
-        rank[order_pts] = np.arange(len(points)) - boundaries[sorted_slot]
-
-        keep = (slot < num_voxels) & (rank < max_pts)
-        voxels = np.zeros((num_voxels, max_pts, points.shape[1]), dtype=np.float32)
-        voxels[slot[keep], rank[keep]] = points[keep]
-        counts = np.bincount(slot, minlength=num_voxels)[:num_voxels]
-        # first_idx is ordered by voxel id; reorder to first-appearance slots
-        voxel_coords = coords[first_idx[np.argsort(order)]][:num_voxels][:, ::-1]
-
+        voxels, voxel_coords, voxel_num_points = native.voxelize(
+            data_dict["points"], self.point_cloud_range,
+            np.asarray(config.VOXEL_SIZE, dtype=np.float32), self.grid_size,
+            int(config.MAX_POINTS_PER_VOXEL), max_voxels)
         data_dict["voxels"] = voxels
-        data_dict["voxel_coords"] = voxel_coords.astype(np.int32)
-        data_dict["voxel_num_points"] = np.minimum(counts, max_pts).astype(np.int32)
+        data_dict["voxel_coords"] = voxel_coords
+        data_dict["voxel_num_points"] = voxel_num_points
         data_dict["max_number_of_voxels"] = max_voxels
         return data_dict
 
@@ -238,3 +211,35 @@ class DataProcessor:
         for cur_processor in self.data_processor_queue:
             data_dict = cur_processor(data_dict=data_dict)
         return data_dict
+
+
+def voxelize_plain(points, pcr, voxel_size, grid, max_pts, max_voxels):
+    """The numpy plain version of ``native.voxelize`` (the JAX package's
+    numpy grid hash): the same outputs, bit for bit."""
+    coords = np.floor((points[:, 0:3] - pcr[0:3]) / voxel_size).astype(np.int64)
+    inside = ((coords >= 0).all(axis=1) & (coords[:, 0] < grid[0])
+              & (coords[:, 1] < grid[1]) & (coords[:, 2] < grid[2]))
+    points = points[inside]
+    coords = coords[inside]
+    # voxel id in zyx scan order (reference coords are (z, y, x))
+    vid = (coords[:, 2] * grid[1] + coords[:, 1]) * grid[0] + coords[:, 0]
+    _, first_idx, inverse = np.unique(vid, return_index=True, return_inverse=True)
+    order = np.argsort(np.argsort(first_idx))  # rank by first appearance
+    slot = order[inverse]
+    num_voxels = min(len(first_idx), max_voxels)
+
+    # rank of each point within its voxel, in scan order
+    order_pts = np.argsort(slot, kind="stable")
+    sorted_slot = slot[order_pts]
+    boundaries = np.concatenate([[0], np.cumsum(np.bincount(sorted_slot))])
+    rank = np.empty(len(points), dtype=np.int64)
+    rank[order_pts] = np.arange(len(points)) - boundaries[sorted_slot]
+
+    keep = (slot < num_voxels) & (rank < max_pts)
+    voxels = np.zeros((num_voxels, max_pts, points.shape[1]), dtype=np.float32)
+    voxels[slot[keep], rank[keep]] = points[keep]
+    counts = np.bincount(slot, minlength=num_voxels)[:num_voxels]
+    # first_idx is ordered by voxel id; reorder to first-appearance slots
+    voxel_coords = coords[first_idx[np.argsort(order)]][:num_voxels][:, ::-1]
+    return (voxels, voxel_coords.astype(np.int32),
+            np.minimum(counts, max_pts).astype(np.int32))

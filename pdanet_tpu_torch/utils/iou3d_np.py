@@ -1,12 +1,14 @@
-"""Host (numpy) rotated BEV IoU: the reference's ``boxes_bev_iou_cpu``
+"""Host rotated BEV IoU: the reference's ``boxes_bev_iou_cpu``
 (``iou3d_nms_utils.py:12-28`` over ``iou3d_cpu.cpp:1-252``), copied from
-``pdanet_tpu/utils/iou3d_np.py`` on its numpy path (the JAX package's g++
-host library is not ported).  Used by the gt-sampling augmentor's collision
-test; candidate counts are tens, so a plain convex-clip loop is fast enough
-on the host.
+``pdanet_tpu/utils/iou3d_np.py``.  Used by the gt-sampling augmentor's
+collision test.  The overlap runs the port's g++ host library
+(``native.rotated_overlap``), as the JAX package runs its own; the numpy
+convex-clip loop stays beside it as ``boxes_bev_overlap_plain``.
 """
 
 import numpy as np
+
+from .. import native
 
 
 def _box_corners_bev(boxes):
@@ -75,7 +77,19 @@ def _polygon_area(poly):
 
 
 def boxes_bev_overlap_cpu(boxes_a, boxes_b):
-    """(N, 7) x (M, 7) -> (N, M) rotated BEV intersection areas."""
+    """(N, 7) x (M, 7) -> (N, M) float32 rotated BEV intersection areas, by
+    the host library (in float64, rounded once)."""
+    boxes_a = np.asarray(boxes_a)
+    boxes_b = np.asarray(boxes_b)
+    if not (len(boxes_a) and len(boxes_b)):
+        return np.zeros((len(boxes_a), len(boxes_b)), dtype=np.float32)
+    cols = [0, 1, 3, 4, 6]
+    return native.rotated_overlap(boxes_a[:, cols], boxes_b[:, cols]).astype(np.float32)
+
+
+def boxes_bev_overlap_plain(boxes_a, boxes_b):
+    """The numpy plain version of ``boxes_bev_overlap_cpu``: a
+    Sutherland-Hodgman clip a pair in Python."""
     boxes_a = np.asarray(boxes_a)
     boxes_b = np.asarray(boxes_b)
     ca = _box_corners_bev(np.asarray(boxes_a, dtype=np.float64))

@@ -25,7 +25,6 @@ import numpy as np
 import pytest
 
 from kitti_fixture import build_mini_kitti
-from pdanet_tpu import native as j_native
 from pdanet_tpu.datasets.augmentor.data_augmentor import DataAugmentor as JDataAugmentor
 from pdanet_tpu.datasets.kitti import kitti_dataset as j_kitti
 from pdanet_tpu.utils.easydict import EasyDict as JEasyDict
@@ -60,11 +59,6 @@ AUGS = {
                                                  SPARSIFY_MAX_NUM=20, SWAP_PROB=0.6,
                                                  SWAP_MAX_NUM=20),
 }
-
-
-@pytest.fixture(autouse=True)
-def _jax_numpy_host_paths(monkeypatch):
-    monkeypatch.setattr(j_native, "_LIB", None)
 
 
 def lidar_frame(seed, n_bg=3000, high_box=False):
@@ -197,10 +191,8 @@ def two_roots(tmp_path_factory):
         (root / "ImageSets" / "val.txt").write_text("000002\n")
         dcfg = copy.deepcopy(cfg.DATA_CONFIG)
         dcfg.DATA_PATH = str(root)
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(j_native, "_LIB", None)
-            create(dcfg if name == "port" else JEasyDict(dict(dcfg)), CLASSES, root, root,
-                   workers=2)
+        create(dcfg if name == "port" else JEasyDict(dict(dcfg)), CLASSES, root, root,
+               workers=2)
         roots.append(root)
     return roots
 

@@ -55,7 +55,6 @@ import jax.numpy as jnp
 
 from kitti_fixture import build_mini_kitti
 from model_cfg import tiny_model_cfg
-from pdanet_tpu import native as j_native
 from pdanet_tpu.datasets import build_dataloader as j_build_dataloader
 from pdanet_tpu.eval.eval_utils import eval_one_epoch as j_eval_one_epoch
 from pdanet_tpu.models.detectors import build_network as j_build
@@ -668,14 +667,12 @@ def test_jax_checkpoint_through_the_test_cli_like_jax(kitti_env, jax_checkpoint,
               / "val" / "default" / "result.pkl", "rb") as f:
         got = pickle.load(f)
 
-    with pytest.MonkeyPatch.context() as mp:  # the port's numpy host paths
-        mp.setattr(j_native, "_LIB", None)
-        np.random.seed(1024)  # as the test CLI seeds the test split's sampling
-        _, j_loader, _ = j_build_dataloader(cfg.DATA_CONFIG, CLASSES, 1, root_path=root,
-                                            workers=0, training=False)
-        want_result = j_eval_one_epoch(copy.deepcopy(cfg), jmodel, variables, j_loader, 7,
-                                       logging.getLogger("test_torch_cli"),
-                                       result_dir=workdir / "jax")
+    np.random.seed(1024)  # as the test CLI seeds the test split's sampling
+    _, j_loader, _ = j_build_dataloader(cfg.DATA_CONFIG, CLASSES, 1, root_path=root,
+                                        workers=0, training=False)
+    want_result = j_eval_one_epoch(copy.deepcopy(cfg), jmodel, variables, j_loader, 7,
+                                   logging.getLogger("test_torch_cli"),
+                                   result_dir=workdir / "jax")
     with open(workdir / "jax" / "result.pkl", "rb") as f:
         want = pickle.load(f)
 

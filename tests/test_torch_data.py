@@ -15,10 +15,11 @@ Both packages run on the synthetic mini-ONCE of ``tests/once_fixture.py``
 * the official ONCE evaluation: ``get_evaluation_results`` exactly equal
   on perfect and perturbed predictions.
 
-The port keeps only the numpy paths of the JAX package's host code; its
-g++ host library (``pdanet_tpu/native``) is not ported.  The JAX side
-therefore runs on its numpy fallbacks here (``native._LIB`` unset for this
-module), which ``tests/test_native.py`` holds to the native library.
+Each package runs its default host path: the points in boxes, the
+rotated overlaps and the voxelizer through its own g++ host library
+(``pdanet_tpu/native``, ``pdanet_tpu_torch/native``), which
+``tests/test_native.py`` and ``tests/test_torch_native.py`` hold to the
+numpy plain versions.
 """
 
 import copy
@@ -30,7 +31,6 @@ import pytest
 import torch
 
 from once_fixture import build_mini_once
-from pdanet_tpu import native as j_native
 from pdanet_tpu.config import cfg_from_yaml_file as j_cfg_from_yaml_file
 from pdanet_tpu.datasets import SimpleLoader as JSimpleLoader
 from pdanet_tpu.datasets import build_dataloader as j_build_dataloader
@@ -73,14 +73,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _jax_numpy_paths():
-    """The JAX package's host code on its numpy fallbacks (see above)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(j_native, "_LIB", None)
-        yield
 
 
 def data_cfg(root, num_points=NUM_POINTS):

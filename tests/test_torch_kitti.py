@@ -1,6 +1,5 @@
 """The KITTI slice of pdanet_tpu_torch against the JAX package, on the CPU,
-with the JAX package on its numpy host paths (its g++ host library off, as
-the port has none).
+each package on its default host path (its own g++ host library).
 
 * Calibration (lidar <-> rect <-> image) and the KITTI camera box
   conversions: equal, array for array.
@@ -27,7 +26,6 @@ import pytest
 import torch
 
 from kitti_fixture import CALIB_TXT, build_mini_kitti
-from pdanet_tpu import native as j_native
 from pdanet_tpu.datasets.kitti import kitti_dataset as j_kitti
 from pdanet_tpu.datasets.kitti.kitti_object_eval_python import eval as j_eval
 from pdanet_tpu.datasets.kitti.kitti_object_eval_python import evaluate as j_evaluate
@@ -57,11 +55,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
-
-
-@pytest.fixture(autouse=True)
-def _jax_numpy_host_paths(monkeypatch):
-    monkeypatch.setattr(j_native, "_LIB", None)
 
 
 def assert_same(a, b, path="root"):
@@ -202,9 +195,7 @@ def two_roots(tmp_path_factory):
         build_mini_kitti(root, num_frames=5, frame_objects=_frame_objects(5), n_bg=4000)
         (root / "ImageSets" / "val.txt").write_text("000003\n000004\n")
         dcfg, j_dcfg = _yaml_cfg(root)
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(j_native, "_LIB", None)
-            create(dcfg if name == "port" else j_dcfg, CLASSES, root, root, workers=2)
+        create(dcfg if name == "port" else j_dcfg, CLASSES, root, root, workers=2)
         roots.append(root)
     return roots
 

@@ -288,6 +288,10 @@ def test_port_imports_no_jax():
         "from pdanet_tpu_torch.models.blocks import CBAM, EncoderLayer\n"
         "from pdanet_tpu_torch.models.model_utils.model_nms_utils import class_agnostic_nms\n"
         "from pdanet_tpu_torch.tools import ckpt_converter, once_submit_result, profiler\n"
+        "from pdanet_tpu_torch import native\n"
+        "from pdanet_tpu_torch.datasets.processor import data_processor\n"
+        "from pdanet_tpu_torch.utils import box_utils, iou3d_np\n"
+        "from pdanet_tpu_torch.datasets.kitti.kitti_object_eval_python import rotate_iou\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdanet_tpu'))\n"
         "assert not bad, bad\n"

@@ -32,7 +32,6 @@ import jax.numpy as jnp
 
 from model_cfg import tiny_model_cfg
 from once_fixture import build_mini_once
-from pdanet_tpu import native as j_native
 from pdanet_tpu.config import cfg_from_yaml_file as j_cfg_from_yaml_file
 from pdanet_tpu.datasets import build_dataloader as j_build_dataloader
 from pdanet_tpu.datasets.once.once_dataset import create_once_infos as j_create_once_infos
@@ -440,28 +439,26 @@ def test_eval_one_epoch_matches_jax(jax_once, tmp_path):
     cfg.MODEL.POST_PROCESSING.RECALL_THRESH_LIST = [0.0, 0.01, 0.3]
     j_cfg = JEasyDict(copy.deepcopy(dict(cfg)))
     logger = logging.getLogger("test_torch_once")
-    with pytest.MonkeyPatch.context() as mp:  # the port's numpy host paths
-        mp.setattr(j_native, "_LIB", None)
-        j_create_once_infos(j_cfg.DATA_CONFIG, list(CLASSES), root, root, workers=1)
-        # random weights place no box near the fixture's gt: widen the val
-        # gt to 40 x 40 x 6 m, so that the recall counts are not all 0
-        with open(root / "once_infos_val.pkl", "rb") as f:
-            infos = pickle.load(f)
-        for info in infos:
-            info["annos"]["boxes_3d"][:, 3:6] = [40.0, 40.0, 6.0]
-        with open(root / "once_infos_val.pkl", "wb") as f:
-            pickle.dump(infos, f)
-        _, j_loader, _ = j_build_dataloader(j_cfg.DATA_CONFIG, list(CLASSES), 1,
-                                            root_path=root, workers=0, training=False)
-        jmodel = j_build(j_cfg.MODEL, num_class=NUM_CLASS)
-        np.random.seed(0)  # sample_points subsamples the test split too
-        want = j_eval_one_epoch(j_cfg, jmodel, jax_once["variables"], j_loader, 0, logger,
-                                result_dir=tmp_path / "jax")
-        _, loader, _ = build_dataloader(cfg.DATA_CONFIG, list(CLASSES), 1,
+    j_create_once_infos(j_cfg.DATA_CONFIG, list(CLASSES), root, root, workers=1)
+    # random weights place no box near the fixture's gt: widen the val
+    # gt to 40 x 40 x 6 m, so that the recall counts are not all 0
+    with open(root / "once_infos_val.pkl", "rb") as f:
+        infos = pickle.load(f)
+    for info in infos:
+        info["annos"]["boxes_3d"][:, 3:6] = [40.0, 40.0, 6.0]
+    with open(root / "once_infos_val.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    _, j_loader, _ = j_build_dataloader(j_cfg.DATA_CONFIG, list(CLASSES), 1,
                                         root_path=root, workers=0, training=False)
-        np.random.seed(0)
-        got = eval_one_epoch(cfg, _port(jax_once), loader, 0, logger,
-                             result_dir=tmp_path / "port", device="cpu")
+    jmodel = j_build(j_cfg.MODEL, num_class=NUM_CLASS)
+    np.random.seed(0)  # sample_points subsamples the test split too
+    want = j_eval_one_epoch(j_cfg, jmodel, jax_once["variables"], j_loader, 0, logger,
+                            result_dir=tmp_path / "jax")
+    _, loader, _ = build_dataloader(cfg.DATA_CONFIG, list(CLASSES), 1,
+                                    root_path=root, workers=0, training=False)
+    np.random.seed(0)
+    got = eval_one_epoch(cfg, _port(jax_once), loader, 0, logger,
+                         result_dir=tmp_path / "port", device="cpu")
     assert list(got) == list(want)
     for k, w in want.items():
         assert got[k] == w, (k, got[k], w)

@@ -4,8 +4,8 @@ grid of 0.4 m pillars, 16 / 32 filters, 512 pillars of 8 points,
 ``NMS_PRE_MAXSIZE`` 256), inputs from a numpy seed, weights carried from
 the flax variables by the weight bridge.
 
-* The voxelizer and the voxel collate equal to the JAX package's numpy
-  paths, over-cap voxels and points included.
+* The voxelizer and the voxel collate equal to the JAX package's, each on
+  its own g++ host library, over-cap voxels and points included.
 * ``PillarVFE`` and the scatter in training mode within 1e-5 of the map's
   largest |value| (float32),
   with non-full pillars (whose max sees the padded rows' phantom vector)
@@ -36,7 +36,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from pdanet_tpu import native as j_native
 from pdanet_tpu.datasets.dataset import DatasetTemplate as JDatasetTemplate
 from pdanet_tpu.datasets.processor.data_processor import DataProcessor as JDataProcessor
 from pdanet_tpu.models import build_network as j_build
@@ -74,15 +73,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _jax_numpy_paths():
-    """The JAX package's voxelizer on its numpy path: the port has no g++
-    host library (``tests/test_native.py`` holds the two equal)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(j_native, "_LIB", None)
-        yield
 
 
 def _vox_cfg(max_pts=P, max_voxels=V):
