@@ -489,9 +489,47 @@ Phases, each of which raises on failure:
    ``HOST_OVERLAP_TOL``.  (f) PointPillar's b1 request from points to
    detections (processors, collate, request) with the library's voxelizer
    and the plain one in turns, the detections equal.
+24. The learning checks (``learning_phase``; ``--phases 24`` runs it alone,
+   it reads no other phase): ``tests/test_overfit_e2e.py``'s four overfits
+   on the card in float32 from the port's seeded weights, at that file's
+   configs (``tests/test_cli.py``'s tiny yamls, copied here), epochs and
+   learning rates, on its fixture (four frames of ``tests/kitti_fixture.py``
+   written by ``write_fixture_root``, the world augmentations off): PDA-SSD
+   250 epochs, PointPillar 300, CenterPoint 150, Voxel-RCNN 300, each
+   through the port's loader at B = 4, ``make_train_step`` and
+   ``AdamOneCycle`` (``overfit``), then every frame through the model and
+   ``get_post_processor`` at B = 2 (``detect_cars``), on the clouds it
+   trained on and on the test split (``test_split``: the loader's own draw
+   of 512 of a frame's points; the port's loader draws a sample from its
+   own generator, seeded from (seed, epoch, index), so at seed 0 that is
+   the draw trained on, its points in another order, where the JAX
+   package's loader draws anew from numpy's global generator);
+   PDA-SSD's overfit again in bfloat16 compute; its first 20 steps again
+   in float64 (the model and batches cast); four fresh processes at once
+   (``LEARNING_PROCESSES``: float32 PDA-SSD, bfloat16 PDA-SSD, Voxel-RCNN,
+   PointPillar then CenterPoint then the float64 steps).  Gates: a finite
+   loss, PDA-SSD's centre positives at the last step, and in each of the
+   four frames a detection of label 1 above 0.3 with a 3-D IoU of at least
+   0.3 with its car: PDA-SSD's on the clouds it trained on (weaker than the
+   JAX test's test split: on a draw of it a frame is missed in some runs,
+   in either package), the others' on the test split; the
+   float64 replay (below) within ``REPLAY64_TOL`` of the CPU.
+   Reports: each run's seconds and median ms a step (beside the other
+   processes and, in a whole run, the tail's: ``--phases 24`` alone gives
+   the step times without the tail), the loss every 50 epochs and at the
+   last, the frames with a car, the non-finite boxes detected, the
+   launches (by K for the IoU and NMS); the first 20 steps of the float32
+   and of the float64 PDA-SSD run again on the CPU (plain versions) in
+   their dtype from the same weights and batches, the card's sampling and
+   ball-query picks fed: both losses and their gap, the median and largest
+   gap of a parameter leaf at steps 1, 5, 10 and 20 (the largest also on a
+   scale floored at ``REPLAY_FLOOR`` of the largest leaf); and the float32
+   CPU steps again from every initial parameter one ulp up (a control:
+   how far float32 rounding alone carries the run).
+   Every kernel of ``KERNELS`` must launch in the phase.
 
 Depth (``VOXEL_DEPTH``; every kernel row, family and phase stays): phases
-12-19 serve one b1 and one b2 request (15b, 17b and 19b one b1), take one
+12-19 serve one b1 and one b2 request (15a, 15b, 17b, 18a and 19b one b1), take one
 float32 step (19a two), and their CLIs train over 4 of phase 9's frames,
 ``dist_train.sh`` too in 12, 14, 17 and 19a (one model a family, and 20's
 CaDDN: 13, 16, 18a, 18b and 19b do not); 15b, 17b and 18b take no float64 step (18b's point-box
@@ -507,7 +545,8 @@ and one fresh process reloads each as it is saved and holds it bit-equal
 to the eager closure's outputs on the same frame (saved in the phase),
 while phase 10's fresh process and serve CLI, phase 11's
 ``dist_train.sh`` and ``dist_test.sh`` and the ``dist_train.sh`` runs of
-phases 12, 14, 17, 19a and 20 (c, at B = 1) go, seven chains at a time.
+phases 12, 14, 17, 19a and 20 (c, at B = 1) go, seven chains at a time,
+and phase 24's processes beside them (alone with ``--phases 24``).
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
@@ -515,8 +554,8 @@ Each phase prints its wall time.  The line before the last is
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
 CLIs, phase 10's exported programs, phase 11's CLI processes, one
 process and ranks, phases 12-19's requests, train steps, CLIs and
-programs, and phase 22's converted requests and test CLI, each run
-counted from 0), its
+programs, phase 22's converted requests and test CLI, and phase 24's
+overfits and their evaluations, each run counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -3751,7 +3790,10 @@ CLI_TRAIN_FRAMES = 4
 # cli_root / cli_batch (the CLIs on a root of their own), cli_export,
 # dist_train; iou_rows ((e)'s IoU / NMS rows).  The reasons: phase 15
 # trains at B=1 (the yaml's 4 would need four times B=1's ~35 GiB); 16 and
-# 17 have no TF32 turns (13 times the same BEV convolution with TF32 on);
+# 17 have no TF32 turns (13 times the same BEV convolution with TF32 on),
+# nor has 15a (since phase 24: 13's BEV convolution and the dense ladder's
+# TF32 turns were measured in PRs 13-15), which serves one b1 request, as
+# 18a does (their b2 requests went with phase 24);
 # 18a and 18b share a root of 2 + 2 frames (a Part-A2 step takes ~1 s);
 # 15b, 17b and 18b take no float64 step (their code is 15a's, 17's, and
 # 18a's and 19a's), 16's and the dense ladder's run on DENSE_CROP (the
@@ -3765,9 +3807,9 @@ VOXEL_DEPTH = {12: dict(latency_reps=3, serve_requests=2, train_steps=1, tf32=Fa
                         dist_train=False),
                14: dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
                         tf32=False),
-               "15a": dict(latency_reps=3, serve_requests=2, train_steps=1, batch_size=1,
+               "15a": dict(latency_reps=3, serve_requests=1, train_steps=1, batch_size=1,
                            crop=DENSE_CROP, cli_root=DENSE_CLI_SPLITS, cli_export=True,
-                           dist_train=False, layout=False, train_split=False),
+                           dist_train=False, layout=False, train_split=False, tf32=False),
                "15b": dict(latency_reps=3, train_steps=1, batch_size=1, crop=DENSE_CROP,
                            serve_requests=1, cli=False, layout=False, train_split=False,
                            tf32=False, float64=False),
@@ -3777,7 +3819,7 @@ VOXEL_DEPTH = {12: dict(latency_reps=3, serve_requests=2, train_steps=1, tf32=Fa
                         tf32=False),
                "17b": dict(latency_reps=3, train_steps=1, serve_requests=1, cli=False,
                            tf32=False, train_split=False, iou_rows=False, float64=False),
-               "18a": dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
+               "18a": dict(latency_reps=3, serve_requests=1, train_steps=1, train_split=False,
                            tf32=False, crop=DENSE_CROP, cli_root=PARTA2_CLI_SPLITS,
                            cli_batch=PARTA2_CLI_BATCH, dist_train=False),
                "18b": dict(latency_reps=3, serve_requests=2, train_steps=1, train_split=False,
@@ -8154,6 +8196,958 @@ def host_library_phase(dev, kitti_run):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the learning checks (tests/test_overfit_e2e.py on the card)
+# ---------------------------------------------------------------------------
+
+# the four tiny configs of tests/test_cli.py, copied: the card runs no test
+# module of the JAX package (tests/test_torch_learning.py holds them equal)
+TINY_CFG = """CLASS_NAMES: ['Car', 'Pedestrian', 'Cyclist']
+
+DATA_CONFIG:
+    DATASET: 'KittiDataset'
+    DATA_PATH: '{data_path}'
+    POINT_CLOUD_RANGE: [0, -40, -3, 70.4, 40, 1]
+    DATA_SPLIT: {{'train': train, 'test': val}}
+    INFO_PATH: {{'train': [kitti_infos_train.pkl], 'test': [kitti_infos_val.pkl]}}
+    GET_ITEM_LIST: ["points"]
+    FOV_POINTS_ONLY: False
+    DATA_AUGMENTOR:
+        DISABLE_AUG_LIST: ['placeholder']
+        AUG_CONFIG_LIST:
+            - NAME: random_world_flip
+              ALONG_AXIS_LIST: ['x']
+            - NAME: random_world_rotation
+              WORLD_ROT_ANGLE: [-0.78539816, 0.78539816]
+            - NAME: random_world_scaling
+              WORLD_SCALE_RANGE: [0.95, 1.05]
+    POINT_FEATURE_ENCODING: {{
+        encoding_type: absolute_coordinates_encoding,
+        used_feature_list: ['x', 'y', 'z', 'intensity'],
+        src_feature_list: ['x', 'y', 'z', 'intensity'],
+    }}
+    DATA_PROCESSOR:
+        - NAME: mask_points_and_boxes_outside_range
+          REMOVE_OUTSIDE_BOXES: True
+        - NAME: sample_points
+          NUM_POINTS: {{'train': 512, 'test': 512}}
+        - NAME: shuffle_points
+          SHUFFLE_ENABLED: {{'train': True, 'test': False}}
+
+MODEL:
+    NAME: IASSD
+    BACKBONE_3D:
+        NAME: IASSD_Backbone
+        SA_CONFIG:
+            NPOINT_LIST: [[128], [64], [32], [16], [-1], [16]]
+            SAMPLE_RANGE_LIST: [[-1], [-1], [-1], [-1], [-1], [-1]]
+            SAMPLE_METHOD_LIST: &sample_method_list [['D-FPS'], ['D-FPS'], ['ctr_aware'], ['ctr_aware'], [], []]
+            RADIUS_LIST: [[0.2,0.8], [0.8,1.6], [1.6,4.8], [], [], [4.8, 6.4]]
+            NSAMPLE_LIST: [[4,8], [4,8], [4,8], [], [], [4,8]]
+            MLPS: [[[8,8,16], [8,8,16]],
+                   [[16,16,32], [16,24,32]],
+                   [[32,32,64], [32,32,64]],
+                   [],
+                   [32],
+                   [[64,64,128], [64,64,128]]]
+            LAYER_TYPE: ['SA_Layer', 'SA_Layer', 'SA_Layer', 'SA_Layer', 'Vote_Layer', 'SA_Layer']
+            DILATED_GROUP: [False, False, False, False, False, False]
+            AGGREGATION_MLPS: [[16], [32], [64], [64], [], [128]]
+            CONFIDENCE_MLPS: [[], [32], [64], [], [], []]
+            LAYER_INPUT: [0, 1, 2, 3, 4, 3]
+            CTR_INDEX: [-1, -1, -1, -1, -1, 5]
+            MAX_TRANSLATE_RANGE: [3.0, 3.0, 2.0]
+    POINT_HEAD:
+        NAME: IASSD_Head
+        CLS_FC: [32, 32]
+        REG_FC: [32, 32]
+        CLASS_AGNOSTIC: False
+        USE_POINT_FEATURES_BEFORE_FUSION: False
+        TARGET_CONFIG:
+            INS_AWARE_ASSIGN: True
+            GT_EXTRA_WIDTH: [0.2, 0.2, 0.2]
+            ASSIGN_METHOD:
+                NAME: 'extend_gt'
+                ASSIGN_TYPE: 'centers_origin'
+                EXTRA_WIDTH: [1.0, 1.0, 1.0]
+                FG_PC_IGNORE: False
+            BOX_CODER: PointResidual_BinOri_Coder
+            BOX_CODER_CONFIG: {{
+                'angle_bin_num': 12,
+                'use_mean_size': True,
+                'mean_size': [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]]
+            }}
+        LOSS_CONFIG:
+            LOSS_CLS: WeightedCrossEntropy
+            LOSS_REG: WeightedSmoothL1Loss
+            LOSS_INS: WeightedCrossEntropy
+            SAMPLE_METHOD_LIST: *sample_method_list
+            LOSS_VOTE_TYPE: 'none'
+            CORNER_LOSS_REGULARIZATION: True
+            CENTERNESS_REGULARIZATION: True
+            CENTERNESS_REGULARIZATION_SA: True
+            LOSS_WEIGHTS: {{
+                'ins_aware_weight': [0, 1.0, 1.0],
+                'vote_weight': 1.0,
+                'point_cls_weight': 1.0,
+                'point_box_weight': 1.0,
+                'corner_weight': 1.0,
+                'code_weights': [1.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+                'dir_weight': 0.2
+            }}
+    POST_PROCESSING:
+        RECALL_MODE: 'normal'
+        RECALL_THRESH_LIST: [0.3, 0.5, 0.7]
+        SCORE_THRESH: 0.1
+        OUTPUT_RAW_SCORE: False
+        EVAL_METRIC: kitti
+        NMS_CONFIG:
+            MULTI_CLASSES_NMS: False
+            NMS_TYPE: nms_gpu
+            NMS_THRESH: 0.01
+            NMS_PRE_MAXSIZE: 128
+            NMS_POST_MAXSIZE: 32
+
+OPTIMIZATION:
+    BATCH_SIZE_PER_GPU: 2
+    NUM_EPOCHS: 1
+    OPTIMIZER: adam_onecycle
+    LR: 0.01
+    WEIGHT_DECAY: 0.01
+    MOMENTUM: 0.9
+    MOMS: [0.95, 0.85]
+    PCT_START: 0.4
+    DIV_FACTOR: 10
+    DECAY_STEP_LIST: [35, 45]
+    LR_DECAY: 0.1
+    LR_CLIP: 0.0000001
+    LR_WARMUP: False
+    WARMUP_EPOCH: 1
+    GRAD_NORM_CLIP: 10
+"""
+
+PP_TINY_CFG = """CLASS_NAMES: ['Car', 'Pedestrian', 'Cyclist']
+
+DATA_CONFIG:
+    DATASET: 'KittiDataset'
+    DATA_PATH: '{data_path}'
+    POINT_CLOUD_RANGE: [0, -12.8, -3, 25.6, 12.8, 1]
+    DATA_SPLIT: {{'train': train, 'test': val}}
+    INFO_PATH: {{'train': [kitti_infos_train.pkl], 'test': [kitti_infos_val.pkl]}}
+    GET_ITEM_LIST: ["points"]
+    FOV_POINTS_ONLY: False
+    DATA_AUGMENTOR:
+        DISABLE_AUG_LIST: ['placeholder']
+        AUG_CONFIG_LIST:
+            - NAME: random_world_flip
+              ALONG_AXIS_LIST: ['x']
+    POINT_FEATURE_ENCODING: {{
+        encoding_type: absolute_coordinates_encoding,
+        used_feature_list: ['x', 'y', 'z', 'intensity'],
+        src_feature_list: ['x', 'y', 'z', 'intensity'],
+    }}
+    DATA_PROCESSOR:
+        - NAME: mask_points_and_boxes_outside_range
+          REMOVE_OUTSIDE_BOXES: True
+        - NAME: shuffle_points
+          SHUFFLE_ENABLED: {{'train': True, 'test': False}}
+        - NAME: transform_points_to_voxels
+          VOXEL_SIZE: [0.4, 0.4, 4]
+          MAX_POINTS_PER_VOXEL: 8
+          MAX_NUMBER_OF_VOXELS: {{'train': 2048, 'test': 2048}}
+
+MODEL:
+    NAME: PointPillar
+    VFE:
+        NAME: PillarVFE
+        WITH_DISTANCE: False
+        USE_ABSLOTE_XYZ: True
+        USE_NORM: True
+        NUM_FILTERS: [16]
+    MAP_TO_BEV:
+        NAME: PointPillarScatter
+        NUM_BEV_FEATURES: 16
+    BACKBONE_2D:
+        NAME: BaseBEVBackbone
+        LAYER_NUMS: [2, 2]
+        LAYER_STRIDES: [2, 2]
+        NUM_FILTERS: [16, 32]
+        UPSAMPLE_STRIDES: [1, 2]
+        NUM_UPSAMPLE_FILTERS: [16, 16]
+    DENSE_HEAD:
+        NAME: AnchorHeadSingle
+        CLASS_AGNOSTIC: False
+        USE_DIRECTION_CLASSIFIER: True
+        DIR_OFFSET: 0.78539
+        DIR_LIMIT_OFFSET: 0.0
+        NUM_DIR_BINS: 2
+        ANCHOR_GENERATOR_CONFIG: [
+            {{'class_name': 'Car', 'anchor_sizes': [[3.9, 1.6, 1.56]],
+              'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [-1.78],
+              'align_center': False, 'feature_map_stride': 2,
+              'matched_threshold': 0.6, 'unmatched_threshold': 0.45}},
+            {{'class_name': 'Pedestrian', 'anchor_sizes': [[0.8, 0.6, 1.73]],
+              'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [-0.6],
+              'align_center': False, 'feature_map_stride': 2,
+              'matched_threshold': 0.5, 'unmatched_threshold': 0.35}},
+            {{'class_name': 'Cyclist', 'anchor_sizes': [[1.76, 0.6, 1.73]],
+              'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [-0.6],
+              'align_center': False, 'feature_map_stride': 2,
+              'matched_threshold': 0.5, 'unmatched_threshold': 0.35}}
+        ]
+        TARGET_ASSIGNER_CONFIG:
+            NAME: AxisAlignedTargetAssigner
+            POS_FRACTION: -1.0
+            SAMPLE_SIZE: 512
+            NORM_BY_NUM_EXAMPLES: False
+            MATCH_HEIGHT: False
+            BOX_CODER: ResidualCoder
+        LOSS_CONFIG:
+            LOSS_WEIGHTS: {{'cls_weight': 1.0, 'loc_weight': 2.0,
+                            'dir_weight': 0.2, 'code_weights': [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]}}
+    POST_PROCESSING:
+        RECALL_THRESH_LIST: [0.3, 0.5, 0.7]
+        SCORE_THRESH: 0.1
+        OUTPUT_RAW_SCORE: False
+        EVAL_METRIC: kitti
+        NMS_CONFIG:
+            MULTI_CLASSES_NMS: False
+            NMS_TYPE: nms_gpu
+            NMS_THRESH: 0.01
+            NMS_PRE_MAXSIZE: 256
+            NMS_POST_MAXSIZE: 32
+
+OPTIMIZATION:
+    BATCH_SIZE_PER_GPU: 2
+    NUM_EPOCHS: 1
+    OPTIMIZER: adam_onecycle
+    LR: 0.003
+    WEIGHT_DECAY: 0.01
+    MOMENTUM: 0.9
+    MOMS: [0.95, 0.85]
+    PCT_START: 0.4
+    DIV_FACTOR: 10
+    DECAY_STEP_LIST: [35, 45]
+    LR_DECAY: 0.1
+    LR_CLIP: 0.0000001
+    LR_WARMUP: False
+    WARMUP_EPOCH: 1
+    GRAD_NORM_CLIP: 10
+"""
+
+CP_TINY_CFG = """CLASS_NAMES: ['Car', 'Pedestrian', 'Cyclist']
+
+DATA_CONFIG:
+    DATASET: 'KittiDataset'
+    DATA_PATH: '{data_path}'
+    POINT_CLOUD_RANGE: [0, -12.8, -3, 25.6, 12.8, 1]
+    MAX_GT_BOXES: 16
+    DATA_SPLIT: {{'train': train, 'test': val}}
+    INFO_PATH: {{'train': [kitti_infos_train.pkl], 'test': [kitti_infos_val.pkl]}}
+    GET_ITEM_LIST: ["points"]
+    FOV_POINTS_ONLY: False
+    DATA_AUGMENTOR:
+        DISABLE_AUG_LIST: ['placeholder']
+        AUG_CONFIG_LIST:
+            - NAME: random_world_flip
+              ALONG_AXIS_LIST: ['x']
+    POINT_FEATURE_ENCODING: {{
+        encoding_type: absolute_coordinates_encoding,
+        used_feature_list: ['x', 'y', 'z', 'intensity'],
+        src_feature_list: ['x', 'y', 'z', 'intensity'],
+    }}
+    DATA_PROCESSOR:
+        - NAME: mask_points_and_boxes_outside_range
+          REMOVE_OUTSIDE_BOXES: True
+        - NAME: shuffle_points
+          SHUFFLE_ENABLED: {{'train': True, 'test': False}}
+        - NAME: transform_points_to_voxels
+          VOXEL_SIZE: [0.4, 0.4, 0.5]
+          MAX_POINTS_PER_VOXEL: 8
+          MAX_NUMBER_OF_VOXELS: {{'train': 2048, 'test': 2048}}
+
+MODEL:
+    NAME: CenterPoint
+    VFE:
+        NAME: MeanVFE
+    BACKBONE_3D:
+        NAME: VoxelResBackBone8x
+        BN_MOMENTUM: 0.9
+    MAP_TO_BEV:
+        NAME: HeightCompression
+        NUM_BEV_FEATURES: 128
+    BACKBONE_2D:
+        NAME: BaseBEVBackbone
+        BN_MOMENTUM: 0.9
+        LAYER_NUMS: [2]
+        LAYER_STRIDES: [1]
+        NUM_FILTERS: [16]
+        UPSAMPLE_STRIDES: [2]
+        NUM_UPSAMPLE_FILTERS: [16]
+    DENSE_HEAD:
+        NAME: CenterHead
+        CLASS_AGNOSTIC: False
+        CLASS_NAMES_EACH_HEAD: [['Car', 'Pedestrian', 'Cyclist']]
+        SHARED_CONV_CHANNEL: 16
+        USE_BIAS_BEFORE_NORM: True
+        NUM_HM_CONV: 2
+        SEPARATE_HEAD_CFG:
+            HEAD_ORDER: ['center', 'center_z', 'dim', 'rot']
+            HEAD_DICT: {{
+                'center': {{'out_channels': 2, 'num_conv': 2}},
+                'center_z': {{'out_channels': 1, 'num_conv': 2}},
+                'dim': {{'out_channels': 3, 'num_conv': 2}},
+                'rot': {{'out_channels': 2, 'num_conv': 2}},
+            }}
+        TARGET_ASSIGNER_CONFIG:
+            FEATURE_MAP_STRIDE: 4
+            NUM_MAX_OBJS: 500
+            GAUSSIAN_OVERLAP: 0.1
+            MIN_RADIUS: 2
+        LOSS_CONFIG:
+            LOSS_WEIGHTS: {{'cls_weight': 1.0, 'loc_weight': 2.0,
+                            'code_weights': [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]}}
+        POST_PROCESSING:
+            SCORE_THRESH: 0.1
+            POST_CENTER_LIMIT_RANGE: [-75.2, -75.2, -2, 75.2, 75.2, 4]
+            MAX_OBJ_PER_SAMPLE: 64
+            NMS_CONFIG:
+                NMS_TYPE: nms_gpu
+                NMS_THRESH: 0.7
+                NMS_PRE_MAXSIZE: 64
+                NMS_POST_MAXSIZE: 32
+    POST_PROCESSING:
+        RECALL_THRESH_LIST: [0.3, 0.5, 0.7]
+        SCORE_THRESH: 0.1
+        OUTPUT_RAW_SCORE: False
+        EVAL_METRIC: kitti
+        NMS_CONFIG:
+            MULTI_CLASSES_NMS: False
+            NMS_TYPE: nms_gpu
+            NMS_THRESH: 0.01
+            NMS_PRE_MAXSIZE: 256
+            NMS_POST_MAXSIZE: 32
+
+OPTIMIZATION:
+    BATCH_SIZE_PER_GPU: 2
+    NUM_EPOCHS: 1
+    OPTIMIZER: adam_onecycle
+    LR: 0.003
+    WEIGHT_DECAY: 0.01
+    MOMENTUM: 0.9
+    MOMS: [0.95, 0.85]
+    PCT_START: 0.4
+    DIV_FACTOR: 10
+    DECAY_STEP_LIST: [35, 45]
+    LR_DECAY: 0.1
+    LR_CLIP: 0.0000001
+    LR_WARMUP: False
+    WARMUP_EPOCH: 1
+    GRAD_NORM_CLIP: 10
+"""
+
+VR_TINY_CFG = """CLASS_NAMES: ['Car', 'Pedestrian', 'Cyclist']
+
+DATA_CONFIG:
+    DATASET: 'KittiDataset'
+    DATA_PATH: '{data_path}'
+    POINT_CLOUD_RANGE: [0, -12.8, -3, 25.6, 12.8, 1]
+    MAX_GT_BOXES: 16
+    DATA_SPLIT: {{'train': train, 'test': val}}
+    INFO_PATH: {{'train': [kitti_infos_train.pkl], 'test': [kitti_infos_val.pkl]}}
+    GET_ITEM_LIST: ["points"]
+    FOV_POINTS_ONLY: False
+    DATA_AUGMENTOR:
+        DISABLE_AUG_LIST: ['placeholder']
+        AUG_CONFIG_LIST:
+            - NAME: random_world_flip
+              ALONG_AXIS_LIST: ['x']
+    POINT_FEATURE_ENCODING: {{
+        encoding_type: absolute_coordinates_encoding,
+        used_feature_list: ['x', 'y', 'z', 'intensity'],
+        src_feature_list: ['x', 'y', 'z', 'intensity'],
+    }}
+    DATA_PROCESSOR:
+        - NAME: mask_points_and_boxes_outside_range
+          REMOVE_OUTSIDE_BOXES: True
+        - NAME: shuffle_points
+          SHUFFLE_ENABLED: {{'train': True, 'test': False}}
+        - NAME: transform_points_to_voxels
+          VOXEL_SIZE: [0.4, 0.4, 0.5]
+          MAX_POINTS_PER_VOXEL: 8
+          MAX_NUMBER_OF_VOXELS: {{'train': 2048, 'test': 2048}}
+
+MODEL:
+    NAME: VoxelRCNN
+    VFE:
+        NAME: MeanVFE
+    BACKBONE_3D:
+        NAME: VoxelBackBone8x
+        BN_MOMENTUM: 0.9
+        NUM_FILTERS: [8, 8, 16, 16, 16]
+        NUM_OUTPUT_FEATURES: 16
+    MAP_TO_BEV:
+        NAME: HeightCompression
+        NUM_BEV_FEATURES: 16
+    BACKBONE_2D:
+        NAME: BaseBEVBackbone
+        BN_MOMENTUM: 0.9
+        LAYER_NUMS: [2, 2]
+        LAYER_STRIDES: [1, 2]
+        NUM_FILTERS: [16, 32]
+        UPSAMPLE_STRIDES: [1, 2]
+        NUM_UPSAMPLE_FILTERS: [16, 16]
+    DENSE_HEAD:
+        NAME: AnchorHeadSingle
+        CLASS_AGNOSTIC: False
+        USE_DIRECTION_CLASSIFIER: True
+        DIR_OFFSET: 0.78539
+        DIR_LIMIT_OFFSET: 0.0
+        NUM_DIR_BINS: 2
+        ANCHOR_GENERATOR_CONFIG: [
+            {{'class_name': 'Car', 'anchor_sizes': [[3.9, 1.6, 1.56]],
+              'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [-1.78],
+              'align_center': False, 'feature_map_stride': 8,
+              'matched_threshold': 0.6, 'unmatched_threshold': 0.45}},
+            {{'class_name': 'Pedestrian', 'anchor_sizes': [[0.8, 0.6, 1.73]],
+              'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [-0.6],
+              'align_center': False, 'feature_map_stride': 8,
+              'matched_threshold': 0.5, 'unmatched_threshold': 0.35}},
+            {{'class_name': 'Cyclist', 'anchor_sizes': [[1.76, 0.6, 1.73]],
+              'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [-0.6],
+              'align_center': False, 'feature_map_stride': 8,
+              'matched_threshold': 0.5, 'unmatched_threshold': 0.35}}
+        ]
+        TARGET_ASSIGNER_CONFIG:
+            NAME: AxisAlignedTargetAssigner
+            POS_FRACTION: -1.0
+            SAMPLE_SIZE: 512
+            NORM_BY_NUM_EXAMPLES: False
+            MATCH_HEIGHT: False
+            BOX_CODER: ResidualCoder
+        LOSS_CONFIG:
+            LOSS_WEIGHTS: {{'cls_weight': 1.0, 'loc_weight': 2.0,
+                            'dir_weight': 0.2, 'code_weights': [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]}}
+    ROI_HEAD:
+        NAME: VoxelRCNNHead
+        CLASS_AGNOSTIC: True
+        SHARED_FC: [32, 32]
+        CLS_FC: [16]
+        REG_FC: [16]
+        DP_RATIO: 0.0
+        NMS_CONFIG:
+            TRAIN: {{'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 32, 'NMS_THRESH': 0.8}}
+            TEST: {{'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16, 'NMS_THRESH': 0.7}}
+        ROI_GRID_POOL:
+            FEATURES_SOURCE: ['x_conv2', 'x_conv3', 'x_conv4']
+            PRE_MLP: True
+            GRID_SIZE: 4
+            POOL_LAYERS:
+                x_conv2: {{'MLPS': [[8, 8]], 'QUERY_RANGES': [[4, 4, 4]],
+                           'POOL_RADIUS': [0.8], 'NSAMPLE': [16], 'POOL_METHOD': max_pool}}
+                x_conv3: {{'MLPS': [[8, 8]], 'QUERY_RANGES': [[4, 4, 4]],
+                           'POOL_RADIUS': [1.6], 'NSAMPLE': [16], 'POOL_METHOD': max_pool}}
+                x_conv4: {{'MLPS': [[8, 8]], 'QUERY_RANGES': [[4, 4, 4]],
+                           'POOL_RADIUS': [3.2], 'NSAMPLE': [16], 'POOL_METHOD': max_pool}}
+        TARGET_CONFIG:
+            BOX_CODER: ResidualCoder
+            ROI_PER_IMAGE: 16
+            FG_RATIO: 0.5
+            SAMPLE_ROI_BY_EACH_CLASS: True
+            CLS_SCORE_TYPE: roi_iou
+            CLS_FG_THRESH: 0.75
+            CLS_BG_THRESH: 0.25
+            CLS_BG_THRESH_LO: 0.1
+            HARD_BG_RATIO: 0.8
+            REG_FG_THRESH: 0.55
+        LOSS_CONFIG:
+            CLS_LOSS: BinaryCrossEntropy
+            REG_LOSS: smooth-l1
+            CORNER_LOSS_REGULARIZATION: True
+            LOSS_WEIGHTS: {{'rcnn_cls_weight': 1.0, 'rcnn_reg_weight': 1.0,
+                            'rcnn_corner_weight': 1.0,
+                            'code_weights': [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]}}
+    POST_PROCESSING:
+        RECALL_THRESH_LIST: [0.3, 0.5, 0.7]
+        SCORE_THRESH: 0.1
+        OUTPUT_RAW_SCORE: False
+        EVAL_METRIC: kitti
+        NMS_CONFIG:
+            MULTI_CLASSES_NMS: False
+            NMS_TYPE: nms_gpu
+            NMS_THRESH: 0.1
+            NMS_PRE_MAXSIZE: 64
+            NMS_POST_MAXSIZE: 16
+
+OPTIMIZATION:
+    BATCH_SIZE_PER_GPU: 2
+    NUM_EPOCHS: 1
+    OPTIMIZER: adam_onecycle
+    LR: 0.003
+    WEIGHT_DECAY: 0.01
+    MOMENTUM: 0.9
+    MOMS: [0.95, 0.85]
+    PCT_START: 0.4
+    DIV_FACTOR: 10
+    DECAY_STEP_LIST: [35, 45]
+    LR_DECAY: 0.1
+    LR_CLIP: 0.0000001
+    LR_WARMUP: False
+    WARMUP_EPOCH: 1
+    GRAD_NORM_CLIP: 10
+"""
+
+
+# (label, config, epochs) of tests/test_overfit_e2e.py's four tests
+LEARNING_RUNS = (("PDA-SSD", TINY_CFG, 250), ("PointPillar", PP_TINY_CFG, 300),
+                 ("CenterPoint", CP_TINY_CFG, 150), ("Voxel-RCNN", VR_TINY_CFG, 300))
+# the fixture of tests/test_overfit_e2e.py:_build_fixture (build_mini_kitti's arguments)
+LEARNING_FIXTURE = dict(num_frames=4, n_bg=400, n_car=500, n_ped=250,
+                        bg_box=((4, 20), (-8, 8), (-1.8, 0.5)))
+LEARNING_AUG_OFF = ["random_world_flip", "random_world_rotation", "random_world_scaling"]
+LEARNING_SEED = 24  # the port's seeded weights of every phase 24 run
+LEARNING_LOG_EVERY = 50  # epochs between the losses reported
+LEARNING_SCORE = 0.3  # a car counts as found at a score above this, label 1 ...
+LEARNING_IOU = 0.3  # ... and a 3-D IoU of at least this with the frame's car
+REPLAY_STEPS = (1, 5, 10, 20)  # steps of the PDA-SSD runs replayed on the CPU
+# a parameter leaf's gap is also given on a scale floored at this fraction
+# of the largest |value| of any leaf: a bias with no true gradient (before
+# a training-mode BatchNorm) is moved by Adam's normalised rounding noise
+REPLAY_FLOOR = 1e-3
+# the float64 replay's loss gap and median leaf gap at every step replayed
+# (2.0e-14 and 3.5e-14 at step 20 on the H100)
+REPLAY64_TOL = 1e-9
+# phase 24's fresh processes, run at once, and the runs each takes in turn
+LEARNING_PROCESSES = (("PDA-SSD",), ("PDA-SSD bf16",), ("Voxel-RCNN",),
+                      ("PointPillar", "CenterPoint", "PDA-SSD float64"))
+LEARNING_TIMEOUT = 900
+
+
+def write_fixture_root(root):
+    """``tests/kitti_fixture.build_mini_kitti(root, **LEARNING_FIXTURE)``
+    with the port in place of PIL and the JAX package: the same clouds,
+    calibration, road planes and labels (the boxes through the port's camera
+    conversions), black 1242 x 375 PNGs by ``utils/png.encode_png``.
+    Returns the frame ids."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from kitti_fixture import CALIB_TXT, PLANE_TXT, _make_frame
+
+    from pdanet_tpu_torch.utils import box_utils, calibration_kitti
+    from pdanet_tpu_torch.utils.png import encode_png
+
+    root = Path(root)
+    training = root / "training"
+    for sub in ("velodyne", "calib", "label_2", "image_2", "planes"):
+        (training / sub).mkdir(parents=True, exist_ok=True)
+    (root / "ImageSets").mkdir(parents=True, exist_ok=True)
+    png = encode_png(np.zeros((KITTI_IMAGE[1], KITTI_IMAGE[0], 3), np.uint8))
+    frames = dict(LEARNING_FIXTURE)
+    rng = np.random.RandomState(0)
+    ids = [f"{i:06d}" for i in range(frames.pop("num_frames"))]
+    for idx in ids:
+        (training / "calib" / f"{idx}.txt").write_text(CALIB_TXT)
+        (training / "planes" / f"{idx}.txt").write_text(PLANE_TXT)
+        calib = calibration_kitti.Calibration(str(training / "calib" / f"{idx}.txt"))
+        pts, objs = _make_frame(rng, **frames)
+        pts.tofile(str(training / "velodyne" / f"{idx}.bin"))
+        lines = []
+        for cls, box in objs:
+            lidar = np.array([[*box["center"], *box["dims"], box["yaw"]]], np.float32)
+            x, y, z, l, h, w, ry = box_utils.boxes3d_lidar_to_kitti_camera(lidar, calib)[0]
+            lines.append(f"{cls} 0.00 0 0.0 300.00 150.00 400.00 250.00 "
+                         f"{h:.2f} {w:.2f} {l:.2f} {x:.2f} {y:.2f} {z:.2f} {ry:.2f}")
+        (training / "label_2" / f"{idx}.txt").write_text("\n".join(lines) + "\n")
+        (training / "image_2" / f"{idx}.png").write_bytes(png)
+    (root / "ImageSets" / "train.txt").write_text("\n".join(ids) + "\n")
+    (root / "ImageSets" / "val.txt").write_text("\n".join(ids) + "\n")
+    (root / "ImageSets" / "test.txt").write_text("")
+    return ids
+
+
+def learning_cfg(label, text, root):
+    """The config of ``tests/test_overfit_e2e.py``'s test of ``label``: the
+    tiny yaml over ``root``, the three world augmentations off, and for
+    PDA-SSD the gentler downsampling and the peak LR 0.003."""
+    import yaml
+
+    from pdanet_tpu_torch.utils.easydict import EasyDict
+
+    cfg = EasyDict(yaml.safe_load(text.format(data_path=root)))
+    cfg.DATA_CONFIG.DATA_AUGMENTOR.DISABLE_AUG_LIST = list(LEARNING_AUG_OFF)
+    if label.startswith("PDA-SSD"):
+        cfg.MODEL.BACKBONE_3D.SA_CONFIG.NPOINT_LIST = [[256], [128], [96], [64], [-1], [64]]
+        cfg.OPTIMIZATION.LR = 0.003
+    return cfg
+
+
+def learning_root(root, cfg):
+    """The overfit fixture at ``root`` with its infos and gt database."""
+    from pdanet_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+
+    write_fixture_root(root)
+    create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root, workers=1)
+    return root
+
+
+def overfit(cfg, root, epochs, dev, variables=None, seed=LEARNING_SEED, after_step=None,
+            dtype=None, stop=None):
+    """``tests/test_overfit_e2e._overfit`` on the port: the batches of one
+    epoch of the loader at B = 4 (after ``np.random.seed(0)``), trained on
+    for ``epochs`` epochs by ``make_train_step`` with the yaml's optimizer
+    and schedule, from a JAX variable tree (``variables``) or the port's
+    seeded weights; the model and the batches' floating tensors in
+    ``dtype`` if given; only the first ``stop`` updates if given (on the
+    schedule of ``epochs``).  ``after_step(t, loss, model)`` is called after
+    update t (from 1).  Returns the model, the last loss and tb, the loss
+    every ``LEARNING_LOG_EVERY`` epochs and at the last, the initial state,
+    the device batches, the run's seconds and each step's milliseconds."""
+    import torch
+
+    from pdanet_tpu_torch.datasets import build_dataloader
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+    from pdanet_tpu_torch.train import build_optimizer_and_schedule, make_train_step
+    from pdanet_tpu_torch.train.train_utils import select_device_batch
+    from pdanet_tpu_torch.utils.jax_weights import load_jax_variables
+
+    np.random.seed(0)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=4,
+                                     training=True, root_path=root)
+    model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset=ds, device=dev)
+    if variables is None:
+        init_random_weights(model, seed)
+    else:
+        load_jax_variables(model, variables)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batches = [select_device_batch(b, dev, model) for b in loader]
+    if dtype is not None:
+        model.to(dtype)
+        batches = [{k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
+                   for b in batches]
+    optimizer, schedule = build_optimizer_and_schedule(model, cfg.OPTIMIZATION, len(batches),
+                                                       epochs)
+    step = make_train_step(model, optimizer, schedule)
+    losses, step_ms, t = [], [], 0
+    t_run = time.perf_counter()
+    for ep in range(epochs if stop is None else -(-stop // len(batches))):
+        for b in batches[:len(batches) if stop is None else stop - t]:
+            t0 = time.perf_counter()
+            loss, tb = step(b)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            t += 1
+            if after_step is not None:
+                after_step(t, loss, model)
+        if ep % LEARNING_LOG_EVERY == 0 or ep == epochs - 1:
+            losses.append((ep, float(loss)))
+    return dict(model=model, loss=float(loss), tb={k: float(v) for k, v in tb.items()},
+                losses=losses, init=init, batches=batches, dataset=ds,
+                seconds=time.perf_counter() - t_run, step_ms=step_ms)
+
+
+def test_split(cfg, root, dev, model):
+    """The fixture's test split at B = 2 through the port's loader at seed 0,
+    where ``tests/test_overfit_e2e.py`` evaluates (its per-sample
+    generators give the training pass's draw of 512 points, reordered; the
+    JAX package's loader draws anew): (device batch, gt)."""
+    from pdanet_tpu_torch.datasets import build_dataloader
+    from pdanet_tpu_torch.train.train_utils import select_device_batch
+
+    _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=2,
+                                    training=False, root_path=root)
+    return [(select_device_batch(b, dev, model), b["gt_boxes"]) for b in loader]
+
+
+def trained_on(run):
+    """The batches a run of :func:`overfit` trained on: (device batch, gt)."""
+    return [(b, b["gt_boxes"].cpu().numpy()) for b in run["batches"]]
+
+
+def detect_cars(cfg, model, batches):
+    """``tests/test_overfit_e2e._detect_cars`` on the port: each frame of
+    ``batches`` through the model at eval and ``get_post_processor``; a
+    frame counts when a detection of label 1 above ``LEARNING_SCORE`` has a
+    3-D IoU of at least ``LEARNING_IOU`` with one of its cars.  Returns
+    (frames with a car, frames, detections with a non-finite box)."""
+    import torch
+
+    from pdanet_tpu_torch.models.detectors import get_post_processor
+    from pdanet_tpu_torch.ops.rotated_iou import boxes_iou3d
+
+    post_fn = get_post_processor(cfg.MODEL.NAME)
+    model.eval()
+    found = total = nonfinite = 0
+    for batch, gt in batches:
+        batch = {k: v for k, v in batch.items() if k != "gt_boxes"}
+        with torch.inference_mode():
+            pred = post_fn(model.forward_batch(batch), cfg.MODEL)
+        pred = {k: v.float().cpu() if v.is_floating_point() else v.cpu() for k, v in
+                pred.items()}
+        gt = torch.as_tensor(gt)
+        for bi in range(gt.shape[0]):
+            total += 1
+            n = int(pred["pred_counts"][bi])
+            boxes = pred["pred_boxes"][bi][:n, :7]
+            nonfinite += int((~torch.isfinite(boxes)).any(dim=1).sum())
+            g = gt[bi][gt[bi][:, 3] > 0]
+            cars = g[g[:, 7] == 1.0]
+            if n == 0 or len(cars) == 0:
+                continue
+            iou = boxes_iou3d(boxes, cars[:, :7].float())
+            confident = ((pred["pred_scores"][bi][:n] > LEARNING_SCORE)
+                         & (pred["pred_labels"][bi][:n] == 1))
+            if bool(((iou * confident[:, None]).max(dim=0).values >= LEARNING_IOU).any()):
+                found += 1
+    return found, total, nonfinite
+
+
+def replay_on_cpu(cfg, run, picks, card, dtype, nudge=False):
+    """The first ``REPLAY_STEPS[-1]`` steps of a card run of :func:`overfit`
+    in ``dtype`` again on the CPU (plain versions), from its initial state
+    and batches, the card's sampling and ball-query picks fed in call
+    order.  Returns per step of ``REPLAY_STEPS``: the step, the card's and
+    the CPU's loss and the gaps of :func:`replay_gaps`; with ``nudge``, also
+    the same for a control: the CPU's steps again from every initial
+    parameter moved by one ulp of its dtype (``torch.nextafter``), against
+    the CPU's (None without)."""
+    import torch
+
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.train import build_optimizer_and_schedule, make_train_step
+
+    cpu = torch.device("cpu")
+    batches = [{k: v.cpu() for k, v in b.items()} for b in run["batches"]]
+
+    def steps(init):
+        model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
+                              dataset=run["dataset"], device=cpu)
+        model.load_state_dict(init)
+        model.to(dtype)
+        optimizer, schedule = build_optimizer_and_schedule(model, cfg.OPTIMIZATION,
+                                                           len(batches), run["epochs"])
+        step = make_train_step(model, optimizer, schedule)
+        samp, ball, seen = list(picks["samp"]), list(picks["ball"]), {}
+        with fed(sampling=lambda *a: samp.pop(0), ball_query=lambda *a: ball.pop(0)):
+            for t in range(1, REPLAY_STEPS[-1] + 1):
+                loss = float(step(batches[(t - 1) % len(batches)])[0])
+                if t in REPLAY_STEPS:
+                    seen[t] = loss, {n: p.detach().double().clone()
+                                     for n, p in model.named_parameters()}
+        require(not samp and not ball, "the CPU replay did not take every card pick")
+        return seen, {n for n, _ in model.named_parameters()}
+
+    init = {k: v.cpu() for k, v in run["init"].items()}
+    ours, names = steps(init)
+    gaps = [(t, card["losses"][t], ours[t][0],
+             *replay_gaps(card["losses"][t], card["params"][t], *ours[t])) for t in REPLAY_STEPS]
+    if not nudge:
+        return gaps, None
+    nudged, _ = steps({k: torch.nextafter(v, torch.full_like(v, float("inf"))) if k in names
+                       else v for k, v in init.items()})
+    return gaps, [(t, ours[t][0], nudged[t][0], *replay_gaps(ours[t][0], ours[t][1], *nudged[t]))
+                  for t in REPLAY_STEPS]
+
+
+def replay_gaps(loss, params, ref_loss, ref_params):
+    """A replayed step's gaps: the loss gap relative to ``ref_loss``, and over
+    the parameter leaves (each gap relative to the reference leaf's largest
+    |value|) the median and the largest gap with its leaf, and the largest
+    with its leaf on a scale floored at ``REPLAY_FLOOR`` of the largest
+    leaf."""
+    got = {n: params[n].double() for n in ref_params}
+    leaves = sorted(((got[n] - w).abs().max().item() / max(w.abs().max().item(), 1e-12), n)
+                    for n, w in ref_params.items())
+    return (abs(loss - ref_loss) / abs(ref_loss), leaves[len(leaves) // 2][0], *leaves[-1],
+            *_leaf_errors(got, ref_params, REPLAY_FLOOR)[0])
+
+
+def learning_run(label, work, dev):
+    """One run of phase 24 on ``dev``: the overfit of ``label`` (a label of
+    ``LEARNING_RUNS``, or "PDA-SSD bf16": PDA-SSD's in bfloat16 compute, as
+    PDA-SSD.yaml sets it) from the port's seeded weights, its detections on
+    the frames it trained on and on the test split, its launches; float32
+    PDA-SSD's first ``REPLAY_STEPS[-1]`` steps replayed on the CPU.  "PDA-SSD
+    float64" takes only those first steps, in float64, and their replay.
+    Returns a JSON-ready dict."""
+    import torch
+
+    from pdanet_tpu_torch.models.backbones_3d import iassd_backbone
+
+    text, epochs = {l: (t, e) for l, t, e in LEARNING_RUNS}[label.split()[0]]
+    cfg = learning_cfg(label, text, Path(work) / label)
+    if label.endswith("bf16"):
+        cfg.MODEL.BACKBONE_3D.COMPUTE_DTYPE = "bfloat16"
+        cfg.MODEL.BACKBONE_3D.TRAIN_COMPUTE_DTYPE = "bfloat16"
+    root = learning_root(Path(work) / label, cfg)
+    # the PDA-SSD runs replayed on the CPU keep their picks, losses and
+    # parameters of the steps replayed
+    f64 = label.endswith("float64")
+    replay = label in ("PDA-SSD", "PDA-SSD float64")
+    picks, card = {"samp": [], "ball": []}, {"losses": {}, "params": {}}
+
+    def keep(kind, fn):
+        def call(*a):
+            out = fn(*a)
+            if len(card["losses"]) < REPLAY_STEPS[-1]:
+                picks[kind].append(out.cpu() if kind == "samp" else tuple(i.cpu() for i in out))
+            return out
+        return call
+
+    def after_step(t, loss, model):
+        if t <= REPLAY_STEPS[-1]:
+            card["losses"][t] = float(loss)
+        if t in REPLAY_STEPS:
+            card["params"][t] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+    clear_launches()
+    with (fed(sampling=keep("samp", iassd_backbone.run_sampling),
+              ball_query=keep("ball", iassd_backbone.ball_query_multi))
+          if replay else contextlib.nullcontext()):
+        run = overfit(cfg, root, epochs, dev, after_step=after_step if replay else None,
+                      dtype=torch.float64 if f64 else None, stop=REPLAY_STEPS[-1] if f64 else None)
+    out = dict(label=label, epochs=epochs, steps=len(run["step_ms"]), seconds=run["seconds"],
+               step_ms=statistics.median(run["step_ms"]), losses=run["losses"],
+               loss=run["loss"], center_pos_num=run["tb"].get("center_pos_num"),
+               launches=counted_launches())
+    if not f64:
+        model = run["model"]
+        own = detect_cars(cfg, model, trained_on(run))
+        split = detect_cars(cfg, model, test_split(cfg, root, dev, model))
+        out.update(own=own[0], split=split[0], frames=split[1], nonfinite=[own[2], split[2]],
+                   launches=counted_launches())
+    if replay:
+        t0 = time.perf_counter()
+        out["replay"], out["control"] = replay_on_cpu(
+            cfg, dict(run, epochs=epochs), picks, card, torch.float64 if f64 else torch.float32,
+            nudge=not f64)
+        out["replay_seconds"] = time.perf_counter() - t0
+    return out
+
+
+# a process of phase 24: argv[1] the working directory, argv[2:] the labels
+# it runs in turn; one JSON line of their results
+LEARNING_JOB = """
+import json, sys, torch
+import chip_smoke
+from pdanet_tpu_torch.ops import cuda_lib
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_num_threads(2)
+cuda_lib.lib()
+runs = [chip_smoke.learning_run(label, sys.argv[1], torch.device("cuda", 0))
+        for label in sys.argv[2:]]
+print("LEARNING " + json.dumps(runs), flush=True)
+"""
+
+
+def learning_start():
+    """Start phase 24's ``LEARNING_PROCESSES`` fresh processes (each runs
+    :func:`learning_run` for its labels in turn) in a temporary directory;
+    they are killed and the directory removed at exit if
+    :func:`learning_phase` has not collected them."""
+    import atexit
+    import shutil
+
+    work = tempfile.mkdtemp(prefix="pdanet_learning_")
+    state = dict(work=work, procs=[], logs=[], t0=time.perf_counter())
+
+    def stop():
+        for proc in state["procs"]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in state["logs"]:
+            log.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    state["stop"] = stop
+    atexit.register(stop)
+    for labels in LEARNING_PROCESSES:
+        log = open(Path(work) / f"{labels[0]}.log", "w+")
+        state["logs"].append(log)
+        state["procs"].append(subprocess.Popen(
+            [sys.executable, "-c", LEARNING_JOB, work, *labels], cwd=ROOT, env=tail_env(),
+            stdout=log, stderr=subprocess.STDOUT, text=True))
+    return state
+
+
+def learning_phase(state):
+    """Phase 24: ``tests/test_overfit_e2e.py``'s four overfits on the card
+    in float32 from the port's seeded weights, PDA-SSD's in bfloat16
+    compute, and PDA-SSD's first steps in float32 and in float64 replayed
+    on the CPU, in the processes :func:`learning_start` started
+    (:func:`learning_run`).  Gates: a finite loss, PDA-SSD's centre
+    positives, a car in every frame (PDA-SSD's of the clouds it trained on,
+    the others' of the test split), the float64 replay within
+    ``REPLAY64_TOL``, every kernel of ``KERNELS`` launched.  Returns the
+    phase's launches."""
+    runs = {}
+    try:
+        for proc, log in zip(state["procs"], state["logs"]):
+            try:
+                code = proc.wait(timeout=LEARNING_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                code = "timed out"
+            log.seek(0)
+            text = log.read()
+            lines = [ln for ln in text.splitlines() if ln.startswith("LEARNING ")]
+            require(code == 0 and lines, f"phase 24's process {proc.args[4:]} failed "
+                    f"(exit {code}):\n{text[-6000:]}")
+            runs.update({r["label"]: r for r in json.loads(lines[-1][len("LEARNING "):])})
+    finally:
+        state["stop"]()
+    print(f"phase 24's processes: {time.perf_counter() - state['t0']:.1f} s from their start")
+    for label, run in runs.items():
+        cars = (f"a car in {run['own']} of {run['frames']} frames trained on, {run['split']} of "
+                f"the test split; non-finite boxes detected {run['nonfinite']}; "
+                if "own" in run else "")
+        print(f"learning {label}: {run['steps']} steps ({run['epochs']} epochs' schedule) in "
+              f"{run['seconds']:.1f} s, median {run['step_ms']:.2f} ms a step; loss "
+              f"{', '.join(f'ep {ep} {v:.3f}' for ep, v in run['losses'])}; {cars}launches "
+              f"{dict(sorted(run['launches'].items()))}")
+    f32, bf16 = runs["PDA-SSD"], runs["PDA-SSD bf16"]
+    print(f"learning PDA-SSD: a car in {bf16['own']} / {bf16['split']} frames (trained on / "
+          f"test split) in bfloat16 compute, {f32['own']} / {f32['split']} in float32 (a "
+          f"report)")
+    def steps(rows):
+        return "; ".join(f"step {t}: loss {lc!r} / {lp!r}, gap {dl:.3g}; parameter leaf gaps "
+                         f"median {dm:.3g}, largest {dp:.3g} ({n}), on a scale floored at "
+                         f"{REPLAY_FLOOR:g} of the largest leaf {df:.3g} ({nf})"
+                         for t, lc, lp, dl, dm, dp, n, df, nf in rows)
+
+    for label, dtype in (("PDA-SSD", "float32"), ("PDA-SSD float64", "float64")):
+        run = runs[label]
+        print(f"learning PDA-SSD, {dtype} card against the CPU over its first "
+              f"{REPLAY_STEPS[-1]} steps, the card's picks fed ({run['replay_seconds']:.1f} s): "
+              f"{steps(run['replay'])}")
+        if run["control"]:
+            print(f"learning PDA-SSD, the control: the CPU's {dtype} steps again from every "
+                  f"initial parameter one ulp up, against the CPU's: {steps(run['control'])}")
+    # the float64 replay holds the card's multi-step training (the optimizer's
+    # state, the schedule, the kernels' backward) to the CPU's
+    for t, _, _, dl, dm, *_ in runs["PDA-SSD float64"]["replay"]:
+        require(dl <= REPLAY64_TOL and dm <= REPLAY64_TOL,
+                f"learning PDA-SSD float64, card against the CPU at step {t}: loss gap {dl:.3g}, "
+                f"median leaf gap {dm:.3g} (at most {REPLAY64_TOL:g})")
+    for label, _, _ in LEARNING_RUNS:
+        run = runs[label]
+        require(np.isfinite(run["loss"]), f"learning {label}: loss {run['loss']}")
+        # PDA-SSD's gate reads the clouds it trained on, a weaker gate than
+        # the test split that tests/test_overfit_e2e.py reads: whether every
+        # car of a draw of the test split (512 of each frame's 1150 points)
+        # is found depends on the draw in either package, and the JAX test
+        # itself fails on some runs (PERF.md, Findings)
+        found = run["own"] if label == "PDA-SSD" else run["split"]
+        require(found == run["frames"] == LEARNING_FIXTURE["num_frames"],
+                f"learning {label}: a car in {found} of {run['frames']} frames")
+    require(f32["center_pos_num"] > 0, "learning PDA-SSD: no centre positives at the last step")
+    total = add_launches(*(run["launches"] for run in runs.values()))
+    for name in KERNELS:
+        require(total.get(name, 0) > 0, f"kernel {name} never launched in phase 24")
+    return total
+
+
 def ptxas_report(log):
     """(kernel, registers, shared-memory bytes, spill bytes) per kernel of
     an ``nvcc -Xptxas -v`` log, names shortened from their mangled form
@@ -8257,9 +9251,10 @@ def main():
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
                     "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
-    ap.add_argument("--phases", help="comma-separated phases of 3-23 to run, with those they "
-                    "read (3 for 6, 4 for 5, 11 and 22, 9 for 11-20, 22 and 23); every phase "
-                    "without it, and only then are the launches of every kernel required")
+    ap.add_argument("--phases", help="comma-separated phases of 3-24 to run, with those they "
+                    "read (3 for 6, 4 for 5, 11 and 22, 9 for 11-20, 22 and 23; 24 reads no "
+                    "other phase); every phase without it, and only then are the launches of "
+                    "every kernel required")
     args = ap.parse_args()
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -8315,10 +9310,10 @@ def main():
         multi_gpu(dev, args.world)
         return
 
-    # ---- 3.-23.
-    every = set(range(3, 24))
+    # ---- 3.-24.
+    every = set(range(3, 25))
     want = every if not args.phases else {int(p) for p in args.phases.split(",")}
-    require(want <= every, f"--phases {args.phases}: phases 3-23 only")
+    require(want <= every, f"--phases {args.phases}: phases 3-24 only")
     want |= {3} if 6 in want else set()
     want |= {4} if want & {5, 11, 22} else set()
     want |= {9} if want & (set(range(11, 21)) | {22, 23}) else set()
@@ -8354,6 +9349,7 @@ def main():
         iassd_runs, ffps = timed("21 (the IASSD surface: F-FPS, FS, the sector FPS, the SA "
                                  "ablations, IOU_FC, the stand-alone ops)", iassd_phase, dev)
         runs.update({f"iassd_{name}": run for name, run in iassd_runs.items()})
+    learning = None  # phase 24's processes, started beside the tail, which measures nothing
     if 9 in want:
         with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as kitti_work:
             runs["kitti"], kitti_run = timed("9 (KITTI through the CLIs)", kitti_phase, dev,
@@ -8415,20 +9411,27 @@ def main():
                 timed("23 (the host library)", host_library_phase, dev, kitti_run)
             if 11 in want:
                 chains.insert(0, ("dp", lambda: dp_cli(kitti_work, kitti_run)))
+            if 24 in want:
+                learning = learning_start()
             if exports or chains:
                 tail = timed("11-22 (the tail: dist_train.sh, dist_test.sh, the programs "
                              "exported and reloaded, the test CLI on the converted "
                              "checkpoint)", run_tail, exports, chains)
                 for label, counts in tail.items():
                     runs[label].update(add_launches(runs[label], counts))
+    if 24 in want:
+        runs["learning"] = timed("24 (the learning checks: four overfits, bfloat16, the CPU "
+                                 "replay; after the tail)", learning_phase,
+                                 learning or learning_start())
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
     # and eval_one_epoch (phase 8), the KITTI train and test CLIs (phase 9),
     # the exported programs' requests (phase 10) and the data-parallel runs
-    # (phase 11: its CLIs' processes, the one process and the two ranks)
-    # and the voxel detectors' runs (phases 12-18: the requests, the train
-    # steps, the CLIs and the program's request), each counted from 0; a
+    # (phase 11: its CLIs' processes, the one process and the two ranks),
+    # the voxel detectors' runs (phases 12-18: the requests, the train
+    # steps, the CLIs and the program's request) and the overfits and their
+    # evaluations (phase 24), each counted from 0; a
     # row of phases 12-18 counts its own phase's launches at its own K (a
     # PV-RCNN FPS row the phase's FPS launches, a ball-query row those at
     # its site)
