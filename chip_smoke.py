@@ -499,11 +499,11 @@ Phases, each of which raises on failure:
    through the port's loader at B = 4, ``make_train_step`` and
    ``AdamOneCycle`` (``overfit``), then every frame through the model and
    ``get_post_processor`` at B = 2 (``detect_cars``), on the clouds it
-   trained on and on the test split (``test_split``: the loader's own draw
-   of 512 of a frame's points; the port's loader draws a sample from its
-   own generator, seeded from (seed, epoch, index), so at seed 0 that is
-   the draw trained on, its points in another order, where the JAX
-   package's loader draws anew from numpy's global generator);
+   trained on and on the test split (``test_split``: the loader at
+   ``TEST_SPLIT_SEED``, the training seed plus one, whose PDA-SSD draw of
+   512 of a frame's points is another than the one trained on, as the JAX
+   package's loader draws anew from numpy's global generator; the voxel
+   detectors' test split draws nothing);
    PDA-SSD's overfit again in bfloat16 compute; its first 20 steps again
    in float64 (the model and batches cast); four fresh processes at once
    (``LEARNING_PROCESSES``: float32 PDA-SSD, bfloat16 PDA-SSD, Voxel-RCNN,
@@ -527,6 +527,25 @@ Phases, each of which raises on failure:
    CPU steps again from every initial parameter one ulp up (a control:
    how far float32 rounding alone carries the run).
    Every kernel of ``KERNELS`` must launch in the phase.
+25. The counterpart of ``__graft_entry__.py`` (``graft_phase``; ``--phases
+   25`` runs it alone, it reads no other phase): ``graft_entry.entry()``'s
+   ``fn(*args)``, the full-width KITTI PDA-SSD at eval (seeded, bfloat16
+   as shipped) on its (1, 16384, 4) x-sorted cloud, bit-equal to the same
+   seeded eval-mode model called directly on that cloud; ``python -m
+   pdanet_tpu_torch.graft_entry dryrun 2`` in a fresh process beside the
+   tail (``graft_start``): two ranks sharing the card over Gloo, float32,
+   (a) one data-parallel step of the tiny config against one process, (b)
+   a checkpoint restored bit for bit into a fresh model, optimizer and
+   group and two steps against the direct run's, (c) the same into one
+   rank, (d) the sharded eval and ``merge_results_dist`` (counts equal,
+   more than 95 % of box entries close, dataset order restored), (e) a
+   tiny Voxel-RCNN step, its RoI draws per frame, against one process,
+   the gaps of (b) within 1e-5 relative, of (a), (c) and (e) within
+   5e-5, (f) one train step
+   at KITTI B = 2 x 16384 and ONCE B = 4 x 60000 as shipped, each rank's
+   peak memory printed with the card's name and power limit.  Gates: exit
+   0, every part's line (``graft_entry.part_labels``), every kernel of
+   ``KERNELS`` launched in the phase.
 
 Depth (``VOXEL_DEPTH``; every kernel row, family and phase stays): phases
 12-19 serve one b1 and one b2 request (15a, 15b, 17b, 18a and 19b one b1), take one
@@ -546,7 +565,8 @@ to the eager closure's outputs on the same frame (saved in the phase),
 while phase 10's fresh process and serve CLI, phase 11's
 ``dist_train.sh`` and ``dist_test.sh`` and the ``dist_train.sh`` runs of
 phases 12, 14, 17, 19a and 20 (c, at B = 1) go, seven chains at a time,
-and phase 24's processes beside them (alone with ``--phases 24``).
+and phase 24's processes and phase 25's dryrun beside them (alone with
+``--phases 24`` or ``25``).
 
 Each phase prints its wall time.  The line before the last is
 ``{"kernels": [...]}``: per kernel its launches in the main-path runs
@@ -554,8 +574,9 @@ Each phase prints its wall time.  The line before the last is
 8's ONCE train steps and ``eval_one_epoch``, phase 9's train and test
 CLIs, phase 10's exported programs, phase 11's CLI processes, one
 process and ranks, phases 12-19's requests, train steps, CLIs and
-programs, phase 22's converted requests and test CLI, and phase 24's
-overfits and their evaluations, each run counted from 0), its
+programs, phase 22's converted requests and test CLI, phase 24's
+overfits and their evaluations, and phase 25's ``entry()`` call and dryrun
+ranks, each run counted from 0), its
 largest error,
 and at its headline shape its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -8846,16 +8867,24 @@ def overfit(cfg, root, epochs, dev, variables=None, seed=LEARNING_SEED, after_st
                 seconds=time.perf_counter() - t_run, step_ms=step_ms)
 
 
+# the test split's loader seed: the training loader's (0) plus one.  The
+# loader draws each sample's points from a generator seeded from (seed,
+# epoch, index), so at the training seed the test split would be the draw
+# trained on; the JAX package's eval loader draws anew from numpy's global
+# generator, another draw than the one trained on, and so does this seed
+TEST_SPLIT_SEED = 1
+
+
 def test_split(cfg, root, dev, model):
-    """The fixture's test split at B = 2 through the port's loader at seed 0,
-    where ``tests/test_overfit_e2e.py`` evaluates (its per-sample
-    generators give the training pass's draw of 512 points, reordered; the
-    JAX package's loader draws anew): (device batch, gt)."""
+    """The fixture's test split at B = 2 through the port's loader at
+    ``TEST_SPLIT_SEED``, where ``tests/test_overfit_e2e.py`` evaluates (for
+    PDA-SSD another draw of 512 of each frame's points than the one trained
+    on): (device batch, gt)."""
     from pdanet_tpu_torch.datasets import build_dataloader
     from pdanet_tpu_torch.train.train_utils import select_device_batch
 
     _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=2,
-                                    training=False, root_path=root)
+                                    training=False, root_path=root, seed=TEST_SPLIT_SEED)
     return [(select_device_batch(b, dev, model), b["gt_boxes"]) for b in loader]
 
 
@@ -8864,12 +8893,13 @@ def trained_on(run):
     return [(b, b["gt_boxes"].cpu().numpy()) for b in run["batches"]]
 
 
-def detect_cars(cfg, model, batches):
-    """``tests/test_overfit_e2e._detect_cars`` on the port: each frame of
-    ``batches`` through the model at eval and ``get_post_processor``; a
-    frame counts when a detection of label 1 above ``LEARNING_SCORE`` has a
-    3-D IoU of at least ``LEARNING_IOU`` with one of its cars.  Returns
-    (frames with a car, frames, detections with a non-finite box)."""
+def detect_frames(cfg, model, batches):
+    """Each frame of ``batches`` through the model at eval and
+    ``get_post_processor``, judged by ``tests/test_overfit_e2e._detect_cars``'s
+    rule: a frame has its car when a detection of label 1 above
+    ``LEARNING_SCORE`` has a 3-D IoU of at least ``LEARNING_IOU`` with one of
+    its cars.  Returns per frame (car found, the confident label-1 boxes
+    (k, 7) as numpy, detections with a non-finite box)."""
     import torch
 
     from pdanet_tpu_torch.models.detectors import get_post_processor
@@ -8877,7 +8907,7 @@ def detect_cars(cfg, model, batches):
 
     post_fn = get_post_processor(cfg.MODEL.NAME)
     model.eval()
-    found = total = nonfinite = 0
+    frames = []
     for batch, gt in batches:
         batch = {k: v for k, v in batch.items() if k != "gt_boxes"}
         with torch.inference_mode():
@@ -8886,20 +8916,26 @@ def detect_cars(cfg, model, batches):
                 pred.items()}
         gt = torch.as_tensor(gt)
         for bi in range(gt.shape[0]):
-            total += 1
             n = int(pred["pred_counts"][bi])
             boxes = pred["pred_boxes"][bi][:n, :7]
-            nonfinite += int((~torch.isfinite(boxes)).any(dim=1).sum())
-            g = gt[bi][gt[bi][:, 3] > 0]
-            cars = g[g[:, 7] == 1.0]
-            if n == 0 or len(cars) == 0:
-                continue
-            iou = boxes_iou3d(boxes, cars[:, :7].float())
             confident = ((pred["pred_scores"][bi][:n] > LEARNING_SCORE)
                          & (pred["pred_labels"][bi][:n] == 1))
-            if bool(((iou * confident[:, None]).max(dim=0).values >= LEARNING_IOU).any()):
-                found += 1
-    return found, total, nonfinite
+            g = gt[bi][gt[bi][:, 3] > 0]
+            cars = g[g[:, 7] == 1.0]
+            found = n > 0 and len(cars) > 0 and bool(
+                ((boxes_iou3d(boxes, cars[:, :7].float()) * confident[:, None]).max(dim=0).values
+                 >= LEARNING_IOU).any())
+            frames.append((found, boxes[confident].numpy(),
+                           int((~torch.isfinite(boxes)).any(dim=1).sum())))
+    return frames
+
+
+def detect_cars(cfg, model, batches):
+    """``tests/test_overfit_e2e._detect_cars`` on the port
+    (:func:`detect_frames`): (frames with a car, frames, detections with a
+    non-finite box)."""
+    frames = detect_frames(cfg, model, batches)
+    return sum(f[0] for f in frames), len(frames), sum(f[2] for f in frames)
 
 
 def replay_on_cpu(cfg, run, picks, card, dtype, nudge=False):
@@ -9148,6 +9184,108 @@ def learning_phase(state):
     return total
 
 
+# phase 25: the port's __graft_entry__.py counterpart.  Its dryrun runs in a
+# fresh process (``GRAFT_DRYRUN``: two ranks sharing the card over Gloo,
+# parts (a)-(f), the full-shape part on) beside the tail
+GRAFT_DRYRUN = [sys.executable, "-m", "pdanet_tpu_torch.graft_entry", "dryrun", "2"]
+GRAFT_TIMEOUT = 900
+
+
+def graft_start():
+    """Start phase 25's dryrun (``GRAFT_DRYRUN``) in a fresh process, its
+    output into a temporary file; it is killed and the file removed at exit
+    if :func:`graft_phase` has not collected it."""
+    import atexit
+
+    log = tempfile.TemporaryFile("w+")
+    env = {k: v for k, v in tail_env().items() if k != "PDANET_DRYRUN_SKIP_FULL"}
+    proc = subprocess.Popen(GRAFT_DRYRUN, cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT, text=True)
+    state = dict(proc=proc, log=log, t0=time.perf_counter())
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+    state["stop"] = stop
+    atexit.register(stop)
+    return state
+
+
+def graft_phase(dev, state):
+    """Phase 25: ``pdanet_tpu_torch.graft_entry``.  ``entry()``'s
+    ``fn(*args)`` (the full-width KITTI PDA-SSD at eval, seeded, bfloat16 as
+    shipped, on a (1, 16384, 4) cloud) bit-equal to the same seeded
+    eval-mode model called directly on the same cloud; then the dryrun that
+    :func:`graft_start` started: every part's line, exit 0, the peak memory
+    of both full-shape steps on each rank.  Every kernel of ``KERNELS`` must
+    launch in the phase (``entry()``'s call and the dryrun's ranks).
+    Returns the phase's launches."""
+    import torch
+
+    from pdanet_tpu_torch import graft_entry
+    from pdanet_tpu_torch.models import build_network
+    from pdanet_tpu_torch.models.blocks import init_random_weights
+
+    try:
+        clear_launches()
+        fn, args = graft_entry.entry()
+        require(args[1].device == dev and args[1].shape == (1, N_POINTS, 4),
+                f"entry()'s cloud {tuple(args[1].shape)} on {args[1].device}")
+        with torch.inference_mode():
+            cls, box = fn(*args)
+        torch.cuda.synchronize(dev)
+        launches = counted_launches()
+        cfg = graft_entry._load_cfg()
+        model = init_random_weights(build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev),
+                                    graft_entry.ENTRY_SEED).eval()
+        with torch.inference_mode():
+            out = model(args[1])
+        require(torch.isfinite(cls).all() and torch.isfinite(box).all(),
+                "entry(): non-finite outputs")
+        require(torch.equal(cls, out["batch_cls_preds"]) and torch.equal(box, out["batch_box_preds"]),
+                "entry(): fn(*args) differs from the seeded eval-mode model called directly")
+        print(f"entry(): fn(*args) {tuple(cls.shape)} {cls.dtype} / {tuple(box.shape)}, bit-equal to "
+              f"the seeded eval-mode model called directly; launches "
+              f"{dict(sorted(launches.items()))}")
+        del model, out, fn, args
+        try:
+            code = state["proc"].wait(timeout=GRAFT_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            code = "timed out"
+        state["log"].seek(0)
+        text = state["log"].read()
+    finally:
+        state["stop"]()
+    lines = text.strip().splitlines()
+    require(code == 0 and lines, f"{' '.join(GRAFT_DRYRUN[1:])} failed (exit {code}):\n"
+            f"{text[-6000:]}")
+    parts = [ln for ln in lines if ln.startswith("dryrun_multichip(2): ")]
+    missing = [p for p in graft_entry.part_labels(2).values()
+               if not any(ln.startswith(f"dryrun_multichip(2): {p}") for ln in parts)]
+    require(not missing, f"dryrun 2: no line of {missing}:\n{text[-6000:]}")
+    res = json.loads(next(ln for ln in reversed(lines) if ln.startswith("{")))
+    print(f"{' '.join(GRAFT_DRYRUN[1:])}: {time.perf_counter() - state['t0']:.1f} s from its "
+          f"start, {res['seconds']:.1f} s in the ranks, backend {res['backend']}")
+    for ln in parts:
+        print("  " + ln)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    for label in ("full-shape", "ONCE-shape"):
+        run = res[label]
+        print(f"dryrun 2, {label} train step (B={run['B']}, N={run['N']}), each rank's peak memory "
+              f"(torch.cuda.max_memory_allocated): " + ", ".join(
+                  f"rank {r} {p / 2**30:.2f} GiB" for r, p in enumerate(run["peak_bytes"]))
+              + f" ({smi})")
+    total = add_launches(launches, res["launches"])
+    for name in KERNELS:
+        require(total.get(name, 0) > 0, f"kernel {name} never launched in phase 25")
+    print(f"phase 25's launches: {dict(sorted((k, v) for k, v in total.items() if k in KERNELS))}")
+    return total
+
+
 def ptxas_report(log):
     """(kernel, registers, shared-memory bytes, spill bytes) per kernel of
     an ``nvcc -Xptxas -v`` log, names shortened from their mangled form
@@ -9251,9 +9389,9 @@ def main():
     ap.add_argument("--world", type=int, default=1, help="with more than 1: instead of "
                     "phases 3-16, every kernel on cuda:1 and up while cuda:0 is current, then "
                     "phase 9 and phase 11 over this many GPUs (NCCL, one process a GPU)")
-    ap.add_argument("--phases", help="comma-separated phases of 3-24 to run, with those they "
-                    "read (3 for 6, 4 for 5, 11 and 22, 9 for 11-20, 22 and 23; 24 reads no "
-                    "other phase); every phase without it, and only then are the launches of "
+    ap.add_argument("--phases", help="comma-separated phases of 3-25 to run, with those they "
+                    "read (3 for 6, 4 for 5, 11 and 22, 9 for 11-20, 22 and 23; 24 and 25 read "
+                    "no other phase); every phase without it, and only then are the launches of "
                     "every kernel required")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -9310,10 +9448,10 @@ def main():
         multi_gpu(dev, args.world)
         return
 
-    # ---- 3.-24.
-    every = set(range(3, 25))
+    # ---- 3.-25.
+    every = set(range(3, 26))
     want = every if not args.phases else {int(p) for p in args.phases.split(",")}
-    require(want <= every, f"--phases {args.phases}: phases 3-24 only")
+    require(want <= every, f"--phases {args.phases}: phases 3-25 only")
     want |= {3} if 6 in want else set()
     want |= {4} if want & {5, 11, 22} else set()
     want |= {9} if want & (set(range(11, 21)) | {22, 23}) else set()
@@ -9349,7 +9487,8 @@ def main():
         iassd_runs, ffps = timed("21 (the IASSD surface: F-FPS, FS, the sector FPS, the SA "
                                  "ablations, IOU_FC, the stand-alone ops)", iassd_phase, dev)
         runs.update({f"iassd_{name}": run for name, run in iassd_runs.items()})
-    learning = None  # phase 24's processes, started beside the tail, which measures nothing
+    # phases 24's and 25's processes, started beside the tail, which measures nothing
+    learning = graft = None
     if 9 in want:
         with tempfile.TemporaryDirectory(prefix="pdanet_kitti_") as kitti_work:
             runs["kitti"], kitti_run = timed("9 (KITTI through the CLIs)", kitti_phase, dev,
@@ -9413,16 +9552,22 @@ def main():
                 chains.insert(0, ("dp", lambda: dp_cli(kitti_work, kitti_run)))
             if 24 in want:
                 learning = learning_start()
+            if 25 in want:
+                graft = graft_start()
             if exports or chains:
                 tail = timed("11-22 (the tail: dist_train.sh, dist_test.sh, the programs "
                              "exported and reloaded, the test CLI on the converted "
                              "checkpoint)", run_tail, exports, chains)
                 for label, counts in tail.items():
                     runs[label].update(add_launches(runs[label], counts))
+    learning = learning or (learning_start() if 24 in want else None)
+    graft = graft or (graft_start() if 25 in want else None)
     if 24 in want:
         runs["learning"] = timed("24 (the learning checks: four overfits, bfloat16, the CPU "
-                                 "replay; after the tail)", learning_phase,
-                                 learning or learning_start())
+                                 "replay; after the tail)", learning_phase, learning)
+    if 25 in want:
+        runs["graft"] = timed("25 (graft_entry: entry() and dryrun 2; after the tail)",
+                              graft_phase, dev, graft)
 
     # launches: each kernel's count over the KITTI serving run (phase 4),
     # the bfloat16 and float32 train steps (phase 7), the ONCE train steps
@@ -9430,8 +9575,9 @@ def main():
     # the exported programs' requests (phase 10) and the data-parallel runs
     # (phase 11: its CLIs' processes, the one process and the two ranks),
     # the voxel detectors' runs (phases 12-18: the requests, the train
-    # steps, the CLIs and the program's request) and the overfits and their
-    # evaluations (phase 24), each counted from 0; a
+    # steps, the CLIs and the program's request), the overfits and their
+    # evaluations (phase 24) and graft_entry's entry() and dryrun ranks
+    # (phase 25), each counted from 0; a
     # row of phases 12-18 counts its own phase's launches at its own K (a
     # PV-RCNN FPS row the phase's FPS launches, a ball-query row those at
     # its site)

@@ -2,10 +2,13 @@
 pdanet_tpu_torch where that file puts its PyTorch twin, on the CPU.
 
 The JAX package and the port train side by side on the capstone fixture
-(``_capstone_fixture``: 8 frames of 2 Cars and 2 Pedestrians at random
-poses and graded point budgets, an unlabeled car-sized distractor a
-frame, clouds of exactly the 512-point budget, ``sort_points``): the same
-initial weights (the twin's, through the JAX converter; the port takes
+with sparser pedestrians (``_sparse_ped_fixture``: ``_capstone_fixture``'s
+8 frames of 2 Cars and 2 Pedestrians at random poses and graded point
+budgets, the pedestrians at ``PED_POINTS``, an unlabeled car-sized
+distractor a frame, clouds of exactly the 512-point budget,
+``sort_points``).  On the capstone's own budgets both sides reach the
+Pedestrian ceiling, where check (c) below cannot hold.  Both sides take
+the same initial weights (the twin's, through the JAX converter; the port takes
 them through ``load_jax_variables``) and the same batches (the port's
 loader gives the JAX loader's bit for bit with augmentation off,
 ``tests/test_torch_learning.py``; asserted again here).  Then each trains
@@ -30,6 +33,7 @@ debugging the mechanics, as in the JAX file (the AP asserts then fail).
 
 import logging
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -38,6 +42,7 @@ import torch
 import jax
 
 import chip_smoke
+import test_ap_parity_twin
 from pdanet_tpu_torch.datasets import build_dataloader
 from pdanet_tpu_torch.eval.eval_utils import eval_one_epoch
 from pdanet_tpu_torch.models.dense_heads import iassd_head
@@ -57,6 +62,11 @@ from test_ap_parity_twin import (
 )
 
 CPU = torch.device("cpu")
+# the pedestrians' point budgets of the fixture, in the sparser direction of
+# the capstone's 70 / 45: the first of 50 / 30, 40 / 25, 30 / 20, 25 / 15
+# and 20 / 12 at which the JAX side alone (800 epochs, run before and blind
+# to the port) stays below both ceilings that check (c) reads
+PED_POINTS = (20, 12)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -74,10 +84,38 @@ def _epochs():
     return int(os.environ.get("AP_PARITY_EPOCHS", "800"))
 
 
+def _sparse_ped_fixture(tmp_path):
+    """``_capstone_fixture`` with each frame's two pedestrians at
+    ``PED_POINTS`` points, the points taken from them given to the
+    background, so that every cloud stays at the 512-point budget (the
+    sampler never subsamples, and train and eval clouds are the same).
+    The placements, poses, cars and distractors are the capstone's (each
+    frame's draws of points from its generator follow the budgets)."""
+    build = test_ap_parity_twin.build_mini_kitti
+
+    def thinned(root, n_bg, frame_objects, **kwargs):
+        frames, moved = [], set()
+        for objs in frame_objects:
+            budgets, frame, taken = iter(PED_POINTS), [], 0
+            for cls, box in objs:
+                if cls == "Pedestrian":
+                    n = next(budgets)
+                    taken += box["npts"] - n
+                    box = dict(box, npts=n)
+                frame.append((cls, box))
+            frames.append(frame)
+            moved.add(taken)
+        assert len(moved) == 1, moved  # the same budgets in every frame
+        return build(root, n_bg=n_bg + moved.pop(), frame_objects=frames, **kwargs)
+
+    with mock.patch.object(test_ap_parity_twin, "build_mini_kitti", thinned):
+        return _capstone_fixture(tmp_path)
+
+
 def _setup(tmp_path):
-    """The capstone fixture and config (JAX's and the port's), and the
-    initial variables as numpy."""
-    jcfg, root = _capstone_fixture(tmp_path)
+    """The sparse-pedestrian fixture and config (JAX's and the port's), and
+    the initial variables as numpy."""
+    jcfg, root = _sparse_ped_fixture(tmp_path)
     variables0 = _twin_init(jcfg)[2]
     return jcfg, EasyDict(jcfg), root, jax.tree_util.tree_map(np.asarray, variables0)
 
@@ -168,7 +206,7 @@ def test_fixture_scale_ap_parity(tmp_path):
     ret_ceil = _eval_ceiling(cfg, root)
     keys = sorted(k for k in set(ret_jax) | set(ret_port)
                   if k.startswith(("Car_3d", "Car_bev", "Pedestrian_3d", "recall/")))
-    print(f"\nAP parity table (capstone fixture, 8 frames, {epochs} epochs):")
+    print(f"\nAP parity table (sparse-pedestrian capstone fixture, 8 frames, {epochs} epochs):")
     print(f"{'metric':28s} {'pdanet_tpu':>12s} {'torch port':>12s} {'eval-max':>9s} "
           f"{'delta':>8s}")
     for k in keys:

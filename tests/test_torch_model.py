@@ -259,6 +259,7 @@ def test_port_imports_no_jax():
         "import pdanet_tpu_torch.tools.export, pdanet_tpu_torch.tools.serve\n"
         "import pdanet_tpu_torch.tools.train, pdanet_tpu_torch.tools.test\n"
         "import pdanet_tpu_torch.parallel\n"
+        "import pdanet_tpu_torch.graft_entry\n"
         "import pdanet_tpu_torch.models.detectors.pointpillar\n"
         "from pdanet_tpu_torch.models.backbones_3d.vfe import pillar_vfe\n"
         "from pdanet_tpu_torch.models.backbones_2d import base_bev_backbone\n"
